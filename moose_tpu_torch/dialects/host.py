@@ -1,0 +1,66 @@
+"""Host-placement kernels on PyTorch tensors.
+
+The subset of ``moose_tpu/dialects/host.py`` that the slice's graphs
+reach: placement relabels, shapes, constants, ``ones``, ``expand_dims``,
+casts and the fixed-point encode/decode.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import dtypes as dt
+from ..values import (
+    HostRingTensor,
+    HostShape,
+    HostTensor,
+    torch_dtype,
+)
+from . import ring
+
+
+def place(x, plc: str):
+    """Move/claim a value onto a host placement (a relabel in
+    single-process execution)."""
+    return dataclasses.replace(x, plc=plc) if hasattr(x, "plc") else x
+
+
+def shape(x, plc: str) -> HostShape:
+    if isinstance(x, HostRingTensor):
+        return HostShape(tuple(x.lo.shape), plc)
+    return HostShape(tuple(x.value.shape), plc)
+
+
+def constant(value, plc: str, dtype: dt.DType, device) -> HostTensor:
+    arr = np.asarray(value).astype(np.dtype(dtype.numpy_name))
+    return HostTensor(torch.as_tensor(arr, device=device), plc, dtype)
+
+
+def ones(shp: HostShape, dtype: dt.DType, plc: str, device) -> HostTensor:
+    return HostTensor(
+        torch.ones(shp.value, dtype=torch_dtype(dtype), device=device),
+        plc, dtype,
+    )
+
+
+def expand_dims(x: HostTensor, plc: str, axis: int) -> HostTensor:
+    return HostTensor(x.value.unsqueeze(axis), plc, x.dtype)
+
+
+def cast(x: HostTensor, target: dt.DType, plc: str) -> HostTensor:
+    return HostTensor(x.value.to(torch_dtype(target)), plc, target)
+
+
+def ring_fixedpoint_encode(x: HostTensor, frac_precision: int, width: int,
+                           plc: str) -> HostRingTensor:
+    lo, hi = ring.fixedpoint_encode(x.value, frac_precision, width)
+    return HostRingTensor(lo, hi, width, plc)
+
+
+def ring_fixedpoint_decode(x: HostRingTensor, frac_precision: int, plc: str,
+                           dtype: dt.DType = dt.float64) -> HostTensor:
+    v = ring.fixedpoint_decode(x.lo, x.hi, frac_precision)
+    return HostTensor(v.to(torch_dtype(dtype)), plc, dtype)

@@ -1,0 +1,297 @@
+"""Ring arithmetic over Z_{2^64} and Z_{2^128} on PyTorch tensors.
+
+PyTorch counterpart of ``moose_tpu/dialects/ring.py``.  A ring word is a
+``torch.int64`` tensor holding the same 64 bits as the JAX package's
+``uint64`` word (``torch.uint64`` has no add, shift or compare on the
+CPU).  Signed int64 addition, subtraction and multiplication wrap, which
+is ring semantics; the two places where signedness would show are
+written out: logical right shifts mask off the sign fill, and unsigned
+compares (carries, borrows) flip the sign bit first.
+
+A ring value is ``(lo, hi)`` with ``hi=None`` for width 64 — the two-word
+layout of the JAX package, so shares convert word for word.
+
+The PRF is threefry2x32-20 in counter mode, reproducing
+``jax.random.bits`` on a threefry key (``jax_threefry_partitionable``):
+for the flat index i the block ``(i >> 32, i & 0xFFFFFFFF)`` is
+encrypted under the key words ``(s >> 32, s & 0xFFFFFFFF)`` of the u64
+key ``s``.  Seeds are four u32 words kept as Python ints on the host;
+only the counter-mode expansion runs on the device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+MASK64 = (1 << 64) - 1
+SIGN64 = -(1 << 63)
+I64 = torch.int64
+
+
+def signed64(value: int) -> int:
+    """The int64 value with the bits of the u64 ``value``."""
+    value &= MASK64
+    return value - (1 << 64) if value >> 63 else value
+
+
+# ---------------------------------------------------------------------------
+# u64 helpers on int64 words
+# ---------------------------------------------------------------------------
+
+
+def ult(a, b):
+    """Unsigned a < b on int64 words: flip the sign bits, compare signed."""
+    return torch.bitwise_xor(a, SIGN64) < torch.bitwise_xor(b, SIGN64)
+
+
+def lshr64(x, amount: int):
+    """Logical right shift of int64 words by a static amount."""
+    amount = int(amount)
+    if amount == 0:
+        return x
+    if amount >= 64:
+        return torch.zeros_like(x)
+    return torch.bitwise_and(x >> amount, (1 << (64 - amount)) - 1)
+
+
+def shl64(x, amount: int):
+    amount = int(amount)
+    if amount >= 64:
+        return torch.zeros_like(x)
+    return x << amount
+
+
+def mulhi_u64(a, b):
+    """High 64 bits of the 128-bit product of two u64 words, via 32-bit
+    halves (schoolbook, as ``ring.mulhi_u64`` of the JAX package)."""
+    al = torch.bitwise_and(a, MASK32)
+    ah = lshr64(a, 32)
+    bl = torch.bitwise_and(b, MASK32)
+    bh = lshr64(b, 32)
+    t = al * bl
+    u = ah * bl + lshr64(t, 32)
+    v = al * bh + torch.bitwise_and(u, MASK32)
+    return ah * bh + lshr64(u, 32) + lshr64(v, 32)
+
+
+def mulwide_u64(a, b):
+    """(hi, lo) 128-bit product of u64 words."""
+    return mulhi_u64(a, b), a * b
+
+
+# ---------------------------------------------------------------------------
+# Ring element ops.  A ring value is (lo, hi) with hi=None for width 64.
+# ---------------------------------------------------------------------------
+
+
+def add(lo1, hi1, lo2, hi2):
+    lo = lo1 + lo2
+    if hi1 is None:
+        return lo, None
+    carry = ult(lo, lo1).to(I64)
+    return lo, hi1 + hi2 + carry
+
+
+def sub(lo1, hi1, lo2, hi2):
+    lo = lo1 - lo2
+    if hi1 is None:
+        return lo, None
+    borrow = ult(lo1, lo2).to(I64)
+    return lo, hi1 - hi2 - borrow
+
+
+def neg(lo, hi):
+    nlo = torch.zeros_like(lo) - lo
+    if hi is None:
+        return nlo, None
+    borrow = (lo != 0).to(I64)
+    return nlo, torch.zeros_like(hi) - hi - borrow
+
+
+def mul(lo1, hi1, lo2, hi2):
+    if hi1 is None:
+        return lo1 * lo2, None
+    p_hi, p_lo = mulwide_u64(lo1, lo2)
+    return p_lo, p_hi + lo1 * hi2 + hi1 * lo2
+
+
+def shl(lo, hi, amount: int):
+    """Logical left shift by a static amount."""
+    amount = int(amount)
+    if hi is None:
+        return shl64(lo, amount), None
+    if amount == 0:
+        return lo, hi
+    if amount >= 128:
+        return torch.zeros_like(lo), torch.zeros_like(hi)
+    if amount >= 64:
+        return torch.zeros_like(lo), shl64(lo, amount - 64)
+    return lo << amount, torch.bitwise_or(
+        hi << amount, lshr64(lo, 64 - amount)
+    )
+
+
+def shr(lo, hi, amount: int):
+    """Logical right shift by a static amount."""
+    amount = int(amount)
+    if hi is None:
+        return lshr64(lo, amount), None
+    if amount == 0:
+        return lo, hi
+    if amount >= 128:
+        return torch.zeros_like(lo), torch.zeros_like(hi)
+    if amount >= 64:
+        return lshr64(hi, amount - 64), torch.zeros_like(hi)
+    return (
+        torch.bitwise_or(lshr64(lo, amount), hi << (64 - amount)),
+        lshr64(hi, amount),
+    )
+
+
+def fill_like_shape(shape, width: int, value: int, device):
+    value = int(value) % (1 << width)
+    lo = torch.full(
+        tuple(shape), signed64(value), dtype=I64, device=device
+    )
+    if width == 64:
+        return lo, None
+    hi = torch.full(
+        tuple(shape), signed64(value >> 64), dtype=I64, device=device
+    )
+    return lo, hi
+
+
+# ---------------------------------------------------------------------------
+# Fixed-point encode/decode
+# ---------------------------------------------------------------------------
+
+
+def fixedpoint_encode(x, frac_precision: int, width: int):
+    """Encode floats into the ring: round(x * 2^f), two's complement,
+    rounding half to even as ``jnp.round`` does."""
+    if not x.is_floating_point():
+        raise NotImplementedError(
+            "the port encodes float tensors only; the integer dialect's "
+            "scale-0 lift is ROADMAP queue 1, item 6"
+        )
+    scaled = torch.round(x.to(torch.float64) * (2.0 ** frac_precision))
+    si = scaled.to(I64)
+    if width == 64:
+        return si, None
+    return si, si >> 63  # sign extension
+
+
+def u64_to_float64(x):
+    """Correctly rounded u64 -> float64 of int64 words: the two 32-bit
+    halves convert exactly and one addition rounds."""
+    hi = lshr64(x, 32).to(torch.float64) * 4294967296.0
+    return hi + torch.bitwise_and(x, MASK32).to(torch.float64)
+
+
+def fixedpoint_decode(lo, hi, frac_precision: int):
+    """Decode ring values to float64 as signed two's complement; negatives
+    are negated to magnitude before the float conversion, as in the JAX
+    package."""
+    if hi is None:
+        return lo.to(torch.float64) / (2.0 ** frac_precision)
+    negative = hi < 0
+    mlo, mhi = neg(lo, hi)
+    mag_lo = torch.where(negative, mlo, lo)
+    mag_hi = torch.where(negative, mhi, hi)
+    mag = u64_to_float64(mag_hi) * (2.0 ** 64) + u64_to_float64(mag_lo)
+    v = torch.where(negative, -mag, mag)
+    return v / (2.0 ** frac_precision)
+
+
+# ---------------------------------------------------------------------------
+# PRF: threefry2x32-20 (the JAX package's "threefry" implementation)
+# ---------------------------------------------------------------------------
+
+_ROT_A = (13, 15, 26, 6)
+_ROT_B = (17, 29, 16, 24)
+_PARITY = 0x1BD11BDA
+_GOLDEN64 = 0x9E3779B97F4A7C15
+
+Seed = Tuple[int, int, int, int]
+
+
+def _rotl32(x, r: int):
+    return ((x << r) & MASK32) | (x >> (32 - r))
+
+
+def threefry2x32_20(x0, x1, k0: int, k1: int):
+    """20 rounds of threefry2x32.  ``x0``/``x1`` are Python ints or int64
+    tensors holding u32 values; ``k0``/``k1`` are u32 Python ints.  The
+    same code serves seeds on the host and counter blocks on the
+    device."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & MASK32
+    x1 = (x1 + ks[1]) & MASK32
+    for group in range(5):
+        for r in _ROT_A if group % 2 == 0 else _ROT_B:
+            x0 = (x0 + x1) & MASK32
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = (x0 + ks[(group + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(group + 2) % 3] + group + 1) & MASK32
+    return x0, x1
+
+
+def _key_from_seed(seed: Seed) -> Tuple[int, int]:
+    """The (k0, k1) threefry key words ``ring._key_from_seed`` builds for
+    a uint32[4] seed: u64 ``data ^ data2 * 0x9E3779B97F4A7C15``, split as
+    ``jax.random.key`` splits a u64 seed."""
+    data = (seed[0] << 32) | seed[1]
+    data2 = (seed[2] << 32) | seed[3]
+    s = (data ^ (data2 * _GOLDEN64)) & MASK64
+    return s >> 32, s & MASK32
+
+
+def _seed_words(seed) -> Seed:
+    words = tuple(int(w) & MASK32 for w in seed)
+    if len(words) != 4:
+        raise ValueError(f"a seed is 4 u32 words, got {len(words)}")
+    return words
+
+
+def mix_seed(seed, nonce) -> Seed:
+    """Derive a fresh 128-bit seed from (key, public nonce): the four u32
+    words of ``jax.random.bits(key, (4,), uint32)`` under the key mixed
+    from ``seed ^ (nonce * 0x9E3779B9 + 0x85EBCA6B)``, computed on the
+    host in Python integers."""
+    k = _seed_words(seed)
+    n = _seed_words(nonce)
+    mixed = tuple(
+        ki ^ ((ni * 0x9E3779B9 + 0x85EBCA6B) & MASK32) for ki, ni in zip(k, n)
+    )
+    k0, k1 = _key_from_seed(mixed)
+    out = []
+    for i in range(4):
+        y0, y1 = threefry2x32_20(0, i, k0, k1)
+        out.append(y0 ^ y1)
+    return tuple(out)
+
+
+def random_bits_u64(seed, shape: Sequence[int], device):
+    """``jax.random.bits(key, shape, uint64)`` for the threefry key of
+    ``seed``, as int64 words on ``device``."""
+    k0, k1 = _key_from_seed(_seed_words(seed))
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=I64, device=device)
+    y0, y1 = threefry2x32_20(idx >> 32, idx & MASK32, k0, k1)
+    return torch.bitwise_or(y0 << 32, y1).reshape(shape)
+
+
+def sample_uniform_seeded(shape, seed, width: int, device):
+    """Uniform ring elements from ``seed``: one u64 draw for ring64; for
+    ring128 one ``(2,)+shape`` draw with ``lo = both[1]``,
+    ``hi = both[0]``, as the JAX package draws them."""
+    shape = tuple(int(s) for s in shape)
+    if width == 64:
+        return random_bits_u64(seed, shape, device), None
+    both = random_bits_u64(seed, (2,) + shape, device)
+    return both[1], both[0]

@@ -1,0 +1,140 @@
+"""Build the CUDA kernels of ``moose_tpu_torch/csrc`` at first use.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``)
+into its own shared library with a plain C interface, loaded with
+``ctypes``.  Libraries land in ``moose_tpu_torch/native/build/`` under a
+name that carries a digest of the source and flags, so an edited source
+rebuilds and an unchanged one loads at once.  ``build_all`` starts one
+``nvcc`` per source together.
+
+Nothing here runs at import: the CPU tests import every module, and a
+build needs ``nvcc`` and a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+KERNELS = ("dot_cross_terms", "trunc_combine")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+# C entry point and argument types of each kernel's library
+SIGNATURES = {
+    "dot_cross_terms": (
+        "moose_dot_cross_terms",
+        [ctypes.c_void_p] * 10
+        + [ctypes.c_int] * 5
+        + [ctypes.c_void_p],
+    ),
+    "trunc_combine": (
+        "moose_trunc_combine",
+        [ctypes.c_void_p] * 16
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    ),
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+# ptxas resource lines (registers, shared memory, spills) of each build
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of moose_tpu_torch build with the "
+        "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)"
+    )
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes()
+        + b"".join((CSRC / h).read_bytes() for h in sorted(
+            p.name for p in CSRC.glob("*.cuh")))
+        + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str) -> Optional[subprocess.Popen]:
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+
+
+def _finish(name: str, proc: Optional[subprocess.Popen]) -> None:
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    BUILD_LOGS[name] = log
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+    out = _target(name)
+    os.replace(out.with_suffix(f".{os.getpid()}.tmp"), out)
+
+
+def build_all(names: Sequence[str] = KERNELS) -> float:
+    """Compile every named kernel, one ``nvcc`` each, all started
+    together; returns the seconds it took."""
+    t0 = time.perf_counter()
+    with _LOCK:
+        procs = {}
+        try:
+            for name in names:
+                procs[name] = _start(name)
+            for name, proc in procs.items():
+                _finish(name, proc)
+        finally:
+            # a failed build leaves no compiler running behind it
+            for proc in procs.values():
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed, with
+    its entry point's argument types bound."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    build_all([name])
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(_target(name)))
+            symbol, argtypes = SIGNATURES[name]
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _LIBS[name] = lib
+    return lib

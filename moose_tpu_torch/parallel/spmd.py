@@ -1,0 +1,301 @@
+"""Party-stacked execution of the 3-party replicated protocol on one device.
+
+PyTorch counterpart of ``moose_tpu/parallel/spmd.py`` for the secure
+dot.  A replicated sharing is ONE pair of int64 word tensors with leading
+axes ``(party=3, slot=2)``: x = x0 + x1 + x2, party i holds the pair
+(x_i, x_{i+1}), ``lo[i, 0]`` is x_i and ``lo[i, 1]`` is x_{i+1}.
+Share-local math is one tensor op over the party axis; resharing is a
+roll over it.  The port runs on one device, so the JAX package's mesh
+pinning and sharding constraints have no counterpart here.
+
+Randomness comes from :class:`SpmdSession` in the JAX package's exact
+nonce schedule, so under the same master key and the threefry PRF both
+packages draw the same masks, and the shares agree word for word.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..dialects import ring
+from ..native import ring_kernels as rk
+
+
+@dataclasses.dataclass
+class SpmdRep:
+    """Party-stacked replicated ring tensor: words (3, 2, *shape)."""
+
+    lo: torch.Tensor
+    hi: Optional[torch.Tensor]
+    width: int
+
+    @property
+    def shape(self):
+        return tuple(self.lo.shape[2:])
+
+
+@dataclasses.dataclass
+class SpmdFixed:
+    tensor: SpmdRep
+    integral_precision: int
+    fractional_precision: int
+
+
+# ---------------------------------------------------------------------------
+# Session: seed schedule for the PRF draws
+# ---------------------------------------------------------------------------
+
+
+class SpmdSession:
+    """Derives all per-invocation randomness from one master key (four
+    u32 words).  Each draw mixes the next nonce of the JAX package's
+    schedule into the master key on the host and expands the seed on
+    ``device``."""
+
+    def __init__(self, master_key, device, domain: int = 0):
+        self._master = tuple(int(w) & ring.MASK32 for w in master_key)
+        self._counter = 0
+        self._domain = int(domain)
+        self.device = torch.device(device)
+
+    def _next_seed(self):
+        idx = self._counter
+        self._counter += 1
+        nonce = (
+            idx & ring.MASK32,
+            0x5B3D9E21 ^ ((self._domain * 0x85EBCA6B) & ring.MASK32),
+            (idx ^ 0xA5A5A5A5) & ring.MASK32,
+            7,
+        )
+        return ring.mix_seed(self._master, nonce)
+
+    def sample_bank(self, shape, width: int):
+        """(3, *shape) uniform ring elements, one per party."""
+        seed = self._next_seed()
+        return ring.sample_uniform_seeded(
+            (3,) + tuple(shape), seed, width, self.device
+        )
+
+    def sample(self, shape, width: int):
+        seed = self._next_seed()
+        return ring.sample_uniform_seeded(
+            tuple(shape), seed, width, self.device
+        )
+
+
+# ---------------------------------------------------------------------------
+# Core protocol
+# ---------------------------------------------------------------------------
+
+
+def _pairs(z_lo, z_hi, width) -> SpmdRep:
+    """Stack per-party values z_i into the pair layout (z_i, z_{i+1})."""
+    lo = torch.stack([z_lo, torch.roll(z_lo, -1, dims=0)], dim=1)
+    hi = (
+        None if z_hi is None
+        else torch.stack([z_hi, torch.roll(z_hi, -1, dims=0)], dim=1)
+    )
+    return SpmdRep(lo, hi, width)
+
+
+def _h(t, *index):
+    return None if t is None else t[index]
+
+
+def share(sess: SpmdSession, x_lo, x_hi, width: int) -> SpmdRep:
+    """Share a plaintext ring tensor: x0, x1 ~ PRF, x2 = x - x0 - x1."""
+    r_lo, r_hi = sess.sample_bank(x_lo.shape, width)
+    s_lo, s_hi = ring.sub(x_lo, x_hi, r_lo[0], _h(r_hi, 0))
+    s_lo, s_hi = ring.sub(s_lo, s_hi, r_lo[1], _h(r_hi, 1))
+    z_lo = torch.stack([r_lo[0], r_lo[1], s_lo])
+    z_hi = None if x_hi is None else torch.stack([r_hi[0], r_hi[1], s_hi])
+    return _pairs(z_lo, z_hi, width)
+
+
+def reveal(x: SpmdRep):
+    """Reconstruct the plaintext: sum over parties of first-slot shares."""
+    lo, hi = x.lo[0, 0], _h(x.hi, 0, 0)
+    for i in (1, 2):
+        lo, hi = ring.add(lo, hi, x.lo[i, 0], _h(x.hi, i, 0))
+    return lo, hi
+
+
+def add(x: SpmdRep, y: SpmdRep) -> SpmdRep:
+    return SpmdRep(*ring.add(x.lo, x.hi, y.lo, y.hi), x.width)
+
+
+def sub(x: SpmdRep, y: SpmdRep) -> SpmdRep:
+    return SpmdRep(*ring.sub(x.lo, x.hi, y.lo, y.hi), x.width)
+
+
+def neg(x: SpmdRep) -> SpmdRep:
+    return SpmdRep(*ring.neg(x.lo, x.hi), x.width)
+
+
+def shl(x: SpmdRep, amount: int) -> SpmdRep:
+    return SpmdRep(*ring.shl(x.lo, x.hi, amount), x.width)
+
+
+def zero_share(sess: SpmdSession, shape, width: int):
+    """alpha_i = PRF_i - PRF_{i+1}; one bank draw, sums to zero."""
+    s_lo, s_hi = sess.sample_bank(shape, width)
+    n_lo = torch.roll(s_lo, -1, dims=0)
+    n_hi = None if s_hi is None else torch.roll(s_hi, -1, dims=0)
+    return ring.sub(s_lo, s_hi, n_lo, n_hi)
+
+
+def _cross_terms(x: SpmdRep, y: SpmdRep):
+    """v_i = x_i @ (y_i + y_{i+1}) + x_{i+1} @ y_i per party, for a matrix
+    contraction: the regrouped 3-term cross product of the JAX package,
+    two contractions instead of three, through the ``dot_cross_terms``
+    kernel (its plain version on the CPU)."""
+    if len(x.shape) != 2 or len(y.shape) != 2:
+        raise NotImplementedError(
+            "the port's secure dot takes matrices (m, k) @ (k, n); vector "
+            "operands are a later slice (ROADMAP queue 1, item 3)"
+        )
+
+    def take(t: SpmdRep, slot: int):
+        return (
+            t.lo[:, slot].contiguous(),
+            None if t.hi is None else t.hi[:, slot].contiguous(),
+        )
+
+    x0, x1 = take(x, 0), take(x, 1)
+    y0, y1 = take(y, 0), take(y, 1)
+    ys = ring.add(*y0, *y1)
+    return rk.dot_cross_terms(x0, x1, y0, ys, x.width)
+
+
+def _reshare(sess, v_lo, v_hi, width):
+    a_lo, a_hi = zero_share(sess, v_lo.shape[1:], width)
+    return _pairs(*ring.add(v_lo, v_hi, a_lo, a_hi), width)
+
+
+def dot(sess: SpmdSession, x: SpmdRep, y: SpmdRep) -> SpmdRep:
+    """Secure matmul: regrouped party-batched cross terms + reshare."""
+    v_lo, v_hi = _cross_terms(x, y)
+    return _reshare(sess, v_lo, v_hi, x.width)
+
+
+def public_to_rep(lo, hi, width: int) -> SpmdRep:
+    """Trivial replicated sharing of a public plaintext ring tensor:
+    x_0 = v, x_1 = x_2 = 0, so only pair slots (party 0, slot 0) and
+    (party 2, slot 1) hold v."""
+
+    def stacked(v):
+        z = torch.zeros_like(v)
+        return torch.stack([
+            torch.stack([v, z]), torch.stack([z, z]), torch.stack([z, v])
+        ])
+
+    return SpmdRep(stacked(lo), None if hi is None else stacked(hi), width)
+
+
+# Structural ops: pure share-local data movement on the logical axes.
+# Logical axis a lives at tensor axis a + 2.
+
+
+def _laxis(arr, axis: int, extra: int = 0) -> int:
+    """Logical axis -> tensor axis; negative axes count from the end of
+    the LOGICAL shape; ``extra`` admits one-past-the-end for
+    expand_dims."""
+    nd = arr.dim() - 2 + extra
+    if axis < 0:
+        axis += nd
+    if not 0 <= axis < nd:
+        raise ValueError(f"axis {axis} out of range for {nd} logical dims")
+    return axis + 2
+
+
+def _structural(fn):
+    def kernel(x: SpmdRep, *args, **kwargs) -> SpmdRep:
+        lo = fn(x.lo, *args, **kwargs)
+        hi = None if x.hi is None else fn(x.hi, *args, **kwargs)
+        return SpmdRep(lo, hi, x.width)
+
+    return kernel
+
+
+index_axis = _structural(
+    lambda a, axis, idx: a.select(_laxis(a, axis), idx)
+)
+expand_dims = _structural(
+    lambda a, axis: a.unsqueeze(_laxis(a, axis, extra=1))
+)
+reshape = _structural(lambda a, shape: a.reshape(a.shape[:2] + tuple(shape)))
+
+
+def concat(xs, axis: int) -> SpmdRep:
+    ax = _laxis(xs[0].lo, axis)
+    lo = torch.cat([x.lo for x in xs], dim=ax)
+    hi = None if xs[0].hi is None else torch.cat([x.hi for x in xs], dim=ax)
+    return SpmdRep(lo, hi, xs[0].width)
+
+
+# ---------------------------------------------------------------------------
+# Probabilistic truncation
+# ---------------------------------------------------------------------------
+
+
+def trunc_pr(sess: SpmdSession, x: SpmdRep, amount: int) -> SpmdRep:
+    # rep -> 2-party additive: a0 = x0 + x1 (party 0 holds both), a1 = x2
+    a0 = ring.add(x.lo[0, 0], _h(x.hi, 0, 0), x.lo[0, 1], _h(x.hi, 0, 1))
+    a1 = (x.lo[1, 1].contiguous(), _contiguous(_h(x.hi, 1, 1)))
+    return _trunc_pr_adt(sess, a0, a1, x.width, amount, x.shape)
+
+
+def _contiguous(t):
+    return None if t is None else t.contiguous()
+
+
+def _trunc_pr_adt(sess, a0, a1, width, amount, shape) -> SpmdRep:
+    """Probabilistic truncation from a 2-party additive sharing
+    (a0 + a1 = x).  The five PRF draws (mask r, the three additive-share
+    masks, the replicated-compression share z0) happen here, in the JAX
+    package's session order; the elementwise tail is the
+    ``trunc_combine`` kernel."""
+    draws = tuple(sess.sample(shape, width) for _ in range(5))
+    z_lo, z_hi = rk.trunc_combine(a0, a1, draws, width, amount)
+    return _pairs(z_lo, z_hi, width)
+
+
+def _mul_like_trunc(sess, x: SpmdRep, y: SpmdRep, amount: int) -> SpmdRep:
+    """Fused dot-and-truncate: cross terms + zero-share, fed straight into
+    truncation's 2-party additive form (a0 = z_0 + z_1, a1 = z_2) —
+    bit-identical to resharing then ``trunc_pr``, with the same draw
+    order."""
+    width = x.width
+    v_lo, v_hi = _cross_terms(x, y)
+    a_lo, a_hi = zero_share(sess, v_lo.shape[1:], width)
+    z_lo, z_hi = ring.add(v_lo, v_hi, a_lo, a_hi)
+    a0 = ring.add(z_lo[0], _h(z_hi, 0), z_lo[1], _h(z_hi, 1))
+    a1 = (z_lo[2], _h(z_hi, 2))
+    return _trunc_pr_adt(sess, a0, a1, width, amount, tuple(z_lo.shape[1:]))
+
+
+# ---------------------------------------------------------------------------
+# Fixed-point layer
+# ---------------------------------------------------------------------------
+
+
+def fx_encode_share(sess, x_float, integ: int, frac: int, width: int):
+    lo, hi = ring.fixedpoint_encode(x_float, frac, width)
+    return SpmdFixed(share(sess, lo, hi, width), integ, frac)
+
+
+def fx_reveal_decode(x: SpmdFixed):
+    lo, hi = reveal(x.tensor)
+    return ring.fixedpoint_decode(lo, hi, x.fractional_precision)
+
+
+def fx_dot(sess, x: SpmdFixed, y: SpmdFixed) -> SpmdFixed:
+    z = _mul_like_trunc(sess, x.tensor, y.tensor, x.fractional_precision)
+    return SpmdFixed(
+        z,
+        max(x.integral_precision, y.integral_precision),
+        x.fractional_precision,
+    )

@@ -1,0 +1,41 @@
+"""Model-type inference for ONNX imports (``from_onnx`` of
+``moose_tpu/predictors/onnx_convert.py``), for the model families the
+port runs so far: ``LinearRegressor``."""
+
+from . import linear_predictor, onnx_proto
+
+_SUPPORTED_OP_TYPES = ("LinearRegressor",)
+
+# families of the JAX package that later slices port (ROADMAP queue 1,
+# item 7)
+_LATER_OP_TYPES = (
+    "LinearClassifier",
+    "TreeEnsembleRegressor",
+    "TreeEnsembleClassifier",
+    "Conv",
+)
+
+
+def from_onnx(model_proto):
+    """Infer and construct a predictor from an ONNX model (a ModelProto,
+    serialized bytes or a path to a ``.onnx`` file)."""
+    model_proto = onnx_proto.load_model(model_proto)
+    op_types = [node.op_type for node in model_proto.graph.node]
+    recognized = [t for t in op_types if t in _SUPPORTED_OP_TYPES]
+    if len(recognized) > 1:
+        raise ValueError(
+            "Incompatible ONNX graph provided: graph must contain at most "
+            f"one LinearRegressor node, found {recognized}"
+        )
+    if recognized:
+        return linear_predictor.LinearRegressor.from_onnx(model_proto)
+    later = sorted(set(op_types) & set(_LATER_OP_TYPES))
+    if later or model_proto.producer_name in ("pytorch", "tf2onnx"):
+        raise NotImplementedError(
+            f"the port does not import {later or model_proto.producer_name} "
+            "models yet (ROADMAP queue 1, item 7)"
+        )
+    raise ValueError(
+        "Incompatible ONNX graph provided: graph must contain a "
+        f"LinearRegressor node, found: {op_types}"
+    )

@@ -1,0 +1,111 @@
+"""Runtime values of the port, backed by PyTorch tensors.
+
+The host and mirrored value classes of ``moose_tpu/values.py`` that the
+slice's graphs use.  Tensor payloads are ``torch`` tensors on the
+runtime's device; ring words are ``torch.int64`` (see
+``dialects/ring.py``), ``hi`` present iff the width is 128.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from . import dtypes as dt
+
+_TORCH_DTYPES = {
+    "float32": torch.float32,
+    "float64": torch.float64,
+    "int32": torch.int32,
+    "int64": torch.int64,
+    "bool": torch.bool,
+}
+
+
+def torch_dtype(dtype: dt.DType) -> torch.dtype:
+    try:
+        return _TORCH_DTYPES[dtype.name]
+    except KeyError:
+        raise NotImplementedError(
+            f"the port has no host tensors of dtype {dtype.name} yet"
+        ) from None
+
+
+@dataclasses.dataclass
+class HostShape:
+    """Shapes are runtime values in the IR; the port carries them as
+    Python tuples."""
+
+    value: tuple
+    plc: str
+
+
+@dataclasses.dataclass
+class HostTensor:
+    """Plaintext float/int tensor owned by one host."""
+
+    value: torch.Tensor
+    plc: str
+    dtype: dt.DType
+
+    @property
+    def shape(self):
+        return tuple(self.value.shape)
+
+
+@dataclasses.dataclass
+class HostRingTensor:
+    """Element of Z_{2^64} or Z_{2^128} as int64 words."""
+
+    lo: torch.Tensor
+    hi: Optional[torch.Tensor]
+    width: int
+    plc: str
+
+    @property
+    def shape(self):
+        return tuple(self.lo.shape)
+
+
+@dataclasses.dataclass
+class HostFixedTensor:
+    """Fixed-point tensor = ring tensor + precision metadata."""
+
+    tensor: HostRingTensor
+    integral_precision: int
+    fractional_precision: int
+
+    @property
+    def plc(self) -> str:
+        return self.tensor.plc
+
+
+@dataclasses.dataclass
+class Mir3Tensor:
+    """Public value mirrored on 3 hosts."""
+
+    values: tuple
+    plc: str
+
+
+@dataclasses.dataclass
+class Mir3FixedTensor:
+    tensor: Mir3Tensor
+    integral_precision: int
+    fractional_precision: int
+
+    @property
+    def plc(self) -> str:
+        return self.tensor.plc
+
+
+def to_numpy(value: Any):
+    """Convert a host-level runtime value to numpy for the user."""
+    if isinstance(value, HostTensor):
+        return value.value.detach().cpu().numpy()
+    if isinstance(value, HostShape):
+        return np.asarray(value.value, dtype=np.int64)
+    raise TypeError(f"cannot convert {type(value).__name__} to numpy")

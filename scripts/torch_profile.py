@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's main path on one CUDA card.
+
+Runs the eDSL secure dot (1000x1000 at fixed(14,23), ring128) and one
+ONNX LinearRegressor request (1024x100 at fixed(24,40)) through the
+port's LocalMooseRuntime, warm, under torch.profiler, and prints for
+each:
+
+- the host wall time of the request (median of three, without the
+  profiler) and the device's busy and idle share (busy = the sum of
+  kernel and copy times on the card in one profiled request; one
+  stream);
+- device time by layer: the PRF expansion (threefry in PyTorch), the
+  two CUDA kernels (K1 dot_cross_terms, K2 trunc_combine), the
+  fixed-point encode/decode, and everything else;
+- the top kernels by device time.
+
+Run from the root of a checkout on a machine with a CUDA card:
+
+    python3 scripts/torch_profile.py
+
+The last line is one JSON object with these numbers and the card's name
+and power limit.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+from torch.profiler import (  # noqa: E402
+    ProfilerActivity,
+    profile,
+    record_function,
+)
+
+import chip_smoke  # noqa: E402
+import moose_tpu_torch as pm  # noqa: E402
+from moose_tpu_torch.dialects import ring  # noqa: E402
+from moose_tpu_torch.runtime import LocalMooseRuntime  # noqa: E402
+
+# (module, function, layer label) of the plain-PyTorch layers; the
+# wrappers only open a profiler range, the function runs unchanged
+LAYERS = (
+    (ring, "sample_uniform_seeded", "prf_expand"),
+    (ring, "fixedpoint_encode", "fixedpoint_encode"),
+    (ring, "fixedpoint_decode", "fixedpoint_decode"),
+)
+# the CUDA kernels launch through ctypes, outside any PyTorch op, so
+# their layers are read off the kernel names instead
+KERNEL_LAYERS = (
+    ("dot_cross_terms_kernel", "K1_dot_cross_terms"),
+    ("trunc_combine_kernel", "K2_trunc_combine"),
+)
+
+
+def _wrap(mod, name, label):
+    orig = getattr(mod, name)
+
+    def ranged(*args, **kwargs):
+        with record_function(label):
+            return orig(*args, **kwargs)
+
+    setattr(mod, name, ranged)
+
+
+def _wall_ms(fn, reps=3) -> float:
+    """Median host wall time of ``fn`` without the profiler."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def profile_request(fn, warm=2):
+    """Device time of one warm request by layer and by kernel.  A layer's
+    time is the summed duration of the kernels launched inside its range
+    (the CPU-side event's inclusive device time), not the range's span on
+    the card, which would count the gaps between its kernels."""
+    for _ in range(warm):
+        fn()
+    wall_ms = _wall_ms(fn)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    labels = {label for _, _, label in LAYERS}
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    layers = dict.fromkeys(sorted(labels), 0.0)
+    kernels = {}
+    for evt in prof.events():
+        if evt.name in labels:
+            if evt.device_type == cpu:
+                layers[evt.name] += evt.device_time_total / 1e3
+            continue
+        if evt.device_type == cuda:
+            ms, count = kernels.get(evt.name, (0.0, 0))
+            kernels[evt.name] = (ms + evt.device_time_total / 1e3, count + 1)
+    for needle, label in KERNEL_LAYERS:
+        layers[label] = sum(
+            ms for name, (ms, _) in kernels.items() if needle in name
+        )
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "layers_device_ms": dict(layers, other=busy_ms - sum(layers.values())),
+        "top_kernels": [
+            {"name": name[:90], "device_ms": ms, "count": count}
+            for name, (ms, count) in top
+        ],
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_profile: no CUDA device", file=sys.stderr)
+        return 2
+    smi = chip_smoke.nvidia_smi_line()
+    print(f"card: {smi}", flush=True)
+    for mod, name, label in LAYERS:
+        _wrap(mod, name, label)
+    rng = np.random.default_rng(chip_smoke.SEED)
+    runtime = LocalMooseRuntime(["alice", "bob", "carole"])
+    n = chip_smoke.DOT_N
+    x, y = rng.normal(size=(n, n)), rng.normal(size=(n, n))
+    comp = chip_smoke.secure_dot_computation(pm)
+    dot = profile_request(
+        lambda: runtime.evaluate_computation(comp, {"x": x, "y": y})
+    )
+    print(f"secure_dot: {json.dumps(dot)}", flush=True)
+    predictor = chip_smoke.linear_regressor(rng, chip_smoke.LINREG_FEATURES)
+    linreg = predictor.predictor_factory()
+    xr = rng.normal(size=(chip_smoke.LINREG_ROWS,
+                          chip_smoke.LINREG_FEATURES))
+    lin = profile_request(
+        lambda: runtime.evaluate_computation(linreg, {"x": xr})
+    )
+    print(f"linear_regressor: {json.dumps(lin)}", flush=True)
+    after = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    print(json.dumps({"card": smi, "clocks_power_after": after,
+                      "secure_dot": dot, "linear_regressor": lin}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,274 @@
+"""The slice end to end: the JAX LocalMooseRuntime (stacked layout) and
+the port's, on the CPU, give bit-identical outputs for the eDSL secure
+dot and the ONNX LinearRegressor under fixed keys and the threefry PRF;
+plus the port's boundaries (imports, devices, unported kinds)."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import moose_tpu as jm
+from moose_tpu.edsl import tracer as jtracer
+from moose_tpu.predictors import from_onnx as jfrom_onnx
+from moose_tpu.predictors import sklearn_export as jsk
+from moose_tpu.runtime import LocalMooseRuntime as JaxRuntime
+
+import moose_tpu_torch as tm
+from moose_tpu_torch import interop
+from moose_tpu_torch.dialects import logical as tlogical
+from moose_tpu_torch.dialects import stacked as tstacked
+from moose_tpu_torch.edsl import tracer as ttracer
+from moose_tpu_torch.errors import ConfigurationError
+from moose_tpu_torch.predictors import from_onnx as tfrom_onnx
+from moose_tpu_torch.predictors import sklearn_export as tsk
+from moose_tpu_torch.runtime import LocalMooseRuntime as PortRuntime
+
+from torch_parity import threefry  # noqa: F401  (fixture)
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+import chip_smoke  # noqa: E402
+
+IDS = ["alice", "bob", "carole"]
+PRECISIONS = ((24, 40), (14, 23))
+
+
+@pytest.fixture
+def fixed_keys(monkeypatch, threefry):
+    monkeypatch.setenv("MOOSE_TPU_FIXED_KEYS", "torch-parity")
+    monkeypatch.setenv("MOOSE_TPU_ALLOW_WEAK_PRF", "1")
+
+
+def _only_output(outputs):
+    assert list(outputs) == ["output_0"]
+    return outputs["output_0"]
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_secure_dot_end_to_end_bit_identical(fixed_keys, precision):
+    rng = np.random.default_rng(precision[1])
+    args = {"x": rng.normal(size=(6, 5)), "y": rng.normal(size=(5, 4))}
+    want = _only_output(
+        JaxRuntime(IDS, layout="stacked").evaluate_computation(
+            chip_smoke.secure_dot_computation(jm, precision), args
+        )
+    )
+    got = _only_output(
+        PortRuntime(IDS, device="cpu").evaluate_computation(
+            chip_smoke.secure_dot_computation(tm, precision), args
+        )
+    )
+    assert got.shape == (6, 4) and got.dtype == np.float64
+    assert np.array_equal(got, want)
+    assert np.abs(got - args["x"] @ args["y"]).max() < 2e-4
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_linear_regressor_end_to_end_bit_identical(fixed_keys, precision):
+    rng = np.random.default_rng(precision[0])
+    model = SimpleNamespace(coef_=rng.normal(size=5),
+                            intercept_=np.array([0.375]))
+    x = rng.normal(size=(8, 5))
+    jpred = jfrom_onnx(jsk.linear_regressor_onnx(model, 5))
+    want = _only_output(
+        JaxRuntime(IDS, layout="stacked").evaluate_computation(
+            jpred.predictor_factory(jm.fixed(*precision)), {"x": x}
+        )
+    )
+    tpred = interop.linear_regressor_from_arrays(jpred.coeffs,
+                                                 jpred.intercepts)
+    runtime = PortRuntime(IDS, device="cpu")
+    got = _only_output(runtime.evaluate_computation(
+        tpred.predictor_factory(tm.fixed(*precision)), {"x": x}
+    ))
+    assert got.shape == (8, 1)
+    assert np.array_equal(got, want)
+    # the same model through the port's own ONNX import
+    onnx_pred = tfrom_onnx(tsk.linear_regressor_onnx(model, 5))
+    assert np.array_equal(onnx_pred.coeffs, jpred.coeffs)
+    again = _only_output(runtime.evaluate_computation(
+        onnx_pred.predictor_factory(tm.fixed(*precision)), {"x": x}
+    ))
+    assert np.array_equal(again, want)
+
+
+def test_chip_smoke_linear_regressor_matches_float64():
+    # the model chip_smoke.py serves on the card, cut to 8 features
+    pred = chip_smoke.linear_regressor(np.random.default_rng(3), 8)
+    x = np.random.default_rng(4).normal(size=(16, 8))
+    out = _only_output(PortRuntime(IDS, device="cpu").evaluate_computation(
+        pred.predictor_factory(), {"x": x}
+    ))
+    want = x @ pred.coeffs.T + pred.intercepts
+    assert np.abs(out - want).max() < chip_smoke.LINREG_TOL
+
+
+def _kinds_by_placement(comp):
+    kinds = {"HostPlacement": set(), "ReplicatedPlacement": set(),
+             "Mirrored3Placement": set()}
+    for op in comp.operations.values():
+        if op.kind in ("Input", "Output"):
+            continue
+        kinds[type(comp.placements[op.placement_name]).__name__].add(op.kind)
+    return kinds
+
+
+def test_port_supports_exactly_the_slice_kinds():
+    model = SimpleNamespace(coef_=np.ones(3), intercept_=np.array([1.0]))
+    graphs = [
+        jtracer.trace(chip_smoke.secure_dot_computation(jm)),
+        jtracer.trace(
+            jfrom_onnx(jsk.linear_regressor_onnx(model, 3))
+            .predictor_factory()
+        ),
+    ]
+    traced = {k: set() for k in _kinds_by_placement(graphs[0])}
+    for comp in graphs:
+        for plc, kinds in _kinds_by_placement(comp).items():
+            traced[plc] |= kinds
+    assert tlogical.HOST_KINDS == traced["HostPlacement"]
+    assert tlogical.MIR_KINDS == traced["Mirrored3Placement"]
+    # Cast on the replicated placement (a fixed-point precision move) is
+    # ported beside the two graphs' kinds, as the slice's scope says
+    assert tstacked.REP_KINDS == traced["ReplicatedPlacement"] | {"Cast"}
+    port_graphs = [
+        chip_smoke.secure_dot_computation(tm),
+        tfrom_onnx(tsk.linear_regressor_onnx(model, 3)).predictor_factory(),
+    ]
+    assert all(
+        tstacked.supports(ttracer.trace(g)) for g in port_graphs
+    )
+
+
+def test_unported_kind_names_its_roadmap_item():
+    from moose_tpu_torch.edsl import base as edsl
+
+    alice = tm.host_placement("alice")
+    bob = tm.host_placement("bob")
+    carole = tm.host_placement("carole")
+    rep = tm.replicated_placement("rep", players=[alice, bob, carole])
+
+    @tm.computation
+    def mul(x: tm.Argument(alice, dtype=tm.float64)):
+        with alice:
+            xf = tm.cast(x, dtype=tm.fixed(14, 23))
+        with rep:
+            z = edsl.mul(xf, xf)
+        with bob:
+            out = tm.cast(z, dtype=tm.float64)
+        return out
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PortRuntime(IDS, device="cpu").evaluate_computation(
+            mul, {"x": np.ones((2, 2))}
+        )
+
+
+def _recast_computation(pm):
+    alice = pm.host_placement("alice")
+    bob = pm.host_placement("bob")
+    carole = pm.host_placement("carole")
+    rep = pm.replicated_placement("rep", players=[alice, bob, carole])
+
+    @pm.computation
+    def recast(x: pm.Argument(alice, dtype=pm.float64)):
+        with alice:
+            xf = pm.cast(x, dtype=pm.fixed(24, 40))
+        with rep:
+            z = pm.cast(xf, dtype=pm.fixed(14, 23))
+            z = pm.cast(z, dtype=pm.fixed(24, 40))
+        with bob:
+            out = pm.cast(z, dtype=pm.float64)
+        return out
+
+    return recast
+
+
+def test_replicated_cast_moves_precision_bit_identical(fixed_keys):
+    args = {"x": np.random.default_rng(5).normal(size=(3, 4))}
+    want = _only_output(
+        JaxRuntime(IDS, layout="stacked").evaluate_computation(
+            _recast_computation(jm), args
+        )
+    )
+    got = _only_output(PortRuntime(IDS, device="cpu").evaluate_computation(
+        _recast_computation(tm), args
+    ))
+    assert np.array_equal(got, want)
+    assert np.abs(got - args["x"]).max() < 2.0 ** -21
+
+
+def test_runtime_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(ConfigurationError, match="device='cpu'"):
+        PortRuntime(IDS)
+    with pytest.raises(ConfigurationError):
+        interop.ring_from_numpy(np.zeros(2, np.uint64))
+
+
+def test_per_host_layout_is_refused():
+    with pytest.raises(ConfigurationError, match="stacked"):
+        PortRuntime(IDS, layout="per-host", device="cpu")
+
+
+def test_interop_round_trips_words():
+    lo = np.array([0, 1, (1 << 64) - 1, 1 << 63], dtype=np.uint64)
+    hi = lo[::-1].copy()
+    t_lo, t_hi = interop.ring_from_numpy(lo, hi, device="cpu")
+    assert t_lo.dtype == torch.int64 and int(t_lo[2]) == -1
+    back_lo, back_hi = interop.ring_to_numpy(t_lo, t_hi)
+    assert np.array_equal(back_lo, lo) and np.array_equal(back_hi, hi)
+
+
+def test_import_adds_no_jax_or_moose_tpu_module():
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import moose_tpu_torch, moose_tpu_torch.runtime, "
+        "moose_tpu_torch.predictors, moose_tpu_torch.interop, "
+        "moose_tpu_torch.native.build\n"
+        "new = set(sys.modules) - before\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'moose_tpu'))\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, check=True, timeout=120,
+    )
+    assert out.stdout.strip() == "[]"
+
+
+def test_package_source_imports_no_jax_or_moose_tpu():
+    for path in sorted((REPO / "moose_tpu_torch").rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "moose_tpu"), (
+                    f"{path.relative_to(REPO)} imports {name}"
+                )
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py")], cwd=tmp_path,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert out.stdout == ""

@@ -1,0 +1,74 @@
+"""Shared helpers of the port's parity tests (tests/test_torch_*.py).
+
+The same inputs, made with numpy from a seed, go through the JAX package
+and through its PyTorch port; ring words cross as numpy uint64 arrays
+and are compared word for word.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+import moose_tpu  # noqa: F401  (enables jax x64 before any jnp use)
+import jax.numpy as jnp
+from moose_tpu.dialects import ring as jring
+
+from moose_tpu_torch import interop
+
+
+@pytest.fixture
+def threefry():
+    """Both packages on the threefry PRF; the JAX package's choice is
+    process-global, so the previous one is restored afterwards."""
+    prev = jring.get_prf_impl()
+    jring.set_prf_impl("threefry")
+    yield
+    jring.set_prf_impl(prev)
+
+
+@pytest.fixture
+def cuda():
+    """The device of tests that need the card; they skip without one."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    return "cuda"
+
+
+def rand_words(rng, shape, width):
+    """A numpy (lo, hi) pair of uniform ring words (hi None for ring64)."""
+    lo = rng.integers(0, 1 << 64, size=shape, dtype=np.uint64)
+    if width == 64:
+        return lo, None
+    return lo, rng.integers(0, 1 << 64, size=shape, dtype=np.uint64)
+
+
+def to_jax(pair):
+    lo, hi = pair
+    return jnp.asarray(lo), None if hi is None else jnp.asarray(hi)
+
+
+def to_port(pair, device="cpu"):
+    return interop.ring_from_numpy(pair[0], pair[1], device=device)
+
+
+def jax_words(pair):
+    lo, hi = pair
+    return (
+        np.asarray(lo).astype(np.uint64),
+        None if hi is None else np.asarray(hi).astype(np.uint64),
+    )
+
+
+def assert_words_equal(port_pair, want, label=""):
+    """Port (lo, hi) tensors equal the expected numpy/JAX words exactly."""
+    got_lo, got_hi = interop.ring_to_numpy(*port_pair)
+    want_lo, want_hi = jax_words(want)
+    assert got_lo.shape == want_lo.shape, f"{label}: shape"
+    assert np.array_equal(got_lo, want_lo), f"{label}: lo words differ"
+    if want_hi is None:
+        assert got_hi is None, f"{label}: unexpected hi words"
+    else:
+        assert np.array_equal(got_hi, want_hi), f"{label}: hi words differ"
