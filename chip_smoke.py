@@ -12,18 +12,23 @@ Phases (each raises on failure; the script then exits non-zero):
   2. build every kernel of the path from moose_tpu_torch/csrc (one nvcc
      per source, started together);
   3. hold each kernel against its plain PyTorch version on the card at
-     the main path's shapes, word for word, and time both with CUDA
-     events after warm-up;
+     the main path's shapes and at 2^20 elements, word for word, and
+     time both with CUDA events after warm-up;
   4. the eDSL secure dot: 1000x1000 @ 1000x1000 at fixed(14,23), ring128,
      through LocalMooseRuntime on the card, checked against float64
      x @ y (max abs error < 2e-4);
   5. ONNX LinearRegressor inference, 100 features at fixed(24,40): three
      requests of 1024 rows, each checked against float64 x @ coef^T + b
-     (max abs error < 1e-6).
-Phases 4 and 5 are the main path: the kernels' launch counters are set
-to 0 just before each and read just after, and each kernel must have
-launched in each.  The line before the last is the kernels' JSON record;
-the last line is the device record.
+     (max abs error < 1e-6);
+  6. ONNX logistic regression (a binary LinearClassifier with the
+     LOGISTIC post-transform, the exact protocol sigmoid), 100 features
+     at fixed(24,40): three requests of 1024 rows, each checked against
+     float64 [1 - sigmoid(z), sigmoid(z)] (max abs error < 5e-3).
+Phases 4 to 6 are the main path: the kernels' launch counters are set
+to 0 just before each and read just after.  K1 and K2 must have launched
+in each, and every kernel (K1-K6, K5 in both modes) in phase 6.  The line
+before the last is the kernels' JSON record; the last line is the device
+record.
 
 Without a CUDA device, or without the moose_tpu_torch package beside
 it, the script prints no result and exits with code 2.
@@ -42,10 +47,22 @@ from types import SimpleNamespace
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
-CUDA_CORE_OPS_PER_S = 67e12  # float32 outside the tensor cores
+# 32-bit integer instructions per second outside the tensor cores: an SM
+# has 64 INT32 lanes beside its 128 FP32 lanes (Hopper architecture
+# white paper), and the data sheet's 67 TFLOP/s float32 is 132 SMs x 128
+# lanes x 2 (fused multiply-add) x 1.98 GHz; so 132 x 64 x 1.98e9.
+# 64-bit integer work runs as several of these instructions.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# 32-bit integer operations of one ring operation, counted from
+# csrc/ring_words.cuh: a 64-bit add is two, a 128-bit add five (two
+# words and the carry compare); a 64-bit low product four, a 128-bit
+# product twenty (lo*lo in full with __umul64hi and the two cross terms)
+RING_ADD_OPS = {64: 2, 128: 5}
+RING_MUL_OPS = {64: 4, 128: 20}
 # 32-bit integer operations per element of the truncation tail, counted
-# from csrc/trunc_combine.cu (12 shifts, 16 adds/subs, 2 selects on one
-# or two u64 words, each u64 operation two to four 32-bit ones)
+# from trunc_tail in csrc/ring_words.cuh (12 shifts, 16 adds/subs, 2
+# selects on one or two u64 words, each u64 operation two to four 32-bit
+# ones)
 TRUNC_OPS_PER_ELEM = {64: 100, 128: 200}
 
 SEED = 20261016
@@ -56,6 +73,18 @@ LINREG_FEATURES = 100
 LINREG_ROWS = 1024
 LINREG_REQUESTS = 3
 LINREG_TOL = 1e-6
+LOGREG_FEATURES = 100
+LOGREG_ROWS = 1024
+LOGREG_REQUESTS = 3
+LOGREG_TOL = 5e-3  # the JAX package's own limit (bench.py:600)
+# the protocol sigmoid's kernel shapes at 1024 rows (ring128): the K3
+# cross terms run from (3, 1024) to (3, 64, 1024) words, K4 on
+# (3, 2, 64, 1024) against (64, 1) weights, K5 on 1024 elements, K6 with
+# 14 steps at truncation amount 62
+PATH_N = LOGREG_ROWS
+BIG_N = 1 << 20
+HORNER_STEPS = 14
+HORNER_F = 62
 
 
 def log(*args):
@@ -89,14 +118,30 @@ def cuda_time_ms(torch, fn, warmup=1, reps=5):
     return statistics.median(times)
 
 
-def max_abs_word_err(torch, got, want) -> float:
+def flat_tensors(value):
+    """The tensors of a kernel result: a tensor, or nested (lo, hi)
+    tuples with None for a missing high word."""
+    if value is None:
+        return []
+    if isinstance(value, (tuple, list)):
+        return [t for v in value for t in flat_tensors(v)]
+    return [value]
+
+
+def word_diff(torch, got, want):
+    """(equal, max abs error): word for word, and the largest difference
+    of the words as float64 (at least 1 where they differ)."""
+    got, want = flat_tensors(got), flat_tensors(want)
+    equal = len(got) == len(want)
     err = 0.0
     for g, w in zip(got, want):
-        if w is None:
-            continue
-        if not torch.equal(g, w):
-            err = max(err, float((g.double() - w.double()).abs().max()))
-    return err
+        if g.shape != w.shape or not torch.equal(g, w):
+            equal = False
+            diff = 1.0
+            if g.shape == w.shape:
+                diff = float((g.double() - w.double()).abs().max())
+            err = max(err, diff, 1.0)
+    return equal, err
 
 
 def random_words(torch, gen, shape, width):
@@ -124,58 +169,155 @@ def dot_bound(m, k, n, width):
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def bound(nbytes, int_ops):
+    """Least time of a kernel: its bytes at the memory rate against its
+    32-bit integer operations at the INT32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = int_ops / INT32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def trunc_bound(n, width):
     """Least time of the truncation tail: 7 ring inputs read, 3 written
     (160 B per ring128 element) against its integer operations."""
-    word = width // 8
-    t_bytes = n * 10 * word / HBM_BYTES_PER_S * 1e3
-    t_ops = n * TRUNC_OPS_PER_ELEM[width] / CUDA_CORE_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+    return bound(n * 10 * (width // 8), n * TRUNC_OPS_PER_ELEM[width])
+
+
+def cross_mul_bound(n, width):
+    """K3 over n words per operand: four operands read, one written; two
+    products and three adds per word."""
+    return bound(n * 5 * (width // 8),
+                 n * (2 * RING_MUL_OPS[width] + 3 * RING_ADD_OPS[width]))
+
+
+def ring_mul_bound(n, width):
+    """K4 over n words: the shares and the materialised constant read,
+    the product written; one product per word."""
+    return bound(n * 3 * (width // 8), n * RING_MUL_OPS[width])
+
+
+def bits_bound(n, width, msb_only, n_ands):
+    """K5 over n elements: the (3, 2) words and the n_ands uint8 AND
+    banks read, the bit planes (one plane for msb) written.  Operations:
+    each AND is six logic operations per party on k/32 32-bit words, and
+    each output bit one extraction."""
+    out_bits = 6 * (1 if msb_only else width)
+    nbytes = n * (6 * (width // 8) + n_ands * 3 * width + out_bits)
+    ops = n * (n_ands * 3 * 6 * (width // 32) + out_bits)
+    return bound(nbytes, ops)
+
+
+def horner_bound(n, width, steps):
+    """K6 over n elements: x's two pair slots (6 words) and per step the
+    bank (3) and the draws (5) read, 6 words written; per step and party
+    two products and four adds, plus the truncation tail."""
+    words = 6 + steps * 8 + 6
+    ops = steps * (3 * (2 * RING_MUL_OPS[width] + 4 * RING_ADD_OPS[width])
+                   + TRUNC_OPS_PER_ELEM[width])
+    return bound(n * words * (width // 8), n * ops)
+
+
+
+def compare_kernel(torch, kernel, plain, args, bound_pair, reps,
+                   library=None, **fields):
+    """Hold ``kernel(*args)`` against ``plain(*args)`` on the card, word
+    for word, and time both (and ``library``, one PyTorch call computing
+    the same function, where there is one) with CUDA events."""
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    equal, err = word_diff(torch, got, want)
+    del got, want
+    bound_ms, bound_by = bound_pair
+    return dict(
+        fields, equal=equal, max_abs_err=err,
+        ms=cuda_time_ms(torch, lambda: kernel(*args), reps=reps),
+        plain_ms=cuda_time_ms(torch, lambda: plain(*args), reps=reps),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None if library is None
+        else cuda_time_ms(torch, library, reps=reps),
+    )
 
 
 def compare_dot(torch, rk, ring, gen, m, k, n, width, reps):
     x0, x1 = (random_words(torch, gen, (3, m, k), width) for _ in range(2))
     y0, y1 = (random_words(torch, gen, (3, k, n), width) for _ in range(2))
     ys = ring.add(*y0, *y1)
-    got = rk.dot_cross_terms(x0, x1, y0, ys, width)
-    want = rk.dot_cross_terms_plain(x0, x1, y0, ys, width)
-    torch.cuda.synchronize()
-    err = max_abs_word_err(torch, got, want)
-    bound_ms, bound_by = dot_bound(m, k, n, width)
-    return {
-        "shape": f"(3,{m},{k})@(3,{k},{n})", "width": width,
-        "equal": err == 0.0, "max_abs_err": err,
-        "ms": cuda_time_ms(
-            torch, lambda: rk.dot_cross_terms(x0, x1, y0, ys, width),
-            reps=reps),
-        "plain_ms": cuda_time_ms(
-            torch, lambda: rk.dot_cross_terms_plain(x0, x1, y0, ys, width),
-            reps=reps),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-    }
+    return compare_kernel(
+        torch, rk.dot_cross_terms, rk.dot_cross_terms_plain,
+        (x0, x1, y0, ys, width), dot_bound(m, k, n, width), reps,
+        shape=f"(3,{m},{k})@(3,{k},{n})", width=width,
+    )
 
 
 def compare_trunc(torch, rk, gen, shape, width, amount, reps):
-    ins = [random_words(torch, gen, shape, width) for _ in range(7)]
-    a0, a1, *draws = ins
-    draws = tuple(draws)
-    got = rk.trunc_combine(a0, a1, draws, width, amount)
-    want = rk.trunc_combine_plain(a0, a1, draws, width, amount)
-    torch.cuda.synchronize()
-    err = max_abs_word_err(torch, got, want)
-    bound_ms, bound_by = trunc_bound(math.prod(shape), width)
-    return {
-        "shape": str(tuple(shape)), "width": width, "amount": amount,
-        "equal": err == 0.0, "max_abs_err": err,
-        "ms": cuda_time_ms(
-            torch, lambda: rk.trunc_combine(a0, a1, draws, width, amount),
-            reps=reps),
-        "plain_ms": cuda_time_ms(
-            torch,
-            lambda: rk.trunc_combine_plain(a0, a1, draws, width, amount),
-            reps=reps),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-    }
+    a0, a1, *draws = (random_words(torch, gen, shape, width)
+                      for _ in range(7))
+    return compare_kernel(
+        torch, rk.trunc_combine, rk.trunc_combine_plain,
+        (a0, a1, tuple(draws), width, amount),
+        trunc_bound(math.prod(shape), width), reps,
+        shape=str(tuple(shape)), width=width, amount=amount,
+    )
+
+
+def compare_cross_mul(torch, rk, gen, shape, width, reps):
+    ops = [random_words(torch, gen, shape, width) for _ in range(4)]
+    return compare_kernel(
+        torch, rk.cross_terms_mul, rk.cross_terms_mul_plain,
+        (*ops, width), cross_mul_bound(math.prod(shape), width), reps,
+        shape=str(tuple(shape)), width=width,
+    )
+
+
+def compare_ring_mul(torch, rk, gen, shape, const_shape, width, reps):
+    """K4 as spmd.mul_public calls it: shares times a public constant of
+    ``const_shape`` broadcast (materialised) to the shares' shape."""
+    a_lo, a_hi = random_words(torch, gen, shape, width)
+    c_lo, c_hi = random_words(torch, gen, const_shape, width)
+    b_lo = c_lo.expand(shape).contiguous()
+    b_hi = None if c_hi is None else c_hi.expand(shape).contiguous()
+    library = None
+    if width == 64:
+        def library():  # int64 multiplication wraps: the ring64 product
+            return torch.mul(a_lo, b_lo)
+    return compare_kernel(
+        torch, rk.ring_mul, rk.ring_mul_plain, (a_lo, a_hi, b_lo, b_hi, width),
+        ring_mul_bound(math.prod(shape), width), reps, library=library,
+        shape=f"{tuple(shape)} x broadcast {tuple(const_shape)}",
+        width=width,
+    )
+
+
+def compare_bits(torch, rk, gen, n, width, msb_only, reps):
+    x = random_words(torch, gen, (3, 2, n), width)
+    n_ands = rk.adder_bank_count(width)
+    banks = torch.randint(0, 2, (n_ands, 3, width, n), generator=gen,
+                          dtype=torch.uint8, device="cuda")
+    kernel, plain = ((rk.msb, rk.msb_plain) if msb_only
+                     else (rk.bit_decompose, rk.bit_decompose_plain))
+    return compare_kernel(
+        torch, kernel, plain, (*x, width, banks),
+        bits_bound(n, width, msb_only, n_ands), reps,
+        shape=f"(3,2,{n})", width=width,
+        mode="msb" if msb_only else "bit_decompose",
+    )
+
+
+def compare_horner(torch, rk, gen, n, width, steps, f, reps):
+    """K6 with the 2^x Taylor coefficients the sigmoid uses."""
+    from moose_tpu_torch.dialects.fixedpoint import P_1045, encode_const
+
+    raws = [encode_const(c, f, width) for c in reversed(P_1045[:steps + 1])]
+    x0, x1 = (random_words(torch, gen, (3, n), width) for _ in range(2))
+    zbanks = random_words(torch, gen, (steps, 3, n), width)
+    tdraws = random_words(torch, gen, (steps, 5, n), width)
+    return compare_kernel(
+        torch, rk.horner, rk.horner_plain,
+        (x0, x1, width, raws, f, zbanks, tdraws),
+        horner_bound(n, width, steps), reps,
+        shape=f"(3,{n})", width=width, steps=steps, amount=f,
+    )
 
 
 def secure_dot_computation(pm, precision=DOT_PRECISION):
@@ -220,6 +362,37 @@ def linear_regressor(rng, n_features):
         n_features,
     )
     return from_onnx(model)
+
+
+def logistic_regression(rng, n_features):
+    """The port's binary LinearClassifier with random weights from
+    ``rng`` (scale 0.1, so the logits of unit-normal rows spread over the
+    sigmoid as a fitted model's do), exported the way skl2onnx writes
+    sklearn's LogisticRegression (mirrored class rows, LOGISTIC) and
+    imported through ``predictors.from_onnx``."""
+    import numpy as np
+
+    from moose_tpu_torch.predictors import from_onnx, sklearn_export
+
+    coef = rng.normal(scale=0.1, size=(1, n_features)).astype(np.float32)
+    intercept = rng.normal(scale=0.1, size=(1,)).astype(np.float32)
+    model = sklearn_export.logistic_regression_onnx(
+        SimpleNamespace(coef_=coef.astype(np.float64),
+                        intercept_=intercept.astype(np.float64),
+                        classes_=np.array([0, 1])),
+        n_features,
+    )
+    return from_onnx(model)
+
+
+def logistic_reference(predictor, x):
+    """float64 [1 - sigmoid(z), sigmoid(z)] of the positive class's logit
+    z = x @ w + b, with the weights as the model stores them."""
+    import numpy as np
+
+    z = x @ predictor.coeffs[1] + predictor.intercepts[0, 1]
+    p = 1.0 / (1.0 + np.exp(-z))
+    return np.stack([1.0 - p, p], axis=1)
 
 
 def timed(torch, fn):
@@ -290,10 +463,47 @@ def main() -> int:
         compare_trunc(torch, rk, gen, (DOT_N, DOT_N), 64, DOT_PRECISION[1],
                       reps=20),
     ]
-    for row in dot_rows + trunc_rows:
-        log(f"compare: {json.dumps(row)}")
-        if not row["equal"]:
-            raise AssertionError(f"kernel disagrees with plain: {row}")
+    # the protocol sigmoid's kernels, at the logistic regression's shapes
+    # (which time launch latency) and at 2^20 elements
+    cross_rows = [
+        compare_cross_mul(torch, rk, gen, (3, PATH_N), 128, reps=20),
+        compare_cross_mul(torch, rk, gen, (3, 64, PATH_N), 128, reps=20),
+        compare_cross_mul(torch, rk, gen, (3, BIG_N), 128, reps=5),
+        compare_cross_mul(torch, rk, gen, (3, 64, PATH_N), 64, reps=20),
+    ]
+    mul_rows = [
+        compare_ring_mul(torch, rk, gen, (3, 2, PATH_N), (), 128, reps=20),
+        compare_ring_mul(torch, rk, gen, (3, 2, 64, PATH_N), (64, 1), 128,
+                         reps=20),
+        compare_ring_mul(torch, rk, gen, (3, 2, BIG_N), (), 128, reps=5),
+        compare_ring_mul(torch, rk, gen, (3, 2, 64, PATH_N), (64, 1), 64,
+                         reps=20),
+    ]
+    bits_rows = [
+        compare_bits(torch, rk, gen, PATH_N, 128, False, reps=20),
+        compare_bits(torch, rk, gen, PATH_N, 128, True, reps=20),
+        compare_bits(torch, rk, gen, BIG_N, 128, False, reps=3),
+        compare_bits(torch, rk, gen, BIG_N, 128, True, reps=3),
+        compare_bits(torch, rk, gen, PATH_N, 64, False, reps=20),
+    ]
+    horner_rows = [
+        compare_horner(torch, rk, gen, PATH_N, 128, HORNER_STEPS, HORNER_F,
+                       reps=20),
+        compare_horner(torch, rk, gen, BIG_N, 128, HORNER_STEPS, HORNER_F,
+                       reps=5),
+        compare_horner(torch, rk, gen, PATH_N, 64, 9, 35, reps=20),
+    ]
+    rows_by_kernel = {
+        "dot_cross_terms": dot_rows, "trunc_combine": trunc_rows,
+        "cross_terms_mul": cross_rows, "ring_mul": mul_rows,
+        "bits_adder": bits_rows, "horner": horner_rows,
+    }
+    for name, rows in rows_by_kernel.items():
+        for row in rows:
+            log(f"compare {name}: {json.dumps(row)}")
+            if not row["equal"]:
+                raise AssertionError(f"{name} disagrees with plain: {row}")
+    torch.cuda.empty_cache()
 
     # phase 4: the eDSL secure dot through the runtime (main path)
     rng = np.random.default_rng(SEED)
@@ -353,10 +563,52 @@ def main() -> int:
         raise AssertionError(
             f"linear regressor error {max(linreg_errs)} >= {LINREG_TOL}"
         )
-    for path, counts in (("secure_dot", dot_launches),
-                         ("linear_regressor", linreg_launches)):
-        for name, n in counts.items():
-            if n < 1:
+
+    # phase 6: ONNX logistic regression, three requests (main path)
+    classifier = logistic_regression(rng, LOGREG_FEATURES)
+    logreg = classifier.predictor_factory()
+    requests = [
+        rng.normal(size=(LOGREG_ROWS, LOGREG_FEATURES))
+        for _ in range(LOGREG_REQUESTS)
+    ]
+    rk.reset_launches()
+    logreg_latencies, logreg_errs = [], []
+    for xr in requests:
+        out, s = timed(
+            torch, lambda: runtime.evaluate_computation(logreg, {"x": xr})
+        )
+        pred = out["output_0"]
+        want = logistic_reference(classifier, xr)
+        if pred.shape != want.shape or not np.all(np.isfinite(pred)):
+            raise AssertionError(f"logreg output malformed: {pred.shape}")
+        logreg_errs.append(float(np.abs(pred - want).max()))
+        logreg_latencies.append(s)
+    logreg_launches = dict(rk.LAUNCHES)
+    logreg_rows_per_s = (LOGREG_ROWS * LOGREG_REQUESTS
+                         / sum(logreg_latencies))
+    log(f"logistic_regression: {LOGREG_REQUESTS} requests of {LOGREG_ROWS}x"
+        f"{LOGREG_FEATURES} fixed(24, 40) latencies_ms "
+        f"{[round(s * 1e3, 3) for s in logreg_latencies]} rows_per_s "
+        f"{logreg_rows_per_s:.1f} max_abs_err {max(logreg_errs):.3e} "
+        f"launches {logreg_launches}")
+    if max(logreg_errs) >= LOGREG_TOL:
+        raise AssertionError(
+            f"logistic regression error {max(logreg_errs)} >= {LOGREG_TOL}"
+        )
+
+    launches_by_path = {
+        "secure_dot": dot_launches,
+        "linear_regressor": linreg_launches,
+        "logistic_regression": logreg_launches,
+    }
+    required = {
+        "secure_dot": ("dot_cross_terms", "trunc_combine"),
+        "linear_regressor": ("dot_cross_terms", "trunc_combine"),
+        "logistic_regression": tuple(rk.LAUNCHES),
+    }
+    for path, names in required.items():
+        for name in names:
+            if launches_by_path[path][name] < 1:
                 raise AssertionError(f"{path} never launched {name}")
 
     for mod in sys.modules:
@@ -364,24 +616,32 @@ def main() -> int:
                 or mod == "moose_tpu":
             raise AssertionError(f"the port loaded {mod}")
 
+    tpu = "moose_tpu/native/ring128_kernels.py"
     replaces = {
-        "dot_cross_terms": "moose_tpu/native/ring128_kernels.py:1037",
-        "trunc_combine": "moose_tpu/native/ring128_kernels.py:589",
+        "dot_cross_terms": f"{tpu}:1037",
+        "trunc_combine": f"{tpu}:589",
+        "cross_terms_mul": f"{tpu}:558",
+        "ring_mul": f"{tpu}:534",
+        "bits_adder": f"{tpu}:769 (bit_decompose), :779 (msb)",
+        "horner": f"{tpu}:857",
     }
+    # the LAUNCHES names behind each kernel (K5 counts its two modes)
+    counters = {name: (name,) for name in replaces}
+    counters["bits_adder"] = ("bit_decompose", "msb")
     kernels = []
-    for name, rows in (("dot_cross_terms", dot_rows),
-                       ("trunc_combine", trunc_rows)):
-        head = rows[0]  # the secure dot's shape
-        kernels.append({
+    for name, rows in rows_by_kernel.items():
+        head = rows[0]  # the main path's shape
+        by_path = {
+            path: sum(counts[c] for c in counters[name])
+            for path, counts in launches_by_path.items()
+        }
+        entry = {
             "name": name,
             "route": "cuda",
             "source": f"moose_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
-            "launches": dot_launches[name] + linreg_launches[name],
-            "launches_by_path": {
-                "secure_dot": dot_launches[name],
-                "linear_regressor": linreg_launches[name],
-            },
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "equal": all(r["equal"] for r in rows),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "tolerance": "exact word equality",
@@ -391,9 +651,16 @@ def main() -> int:
             "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"],
-            "library_ms": None,
+            "library_ms": head["library_ms"],
             "shapes": rows,
-        })
+        }
+        if len(counters[name]) > 1:
+            entry["launches_by_mode"] = {
+                mode: {path: counts[mode]
+                       for path, counts in launches_by_path.items()}
+                for mode in counters[name]
+            }
+        kernels.append(entry)
     record = {
         "card": smi,
         "build_s": build_s,
@@ -403,6 +670,11 @@ def main() -> int:
         "linear_regressor": {"latency_ms": [s * 1e3 for s in latencies],
                              "rows_per_s": rows_per_s,
                              "max_abs_err": max(linreg_errs)},
+        "logistic_regression": {
+            "latency_ms": [s * 1e3 for s in logreg_latencies],
+            "rows_per_s": logreg_rows_per_s,
+            "max_abs_err": max(logreg_errs),
+        },
     }
     log(json.dumps(record))
     log(json.dumps({"kernels": kernels}))

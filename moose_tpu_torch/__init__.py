@@ -3,9 +3,11 @@
 A second package beside ``moose_tpu`` (the JAX reference) that runs the
 same eDSL, IR and 3-party replicated secret-sharing protocol on PyTorch
 tensors, with the hot ring kernels hand-written in CUDA for Hopper
-(``csrc/``).  This slice covers the secure dot: an eDSL ``dot`` under a
-replicated placement and ONNX ``LinearRegressor`` inference, through
-``LocalMooseRuntime`` on its stacked layout.
+(``csrc/``).  The slices ported so far cover the secure dot (an eDSL
+``dot`` under a replicated placement), ONNX ``LinearRegressor``
+inference and ONNX logistic regression (``LinearClassifier`` with the
+exact protocol sigmoid), through ``LocalMooseRuntime`` on its stacked
+layout.
 
 The package imports ``torch`` and never ``jax`` nor ``moose_tpu``.  Its
 entry points run on the CUDA card unless the caller passes
@@ -16,37 +18,51 @@ from . import dtypes
 from .dtypes import fixed, float64
 from .edsl.base import (
     Argument,
+    add,
     cast,
     computation,
     concatenate,
     constant,
+    div,
     dot,
     expand_dims,
     host_placement,
+    index_axis,
     mirrored_placement,
+    mul,
     ones,
     replicated_placement,
     shape,
+    sigmoid,
+    sub,
+    sum,
 )
 
 __all__ = [
     "Argument",
     "LocalMooseRuntime",
+    "add",
     "cast",
     "computation",
     "concatenate",
     "constant",
+    "div",
     "dot",
     "dtypes",
     "expand_dims",
     "fixed",
     "float64",
     "host_placement",
+    "index_axis",
     "mirrored_placement",
+    "mul",
     "ones",
     "predictors",
     "replicated_placement",
     "shape",
+    "sigmoid",
+    "sub",
+    "sum",
 ]
 
 

@@ -127,3 +127,66 @@ __device__ __forceinline__ void ring_mac(uint64_t& acc_lo, uint64_t& acc_hi,
     acc_lo += p_lo;
   }
 }
+
+// a * b  (mod 2^64 or 2^128), the product of ring_mac
+template <bool WIDE>
+__device__ __forceinline__ Ring ring_mul(Ring a, Ring b) {
+  Ring r;
+  r.lo = a.lo * b.lo;
+  r.hi = WIDE ? __umul64hi(a.lo, b.lo) + a.lo * b.hi + a.hi * b.lo : 0ull;
+  return r;
+}
+
+// The elementwise tail of probabilistic truncation (spmd._trunc_combine_lax
+// of the JAX package).  From the 2-party additive sharing (a0, a1) of x
+// and the five values the caller drew before it (r, m_r, m_rt, m_rm, z0)
+// it masks x with r, reveals c = x + 2^(k-1) + r, corrects the MSB
+// overflow, shifts down by `amount` (0 <= amount <= width - 2) and
+// compresses the additive result into the replicated stack (z0, z1, y1).
+// Shared by trunc_combine.cu and horner.cu.
+template <bool WIDE>
+__device__ __forceinline__ void trunc_tail(Ring a0, Ring a1, Ring r, Ring mr,
+                                           Ring mrt, Ring mrm, Ring z0,
+                                           int amount, Ring& out_z0,
+                                           Ring& out_z1, Ring& out_y1) {
+  constexpr int W = WIDE ? 128 : 64;
+  constexpr int K = W - 1;
+
+  // the mask's top and msb parts, additively shared against m_rt, m_rm
+  const Ring r_msb = ring_shr<WIDE>(r, W - 1);
+  const Ring r_top = ring_shr<WIDE>(ring_shl<WIDE>(r, 1), amount + 1);
+  const Ring r1 = ring_sub<WIDE>(r, mr);
+  const Ring rt1 = ring_sub<WIDE>(r_top, mrt);
+  const Ring rm1 = ring_sub<WIDE>(r_msb, mrm);
+
+  const Ring one = ring_const<WIDE>(1ull, 0ull);
+  const Ring up = ring_shl<WIDE>(one, K - 1);
+  const Ring down = ring_shl<WIDE>(one, K - amount - 1);
+
+  // c = (x + 2^(k-1)) + r, revealed
+  const Ring m0 = ring_add<WIDE>(ring_add<WIDE>(a0, up), mr);
+  const Ring m1 = ring_add<WIDE>(a1, r1);
+  const Ring c = ring_add<WIDE>(m0, m1);
+
+  const Ring ctop = ring_shr<WIDE>(ring_shl<WIDE>(c, 1), amount + 1);
+  const Ring cmsb = ring_shr<WIDE>(c, W - 1);  // public 0/1
+  const bool cmsb_on = cmsb.lo != 0ull;
+
+  // overflow = r_msb XOR c_msb, additively: rm + cmsb - 2 * rm * cmsb,
+  // then moved up to bit k - amount
+  const Ring zero = ring_const<WIDE>(0ull, 0ull);
+  Ring of0 = ring_sub<WIDE>(mrm, ring_shl<WIDE>(cmsb_on ? mrm : zero, 1));
+  of0 = ring_shl<WIDE>(ring_add<WIDE>(of0, cmsb), K - amount);
+  Ring of1 = ring_sub<WIDE>(rm1, ring_shl<WIDE>(cmsb_on ? rm1 : zero, 1));
+  of1 = ring_shl<WIDE>(of1, K - amount);
+
+  // y = (c_top - r_top) + overflow - 2^(k - amount - 1), additively
+  const Ring y0 = ring_sub<WIDE>(
+      ring_add<WIDE>(ring_sub<WIDE>(ctop, mrt), of0), down);
+  const Ring y1 = ring_add<WIDE>(ring_neg<WIDE>(rt1), of1);
+
+  // additive -> replicated: z0 drawn, z1 = y0 - z0, z2 = y1
+  out_z0 = z0;
+  out_z1 = ring_sub<WIDE>(y0, z0);
+  out_y1 = y1;
+}

@@ -18,7 +18,8 @@
 // so each input word is read once and each output word written once;
 // neighbouring threads touch neighbouring words, so every load and store
 // is coalesced.  `amount` is a runtime argument and every shift case
-// (0, >= 64, >= 128) is written out in ring_words.cuh.
+// (0, >= 64, >= 128) is written out in ring_words.cuh, whose trunc_tail
+// holds the arithmetic; horner.cu runs the same function at every step.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -39,56 +40,17 @@ struct TruncArgs {
 template <bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 trunc_combine_kernel(TruncArgs args, long long n, int amount) {
-  constexpr int W = WIDE ? 128 : 64;
-  constexpr int K = W - 1;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const Ring a0 = ring_load<WIDE>(args.lo[0], args.hi[0], i);
-    const Ring a1 = ring_load<WIDE>(args.lo[1], args.hi[1], i);
-    const Ring r = ring_load<WIDE>(args.lo[2], args.hi[2], i);
-    const Ring mr = ring_load<WIDE>(args.lo[3], args.hi[3], i);
-    const Ring mrt = ring_load<WIDE>(args.lo[4], args.hi[4], i);
-    const Ring mrm = ring_load<WIDE>(args.lo[5], args.hi[5], i);
-    const Ring z0 = ring_load<WIDE>(args.lo[6], args.hi[6], i);
-
-    // the mask's top and msb parts, additively shared against m_rt, m_rm
-    const Ring r_msb = ring_shr<WIDE>(r, W - 1);
-    const Ring r_top = ring_shr<WIDE>(ring_shl<WIDE>(r, 1), amount + 1);
-    const Ring r1 = ring_sub<WIDE>(r, mr);
-    const Ring rt1 = ring_sub<WIDE>(r_top, mrt);
-    const Ring rm1 = ring_sub<WIDE>(r_msb, mrm);
-
-    const Ring one = ring_const<WIDE>(1ull, 0ull);
-    const Ring up = ring_shl<WIDE>(one, K - 1);
-    const Ring down = ring_shl<WIDE>(one, K - amount - 1);
-
-    // c = (x + 2^(k-1)) + r, revealed
-    const Ring m0 = ring_add<WIDE>(ring_add<WIDE>(a0, up), mr);
-    const Ring m1 = ring_add<WIDE>(a1, r1);
-    const Ring c = ring_add<WIDE>(m0, m1);
-
-    const Ring ctop = ring_shr<WIDE>(ring_shl<WIDE>(c, 1), amount + 1);
-    const Ring cmsb = ring_shr<WIDE>(c, W - 1);  // public 0/1
-    const bool cmsb_on = cmsb.lo != 0ull;
-
-    // overflow = r_msb XOR c_msb, additively: rm + cmsb - 2 * rm * cmsb,
-    // then moved up to bit k - amount
-    const Ring zero = ring_const<WIDE>(0ull, 0ull);
-    Ring of0 = ring_sub<WIDE>(mrm, ring_shl<WIDE>(cmsb_on ? mrm : zero, 1));
-    of0 = ring_shl<WIDE>(ring_add<WIDE>(of0, cmsb), K - amount);
-    Ring of1 = ring_sub<WIDE>(rm1, ring_shl<WIDE>(cmsb_on ? rm1 : zero, 1));
-    of1 = ring_shl<WIDE>(of1, K - amount);
-
-    // y = (c_top - r_top) + overflow - 2^(k - amount - 1), additively
-    const Ring y0 = ring_sub<WIDE>(
-        ring_add<WIDE>(ring_sub<WIDE>(ctop, mrt), of0), down);
-    const Ring y1 = ring_add<WIDE>(ring_neg<WIDE>(rt1), of1);
-
-    // additive -> replicated: z0 drawn, z1 = y0 - z0, z2 = y1
+    Ring in[7];
+#pragma unroll
+    for (int j = 0; j < 7; ++j) in[j] = ring_load<WIDE>(args.lo[j], args.hi[j], i);
+    Ring z0, z1, y1;
+    trunc_tail<WIDE>(in[0], in[1], in[2], in[3], in[4], in[5], in[6], amount,
+                     z0, z1, y1);
     ring_store<WIDE>(args.out_lo, args.out_hi, i, z0);
-    ring_store<WIDE>(args.out_lo, args.out_hi, n + i,
-                     ring_sub<WIDE>(y0, z0));
+    ring_store<WIDE>(args.out_lo, args.out_hi, n + i, z1);
     ring_store<WIDE>(args.out_lo, args.out_hi, 2 * n + i, y1);
   }
 }

@@ -165,6 +165,34 @@ def fill_like_shape(shape, width: int, value: int, device):
     return lo, hi
 
 
+def from_python_ints(values: Sequence[int], width: int, device):
+    """(lo, hi) words of a 1-D sequence of Python ints, which may reach
+    past 2^64 (the high word takes bits 64-127)."""
+    ints = [int(v) for v in values]
+    lo = torch.tensor([signed64(v) for v in ints], dtype=I64, device=device)
+    if width == 64:
+        return lo, None
+    hi = torch.tensor(
+        [signed64(v >> 64) for v in ints], dtype=I64, device=device
+    )
+    return lo, hi
+
+
+def sum_(lo, hi, axis: int):
+    """Sum-reduce over ``axis`` mod 2^w.  For ring128 the low words are
+    summed as 32-bit halves (exact in 64 bits), and the carry into the
+    high word is recombined with logical shifts and an unsigned compare,
+    as ``ring.sum_`` of the JAX package does."""
+    if hi is None:
+        return torch.sum(lo, dim=axis), None
+    s_ll = torch.sum(torch.bitwise_and(lo, MASK32), dim=axis)
+    s_lh = torch.sum(lshr64(lo, 32), dim=axis)
+    s_hi = torch.sum(hi, dim=axis)
+    lo_out = s_ll + (s_lh << 32)
+    carry = lshr64(s_lh, 32) + ult(lo_out, s_ll).to(I64)
+    return lo_out, s_hi + carry
+
+
 # ---------------------------------------------------------------------------
 # Fixed-point encode/decode
 # ---------------------------------------------------------------------------
@@ -295,3 +323,24 @@ def sample_uniform_seeded(shape, seed, width: int, device):
         return random_bits_u64(seed, shape, device), None
     both = random_bits_u64(seed, (2,) + shape, device)
     return both[1], both[0]
+
+
+def _bit_domain_seed(seed) -> Seed:
+    """Domain-separation tag for bit draws: the top bit of the last seed
+    word flipped, so a seed reused for a uniform draw and a bit draw
+    never indexes the same counter stream."""
+    words = _seed_words(seed)
+    return words[:3] + (words[3] ^ 0x80000000,)
+
+
+def sample_bits_seeded(shape, seed, device):
+    """Uniform bits as ``torch.uint8`` 0/1 from ``seed``:
+    ``jax.random.bits(key, shape, uint8) & 1`` under the tagged seed's
+    threefry key, i.e. bit 0 of ``y0 ^ y1`` for the counter block of
+    each flat index."""
+    k0, k1 = _key_from_seed(_bit_domain_seed(seed))
+    shape = tuple(int(s) for s in shape)
+    idx = torch.arange(math.prod(shape), dtype=I64, device=device)
+    y0, y1 = threefry2x32_20(idx >> 32, idx & MASK32, k0, k1)
+    bits = torch.bitwise_and(torch.bitwise_xor(y0, y1), 1)
+    return bits.to(torch.uint8).reshape(shape)

@@ -4,13 +4,17 @@ layout on one device.
 PyTorch counterpart of ``moose_tpu/dialects/stacked.py`` for the slice's
 graphs.  Replicated tensors become ``SpmdRep``/``SpmdFixed`` (one word
 tensor with a leading party axis); host and mirrored ops delegate to the
-logical dialect.  The replicated kinds are those of the eDSL secure dot
-and the ONNX linear regressor (``Dot``, ``Concat``) plus the fixed-point
-precision move ``Cast``; any other kind is refused by :func:`supports`
-and raises ``NotImplementedError`` naming its ROADMAP item.
+logical dialect.  The replicated kinds are those of the eDSL secure dot,
+the ONNX linear regressor and the ONNX logistic regression (``Dot``,
+``Concat``, ``Sigmoid``, ``IndexAxis``, ``ExpandDims``, ``Sub`` and the
+other arithmetic of the classifier heads) plus the fixed-point precision
+move ``Cast``; any other kind is refused by :func:`supports` and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
+
+import math
 
 from ..computation import (
     Computation,
@@ -22,11 +26,15 @@ from ..computation import (
 from ..errors import TypeMismatchError
 from ..execution.session import EagerSession
 from ..parallel import spmd
+from ..parallel import spmd_math as sm
 from ..parallel.spmd import SpmdFixed, SpmdRep, SpmdSession
 from ..values import HostFixedTensor, HostRingTensor, Mir3FixedTensor
 from . import logical
 
-REP_KINDS = frozenset({"Dot", "Concat", "Cast"})
+REP_KINDS = frozenset({
+    "Dot", "Concat", "Cast", "Sigmoid", "IndexAxis", "ExpandDims", "Add",
+    "Sub", "Mul", "Div", "Sum",
+})
 BOUNDARY_KINDS = frozenset({"Input", "Output"})
 
 _LATER = "ROADMAP queue 1, items 3-8"
@@ -108,6 +116,60 @@ def _fixed(v, kind: str) -> SpmdFixed:
     return v
 
 
+def _fx(t: SpmdRep, like: SpmdFixed) -> SpmdFixed:
+    return SpmdFixed(t, like.integral_precision, like.fractional_precision)
+
+
+def _public_binop(sess, x: SpmdFixed, pub: Mir3FixedTensor, kind: str,
+                  right: bool) -> SpmdFixed:
+    """x (+|-|*) mirrored-public value without sharing rounds; ``right``
+    says the public value is the right operand (pub - x = -(x - pub))."""
+    values, pub_f = logical._mirrored_to_public_ring(pub)
+    if pub_f != x.fractional_precision:
+        raise TypeMismatchError(
+            f"{kind} operands disagree on fractional precision: "
+            f"{x.fractional_precision} vs mirrored {pub_f}"
+        )
+    c = values[0]
+    if kind == "Add":
+        return _fx(spmd.add_public(x.tensor, c.lo, c.hi), x)
+    if kind == "Sub":
+        out = spmd.sub_public(x.tensor, c.lo, c.hi)
+        return _fx(out if right else spmd.neg(out), x)
+    out = spmd.mul_public(x.tensor, c.lo, c.hi)
+    return _fx(spmd.trunc_pr(sess.spmd, out, x.fractional_precision), x)
+
+
+def _align_logical_ranks(x: SpmdFixed, y: SpmdFixed):
+    """Prepend singleton logical axes (after the (party, slot) prefix) to
+    the lower-rank operand, so elementwise ops broadcast by logical
+    shape."""
+
+    def lift(v: SpmdFixed, n: int) -> SpmdFixed:
+        if n <= 0:
+            return v
+        t = v.tensor
+        return _fx(spmd.reshape(t, (1,) * n + t.shape), v)
+
+    rx, ry = len(x.tensor.shape), len(y.tensor.shape)
+    return lift(x, ry - rx), lift(y, rx - ry)
+
+
+_SECRET_BINOPS = {
+    "Add": lambda s, x, y: spmd.fx_add(x, y),
+    "Sub": lambda s, x, y: spmd.fx_sub(x, y),
+    "Mul": spmd.fx_mul,
+    "Div": sm.fx_div,
+}
+
+
+def _fx_sum(x: SpmdFixed, axis) -> SpmdFixed:
+    t = x.tensor
+    if axis is None:
+        t, axis = spmd.reshape(t, (math.prod(t.shape),)), 0
+    return _fx(spmd.sum_axis(t, axis), x)
+
+
 def _execute_rep(sess: StackedSession, comp, op: Operation,
                  rep: ReplicatedPlacement, args):
     kind = op.kind
@@ -117,6 +179,40 @@ def _execute_rep(sess: StackedSession, comp, op: Operation,
         x = _fixed(to_rep(sess, args[0]), kind)
         y = _fixed(to_rep(sess, args[1]), kind)
         return spmd.fx_dot(sess.spmd, x, y)
+
+    if kind in _SECRET_BINOPS:
+        x, y = args
+        if isinstance(y, Mir3FixedTensor) and kind != "Div":
+            return _public_binop(sess, _fixed(to_rep(sess, x), kind), y,
+                                 kind, right=True)
+        if isinstance(x, Mir3FixedTensor) and kind != "Div":
+            return _public_binop(sess, _fixed(to_rep(sess, y), kind), x,
+                                 kind, right=False)
+        xr, yr = _align_logical_ranks(
+            _fixed(to_rep(sess, x), kind), _fixed(to_rep(sess, y), kind)
+        )
+        return _SECRET_BINOPS[kind](sess.spmd, xr, yr)
+
+    if kind == "Sigmoid":
+        return sm.fx_sigmoid(sess.spmd, _fixed(to_rep(sess, args[0]), kind))
+
+    if kind == "Sum":
+        x = _fixed(to_rep(sess, args[0]), kind)
+        return _fx_sum(x, op.attributes.get("axis"))
+
+    if kind == "IndexAxis":
+        x = _fixed(to_rep(sess, args[0]), kind)
+        out = spmd.index_axis(
+            x.tensor, op.attributes["axis"], op.attributes["index"]
+        )
+        return _fx(out, x)
+
+    if kind == "ExpandDims":
+        x = _fixed(to_rep(sess, args[0]), kind)
+        out = x.tensor
+        for a in sorted(op.attributes["axis"]):
+            out = spmd.expand_dims(out, a)
+        return _fx(out, x)
 
     if kind == "Concat":
         vals = [_fixed(to_rep(sess, a), kind) for a in args]

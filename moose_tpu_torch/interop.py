@@ -50,3 +50,19 @@ def linear_regressor_from_arrays(coeffs: np.ndarray,
         intercepts=None if intercepts is None
         else np.asarray(intercepts, dtype=np.float64),
     )
+
+
+def linear_classifier_from_arrays(coeffs: np.ndarray,
+                                  intercepts: Optional[np.ndarray],
+                                  post_transform: str):
+    """The port's ``LinearClassifier`` from the ``.coeffs`` and
+    ``.intercepts`` arrays of a JAX-package predictor and the name of its
+    post-transform (``"NONE"``, ``"SIGMOID"`` or ``"SOFTMAX"``)."""
+    from .predictors.linear_predictor import LinearClassifier, PostTransform
+
+    return LinearClassifier(
+        coeffs=np.asarray(coeffs, dtype=np.float64),
+        intercepts=None if intercepts is None
+        else np.asarray(intercepts, dtype=np.float64),
+        post_transform=PostTransform[post_transform],
+    )

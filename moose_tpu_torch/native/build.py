@@ -25,7 +25,10 @@ from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("dot_cross_terms", "trunc_combine")
+KERNELS = (
+    "dot_cross_terms", "trunc_combine", "cross_terms_mul", "ring_mul",
+    "bits_adder", "horner",
+)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -44,6 +47,28 @@ SIGNATURES = {
         "moose_trunc_combine",
         [ctypes.c_void_p] * 16
         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    ),
+    "cross_terms_mul": (
+        "moose_cross_terms_mul",
+        [ctypes.c_void_p] * 10
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    ),
+    "ring_mul": (
+        "moose_ring_mul",
+        [ctypes.c_void_p] * 6
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    ),
+    "bits_adder": (
+        "moose_bits_adder",
+        [ctypes.c_void_p] * 4
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    ),
+    "horner": (
+        "moose_horner",
+        [ctypes.c_void_p] * 10
+        + [ctypes.POINTER(ctypes.c_uint64)] * 2
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+           ctypes.c_void_p],
     ),
 }
 

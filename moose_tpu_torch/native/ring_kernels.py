@@ -1,18 +1,28 @@
-"""Hand-written CUDA kernels for the secure dot, with their plain versions.
+"""Hand-written CUDA kernels of the protocol, with their plain versions.
 
-PyTorch counterpart of the two ``moose_tpu/native/ring128_kernels.py``
-kernels every secure dot runs:
+PyTorch counterpart of the ``moose_tpu/native/ring128_kernels.py``
+kernels the secure dot and the protocol sigmoid run:
 
 - ``dot_cross_terms`` (K1): the party-batched cross terms
   ``v_p = x0_p @ (y0+y1)_p + x1_p @ y0_p mod 2^w`` of a secure matmul,
   ``csrc/dot_cross_terms.cu``;
 - ``trunc_combine`` (K2): the elementwise tail of probabilistic
-  truncation after its five pre-drawn values, ``csrc/trunc_combine.cu``.
+  truncation after its five pre-drawn values, ``csrc/trunc_combine.cu``;
+- ``cross_terms_mul`` (K3): the same cross terms elementwise, for a
+  secure multiply, ``csrc/cross_terms_mul.cu``;
+- ``ring_mul`` (K4): an elementwise ring multiply (a secret times a
+  public constant), ``csrc/ring_mul.cu``;
+- ``bit_decompose`` and ``msb`` (K5): arithmetic-to-binary conversion
+  through a Kogge-Stone adder over pre-drawn AND banks, all bits or only
+  the top one, one kernel ``csrc/bits_adder.cu``;
+- ``horner`` (K6): the fused fixed-point Horner ladder of a secret
+  polynomial, ``csrc/horner.cu``.
 
 A wrapper takes its plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises: there is no fallback.  Each
 launch adds one to ``LAUNCHES[name]`` (and nothing else does), so a run
-can show that it went through the kernels.
+can show that it went through the kernels; K5 counts its two modes
+apart.
 
 The plain versions repeat the kernels' arithmetic in PyTorch.  They are
 what the CPU tests hold against the JAX package, and what ``chip_smoke.py``
@@ -23,6 +33,8 @@ computation is bit-identical on either path.
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -32,7 +44,10 @@ from . import build
 
 Pair = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
-LAUNCHES = {"dot_cross_terms": 0, "trunc_combine": 0}
+LAUNCHES = {
+    "dot_cross_terms": 0, "trunc_combine": 0, "cross_terms_mul": 0,
+    "ring_mul": 0, "bit_decompose": 0, "msb": 0, "horner": 0,
+}
 
 
 def reset_launches() -> None:
@@ -62,8 +77,24 @@ def _check_cuda_words(label: str, t: Optional[torch.Tensor], shape,
         raise ValueError(f"{label}: expected a contiguous tensor")
 
 
+def _check_pair(label: str, pair: Pair, shape, device: torch.device,
+                wide: bool) -> None:
+    _check_cuda_words(f"{label}.lo", pair[0], shape, device)
+    if wide:
+        _check_cuda_words(f"{label}.hi", pair[1], shape, device)
+
+
+def _require_cuda(label: str, device: torch.device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{label} takes CPU or CUDA tensors, got {device}")
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _raise_on(label: str, err: int) -> None:
@@ -151,11 +182,7 @@ def dot_cross_terms(x0: Pair, x1: Pair, y0: Pair, ysum: Pair,
         ("x0", x0, (parties, m, k)), ("x1", x1, (parties, m, k)),
         ("y0", y0, (parties, k, n)), ("ysum", ysum, (parties, k, n)),
     ):
-        _check_cuda_words(f"dot_cross_terms {label}.lo", pair[0], shape,
-                          device)
-        if wide:
-            _check_cuda_words(f"dot_cross_terms {label}.hi", pair[1], shape,
-                              device)
+        _check_pair(f"dot_cross_terms {label}", pair, shape, device, wide)
     out_lo = torch.empty((parties, m, n), dtype=torch.int64,
                          device=x0[0].device)
     out_hi = torch.empty_like(out_lo) if wide else None
@@ -170,7 +197,7 @@ def dot_cross_terms(x0: Pair, x1: Pair, y0: Pair, ysum: Pair,
             _ptr(ysum[0]), _ptr(ysum[1] if wide else None),
             _ptr(out_lo), _ptr(out_hi),
             parties, m, k, n, int(wide),
-            torch.cuda.current_stream(device).cuda_stream,
+            _stream(device),
         )
     _raise_on("dot_cross_terms", err)
     LAUNCHES["dot_cross_terms"] += 1
@@ -250,8 +277,7 @@ def trunc_combine(a0: Pair, a1: Pair, draws, width: int, amount: int):
             f"trunc_combine: amount {amount} out of range for ring{width}"
         )
     device = a0[0].device
-    if device.type != "cuda":
-        raise ValueError("trunc_combine takes CUDA tensors")
+    _require_cuda("trunc_combine", device)
     shape = tuple(a0[0].shape)
     wide = width == 128
     pairs = (a0, a1) + tuple(draws)
@@ -259,10 +285,7 @@ def trunc_combine(a0: Pair, a1: Pair, draws, width: int, amount: int):
     if len(pairs) != 7:
         raise ValueError(f"trunc_combine: expected 5 draws, got {len(draws)}")
     for label, pair in zip(labels, pairs):
-        _check_cuda_words(f"trunc_combine {label}.lo", pair[0], shape, device)
-        if wide:
-            _check_cuda_words(f"trunc_combine {label}.hi", pair[1], shape,
-                              device)
+        _check_pair(f"trunc_combine {label}", pair, shape, device, wide)
     out_lo = torch.empty((3,) + shape, dtype=torch.int64,
                          device=a0[0].device)
     out_hi = torch.empty_like(out_lo) if wide else None
@@ -276,8 +299,273 @@ def trunc_combine(a0: Pair, a1: Pair, draws, width: int, amount: int):
     with torch.cuda.device(device):
         err = lib.moose_trunc_combine(
             *ptrs, _ptr(out_lo), _ptr(out_hi), n, amount, int(wide),
-            torch.cuda.current_stream(device).cuda_stream,
+            _stream(device),
         )
     _raise_on("trunc_combine", err)
     LAUNCHES["trunc_combine"] += 1
     return out_lo, out_hi
+
+
+# ---------------------------------------------------------------------------
+# K3: elementwise cross terms
+# ---------------------------------------------------------------------------
+
+
+def cross_terms_mul_plain(x0: Pair, x1: Pair, y0: Pair, y1: Pair,
+                          width: int) -> Pair:
+    return ring.add(
+        *ring.mul(*x0, *ring.add(*y0, *y1)), *ring.mul(*x1, *y0)
+    )
+
+
+def cross_terms_mul(x0: Pair, x1: Pair, y0: Pair, y1: Pair,
+                    width: int) -> Pair:
+    """Elementwise ``v = x0 * (y0 + y1) + x1 * y0 mod 2^width`` — the
+    regrouped cross terms of a secure multiply — for four ring pairs of
+    one shape (the party axis rides in it)."""
+    if _on_cpu(x0[0]):
+        return cross_terms_mul_plain(x0, x1, y0, y1, width)
+    device = x0[0].device
+    _require_cuda("cross_terms_mul", device)
+    shape = tuple(x0[0].shape)
+    wide = width == 128
+    pairs = (x0, x1, y0, y1)
+    for label, pair in zip(("x0", "x1", "y0", "y1"), pairs):
+        _check_pair(f"cross_terms_mul {label}", pair, shape, device, wide)
+    out_lo = torch.empty(shape, dtype=torch.int64, device=device)
+    out_hi = torch.empty_like(out_lo) if wide else None
+    n = out_lo.numel()
+    if n == 0:
+        return out_lo, out_hi
+    lib = build.library("cross_terms_mul")
+    ptrs = []
+    for pair in pairs:
+        ptrs += [_ptr(pair[0]), _ptr(pair[1] if wide else None)]
+    with torch.cuda.device(device):
+        err = lib.moose_cross_terms_mul(
+            *ptrs, _ptr(out_lo), _ptr(out_hi), n, int(wide), _stream(device)
+        )
+    _raise_on("cross_terms_mul", err)
+    LAUNCHES["cross_terms_mul"] += 1
+    return out_lo, out_hi
+
+
+# ---------------------------------------------------------------------------
+# K4: elementwise ring multiply
+# ---------------------------------------------------------------------------
+
+
+def ring_mul_plain(lo1, hi1, lo2, hi2, width: int) -> Pair:
+    return ring.mul(lo1, hi1, lo2, hi2)
+
+
+def ring_mul(lo1, hi1, lo2, hi2, width: int) -> Pair:
+    """Elementwise ``a * b mod 2^width`` of two ring values of one
+    shape (``spmd.mul_public`` broadcasts the public factor first)."""
+    if _on_cpu(lo1):
+        return ring_mul_plain(lo1, hi1, lo2, hi2, width)
+    device = lo1.device
+    _require_cuda("ring_mul", device)
+    shape = tuple(lo1.shape)
+    wide = width == 128
+    _check_pair("ring_mul a", (lo1, hi1), shape, device, wide)
+    _check_pair("ring_mul b", (lo2, hi2), shape, device, wide)
+    out_lo = torch.empty(shape, dtype=torch.int64, device=device)
+    out_hi = torch.empty_like(out_lo) if wide else None
+    n = out_lo.numel()
+    if n == 0:
+        return out_lo, out_hi
+    lib = build.library("ring_mul")
+    with torch.cuda.device(device):
+        err = lib.moose_ring_mul(
+            _ptr(lo1), _ptr(hi1 if wide else None),
+            _ptr(lo2), _ptr(hi2 if wide else None),
+            _ptr(out_lo), _ptr(out_hi), n, int(wide), _stream(device),
+        )
+    _raise_on("ring_mul", err)
+    LAUNCHES["ring_mul"] += 1
+    return out_lo, out_hi
+
+
+# ---------------------------------------------------------------------------
+# K5: bit decomposition through the Kogge-Stone adder (and its msb)
+# ---------------------------------------------------------------------------
+
+
+def adder_bank_count(width: int) -> int:
+    """How many AND banks a decomposition consumes, in this order: 2
+    carry-save ANDs, the adder's first g = x AND y, then per round the g
+    update and, while 2d < k, the p_run update."""
+    n = 3
+    d = 1
+    while d < width:
+        n += 2 if d * 2 < width else 1
+        d *= 2
+    return n
+
+
+def bit_decompose_plain(lo, hi, width: int, banks) -> torch.Tensor:
+    """The unfused decomposition over the same banks
+    (``spmd_math._bit_decompose_with_banks``)."""
+    # imported here: spmd_math is built on this module
+    from ..parallel import spmd_math
+
+    return spmd_math._bit_decompose_with_banks(lo, hi, width, banks)
+
+
+def msb_plain(lo, hi, width: int, banks) -> torch.Tensor:
+    return bit_decompose_plain(lo, hi, width, banks)[:, :, width - 1]
+
+
+def _bits_adder(lo, hi, width: int, banks, msb_only: bool) -> torch.Tensor:
+    name = "msb" if msb_only else "bit_decompose"
+    shape = tuple(lo.shape)
+    if len(shape) < 2 or shape[:2] != (3, 2):
+        raise ValueError(f"{name}: expected (3, 2, *shape) words, got {shape}")
+    data = shape[2:]
+    # a bank short or too many would skew the draw stream: refuse both
+    bank_shape = (adder_bank_count(width), 3, width) + data
+    if banks.dtype != torch.uint8 or tuple(banks.shape) != bank_shape:
+        raise ValueError(
+            f"{name}: expected uint8 banks {bank_shape}, got {banks.dtype} "
+            f"{tuple(banks.shape)}"
+        )
+    if _on_cpu(lo):
+        plain = msb_plain if msb_only else bit_decompose_plain
+        return plain(lo, hi, width, banks)
+    device = lo.device
+    _require_cuda(name, device)
+    wide = width == 128
+    _check_pair(f"{name} x", (lo, hi), shape, device, wide)
+    if banks.device != device or not banks.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous banks on {device}")
+    out_shape = (3, 2) + (() if msb_only else (width,)) + data
+    out = torch.empty(out_shape, dtype=torch.uint8, device=device)
+    n = math.prod(data)
+    if n == 0:
+        return out
+    lib = build.library("bits_adder")
+    with torch.cuda.device(device):
+        err = lib.moose_bits_adder(
+            _ptr(lo), _ptr(hi if wide else None), _ptr(banks), _ptr(out),
+            n, int(wide), int(msb_only), _stream(device),
+        )
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+def bit_decompose(lo, hi, width: int, banks) -> torch.Tensor:
+    """Arithmetic -> binary sharing of the (3, 2, *shape) ring sharing
+    ``(lo, hi)``: bit planes of the held shares, the statically masked
+    summands, carry-save and a Kogge-Stone adder, consuming the uint8
+    AND banks ``(adder_bank_count(width), 3, width, *shape)`` the caller
+    drew.  Returns the uint8 bit sharing (3, 2, width, *shape)."""
+    return _bits_adder(lo, hi, width, banks, msb_only=False)
+
+
+def msb(lo, hi, width: int, banks) -> torch.Tensor:
+    """:func:`bit_decompose` writing only the top bit: (3, 2, *shape)."""
+    return _bits_adder(lo, hi, width, banks, msb_only=True)
+
+
+# ---------------------------------------------------------------------------
+# K6: fused Horner ladder
+# ---------------------------------------------------------------------------
+
+# csrc/horner.cu carries the coefficients in its argument block
+_MAX_HORNER_COEFFS = 64
+
+
+def _at_party(party: int, raw: int, like: torch.Tensor, width: int) -> Pair:
+    """(3, *shape) ring words holding ``raw`` in row ``party``, 0 in the
+    others: one pair slot of a trivial public sharing."""
+    lo, hi = ring.fill_like_shape(like.shape, width, 0, like.device)
+    c_lo, c_hi = ring.fill_like_shape((), width, raw, like.device)
+    lo[party] = c_lo
+    if hi is not None:
+        hi[party] = c_hi
+    return lo, hi
+
+
+def _roll(t):
+    return None if t is None else torch.roll(t, -1, dims=0)
+
+
+def _at(t, *index):
+    return None if t is None else t[index]
+
+
+def horner_plain(x0: Pair, x1: Pair, width: int, raws, f: int, zbanks: Pair,
+                 tdraws: Pair):
+    """The unfused ladder over the same draws (``spmd_math._horner_lax``
+    of the JAX package fed the pre-drawn values), from the plain K3 and
+    K2: per step the cross terms of acc * x, the zero share
+    ``s_p - s_{p+1}``, the truncation tail and the next coefficient at
+    pair slots (0, 0) and (2, 1)."""
+    like = x0[0]
+    acc0 = _at_party(0, raws[0], like, width)
+    acc1 = _at_party(2, raws[0], like, width)
+    for step, raw in enumerate(raws[1:]):
+        v = cross_terms_mul_plain(acc0, acc1, x0, x1, width)
+        s = (zbanks[0][step], _at(zbanks[1], step))
+        z_lo, z_hi = ring.add(*v, *ring.sub(*s, _roll(s[0]), _roll(s[1])))
+        a0 = ring.add(z_lo[0], _at(z_hi, 0), z_lo[1], _at(z_hi, 1))
+        a1 = (z_lo[2], _at(z_hi, 2))
+        draws = tuple(
+            (tdraws[0][step, d], _at(tdraws[1], step, d)) for d in range(5)
+        )
+        q_lo, q_hi = trunc_combine_plain(a0, a1, draws, width, f)
+        acc0 = ring.add(q_lo, q_hi, *_at_party(0, raw, like, width))
+        acc1 = ring.add(_roll(q_lo), _roll(q_hi),
+                        *_at_party(2, raw, like, width))
+    return acc0, acc1
+
+
+def horner(x0: Pair, x1: Pair, width: int, raws, f: int, zbanks: Pair,
+           tdraws: Pair):
+    """Fused fixed-point Horner ladder (``spmd_math.polynomial_eval``):
+    every step's cross terms, zero-share add, truncation by ``f`` and
+    coefficient add in one kernel.  ``x0``/``x1`` are the (3, *shape)
+    pair slots of x; ``raws`` the raw coefficients highest degree first
+    (``raws[0]`` seeds the accumulator); ``zbanks`` the (steps, 3,
+    *shape) zero-share banks and ``tdraws`` the (steps, 5, *shape)
+    truncation draws, drawn by the caller in the unfused ladder's order.
+    Returns the (slot 0, slot 1) pair slots of the result."""
+    if _on_cpu(x0[0]):
+        return horner_plain(x0, x1, width, raws, f, zbanks, tdraws)
+    device = x0[0].device
+    _require_cuda("horner", device)
+    steps = len(raws) - 1
+    if not 0 < steps < _MAX_HORNER_COEFFS:
+        raise ValueError(
+            f"horner: {steps} steps, expected 1 to {_MAX_HORNER_COEFFS - 1}"
+        )
+    if not 0 <= f <= width - 2:
+        raise ValueError(f"horner: amount {f} out of range for ring{width}")
+    wide = width == 128
+    shape = tuple(x0[0].shape)
+    _check_pair("horner x0", x0, shape, device, wide)
+    _check_pair("horner x1", x1, shape, device, wide)
+    _check_pair("horner zbanks", zbanks, (steps,) + shape, device, wide)
+    _check_pair("horner tdraws", tdraws, (steps, 5) + shape[1:], device, wide)
+    out_lo = torch.empty((2,) + shape, dtype=torch.int64, device=device)
+    out_hi = torch.empty_like(out_lo) if wide else None
+    n = math.prod(shape[1:])
+    if n > 0:
+        words = ctypes.c_uint64 * len(raws)
+        c_lo = words(*(int(r) & ring.MASK64 for r in raws))
+        c_hi = words(*((int(r) >> 64) & ring.MASK64 for r in raws))
+        lib = build.library("horner")
+        with torch.cuda.device(device):
+            err = lib.moose_horner(
+                _ptr(x0[0]), _ptr(x0[1] if wide else None),
+                _ptr(x1[0]), _ptr(x1[1] if wide else None),
+                _ptr(zbanks[0]), _ptr(zbanks[1] if wide else None),
+                _ptr(tdraws[0]), _ptr(tdraws[1] if wide else None),
+                _ptr(out_lo), _ptr(out_hi), c_lo, c_hi, steps, f, n,
+                int(wide), _stream(device),
+            )
+        _raise_on("horner", err)
+        LAUNCHES["horner"] += 1
+    return (out_lo[0], _at(out_hi, 0)), (out_lo[1], _at(out_hi, 1))

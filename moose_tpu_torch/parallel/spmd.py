@@ -1,8 +1,10 @@
 """Party-stacked execution of the 3-party replicated protocol on one device.
 
-PyTorch counterpart of ``moose_tpu/parallel/spmd.py`` for the secure
-dot.  A replicated sharing is ONE pair of int64 word tensors with leading
-axes ``(party=3, slot=2)``: x = x0 + x1 + x2, party i holds the pair
+PyTorch counterpart of ``moose_tpu/parallel/spmd.py``: sharing, the
+secure dot and elementwise multiply, public-constant arithmetic,
+truncation and the fixed-point layer.  A replicated sharing is ONE pair
+of int64 word tensors with leading axes ``(party=3, slot=2)``:
+x = x0 + x1 + x2, party i holds the pair
 (x_i, x_{i+1}), ``lo[i, 0]`` is x_i and ``lo[i, 1]`` is x_{i+1}.
 Share-local math is one tensor op over the party axis; resharing is a
 roll over it.  The port runs on one device, so the JAX package's mesh
@@ -85,6 +87,13 @@ class SpmdSession:
             tuple(shape), seed, width, self.device
         )
 
+    def sample_bit_bank(self, shape):
+        """(3, *shape) uniform bits as uint8 0/1, one slice per party."""
+        seed = self._next_seed()
+        return ring.sample_bits_seeded(
+            (3,) + tuple(shape), seed, self.device
+        )
+
 
 # ---------------------------------------------------------------------------
 # Core protocol
@@ -147,27 +156,44 @@ def zero_share(sess: SpmdSession, shape, width: int):
     return ring.sub(s_lo, s_hi, n_lo, n_hi)
 
 
-def _cross_terms(x: SpmdRep, y: SpmdRep):
-    """v_i = x_i @ (y_i + y_{i+1}) + x_{i+1} @ y_i per party, for a matrix
-    contraction: the regrouped 3-term cross product of the JAX package,
-    two contractions instead of three, through the ``dot_cross_terms``
-    kernel (its plain version on the CPU)."""
+def slot_words(t: SpmdRep, slot: int, shape=None):
+    """Pair slot ``slot`` of ``t`` as contiguous (3, *shape) words,
+    broadcast to the logical ``shape`` when given."""
+
+    def words(w):
+        if w is None:
+            return None
+        w = w[:, slot]
+        if shape is not None:
+            w = w.expand((3,) + tuple(shape))
+        return w.contiguous()
+
+    return words(t.lo), words(t.hi)
+
+
+def _cross_terms(x: SpmdRep, y: SpmdRep, elementwise: bool):
+    """v_i = x_i·(y_i + y_{i+1}) + x_{i+1}·y_i per party: the regrouped
+    3-term cross product of the JAX package, two products instead of
+    three.  Elementwise products (operands broadcast to their common
+    logical shape) run the ``cross_terms_mul`` kernel; matrix products
+    the ``dot_cross_terms`` kernel, which takes ``y0 + y1`` summed
+    beforehand.  On the CPU each kernel is its plain version."""
+    if elementwise:
+        shape = torch.broadcast_shapes(x.shape, y.shape)
+        return rk.cross_terms_mul(
+            slot_words(x, 0, shape), slot_words(x, 1, shape),
+            slot_words(y, 0, shape), slot_words(y, 1, shape), x.width,
+        )
     if len(x.shape) != 2 or len(y.shape) != 2:
         raise NotImplementedError(
             "the port's secure dot takes matrices (m, k) @ (k, n); vector "
             "operands are a later slice (ROADMAP queue 1, item 3)"
         )
-
-    def take(t: SpmdRep, slot: int):
-        return (
-            t.lo[:, slot].contiguous(),
-            None if t.hi is None else t.hi[:, slot].contiguous(),
-        )
-
-    x0, x1 = take(x, 0), take(x, 1)
-    y0, y1 = take(y, 0), take(y, 1)
-    ys = ring.add(*y0, *y1)
-    return rk.dot_cross_terms(x0, x1, y0, ys, x.width)
+    y0 = slot_words(y, 0)
+    ys = ring.add(*y0, *slot_words(y, 1))
+    return rk.dot_cross_terms(
+        slot_words(x, 0), slot_words(x, 1), y0, ys, x.width
+    )
 
 
 def _reshare(sess, v_lo, v_hi, width):
@@ -175,9 +201,15 @@ def _reshare(sess, v_lo, v_hi, width):
     return _pairs(*ring.add(v_lo, v_hi, a_lo, a_hi), width)
 
 
+def mul(sess: SpmdSession, x: SpmdRep, y: SpmdRep) -> SpmdRep:
+    """Secure elementwise multiplication: cross terms + reshare."""
+    v_lo, v_hi = _cross_terms(x, y, elementwise=True)
+    return _reshare(sess, v_lo, v_hi, x.width)
+
+
 def dot(sess: SpmdSession, x: SpmdRep, y: SpmdRep) -> SpmdRep:
     """Secure matmul: regrouped party-batched cross terms + reshare."""
-    v_lo, v_hi = _cross_terms(x, y)
+    v_lo, v_hi = _cross_terms(x, y, elementwise=False)
     return _reshare(sess, v_lo, v_hi, x.width)
 
 
@@ -193,6 +225,47 @@ def public_to_rep(lo, hi, width: int) -> SpmdRep:
         ])
 
     return SpmdRep(stacked(lo), None if hi is None else stacked(hi), width)
+
+
+def fill_public(shape, width: int, raw: int, device) -> SpmdRep:
+    """Trivial replicated sharing of a public ring constant."""
+    return public_to_rep(
+        *ring.fill_like_shape(shape, width, raw, device), width
+    )
+
+
+def mul_public(x: SpmdRep, c_lo, c_hi) -> SpmdRep:
+    """x * public constant (same value on every party) through the
+    ``ring_mul`` kernel, the constant broadcast to the shares' shape."""
+    x_lo = x.lo.contiguous()
+    b_lo = c_lo.expand(x_lo.shape).contiguous()
+    x_hi = b_hi = None
+    if x.hi is not None:
+        x_hi = x.hi.contiguous()
+        b_hi = c_hi.expand(x_hi.shape).contiguous()
+    return SpmdRep(*rk.ring_mul(x_lo, x_hi, b_lo, b_hi, x.width), x.width)
+
+
+def add_public(x: SpmdRep, c_lo, c_hi) -> SpmdRep:
+    """x + public c: only share x_0 (held at [0, 0] and [2, 1]) moves."""
+    lo = x.lo.clone()
+    hi = None if x.hi is None else x.hi.clone()
+    for party, slot in ((0, 0), (2, 1)):
+        s_lo, s_hi = ring.add(
+            x.lo[party, slot], _h(x.hi, party, slot), c_lo, c_hi
+        )
+        lo[party, slot] = s_lo
+        if hi is not None:
+            hi[party, slot] = s_hi
+    return SpmdRep(lo, hi, x.width)
+
+
+def sub_public(x: SpmdRep, c_lo, c_hi) -> SpmdRep:
+    return add_public(x, *ring.neg(c_lo, c_hi))
+
+
+def public_sub(c_lo, c_hi, x: SpmdRep) -> SpmdRep:
+    return add_public(neg(x), c_lo, c_hi)
 
 
 # Structural ops: pure share-local data movement on the logical axes.
@@ -236,6 +309,12 @@ def concat(xs, axis: int) -> SpmdRep:
     return SpmdRep(lo, hi, xs[0].width)
 
 
+def sum_axis(x: SpmdRep, axis: int) -> SpmdRep:
+    return SpmdRep(
+        *ring.sum_(x.lo, x.hi, axis=_laxis(x.lo, axis)), x.width
+    )
+
+
 # ---------------------------------------------------------------------------
 # Probabilistic truncation
 # ---------------------------------------------------------------------------
@@ -263,13 +342,15 @@ def _trunc_pr_adt(sess, a0, a1, width, amount, shape) -> SpmdRep:
     return _pairs(z_lo, z_hi, width)
 
 
-def _mul_like_trunc(sess, x: SpmdRep, y: SpmdRep, amount: int) -> SpmdRep:
-    """Fused dot-and-truncate: cross terms + zero-share, fed straight into
+def _mul_like_trunc(sess, x: SpmdRep, y: SpmdRep, elementwise: bool,
+                    amount: int) -> SpmdRep:
+    """Fused multiply-and-truncate (elementwise or matrix product, see
+    :func:`_cross_terms`): cross terms + zero-share, fed straight into
     truncation's 2-party additive form (a0 = z_0 + z_1, a1 = z_2) —
     bit-identical to resharing then ``trunc_pr``, with the same draw
     order."""
     width = x.width
-    v_lo, v_hi = _cross_terms(x, y)
+    v_lo, v_hi = _cross_terms(x, y, elementwise)
     a_lo, a_hi = zero_share(sess, v_lo.shape[1:], width)
     z_lo, z_hi = ring.add(v_lo, v_hi, a_lo, a_hi)
     a0 = ring.add(z_lo[0], _h(z_hi, 0), z_lo[1], _h(z_hi, 1))
@@ -292,10 +373,62 @@ def fx_reveal_decode(x: SpmdFixed):
     return ring.fixedpoint_decode(lo, hi, x.fractional_precision)
 
 
-def fx_dot(sess, x: SpmdFixed, y: SpmdFixed) -> SpmdFixed:
-    z = _mul_like_trunc(sess, x.tensor, y.tensor, x.fractional_precision)
+def fx_add(x: SpmdFixed, y: SpmdFixed) -> SpmdFixed:
+    return SpmdFixed(
+        add(x.tensor, y.tensor),
+        max(x.integral_precision, y.integral_precision),
+        x.fractional_precision,
+    )
+
+
+def fx_sub(x: SpmdFixed, y: SpmdFixed) -> SpmdFixed:
+    return SpmdFixed(
+        sub(x.tensor, y.tensor),
+        max(x.integral_precision, y.integral_precision),
+        x.fractional_precision,
+    )
+
+
+def _fx_product(sess, x: SpmdFixed, y: SpmdFixed,
+                elementwise: bool) -> SpmdFixed:
+    z = _mul_like_trunc(
+        sess, x.tensor, y.tensor, elementwise, x.fractional_precision
+    )
     return SpmdFixed(
         z,
         max(x.integral_precision, y.integral_precision),
+        x.fractional_precision,
+    )
+
+
+def fx_mul(sess, x: SpmdFixed, y: SpmdFixed) -> SpmdFixed:
+    return _fx_product(sess, x, y, elementwise=True)
+
+
+def fx_dot(sess, x: SpmdFixed, y: SpmdFixed) -> SpmdFixed:
+    return _fx_product(sess, x, y, elementwise=False)
+
+
+def _fx_raw(value: float, frac: int, width: int) -> int:
+    return int(round(value * (1 << frac))) % (1 << width)
+
+
+def _scalar(x: SpmdFixed, value: float):
+    """The public scalar ``value`` at x's precision as ring words."""
+    width = x.tensor.width
+    raw = _fx_raw(value, x.fractional_precision, width)
+    return ring.fill_like_shape((), width, raw, x.tensor.lo.device)
+
+
+def fx_mul_public(sess, x: SpmdFixed, value: float) -> SpmdFixed:
+    z = mul_public(x.tensor, *_scalar(x, value))
+    z = trunc_pr(sess, z, x.fractional_precision)
+    return SpmdFixed(z, x.integral_precision, x.fractional_precision)
+
+
+def fx_add_public(x: SpmdFixed, value: float) -> SpmdFixed:
+    return SpmdFixed(
+        add_public(x.tensor, *_scalar(x, value)),
+        x.integral_precision,
         x.fractional_precision,
     )

@@ -1,5 +1,6 @@
 """Predictors: encrypted inference over imported models.  The port runs
-``LinearRegressor`` so far (see ROADMAP.md for the other families)."""
+``LinearRegressor`` and ``LinearClassifier`` so far (see ROADMAP.md for
+the other families)."""
 
 from . import linear_predictor
 from . import onnx_convert
@@ -7,11 +8,12 @@ from . import onnx_proto
 from . import predictor
 from . import predictor_utils
 from . import sklearn_export
-from .linear_predictor import LinearRegressor
+from .linear_predictor import LinearClassifier, LinearRegressor
 from .onnx_convert import from_onnx
 from .predictor import Predictor
 
 __all__ = [
+    "LinearClassifier",
     "LinearRegressor",
     "Predictor",
     "from_onnx",

@@ -1,10 +1,10 @@
 """Export linear models to skl2onnx-style ONNX with the bundled protobuf
-encoder (``linear_regressor_onnx`` of
+encoder (``linear_regressor_onnx`` and ``logistic_regression_onnx`` of
 ``moose_tpu/predictors/sklearn_export.py``).
 
-Only ``coef_`` and ``intercept_`` are read, so any object carrying them —
-a fitted sklearn ``LinearRegression`` or a ``types.SimpleNamespace`` —
-exports.
+Only ``coef_``, ``intercept_`` and (for classifiers) ``classes_`` are
+read, so any object carrying them — a fitted sklearn model or a
+``types.SimpleNamespace`` — exports.
 """
 
 import numpy as np
@@ -42,3 +42,32 @@ def linear_regressor_onnx(sk_model, n_features):
         targets=coef.shape[0],
     )
     return _model([node], n_features, n_outputs=coef.shape[0])
+
+
+def logistic_regression_onnx(sk_model, n_features):
+    """skl2onnx layout for LogisticRegression: binary models carry both
+    class rows (the negated row for class 0) with the LOGISTIC
+    post-transform; multinomial models carry raw rows with SOFTMAX."""
+    coef = np.asarray(sk_model.coef_, dtype=np.float64)
+    intercept = np.asarray(sk_model.intercept_, dtype=np.float64)
+    n_classes = len(sk_model.classes_)
+    if n_classes == 2:
+        coefficients = np.concatenate([-coef, coef], axis=0)
+        intercepts = np.concatenate([-intercept, intercept])
+        post = "LOGISTIC"
+    else:
+        coefficients = coef
+        intercepts = intercept
+        post = "SOFTMAX"
+    node = op.make_node(
+        "LinearClassifier",
+        ["float_input"],
+        ["label", "probabilities"],
+        name="LinearClassifier",
+        coefficients=[float(v) for v in coefficients.ravel()],
+        intercepts=[float(v) for v in intercepts.ravel()],
+        classlabels_ints=[int(c) for c in sk_model.classes_],
+        post_transform=post,
+        multi_class=0,
+    )
+    return _model([node], n_features, n_outputs=n_classes)

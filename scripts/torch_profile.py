@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's main path on one CUDA card.
 
-Runs the eDSL secure dot (1000x1000 at fixed(14,23), ring128) and one
-ONNX LinearRegressor request (1024x100 at fixed(24,40)) through the
-port's LocalMooseRuntime, warm, under torch.profiler, and prints for
-each:
+Runs the eDSL secure dot (1000x1000 at fixed(14,23), ring128), one
+ONNX LinearRegressor request and one ONNX logistic-regression request
+(each 1024x100 at fixed(24,40)) through the port's LocalMooseRuntime,
+warm, under torch.profiler, and prints for each:
 
 - the host wall time of the request (median of three, without the
   profiler) and the device's busy and idle share (busy = the sum of
   kernel and copy times on the card in one profiled request; one
   stream);
-- device time by layer: the PRF expansion (threefry in PyTorch), the
-  two CUDA kernels (K1 dot_cross_terms, K2 trunc_combine), the
-  fixed-point encode/decode, and everything else;
+- device time by layer: the PRF expansion (threefry in PyTorch, ring
+  words and bit banks), the CUDA kernels K1-K6, the fixed-point
+  encode/decode, and everything else;
+- the number of kernels the card ran (PyTorch's and the port's);
 - the top kernels by device time.
 
 Run from the root of a checkout on a machine with a CUDA card:
@@ -48,6 +49,7 @@ from moose_tpu_torch.runtime import LocalMooseRuntime  # noqa: E402
 # wrappers only open a profiler range, the function runs unchanged
 LAYERS = (
     (ring, "sample_uniform_seeded", "prf_expand"),
+    (ring, "sample_bits_seeded", "prf_expand"),
     (ring, "fixedpoint_encode", "fixedpoint_encode"),
     (ring, "fixedpoint_decode", "fixedpoint_decode"),
 )
@@ -56,6 +58,10 @@ LAYERS = (
 KERNEL_LAYERS = (
     ("dot_cross_terms_kernel", "K1_dot_cross_terms"),
     ("trunc_combine_kernel", "K2_trunc_combine"),
+    ("cross_terms_mul_kernel", "K3_cross_terms_mul"),
+    ("ring_mul_kernel", "K4_ring_mul"),
+    ("bits_adder_kernel", "K5_bits_adder"),
+    ("horner_kernel", "K6_horner"),
 )
 
 
@@ -113,6 +119,7 @@ def profile_request(fn, warm=2):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     return {
         "wall_ms": wall_ms,
+        "device_launches": sum(count for _, count in kernels.values()),
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "layers_device_ms": dict(layers, other=busy_ms - sum(layers.values())),
@@ -148,13 +155,24 @@ def main() -> int:
         lambda: runtime.evaluate_computation(linreg, {"x": xr})
     )
     print(f"linear_regressor: {json.dumps(lin)}", flush=True)
+    classifier = chip_smoke.logistic_regression(
+        rng, chip_smoke.LOGREG_FEATURES
+    )
+    logreg = classifier.predictor_factory()
+    xl = rng.normal(size=(chip_smoke.LOGREG_ROWS,
+                          chip_smoke.LOGREG_FEATURES))
+    logreg_profile = profile_request(
+        lambda: runtime.evaluate_computation(logreg, {"x": xl})
+    )
+    print(f"logistic_regression: {json.dumps(logreg_profile)}", flush=True)
     after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(json.dumps({"card": smi, "clocks_power_after": after,
-                      "secure_dot": dot, "linear_regressor": lin}))
+                      "secure_dot": dot, "linear_regressor": lin,
+                      "logistic_regression": logreg_profile}))
     return 0
 
 

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card.  Every test here needs a CUDA device and skips without one.
+"""The port's CUDA kernels (K1-K6) against their plain PyTorch versions,
+on the card, word for word.  Every test here needs a CUDA device and
+skips without one.
 
 The card's machine has no JAX, and tests/conftest.py imports it, so run
 this file there without the conftest:
@@ -106,3 +107,100 @@ def test_wrapper_refuses_strided_words(cuda):
     pair = (x[:, 0], None)
     with pytest.raises(ValueError, match="contiguous"):
         rk.dot_cross_terms(pair, pair, pair, pair, 64)
+
+
+ELEMENTWISE_SHAPES = ((3, 5), (3, 1000), (3, 64, 1024), (3, 2, 7, 3))
+
+
+def _edge(rng, shape, width, device):
+    return interop.ring_from_numpy(
+        rng.choice(EDGE_WORDS, size=shape),
+        None if width == 64 else rng.choice(EDGE_WORDS, size=shape),
+        device=device,
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("shape", ELEMENTWISE_SHAPES)
+def test_cross_terms_mul_kernel_matches_plain(cuda, width, shape):
+    rng = np.random.default_rng(sum(shape))
+    for draw in (_words, _edge):
+        ops = [draw(rng, shape, width, cuda) for _ in range(4)]
+        before = rk.LAUNCHES["cross_terms_mul"]
+        got = rk.cross_terms_mul(*ops, width)
+        torch.cuda.synchronize()
+        assert rk.LAUNCHES["cross_terms_mul"] == before + 1
+        _assert_equal(got, rk.cross_terms_mul_plain(*ops, width))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("shape", ELEMENTWISE_SHAPES)
+def test_ring_mul_kernel_matches_plain(cuda, width, shape):
+    rng = np.random.default_rng(sum(shape) + 1)
+    for draw in (_words, _edge):
+        a, b = draw(rng, shape, width, cuda), draw(rng, shape, width, cuda)
+        before = rk.LAUNCHES["ring_mul"]
+        got = rk.ring_mul(*a, *b, width)
+        torch.cuda.synchronize()
+        assert rk.LAUNCHES["ring_mul"] == before + 1
+        _assert_equal(got, rk.ring_mul_plain(*a, *b, width))
+
+
+def _banks(rng, n, width, device):
+    banks = rng.integers(0, 2, size=(rk.adder_bank_count(width), 3, width, n),
+                         dtype=np.uint8)
+    return torch.from_numpy(banks).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("n", (1, 5, 1000, 1024))
+def test_bits_adder_kernel_matches_plain(cuda, width, n):
+    rng = np.random.default_rng(n + width)
+    for draw in (_words, _edge):
+        x = draw(rng, (3, 2, n), width, cuda)
+        banks = _banks(rng, n, width, cuda)
+        before = dict(rk.LAUNCHES)
+        bits = rk.bit_decompose(*x, width, banks)
+        top = rk.msb(*x, width, banks)
+        torch.cuda.synchronize()
+        assert rk.LAUNCHES["bit_decompose"] == before["bit_decompose"] + 1
+        assert rk.LAUNCHES["msb"] == before["msb"] + 1
+        want = rk.bit_decompose_plain(*x, width, banks)
+        assert torch.equal(bits, want)
+        assert torch.equal(top, want[:, :, width - 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,f", ((64, 23), (64, 35), (128, 40),
+                                     (128, 62)))
+@pytest.mark.parametrize("n,steps", ((7, 1), (1024, 14), (1000, 3)))
+def test_horner_kernel_matches_plain(cuda, width, f, n, steps):
+    rng = np.random.default_rng(n + steps + f)
+    raws = [int(v) for v in rng.integers(0, 1 << 63, size=steps + 1)]
+    x0, x1 = (_words(rng, (3, n), width, cuda) for _ in range(2))
+    zbanks = _words(rng, (steps, 3, n), width, cuda)
+    tdraws = _words(rng, (steps, 5, n), width, cuda)
+    before = rk.LAUNCHES["horner"]
+    got = rk.horner(x0, x1, width, raws, f, zbanks, tdraws)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["horner"] == before + 1
+    want = rk.horner_plain(x0, x1, width, raws, f, zbanks, tdraws)
+    for g, w in zip(got, want):
+        _assert_equal(g, w)
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_what_their_kernels_do_not_take(cuda):
+    rng = np.random.default_rng(0)
+    x = _words(rng, (3, 2, 4), 128, cuda)
+    short = _banks(rng, 4, 128, cuda)[:-1]
+    with pytest.raises(ValueError, match="banks"):
+        rk.bit_decompose(*x, 128, short.contiguous())
+    x0 = _words(rng, (3, 4), 64, cuda)
+    draws = _words(rng, (64, 5, 4), 64, cuda)
+    banks = _words(rng, (64, 3, 4), 64, cuda)
+    with pytest.raises(ValueError, match="steps"):
+        rk.horner(x0, x0, 64, list(range(65)), 23, banks, draws)

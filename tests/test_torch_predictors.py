@@ -1,7 +1,9 @@
-"""The slice end to end: the JAX LocalMooseRuntime (stacked layout) and
-the port's, on the CPU, give bit-identical outputs for the eDSL secure
-dot and the ONNX LinearRegressor under fixed keys and the threefry PRF;
-plus the port's boundaries (imports, devices, unported kinds)."""
+"""The first slice end to end: the JAX LocalMooseRuntime (stacked layout)
+and the port's, on the CPU, give bit-identical outputs for the eDSL
+secure dot and the ONNX LinearRegressor under fixed keys and the
+threefry PRF; plus the port's boundaries (imports, devices, the op kinds
+it runs and those it refuses).  The logistic regression end to end:
+tests/test_torch_logreg.py and tests/test_torch_classifier.py."""
 
 import ast
 import subprocess
@@ -16,6 +18,7 @@ import torch
 import moose_tpu as jm
 from moose_tpu.edsl import tracer as jtracer
 from moose_tpu.predictors import from_onnx as jfrom_onnx
+from moose_tpu.predictors import linear_predictor as jlp
 from moose_tpu.predictors import sklearn_export as jsk
 from moose_tpu.runtime import LocalMooseRuntime as JaxRuntime
 
@@ -121,11 +124,24 @@ def _kinds_by_placement(comp):
 
 def test_port_supports_exactly_the_slice_kinds():
     model = SimpleNamespace(coef_=np.ones(3), intercept_=np.array([1.0]))
+    binary = SimpleNamespace(coef_=np.ones((1, 3)), intercept_=np.ones(1),
+                             classes_=np.arange(2))
     graphs = [
         jtracer.trace(chip_smoke.secure_dot_computation(jm)),
         jtracer.trace(
             jfrom_onnx(jsk.linear_regressor_onnx(model, 3))
             .predictor_factory()
+        ),
+        jtracer.trace(
+            jfrom_onnx(jsk.logistic_regression_onnx(binary, 3))
+            .predictor_factory()
+        ),
+        # the one-vs-rest head of a 3-class LOGISTIC classifier
+        jtracer.trace(
+            jlp.LinearClassifier(
+                np.ones((3, 3)), np.ones(3),
+                post_transform=jlp.PostTransform.SIGMOID,
+            ).predictor_factory()
         ),
     ]
     traced = {k: set() for k in _kinds_by_placement(graphs[0])}
@@ -134,12 +150,19 @@ def test_port_supports_exactly_the_slice_kinds():
             traced[plc] |= kinds
     assert tlogical.HOST_KINDS == traced["HostPlacement"]
     assert tlogical.MIR_KINDS == traced["Mirrored3Placement"]
-    # Cast on the replicated placement (a fixed-point precision move) is
-    # ported beside the two graphs' kinds, as the slice's scope says
-    assert tstacked.REP_KINDS == traced["ReplicatedPlacement"] | {"Cast"}
+    # Cast on the replicated placement (a fixed-point precision move) and
+    # the Add and Mul beside the heads' Sub are ported with the graphs'
+    # kinds, as the slices' scope says
+    assert tstacked.REP_KINDS == \
+        traced["ReplicatedPlacement"] | {"Cast", "Add", "Mul"}
     port_graphs = [
         chip_smoke.secure_dot_computation(tm),
         tfrom_onnx(tsk.linear_regressor_onnx(model, 3)).predictor_factory(),
+        tfrom_onnx(tsk.logistic_regression_onnx(binary, 3))
+        .predictor_factory(),
+        interop.linear_classifier_from_arrays(
+            np.ones((3, 3)), np.ones(3), "SIGMOID"
+        ).predictor_factory(),
     ]
     assert all(
         tstacked.supports(ttracer.trace(g)) for g in port_graphs
@@ -155,18 +178,18 @@ def test_unported_kind_names_its_roadmap_item():
     rep = tm.replicated_placement("rep", players=[alice, bob, carole])
 
     @tm.computation
-    def mul(x: tm.Argument(alice, dtype=tm.float64)):
+    def exp(x: tm.Argument(alice, dtype=tm.float64)):
         with alice:
             xf = tm.cast(x, dtype=tm.fixed(14, 23))
         with rep:
-            z = edsl.mul(xf, xf)
+            z = edsl.exp(xf)
         with bob:
             out = tm.cast(z, dtype=tm.float64)
         return out
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PortRuntime(IDS, device="cpu").evaluate_computation(
-            mul, {"x": np.ones((2, 2))}
+            exp, {"x": np.ones((2, 2))}
         )
 
 
