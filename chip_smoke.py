@@ -9,11 +9,12 @@ NVIDIA H100:
 Phases (each raises on failure; the script then exits non-zero):
   1. versions of torch, CUDA and nvcc, and the card's name and power
      limit as nvidia-smi reports them;
-  2. build every kernel of the path from moose_tpu_torch/csrc (one nvcc
-     per source, started together);
+  2. build every kernel of the path from moose_tpu_torch/csrc (seven
+     sources, one nvcc each, started together);
   3. hold each kernel against its plain PyTorch version on the card at
      the main path's shapes and at 2^20 elements, word for word, and
-     time both with CUDA events after warm-up;
+     time both with CUDA events after warm-up; the threefry kernel (K7)
+     in both stream layouts, words and bits;
   4. the eDSL secure dot: 1000x1000 @ 1000x1000 at fixed(14,23), ring128,
      through LocalMooseRuntime on the card, checked against float64
      x @ y (max abs error < 2e-4);
@@ -23,12 +24,19 @@ Phases (each raises on failure; the script then exits non-zero):
   6. ONNX logistic regression (a binary LinearClassifier with the
      LOGISTIC post-transform, the exact protocol sigmoid), 100 features
      at fixed(24,40): three requests of 1024 rows, each checked against
-     float64 [1 - sigmoid(z), sigmoid(z)] (max abs error < 5e-3).
-Phases 4 to 6 are the main path: the kernels' launch counters are set
-to 0 just before each and read just after.  K1 and K2 must have launched
-in each, and every kernel (K1-K6, K5 in both modes) in phase 6.  The line
-before the last is the kernels' JSON record; the last line is the device
-record.
+     float64 [1 - sigmoid(z), sigmoid(z)] (max abs error < 5e-3);
+  7. secure training under the threefry-pallas PRF: LogregSGDTrainer,
+     100 features at fixed(24,40), ten chained SGD steps of 128 rows
+     from zero weights, each step within 1e-4 of reference_epoch from
+     the same input weights and the final weights within 1e-3 of the
+     float64 trajectory; then MLPSGDTrainer (hidden 32), two steps, each
+     within 1e-4.  The default threefry PRF is restored afterwards.
+Phases 4 to 7 are the main path: the kernels' launch counters are set
+to 0 just before each and read just after.  K1, K2 and the threefry
+kernel in the phase's stream layout (threefry in 4-6, threefry-pallas in
+7, and never the other) must have launched in each, and every kernel
+(K1-K6, K5 in both modes) in phases 6 and 7.  The line before the last
+is the kernels' JSON record; the last line is the device record.
 
 Without a CUDA device, or without the moose_tpu_torch package beside
 it, the script prints no result and exits with code 2.
@@ -48,11 +56,14 @@ from types import SimpleNamespace
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
 # 32-bit integer instructions per second outside the tensor cores: an SM
-# has 64 INT32 lanes beside its 128 FP32 lanes (Hopper architecture
-# white paper), and the data sheet's 67 TFLOP/s float32 is 132 SMs x 128
-# lanes x 2 (fused multiply-add) x 1.98 GHz; so 132 x 64 x 1.98e9.
+# issues at most one warp instruction per scheduler and clock, 4 x 32 =
+# 128 lanes (Hopper architecture white paper), the rate behind the data
+# sheet's 67 TFLOP/s float32 (132 SMs x 128 lanes x 2 for the fused
+# multiply-add x 1.98 GHz).  Integer adds reach it by issuing on the
+# FP32 pipe as well as on the 64 INT32 lanes; shifts and logic ops have
+# only the INT32 lanes, so a kernel of those alone gets half this rate.
 # 64-bit integer work runs as several of these instructions.
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
 # 32-bit integer operations of one ring operation, counted from
 # csrc/ring_words.cuh: a 64-bit add is two, a 128-bit add five (two
 # words and the carry compare); a 64-bit low product four, a 128-bit
@@ -64,6 +75,14 @@ RING_MUL_OPS = {64: 4, 128: 20}
 # selects on one or two u64 words, each u64 operation two to four 32-bit
 # ones)
 TRUNC_OPS_PER_ELEM = {64: 100, 128: 200}
+# 32-bit integer operations of one threefry2x32-20 block, counted from
+# csrc/threefry.cu: 2 initial key adds, 20 rounds of add, funnel shift
+# and xor, 5 key injections of 2 adds, 1 to form the counter; a layout-0
+# bit adds an xor and an and, and a layout-1 word of bits spreads its 16
+# nibbles into bytes with a shift, an and, a multiply and an and each
+THREEFRY_OPS_PER_BLOCK = 2 + 20 * 3 + 5 * 2 + 1
+THREEFRY_BIT_OPS = 2
+THREEFRY_SPREAD_OPS = 16 * 4
 
 SEED = 20261016
 DOT_N = 1000
@@ -85,6 +104,16 @@ PATH_N = LOGREG_ROWS
 BIG_N = 1 << 20
 HORNER_STEPS = 14
 HORNER_F = 62
+# the reference's training table (benchmarks/logreg.py:1-8, :32-35):
+# fixed(24,40), 100 features, batches of 128, learning rate 0.1
+TRAIN_FEATURES = 100
+TRAIN_ROWS = 128
+TRAIN_STEPS = 10
+TRAIN_LR = 0.1
+TRAIN_STEP_TOL = 1e-4  # per step (tests/test_training.py:213)
+TRAIN_TRAJECTORY_TOL = 1e-3  # over the steps (benchmarks/logreg.py:145)
+MLP_HIDDEN = 32
+MLP_STEPS = 2
 
 
 def log(*args):
@@ -320,6 +349,31 @@ def compare_horner(torch, rk, gen, n, width, steps, f, reps):
     )
 
 
+def threefry_bound(n, layout, bits):
+    """K7 over n outputs: the output written once (8 bytes a word, 1 a
+    bit), nothing read; one cipher block per word, per layout-0 bit, or
+    per 64 layout-1 bits."""
+    if not bits:
+        return bound(n * 8, n * THREEFRY_OPS_PER_BLOCK)
+    if layout == "threefry":
+        return bound(n, n * (THREEFRY_OPS_PER_BLOCK + THREEFRY_BIT_OPS))
+    words = -(-n // 64)
+    return bound(n, words * (THREEFRY_OPS_PER_BLOCK + THREEFRY_SPREAD_OPS))
+
+
+def compare_threefry(torch, rk, n, layout, bits, reps, label):
+    """K7 in one layout against its plain version.  There is no library
+    call: PyTorch's generators are Philox, another function."""
+    k0, k1 = SEED & 0xFFFFFFFF, 0x9E3779B9
+    kernel, plain = ((rk.threefry_bits, rk.threefry_bits_plain) if bits
+                     else (rk.threefry_words, rk.threefry_words_plain))
+    return compare_kernel(
+        torch, kernel, plain, (k0, k1, n, layout, "cuda"),
+        threefry_bound(n, layout, bits), reps,
+        shape=f"{n} {'bits' if bits else 'words'} ({label})", mode=layout,
+    )
+
+
 def secure_dot_computation(pm, precision=DOT_PRECISION):
     """x on alice and y on bob, cast to fixed point, multiplied under the
     replicated placement, revealed to carole.  ``pm`` is the eDSL module
@@ -393,6 +447,109 @@ def logistic_reference(predictor, x):
     z = x @ predictor.coeffs[1] + predictor.intercepts[0, 1]
     p = 1.0 / (1.0 + np.exp(-z))
     return np.stack([1.0 - p, p], axis=1)
+
+
+def training_data(rng, n_rows, n_features):
+    """Features and labels as ``benchmarks/logreg.py:169-173`` makes
+    them: unit normal rows scaled by 0.1, labels of a random linear model
+    with a little noise."""
+    import numpy as np
+
+    x = rng.normal(size=(n_rows, n_features)) * 0.1
+    true_w = rng.normal(size=(n_features, 1))
+    noise = 0.05 * rng.normal(size=(n_rows, 1))
+    return x, (x @ true_w + noise > 0).astype(np.float64)
+
+
+def train_steps(runtime, trainer, batches, state, sync=lambda: None):
+    """Chained SGD steps of ``trainer`` through ``runtime``, one per
+    ``(x, y)`` batch, from the float ``state``.  Each step's weights are
+    held against ``reference_epoch`` from the same input weights.
+    Returns (final state, max abs error per step, seconds per step)."""
+    import numpy as np
+
+    names = sorted(trainer.state_shapes)
+    errs, seconds = [], []
+    for x, y in batches:
+        comp = trainer.step_computation(x.shape[0])
+        sync()
+        t0 = time.perf_counter()
+        out = runtime.evaluate_computation(comp, dict(state, x=x, y=y))
+        sync()
+        seconds.append(time.perf_counter() - t0)
+        want = trainer.reference_epoch(state, x, y)
+        state = {name: out[f"output_{i}"] for i, name in enumerate(names)}
+        err = 0.0
+        for name in names:
+            got = state[name]
+            if got.shape != want[name].shape or not np.all(np.isfinite(got)):
+                raise AssertionError(f"{name} malformed: {got.shape}")
+            err = max(err, float(np.abs(got - want[name]).max()))
+        errs.append(err)
+    return state, errs, seconds
+
+
+def run_training(torch, rk, runtime, rng):
+    """Phase 7: the logistic-regression trainer's chained steps, then the
+    MLP trainer's, each checked as ``train_steps`` says; returns the
+    phase's record with its launch counts under ``launches``."""
+    import numpy as np
+
+    from moose_tpu_torch.predictors import trainers
+
+    x, y = training_data(rng, TRAIN_ROWS * TRAIN_STEPS, TRAIN_FEATURES)
+    batches = [
+        (x[i * TRAIN_ROWS:(i + 1) * TRAIN_ROWS],
+         y[i * TRAIN_ROWS:(i + 1) * TRAIN_ROWS])
+        for i in range(TRAIN_STEPS)
+    ]
+    logreg = trainers.LogregSGDTrainer(TRAIN_FEATURES, TRAIN_LR)
+    mlp = trainers.MLPSGDTrainer(TRAIN_FEATURES, MLP_HIDDEN, TRAIN_LR)
+    mlp_state = {
+        "w1": rng.normal(size=(TRAIN_FEATURES, MLP_HIDDEN)) * 0.1,
+        "w2": rng.normal(size=(MLP_HIDDEN, 1)) * 0.1,
+    }
+    rk.reset_launches()
+    state, errs, seconds = train_steps(
+        runtime, logreg, batches, {"w": np.zeros((TRAIN_FEATURES, 1))},
+        torch.cuda.synchronize,
+    )
+    logreg_launches = dict(rk.LAUNCHES)
+    _, mlp_errs, mlp_seconds = train_steps(
+        runtime, mlp, batches[:MLP_STEPS], mlp_state, torch.cuda.synchronize
+    )
+    launches = dict(rk.LAUNCHES)
+    want = {"w": np.zeros((TRAIN_FEATURES, 1))}
+    for xb, yb in batches:
+        want = logreg.reference_epoch(want, xb, yb)
+    trajectory_err = float(np.abs(state["w"] - want["w"]).max())
+    log(f"training logreg: {TRAIN_STEPS} steps of {TRAIN_ROWS}x"
+        f"{TRAIN_FEATURES} fixed(24, 40) threefry-pallas latencies_ms "
+        f"{[round(t * 1e3, 3) for t in seconds]} rows_per_s "
+        f"{TRAIN_ROWS * TRAIN_STEPS / sum(seconds):.1f} step_errs "
+        f"{max(errs):.3e} trajectory_err {trajectory_err:.3e} "
+        f"launches {logreg_launches}")
+    log(f"training mlp: {MLP_STEPS} steps of {TRAIN_ROWS}x{TRAIN_FEATURES} "
+        f"hidden {MLP_HIDDEN} latencies_ms "
+        f"{[round(t * 1e3, 3) for t in mlp_seconds]} step_errs "
+        f"{max(mlp_errs):.3e} launches (both trainers) {launches}")
+    if max(errs + mlp_errs) >= TRAIN_STEP_TOL:
+        raise AssertionError(
+            f"a training step is off its reference by {max(errs + mlp_errs)}"
+        )
+    if trajectory_err >= TRAIN_TRAJECTORY_TOL:
+        raise AssertionError(f"trajectory error {trajectory_err}")
+    return {
+        "prf": "threefry-pallas",
+        "logreg_step_ms": [t * 1e3 for t in seconds],
+        "logreg_rows_per_s": TRAIN_ROWS * TRAIN_STEPS / sum(seconds),
+        "logreg_step_max_abs_err": max(errs),
+        "logreg_trajectory_max_abs_err": trajectory_err,
+        "logreg_launches": logreg_launches,
+        "mlp_step_ms": [t * 1e3 for t in mlp_seconds],
+        "mlp_step_max_abs_err": max(mlp_errs),
+        "launches": launches,
+    }
 
 
 def timed(torch, fn):
@@ -493,10 +650,26 @@ def main() -> int:
                        reps=5),
         compare_horner(torch, rk, gen, PATH_N, 64, 9, 35, reps=20),
     ]
+    # K7 at the draws of the paths: the trainer's largest (sharing its
+    # 128x100 ring128 batch), the logistic regression's bit banks
+    # (3, 128, 1024), 2^20 words and the secure dot's (2, 3, 1000, 1000)
+    threefry_rows = [
+        compare_threefry(torch, rk, n, layout, bits, reps, label)
+        for layout in ("threefry-pallas", "threefry")
+        for n, bits, reps, label in (
+            (2 * 3 * TRAIN_ROWS * TRAIN_FEATURES, False, 20,
+             "trainer's largest draw"),
+            (3 * 128 * LOGREG_ROWS, True, 20,
+             "logistic regression's bit banks"),
+            (BIG_N, False, 20, "2^20 words"),
+            (2 * 3 * DOT_N * DOT_N, False, 5, "secure dot's (2,3,1000,1000)"),
+        )
+    ]
     rows_by_kernel = {
         "dot_cross_terms": dot_rows, "trunc_combine": trunc_rows,
         "cross_terms_mul": cross_rows, "ring_mul": mul_rows,
         "bits_adder": bits_rows, "horner": horner_rows,
+        "threefry": threefry_rows,
     }
     for name, rows in rows_by_kernel.items():
         for row in rows:
@@ -596,20 +769,37 @@ def main() -> int:
             f"logistic regression error {max(logreg_errs)} >= {LOGREG_TOL}"
         )
 
+    # phase 7: secure training under threefry-pallas (main path)
+    ring.set_prf_impl("threefry-pallas")
+    try:
+        training = run_training(torch, rk, runtime, rng)
+    finally:
+        ring.set_prf_impl("threefry")
+
     launches_by_path = {
         "secure_dot": dot_launches,
         "linear_regressor": linreg_launches,
         "logistic_regression": logreg_launches,
+        "training": training.pop("launches"),
     }
+    protocol = ("dot_cross_terms", "trunc_combine", "cross_terms_mul",
+                "ring_mul", "bit_decompose", "msb", "horner")
     required = {
-        "secure_dot": ("dot_cross_terms", "trunc_combine"),
-        "linear_regressor": ("dot_cross_terms", "trunc_combine"),
-        "logistic_regression": tuple(rk.LAUNCHES),
+        "secure_dot": ("dot_cross_terms", "trunc_combine", "prf_threefry"),
+        "linear_regressor": ("dot_cross_terms", "trunc_combine",
+                             "prf_threefry"),
+        "logistic_regression": protocol + ("prf_threefry",),
+        "training": protocol + ("prf_threefry_pallas",),
     }
+    # the stream a phase did not select expands nothing
+    unused = {path: "prf_threefry_pallas" for path in required}
+    unused["training"] = "prf_threefry"
     for path, names in required.items():
         for name in names:
             if launches_by_path[path][name] < 1:
                 raise AssertionError(f"{path} never launched {name}")
+        if launches_by_path[path][unused[path]] != 0:
+            raise AssertionError(f"{path} launched {unused[path]}")
 
     for mod in sys.modules:
         if mod == "jax" or mod.startswith(("jax.", "moose_tpu.")) \
@@ -624,10 +814,13 @@ def main() -> int:
         "ring_mul": f"{tpu}:534",
         "bits_adder": f"{tpu}:769 (bit_decompose), :779 (msb)",
         "horner": f"{tpu}:857",
+        "threefry": "moose_tpu/dialects/pallas_prf.py:119",
     }
-    # the LAUNCHES names behind each kernel (K5 counts its two modes)
+    # the LAUNCHES names behind each kernel (K5 counts its two modes, K7
+    # its two stream layouts)
     counters = {name: (name,) for name in replaces}
     counters["bits_adder"] = ("bit_decompose", "msb")
+    counters["threefry"] = ("prf_threefry", "prf_threefry_pallas")
     kernels = []
     for name, rows in rows_by_kernel.items():
         head = rows[0]  # the main path's shape
@@ -675,6 +868,7 @@ def main() -> int:
             "rows_per_s": logreg_rows_per_s,
             "max_abs_err": max(logreg_errs),
         },
+        "training": training,
     }
     log(json.dumps(record))
     log(json.dumps({"kernels": kernels}))

@@ -5,8 +5,9 @@ same eDSL, IR and 3-party replicated secret-sharing protocol on PyTorch
 tensors, with the hot ring kernels hand-written in CUDA for Hopper
 (``csrc/``).  The slices ported so far cover the secure dot (an eDSL
 ``dot`` under a replicated placement), ONNX ``LinearRegressor``
-inference and ONNX logistic regression (``LinearClassifier`` with the
-exact protocol sigmoid), through ``LocalMooseRuntime`` on its stacked
+inference, ONNX logistic regression (``LinearClassifier`` with the
+exact protocol sigmoid) and the SGD trainers' secure training step
+(``predictors.trainers``), through ``LocalMooseRuntime`` on its stacked
 layout.
 
 The package imports ``torch`` and never ``jax`` nor ``moose_tpu``.  Its
@@ -36,6 +37,7 @@ from .edsl.base import (
     sigmoid,
     sub,
     sum,
+    transpose,
 )
 
 __all__ = [
@@ -63,6 +65,7 @@ __all__ = [
     "sigmoid",
     "sub",
     "sum",
+    "transpose",
 ]
 
 

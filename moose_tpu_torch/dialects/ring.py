@@ -11,20 +11,27 @@ compares (carries, borrows) flip the sign bit first.
 A ring value is ``(lo, hi)`` with ``hi=None`` for width 64 — the two-word
 layout of the JAX package, so shares convert word for word.
 
-The PRF is threefry2x32-20 in counter mode, reproducing
-``jax.random.bits`` on a threefry key (``jax_threefry_partitionable``):
-for the flat index i the block ``(i >> 32, i & 0xFFFFFFFF)`` is
-encrypted under the key words ``(s >> 32, s & 0xFFFFFFFF)`` of the u64
-key ``s``.  Seeds are four u32 words kept as Python ints on the host;
-only the counter-mode expansion runs on the device.
+The PRF is threefry2x32-20 in counter mode, in one of two streams
+chosen for the process with :func:`set_prf_impl` (or ``MOOSE_TPU_PRF``
+at import).  ``"threefry"``, the default, reproduces ``jax.random.bits``
+on a threefry key (``jax_threefry_partitionable``): for the flat index i
+the block ``(i >> 32, i & 0xFFFFFFFF)`` is encrypted under the key words
+``(s >> 32, s & 0xFFFFFFFF)`` of the u64 key ``s``.  ``"threefry-pallas"``
+is the JAX package's K7 stream (``pallas_prf.py``).  Seeds are four u32
+words kept as Python ints on the host; only the counter-mode expansion
+runs on the device: the CUDA kernel ``csrc/threefry.cu`` for a CUDA
+device, its plain PyTorch version for the CPU.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Sequence, Tuple
 
 import torch
+
+from ..errors import ConfigurationError
 
 MASK32 = 0xFFFFFFFF
 MASK64 = (1 << 64) - 1
@@ -236,7 +243,8 @@ def fixedpoint_decode(lo, hi, frac_precision: int):
 
 
 # ---------------------------------------------------------------------------
-# PRF: threefry2x32-20 (the JAX package's "threefry" implementation)
+# PRF: threefry2x32-20 (the JAX package's "threefry" and "threefry-pallas"
+# implementations)
 # ---------------------------------------------------------------------------
 
 _ROT_A = (13, 15, 26, 6)
@@ -246,6 +254,54 @@ _GOLDEN64 = 0x9E3779B97F4A7C15
 
 Seed = Tuple[int, int, int, int]
 
+PRF_IMPLS = ("threefry", "threefry-pallas")
+
+
+def _checked_prf_impl(name: str) -> str:
+    if name == "rbg":
+        raise ConfigurationError(
+            "the rbg PRF is XLA's RngBitGenerator, which has no "
+            "counterpart outside XLA; the port offers "
+            f"{PRF_IMPLS}"
+        )
+    if name == "aes-ctr":
+        raise NotImplementedError(
+            "the aes-ctr PRF is not ported yet (ROADMAP queue 1, item 2)"
+        )
+    if name not in PRF_IMPLS:
+        raise ConfigurationError(
+            f"PRF impl must be one of {PRF_IMPLS}, got {name!r}"
+        )
+    return name
+
+
+_PRF_IMPL = _checked_prf_impl(os.environ.get("MOOSE_TPU_PRF", "threefry"))
+
+
+def set_prf_impl(name: str) -> None:
+    """Select the process's PRF stream: ``"threefry"`` (the default;
+    ``jax.random.bits`` on a threefry key) or ``"threefry-pallas"`` (the
+    JAX package's K7 stream).  Both are threefry2x32-20, a cryptographic
+    PRF, expanded by ``csrc/threefry.cu`` on the card.  ``"rbg"`` raises
+    ``ConfigurationError`` and ``"aes-ctr"`` ``NotImplementedError``."""
+    global _PRF_IMPL
+    _PRF_IMPL = _checked_prf_impl(name)
+
+
+def get_prf_impl() -> str:
+    return _PRF_IMPL
+
+
+def require_strong_prf(context: str) -> None:
+    """Refuse a non-cryptographic PRF where parties distrust each other.
+    Both of the port's streams are threefry, so this passes whenever the
+    selection did; it stands where the JAX package gates its rbg
+    default."""
+    if _PRF_IMPL not in PRF_IMPLS:
+        raise ConfigurationError(
+            f"{context} requires a cryptographic PRF, got {_PRF_IMPL!r}"
+        )
+
 
 def _rotl32(x, r: int):
     return ((x << r) & MASK32) | (x >> (32 - r))
@@ -254,8 +310,8 @@ def _rotl32(x, r: int):
 def threefry2x32_20(x0, x1, k0: int, k1: int):
     """20 rounds of threefry2x32.  ``x0``/``x1`` are Python ints or int64
     tensors holding u32 values; ``k0``/``k1`` are u32 Python ints.  The
-    same code serves seeds on the host and counter blocks on the
-    device."""
+    same code serves seeds on the host and the plain version of the
+    counter-mode kernel."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & MASK32
     x1 = (x1 + ks[1]) & MASK32
@@ -289,7 +345,8 @@ def mix_seed(seed, nonce) -> Seed:
     """Derive a fresh 128-bit seed from (key, public nonce): the four u32
     words of ``jax.random.bits(key, (4,), uint32)`` under the key mixed
     from ``seed ^ (nonce * 0x9E3779B9 + 0x85EBCA6B)``, computed on the
-    host in Python integers."""
+    host in Python integers.  The same under either PRF stream: the JAX
+    package derives seeds on the threefry key under both."""
     k = _seed_words(seed)
     n = _seed_words(nonce)
     mixed = tuple(
@@ -306,22 +363,34 @@ def mix_seed(seed, nonce) -> Seed:
 def random_bits_u64(seed, shape: Sequence[int], device):
     """``jax.random.bits(key, shape, uint64)`` for the threefry key of
     ``seed``, as int64 words on ``device``."""
+    # imported here: ring_kernels is built on this module
+    from ..native import ring_kernels as rk
+
     k0, k1 = _key_from_seed(_seed_words(seed))
     shape = tuple(int(s) for s in shape)
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=I64, device=device)
-    y0, y1 = threefry2x32_20(idx >> 32, idx & MASK32, k0, k1)
-    return torch.bitwise_or(y0 << 32, y1).reshape(shape)
+    return rk.threefry_words(
+        k0, k1, math.prod(shape), "threefry", device
+    ).reshape(shape)
+
+
+def _random_bits_u64(seed, shape, device):
+    """u64 words of ``shape`` from ``seed`` in the selected stream."""
+    if _PRF_IMPL == "threefry-pallas":
+        from . import pallas_prf
+
+        return pallas_prf.random_bits_u64(seed, shape, device)
+    return random_bits_u64(seed, shape, device)
 
 
 def sample_uniform_seeded(shape, seed, width: int, device):
     """Uniform ring elements from ``seed``: one u64 draw for ring64; for
     ring128 one ``(2,)+shape`` draw with ``lo = both[1]``,
-    ``hi = both[0]``, as the JAX package draws them."""
+    ``hi = both[0]``, as the JAX package draws them under either
+    stream."""
     shape = tuple(int(s) for s in shape)
     if width == 64:
-        return random_bits_u64(seed, shape, device), None
-    both = random_bits_u64(seed, (2,) + shape, device)
+        return _random_bits_u64(seed, shape, device), None
+    both = _random_bits_u64(seed, (2,) + shape, device)
     return both[1], both[0]
 
 
@@ -334,13 +403,20 @@ def _bit_domain_seed(seed) -> Seed:
 
 
 def sample_bits_seeded(shape, seed, device):
-    """Uniform bits as ``torch.uint8`` 0/1 from ``seed``:
-    ``jax.random.bits(key, shape, uint8) & 1`` under the tagged seed's
-    threefry key, i.e. bit 0 of ``y0 ^ y1`` for the counter block of
-    each flat index."""
-    k0, k1 = _key_from_seed(_bit_domain_seed(seed))
+    """Uniform bits as ``torch.uint8`` 0/1 from the tagged ``seed``.
+    Under ``"threefry"``: ``jax.random.bits(key, shape, uint8) & 1``, i.e.
+    bit 0 of ``y0 ^ y1`` for the counter block of each flat index.  Under
+    ``"threefry-pallas"``: ``ceil(n/64)`` words of K7's stream, element
+    ``64w + j`` being bit ``j`` of word ``w``."""
+    tagged = _bit_domain_seed(seed)
     shape = tuple(int(s) for s in shape)
-    idx = torch.arange(math.prod(shape), dtype=I64, device=device)
-    y0, y1 = threefry2x32_20(idx >> 32, idx & MASK32, k0, k1)
-    bits = torch.bitwise_and(torch.bitwise_xor(y0, y1), 1)
-    return bits.to(torch.uint8).reshape(shape)
+    if _PRF_IMPL == "threefry-pallas":
+        from . import pallas_prf
+
+        return pallas_prf.random_bits_u8(tagged, shape, device)
+    from ..native import ring_kernels as rk
+
+    k0, k1 = _key_from_seed(tagged)
+    return rk.threefry_bits(
+        k0, k1, math.prod(shape), "threefry", device
+    ).reshape(shape)

@@ -5,10 +5,11 @@ PyTorch counterpart of ``moose_tpu/dialects/stacked.py`` for the slice's
 graphs.  Replicated tensors become ``SpmdRep``/``SpmdFixed`` (one word
 tensor with a leading party axis); host and mirrored ops delegate to the
 logical dialect.  The replicated kinds are those of the eDSL secure dot,
-the ONNX linear regressor and the ONNX logistic regression (``Dot``,
-``Concat``, ``Sigmoid``, ``IndexAxis``, ``ExpandDims``, ``Sub`` and the
-other arithmetic of the classifier heads) plus the fixed-point precision
-move ``Cast``; any other kind is refused by :func:`supports` and raises
+the ONNX linear regressor, the ONNX logistic regression and the SGD
+trainers' step (``Dot``, ``Concat``, ``Sigmoid``, ``IndexAxis``,
+``ExpandDims``, ``Transpose``, ``Sub`` and the other arithmetic of the
+classifier heads) plus the fixed-point precision move ``Cast``; any
+other kind is refused by :func:`supports` and raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -33,7 +34,7 @@ from . import logical
 
 REP_KINDS = frozenset({
     "Dot", "Concat", "Cast", "Sigmoid", "IndexAxis", "ExpandDims", "Add",
-    "Sub", "Mul", "Div", "Sum",
+    "Sub", "Mul", "Div", "Sum", "Transpose",
 })
 BOUNDARY_KINDS = frozenset({"Input", "Output"})
 
@@ -206,6 +207,10 @@ def _execute_rep(sess: StackedSession, comp, op: Operation,
             x.tensor, op.attributes["axis"], op.attributes["index"]
         )
         return _fx(out, x)
+
+    if kind == "Transpose":
+        x = _fixed(to_rep(sess, args[0]), kind)
+        return _fx(spmd.transpose(x.tensor, op.attributes.get("axes")), x)
 
     if kind == "ExpandDims":
         x = _fixed(to_rep(sess, args[0]), kind)

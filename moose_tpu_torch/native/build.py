@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNELS = (
     "dot_cross_terms", "trunc_combine", "cross_terms_mul", "ring_mul",
-    "bits_adder", "horner",
+    "bits_adder", "horner", "threefry",
 )
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -69,6 +69,11 @@ SIGNATURES = {
         + [ctypes.POINTER(ctypes.c_uint64)] * 2
         + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
            ctypes.c_void_p],
+    ),
+    "threefry": (
+        "moose_threefry",
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     ),
 }
 

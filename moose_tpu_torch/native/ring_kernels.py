@@ -16,18 +16,24 @@ kernels the secure dot and the protocol sigmoid run:
   through a Kogge-Stone adder over pre-drawn AND banks, all bits or only
   the top one, one kernel ``csrc/bits_adder.cu``;
 - ``horner`` (K6): the fused fixed-point Horner ladder of a secret
-  polynomial, ``csrc/horner.cu``.
+  polynomial, ``csrc/horner.cu``;
+- ``threefry_words`` and ``threefry_bits`` (K7, the
+  ``moose_tpu/dialects/pallas_prf.py`` kernel): threefry2x32-20
+  counter-mode expansion of a key into u64 words or 0/1 bits, in the
+  layout of the default ``threefry`` stream or of K7's
+  ``threefry-pallas`` stream, one kernel ``csrc/threefry.cu``.
 
-A wrapper takes its plain version only for tensors on the CPU.  For CUDA
-tensors it launches the kernel or raises: there is no fallback.  Each
-launch adds one to ``LAUNCHES[name]`` (and nothing else does), so a run
-can show that it went through the kernels; K5 counts its two modes
-apart.
+A wrapper takes its plain version only for tensors (for K7, a device) on
+the CPU.  For CUDA it launches the kernel or raises: there is no
+fallback.  Each launch adds one to ``LAUNCHES[name]`` (and nothing else
+does), so a run can show that it went through the kernels; K5 counts its
+two modes apart, and K7 its two layouts (``prf_threefry``,
+``prf_threefry_pallas``).
 
 The plain versions repeat the kernels' arithmetic in PyTorch.  They are
 what the CPU tests hold against the JAX package, and what ``chip_smoke.py``
 holds each kernel against on the card; they are no yardstick of speed.
-Kernels never draw randomness: callers pass the pre-drawn values, so a
+K1-K6 never draw randomness: callers pass the values K7 expanded, so a
 computation is bit-identical on either path.
 """
 
@@ -47,6 +53,7 @@ Pair = Tuple[torch.Tensor, Optional[torch.Tensor]]
 LAUNCHES = {
     "dot_cross_terms": 0, "trunc_combine": 0, "cross_terms_mul": 0,
     "ring_mul": 0, "bit_decompose": 0, "msb": 0, "horner": 0,
+    "prf_threefry": 0, "prf_threefry_pallas": 0,
 }
 
 
@@ -569,3 +576,103 @@ def horner(x0: Pair, x1: Pair, width: int, raws, f: int, zbanks: Pair,
         _raise_on("horner", err)
         LAUNCHES["horner"] += 1
     return (out_lo[0], _at(out_hi, 0)), (out_lo[1], _at(out_hi, 1))
+
+
+# ---------------------------------------------------------------------------
+# K7: threefry counter-mode expansion (both PRF streams)
+# ---------------------------------------------------------------------------
+
+# csrc/threefry.cu's code of each stream layout, and its LAUNCHES name
+PRF_LAYOUTS = {
+    "threefry": (0, "prf_threefry"),
+    "threefry-pallas": (1, "prf_threefry_pallas"),
+}
+# a threefry-pallas key covers 2^32 words: its counter is the u32 lane
+# index, and a repeated counter would repeat a mask
+PALLAS_MAX_WORDS = 1 << 32
+
+
+def _prf_blocks(k0: int, k1: int, n: int, layout: str, device):
+    """The encrypted counter blocks (y0, y1) of elements 0..n-1 of a
+    stream, as int64 tensors holding u32 values."""
+    c = torch.arange(n, dtype=torch.int64, device=device)
+    if layout == "threefry":
+        x0, x1 = c >> 32, torch.bitwise_and(c, ring.MASK32)
+    else:
+        x0, x1 = c, ring.MASK32 - c
+    return ring.threefry2x32_20(x0, x1, k0, k1)
+
+
+def threefry_words_plain(k0: int, k1: int, n: int, layout: str,
+                         device) -> torch.Tensor:
+    y0, y1 = _prf_blocks(k0, k1, n, layout, device)
+    return torch.bitwise_or(y0 << 32, y1)
+
+
+def threefry_bits_plain(k0: int, k1: int, n: int, layout: str,
+                        device) -> torch.Tensor:
+    if layout == "threefry":
+        y0, y1 = _prf_blocks(k0, k1, n, layout, device)
+        bits = torch.bitwise_and(torch.bitwise_xor(y0, y1), 1)
+        return bits.to(torch.uint8)
+    words = threefry_words_plain(k0, k1, -(-n // 64), layout, device)
+    shifts = torch.arange(64, dtype=torch.int64, device=device)
+    # bit j of an int64 word, whatever its sign: arithmetic shift, then & 1
+    bits = torch.bitwise_and(words[:, None] >> shifts, 1).reshape(-1)
+    return bits[:n].to(torch.uint8)
+
+
+def _threefry(k0: int, k1: int, n: int, layout: str, device,
+              bits: bool) -> torch.Tensor:
+    if layout not in PRF_LAYOUTS:
+        raise ValueError(
+            f"threefry: layout must be one of {tuple(PRF_LAYOUTS)}, got "
+            f"{layout!r}"
+        )
+    k0, k1, n = int(k0), int(k1), int(n)
+    if not (0 <= k0 <= ring.MASK32 and 0 <= k1 <= ring.MASK32):
+        raise ValueError("threefry: key words must be u32 values")
+    if n < 0:
+        raise ValueError(f"threefry: negative count {n}")
+    words = -(-n // 64) if bits and layout == "threefry-pallas" else n
+    if layout == "threefry-pallas" and words > PALLAS_MAX_WORDS:
+        raise ValueError(
+            f"threefry-pallas draw of {words} words exceeds the 2^32 "
+            "counter space of one key"
+        )
+    device = torch.device(device)
+    if device.type == "cpu":
+        plain = threefry_bits_plain if bits else threefry_words_plain
+        return plain(k0, k1, n, layout, device)
+    _require_cuda("threefry", device)
+    out = torch.empty(n, dtype=torch.uint8 if bits else torch.int64,
+                      device=device)
+    if n == 0:
+        return out
+    code, counter = PRF_LAYOUTS[layout]
+    lib = build.library("threefry")
+    with torch.cuda.device(device):
+        err = lib.moose_threefry(
+            _ptr(out), n, k0, k1, code, int(bits), _stream(device)
+        )
+    _raise_on("threefry", err)
+    LAUNCHES[counter] += 1
+    return out
+
+
+def threefry_words(k0: int, k1: int, n: int, layout: str,
+                   device) -> torch.Tensor:
+    """The first ``n`` u64 words (as int64) of the threefry2x32-20 stream
+    keyed by the u32 words ``(k0, k1)``, flat, on ``device``.  ``layout``
+    is ``"threefry"`` (word i encrypts the block (i >> 32, i & 0xFFFFFFFF),
+    as ``jax.random.bits`` does) or ``"threefry-pallas"`` (K7: word i
+    encrypts (i, ~i), at most 2^32 words); a word is (y0 << 32) | y1."""
+    return _threefry(k0, k1, n, layout, device, bits=False)
+
+
+def threefry_bits(k0: int, k1: int, n: int, layout: str,
+                  device) -> torch.Tensor:
+    """``n`` uniform bits as uint8 0/1 from the same stream: bit 0 of
+    y0 ^ y1 per block for ``"threefry"``; for ``"threefry-pallas"`` 64
+    bits per word, element 64w + j being bit j of word w."""
+    return _threefry(k0, k1, n, layout, device, bits=True)

@@ -302,6 +302,19 @@ expand_dims = _structural(
 reshape = _structural(lambda a, shape: a.reshape(a.shape[:2] + tuple(shape)))
 
 
+def _transpose_arr(a, axes=None):
+    nd = a.dim() - 2
+    if axes is None:
+        axes = tuple(range(nd - 1, -1, -1))
+    return a.permute((0, 1) + tuple(_laxis(a, ax) for ax in axes))
+
+
+# Permute the logical axes (all reversed when ``axes`` is None).  The
+# result is a strided view; the kernels' callers make slots contiguous
+# (:func:`slot_words`, ``mul_public``, ``trunc_pr``).
+transpose = _structural(_transpose_arr)
+
+
 def concat(xs, axis: int) -> SpmdRep:
     ax = _laxis(xs[0].lo, axis)
     lo = torch.cat([x.lo for x in xs], dim=ax)
@@ -424,6 +437,15 @@ def fx_mul_public(sess, x: SpmdFixed, value: float) -> SpmdFixed:
     z = mul_public(x.tensor, *_scalar(x, value))
     z = trunc_pr(sess, z, x.fractional_precision)
     return SpmdFixed(z, x.integral_precision, x.fractional_precision)
+
+
+def fx_transpose(x: SpmdFixed) -> SpmdFixed:
+    """Swap the last two logical axes."""
+    return SpmdFixed(
+        _structural(lambda a: a.transpose(-1, -2))(x.tensor),
+        x.integral_precision,
+        x.fractional_precision,
+    )
 
 
 def fx_add_public(x: SpmdFixed, value: float) -> SpmdFixed:

@@ -3,16 +3,20 @@
 
 Runs the eDSL secure dot (1000x1000 at fixed(14,23), ring128), one
 ONNX LinearRegressor request and one ONNX logistic-regression request
-(each 1024x100 at fixed(24,40)) through the port's LocalMooseRuntime,
-warm, under torch.profiler, and prints for each:
+(each 1024x100 at fixed(24,40)) under the default threefry PRF, and one
+LogregSGDTrainer step (128x100 at fixed(24,40)) under threefry-pallas,
+through the port's LocalMooseRuntime, warm, under torch.profiler, and
+prints for each:
 
 - the host wall time of the request (median of three, without the
   profiler) and the device's busy and idle share (busy = the sum of
   kernel and copy times on the card in one profiled request; one
   stream);
-- device time by layer: the PRF expansion (threefry in PyTorch, ring
-  words and bit banks), the CUDA kernels K1-K6, the fixed-point
-  encode/decode, and everything else;
+- device time by layer: the PRF expansion (the sampling entry points:
+  the threefry kernel K7 they launch and the few PyTorch ops around
+  it), the CUDA kernels K1-K6, the fixed-point encode/decode, and
+  everything else; beside them K7's own time and launches, and whether
+  every K7 launch came from a PRF range (one launch per range);
 - the number of kernels the card ran (PyTorch's and the port's);
 - the top kernels by device time.
 
@@ -43,6 +47,7 @@ from torch.profiler import (  # noqa: E402
 import chip_smoke  # noqa: E402
 import moose_tpu_torch as pm  # noqa: E402
 from moose_tpu_torch.dialects import ring  # noqa: E402
+from moose_tpu_torch.predictors import trainers  # noqa: E402
 from moose_tpu_torch.runtime import LocalMooseRuntime  # noqa: E402
 
 # (module, function, layer label) of the plain-PyTorch layers; the
@@ -53,8 +58,11 @@ LAYERS = (
     (ring, "fixedpoint_encode", "fixedpoint_encode"),
     (ring, "fixedpoint_decode", "fixedpoint_decode"),
 )
-# the CUDA kernels launch through ctypes, outside any PyTorch op, so
-# their layers are read off the kernel names instead
+# the CUDA kernels launch through ctypes, outside any PyTorch op, so the
+# profiler gives their time to no range: their layers are read off the
+# kernel names instead.  K7 launches inside the prf_expand ranges, one
+# launch per range, and its time is added to that layer.
+PRF_KERNEL = "threefry_"
 KERNEL_LAYERS = (
     ("dot_cross_terms_kernel", "K1_dot_cross_terms"),
     ("trunc_combine_kernel", "K2_trunc_combine"),
@@ -102,11 +110,13 @@ def profile_request(fn, warm=2):
     labels = {label for _, _, label in LAYERS}
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     layers = dict.fromkeys(sorted(labels), 0.0)
+    ranges = dict.fromkeys(sorted(labels), 0)
     kernels = {}
     for evt in prof.events():
         if evt.name in labels:
             if evt.device_type == cpu:
                 layers[evt.name] += evt.device_time_total / 1e3
+                ranges[evt.name] += 1
             continue
         if evt.device_type == cuda:
             ms, count = kernels.get(evt.name, (0.0, 0))
@@ -116,6 +126,11 @@ def profile_request(fn, warm=2):
             ms for name, (ms, _) in kernels.items() if needle in name
         )
     busy_ms = sum(ms for ms, _ in kernels.values())
+    prf_kernel = [(ms, count) for name, (ms, count) in kernels.items()
+                  if PRF_KERNEL in name]
+    prf_kernel_ms = sum(ms for ms, _ in prf_kernel)
+    prf_launches = sum(count for _, count in prf_kernel)
+    layers["prf_expand"] += prf_kernel_ms
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     return {
         "wall_ms": wall_ms,
@@ -123,6 +138,10 @@ def profile_request(fn, warm=2):
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "layers_device_ms": dict(layers, other=busy_ms - sum(layers.values())),
+        "K7_threefry_device_ms": prf_kernel_ms,
+        "K7_threefry_launches": prf_launches,
+        "prf_ranges": ranges["prf_expand"],
+        "prf_expand_holds_K7": prf_launches == ranges["prf_expand"],
         "top_kernels": [
             {"name": name[:90], "device_ms": ms, "count": count}
             for name, (ms, count) in top
@@ -165,6 +184,21 @@ def main() -> int:
         lambda: runtime.evaluate_computation(logreg, {"x": xl})
     )
     print(f"logistic_regression: {json.dumps(logreg_profile)}", flush=True)
+    ring.set_prf_impl("threefry-pallas")
+    try:
+        trainer = trainers.LogregSGDTrainer(chip_smoke.TRAIN_FEATURES,
+                                            chip_smoke.TRAIN_LR)
+        xt, yt = chip_smoke.training_data(rng, chip_smoke.TRAIN_ROWS,
+                                          chip_smoke.TRAIN_FEATURES)
+        step = trainer.step_computation(chip_smoke.TRAIN_ROWS)
+        args = {"x": xt, "y": yt,
+                "w": np.zeros((chip_smoke.TRAIN_FEATURES, 1))}
+        train = profile_request(
+            lambda: runtime.evaluate_computation(step, args)
+        )
+    finally:
+        ring.set_prf_impl("threefry")
+    print(f"training_step: {json.dumps(train)}", flush=True)
     after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader"],
@@ -172,7 +206,8 @@ def main() -> int:
     ).stdout.strip()
     print(json.dumps({"card": smi, "clocks_power_after": after,
                       "secure_dot": dot, "linear_regressor": lin,
-                      "logistic_regression": logreg_profile}))
+                      "logistic_regression": logreg_profile,
+                      "training_step": train}))
     return 0
 
 

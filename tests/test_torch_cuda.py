@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K6) against their plain PyTorch versions,
+"""The port's CUDA kernels (K1-K7) against their plain PyTorch versions,
 on the card, word for word.  Every test here needs a CUDA device and
 skips without one.
 
@@ -204,3 +204,66 @@ def test_wrappers_refuse_what_their_kernels_do_not_take(cuda):
     banks = _words(rng, (64, 3, 4), 64, cuda)
     with pytest.raises(ValueError, match="steps"):
         rk.horner(x0, x0, 64, list(range(65)), 23, banks, draws)
+
+
+PRF_LAYOUTS = tuple(rk.PRF_LAYOUTS)
+# odd counts, the edges of a 64-bit word of bits, a 65,536-lane block
+# edge, and the secure dot's (2, 3, 1000, 1000) draw
+PRF_COUNTS = (1, 7, 63, 64, 65, 1000, 65537, 2 * 3 * 1000 * 1000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", PRF_LAYOUTS)
+@pytest.mark.parametrize("n", PRF_COUNTS)
+def test_threefry_kernel_matches_plain(cuda, layout, n):
+    counter = rk.PRF_LAYOUTS[layout][1]
+    for k0, k1 in ((0, 0), (0x243F6A88, 0xFFFFFFFF)):
+        before = rk.LAUNCHES[counter]
+        words = rk.threefry_words(k0, k1, n, layout, cuda)
+        bits = rk.threefry_bits(k0, k1, n, layout, cuda)
+        torch.cuda.synchronize()
+        assert rk.LAUNCHES[counter] == before + 2
+        assert words.dtype == torch.int64 and bits.dtype == torch.uint8
+        assert torch.equal(
+            words, rk.threefry_words_plain(k0, k1, n, layout, cuda)
+        )
+        assert torch.equal(
+            bits, rk.threefry_bits_plain(k0, k1, n, layout, cuda)
+        )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", PRF_LAYOUTS)
+def test_sampling_on_the_card_matches_the_cpu(cuda, impl):
+    prev = ring.get_prf_impl()
+    ring.set_prf_impl(impl)
+    try:
+        seed = (1, 2, 3, 4)
+        for shape in ((3, 1000, 1000), (3, 7), ()):
+            for width in WIDTHS:
+                got = ring.sample_uniform_seeded(shape, seed, width, cuda)
+                want = ring.sample_uniform_seeded(shape, seed, width, "cpu")
+                _assert_equal(
+                    tuple(None if t is None else t.cpu() for t in got), want
+                )
+            bits = ring.sample_bits_seeded(shape, seed, cuda)
+            assert torch.equal(
+                bits.cpu(), ring.sample_bits_seeded(shape, seed, "cpu")
+            )
+    finally:
+        ring.set_prf_impl(prev)
+
+
+@pytest.mark.gpu
+def test_threefry_wrapper_refuses_what_its_kernel_does_not_take(cuda):
+    with pytest.raises(ValueError, match="2\\^32"):
+        rk.threefry_words(1, 2, (1 << 32) + 1, "threefry-pallas", cuda)
+    with pytest.raises(ValueError, match="2\\^32"):
+        rk.threefry_bits(1, 2, (64 << 32) + 1, "threefry-pallas", cuda)
+    with pytest.raises(ValueError, match="u32"):
+        rk.threefry_words(-1, 2, 8, "threefry", cuda)
+    with pytest.raises(ValueError, match="layout"):
+        rk.threefry_bits(1, 2, 8, "philox", cuda)
+    before = dict(rk.LAUNCHES)
+    empty = rk.threefry_words(1, 2, 0, "threefry", cuda)
+    assert empty.shape == (0,) and rk.LAUNCHES == before

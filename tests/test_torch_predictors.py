@@ -20,6 +20,7 @@ from moose_tpu.edsl import tracer as jtracer
 from moose_tpu.predictors import from_onnx as jfrom_onnx
 from moose_tpu.predictors import linear_predictor as jlp
 from moose_tpu.predictors import sklearn_export as jsk
+from moose_tpu.predictors import trainers as jtrainers
 from moose_tpu.runtime import LocalMooseRuntime as JaxRuntime
 
 import moose_tpu_torch as tm
@@ -30,6 +31,7 @@ from moose_tpu_torch.edsl import tracer as ttracer
 from moose_tpu_torch.errors import ConfigurationError
 from moose_tpu_torch.predictors import from_onnx as tfrom_onnx
 from moose_tpu_torch.predictors import sklearn_export as tsk
+from moose_tpu_torch.predictors import trainers as ttrainers
 from moose_tpu_torch.runtime import LocalMooseRuntime as PortRuntime
 
 from torch_parity import threefry  # noqa: F401  (fixture)
@@ -143,6 +145,9 @@ def test_port_supports_exactly_the_slice_kinds():
                 post_transform=jlp.PostTransform.SIGMOID,
             ).predictor_factory()
         ),
+        # the SGD trainers' steps (traced already)
+        jtrainers.LogregSGDTrainer(3).step_computation(4),
+        jtrainers.MLPSGDTrainer(3, 2).step_computation(4),
     ]
     traced = {k: set() for k in _kinds_by_placement(graphs[0])}
     for comp in graphs:
@@ -166,6 +171,12 @@ def test_port_supports_exactly_the_slice_kinds():
     ]
     assert all(
         tstacked.supports(ttracer.trace(g)) for g in port_graphs
+    )
+    assert tstacked.supports(
+        ttrainers.LogregSGDTrainer(3).step_computation(4)
+    )
+    assert tstacked.supports(
+        ttrainers.MLPSGDTrainer(3, 2).step_computation(4)
     )
 
 
@@ -256,7 +267,8 @@ def test_import_adds_no_jax_or_moose_tpu_module():
         "before = set(sys.modules)\n"
         "import moose_tpu_torch, moose_tpu_torch.runtime, "
         "moose_tpu_torch.predictors, moose_tpu_torch.interop, "
-        "moose_tpu_torch.native.build\n"
+        "moose_tpu_torch.native.build, moose_tpu_torch.dialects.pallas_prf, "
+        "moose_tpu_torch.predictors.trainers\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'moose_tpu'))\n"

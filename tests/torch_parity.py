@@ -7,6 +7,9 @@ and are compared word for word.
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import numpy as np
 import pytest
 
@@ -15,16 +18,53 @@ import jax.numpy as jnp
 from moose_tpu.dialects import ring as jring
 
 from moose_tpu_torch import interop
+from moose_tpu_torch.dialects import ring as tring
+
+
+@contextlib.contextmanager
+def prf(name):
+    """Both packages on the PRF ``name``.  Each package's choice is
+    process-global, so the previous ones are restored afterwards."""
+    prev = jring.get_prf_impl(), tring.get_prf_impl()
+    jring.set_prf_impl(name)
+    tring.set_prf_impl(name)
+    try:
+        yield
+    finally:
+        jring.set_prf_impl(prev[0])
+        tring.set_prf_impl(prev[1])
+
+
+@contextlib.contextmanager
+def fixed_keys_env(value="torch-parity"):
+    """``MOOSE_TPU_FIXED_KEYS`` (with the weak-PRF consent it needs) for
+    the block, for fixtures wider than one test."""
+    names = ("MOOSE_TPU_FIXED_KEYS", "MOOSE_TPU_ALLOW_WEAK_PRF")
+    prev = {name: os.environ.get(name) for name in names}
+    os.environ.update(dict(zip(names, (value, "1"))))
+    try:
+        yield
+    finally:
+        for name, old in prev.items():
+            if old is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = old
 
 
 @pytest.fixture
 def threefry():
-    """Both packages on the threefry PRF; the JAX package's choice is
-    process-global, so the previous one is restored afterwards."""
-    prev = jring.get_prf_impl()
-    jring.set_prf_impl("threefry")
-    yield
-    jring.set_prf_impl(prev)
+    """Both packages on the threefry PRF, restored afterwards."""
+    with prf("threefry"):
+        yield
+
+
+@pytest.fixture
+def threefry_pallas():
+    """Both packages on the threefry-pallas PRF (K7), restored
+    afterwards."""
+    with prf("threefry-pallas"):
+        yield
 
 
 @pytest.fixture
