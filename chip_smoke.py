@@ -13,8 +13,12 @@ Phases (each raises on failure; the script then exits non-zero):
      sources, one nvcc each, started together);
   3. hold each kernel against its plain PyTorch version on the card at
      the main path's shapes and at 2^20 elements, word for word, and
-     time both with CUDA events after warm-up; the threefry kernel (K7)
-     in both stream layouts, words and bits;
+     time both with CUDA events after warm-up; K1 also at the trainers'
+     shapes and past its segment depth, with an int8 tensor-core
+     yardstick (torch._int_mm on as many int8 multiply-adds) beside the
+     1000^3 rows; K4 at 2^20 elements also timed back to back, beside
+     torch.mul at ring64; the threefry kernel (K7) in both stream
+     layouts, words and bits;
   4. the eDSL secure dot: 1000x1000 @ 1000x1000 at fixed(14,23), ring128,
      through LocalMooseRuntime on the card, checked against float64
      x @ y (max abs error < 2e-4);
@@ -147,6 +151,15 @@ def cuda_time_ms(torch, fn, warmup=1, reps=5):
     return statistics.median(times)
 
 
+def back_to_back_ms(torch, fn, calls=20):
+    """Milliseconds per call of ``calls`` calls of ``fn`` between one
+    pair of CUDA events after a warm-up: while the host enqueues faster
+    than the card runs, this is the card's time per call, without the
+    host time a single timed call carries."""
+    return cuda_time_ms(torch, lambda: [fn() for _ in range(calls)],
+                        reps=5) / calls
+
+
 def flat_tensors(value):
     """The tensors of a kernel result: a tensor, or nested (lo, hi)
     tuples with None for a missing high word."""
@@ -185,9 +198,9 @@ def random_words(torch, gen, shape, width):
 
 def dot_bound(m, k, n, width):
     """Least time of the exact cross terms on an H100: bytes (4 operands
-    read once, one output written once) against the centered-s8
-    tensor-core limb formulation (w/8 limbs per word, the limb pairs
-    below the ring modulus, two contractions, three parties)."""
+    read once, one output written once) against the int8 tensor-core
+    limb formulation K1 runs (w/8 u8 limbs per word, the limb pairs below
+    the ring modulus, two contractions, three parties)."""
     word = width // 8
     nbytes = 3 * (2 * m * k + 2 * k * n + m * n) * word
     limbs = width // 8
@@ -196,6 +209,35 @@ def dot_bound(m, k, n, width):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT8_TENSOR_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def dot_int8_macs(m, k, n, width):
+    """int8 multiply-adds of K1's limb formulation: three parties, the
+    limb pairs below the ring modulus, one contraction of depth 2k."""
+    limbs = width // 8
+    return 3 * limbs * (limbs + 1) // 2 * m * 2 * k * n
+
+
+def int8_gemm_ms(torch, gen, macs, k=2000, n=1000, max_rows=40800):
+    """The int8 tensor cores' time for ``macs`` multiply-adds through
+    torch._int_mm ((rows, k) @ (k, n) int8 -> int32, in calls of at most
+    ``max_rows`` rows): a yardstick of the rate K1's limb GEMM could
+    reach.  It computes another function, so it is no library_ms, and
+    the port never calls it."""
+    rows_total = macs // (k * n)
+    calls = -(-rows_total // max_rows)
+    rows = rows_total // calls // 8 * 8
+    a = torch.randint(-128, 128, (rows, k), generator=gen,
+                      dtype=torch.int8, device="cuda")
+    # B column-major: the layout of cuBLASLt's int8 tensor-core kernels
+    b = torch.randint(-128, 128, (n, k), generator=gen, dtype=torch.int8,
+                      device="cuda").t()
+
+    def run():
+        for _ in range(calls):
+            torch._int_mm(a, b)
+
+    return cuda_time_ms(torch, run, reps=5)
 
 
 def bound(nbytes, int_ops):
@@ -268,15 +310,24 @@ def compare_kernel(torch, kernel, plain, args, bound_pair, reps,
     )
 
 
-def compare_dot(torch, rk, ring, gen, m, k, n, width, reps):
+def compare_dot(torch, rk, ring, gen, m, k, n, width, reps, label="",
+                yardstick=False):
+    """K1 against its plain version; with ``yardstick``, beside it the
+    int8 tensor cores' time for as many multiply-adds."""
     x0, x1 = (random_words(torch, gen, (3, m, k), width) for _ in range(2))
     y0, y1 = (random_words(torch, gen, (3, k, n), width) for _ in range(2))
     ys = ring.add(*y0, *y1)
-    return compare_kernel(
+    row = compare_kernel(
         torch, rk.dot_cross_terms, rk.dot_cross_terms_plain,
         (x0, x1, y0, ys, width), dot_bound(m, k, n, width), reps,
-        shape=f"(3,{m},{k})@(3,{k},{n})", width=width,
+        shape=f"(3,{m},{k})@(3,{k},{n})", width=width, path=label,
     )
+    del x0, x1, y0, y1, ys
+    row["int8_gemm_ms"] = (
+        int8_gemm_ms(torch, gen, dot_int8_macs(m, k, n, width))
+        if yardstick else None
+    )
+    return row
 
 
 def compare_trunc(torch, rk, gen, shape, width, amount, reps):
@@ -299,9 +350,12 @@ def compare_cross_mul(torch, rk, gen, shape, width, reps):
     )
 
 
-def compare_ring_mul(torch, rk, gen, shape, const_shape, width, reps):
+def compare_ring_mul(torch, rk, gen, shape, const_shape, width, reps,
+                     back_to_back=False):
     """K4 as spmd.mul_public calls it: shares times a public constant of
-    ``const_shape`` broadcast (materialised) to the shares' shape."""
+    ``const_shape`` broadcast (materialised) to the shares' shape.  With
+    ``back_to_back``, K4 and the library call are also timed as the card
+    runs them (``back_to_back_ms``)."""
     a_lo, a_hi = random_words(torch, gen, shape, width)
     c_lo, c_hi = random_words(torch, gen, const_shape, width)
     b_lo = c_lo.expand(shape).contiguous()
@@ -310,12 +364,19 @@ def compare_ring_mul(torch, rk, gen, shape, const_shape, width, reps):
     if width == 64:
         def library():  # int64 multiplication wraps: the ring64 product
             return torch.mul(a_lo, b_lo)
-    return compare_kernel(
-        torch, rk.ring_mul, rk.ring_mul_plain, (a_lo, a_hi, b_lo, b_hi, width),
+    args = (a_lo, a_hi, b_lo, b_hi, width)
+    row = compare_kernel(
+        torch, rk.ring_mul, rk.ring_mul_plain, args,
         ring_mul_bound(math.prod(shape), width), reps, library=library,
         shape=f"{tuple(shape)} x broadcast {tuple(const_shape)}",
         width=width,
     )
+    if back_to_back:
+        row["ms_back_to_back"] = back_to_back_ms(
+            torch, lambda: rk.ring_mul(*args))
+        row["library_ms_back_to_back"] = (
+            None if library is None else back_to_back_ms(torch, library))
+    return row
 
 
 def compare_bits(torch, rk, gen, n, width, msb_only, reps):
@@ -599,17 +660,34 @@ def main() -> int:
     log(f"build: {len(build.KERNELS)} kernels in {build_s:.2f} s")
     for name, text in build.BUILD_LOGS.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C7520" in line:
                 log(f"  {name}: {line.strip()}")
 
     # phase 3: each kernel against its plain version on the card
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
+    # K1 at the secure dot, the predictors' logit (1024 x 101 @ 101 x 1),
+    # the trainers' dots as phase 7 launches them (LogregSGDTrainer's
+    # forward and x^T err, MLPSGDTrainer's hidden layer and x^T dh), a
+    # contraction past one segment (K' = 6000 > 5504) and a tiny one
+    t, f, h = TRAIN_ROWS, TRAIN_FEATURES, MLP_HIDDEN
     dot_rows = [
-        compare_dot(torch, rk, ring, gen, DOT_N, DOT_N, DOT_N, 128, reps=5),
+        compare_dot(torch, rk, ring, gen, DOT_N, DOT_N, DOT_N, 128, reps=5,
+                    label="secure dot", yardstick=True),
         compare_dot(torch, rk, ring, gen, LINREG_ROWS, LINREG_FEATURES + 1,
-                    1, 128, reps=20),
-        compare_dot(torch, rk, ring, gen, DOT_N, DOT_N, DOT_N, 64, reps=5),
+                    1, 128, reps=20, label="LinearRegressor, logreg"),
+        compare_dot(torch, rk, ring, gen, t, f, 1, 128, reps=20,
+                    label="logreg trainer forward"),
+        compare_dot(torch, rk, ring, gen, f, t, 1, 128, reps=20,
+                    label="logreg trainer x^T err"),
+        compare_dot(torch, rk, ring, gen, t, f, h, 128, reps=20,
+                    label="MLP trainer hidden layer"),
+        compare_dot(torch, rk, ring, gen, f, t, h, 128, reps=20,
+                    label="MLP trainer x^T dh"),
+        compare_dot(torch, rk, ring, gen, 256, 3000, 64, 128, reps=5,
+                    label="two segments"),
+        compare_dot(torch, rk, ring, gen, DOT_N, DOT_N, DOT_N, 64, reps=5,
+                    yardstick=True),
         compare_dot(torch, rk, ring, gen, 5, 7, 3, 128, reps=20),
         compare_dot(torch, rk, ring, gen, 5, 7, 3, 64, reps=20),
     ]
@@ -632,9 +710,12 @@ def main() -> int:
         compare_ring_mul(torch, rk, gen, (3, 2, PATH_N), (), 128, reps=20),
         compare_ring_mul(torch, rk, gen, (3, 2, 64, PATH_N), (64, 1), 128,
                          reps=20),
-        compare_ring_mul(torch, rk, gen, (3, 2, BIG_N), (), 128, reps=5),
+        compare_ring_mul(torch, rk, gen, (3, 2, BIG_N), (), 128, reps=5,
+                         back_to_back=True),
         compare_ring_mul(torch, rk, gen, (3, 2, 64, PATH_N), (64, 1), 64,
                          reps=20),
+        compare_ring_mul(torch, rk, gen, (3, 2, BIG_N), (), 64, reps=5,
+                         back_to_back=True),
     ]
     bits_rows = [
         compare_bits(torch, rk, gen, PATH_N, 128, False, reps=20),
@@ -845,6 +926,7 @@ def main() -> int:
             "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
+            "int8_gemm_ms": head.get("int8_gemm_ms"),
             "shapes": rows,
         }
         if len(counters[name]) > 1:

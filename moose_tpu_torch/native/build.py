@@ -39,7 +39,8 @@ NVCC_FLAGS = [
 SIGNATURES = {
     "dot_cross_terms": (
         "moose_dot_cross_terms",
-        [ctypes.c_void_p] * 10
+        [ctypes.c_void_p] * 12
+        + [ctypes.c_longlong] * 2
         + [ctypes.c_int] * 5
         + [ctypes.c_void_p],
     ),

@@ -113,10 +113,14 @@ def _raise_on(label: str, err: int) -> None:
 # K1: party-batched dot cross terms
 # ---------------------------------------------------------------------------
 
-# csrc/dot_cross_terms.cu: a block covers 64 output rows, and a grid's
-# y dimension holds at most 65535 blocks
-_DOT_TILE = 64
+# csrc/dot_cross_terms.cu: the limb GEMM's geometry.  A block owns a 64
+# x 32 (ring128) or 64 x 64 (ring64) output tile of one party, K' = 2k
+# runs in chunks of 32 limb bytes, and the grid's y dimension (the m
+# tiles) holds at most 65535 blocks
+_DOT_BM = 64
+_DOT_BK = 32
 _MAX_GRID_Y = 65535
+_LIMB_MAX_SQ = 255 * 255
 
 # 16-bit limbs multiplied as float64 matmuls: a limb product is < 2^32,
 # so a contraction of up to 2^21 terms stays below 2^53 and is exact
@@ -168,13 +172,131 @@ def dot_cross_terms_plain(x0: Pair, x1: Pair, y0: Pair, ysum: Pair,
     return ring.add(*v, *t)
 
 
-def dot_cross_terms(x0: Pair, x1: Pair, y0: Pair, ysum: Pair,
-                    width: int) -> Pair:
-    """Party-batched cross terms ``v_p = x0_p @ ysum_p + x1_p @ y0_p``
-    mod 2^width for ``(3, m, k)`` and ``(3, k, n)`` ring pairs; the
-    caller adds ``ysum = y0 + y1`` first."""
-    if _on_cpu(x0[0]):
-        return dot_cross_terms_plain(x0, x1, y0, ysum, width)
+def dot_tile_cols(width: int) -> int:
+    """Output columns of one block of the limb GEMM."""
+    return 32 if width == 128 else 64
+
+
+def dot_segment_depth(width: int) -> int:
+    """K' depth of one segment of the limb GEMM.  Diagonal d sums (d+1)
+    limb products of at most 255^2 per K' step; the diagonals d <= L-5
+    need their true value, the others only mod 2^32 (they land at bit
+    8d >= width-32), so a segment is the largest whole number of 32-byte
+    chunks that keeps (L-4) * K' * 255^2 below 2^32: 5504 at ring128,
+    16512 at ring64."""
+    limbs = width // 8
+    depth = 0xFFFFFFFF // ((limbs - 4) * _LIMB_MAX_SQ)
+    return depth // _DOT_BK * _DOT_BK
+
+
+def dot_geometry(parties: int, m: int, k: int, n: int, width: int):
+    """(m tiles, n tiles, K' chunks, A8 bytes, B8 bytes) of one call:
+    the split stage writes A8 [P][m tiles][chunks][L][64 x 32] and B8
+    [P][n tiles][chunks][L][cols x 32] limb bytes."""
+    limbs = width // 8
+    cols = dot_tile_cols(width)
+    mt = -(-m // _DOT_BM)
+    nt = -(-n // cols)
+    kc = -(-2 * k // _DOT_BK)
+    a_bytes = parties * mt * kc * limbs * _DOT_BM * _DOT_BK
+    b_bytes = parties * nt * kc * limbs * cols * _DOT_BK
+    return mt, nt, kc, a_bytes, b_bytes
+
+
+def _limb_planes(lo_parts, hi_parts, rows_pad: int, depth: int,
+                 width: int) -> torch.Tensor:
+    """uint8 limb planes (P, L, rows_pad, depth) of the words
+    ``lo_parts``/``hi_parts`` ((P, rows, k) each), concatenated along
+    the contraction and zero-padded."""
+    lo = torch.cat(lo_parts, dim=-1)
+    hi = None if width == 64 else torch.cat(hi_parts, dim=-1)
+    parties, rows, kk = lo.shape
+    planes = torch.zeros((parties, width // 8, rows_pad, depth),
+                         dtype=torch.uint8, device=lo.device)
+    for limb in range(width // 8):
+        word = lo if limb < 8 else hi
+        planes[:, limb, :rows, :kk] = torch.bitwise_and(
+            ring.lshr64(word, 8 * (limb % 8)), 0xFF
+        ).to(torch.uint8)
+    return planes
+
+
+def dot_limb_planes(x0: Pair, x1: Pair, y0: Pair, ysum: Pair, width: int):
+    """The K-major limb planes of the limb GEMM: A8 (P, L, m tiles * 64,
+    K'p) of ``[x0 | x1]`` and B8 (P, L, n tiles * cols, K'p) of
+    ``[ysum ; y0]`` transposed, K' = 2k padded to whole 32-byte chunks."""
+    parties, m, k = x0[0].shape
+    n = y0[0].shape[-1]
+    mt, nt, kc, _, _ = dot_geometry(parties, m, k, n, width)
+
+    def t(w):
+        return None if w is None else w.transpose(-1, -2)
+
+    a8 = _limb_planes((x0[0], x1[0]), (x0[1], x1[1]), mt * _DOT_BM,
+                      kc * _DOT_BK, width)
+    b8 = _limb_planes((t(ysum[0]), t(y0[0])), (t(ysum[1]), t(y0[1])),
+                      nt * dot_tile_cols(width), kc * _DOT_BK, width)
+    return a8, b8
+
+
+def dot_limb_tiles(planes: torch.Tensor, tile_rows: int) -> torch.Tensor:
+    """The scratch bytes the split stage writes for ``planes`` (P, L,
+    rows, K'p): [P][row tile][chunk][L][tile in wgmma's no-swizzle
+    K-major layout], the tile as 8-row groups of two 16-byte K halves
+    of 8 rows each ([group][half][row][16 bytes]), flat."""
+    parties, limbs, rows, depth = planes.shape
+    v = planes.reshape(parties, limbs, rows // tile_rows, tile_rows // 8, 8,
+                       depth // _DOT_BK, 2, 16)
+    # (P, L, T, rg, r8, kc, h, byte) -> (P, T, kc, L, rg, h, r8, byte)
+    return v.permute(0, 2, 5, 1, 3, 6, 4, 7).reshape(-1)
+
+
+def dot_cross_terms_limbs_plain(x0: Pair, x1: Pair, y0: Pair, ysum: Pair,
+                                width: int,
+                                depth: Optional[int] = None) -> Pair:
+    """A plain model of the limb GEMM's arithmetic, for the tests: the
+    K-major limb planes of the K-concatenated operands, per segment of
+    ``depth`` (the kernel's ``dot_segment_depth``) the diagonal sums
+    ``S_d = sum_{i+j=d} A_i B_j^T`` (raising AssertionError where a
+    diagonal that needs its true value, d <= L-5, reaches 2^32), each
+    reduced mod 2^32 as the s32 accumulators hold it, and the fold
+    ``sum_d S_d << 8d`` mod 2^width into the result."""
+    parties, m, _ = x0[0].shape
+    n = y0[0].shape[-1]
+    limbs = width // 8
+    depth = dot_segment_depth(width) if depth is None else depth
+    a8, b8 = dot_limb_planes(x0, x1, y0, ysum, width)
+    a = a8.to(torch.float64)
+    b = b8.to(torch.float64).transpose(-1, -2)
+    lo = torch.zeros((parties, a.shape[2], b.shape[-1]), dtype=torch.int64,
+                     device=a.device)
+    hi = None if width == 64 else torch.zeros_like(lo)
+    for c0 in range(0, a.shape[-1], depth):
+        c1 = min(c0 + depth, a.shape[-1])
+        for d in range(limbs):
+            # exact: at most 16 * 5504 products of 255^2, below 2^53
+            s = sum(
+                torch.matmul(a[:, i, :, c0:c1], b[:, d - i, c0:c1, :])
+                for i in range(d + 1)
+            ).to(torch.int64)
+            if d <= limbs - 5 and bool((s >= 1 << 32).any()):
+                raise AssertionError(
+                    f"diagonal {d} reached 2^32 in a segment of depth "
+                    f"{c1 - c0}"
+                )
+            s = torch.bitwise_and(s, ring.MASK32)
+            if width == 64:
+                lo = lo + ring.shl64(s, 8 * d)
+            else:
+                lo, hi = ring.add(lo, hi,
+                                  *ring.shl(s, torch.zeros_like(s), 8 * d))
+    return lo[:, :m, :n].contiguous(), (
+        None if hi is None else hi[:, :m, :n].contiguous()
+    )
+
+
+def _dot_launch(x0: Pair, x1: Pair, y0: Pair, ysum: Pair,
+                width: int) -> Pair:
     device = x0[0].device
     if device.type != "cuda" or x0[0].dim() != 3 or y0[0].dim() != 3:
         raise ValueError(
@@ -182,17 +304,24 @@ def dot_cross_terms(x0: Pair, x1: Pair, y0: Pair, ysum: Pair,
         )
     parties, m, k = x0[0].shape
     n = y0[0].shape[-1]
-    if max(m, k, n) >= 1 << 31 or m > _MAX_GRID_Y * _DOT_TILE:
+    if max(m, k, n) >= 1 << 30:
         raise ValueError(f"dot_cross_terms: shape ({m}, {k}, {n}) too large")
+    mt, _, _, a_bytes, b_bytes = dot_geometry(parties, m, k, n, width)
+    if mt > _MAX_GRID_Y or not 0 < parties <= _MAX_GRID_Y:
+        raise ValueError(
+            f"dot_cross_terms: ({parties}, {m}) rows exceed the grid's "
+            f"{_MAX_GRID_Y} blocks of {_DOT_BM}"
+        )
     wide = width == 128
     for label, pair, shape in (
         ("x0", x0, (parties, m, k)), ("x1", x1, (parties, m, k)),
         ("y0", y0, (parties, k, n)), ("ysum", ysum, (parties, k, n)),
     ):
         _check_pair(f"dot_cross_terms {label}", pair, shape, device, wide)
-    out_lo = torch.empty((parties, m, n), dtype=torch.int64,
-                         device=x0[0].device)
+    out_lo = torch.empty((parties, m, n), dtype=torch.int64, device=device)
     out_hi = torch.empty_like(out_lo) if wide else None
+    a8 = torch.empty(a_bytes, dtype=torch.uint8, device=device)
+    b8 = torch.empty(b_bytes, dtype=torch.uint8, device=device)
     if out_lo.numel() == 0:
         return out_lo, out_hi
     lib = build.library("dot_cross_terms")
@@ -202,13 +331,26 @@ def dot_cross_terms(x0: Pair, x1: Pair, y0: Pair, ysum: Pair,
             _ptr(x1[0]), _ptr(x1[1] if wide else None),
             _ptr(y0[0]), _ptr(y0[1] if wide else None),
             _ptr(ysum[0]), _ptr(ysum[1] if wide else None),
-            _ptr(out_lo), _ptr(out_hi),
-            parties, m, k, n, int(wide),
-            _stream(device),
+            _ptr(out_lo), _ptr(out_hi), _ptr(a8), _ptr(b8), a_bytes, b_bytes,
+            parties, m, k, n, int(wide), _stream(device),
         )
     _raise_on("dot_cross_terms", err)
-    LAUNCHES["dot_cross_terms"] += 1
     return out_lo, out_hi
+
+
+def dot_cross_terms(x0: Pair, x1: Pair, y0: Pair, ysum: Pair,
+                    width: int) -> Pair:
+    """Party-batched cross terms ``v_p = x0_p @ ysum_p + x1_p @ y0_p``
+    mod 2^width for ``(3, m, k)`` and ``(3, k, n)`` ring pairs; the
+    caller adds ``ysum = y0 + y1`` first.  On the card one call runs two
+    device kernels (the limb split and the limb GEMM) and counts one
+    launch."""
+    if _on_cpu(x0[0]):
+        return dot_cross_terms_plain(x0, x1, y0, ysum, width)
+    out = _dot_launch(x0, x1, y0, ysum, width)
+    if out[0].numel() > 0:
+        LAUNCHES["dot_cross_terms"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

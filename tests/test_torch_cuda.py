@@ -17,7 +17,15 @@ from moose_tpu_torch.dialects import ring
 from moose_tpu_torch.native import ring_kernels as rk
 
 WIDTHS = (64, 128)
-DOT_SHAPES = ((5, 7, 3), (1, 1, 1), (4, 101, 1), (9, 33, 17), (70, 130, 66))
+# (m, k, n): ragged shapes; the edges of K1's 64-row and 32/64-column
+# output tiles in m and n (64, 65, 128, 129 rows; 32, 33, 64, 65 columns);
+# the thin n of the predictors and trainers (1, 8, 32); and k = 0
+DOT_SHAPES = (
+    (5, 7, 3), (1, 1, 1), (4, 101, 1), (9, 33, 17), (70, 130, 66),
+    (64, 16, 32), (65, 16, 33), (128, 48, 64), (129, 20, 65),
+    (128, 100, 1), (100, 128, 1), (128, 100, 8), (128, 100, 32),
+    (100, 128, 32), (5, 0, 3),
+)
 
 
 @pytest.fixture
@@ -73,6 +81,34 @@ def test_trunc_combine_kernel_matches_plain(cuda, width, amount):
     )
 
 
+def _ones(shape, width, device):
+    words = np.full(shape, (1 << 64) - 1, dtype=np.uint64)
+    return interop.ring_from_numpy(
+        words, None if width == 64 else words.copy(), device=device
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("past", (False, True))
+def test_dot_cross_terms_kernel_across_its_widening_depth(cuda, width, past):
+    # K' = 2k just under and just past one segment: random words, then
+    # all-ones words (every limb 0xFF, the largest diagonal sums)
+    depth = rk.dot_segment_depth(width)
+    k = depth // 2 + (48 if past else -16)
+    rng = np.random.default_rng(k)
+    for draw in (_words, None):
+        def words(shape):
+            if draw is None:
+                return _ones(shape, width, cuda)
+            return draw(rng, shape, width, cuda)
+
+        x0, x1 = words((3, 9, k)), words((3, 9, k))
+        y0, ys = words((3, k, 17)), words((3, k, 17))
+        _assert_equal(rk.dot_cross_terms(x0, x1, y0, ys, width),
+                      rk.dot_cross_terms_plain(x0, x1, y0, ys, width))
+
+
 EDGE_WORDS = np.array([0, 1, (1 << 63) - 1, 1 << 63, (1 << 64) - 1],
                       dtype=np.uint64)
 
@@ -89,10 +125,16 @@ def test_kernels_match_plain_on_edge_words(cuda, width):
             device=cuda,
         )
 
-    x0, x1 = edge((3, 9, 40)), edge((3, 9, 40))
-    y0, ys = edge((3, 40, 7)), edge((3, 40, 7))
-    _assert_equal(rk.dot_cross_terms(x0, x1, y0, ys, width),
-                  rk.dot_cross_terms_plain(x0, x1, y0, ys, width))
+    for m, k, n in ((9, 40, 7), (65, 300, 33)):
+        x0, x1 = edge((3, m, k)), edge((3, m, k))
+        y0, ys = edge((3, k, n)), edge((3, k, n))
+        _assert_equal(rk.dot_cross_terms(x0, x1, y0, ys, width),
+                      rk.dot_cross_terms_plain(x0, x1, y0, ys, width))
+        ones = _ones((3, m, k), width, cuda), _ones((3, k, n), width, cuda)
+        _assert_equal(rk.dot_cross_terms(ones[0], ones[0], ones[1], ones[1],
+                                         width),
+                      rk.dot_cross_terms_plain(ones[0], ones[0], ones[1],
+                                               ones[1], width))
     a0, a1, *draws = (edge((64,)) for _ in range(7))
     for amount in (0, 23, 40, width - 2):
         _assert_equal(
