@@ -16,9 +16,13 @@ Phases (each raises on failure; the script then exits non-zero):
      time both with CUDA events after warm-up; K1 also at the trainers'
      shapes and past its segment depth, with an int8 tensor-core
      yardstick (torch._int_mm on as many int8 multiply-adds) beside the
-     1000^3 rows; K4 at 2^20 elements also timed back to back, beside
-     torch.mul at ring64; the threefry kernel (K7) in both stream
-     layouts, words and bits;
+     1000^3 rows; K4 with the public factor at its own shape (as
+     spmd.mul_public passes it, broadcast in the kernel) and
+     materialised at the shares' shape, at 2^20 elements also timed back
+     to back, beside torch.mul at ring64; K5 at the logistic
+     regression's and the trainers' element counts, there also timed
+     back to back; the threefry kernel (K7) in both stream layouts,
+     words and bits;
   4. the eDSL secure dot: 1000x1000 @ 1000x1000 at fixed(14,23), ring128,
      through LocalMooseRuntime on the card, checked against float64
      x @ y (max abs error < 2e-4);
@@ -102,8 +106,8 @@ LOGREG_REQUESTS = 3
 LOGREG_TOL = 5e-3  # the JAX package's own limit (bench.py:600)
 # the protocol sigmoid's kernel shapes at 1024 rows (ring128): the K3
 # cross terms run from (3, 1024) to (3, 64, 1024) words, K4 on
-# (3, 2, 64, 1024) against (64, 1) weights, K5 on 1024 elements, K6 with
-# 14 steps at truncation amount 62
+# (3, 2, 1024) against a scalar and on (3, 2, 64, 1024) against (64, 1)
+# weights, K5 on 1024 elements, K6 with 14 steps at truncation amount 62
 PATH_N = LOGREG_ROWS
 BIG_N = 1 << 20
 HORNER_STEPS = 14
@@ -158,6 +162,23 @@ def back_to_back_ms(torch, fn, calls=20):
     host time a single timed call carries."""
     return cuda_time_ms(torch, lambda: [fn() for _ in range(calls)],
                         reps=5) / calls
+
+
+def device_time_ms(torch, fn, calls=10):
+    """Device time per call of ``fn`` under torch.profiler: the summed
+    durations of the kernels the card ran over ``calls`` calls, without
+    the host time between them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == cuda) / 1e3 / calls
 
 
 def flat_tensors(value):
@@ -261,10 +282,11 @@ def cross_mul_bound(n, width):
                  n * (2 * RING_MUL_OPS[width] + 3 * RING_ADD_OPS[width]))
 
 
-def ring_mul_bound(n, width):
-    """K4 over n words: the shares and the materialised constant read,
-    the product written; one product per word."""
-    return bound(n * 3 * (width // 8), n * RING_MUL_OPS[width])
+def ring_mul_bound(n, width, b_words):
+    """K4 over n words: the shares and b's ``b_words`` words (n when b is
+    materialised at the shares' shape) read once, the product written;
+    one product per word."""
+    return bound((2 * n + b_words) * (width // 8), n * RING_MUL_OPS[width])
 
 
 def bits_bound(n, width, msb_only, n_ands):
@@ -351,47 +373,63 @@ def compare_cross_mul(torch, rk, gen, shape, width, reps):
 
 
 def compare_ring_mul(torch, rk, gen, shape, const_shape, width, reps,
-                     back_to_back=False):
+                     back_to_back=False, materialise=False):
     """K4 as spmd.mul_public calls it: shares times a public constant of
-    ``const_shape`` broadcast (materialised) to the shares' shape.  With
-    ``back_to_back``, K4 and the library call are also timed as the card
-    runs them (``back_to_back_ms``)."""
+    ``const_shape``, which the kernel broadcasts; with ``materialise``,
+    the constant broadcast to the shares' shape first (as before the
+    kernel broadcast it).  The library call is torch.mul at ring64, on
+    the same operands.  With ``back_to_back``, K4 and the library call
+    are also timed as the card runs them (``back_to_back_ms``,
+    ``device_time_ms``)."""
     a_lo, a_hi = random_words(torch, gen, shape, width)
-    c_lo, c_hi = random_words(torch, gen, const_shape, width)
-    b_lo = c_lo.expand(shape).contiguous()
-    b_hi = None if c_hi is None else c_hi.expand(shape).contiguous()
+    b_lo, b_hi = random_words(torch, gen, const_shape, width)
+    if materialise:
+        b_lo = b_lo.expand(shape).contiguous()
+        b_hi = None if b_hi is None else b_hi.expand(shape).contiguous()
     library = None
     if width == 64:
         def library():  # int64 multiplication wraps: the ring64 product
             return torch.mul(a_lo, b_lo)
     args = (a_lo, a_hi, b_lo, b_hi, width)
+    how = "materialised" if materialise else "own shape"
     row = compare_kernel(
         torch, rk.ring_mul, rk.ring_mul_plain, args,
-        ring_mul_bound(math.prod(shape), width), reps, library=library,
-        shape=f"{tuple(shape)} x broadcast {tuple(const_shape)}",
+        ring_mul_bound(math.prod(shape), width, b_lo.numel()), reps,
+        library=library,
+        shape=f"{tuple(shape)} x {how} {tuple(const_shape)}",
         width=width,
     )
     if back_to_back:
         row["ms_back_to_back"] = back_to_back_ms(
             torch, lambda: rk.ring_mul(*args))
-        row["library_ms_back_to_back"] = (
-            None if library is None else back_to_back_ms(torch, library))
+        row["device_ms"] = device_time_ms(torch, lambda: rk.ring_mul(*args))
+        if library is not None:
+            row["library_ms_back_to_back"] = back_to_back_ms(torch, library)
+            row["library_device_ms"] = device_time_ms(torch, library)
     return row
 
 
-def compare_bits(torch, rk, gen, n, width, msb_only, reps):
+def compare_bits(torch, rk, gen, n, width, msb_only, reps,
+                 back_to_back=False, label=""):
+    """K5 in one mode; with ``back_to_back`` also timed as the card runs
+    it (``back_to_back_ms``, ``device_time_ms``)."""
     x = random_words(torch, gen, (3, 2, n), width)
     n_ands = rk.adder_bank_count(width)
     banks = torch.randint(0, 2, (n_ands, 3, width, n), generator=gen,
                           dtype=torch.uint8, device="cuda")
     kernel, plain = ((rk.msb, rk.msb_plain) if msb_only
                      else (rk.bit_decompose, rk.bit_decompose_plain))
-    return compare_kernel(
-        torch, kernel, plain, (*x, width, banks),
+    args = (*x, width, banks)
+    row = compare_kernel(
+        torch, kernel, plain, args,
         bits_bound(n, width, msb_only, n_ands), reps,
-        shape=f"(3,2,{n})", width=width,
+        shape=f"(3,2,{n})", width=width, path=label,
         mode="msb" if msb_only else "bit_decompose",
     )
+    if back_to_back:
+        row["ms_back_to_back"] = back_to_back_ms(torch, lambda: kernel(*args))
+        row["device_ms"] = device_time_ms(torch, lambda: kernel(*args))
+    return row
 
 
 def compare_horner(torch, rk, gen, n, width, steps, f, reps):
@@ -706,6 +744,8 @@ def main() -> int:
         compare_cross_mul(torch, rk, gen, (3, BIG_N), 128, reps=5),
         compare_cross_mul(torch, rk, gen, (3, 64, PATH_N), 64, reps=20),
     ]
+    # K4: the constant at its own shape, as the path passes it, then the
+    # rows of earlier runs with it materialised at the shares' shape
     mul_rows = [
         compare_ring_mul(torch, rk, gen, (3, 2, PATH_N), (), 128, reps=20),
         compare_ring_mul(torch, rk, gen, (3, 2, 64, PATH_N), (64, 1), 128,
@@ -716,10 +756,28 @@ def main() -> int:
                          reps=20),
         compare_ring_mul(torch, rk, gen, (3, 2, BIG_N), (), 64, reps=5,
                          back_to_back=True),
+    ] + [
+        compare_ring_mul(torch, rk, gen, shape, const, width, reps=reps,
+                         back_to_back=shape[-1] == BIG_N, materialise=True)
+        for shape, const, width, reps in (
+            ((3, 2, PATH_N), (), 128, 20),
+            ((3, 2, 64, PATH_N), (64, 1), 128, 20),
+            ((3, 2, BIG_N), (), 128, 5),
+            ((3, 2, 64, PATH_N), (64, 1), 64, 20),
+            ((3, 2, BIG_N), (), 64, 5),
+        )
     ]
+    # K5 at the logistic regression's 1024 elements, the trainers' 128
+    # (LogregSGDTrainer) and 128 x 32 = 4096 (MLPSGDTrainer's hidden
+    # layer), and at 2^20
     bits_rows = [
-        compare_bits(torch, rk, gen, PATH_N, 128, False, reps=20),
-        compare_bits(torch, rk, gen, PATH_N, 128, True, reps=20),
+        compare_bits(torch, rk, gen, n, 128, msb_only, reps=20,
+                     back_to_back=True, label=label)
+        for n, label in ((PATH_N, "logistic regression"),
+                         (TRAIN_ROWS, "LogregSGDTrainer"),
+                         (TRAIN_ROWS * MLP_HIDDEN, "MLPSGDTrainer hidden"))
+        for msb_only in (False, True)
+    ] + [
         compare_bits(torch, rk, gen, BIG_N, 128, False, reps=3),
         compare_bits(torch, rk, gen, BIG_N, 128, True, reps=3),
         compare_bits(torch, rk, gen, PATH_N, 64, False, reps=20),

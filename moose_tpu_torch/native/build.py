@@ -57,11 +57,12 @@ SIGNATURES = {
     "ring_mul": (
         "moose_ring_mul",
         [ctypes.c_void_p] * 6
-        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+        + [ctypes.c_longlong] + [ctypes.c_int] * 3
+        + [ctypes.POINTER(ctypes.c_longlong)] * 2 + [ctypes.c_void_p],
     ),
     "bits_adder": (
         "moose_bits_adder",
-        [ctypes.c_void_p] * 4
+        [ctypes.c_void_p] * 5
         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     ),
     "horner": (

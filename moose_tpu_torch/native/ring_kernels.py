@@ -11,10 +11,11 @@ kernels the secure dot and the protocol sigmoid run:
 - ``cross_terms_mul`` (K3): the same cross terms elementwise, for a
   secure multiply, ``csrc/cross_terms_mul.cu``;
 - ``ring_mul`` (K4): an elementwise ring multiply (a secret times a
-  public constant), ``csrc/ring_mul.cu``;
+  public constant, broadcast in the kernel), ``csrc/ring_mul.cu``;
 - ``bit_decompose`` and ``msb`` (K5): arithmetic-to-binary conversion
   through a Kogge-Stone adder over pre-drawn AND banks, all bits or only
-  the top one, one kernel ``csrc/bits_adder.cu``;
+  the top one, ``csrc/bits_adder.cu`` (the banks packed into bit masks,
+  then the adder on masks);
 - ``horner`` (K6): the fused fixed-point Horner ladder of a secret
   polynomial, ``csrc/horner.cu``;
 - ``threefry_words`` and ``threefry_bits`` (K7, the
@@ -504,32 +505,112 @@ def cross_terms_mul(x0: Pair, x1: Pair, y0: Pair, y1: Pair,
 # ---------------------------------------------------------------------------
 
 
+# csrc/ring_mul.cu: b's modes and the most axes of a strided b
+_B_FULL, _B_SCALAR, _B_STRIDED = 0, 1, 2
+_MUL_MAX_DIMS = 8
+_MulAxes = ctypes.c_longlong * _MUL_MAX_DIMS
+
+
+def _broadcasts(b_shape, shape) -> bool:
+    """Whether ``b_shape`` broadcasts to ``shape`` (numpy rules), without
+    the host time of ``torch.broadcast_shapes`` on every call."""
+    if len(b_shape) > len(shape):
+        return False
+    return all(b in (1, s) for b, s in zip(b_shape[::-1], shape[::-1]))
+
+
 def ring_mul_plain(lo1, hi1, lo2, hi2, width: int) -> Pair:
+    """``a * b`` with PyTorch's broadcasting of b to a's shape."""
     return ring.mul(lo1, hi1, lo2, hi2)
 
 
+def ring_mul_dims(shape, b: torch.Tensor):
+    """b's (size, stride) axes over the flat elements of ``shape``, b
+    read through its own strides with 0 on a broadcast axis, size-1 axes
+    dropped and neighbours that step alike merged, innermost last: what
+    the kernel walks for a strided b."""
+    pad = len(shape) - b.dim()
+    dims = []
+    for d, size in enumerate(shape):
+        if size == 1:
+            continue
+        bd = d - pad
+        stride = 0 if bd < 0 or b.shape[bd] == 1 else b.stride(bd)
+        if dims and dims[-1][1] == stride * size:
+            dims[-1] = (dims[-1][0] * size, stride)
+        else:
+            dims.append((size, stride))
+    return dims
+
+
+def _words_at_parity(shape, like: torch.Tensor) -> torch.Tensor:
+    """Empty int64 words of ``shape`` whose first word has the 16-byte
+    parity of ``like``'s, so the kernel's 16-byte accesses of the two
+    line up after the same scalar head."""
+    n = math.prod(shape)
+    if like.data_ptr() % 16 == 0:
+        return torch.empty(shape, dtype=torch.int64, device=like.device)
+    buf = torch.empty(n + 1, dtype=torch.int64, device=like.device)
+    start = 1 if buf.data_ptr() % 16 == 0 else 0
+    return buf[start:start + n].view(shape)
+
+
 def ring_mul(lo1, hi1, lo2, hi2, width: int) -> Pair:
-    """Elementwise ``a * b mod 2^width`` of two ring values of one
-    shape (``spmd.mul_public`` broadcasts the public factor first)."""
+    """Elementwise ``a * b mod 2^width``: ``a`` the (lo, hi) words of
+    the shares, ``b`` the other factor at a's shape or at any shape that
+    broadcasts to it under numpy rules (``spmd.mul_public`` passes the
+    public constant at its own shape; the kernel broadcasts it).  The
+    result has a's shape."""
+    shape = tuple(lo1.shape)
+    b_shape = tuple(lo2.shape)
+    if b_shape != shape and not _broadcasts(b_shape, shape):
+        raise ValueError(
+            f"ring_mul: b of shape {b_shape} does not broadcast to the "
+            f"shares' shape {shape}"
+        )
     if _on_cpu(lo1):
         return ring_mul_plain(lo1, hi1, lo2, hi2, width)
     device = lo1.device
     _require_cuda("ring_mul", device)
-    shape = tuple(lo1.shape)
     wide = width == 128
     _check_pair("ring_mul a", (lo1, hi1), shape, device, wide)
-    _check_pair("ring_mul b", (lo2, hi2), shape, device, wide)
-    out_lo = torch.empty(shape, dtype=torch.int64, device=device)
-    out_hi = torch.empty_like(out_lo) if wide else None
-    n = out_lo.numel()
+    if wide and (hi2 is None or hi2.shape != lo2.shape
+                 or hi2.stride() != lo2.stride()):
+        raise ValueError("ring_mul b: hi words missing or laid out unlike lo")
+    for t in (lo2, hi2) if wide else (lo2,):
+        if t.device != device or t.dtype != torch.int64:
+            raise ValueError(
+                f"ring_mul b: expected int64 words on {device}, got "
+                f"{t.dtype} on {t.device}"
+            )
+    n = math.prod(shape)
+    out_lo = _words_at_parity(shape, lo1)
+    out_hi = _words_at_parity(shape, lo1) if wide else None
     if n == 0:
         return out_lo, out_hi
+    dims = sizes = strides = None
+    if b_shape == shape and lo2.is_contiguous():
+        mode = _B_FULL
+    elif lo2.numel() == 1:
+        mode = _B_SCALAR
+    else:
+        mode = _B_STRIDED
+        dims = ring_mul_dims(shape, lo2)
+        if len(dims) > _MUL_MAX_DIMS:
+            raise ValueError(
+                f"ring_mul: b's broadcast takes {len(dims)} axes, the "
+                f"kernel at most {_MUL_MAX_DIMS}"
+            )
+        sizes = _MulAxes(*(size for size, _ in dims))
+        strides = _MulAxes(*(stride for _, stride in dims))
     lib = build.library("ring_mul")
     with torch.cuda.device(device):
         err = lib.moose_ring_mul(
             _ptr(lo1), _ptr(hi1 if wide else None),
             _ptr(lo2), _ptr(hi2 if wide else None),
-            _ptr(out_lo), _ptr(out_hi), n, int(wide), _stream(device),
+            _ptr(out_lo), _ptr(out_hi), n, int(wide), mode,
+            0 if dims is None else len(dims), sizes, strides,
+            _stream(device),
         )
     _raise_on("ring_mul", err)
     LAUNCHES["ring_mul"] += 1
@@ -566,6 +647,102 @@ def msb_plain(lo, hi, width: int, banks) -> torch.Tensor:
     return bit_decompose_plain(lo, hi, width, banks)[:, :, width - 1]
 
 
+def bits_bank_masks_plain(banks: torch.Tensor, width: int) -> torch.Tensor:
+    """What the kernel's pack stage writes for ``banks`` (n_ands, 3,
+    width, *shape): int64 masks (n_ands, 3, width // 64, n), n the
+    elements flat, bit b of word w of element e being bit 0 of the bank
+    byte at bit row 64 w + b."""
+    n_ands = banks.shape[0]
+    rows = banks.reshape(n_ands, 3, width // 64, 64, -1)
+    masks = torch.zeros(rows.shape[:3] + rows.shape[4:], dtype=torch.int64,
+                        device=banks.device)
+    for b in range(64):
+        bit = torch.bitwise_and(rows[:, :, :, b], 1).to(torch.int64)
+        masks = torch.bitwise_or(masks, ring.shl64(bit, b))
+    return masks
+
+
+def bit_decompose_masks_plain(lo, hi, width: int, masks: torch.Tensor,
+                              msb_only: bool) -> torch.Tensor:
+    """The kernel's adder stage in plain PyTorch: the decomposition of the
+    (3, 2, *shape) words ``(lo, hi)`` from the packed ``masks`` of
+    :func:`bits_bank_masks_plain`, each (party, slot) bit vector a ring
+    word whose bit j is bit j, a shift along the bits a word shift and
+    the party roll a roll of the party axis.  Returns what
+    ``bit_decompose`` (or, with ``msb_only``, ``msb``) returns."""
+    data = tuple(lo.shape[2:])
+    x = (lo.reshape(3, 2, -1), None if hi is None else hi.reshape(3, 2, -1))
+    zero = torch.zeros_like(x[0])
+
+    def where(mask, w):
+        return None if w is None else torch.where(mask, w, zero)
+
+    def xor(a, b):
+        return torch.bitwise_xor(a[0], b[0]), (
+            None if a[1] is None else torch.bitwise_xor(a[1], b[1])
+        )
+
+    def and_(a, b):
+        return torch.bitwise_and(a[0], b[0]), (
+            None if a[1] is None else torch.bitwise_and(a[1], b[1])
+        )
+
+    def at(a, slot):
+        return a[0][:, slot], None if a[1] is None else a[1][:, slot]
+
+    def roll(a):
+        return tuple(None if w is None else torch.roll(w, -1, dims=0)
+                     for w in a)
+
+    def stack(a, b):
+        return tuple(None if u is None else torch.stack([u, v], dim=1)
+                     for u, v in zip(a, b))
+
+    def shl(a, d):
+        return ring.shl(a[0], a[1], d)
+
+    banks = iter(masks)
+
+    def bits_and(a, b):
+        bank = next(banks)  # (3, words, n)
+        s = bank[:, 0], None if width == 64 else bank[:, 1]
+        v = xor(and_(at(a, 0), xor(at(b, 0), at(b, 1))),
+                and_(at(a, 1), at(b, 0)))
+        z = xor(v, xor(s, roll(s)))
+        return stack(z, roll(z))
+
+    # summand j is the share x_j, held at pair slots (j, 0) and (j-1, 1)
+    summands = []
+    for j in range(3):
+        held = torch.zeros((3, 2, 1), dtype=torch.bool, device=lo.device)
+        held[j, 0] = held[(j - 1) % 3, 1] = True
+        summands.append((where(held, x[0]), where(held, x[1])))
+    b0, b1, b2 = summands
+    b01 = xor(b0, b1)
+    total = xor(b01, b2)
+    carry = xor(bits_and(b0, b1), bits_and(b01, b2))
+    y = shl(carry, 1)
+    prop = xor(total, y)
+    g = bits_and(total, y)
+    p_run = prop
+    d = 1
+    while d < width:
+        g = xor(g, bits_and(p_run, shl(g, d)))
+        if 2 * d < width:
+            p_run = bits_and(p_run, shl(p_run, d))
+        d *= 2
+    r = xor(prop, shl(g, 1))
+    if msb_only:
+        top = r[0] if width == 64 else r[1]
+        return torch.bitwise_and(ring.lshr64(top, 63), 1).to(
+            torch.uint8).reshape((3, 2) + data)
+    shifts = torch.arange(64, dtype=torch.int64, device=lo.device)[:, None]
+    planes = [torch.bitwise_and(w[:, :, None] >> shifts, 1)
+              for w in (r if width == 128 else r[:1])]
+    return torch.cat(planes, dim=2).to(torch.uint8).reshape(
+        (3, 2, width) + data)
+
+
 def _bits_adder(lo, hi, width: int, banks, msb_only: bool) -> torch.Tensor:
     name = "msb" if msb_only else "bit_decompose"
     shape = tuple(lo.shape)
@@ -593,11 +770,14 @@ def _bits_adder(lo, hi, width: int, banks, msb_only: bool) -> torch.Tensor:
     n = math.prod(data)
     if n == 0:
         return out
+    # the pack stage's output, the adder's input
+    masks = torch.empty(bank_shape[0] * 3 * (width // 64) * n,
+                        dtype=torch.int64, device=device)
     lib = build.library("bits_adder")
     with torch.cuda.device(device):
         err = lib.moose_bits_adder(
-            _ptr(lo), _ptr(hi if wide else None), _ptr(banks), _ptr(out),
-            n, int(wide), int(msb_only), _stream(device),
+            _ptr(lo), _ptr(hi if wide else None), _ptr(banks), _ptr(masks),
+            _ptr(out), n, int(wide), int(msb_only), _stream(device),
         )
     _raise_on(name, err)
     LAUNCHES[name] += 1
@@ -609,7 +789,9 @@ def bit_decompose(lo, hi, width: int, banks) -> torch.Tensor:
     ``(lo, hi)``: bit planes of the held shares, the statically masked
     summands, carry-save and a Kogge-Stone adder, consuming the uint8
     AND banks ``(adder_bank_count(width), 3, width, *shape)`` the caller
-    drew.  Returns the uint8 bit sharing (3, 2, width, *shape)."""
+    drew.  Returns the uint8 bit sharing (3, 2, width, *shape).  On the
+    card one call runs two device kernels (the banks packed into masks,
+    then the adder) and counts one launch."""
     return _bits_adder(lo, hi, width, banks, msb_only=False)
 
 

@@ -236,14 +236,14 @@ def fill_public(shape, width: int, raw: int, device) -> SpmdRep:
 
 def mul_public(x: SpmdRep, c_lo, c_hi) -> SpmdRep:
     """x * public constant (same value on every party) through the
-    ``ring_mul`` kernel, the constant broadcast to the shares' shape."""
-    x_lo = x.lo.contiguous()
-    b_lo = c_lo.expand(x_lo.shape).contiguous()
-    x_hi = b_hi = None
-    if x.hi is not None:
-        x_hi = x.hi.contiguous()
-        b_hi = c_hi.expand(x_hi.shape).contiguous()
-    return SpmdRep(*rk.ring_mul(x_lo, x_hi, b_lo, b_hi, x.width), x.width)
+    ``ring_mul`` kernel, the constant at its own shape: the kernel
+    broadcasts it to the shares' shape."""
+    x_hi = None if x.hi is None else x.hi.contiguous()
+    return SpmdRep(
+        *rk.ring_mul(x.lo.contiguous(), x_hi, c_lo,
+                     None if x_hi is None else c_hi, x.width),
+        x.width,
+    )
 
 
 def add_public(x: SpmdRep, c_lo, c_hi) -> SpmdRep:

@@ -16,8 +16,9 @@ prints for each:
   the threefry kernel K7 they launch and the few PyTorch ops around
   it), the CUDA kernels K1-K6, the fixed-point encode/decode, and
   everything else; beside them K7's own time and launches, whether
-  every K7 launch came from a PRF range (one launch per range), and K1's
-  two device kernels (the limb split and the limb GEMM) apart;
+  every K7 launch came from a PRF range (one launch per range), K1's
+  two device kernels (the limb split and the limb GEMM) and K5's two
+  (the bank pack and the adder) apart;
 - the number of kernels the card ran (PyTorch's and the port's);
 - the top kernels by device time.
 
@@ -69,12 +70,13 @@ KERNEL_LAYERS = (
     ("trunc_combine_kernel", "K2_trunc_combine"),
     ("cross_terms_mul_kernel", "K3_cross_terms_mul"),
     ("ring_mul_kernel", "K4_ring_mul"),
-    ("bits_adder_kernel", "K5_bits_adder"),
+    ("bits_adder_", "K5_bits_adder"),
     ("horner_kernel", "K6_horner"),
 )
-# the device kernels of one K1 call
+# the device kernels of one K1 call and of one K5 call
 K1_STAGES = (("dot_cross_terms_split", "split"),
              ("dot_cross_terms_gemm", "gemm"))
+K5_STAGES = (("bits_adder_pack", "pack"), ("bits_adder_add", "adder"))
 
 
 def _wrap(mod, name, label):
@@ -135,15 +137,18 @@ def profile_request(fn, warm=2):
     prf_kernel_ms = sum(ms for ms, _ in prf_kernel)
     prf_launches = sum(count for _, count in prf_kernel)
     layers["prf_expand"] += prf_kernel_ms
-    k1_stages = {
-        stage: {
-            "device_ms": sum(ms for name, (ms, _) in kernels.items()
+
+    def stages(table):
+        return {
+            stage: {
+                "device_ms": sum(ms for name, (ms, _) in kernels.items()
+                                 if needle in name),
+                "count": sum(count for name, (_, count) in kernels.items()
                              if needle in name),
-            "count": sum(count for name, (_, count) in kernels.items()
-                         if needle in name),
+            }
+            for needle, stage in table
         }
-        for needle, stage in K1_STAGES
-    }
+
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     return {
         "wall_ms": wall_ms,
@@ -155,7 +160,8 @@ def profile_request(fn, warm=2):
         "K7_threefry_launches": prf_launches,
         "prf_ranges": ranges["prf_expand"],
         "prf_expand_holds_K7": prf_launches == ranges["prf_expand"],
-        "K1_stages": k1_stages,
+        "K1_stages": stages(K1_STAGES),
+        "K5_stages": stages(K5_STAGES),
         "top_kernels": [
             {"name": name[:90], "device_ms": ms, "count": count}
             for name, (ms, count) in top

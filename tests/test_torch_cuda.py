@@ -190,15 +190,106 @@ def test_ring_mul_kernel_matches_plain(cuda, width, shape):
         _assert_equal(got, rk.ring_mul_plain(*a, *b, width))
 
 
-def _banks(rng, n, width, device):
-    banks = rng.integers(0, 2, size=(rk.adder_bank_count(width), 3, width, n),
-                         dtype=np.uint8)
-    return torch.from_numpy(banks).to(device)
+# b's own shapes against the shares' (3, 2, 64, n)
+B_SHAPES = {
+    "()": lambda n: (), "(64,1)": lambda n: (64, 1),
+    "(1,n)": lambda n: (1, n), "(64,n)": lambda n: (64, n),
+}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("width", WIDTHS)
-@pytest.mark.parametrize("n", (1, 5, 1000, 1024))
+@pytest.mark.parametrize("b_axes", tuple(B_SHAPES))
+@pytest.mark.parametrize("n", (1, 7, 1000, 1025))
+def test_ring_mul_kernel_broadcasts_b(cuda, width, b_axes, n):
+    shape = (3, 2, 64, n)
+    b_shape = B_SHAPES[b_axes](n)
+    rng = np.random.default_rng(n + len(b_shape) + width)
+    for draw in (_words, _edge):
+        a, b = draw(rng, shape, width, cuda), draw(rng, b_shape, width, cuda)
+        before = rk.LAUNCHES["ring_mul"]
+        got = rk.ring_mul(*a, *b, width)
+        torch.cuda.synchronize()
+        assert rk.LAUNCHES["ring_mul"] == before + 1
+        assert got[0].shape == shape
+        _assert_equal(got, rk.ring_mul_plain(*a, *b, width))
+
+
+def _at_offset(pair, offset):
+    """The same words as a contiguous view ``offset`` words into a larger
+    buffer."""
+    def view(t):
+        if t is None:
+            return None
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+        out = buf[offset:].view(t.shape)
+        out.copy_(t)
+        return out
+    return view(pair[0]), view(pair[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("n", (1, 2, 3, 4, 5, 9, 1000))
+def test_ring_mul_kernel_on_views_at_odd_offsets(cuda, width, n):
+    # the 16-byte path's scalar head and tail: a's planes and b at odd
+    # and even word offsets, alike and apart; b also expanded (stride 0)
+    # and transposed
+    shape = (3, 2, n)
+    rng = np.random.default_rng(n + width)
+    a, b = _words(rng, shape, width, cuda), _words(rng, shape, width, cuda)
+    want = rk.ring_mul_plain(*a, *b, width)
+    for a_off, b_off in ((1, 1), (1, 0), (0, 1), (3, 2)):
+        va = _at_offset(a, a_off)
+        if width == 128:  # the high plane at the other parity
+            va = (va[0], _at_offset((a[1], None), a_off + 1)[0])
+        got = rk.ring_mul(*va, *_at_offset(b, b_off), width)
+        _assert_equal(got, want)
+        assert got[0].is_contiguous()
+    row = _words(rng, (n,), width, cuda)
+    expanded = tuple(None if t is None else t.expand(shape) for t in row)
+    _assert_equal(rk.ring_mul(*a, *expanded, width),
+                  rk.ring_mul_plain(*a, *row, width))
+    tb = _words(rng, (n, 2, 3), width, cuda)
+    transposed = tuple(None if t is None else t.permute(2, 1, 0) for t in tb)
+    _assert_equal(rk.ring_mul(*a, *transposed, width),
+                  rk.ring_mul_plain(*a, *transposed, width))
+
+
+def _banks(rng, n, width, device, fill=None):
+    shape = (rk.adder_bank_count(width), 3, width, n)
+    if fill is None:
+        banks = rng.integers(0, 2, size=shape, dtype=np.uint8)
+    else:
+        banks = np.full(shape, fill, dtype=np.uint8)
+    return torch.from_numpy(banks).to(device)
+
+
+BITS_COUNTS = (1, 5, 128, 1000, 1024, 4096, 4097)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("n", BITS_COUNTS)
+@pytest.mark.parametrize("fill", (0, 1))
+def test_bits_adder_kernel_on_uniform_banks(cuda, width, n, fill):
+    # all-zero and all-ones banks on edge words, and the banks as a view
+    # off 16-byte alignment (the pack stage's byte path)
+    rng = np.random.default_rng(n + width + fill)
+    x = _edge(rng, (3, 2, n), width, cuda)
+    banks = _banks(rng, n, width, cuda, fill)
+    buf = torch.empty(banks.numel() + 1, dtype=torch.uint8, device=cuda)
+    shifted = buf[1:].view(banks.shape)
+    shifted.copy_(banks)
+    want = rk.bit_decompose_plain(*x, width, banks)
+    for b in (banks, shifted):
+        assert torch.equal(rk.bit_decompose(*x, width, b), want)
+        assert torch.equal(rk.msb(*x, width, b), want[:, :, width - 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("n", BITS_COUNTS)
 def test_bits_adder_kernel_matches_plain(cuda, width, n):
     rng = np.random.default_rng(n + width)
     for draw in (_words, _edge):
@@ -246,6 +337,11 @@ def test_wrappers_refuse_what_their_kernels_do_not_take(cuda):
     banks = _words(rng, (64, 3, 4), 64, cuda)
     with pytest.raises(ValueError, match="steps"):
         rk.horner(x0, x0, 64, list(range(65)), 23, banks, draws)
+    a = _words(rng, (3, 2, 4), 128, cuda)
+    for b_shape in ((5,), (3, 2, 4, 1), (2, 2, 4)):
+        b = _words(rng, b_shape, 128, cuda)
+        with pytest.raises(ValueError, match="broadcast"):
+            rk.ring_mul(*a, *b, 128)
 
 
 PRF_LAYOUTS = tuple(rk.PRF_LAYOUTS)
