@@ -21,8 +21,16 @@ Phases (each raises on failure; the script then exits non-zero):
      materialised at the shares' shape, at 2^20 elements also timed back
      to back, beside torch.mul at ring64; K5 at the logistic
      regression's and the trainers' element counts, there also timed
-     back to back; the threefry kernel (K7) in both stream layouts,
-     words and bits;
+     back to back; the threefry kernel (K7) in both stream layouts:
+     grouped, with the seeds derived on the card (the logistic
+     regression's Horner group of 84 draws, its adder group of 16 bit
+     banks, a truncation group of 6 at the secure dot's 10^6, a group of
+     one at 2^20 words), beside the same draws one by one as the session
+     drew them before groups (host seed, one launch each), and under a
+     given key, words and bits; K3's fused cross_terms_reshare at the
+     path's (3,2,1024) and broadcast (64,1024,1) x (1,1024,1) shapes and
+     at 2^20, beside the composition it replaced (slot copies, the
+     unfused kernel, the zero share, the pair layout);
   4. the eDSL secure dot: 1000x1000 @ 1000x1000 at fixed(14,23), ring128,
      through LocalMooseRuntime on the card, checked against float64
      x @ y (max abs error < 2e-4);
@@ -43,8 +51,14 @@ Phases 4 to 7 are the main path: the kernels' launch counters are set
 to 0 just before each and read just after.  K1, K2 and the threefry
 kernel in the phase's stream layout (threefry in 4-6, threefry-pallas in
 7, and never the other) must have launched in each, and every kernel
-(K1-K6, K5 in both modes) in phases 6 and 7.  The line before the last
-is the kernels' JSON record; the last line is the device record.
+(K1, K2, K3's cross_terms_reshare, K4, K5 in both modes, K6) in phases 6
+and 7.  No seed may be derived on the host there (ring.mix_seed is
+counted), and the K7 launches must stay under their ceilings: 3 for a
+secure dot, 60 for a logistic-regression request or a LogregSGDTrainer
+step; one more request of phase 6 and one more step of phase 7 run under
+torch.profiler, whose device launches must stay under 1,600 and 1,700.
+The line before the last is the kernels' JSON record; the last line is
+the device record.
 
 Without a CUDA device, or without the moose_tpu_torch package beside
 it, the script prints no result and exits with code 2.
@@ -122,6 +136,17 @@ TRAIN_STEP_TOL = 1e-4  # per step (tests/test_training.py:213)
 TRAIN_TRAJECTORY_TOL = 1e-3  # over the steps (benchmarks/logreg.py:145)
 MLP_HIDDEN = 32
 MLP_STEPS = 2
+# launch ceilings of the main path: K7 launches (groups) of a secure dot,
+# of a logistic-regression request and of a LogregSGDTrainer step, and
+# the device launches (PyTorch's and the port's kernels) of one request
+# and one step
+DOT_K7_CEILING = 3
+LOGREG_K7_CEILING = 60
+TRAIN_K7_CEILING = 60
+LOGREG_DEVICE_CEILING = 1600
+TRAIN_DEVICE_CEILING = 1700
+# the session key of the K7 group rows
+GROUP_MASTER = (0x01234567, 0x89ABCDEF, 0xDEADBEEF, 0x0BADF00D)
 
 
 def log(*args):
@@ -162,6 +187,19 @@ def back_to_back_ms(torch, fn, calls=20):
     host time a single timed call carries."""
     return cuda_time_ms(torch, lambda: [fn() for _ in range(calls)],
                         reps=5) / calls
+
+
+def device_launches(torch, fn):
+    """The kernels and copies the card ran for one call of ``fn``, under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(1 for e in prof.events() if e.device_type == cuda)
 
 
 def device_time_ms(torch, fn, calls=10):
@@ -460,6 +498,135 @@ def threefry_bound(n, layout, bits):
     return bound(n, words * (THREEFRY_OPS_PER_BLOCK + THREEFRY_SPREAD_OPS))
 
 
+def reshare_bound(x_elems, y_elems, n, width):
+    """K3's fused reshare over n elements: slot 0 of x and y (3 words an
+    element of their own shapes) and the (3, n) bank read, the (3, 2, n)
+    pair layout written; per element and party two products and four
+    adds (the y pair, the cross terms, the zero share's two)."""
+    words = 3 * x_elems + 3 * y_elems + 3 * n + 6 * n
+    ops = n * 3 * (2 * RING_MUL_OPS[width] + 4 * RING_ADD_OPS[width])
+    return bound(words * (width // 8), ops)
+
+
+def compare_reshare(torch, rk, ring, gen, x_shape, y_shape, width, reps):
+    """K3's cross_terms_reshare as spmd.mul calls it: consistent
+    sharings in the pair layout, broadcast to the common shape in the
+    kernel, and the zero-share bank.  Beside it (``composition_ms``) the
+    composition it replaced on the card: slot copies, the unfused
+    cross_terms_mul kernel, the zero share's rolls and subtraction, the
+    addition and the pair layout's rolls and stacks; and the device time
+    of both under torch.profiler (``device_ms``,
+    ``composition_device_ms``)."""
+    def pair_layout(shape):
+        z = random_words(torch, gen, (3,) + shape, width)
+        return tuple(None if w is None
+                     else torch.stack([w, torch.roll(w, -1, dims=0)], dim=1)
+                     for w in z)
+
+    x, y = pair_layout(x_shape), pair_layout(y_shape)
+    shape = tuple(torch.broadcast_shapes(x_shape, y_shape))
+    bank = random_words(torch, gen, (3,) + shape, width)
+
+    def slot(t, s):
+        return tuple(None if w is None
+                     else w[:, s].expand((3,) + shape).contiguous()
+                     for w in t)
+
+    def composition():
+        v = rk.cross_terms_mul(slot(x, 0), slot(x, 1), slot(y, 0),
+                               slot(y, 1), width)
+        roll = [None if w is None else torch.roll(w, -1, dims=0)
+                for w in bank]
+        z = ring.add(*v, *ring.sub(*bank, *roll))
+        return tuple(None if w is None else torch.stack(
+            [w, torch.roll(w, -1, dims=0)], dim=1) for w in z)
+
+    row = compare_kernel(
+        torch, rk.cross_terms_reshare, rk.cross_terms_reshare_plain,
+        (x, y, bank, width),
+        reshare_bound(math.prod(x_shape), math.prod(y_shape),
+                      math.prod(shape), width), reps,
+        shape=f"(3,2,{x_shape}) x (3,2,{y_shape})", width=width,
+        mode="cross_terms_reshare",
+    )
+    equal, _ = word_diff(torch, composition(), rk.cross_terms_reshare(
+        x, y, bank, width))
+    row["equal"] = row["equal"] and equal
+    row["composition_ms"] = cuda_time_ms(torch, composition, reps=reps)
+    row["device_ms"] = device_time_ms(
+        torch, lambda: rk.cross_terms_reshare(x, y, bank, width))
+    row["composition_device_ms"] = device_time_ms(torch, composition)
+    return row
+
+
+def group_bound(draws, layout):
+    """K7 over a group: every draw's outputs written once, nothing read;
+    one cipher block per output word (per layout-0 bit, per 64 layout-1
+    bits) and, per draw, the four blocks and the key mixing of its seed
+    derivation."""
+    nbytes = ops = 0
+    for kind, n in draws:
+        bits = kind == "bits"
+        outs = n * (2 if kind == "w128" else 1)
+        nbytes += outs * (1 if bits else 8)
+        if not bits:
+            ops += outs * THREEFRY_OPS_PER_BLOCK
+        elif layout == "threefry":
+            ops += outs * (THREEFRY_OPS_PER_BLOCK + THREEFRY_BIT_OPS)
+        else:
+            ops += -(-outs // 64) * (THREEFRY_OPS_PER_BLOCK
+                                    + THREEFRY_SPREAD_OPS)
+        ops += 5 * THREEFRY_OPS_PER_BLOCK
+    return bound(nbytes, ops)
+
+
+def compare_group(torch, rk, ring, draws, layout, reps, label):
+    """K7's group kernel against its plain version (the draws one by one,
+    seeds derived on the host), in one layout; beside it
+    (``sequential_ms``) the same draws as the session drew them before
+    groups: per draw the host seed and one launch under its key; and the
+    device time of both under torch.profiler (``device_ms``,
+    ``sequential_device_ms``).  ``draws`` are (kind, n) with kind "w64",
+    "w128" or "bits"."""
+    def planes():
+        out = []
+        for kind, n in draws:
+            dtype = torch.uint8 if kind == "bits" else torch.int64
+            out.append(rk.GroupDraw(kind == "bits", n, tuple(
+                (torch.empty(n, dtype=dtype, device="cuda"), 0)
+                for _ in range(2 if kind == "w128" else 1))))
+        return out
+
+    got, want = planes(), planes()
+
+    def kernel():
+        rk.threefry_group(GROUP_MASTER, 0, 1000, layout, got)
+        return [buf for d in got for buf, _ in d.planes]
+
+    def plain():
+        rk.threefry_group_plain(GROUP_MASTER, 0, 1000, layout, want)
+        return [buf for d in want for buf, _ in d.planes]
+
+    def sequential():
+        for j, (kind, n) in enumerate(draws):
+            seed = ring.draw_seed(GROUP_MASTER, 0, 1000 + j)
+            key = ring.stream_key(seed, layout, kind == "bits")
+            if kind == "bits":
+                rk.threefry_bits(*key, n, layout, "cuda")
+            else:
+                rk.threefry_words(*key, n * (2 if kind == "w128" else 1),
+                                  layout, "cuda")
+
+    row = compare_kernel(
+        torch, kernel, plain, (), group_bound(draws, layout), reps,
+        shape=f"group of {len(draws)} ({label})", mode=layout,
+    )
+    row["sequential_ms"] = cuda_time_ms(torch, sequential, reps=reps)
+    row["device_ms"] = device_time_ms(torch, kernel)
+    row["sequential_device_ms"] = device_time_ms(torch, sequential)
+    return row
+
+
 def compare_threefry(torch, rk, n, layout, bits, reps, label):
     """K7 in one layout against its plain version.  There is no library
     call: PyTorch's generators are Philox, another function."""
@@ -651,6 +818,21 @@ def run_training(torch, rk, runtime, rng):
     }
 
 
+def step_device_launches(torch, runtime, rng):
+    """The device launches of one more LogregSGDTrainer step (128 x 100,
+    from zero weights), under torch.profiler."""
+    import numpy as np
+
+    from moose_tpu_torch.predictors import trainers
+
+    trainer = trainers.LogregSGDTrainer(TRAIN_FEATURES, TRAIN_LR)
+    comp = trainer.step_computation(TRAIN_ROWS)
+    x, y = training_data(rng, TRAIN_ROWS, TRAIN_FEATURES)
+    args = {"w": np.zeros((TRAIN_FEATURES, 1)), "x": x, "y": y}
+    return device_launches(
+        torch, lambda: runtime.evaluate_computation(comp, args))
+
+
 def timed(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -738,7 +920,18 @@ def main() -> int:
     ]
     # the protocol sigmoid's kernels, at the logistic regression's shapes
     # (which time launch latency) and at 2^20 elements
+    # K3: the fused reshare spmd.mul runs, at the path's shapes (an
+    # elementwise (1024,) product, the (64, 1024, 1) bit-weighted terms
+    # against a (1, 1024, 1) factor) and at 2^20; then the unfused entry
     cross_rows = [
+        compare_reshare(torch, rk, ring, gen, (PATH_N,), (PATH_N,), 128,
+                        reps=20),
+        compare_reshare(torch, rk, ring, gen, (64, PATH_N, 1),
+                        (1, PATH_N, 1), 128, reps=20),
+        compare_reshare(torch, rk, ring, gen, (BIG_N,), (BIG_N,), 128,
+                        reps=5),
+        compare_reshare(torch, rk, ring, gen, (BIG_N,), (BIG_N,), 64,
+                        reps=5),
         compare_cross_mul(torch, rk, gen, (3, PATH_N), 128, reps=20),
         compare_cross_mul(torch, rk, gen, (3, 64, PATH_N), 128, reps=20),
         compare_cross_mul(torch, rk, gen, (3, BIG_N), 128, reps=5),
@@ -789,10 +982,29 @@ def main() -> int:
                        reps=5),
         compare_horner(torch, rk, gen, PATH_N, 64, 9, 35, reps=20),
     ]
-    # K7 at the draws of the paths: the trainer's largest (sharing its
+    # K7 grouped, as the session draws: the logistic regression's Horner
+    # group (14 steps of a (3, 1024) bank and five (1024,) draws,
+    # ring128), its adder group (16 bit banks of (3, 128, 1024)), a
+    # truncation group of 6 at the secure dot's 10^6 ring128 and a group
+    # of one at 2^20 words
+    horner_group = ([("w128", 3 * PATH_N)] + [("w128", PATH_N)] * 5) \
+        * HORNER_STEPS
+    group_rows = [
+        compare_group(torch, rk, ring, draws, layout, reps, label)
+        for layout in ("threefry", "threefry-pallas")
+        for draws, reps, label in (
+            (horner_group, 20, "Horner, 84 draws at (3,1024) ring128"),
+            ([("bits", 3 * 128 * LOGREG_ROWS)] * 16, 20,
+             "adder, 16 bit banks of (3,128,1024)"),
+            ([("w128", 3 * DOT_N * DOT_N)] + [("w128", DOT_N * DOT_N)] * 5,
+             5, "truncation, 6 at the secure dot's 10^6 ring128"),
+            ([("w64", BIG_N)], 20, "one draw of 2^20 words"),
+        )
+    ]
+    # K7 under a given key, one draw: the trainer's largest (sharing its
     # 128x100 ring128 batch), the logistic regression's bit banks
     # (3, 128, 1024), 2^20 words and the secure dot's (2, 3, 1000, 1000)
-    threefry_rows = [
+    threefry_rows = group_rows + [
         compare_threefry(torch, rk, n, layout, bits, reps, label)
         for layout in ("threefry-pallas", "threefry")
         for n, bits, reps, label in (
@@ -816,6 +1028,16 @@ def main() -> int:
             if not row["equal"]:
                 raise AssertionError(f"{name} disagrees with plain: {row}")
     torch.cuda.empty_cache()
+
+    # the main path derives no seed on the host: count ring.mix_seed
+    host_seeds = [0]
+    mix_seed = ring.mix_seed
+
+    def counted_mix_seed(*args, **kwargs):
+        host_seeds[0] += 1
+        return mix_seed(*args, **kwargs)
+
+    ring.mix_seed = counted_mix_seed
 
     # phase 4: the eDSL secure dot through the runtime (main path)
     rng = np.random.default_rng(SEED)
@@ -896,13 +1118,17 @@ def main() -> int:
         logreg_errs.append(float(np.abs(pred - want).max()))
         logreg_latencies.append(s)
     logreg_launches = dict(rk.LAUNCHES)
+    logreg_device_launches = device_launches(
+        torch, lambda: runtime.evaluate_computation(logreg,
+                                                    {"x": requests[0]}))
     logreg_rows_per_s = (LOGREG_ROWS * LOGREG_REQUESTS
                          / sum(logreg_latencies))
     log(f"logistic_regression: {LOGREG_REQUESTS} requests of {LOGREG_ROWS}x"
         f"{LOGREG_FEATURES} fixed(24, 40) latencies_ms "
         f"{[round(s * 1e3, 3) for s in logreg_latencies]} rows_per_s "
         f"{logreg_rows_per_s:.1f} max_abs_err {max(logreg_errs):.3e} "
-        f"launches {logreg_launches}")
+        f"launches {logreg_launches} device launches a request "
+        f"{logreg_device_launches}")
     if max(logreg_errs) >= LOGREG_TOL:
         raise AssertionError(
             f"logistic regression error {max(logreg_errs)} >= {LOGREG_TOL}"
@@ -912,8 +1138,11 @@ def main() -> int:
     ring.set_prf_impl("threefry-pallas")
     try:
         training = run_training(torch, rk, runtime, rng)
+        training["logreg_device_launches"] = step_device_launches(
+            torch, runtime, rng)
     finally:
         ring.set_prf_impl("threefry")
+        ring.mix_seed = mix_seed
 
     launches_by_path = {
         "secure_dot": dot_launches,
@@ -921,7 +1150,7 @@ def main() -> int:
         "logistic_regression": logreg_launches,
         "training": training.pop("launches"),
     }
-    protocol = ("dot_cross_terms", "trunc_combine", "cross_terms_mul",
+    protocol = ("dot_cross_terms", "trunc_combine", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
     required = {
         "secure_dot": ("dot_cross_terms", "trunc_combine", "prf_threefry"),
@@ -939,6 +1168,27 @@ def main() -> int:
                 raise AssertionError(f"{path} never launched {name}")
         if launches_by_path[path][unused[path]] != 0:
             raise AssertionError(f"{path} launched {unused[path]}")
+    if host_seeds[0]:
+        raise AssertionError(
+            f"the main path derived {host_seeds[0]} seeds on the host")
+    k7 = {path: counts["prf_threefry"] + counts["prf_threefry_pallas"]
+          for path, counts in launches_by_path.items()}
+    logreg_steps_k7 = sum(training["logreg_launches"][c] for c in
+                          ("prf_threefry", "prf_threefry_pallas"))
+    for what, got, ceiling in (
+        ("secure dot K7 launches", k7["secure_dot"], DOT_K7_CEILING),
+        ("K7 launches a logistic-regression request",
+         k7["logistic_regression"] / LOGREG_REQUESTS, LOGREG_K7_CEILING),
+        ("K7 launches a LogregSGDTrainer step",
+         logreg_steps_k7 / TRAIN_STEPS, TRAIN_K7_CEILING),
+        ("device launches a logistic-regression request",
+         logreg_device_launches, LOGREG_DEVICE_CEILING),
+        ("device launches a LogregSGDTrainer step",
+         training["logreg_device_launches"], TRAIN_DEVICE_CEILING),
+    ):
+        log(f"ceiling: {what} {got} <= {ceiling}")
+        if got > ceiling:
+            raise AssertionError(f"{what}: {got} > {ceiling}")
 
     for mod in sys.modules:
         if mod == "jax" or mod.startswith(("jax.", "moose_tpu.")) \
@@ -959,6 +1209,7 @@ def main() -> int:
     # its two stream layouts)
     counters = {name: (name,) for name in replaces}
     counters["bits_adder"] = ("bit_decompose", "msb")
+    counters["cross_terms_mul"] = ("cross_terms_mul", "cross_terms_reshare")
     counters["threefry"] = ("prf_threefry", "prf_threefry_pallas")
     kernels = []
     for name, rows in rows_by_kernel.items():
@@ -997,6 +1248,9 @@ def main() -> int:
     record = {
         "card": smi,
         "build_s": build_s,
+        "host_seed_derivations": host_seeds[0],
+        "k7_launches": k7,
+        "logreg_device_launches": logreg_device_launches,
         "secure_dot": {"latency_ms": dot_s * 1e3,
                        "warm_latency_ms": [s * 1e3 for s in warm],
                        "max_abs_err": dot_err},

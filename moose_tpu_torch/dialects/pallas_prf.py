@@ -5,13 +5,15 @@ is threefry2x32-20 in counter mode: the 128-bit seed ``(s0, s1, s2, s3)``
 folds to the key ``(s0 ^ s2, s1 ^ s3)``, word ``c`` encrypts the counter
 block ``(c, ~c)`` for the u32 lane index ``c``, and a word is
 ``(y0 << 32) | y1``.  The JAX package expands it with a Pallas kernel;
-in the port the hand-written CUDA kernel ``csrc/threefry.cu`` expands it
-(``native.ring_kernels.threefry_words`` / ``threefry_bits``), and its
-plain PyTorch version runs for the CPU.
+in the port the hand-written CUDA kernel ``csrc/threefry.cu`` expands it:
+a protocol session's draws in groups whose seeds the kernel derives
+(``native.ring_kernels.threefry_group``), and a seed given here as a
+group of one draw under its key (``threefry_words`` / ``threefry_bits``);
+its plain PyTorch version runs for the CPU.
 
 One seed covers 2^32 words.  A larger draw is refused before anything
-is allocated: its counter would repeat an earlier lane's, and in the
-protocol that is a reused mask.
+is allocated (``ring_kernels.refuse_beyond_counter``): its counter would
+repeat an earlier lane's, and in the protocol that is a reused mask.
 
 Selected with ``ring.set_prf_impl("threefry-pallas")`` or
 ``MOOSE_TPU_PRF=threefry-pallas``.
@@ -30,27 +32,13 @@ from . import ring
 LAYOUT = "threefry-pallas"
 
 
-def _key(seed):
-    s = ring._seed_words(seed)
-    return s[0] ^ s[2], s[1] ^ s[3]
-
-
-def _refuse_beyond_counter(words: int) -> None:
-    if words > rk.PALLAS_MAX_WORDS:
-        raise ValueError(
-            f"threefry-pallas draw of {words} lanes exceeds the 2^32 "
-            "counter space of one seed; split the draw across derived seeds"
-        )
-
-
 def random_bits_u64(seed, shape: Sequence[int], device) -> torch.Tensor:
     """Uniform u64 words (as int64) of ``shape`` from a 128-bit seed, on
     ``device``: lane ``i`` of the flattened shape is word ``i`` of the
     stream."""
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
-    _refuse_beyond_counter(n)
-    k0, k1 = _key(seed)
+    k0, k1 = ring.stream_key(seed, LAYOUT, bits=False)
     return rk.threefry_words(k0, k1, n, LAYOUT, device).reshape(shape)
 
 
@@ -61,6 +49,6 @@ def random_bits_u8(seed, shape: Sequence[int], device) -> torch.Tensor:
     under this PRF)."""
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
-    _refuse_beyond_counter(-(-n // 64))
-    k0, k1 = _key(seed)
+    # the seed comes tagged for bits (ring.sample_bits_seeded)
+    k0, k1 = ring.stream_key(seed, LAYOUT, bits=False)
     return rk.threefry_bits(k0, k1, n, LAYOUT, device).reshape(shape)

@@ -18,9 +18,12 @@ on a threefry key (``jax_threefry_partitionable``): for the flat index i
 the block ``(i >> 32, i & 0xFFFFFFFF)`` is encrypted under the key words
 ``(s >> 32, s & 0xFFFFFFFF)`` of the u64 key ``s``.  ``"threefry-pallas"``
 is the JAX package's K7 stream (``pallas_prf.py``).  Seeds are four u32
-words kept as Python ints on the host; only the counter-mode expansion
-runs on the device: the CUDA kernel ``csrc/threefry.cu`` for a CUDA
-device, its plain PyTorch version for the CPU.
+words.  A protocol session's draws come in groups whose seeds the CUDA
+kernel ``csrc/threefry.cu`` derives on the card from the master key and
+the nonce schedule (:func:`session_nonce`, :func:`draw_seed`) and
+expands; a seed given here is expanded by the same kernel under its key
+(:func:`stream_key`).  For the CPU, seeds are derived here in Python
+integers and the plain PyTorch version expands them.
 """
 
 from __future__ import annotations
@@ -360,13 +363,42 @@ def mix_seed(seed, nonce) -> Seed:
     return tuple(out)
 
 
+def session_nonce(idx: int, domain: int) -> Seed:
+    """The public nonce of draw ``idx`` of a session in ``domain``: the
+    JAX package's ``SpmdSession._next_seed`` schedule."""
+    return (
+        idx & MASK32,
+        0x5B3D9E21 ^ ((domain * 0x85EBCA6B) & MASK32),
+        (idx ^ 0xA5A5A5A5) & MASK32,
+        7,
+    )
+
+
+def draw_seed(master, domain: int, idx: int) -> Seed:
+    """The seed of draw ``idx`` of a session keyed by ``master``, derived
+    on the host.  ``csrc/threefry.cu`` derives the same words on the card
+    for a group of draws."""
+    return mix_seed(master, session_nonce(idx, domain))
+
+
+def stream_key(seed, layout: str, bits: bool) -> Tuple[int, int]:
+    """The threefry key words that expand a draw from ``seed`` in the
+    stream ``layout``: for a bit draw the seed takes its domain tag
+    first; ``"threefry"`` keys with :func:`_key_from_seed`,
+    ``"threefry-pallas"`` folds the seed to ``(s0 ^ s2, s1 ^ s3)``."""
+    s = _bit_domain_seed(seed) if bits else _seed_words(seed)
+    if layout == "threefry-pallas":
+        return s[0] ^ s[2], s[1] ^ s[3]
+    return _key_from_seed(s)
+
+
 def random_bits_u64(seed, shape: Sequence[int], device):
     """``jax.random.bits(key, shape, uint64)`` for the threefry key of
     ``seed``, as int64 words on ``device``."""
     # imported here: ring_kernels is built on this module
     from ..native import ring_kernels as rk
 
-    k0, k1 = _key_from_seed(_seed_words(seed))
+    k0, k1 = stream_key(seed, "threefry", bits=False)
     shape = tuple(int(s) for s in shape)
     return rk.threefry_words(
         k0, k1, math.prod(shape), "threefry", device
@@ -416,7 +448,7 @@ def sample_bits_seeded(shape, seed, device):
         return pallas_prf.random_bits_u8(tagged, shape, device)
     from ..native import ring_kernels as rk
 
-    k0, k1 = _key_from_seed(tagged)
+    k0, k1 = stream_key(seed, "threefry", bits=True)
     return rk.threefry_bits(
         k0, k1, math.prod(shape), "threefry", device
     ).reshape(shape)

@@ -35,7 +35,8 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
-# C entry point and argument types of each kernel's library
+# C entry point and argument types of each kernel's library, and of a
+# second entry point a library carries (LIBRARY_OF names its library)
 SIGNATURES = {
     "dot_cross_terms": (
         "moose_dot_cross_terms",
@@ -53,6 +54,13 @@ SIGNATURES = {
         "moose_cross_terms_mul",
         [ctypes.c_void_p] * 10
         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    ),
+    "cross_terms_reshare": (
+        "moose_cross_terms_reshare",
+        [ctypes.c_void_p] * 8
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        + [ctypes.POINTER(ctypes.c_longlong)] * 3
+        + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
     ),
     "ring_mul": (
         "moose_ring_mul",
@@ -73,11 +81,16 @@ SIGNATURES = {
            ctypes.c_void_p],
     ),
     "threefry": (
-        "moose_threefry",
-        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
-         ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        "moose_threefry_group",
+        [ctypes.POINTER(ctypes.c_uint), ctypes.c_uint, ctypes.c_ulonglong]
+        + [ctypes.c_int] * 3
+        + [ctypes.POINTER(ctypes.c_longlong),
+           ctypes.POINTER(ctypes.c_ulonglong),
+           ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
     ),
 }
+
+LIBRARY_OF = {"cross_terms_reshare": "cross_terms_mul"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -155,7 +168,7 @@ def build_all(names: Sequence[str] = KERNELS) -> float:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed, with
-    its entry point's argument types bound."""
+    its entry points' argument types bound."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
@@ -164,9 +177,12 @@ def library(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_target(name)))
-            symbol, argtypes = SIGNATURES[name]
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for entry, of in [(name, name)] + list(LIBRARY_OF.items()):
+                if of != name:
+                    continue
+                symbol, argtypes = SIGNATURES[entry]
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _LIBS[name] = lib
     return lib

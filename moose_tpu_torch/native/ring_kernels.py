@@ -8,8 +8,10 @@ kernels the secure dot and the protocol sigmoid run:
   ``csrc/dot_cross_terms.cu``;
 - ``trunc_combine`` (K2): the elementwise tail of probabilistic
   truncation after its five pre-drawn values, ``csrc/trunc_combine.cu``;
-- ``cross_terms_mul`` (K3): the same cross terms elementwise, for a
-  secure multiply, ``csrc/cross_terms_mul.cu``;
+- ``cross_terms_mul`` (K3): the same cross terms elementwise, and
+  ``cross_terms_reshare``, a secure multiply's cross terms fused with its
+  reshare, reading the operands' pair layout in place and writing the
+  reshared pair layout, ``csrc/cross_terms_mul.cu``;
 - ``ring_mul`` (K4): an elementwise ring multiply (a secret times a
   public constant, broadcast in the kernel), ``csrc/ring_mul.cu``;
 - ``bit_decompose`` and ``msb`` (K5): arithmetic-to-binary conversion
@@ -18,18 +20,20 @@ kernels the secure dot and the protocol sigmoid run:
   then the adder on masks);
 - ``horner`` (K6): the fused fixed-point Horner ladder of a secret
   polynomial, ``csrc/horner.cu``;
-- ``threefry_words`` and ``threefry_bits`` (K7, the
-  ``moose_tpu/dialects/pallas_prf.py`` kernel): threefry2x32-20
-  counter-mode expansion of a key into u64 words or 0/1 bits, in the
-  layout of the default ``threefry`` stream or of K7's
-  ``threefry-pallas`` stream, one kernel ``csrc/threefry.cu``.
+- ``threefry_group`` (K7, the ``moose_tpu/dialects/pallas_prf.py``
+  kernel): threefry2x32-20 counter-mode expansion of a group of a
+  protocol session's draws into u64 words or 0/1 bits, their seeds
+  derived in the kernel, in the layout of the default ``threefry``
+  stream or of K7's ``threefry-pallas`` stream; ``threefry_words`` and
+  ``threefry_bits`` expand one key the caller gives, as a group of one,
+  through the same kernel ``csrc/threefry.cu``.
 
 A wrapper takes its plain version only for tensors (for K7, a device) on
 the CPU.  For CUDA it launches the kernel or raises: there is no
 fallback.  Each launch adds one to ``LAUNCHES[name]`` (and nothing else
-does), so a run can show that it went through the kernels; K5 counts its
-two modes apart, and K7 its two layouts (``prf_threefry``,
-``prf_threefry_pallas``).
+does), so a run can show that it went through the kernels; K3 counts its
+two entry points apart, K5 its two modes, and K7 its two layouts
+(``prf_threefry``, ``prf_threefry_pallas``), one launch a group.
 
 The plain versions repeat the kernels' arithmetic in PyTorch.  They are
 what the CPU tests hold against the JAX package, and what ``chip_smoke.py``
@@ -42,7 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,7 +57,7 @@ Pair = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 LAUNCHES = {
     "dot_cross_terms": 0, "trunc_combine": 0, "cross_terms_mul": 0,
-    "ring_mul": 0, "bit_decompose": 0, "msb": 0, "horner": 0,
+    "cross_terms_reshare": 0, "ring_mul": 0, "bit_decompose": 0, "msb": 0, "horner": 0,
     "prf_threefry": 0, "prf_threefry_pallas": 0,
 }
 
@@ -500,6 +504,129 @@ def cross_terms_mul(x0: Pair, x1: Pair, y0: Pair, y1: Pair,
     return out_lo, out_hi
 
 
+# csrc/cross_terms_mul.cu: the most collapsed axes of the reshare's
+# common shape
+_RESHARE_MAX_DIMS = 8
+_ReshareAxes = ctypes.c_longlong * _RESHARE_MAX_DIMS
+
+
+def _logical_stride(t: torch.Tensor, shape, d: int) -> int:
+    """The word stride of pair-layout words ``t`` (3, 2, *own) along axis
+    ``d`` of the logical ``shape`` it broadcasts to: 0 where ``t`` has no
+    such axis or size 1 there."""
+    td = d - (len(shape) - (t.dim() - 2))
+    return 0 if td < 0 or t.shape[2 + td] == 1 else t.stride(2 + td)
+
+
+def reshare_dims(shape, x: torch.Tensor, y: torch.Tensor):
+    """(size, x stride, y stride) axes of the common logical ``shape``,
+    size-1 axes dropped and neighbours that step alike in both operands
+    merged, innermost last: what the reshare kernel walks."""
+    dims = []
+    for d, size in enumerate(shape):
+        if size == 1:
+            continue
+        xs, ys = _logical_stride(x, shape, d), _logical_stride(y, shape, d)
+        if dims and dims[-1][1] == xs * size and dims[-1][2] == ys * size:
+            dims[-1] = (dims[-1][0] * size, xs, ys)
+        else:
+            dims.append((size, xs, ys))
+    return dims
+
+
+def _slot(t: Pair, slot: int, shape) -> Pair:
+    """Pair slot ``slot`` of (3, 2, *own) words broadcast to (3, *shape)."""
+
+    def words(w):
+        if w is None:
+            return None
+        w = w[:, slot]
+        w = w.reshape((3,) + (1,) * (len(shape) + 1 - w.dim())
+                      + tuple(w.shape[1:]))
+        return w.expand((3,) + tuple(shape))
+
+    return words(t[0]), words(t[1])
+
+
+def cross_terms_reshare_plain(x: Pair, y: Pair, bank: Pair,
+                              width: int) -> Pair:
+    """``spmd.mul`` as it was composed before the fused kernel: the plain
+    cross terms of the pair slots broadcast to the common shape, the zero
+    share ``s_i - s_{i+1}`` of ``bank`` added, and the pair layout
+    (z_i, z_{i+1}) stacked."""
+    shape = torch.broadcast_shapes(x[0].shape[2:], y[0].shape[2:])
+    v = cross_terms_mul_plain(_slot(x, 0, shape), _slot(x, 1, shape),
+                              _slot(y, 0, shape), _slot(y, 1, shape), width)
+    zero = ring.sub(bank[0], bank[1], _roll(bank[0]), _roll(bank[1]))
+    z = ring.add(*v, *zero)
+    return tuple(
+        None if w is None else torch.stack([w, _roll(w)], dim=1) for w in z
+    )
+
+
+def _check_pair_layout(label: str, pair: Pair, device: torch.device,
+                       wide: bool) -> None:
+    lo, hi = pair
+    if lo.device != device or lo.dtype != torch.int64:
+        raise ValueError(
+            f"{label}: expected int64 words on {device}, got {lo.dtype} on "
+            f"{lo.device}"
+        )
+    if lo.dim() < 2 or tuple(lo.shape[:2]) != (3, 2):
+        raise ValueError(
+            f"{label}: expected (3, 2, *shape) words, got {tuple(lo.shape)}"
+        )
+    if wide and (hi is None or hi.dtype != torch.int64 or hi.device != device
+                 or hi.shape != lo.shape or hi.stride() != lo.stride()):
+        raise ValueError(f"{label}: hi words missing or laid out unlike lo")
+
+
+def cross_terms_reshare(x: Pair, y: Pair, bank: Pair, width: int) -> Pair:
+    """A secure elementwise multiply's cross terms and reshare in one
+    kernel: ``x`` and ``y`` are (lo, hi) words in the (3, 2, *shape) pair
+    layout of consistent replicated sharings (slot 1 of party i is slot 0
+    of party i + 1; the kernel reads slot 0 only), of logical shapes that
+    broadcast to a common one, read in place through their strides;
+    ``bank`` the contiguous (3, *common) zero-share draw.  Returns the
+    reshared pair layout (3, 2, *common): ``out[i, 0] = z_i``,
+    ``out[i, 1] = z_{i+1}`` with ``z_i = x_i (y_i + y_{i+1}) + x_{i+1}
+    y_i + s_i - s_{i+1}``."""
+    shape = tuple(torch.broadcast_shapes(x[0].shape[2:], y[0].shape[2:]))
+    if _on_cpu(x[0]):
+        return cross_terms_reshare_plain(x, y, bank, width)
+    device = x[0].device
+    _require_cuda("cross_terms_reshare", device)
+    wide = width == 128
+    _check_pair_layout("cross_terms_reshare x", x, device, wide)
+    _check_pair_layout("cross_terms_reshare y", y, device, wide)
+    _check_pair("cross_terms_reshare bank", bank, (3,) + shape, device, wide)
+    out_lo = torch.empty((3, 2) + shape, dtype=torch.int64, device=device)
+    out_hi = torch.empty_like(out_lo) if wide else None
+    n = math.prod(shape)
+    if n == 0:
+        return out_lo, out_hi
+    dims = reshare_dims(shape, x[0], y[0])
+    if len(dims) > _RESHARE_MAX_DIMS:
+        raise ValueError(
+            f"cross_terms_reshare: the broadcast takes {len(dims)} axes, "
+            f"the kernel at most {_RESHARE_MAX_DIMS}"
+        )
+    sizes, xs, ys = (_ReshareAxes(*col) for col in zip(*dims)) if dims \
+        else (_ReshareAxes(), _ReshareAxes(), _ReshareAxes())
+    lib = build.library("cross_terms_mul")
+    with torch.cuda.device(device):
+        err = lib.moose_cross_terms_reshare(
+            _ptr(x[0]), _ptr(x[1] if wide else None),
+            _ptr(y[0]), _ptr(y[1] if wide else None),
+            _ptr(bank[0]), _ptr(bank[1] if wide else None),
+            _ptr(out_lo), _ptr(out_hi), n, int(wide), len(dims), sizes, xs,
+            ys, x[0].stride(0), y[0].stride(0), _stream(device),
+        )
+    _raise_on("cross_terms_reshare", err)
+    LAUNCHES["cross_terms_reshare"] += 1
+    return out_lo, out_hi
+
+
 # ---------------------------------------------------------------------------
 # K4: elementwise ring multiply
 # ---------------------------------------------------------------------------
@@ -903,7 +1030,7 @@ def horner(x0: Pair, x1: Pair, width: int, raws, f: int, zbanks: Pair,
 
 
 # ---------------------------------------------------------------------------
-# K7: threefry counter-mode expansion (both PRF streams)
+# K7: threefry counter-mode expansion (both PRF streams), grouped
 # ---------------------------------------------------------------------------
 
 # csrc/threefry.cu's code of each stream layout, and its LAUNCHES name
@@ -914,6 +1041,47 @@ PRF_LAYOUTS = {
 # a threefry-pallas key covers 2^32 words: its counter is the u32 lane
 # index, and a repeated counter would repeat a mask
 PALLAS_MAX_WORDS = 1 << 32
+# csrc/threefry.cu: the most draws one launch takes (a larger group takes
+# several launches), and the kind bits of a draw
+GROUP_MAX_DRAWS = 224
+_KIND_BITS, _KIND_TWO_PLANES = 1, 2
+
+
+class GroupDraw(NamedTuple):
+    """One draw of a group: ``n`` outputs per plane, ``bits`` (uint8
+    0/1) or u64 words (as int64), written to ``planes``: (buffer, offset)
+    pairs, each n outputs at element ``offset`` of a contiguous
+    ``buffer``, in stream order.  A ring64 draw or a bit draw has one
+    plane; a ring128 draw is one (2, n) draw, its stream words [0, n) the
+    high plane and [n, 2n) the low plane, so its planes are (hi, lo)."""
+
+    bits: bool
+    n: int
+    planes: Tuple[Tuple[torch.Tensor, int], ...]
+
+
+def refuse_beyond_counter(layout: str, bits: bool, n: int,
+                          planes: int = 1) -> None:
+    """Refuse a ``threefry-pallas`` draw of more than 2^32 words (``n``
+    outputs per plane, bits 64 to a word): its counter would repeat an
+    earlier lane's, and in the protocol that is a reused mask.  Callers
+    check before they allocate."""
+    if layout != "threefry-pallas":
+        return
+    words = -(-n // 64) if bits else planes * n
+    if words > PALLAS_MAX_WORDS:
+        raise ValueError(
+            f"threefry-pallas draw of {words} words exceeds the 2^32 "
+            "counter space of one key"
+        )
+
+
+def _check_layout(layout: str) -> None:
+    if layout not in PRF_LAYOUTS:
+        raise ValueError(
+            f"threefry: layout must be one of {tuple(PRF_LAYOUTS)}, got "
+            f"{layout!r}"
+        )
 
 
 def _prf_blocks(k0: int, k1: int, n: int, layout: str, device):
@@ -946,24 +1114,136 @@ def threefry_bits_plain(k0: int, k1: int, n: int, layout: str,
     return bits[:n].to(torch.uint8)
 
 
+def _expand_plain(key, layout: str, draw: GroupDraw) -> None:
+    """Expand one draw of ``key`` into its planes."""
+    n = draw.n
+    device = draw.planes[0][0].device
+    if draw.bits:
+        out = threefry_bits_plain(*key, n, layout, device)
+        parts = [out]
+    else:
+        words = threefry_words_plain(*key, len(draw.planes) * n, layout,
+                                     device)
+        parts = [words[p * n:(p + 1) * n] for p in range(len(draw.planes))]
+    for (buf, offset), part in zip(draw.planes, parts):
+        buf.view(-1)[offset:offset + n].copy_(part)
+
+
+def threefry_group_plain(master, domain: int, first: int, layout: str,
+                         draws) -> None:
+    """The group's draws one by one, as the session drew them before the
+    group kernel: per draw the seed derived on the host
+    (``ring.draw_seed``, that is ``ring.mix_seed``), keyed in the stream,
+    and expanded into the draw's planes."""
+    for j, draw in enumerate(draws):
+        seed = ring.draw_seed(master, domain, first + j)
+        _expand_plain(ring.stream_key(seed, layout, draw.bits), layout, draw)
+
+
+def _check_group(layout: str, draws, device: torch.device) -> None:
+    """Raise on a draw the kernel does not take: each buffer is checked
+    once (device, type, contiguity), each plane against its buffer's
+    bounds."""
+    buffers = {}
+    for draw in draws:
+        if not 1 <= len(draw.planes) <= (1 if draw.bits else 2):
+            raise ValueError(
+                f"threefry_group: a {'bit' if draw.bits else 'word'} draw "
+                f"takes {'one plane' if draw.bits else 'one or two planes'}"
+                f", got {len(draw.planes)}"
+            )
+        if draw.n < 0:
+            raise ValueError(f"threefry_group: negative count {draw.n}")
+        refuse_beyond_counter(layout, draw.bits, draw.n, len(draw.planes))
+        dtype = torch.uint8 if draw.bits else torch.int64
+        for buf, offset in draw.planes:
+            known = buffers.get(id(buf))
+            if known is None:
+                if buf.device != device or not buf.is_contiguous():
+                    raise ValueError(
+                        f"threefry_group: expected contiguous buffers on "
+                        f"{device}, got one on {buf.device}"
+                    )
+                known = buffers[id(buf)] = (buf.dtype, buf.numel())
+            if known[0] != dtype:
+                raise ValueError(
+                    f"threefry_group: expected a {dtype} buffer, got "
+                    f"{known[0]}"
+                )
+            if offset < 0 or offset + draw.n > known[1]:
+                raise ValueError(
+                    f"threefry_group: a plane of {draw.n} at {offset} lies "
+                    f"outside its buffer of {known[1]}"
+                )
+
+
+def _launch_group(key4, domain: int, first: int, code: int, derive: bool,
+                  draws, device: torch.device) -> None:
+    count = len(draws)
+    lib = build.library("threefry")
+    base = {}
+    dsts = []
+    for draw in draws:
+        for buf, offset in (draw.planes[0], draw.planes[-1]):
+            at = base.get(id(buf))
+            if at is None:
+                at = base[id(buf)] = (buf.data_ptr(), buf.element_size())
+            dsts.append(at[0] + offset * at[1])
+    kinds = (ctypes.c_int * count)(*[
+        (_KIND_BITS if d.bits else 0)
+        | (_KIND_TWO_PLANES if len(d.planes) == 2 else 0)
+        for d in draws
+    ])
+    with torch.cuda.device(device):
+        err = lib.moose_threefry_group(
+            (ctypes.c_uint * 4)(*key4), domain & ring.MASK32, first, code,
+            int(derive), count,
+            (ctypes.c_longlong * count)(*[d.n for d in draws]),
+            (ctypes.c_ulonglong * (2 * count))(*dsts), kinds,
+            _stream(device),
+        )
+    _raise_on("threefry", err)
+
+
+def threefry_group(master, domain: int, first: int, layout: str,
+                   draws) -> None:
+    """Expand a group of consecutive draws of one protocol session into
+    their planes: draw j is the session's draw ``first + j`` under the
+    master key ``master`` (4 u32 words) and ``domain``, in the stream
+    ``layout``.  On the card the seeds are derived in the kernel, one
+    launch per group of up to ``GROUP_MAX_DRAWS`` draws, counted once
+    under the layout's ``LAUNCHES`` name; for buffers on the CPU this
+    runs :func:`threefry_group_plain`.  Every word equals the draws' one
+    by one."""
+    _check_layout(layout)
+    draws = list(draws)
+    if not draws:
+        return
+    device = draws[0].planes[0][0].device
+    _check_group(layout, draws, device)
+    master = ring._seed_words(master)
+    if device.type == "cpu":
+        threefry_group_plain(master, domain, first, layout, draws)
+        return
+    _require_cuda("threefry_group", device)
+    code, counter = PRF_LAYOUTS[layout]
+    for c0 in range(0, len(draws), GROUP_MAX_DRAWS):
+        chunk = draws[c0:c0 + GROUP_MAX_DRAWS]
+        if any(d.n for d in chunk):
+            _launch_group(master, domain, first + c0, code, True, chunk,
+                          device)
+            LAUNCHES[counter] += 1
+
+
 def _threefry(k0: int, k1: int, n: int, layout: str, device,
               bits: bool) -> torch.Tensor:
-    if layout not in PRF_LAYOUTS:
-        raise ValueError(
-            f"threefry: layout must be one of {tuple(PRF_LAYOUTS)}, got "
-            f"{layout!r}"
-        )
+    _check_layout(layout)
     k0, k1, n = int(k0), int(k1), int(n)
     if not (0 <= k0 <= ring.MASK32 and 0 <= k1 <= ring.MASK32):
         raise ValueError("threefry: key words must be u32 values")
     if n < 0:
         raise ValueError(f"threefry: negative count {n}")
-    words = -(-n // 64) if bits and layout == "threefry-pallas" else n
-    if layout == "threefry-pallas" and words > PALLAS_MAX_WORDS:
-        raise ValueError(
-            f"threefry-pallas draw of {words} words exceeds the 2^32 "
-            "counter space of one key"
-        )
+    refuse_beyond_counter(layout, bits, n)
     device = torch.device(device)
     if device.type == "cpu":
         plain = threefry_bits_plain if bits else threefry_words_plain
@@ -974,12 +1254,9 @@ def _threefry(k0: int, k1: int, n: int, layout: str, device,
     if n == 0:
         return out
     code, counter = PRF_LAYOUTS[layout]
-    lib = build.library("threefry")
-    with torch.cuda.device(device):
-        err = lib.moose_threefry(
-            _ptr(out), n, k0, k1, code, int(bits), _stream(device)
-        )
-    _raise_on("threefry", err)
+    # a group of one draw under the key given by the caller
+    _launch_group((k0, k1, 0, 0), 0, 0, code, False,
+                  [GroupDraw(bits, n, ((out, 0),))], device)
     LAUNCHES[counter] += 1
     return out
 
@@ -990,7 +1267,9 @@ def threefry_words(k0: int, k1: int, n: int, layout: str,
     keyed by the u32 words ``(k0, k1)``, flat, on ``device``.  ``layout``
     is ``"threefry"`` (word i encrypts the block (i >> 32, i & 0xFFFFFFFF),
     as ``jax.random.bits`` does) or ``"threefry-pallas"`` (K7: word i
-    encrypts (i, ~i), at most 2^32 words); a word is (y0 << 32) | y1."""
+    encrypts (i, ~i), at most 2^32 words); a word is (y0 << 32) | y1.
+    On the card, a group of one draw of the group kernel under the given
+    key."""
     return _threefry(k0, k1, n, layout, device, bits=False)
 
 

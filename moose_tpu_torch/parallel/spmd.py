@@ -7,17 +7,21 @@ of int64 word tensors with leading axes ``(party=3, slot=2)``:
 x = x0 + x1 + x2, party i holds the pair
 (x_i, x_{i+1}), ``lo[i, 0]`` is x_i and ``lo[i, 1]`` is x_{i+1}.
 Share-local math is one tensor op over the party axis; resharing is a
-roll over it.  The port runs on one device, so the JAX package's mesh
+roll over it (for a secure multiply, inside the ``cross_terms_reshare``
+kernel).  The port runs on one device, so the JAX package's mesh
 pinning and sharding constraints have no counterpart here.
 
 Randomness comes from :class:`SpmdSession` in the JAX package's exact
 nonce schedule, so under the same master key and the threefry PRF both
-packages draw the same masks, and the shares agree word for word.
+packages draw the same masks, and the shares agree word for word.  The
+draws of one protocol step come in one group: one K7 launch, whose seeds
+the card derives.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -53,9 +57,12 @@ class SpmdFixed:
 
 class SpmdSession:
     """Derives all per-invocation randomness from one master key (four
-    u32 words).  Each draw mixes the next nonce of the JAX package's
-    schedule into the master key on the host and expands the seed on
-    ``device``."""
+    u32 words) in the JAX package's nonce schedule: draw ``i`` of the
+    session is seeded from the master key, the domain and nonce index
+    ``i``.  Draws come in groups (:meth:`sample_group`) of consecutive
+    indices; on a CUDA ``device`` one K7 launch expands a group and
+    derives its seeds on the card, on the CPU each seed is derived on the
+    host and the draw expanded by the plain version."""
 
     def __init__(self, master_key, device, domain: int = 0):
         self._master = tuple(int(w) & ring.MASK32 for w in master_key)
@@ -64,35 +71,96 @@ class SpmdSession:
         self.device = torch.device(device)
 
     def _next_seed(self):
+        """The next draw's seed derived on the host (``ring.mix_seed``),
+        as the CPU path derives it; claims the nonce index."""
         idx = self._counter
         self._counter += 1
-        nonce = (
-            idx & ring.MASK32,
-            0x5B3D9E21 ^ ((self._domain * 0x85EBCA6B) & ring.MASK32),
-            (idx ^ 0xA5A5A5A5) & ring.MASK32,
-            7,
-        )
-        return ring.mix_seed(self._master, nonce)
+        return ring.draw_seed(self._master, self._domain, idx)
+
+    def sample_group(self, specs):
+        """Draw ``specs`` in order, on consecutive nonce indices, in one
+        K7 group.  A spec is ``(kind, shape, width)`` or ``(kind, shape,
+        width, out)``: kind ``"bank"`` draws (3, *shape) ring elements,
+        ``"sample"`` (*shape), ``"bit_bank"`` (3, *shape) uint8 0/1 bits
+        (width is ignored).  ``out`` says where the draw goes, as
+        (buffer, element offset) planes of contiguous buffers, such as
+        the stacked banks a kernel reads: ``(lo, hi)`` planes for words
+        (hi None at ring64), one plane for bits.  Returns, in order, each
+        draw's (lo, hi) words or bits, views of one buffer the group
+        allocates, and None for a draw given its ``out``.  The counter
+        ends where the draws one by one would leave it."""
+        layout = ring.get_prf_impl()
+        # per draw: (bits, n, planes, shape); planes given by ``out``, or
+        # the offset into the group's own buffer and shape of the view
+        plan = []
+        totals = {False: 0, True: 0}  # words, bits the group allocates
+        for spec in specs:
+            kind, shape, width = spec[:3]
+            shape = tuple(shape)
+            if kind in ("bank", "bit_bank"):
+                shape = (3,) + shape
+            elif kind != "sample":
+                raise ValueError(f"sample_group: unknown kind {kind!r}")
+            bits = kind == "bit_bank"
+            n = math.prod(shape)
+            count = 1 if bits or width == 64 else 2
+            # refused before anything is allocated or claimed
+            rk.refuse_beyond_counter(layout, bits, n, count)
+            if len(spec) > 3:
+                out = spec[3]
+                # a ring128 draw's planes are (hi, lo) in stream order
+                planes = ((out,) if bits else (out[0],) if count == 1
+                          else (out[1], out[0]))
+                plan.append((bits, n, planes, None))
+                continue
+            at = totals[bits]
+            totals[bits] += (_BIT_ALIGN * -(-n // _BIT_ALIGN) if bits
+                             else count * n)
+            plan.append((bits, n, tuple(at + p * n for p in range(count)),
+                         shape))
+        bufs = {
+            bits: torch.empty(total, device=self.device,
+                              dtype=torch.uint8 if bits else torch.int64)
+            for bits, total in totals.items()
+            if any(shape is not None and b == bits
+                   for b, _, _, shape in plan)
+        }
+        draws = [
+            rk.GroupDraw(bits, n, planes if shape is None
+                         else tuple((bufs[bits], at) for at in planes))
+            for bits, n, planes, shape in plan
+        ]
+        first = self._counter
+        self._counter += len(draws)
+        rk.threefry_group(self._master, self._domain, first, layout, draws)
+        outs = []
+        for bits, n, planes, shape in plan:
+            if shape is None:
+                outs.append(None)
+            elif bits:
+                outs.append(bufs[True][planes[0]:planes[0] + n].view(shape))
+            else:
+                both = bufs[False][planes[0]:planes[0] + len(planes) * n]
+                both = both.view((len(planes),) + shape)
+                outs.append((both[0], None) if len(planes) == 1
+                            else (both[1], both[0]))
+        return outs
 
     def sample_bank(self, shape, width: int):
         """(3, *shape) uniform ring elements, one per party."""
-        seed = self._next_seed()
-        return ring.sample_uniform_seeded(
-            (3,) + tuple(shape), seed, width, self.device
-        )
+        return self.sample_group([("bank", shape, width)])[0]
 
     def sample(self, shape, width: int):
-        seed = self._next_seed()
-        return ring.sample_uniform_seeded(
-            tuple(shape), seed, width, self.device
-        )
+        return self.sample_group([("sample", shape, width)])[0]
 
     def sample_bit_bank(self, shape):
         """(3, *shape) uniform bits as uint8 0/1, one slice per party."""
-        seed = self._next_seed()
-        return ring.sample_bits_seeded(
-            (3,) + tuple(shape), seed, self.device
-        )
+        return self.sample_group([("bit_bank", shape, None)])[0]
+
+
+# bit draws the group allocates start 64 bytes apart: a threefry-pallas
+# word of bits is then written with 16-byte stores
+_BIT_ALIGN = 64
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +218,10 @@ def shl(x: SpmdRep, amount: int) -> SpmdRep:
 
 def zero_share(sess: SpmdSession, shape, width: int):
     """alpha_i = PRF_i - PRF_{i+1}; one bank draw, sums to zero."""
-    s_lo, s_hi = sess.sample_bank(shape, width)
+    return _zero_from_bank(*sess.sample_bank(shape, width))
+
+
+def _zero_from_bank(s_lo, s_hi):
     n_lo = torch.roll(s_lo, -1, dims=0)
     n_hi = None if s_hi is None else torch.roll(s_hi, -1, dims=0)
     return ring.sub(s_lo, s_hi, n_lo, n_hi)
@@ -184,16 +255,22 @@ def _cross_terms(x: SpmdRep, y: SpmdRep, elementwise: bool):
             slot_words(x, 0, shape), slot_words(x, 1, shape),
             slot_words(y, 0, shape), slot_words(y, 1, shape), x.width,
         )
-    if len(x.shape) != 2 or len(y.shape) != 2:
-        raise NotImplementedError(
-            "the port's secure dot takes matrices (m, k) @ (k, n); vector "
-            "operands are a later slice (ROADMAP queue 1, item 3)"
-        )
+    _dot_shape(x, y)
     y0 = slot_words(y, 0)
     ys = ring.add(*y0, *slot_words(y, 1))
     return rk.dot_cross_terms(
         slot_words(x, 0), slot_words(x, 1), y0, ys, x.width
     )
+
+
+def _dot_shape(x: SpmdRep, y: SpmdRep):
+    """The (m, n) logical shape of the secure matmul x @ y."""
+    if len(x.shape) != 2 or len(y.shape) != 2:
+        raise NotImplementedError(
+            "the port's secure dot takes matrices (m, k) @ (k, n); vector "
+            "operands are a later slice (ROADMAP queue 1, item 3)"
+        )
+    return (x.shape[0], y.shape[1])
 
 
 def _reshare(sess, v_lo, v_hi, width):
@@ -202,9 +279,18 @@ def _reshare(sess, v_lo, v_hi, width):
 
 
 def mul(sess: SpmdSession, x: SpmdRep, y: SpmdRep) -> SpmdRep:
-    """Secure elementwise multiplication: cross terms + reshare."""
-    v_lo, v_hi = _cross_terms(x, y, elementwise=True)
-    return _reshare(sess, v_lo, v_hi, x.width)
+    """Secure elementwise multiplication: cross terms + reshare, in the
+    ``cross_terms_reshare`` kernel, which reads the operands' pair layout
+    in place (broadcasting them to their common logical shape) and the
+    zero-share bank, and writes the reshared pair layout; word for word
+    ``_reshare(sess, *_cross_terms(x, y, True), width)``."""
+    shape = torch.broadcast_shapes(x.shape, y.shape)
+    bank = sess.sample_bank(shape, x.width)
+    return SpmdRep(
+        *rk.cross_terms_reshare((x.lo, x.hi), (y.lo, y.hi), bank,
+                                x.width),
+        x.width,
+    )
 
 
 def dot(sess: SpmdSession, x: SpmdRep, y: SpmdRep) -> SpmdRep:
@@ -237,10 +323,17 @@ def fill_public(shape, width: int, raw: int, device) -> SpmdRep:
 def mul_public(x: SpmdRep, c_lo, c_hi) -> SpmdRep:
     """x * public constant (same value on every party) through the
     ``ring_mul`` kernel, the constant at its own shape: the kernel
-    broadcasts it to the shares' shape."""
-    x_hi = None if x.hi is None else x.hi.contiguous()
+    broadcasts it to the shares' shape.  Where the two broadcast only to
+    a larger shape, the shares are broadcast to it first, as the JAX
+    package's ``ring.mul`` broadcasts both operands."""
+    full = torch.broadcast_shapes(x.lo.shape, c_lo.shape)
+
+    def words(w):
+        return None if w is None else w.expand(full).contiguous()
+
+    x_hi = words(x.hi)
     return SpmdRep(
-        *rk.ring_mul(x.lo.contiguous(), x_hi, c_lo,
+        *rk.ring_mul(words(x.lo), x_hi, c_lo,
                      None if x_hi is None else c_hi, x.width),
         x.width,
     )
@@ -310,8 +403,9 @@ def _transpose_arr(a, axes=None):
 
 
 # Permute the logical axes (all reversed when ``axes`` is None).  The
-# result is a strided view; the kernels' callers make slots contiguous
-# (:func:`slot_words`, ``mul_public``, ``trunc_pr``).
+# result is a strided view: ``cross_terms_reshare`` reads it in place,
+# the other kernels' callers make slots contiguous (:func:`slot_words`,
+# ``mul_public``, ``trunc_pr``).
 transpose = _structural(_transpose_arr)
 
 
@@ -344,31 +438,53 @@ def _contiguous(t):
     return None if t is None else t.contiguous()
 
 
-def _trunc_pr_adt(sess, a0, a1, width, amount, shape) -> SpmdRep:
+# the five truncation draws (mask r, the three additive-share masks, the
+# replicated-compression share z0), in the JAX package's session order
+def _trunc_specs(shape, width):
+    return [("sample", shape, width)] * 5
+
+
+def _trunc_pr_adt(sess, a0, a1, width, amount, shape,
+                  draws=None) -> SpmdRep:
     """Probabilistic truncation from a 2-party additive sharing
-    (a0 + a1 = x).  The five PRF draws (mask r, the three additive-share
-    masks, the replicated-compression share z0) happen here, in the JAX
-    package's session order; the elementwise tail is the
-    ``trunc_combine`` kernel."""
-    draws = tuple(sess.sample(shape, width) for _ in range(5))
-    z_lo, z_hi = rk.trunc_combine(a0, a1, draws, width, amount)
+    (a0 + a1 = x).  The five PRF draws are one K7 group here unless the
+    caller drew them (``draws``) in a group of its own; the elementwise
+    tail is the ``trunc_combine`` kernel."""
+    if draws is None:
+        draws = sess.sample_group(_trunc_specs(shape, width))
+    z_lo, z_hi = rk.trunc_combine(a0, a1, tuple(draws), width, amount)
     return _pairs(z_lo, z_hi, width)
 
 
 def _mul_like_trunc(sess, x: SpmdRep, y: SpmdRep, elementwise: bool,
                     amount: int) -> SpmdRep:
-    """Fused multiply-and-truncate (elementwise or matrix product, see
-    :func:`_cross_terms`): cross terms + zero-share, fed straight into
-    truncation's 2-party additive form (a0 = z_0 + z_1, a1 = z_2) —
-    bit-identical to resharing then ``trunc_pr``, with the same draw
-    order."""
+    """Fused multiply-and-truncate (elementwise or matrix product):
+    cross terms + zero-share, fed straight into truncation's 2-party
+    additive form (a0 = z_0 + z_1, a1 = z_2) — bit-identical to
+    resharing then ``trunc_pr``, with the same draw order: the zero-share
+    bank and the five truncation draws are one K7 group.  Elementwise
+    products run the ``cross_terms_reshare`` kernel, matrix products
+    :func:`_cross_terms` (the ``dot_cross_terms`` kernel)."""
     width = x.width
-    v_lo, v_hi = _cross_terms(x, y, elementwise)
-    a_lo, a_hi = zero_share(sess, v_lo.shape[1:], width)
-    z_lo, z_hi = ring.add(v_lo, v_hi, a_lo, a_hi)
-    a0 = ring.add(z_lo[0], _h(z_hi, 0), z_lo[1], _h(z_hi, 1))
-    a1 = (z_lo[2], _h(z_hi, 2))
-    return _trunc_pr_adt(sess, a0, a1, width, amount, tuple(z_lo.shape[1:]))
+    if elementwise:
+        shape = tuple(torch.broadcast_shapes(x.shape, y.shape))
+    else:
+        shape = _dot_shape(x, y)
+    bank, *draws = sess.sample_group(
+        [("bank", shape, width)] + _trunc_specs(shape, width)
+    )
+    if elementwise:
+        z_lo, z_hi = rk.cross_terms_reshare((x.lo, x.hi), (y.lo, y.hi),
+                                            bank, width)
+        a0 = ring.add(z_lo[0, 0], _h(z_hi, 0, 0), z_lo[0, 1],
+                      _h(z_hi, 0, 1))
+        a1 = (z_lo[2, 0], _h(z_hi, 2, 0))
+    else:
+        v_lo, v_hi = _cross_terms(x, y, elementwise)
+        z_lo, z_hi = ring.add(v_lo, v_hi, *_zero_from_bank(*bank))
+        a0 = ring.add(z_lo[0], _h(z_hi, 0), z_lo[1], _h(z_hi, 1))
+        a1 = (z_lo[2], _h(z_hi, 2))
+    return _trunc_pr_adt(sess, a0, a1, width, amount, shape, draws)
 
 
 # ---------------------------------------------------------------------------

@@ -158,12 +158,16 @@ def _kogge_stone_banks(x: SpmdBits, y: SpmdBits, k: int,
 
 def _draw_adder_banks(sess: SpmdSession, x: SpmdRep) -> torch.Tensor:
     """The decomposition's AND banks, drawn in the order the adder
-    consumes them: (n_ands, 3, k, *shape) uint8."""
+    consumes them, as one K7 group straight into the (n_ands, 3, k,
+    *shape) uint8 array the ``bit_decompose``/``msb`` kernel reads."""
     bank_shape = (x.width,) + tuple(x.shape)
-    return torch.stack([
-        sess.sample_bit_bank(bank_shape)
-        for _ in range(rk.adder_bank_count(x.width))
-    ])
+    n_ands = rk.adder_bank_count(x.width)
+    banks = torch.empty((n_ands, 3) + bank_shape, dtype=U8,
+                        device=x.lo.device)
+    n = 3 * math.prod(bank_shape)
+    sess.sample_group([("bit_bank", bank_shape, None, (banks, i * n))
+                       for i in range(n_ands)])
+    return banks
 
 
 def _bit_decompose_with_banks(lo, hi, width: int, banks) -> torch.Tensor:
@@ -277,11 +281,21 @@ def sign_from_msb(msb_ring: SpmdRep) -> SpmdRep:
 
 
 def prefix_or(sess, bits: SpmdBits, n: int) -> SpmdBits:
-    """out[i] = OR(x[0..=i]) along the bit axis; log2(n) rounds."""
+    """out[i] = OR(x[0..=i]) along the bit axis; log2(n) rounds, whose
+    AND banks (all of the bits' shape) are one K7 group drawn before the
+    first round, in the rounds' nonce order."""
+    shifts = []
     d = 1
     while d < n:
-        bits = bits_or(sess, bits, shl_bits(bits, d))
+        shifts.append(d)
         d *= 2
+    banks = sess.sample_group(
+        [("bit_bank", bits.arr.shape[2:], None)] * len(shifts)
+    )
+    for d, bank in zip(shifts, banks):
+        shifted = shl_bits(bits, d)
+        bits = bits_xor(bits_xor(bits, shifted),
+                        _bits_and_bank(bits, shifted, bank))
     return bits
 
 
@@ -386,21 +400,28 @@ def polynomial_eval(
             spmd.fill_public(t.shape, width, raws[0], t.lo.device),
             x.integral_precision, f,
         )
-    zb, td = [], []
-    for _ in range(steps):
-        zb.append(sess.sample_bank(t.shape, width))
-        td.append([sess.sample(t.shape, width) for _ in range(5)])
+    # per step one zero-share bank and five truncation draws, one K7
+    # group written straight into the (steps, 3, *shape) banks and the
+    # (steps, 5, *shape) draws the kernel reads
+    def words(lead):
+        lo = torch.empty((steps, lead) + t.shape, dtype=torch.int64,
+                         device=t.lo.device)
+        return lo, None if width == 64 else torch.empty_like(lo)
 
-    def words(i: int):
-        """Word ``i`` (0 lo, 1 hi) of the (steps, 3, *shape) banks and
-        the (steps, 5, *shape) draws."""
-        return (
-            torch.stack([bank[i] for bank in zb]),
-            torch.stack([torch.stack([d[i] for d in ds]) for ds in td]),
-        )
+    (zb_lo, zb_hi), (td_lo, td_hi) = words(3), words(5)
+    n = math.prod(t.shape)
 
-    zb_lo, td_lo = words(0)
-    zb_hi, td_hi = (None, None) if width == 64 else words(1)
+    def planes(lo, hi, at):
+        return (lo, at), None if hi is None else (hi, at)
+
+    specs = []
+    for step in range(steps):
+        specs.append(("bank", t.shape, width,
+                      planes(zb_lo, zb_hi, 3 * n * step)))
+        specs += [("sample", t.shape, width,
+                   planes(td_lo, td_hi, n * (5 * step + d)))
+                  for d in range(5)]
+    sess.sample_group(specs)
     slot0, slot1 = rk.horner(
         spmd.slot_words(t, 0), spmd.slot_words(t, 1), width, raws, f,
         (zb_lo, zb_hi), (td_lo, td_hi),

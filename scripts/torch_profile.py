@@ -12,13 +12,17 @@ prints for each:
   profiler) and the device's busy and idle share (busy = the sum of
   kernel and copy times on the card in one profiled request; one
   stream);
-- device time by layer: the PRF expansion (the sampling entry points:
-  the threefry kernel K7 they launch and the few PyTorch ops around
-  it), the CUDA kernels K1-K6, the fixed-point encode/decode, and
-  everything else; beside them K7's own time and launches, whether
-  every K7 launch came from a PRF range (one launch per range), K1's
-  two device kernels (the limb split and the limb GEMM) and K5's two
-  (the bank pack and the adder) apart;
+- device time by layer: the PRF expansion (the groups of draws,
+  ``ring_kernels.threefry_group``: the threefry kernel K7 they launch
+  and the few PyTorch ops around it), the CUDA kernels K1-K6 (K3's two
+  entry points apart), the fixed-point encode/decode, and everything
+  else; beside them K7's own time and launches, whether every K7 launch
+  came from a PRF range (one launch per range), K1's two device kernels
+  (the limb split and the limb GEMM) and K5's two (the bank pack and the
+  adder) apart;
+- the seeds derived on the host in the request (``ring.mix_seed``
+  calls; the card derives a session's seeds in K7) and, once, what one
+  host derivation costs on this machine's CPU;
 - the number of kernels the card ran (PyTorch's and the port's);
 - the top kernels by device time.
 
@@ -49,26 +53,27 @@ from torch.profiler import (  # noqa: E402
 import chip_smoke  # noqa: E402
 import moose_tpu_torch as pm  # noqa: E402
 from moose_tpu_torch.dialects import ring  # noqa: E402
+from moose_tpu_torch.native import ring_kernels as rk  # noqa: E402
 from moose_tpu_torch.predictors import trainers  # noqa: E402
 from moose_tpu_torch.runtime import LocalMooseRuntime  # noqa: E402
 
 # (module, function, layer label) of the plain-PyTorch layers; the
 # wrappers only open a profiler range, the function runs unchanged
 LAYERS = (
-    (ring, "sample_uniform_seeded", "prf_expand"),
-    (ring, "sample_bits_seeded", "prf_expand"),
+    (rk, "threefry_group", "prf_expand"),
     (ring, "fixedpoint_encode", "fixedpoint_encode"),
     (ring, "fixedpoint_decode", "fixedpoint_decode"),
 )
 # the CUDA kernels launch through ctypes, outside any PyTorch op, so the
 # profiler gives their time to no range: their layers are read off the
 # kernel names instead.  K7 launches inside the prf_expand ranges, one
-# launch per range, and its time is added to that layer.
+# launch per group of draws, and its time is added to that layer.
 PRF_KERNEL = "threefry_"
 KERNEL_LAYERS = (
     ("dot_cross_terms_", "K1_dot_cross_terms"),
     ("trunc_combine_kernel", "K2_trunc_combine"),
     ("cross_terms_mul_kernel", "K3_cross_terms_mul"),
+    ("cross_terms_reshare_kernel", "K3_cross_terms_reshare"),
     ("ring_mul_kernel", "K4_ring_mul"),
     ("bits_adder_", "K5_bits_adder"),
     ("horner_kernel", "K6_horner"),
@@ -87,6 +92,32 @@ def _wrap(mod, name, label):
             return orig(*args, **kwargs)
 
     setattr(mod, name, ranged)
+
+
+# ring.mix_seed calls, counted while a request is profiled
+HOST_SEEDS = [0]
+
+
+def _count_host_seeds():
+    orig = ring.mix_seed
+
+    def counted(*args, **kwargs):
+        HOST_SEEDS[0] += 1
+        return orig(*args, **kwargs)
+
+    ring.mix_seed = counted
+    return orig
+
+
+def _host_seed_us(mix_seed, calls=2000) -> float:
+    """Microseconds of one seed derivation on this host's CPU, as the
+    session derived each draw's seed before K7 derived them on the
+    card."""
+    master = (0x01234567, 0x89ABCDEF, 0xDEADBEEF, 0x0BADF00D)
+    t0 = time.perf_counter()
+    for idx in range(calls):
+        mix_seed(master, ring.session_nonce(idx, 0))
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def _wall_ms(fn, reps=3) -> float:
@@ -109,6 +140,7 @@ def profile_request(fn, warm=2):
     for _ in range(warm):
         fn()
     wall_ms = _wall_ms(fn)
+    HOST_SEEDS[0] = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
@@ -160,6 +192,7 @@ def profile_request(fn, warm=2):
         "K7_threefry_launches": prf_launches,
         "prf_ranges": ranges["prf_expand"],
         "prf_expand_holds_K7": prf_launches == ranges["prf_expand"],
+        "host_seed_derivations": HOST_SEEDS[0],
         "K1_stages": stages(K1_STAGES),
         "K5_stages": stages(K5_STAGES),
         "top_kernels": [
@@ -177,6 +210,8 @@ def main() -> int:
     print(f"card: {smi}", flush=True)
     for mod, name, label in LAYERS:
         _wrap(mod, name, label)
+    seed_us = _host_seed_us(_count_host_seeds())
+    print(f"host seed derivation: {seed_us:.3f} us", flush=True)
     rng = np.random.default_rng(chip_smoke.SEED)
     runtime = LocalMooseRuntime(["alice", "bob", "carole"])
     n = chip_smoke.DOT_N
@@ -225,6 +260,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(json.dumps({"card": smi, "clocks_power_after": after,
+                      "host_seed_us": seed_us,
                       "secure_dot": dot, "linear_regressor": lin,
                       "logistic_regression": logreg_profile,
                       "training_step": train}))

@@ -405,3 +405,175 @@ def test_threefry_wrapper_refuses_what_its_kernel_does_not_take(cuda):
     before = dict(rk.LAUNCHES)
     empty = rk.threefry_words(1, 2, 0, "threefry", cuda)
     assert empty.shape == (0,) and rk.LAUNCHES == before
+
+
+MK = (0x01234567, 0x89ABCDEF, 0xDEADBEEF, 0x0BADF00D)
+
+
+def _group(specs, device):
+    """Group draws of ``(kind, n, offset)``: kind "w64", "w128" or "bits";
+    each plane at ``offset`` elements into a buffer of its own, so a bit
+    destination can start off a 16-byte boundary."""
+    draws = []
+    for kind, n, offset in specs:
+        dtype = torch.uint8 if kind == "bits" else torch.int64
+        planes = tuple(
+            (torch.zeros(n + offset, dtype=dtype, device=device), offset)
+            for _ in range(2 if kind == "w128" else 1)
+        )
+        draws.append(rk.GroupDraw(kind == "bits", n, planes))
+    return draws
+
+
+# (kind, n, offset) groups: the logistic regression's Horner group (84
+# draws at (3, 1024) ring128), an adder group (16 bit banks of (3, 128,
+# 64)), empty and one-element draws, odd tails, unaligned bit
+# destinations, and a group past one launch's 224 draws
+GROUPS = {
+    "horner": [("w128", 3 * 1024, 0)] + [("w128", 1024, 0)] * 5
+    + ([("w128", 3 * 1024, 0)] + [("w128", 1024, 0)] * 5) * 13,
+    "adder": [("bits", 3 * 128 * 64, 0)] * 16,
+    "edges": [("w64", 0, 0), ("bits", 1, 0), ("w128", 1, 0), ("bits", 0, 0),
+              ("w64", 1, 0), ("bits", 65, 3), ("bits", 129, 1),
+              ("bits", 64, 8), ("w128", 7, 1), ("bits", 1000, 5)],
+    "many": [("w64", 3, 0), ("bits", 70, 2)] * 120,
+    "large": [("w128", 1 << 20, 0), ("bits", 3 * 128 * 1024, 0)],
+    # tiles of several outputs a thread that straddle a ring128 draw's two
+    # planes and end mid-tile
+    "large_odd": [("w128", 1000003, 0), ("bits", 3 * 128 * 1000 + 5, 3),
+                  ("w64", 77777, 1), ("w128", 5, 0)],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", PRF_LAYOUTS)
+@pytest.mark.parametrize("group", tuple(GROUPS))
+def test_threefry_group_kernel_matches_plain(cuda, layout, group):
+    specs = GROUPS[group]
+    draws = _group(specs, cuda)
+    want = _group(specs, "cpu")
+    counter = rk.PRF_LAYOUTS[layout][1]
+    before = rk.LAUNCHES[counter]
+    rk.threefry_group(MK, 3, 1000, layout, draws)
+    torch.cuda.synchronize()
+    launches = -(-len(specs) // rk.GROUP_MAX_DRAWS)
+    assert rk.LAUNCHES[counter] == before + launches
+    rk.threefry_group_plain(MK, 3, 1000, layout, want)
+    for got, ref in zip(draws, want):
+        for (g, _), (w, _) in zip(got.planes, ref.planes):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", PRF_LAYOUTS)
+def test_card_session_derives_no_seed_on_the_host(cuda, impl, monkeypatch):
+    """A CUDA session's draws, a secure multiply and the protocol
+    sigmoid run without ring.mix_seed, and give the CPU session's words."""
+    from moose_tpu_torch.parallel import spmd, spmd_math
+
+    prev = ring.get_prf_impl()
+    ring.set_prf_impl(impl)
+    try:
+        rng = np.random.default_rng(5)
+        x = rng.normal(size=(3, 4)) * 2.0
+
+        def run(device):
+            sess = spmd.SpmdSession(MK, device)
+            fx = spmd.fx_encode_share(
+                sess, torch.tensor(x, device=device), 8, 27, 128)
+            y = spmd_math.fx_sigmoid(sess, fx)
+            z = spmd.mul(sess, fx.tensor, y.tensor)
+            draws = sess.sample_group([("bank", (2, 3), 64),
+                                       ("bit_bank", (5,), None)])
+            return [y.tensor.lo, y.tensor.hi, z.lo, z.hi, draws[0][0],
+                    draws[1]], sess._counter
+
+        want, count = run("cpu")
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("a seed was derived on the host")
+
+        monkeypatch.setattr(ring, "mix_seed", refuse)
+        got, got_count = run(cuda)
+        torch.cuda.synchronize()
+    finally:
+        ring.set_prf_impl(prev)
+    assert got_count == count
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _pair_layout(rng, shape, width, device):
+    """A consistent replicated sharing's (3, 2, *shape) words: party i
+    holds (z_i, z_{i+1})."""
+    z = _words(rng, (3,) + shape, width, device)
+    return tuple(None if w is None
+                 else torch.stack([w, torch.roll(w, -1, dims=0)], dim=1)
+                 for w in z)
+
+
+# (x, y) logical shapes: the sigmoid's (3,2,1024) and (3,2,64,1024,1)
+# against (1,1024,1), tails, a scalar, and a 2^20-element call
+RESHARE_SHAPES = (
+    ((1024,), (1024,)), ((64, 1024, 1), (64, 1024, 1)),
+    ((64, 1024, 1), (1, 1024, 1)), ((1, 1024, 1), (64, 1024, 1)),
+    ((7, 1, 3), (1, 5, 3)), ((1,), (1,)), ((5,), (1,)), ((1 << 20,), (1 << 20,)),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("shapes", RESHARE_SHAPES, ids=str)
+def test_cross_terms_reshare_kernel_matches_plain(cuda, width, shapes):
+    rng = np.random.default_rng(sum(map(len, shapes)))
+    x, y = (_pair_layout(rng, s, width, cuda) for s in shapes)
+    shape = tuple(np.broadcast_shapes(*shapes))
+    bank = _words(rng, (3,) + shape, width, cuda)
+    before = rk.LAUNCHES["cross_terms_reshare"]
+    got = rk.cross_terms_reshare(x, y, bank, width)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["cross_terms_reshare"] == before + 1
+    _assert_equal(got, rk.cross_terms_reshare_plain(x, y, bank, width))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+def test_cross_terms_reshare_kernel_reads_strided_views(cuda, width):
+    rng = np.random.default_rng(9)
+    x = _pair_layout(rng, (33, 65), width, cuda)
+    x = tuple(None if w is None else w.transpose(2, 3) for w in x)
+    y = _pair_layout(rng, (130, 33), width, cuda)
+    y = tuple(None if w is None else w[:, :, ::2] for w in y)
+    bank = _words(rng, (3, 65, 33), width, cuda)
+    _assert_equal(rk.cross_terms_reshare(x, y, bank, width),
+                  rk.cross_terms_reshare_plain(x, y, bank, width))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+def test_secure_mul_runs_one_reshare_and_one_group(cuda, width, monkeypatch):
+    """spmd.mul on the card: one cross_terms_reshare launch, one K7
+    group, no slot copies, no zero_share or _pairs; its words equal the
+    composition it replaced."""
+    from moose_tpu_torch.parallel import spmd
+
+    rng = np.random.default_rng(width)
+    sess = spmd.SpmdSession(MK, cuda)
+    x = spmd.share(sess, *_words(rng, (64, 1024, 1), width, cuda), width)
+    y = spmd.share(sess, *_words(rng, (1, 1024, 1), width, cuda), width)
+    counter = sess._counter
+    before = dict(rk.LAUNCHES)
+
+    def unused(*args, **kwargs):
+        raise AssertionError("spmd.mul ran the composition")
+
+    for name in ("slot_words", "zero_share", "_pairs"):
+        monkeypatch.setattr(spmd, name, unused)
+    got = spmd.mul(sess, x, y)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in rk.LAUNCHES.items() if v != before[k]}
+    assert moved == {"cross_terms_reshare": 1, "prf_threefry": 1}
+    monkeypatch.undo()
+    sess._counter = counter
+    want = spmd._reshare(sess, *spmd._cross_terms(x, y, True), width)
+    _assert_equal((got.lo, got.hi), (want.lo, want.hi))
