@@ -30,7 +30,16 @@ Phases (each raises on failure; the script then exits non-zero):
      given key, words and bits; K3's fused cross_terms_reshare at the
      path's (3,2,1024) and broadcast (64,1024,1) x (1,1024,1) shapes and
      at 2^20, beside the composition it replaced (slot copies, the
-     unfused kernel, the zero share, the pair layout);
+     unfused kernel, the zero share, the pair layout); K2's trunc_pairs
+     (the whole truncation after its draws, pair layout in and out) on
+     the logistic regression's (1024,) operand, contiguous, transposed
+     and broadcast, at 10^6 ring64, and on the secure dot's (1000, 1000)
+     cross terms with their zero-share bank; K6 reading x's pair layout
+     in place at (3, 1024), 14 steps, and at 2^20; then one
+     spmd.trunc_pr of (1024,) ring128 and one polynomial_eval (the
+     sigmoid's 14 steps) must each run exactly 2 device launches, one K7
+     group and their kernel, as the wrappers count them, with no other
+     device work under torch.profiler;
   4. the eDSL secure dot: 1000x1000 @ 1000x1000 at fixed(14,23), ring128,
      through LocalMooseRuntime on the card, checked against float64
      x @ y (max abs error < 2e-4);
@@ -48,15 +57,16 @@ Phases (each raises on failure; the script then exits non-zero):
      float64 trajectory; then MLPSGDTrainer (hidden 32), two steps, each
      within 1e-4.  The default threefry PRF is restored afterwards.
 Phases 4 to 7 are the main path: the kernels' launch counters are set
-to 0 just before each and read just after.  K1, K2 and the threefry
-kernel in the phase's stream layout (threefry in 4-6, threefry-pallas in
-7, and never the other) must have launched in each, and every kernel
-(K1, K2, K3's cross_terms_reshare, K4, K5 in both modes, K6) in phases 6
-and 7.  No seed may be derived on the host there (ring.mix_seed is
+to 0 just before each and read just after.  K1, K2's trunc_pairs and the
+threefry kernel in the phase's stream layout (threefry in 4-6,
+threefry-pallas in 7, and never the other) must have launched in each,
+and every kernel (K1, K2's trunc_pairs, K3's cross_terms_reshare, K4, K5
+in both modes, K6) in phases 6 and 7.  No seed may be derived on the host there (ring.mix_seed is
 counted), and the K7 launches must stay under their ceilings: 3 for a
 secure dot, 60 for a logistic-regression request or a LogregSGDTrainer
 step; one more request of phase 6 and one more step of phase 7 run under
-torch.profiler, whose device launches must stay under 1,600 and 1,700.
+torch.profiler, whose device launches must stay under their ceilings
+(LOGREG_DEVICE_CEILING, TRAIN_DEVICE_CEILING).
 The line before the last is the kernels' JSON record; the last line is
 the device record.
 
@@ -93,10 +103,10 @@ INT32_OPS_PER_S = 132 * 128 * 1.98e9
 RING_ADD_OPS = {64: 2, 128: 5}
 RING_MUL_OPS = {64: 4, 128: 20}
 # 32-bit integer operations per element of the truncation tail, counted
-# from trunc_tail in csrc/ring_words.cuh (12 shifts, 16 adds/subs, 2
-# selects on one or two u64 words, each u64 operation two to four 32-bit
-# ones)
-TRUNC_OPS_PER_ELEM = {64: 100, 128: 200}
+# from trunc_masks and trunc_finish in csrc/ring_words.cuh (12 shifts,
+# 13 adds/subs, 2 selects on one or two u64 words, each u64 operation two
+# to four 32-bit ones)
+TRUNC_OPS_PER_ELEM = {64: 94, 128: 185}
 # 32-bit integer operations of one threefry2x32-20 block, counted from
 # csrc/threefry.cu: 2 initial key adds, 20 rounds of add, funnel shift
 # and xor, 5 key injections of 2 adds, 1 to form the counter; a layout-0
@@ -143,8 +153,8 @@ MLP_STEPS = 2
 DOT_K7_CEILING = 3
 LOGREG_K7_CEILING = 60
 TRAIN_K7_CEILING = 60
-LOGREG_DEVICE_CEILING = 1600
-TRAIN_DEVICE_CEILING = 1700
+LOGREG_DEVICE_CEILING = 1141  # 1,087 measured on the H100 + 5% (PERF.md)
+TRAIN_DEVICE_CEILING = 1189  # 1,133 measured + 5%
 # the session key of the K7 group rows
 GROUP_MASTER = (0x01234567, 0x89ABCDEF, 0xDEADBEEF, 0x0BADF00D)
 
@@ -189,34 +199,61 @@ def back_to_back_ms(torch, fn, calls=20):
                         reps=5) / calls
 
 
-def device_launches(torch, fn):
-    """The kernels and copies the card ran for one call of ``fn``, under
-    torch.profiler."""
+# torch.profiler now and then loses the first kernel the card runs in a
+# profiled region (on the H100: a protocol op's first kernel, its K7
+# group, in every check of one chip_smoke.py run; the marker below in 1 of
+# 300 regions of another).  Every profiled region here starts with a
+# marker kernel (torch.cuda._sleep) and a synchronize, and the marker is
+# left out of what the region reports.
+PROFILER_MARKER = "spin_kernel"
+
+
+def profiled(torch, fn):
+    """(result, device events) of ``fn`` under torch.profiler, the region
+    opened by the marker kernel, which the events leave out."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        out = fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    return sum(1 for e in prof.events() if e.device_type == cuda)
+    return out, [e for e in prof.events()
+                 if e.device_type == cuda and PROFILER_MARKER not in e.name]
+
+
+def device_events(torch, fn):
+    """(result, names) of one call of ``fn``: the names of the kernels and
+    copies the card ran for it, under torch.profiler."""
+    out, events = profiled(torch, fn)
+    return out, [e.name for e in events]
+
+
+def device_launches(torch, fn):
+    """The kernels and copies the card ran for one call of ``fn``, under
+    torch.profiler."""
+    return len(device_events(torch, fn)[1])
+
+
+# the device kernels of moose_tpu_torch/csrc, as the profiler names them
+PORT_KERNELS = (
+    "dot_cross_terms_split", "dot_cross_terms_gemm", "trunc_pairs_kernel",
+    "cross_terms_mul_kernel",
+    "cross_terms_reshare_kernel", "ring_mul_kernel", "bits_adder_pack",
+    "bits_adder_add", "horner_kernel", "horner_lanes_kernel",
+    "threefry_group_kernel",
+)
 
 
 def device_time_ms(torch, fn, calls=10):
     """Device time per call of ``fn`` under torch.profiler: the summed
     durations of the kernels the card ran over ``calls`` calls, without
     the host time between them."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    return sum(e.device_time_total for e in prof.events()
-               if e.device_type == cuda) / 1e3 / calls
+    _, events = profiled(torch, lambda: [fn() for _ in range(calls)])
+    return sum(e.device_time_total for e in events) / 1e3 / calls
 
 
 def flat_tensors(value):
@@ -307,10 +344,34 @@ def bound(nbytes, int_ops):
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def trunc_bound(n, width):
-    """Least time of the truncation tail: 7 ring inputs read, 3 written
-    (160 B per ring128 element) against its integer operations."""
-    return bound(n * 10 * (width // 8), n * TRUNC_OPS_PER_ELEM[width])
+def trunc_draw_words(width, amount):
+    """Ring words of the five truncation draws that reach the result:
+    r, m_rt and z0 in full; not m_r, which cancels in the reveal
+    c = (a0 + 2^(k-1) + m_r) + (a1 + r - m_r); and m_rm's low word only
+    where k - amount >= 64 (ring128, amount <= 63), since the overflow
+    correction shifts it up by k - amount bits."""
+    return 3 + (0.5 if width == 128 and width - 1 - amount >= 64 else 1)
+
+
+def trunc_bound(n, width, amount):
+    """Least time of the truncation tail on the additive sharing: a0, a1
+    and the draws that reach the result read, the 3 values written,
+    against its integer operations and the add a0 + a1."""
+    words = 2 + trunc_draw_words(width, amount) + 3
+    return bound(n * words * (width // 8),
+                 n * (TRUNC_OPS_PER_ELEM[width] + RING_ADD_OPS[width]))
+
+
+def trunc_pairs_bound(x_elems, n, width, amount):
+    """Least time of K2's trunc_pairs over n elements: the operand read
+    once (slot 0, 3 words an element of its own shape; or the (3, n)
+    cross terms of a matrix product, whose zero-share bank cancels in the
+    reveal and is not counted), the draws that reach the result read (as
+    ``trunc_draw_words`` counts them), the (3, 2, n) pair layout written;
+    the tail's integer operations and the two adds of x's three words."""
+    words = 3 * x_elems + trunc_draw_words(width, amount) * n + 6 * n
+    return bound(words * (width // 8),
+                 n * (TRUNC_OPS_PER_ELEM[width] + 2 * RING_ADD_OPS[width]))
 
 
 def cross_mul_bound(n, width):
@@ -338,13 +399,17 @@ def bits_bound(n, width, msb_only, n_ands):
     return bound(nbytes, ops)
 
 
-def horner_bound(n, width, steps):
+def horner_bound(n, width, steps, f):
     """K6 over n elements: x's two pair slots (6 words) and per step the
-    bank (3) and the draws (5) read, 6 words written; per step and party
-    two products and four adds, plus the truncation tail."""
-    words = 6 + steps * 8 + 6
-    ops = steps * (3 * (2 * RING_MUL_OPS[width] + 4 * RING_ADD_OPS[width])
-                   + TRUNC_OPS_PER_ELEM[width])
+    truncation draws that reach the result (as ``trunc_draw_words``
+    counts them; the zero-share banks cancel in each step's reveal) read,
+    6 words written.  Operations: x regrouped once (6 adds), then per
+    step three products and three adds (sum_p A_p y_p and the next
+    coefficient) and the truncation tail."""
+    words = 6 + steps * trunc_draw_words(width, f) + 6
+    ops = 6 * RING_ADD_OPS[width] + steps * (
+        3 * (RING_MUL_OPS[width] + RING_ADD_OPS[width])
+        + TRUNC_OPS_PER_ELEM[width])
     return bound(n * words * (width // 8), n * ops)
 
 
@@ -396,9 +461,50 @@ def compare_trunc(torch, rk, gen, shape, width, amount, reps):
     return compare_kernel(
         torch, rk.trunc_combine, rk.trunc_combine_plain,
         (a0, a1, tuple(draws), width, amount),
-        trunc_bound(math.prod(shape), width), reps,
+        trunc_bound(math.prod(shape), width, amount), reps,
         shape=str(tuple(shape)), width=width, amount=amount,
+        mode="trunc_combine",
     )
+
+
+def compare_trunc_pairs(torch, rk, gen, shape, width, amount, reps,
+                        view=None, cross=False):
+    """K2's trunc_pairs as spmd calls it: a consistent sharing in the
+    pair layout (``view`` "transposed": a view with its last two axes
+    swapped; "broadcast": its first axis broadcast from size 1), or with
+    ``cross`` a matrix product's (3, *shape) cross terms and zero-share
+    bank; the (5, *shape) draws.  Beside the CUDA-event times, the
+    device time under torch.profiler (``device_ms``)."""
+    n = math.prod(shape)
+    bank = None
+    if cross:
+        x = random_words(torch, gen, (3,) + shape, width)
+        bank = random_words(torch, gen, (3,) + shape, width)
+        own = shape
+    else:
+        own = {"transposed": shape[::-1],
+               "broadcast": (1,) + shape[1:]}.get(view, shape)
+        z = random_words(torch, gen, (3,) + own, width)
+        x = tuple(None if w is None
+                  else torch.stack([w, torch.roll(w, -1, dims=0)], dim=1)
+                  for w in z)
+        if view == "transposed":
+            x = tuple(None if w is None else w.transpose(-1, -2) for w in x)
+        elif view == "broadcast":
+            x = tuple(None if w is None else w.expand((3, 2) + shape)
+                      for w in x)
+    draws = random_words(torch, gen, (5,) + shape, width)
+    args = (x, draws, width, amount, bank)
+    row = compare_kernel(
+        torch, rk.trunc_pairs, rk.trunc_pairs_plain, args,
+        trunc_pairs_bound(math.prod(own), n, width, amount), reps,
+        shape=str(tuple(shape)), width=width, amount=amount,
+        mode="trunc_pairs",
+        input=("cross terms and bank" if cross
+               else f"pairs, {view or 'contiguous'}"),
+    )
+    row["device_ms"] = device_time_ms(torch, lambda: rk.trunc_pairs(*args))
+    return row
 
 
 def compare_cross_mul(torch, rk, gen, shape, width, reps):
@@ -406,7 +512,7 @@ def compare_cross_mul(torch, rk, gen, shape, width, reps):
     return compare_kernel(
         torch, rk.cross_terms_mul, rk.cross_terms_mul_plain,
         (*ops, width), cross_mul_bound(math.prod(shape), width), reps,
-        shape=str(tuple(shape)), width=width,
+        shape=str(tuple(shape)), width=width, mode="cross_terms_mul",
     )
 
 
@@ -471,19 +577,77 @@ def compare_bits(torch, rk, gen, n, width, msb_only, reps,
 
 
 def compare_horner(torch, rk, gen, n, width, steps, f, reps):
-    """K6 with the 2^x Taylor coefficients the sigmoid uses."""
+    """K6 as polynomial_eval calls it, with the 2^x Taylor coefficients
+    the sigmoid uses: x's (3, 2, n) pair layout read in place, the
+    result's pair layout written; beside the CUDA-event times the device
+    time under torch.profiler (``device_ms``)."""
     from moose_tpu_torch.dialects.fixedpoint import P_1045, encode_const
 
     raws = [encode_const(c, f, width) for c in reversed(P_1045[:steps + 1])]
-    x0, x1 = (random_words(torch, gen, (3, n), width) for _ in range(2))
+    x = random_words(torch, gen, (3, 2, n), width)
     zbanks = random_words(torch, gen, (steps, 3, n), width)
     tdraws = random_words(torch, gen, (steps, 5, n), width)
-    return compare_kernel(
-        torch, rk.horner, rk.horner_plain,
-        (x0, x1, width, raws, f, zbanks, tdraws),
-        horner_bound(n, width, steps), reps,
+    args = (x, width, raws, f, zbanks, tdraws)
+    row = compare_kernel(
+        torch, rk.horner_pairs, rk.horner_pairs_plain, args,
+        horner_bound(n, width, steps, f), reps,
         shape=f"(3,{n})", width=width, steps=steps, amount=f,
+        lanes=rk.horner_lanes(n),
     )
+    row["device_ms"] = device_time_ms(torch, lambda: rk.horner_pairs(*args))
+    return row
+
+
+def protocol_launches(torch, rk):
+    """Device launches of one spmd.trunc_pr of (1024,) ring128 by 40 and
+    of one polynomial_eval, the sigmoid's (14 steps at fixed(2, 62)): one
+    K7 group and one kernel of their own each, and words equal to the CPU
+    session's.  torch.profiler must see exactly two device events, the
+    two kernels the wrappers counted (K2, K6 and K7 run one device kernel
+    a launch): no PyTorch kernel, copy or memset."""
+    import numpy as np
+
+    from moose_tpu_torch import interop
+    from moose_tpu_torch.dialects.fixedpoint import P_1045
+    from moose_tpu_torch.parallel import spmd, spmd_math
+
+    words = [np.random.default_rng(SEED).integers(
+        0, 1 << 64, size=(PATH_N,), dtype=np.uint64) for _ in range(2)]
+    entry = {"trunc_pr": "trunc_pairs", "polynomial_eval": "horner"}
+    ops = {
+        "trunc_pr": lambda s, x: spmd.trunc_pr(s, x, 40),
+        "polynomial_eval": lambda s, x: spmd_math.polynomial_eval(
+            s, P_1045, spmd.SpmdFixed(x, 2, HORNER_F),
+            min_coeff=2.0 ** -(40 + 4)).tensor,
+    }
+    counts = {}
+    for name, op in ops.items():
+        out = {}
+        for device in ("cpu", "cuda"):
+            sess = spmd.SpmdSession(GROUP_MASTER, device)
+            x = spmd.share(sess, *interop.ring_from_numpy(*words,
+                                                          device=device), 128)
+            if device == "cpu":
+                out[device] = op(sess, x)
+                continue
+            before = dict(rk.LAUNCHES)
+            out[device], seen = device_events(torch, lambda: op(sess, x))
+            moved = {k: v - before[k] for k, v in rk.LAUNCHES.items()
+                     if v != before[k]}
+            ours = [e for e in seen if any(k in e for k in PORT_KERNELS)]
+            counts[name] = len(seen)
+            log(f"protocol {name}: device launches {counts[name]} "
+                f"(kernel launches {moved}; the profiler saw {seen})")
+            if (moved != {entry[name]: 1, "prf_threefry": 1}
+                    or len(seen) != 2 or len(ours) != 2):
+                raise AssertionError(
+                    f"{name} ran {counts[name]} device launches, not 2: "
+                    f"{moved} and {seen}")
+        got, want = out["cuda"], out["cpu"]
+        if not (torch.equal(got.lo.cpu(), want.lo)
+                and torch.equal(got.hi.cpu(), want.hi)):
+            raise AssertionError(f"{name} on the card differs from the CPU")
+    return counts
 
 
 def threefry_bound(n, layout, bits):
@@ -911,7 +1075,19 @@ def main() -> int:
         compare_dot(torch, rk, ring, gen, 5, 7, 3, 128, reps=20),
         compare_dot(torch, rk, ring, gen, 5, 7, 3, 64, reps=20),
     ]
+    # K2: trunc_pairs at the logistic regression's (1024,) operand (first:
+    # the main path's shape), transposed and broadcast, at 10^6 ring64, and
+    # on the secure dot's cross terms; then the tail alone
     trunc_rows = [
+        compare_trunc_pairs(torch, rk, gen, (PATH_N,), 128, 40, reps=20),
+        compare_trunc_pairs(torch, rk, gen, (32, 32), 128, 40, reps=20,
+                            view="transposed"),
+        compare_trunc_pairs(torch, rk, gen, (4, PATH_N // 4), 128, 40,
+                            reps=20, view="broadcast"),
+        compare_trunc_pairs(torch, rk, gen, (DOT_N * DOT_N,), 64, 23,
+                            reps=20),
+        compare_trunc_pairs(torch, rk, gen, (DOT_N, DOT_N), 128,
+                            DOT_PRECISION[1], reps=20, cross=True),
         compare_trunc(torch, rk, gen, (DOT_N, DOT_N), 128, DOT_PRECISION[1],
                       reps=20),
         compare_trunc(torch, rk, gen, (LINREG_ROWS, 1), 128, 40, reps=20),
@@ -1028,6 +1204,7 @@ def main() -> int:
             if not row["equal"]:
                 raise AssertionError(f"{name} disagrees with plain: {row}")
     torch.cuda.empty_cache()
+    protocol_device_launches = protocol_launches(torch, rk)
 
     # the main path derives no seed on the host: count ring.mix_seed
     host_seeds = [0]
@@ -1150,11 +1327,11 @@ def main() -> int:
         "logistic_regression": logreg_launches,
         "training": training.pop("launches"),
     }
-    protocol = ("dot_cross_terms", "trunc_combine", "cross_terms_reshare",
+    protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
     required = {
-        "secure_dot": ("dot_cross_terms", "trunc_combine", "prf_threefry"),
-        "linear_regressor": ("dot_cross_terms", "trunc_combine",
+        "secure_dot": ("dot_cross_terms", "trunc_pairs", "prf_threefry"),
+        "linear_regressor": ("dot_cross_terms", "trunc_pairs",
                              "prf_threefry"),
         "logistic_regression": protocol + ("prf_threefry",),
         "training": protocol + ("prf_threefry_pallas",),
@@ -1205,12 +1382,21 @@ def main() -> int:
         "horner": f"{tpu}:857",
         "threefry": "moose_tpu/dialects/pallas_prf.py:119",
     }
-    # the LAUNCHES names behind each kernel (K5 counts its two modes, K7
-    # its two stream layouts)
+    # the LAUNCHES names behind each kernel (K2 and K3 count their two
+    # entry points, K5 its two modes, K7 its two stream layouts), and the
+    # one a phase-3 row ran
     counters = {name: (name,) for name in replaces}
+    counters["trunc_combine"] = ("trunc_pairs", "trunc_combine")
     counters["bits_adder"] = ("bit_decompose", "msb")
-    counters["cross_terms_mul"] = ("cross_terms_mul", "cross_terms_reshare")
+    counters["cross_terms_mul"] = ("cross_terms_reshare", "cross_terms_mul")
     counters["threefry"] = ("prf_threefry", "prf_threefry_pallas")
+
+    def entry_of(name, row):
+        if name == "threefry":
+            return "prf_threefry" + ("" if row["mode"] == "threefry"
+                                     else "_pallas")
+        mode = row.get("mode")
+        return mode if mode in counters[name] else counters[name][0]
     kernels = []
     for name, rows in rows_by_kernel.items():
         head = rows[0]  # the main path's shape
@@ -1238,18 +1424,31 @@ def main() -> int:
             "int8_gemm_ms": head.get("int8_gemm_ms"),
             "shapes": rows,
         }
-        if len(counters[name]) > 1:
-            entry["launches_by_mode"] = {
-                mode: {path: counts[mode]
+        # every entry point of the kernel: its launches and its head row
+        entry["entries"] = []
+        for mode in counters[name]:
+            mine = [r for r in rows if entry_of(name, r) == mode]
+            by_mode = {path: counts[mode]
                        for path, counts in launches_by_path.items()}
-                for mode in counters[name]
-            }
+            entry["entries"].append({
+                "entry": mode,
+                "launches": sum(by_mode.values()),
+                "launches_by_path": by_mode,
+                **({} if not mine else {
+                    key: mine[0][key] for key in (
+                        "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")
+                }),
+                "max_abs_err": max((r["max_abs_err"] for r in mine),
+                                   default=None),
+            })
         kernels.append(entry)
     record = {
         "card": smi,
         "build_s": build_s,
         "host_seed_derivations": host_seeds[0],
         "k7_launches": k7,
+        "protocol_device_launches": protocol_device_launches,
         "logreg_device_launches": logreg_device_launches,
         "secure_dot": {"latency_ms": dot_s * 1e3,
                        "warm_latency_ms": [s * 1e3 for s in warm],

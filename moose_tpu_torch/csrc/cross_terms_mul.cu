@@ -37,8 +37,9 @@
 // neighbouring threads on neighbouring elements, so every load and store
 // of a plane coalesces when the operands are contiguous.  A broadcast
 // operand's word index is computed per element from the collapsed common
-// shape with 32-bit magic-number division where offsets fit (the host
-// checks), as ring_mul.cu does for its strided factor.  The TPU kernel's
+// shape with 32-bit magic-number division where offsets fit (the strided
+// walk of ring_words.cuh, which K2 and K6 share), as ring_mul.cu does for
+// its strided factor.  The TPU kernel's
 // 16-bit limbs in u32 lanes (Mosaic has no 64-bit lanes) are not carried
 // over: Hopper multiplies u64 words natively.
 
@@ -50,13 +51,6 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_DIMS = 8;
-
-unsigned grid_for(long long n) {
-  long long blocks = (n + THREADS - 1) / THREADS;
-  if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond this
-  return static_cast<unsigned>(blocks < 1 ? 1 : blocks);
-}
 
 template <bool WIDE>
 __global__ void __launch_bounds__(THREADS)
@@ -83,58 +77,9 @@ cross_terms_mul_kernel(const uint64_t* __restrict__ x0_lo,
   }
 }
 
-// The common logical shape, collapsed (innermost last), and each
-// operand's word stride along it (0 on a broadcast axis)
-struct Bcast {
-  int dims;
-  long long size[MAX_DIMS];
-  long long xs[MAX_DIMS];
-  long long ys[MAX_DIMS];
-  // e / size[d] = (umulhi(e, magic[d]) + e) >> shift[d] for e < 2^31
-  unsigned magic[MAX_DIMS];
-  int shift[MAX_DIMS];
-};
-
-enum Mode { CONTIG = 0, FAST = 1, WIDE_INDEX = 2 };
-
-// x's and y's word offsets of element e (party 0, slot 0); the loops are
-// unrolled over MAX_DIMS so that every index is a constant
-template <int MODE>
-__device__ __forceinline__ void offsets(const Bcast& bc, long long e,
-                                        long long& xo, long long& yo) {
-  if (MODE == CONTIG) {
-    xo = yo = e;
-  } else if (MODE == FAST) {
-    unsigned u = static_cast<unsigned>(e);
-    unsigned xoff = 0;
-    unsigned yoff = 0;
-#pragma unroll
-    for (int d = MAX_DIMS - 1; d >= 0; --d) {
-      if (d >= bc.dims) continue;
-      const unsigned q = (__umulhi(u, bc.magic[d]) + u) >> bc.shift[d];
-      const unsigned c = u - q * static_cast<unsigned>(bc.size[d]);
-      xoff += c * static_cast<unsigned>(bc.xs[d]);
-      yoff += c * static_cast<unsigned>(bc.ys[d]);
-      u = q;
-    }
-    xo = xoff;
-    yo = yoff;
-  } else {
-    xo = yo = 0;
-#pragma unroll
-    for (int d = MAX_DIMS - 1; d >= 0; --d) {
-      if (d >= bc.dims) continue;
-      const long long q = e / bc.size[d];
-      const long long c = e - q * bc.size[d];
-      xo += c * bc.xs[d];
-      yo += c * bc.ys[d];
-      e = q;
-    }
-  }
-}
-
-// x and y at party 0, slot 0, with xp / yp words between parties; s the
-// contiguous (3, n) bank; out the contiguous (3, 2, n) pair layout
+// x and y at party 0, slot 0, with xp / yp words between parties, read
+// through the walk (operand 0 x, operand 1 y); s the contiguous (3, n)
+// bank; out the contiguous (3, 2, n) pair layout
 template <bool WIDE, int MODE>
 __global__ void __launch_bounds__(THREADS)
 cross_terms_reshare_kernel(const uint64_t* __restrict__ x_lo,
@@ -145,17 +90,17 @@ cross_terms_reshare_kernel(const uint64_t* __restrict__ x_lo,
                            const uint64_t* __restrict__ s_hi,
                            uint64_t* __restrict__ out_lo,
                            uint64_t* __restrict__ out_hi, long long n,
-                           long long xp, long long yp, Bcast bc) {
+                           long long xp, long long yp, Walk<2> w) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
        e += stride) {
-    long long xo, yo;
-    offsets<MODE>(bc, e, xo, yo);
+    long long off[2];
+    walk_offsets<MODE, 2>(w, e, off);
     Ring x[3], y[3], s[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      x[i] = ring_load<WIDE>(x_lo, x_hi, xo + i * xp);
-      y[i] = ring_load<WIDE>(y_lo, y_hi, yo + i * yp);
+      x[i] = ring_load<WIDE>(x_lo, x_hi, off[0] + i * xp);
+      y[i] = ring_load<WIDE>(y_lo, y_hi, off[1] + i * yp);
       s[i] = ring_load<WIDE>(s_lo, s_hi, e + i * n);
     }
     Ring z[3];
@@ -175,33 +120,23 @@ cross_terms_reshare_kernel(const uint64_t* __restrict__ x_lo,
   }
 }
 
-template <bool WIDE, int MODE>
+template <bool WIDE>
 void launch_reshare(const uint64_t* x_lo, const uint64_t* x_hi,
                     const uint64_t* y_lo, const uint64_t* y_hi,
                     const uint64_t* s_lo, const uint64_t* s_hi,
                     uint64_t* out_lo, uint64_t* out_hi, long long n,
-                    long long xp, long long yp, const Bcast& bc,
-                    cudaStream_t s) {
-  cross_terms_reshare_kernel<WIDE, MODE><<<grid_for(n), THREADS, 0, s>>>(
-      x_lo, x_hi, y_lo, y_hi, s_lo, s_hi, out_lo, out_hi, n, xp, yp, bc);
-}
-
-template <bool WIDE>
-void launch_reshare_mode(int mode, const uint64_t* x_lo, const uint64_t* x_hi,
-                         const uint64_t* y_lo, const uint64_t* y_hi,
-                         const uint64_t* s_lo, const uint64_t* s_hi,
-                         uint64_t* out_lo, uint64_t* out_hi, long long n,
-                         long long xp, long long yp, const Bcast& bc,
-                         cudaStream_t s) {
-  if (mode == CONTIG) {
-    launch_reshare<WIDE, CONTIG>(x_lo, x_hi, y_lo, y_hi, s_lo, s_hi, out_lo,
-                                 out_hi, n, xp, yp, bc, s);
-  } else if (mode == FAST) {
-    launch_reshare<WIDE, FAST>(x_lo, x_hi, y_lo, y_hi, s_lo, s_hi, out_lo,
-                               out_hi, n, xp, yp, bc, s);
+                    long long xp, long long yp, const Walk<2>& w,
+                    cudaStream_t st) {
+  const unsigned grid = grid_for(n, THREADS);
+  if (w.mode == WALK_CONTIG) {
+    cross_terms_reshare_kernel<WIDE, WALK_CONTIG><<<grid, THREADS, 0, st>>>(
+        x_lo, x_hi, y_lo, y_hi, s_lo, s_hi, out_lo, out_hi, n, xp, yp, w);
+  } else if (w.mode == WALK_FAST) {
+    cross_terms_reshare_kernel<WIDE, WALK_FAST><<<grid, THREADS, 0, st>>>(
+        x_lo, x_hi, y_lo, y_hi, s_lo, s_hi, out_lo, out_hi, n, xp, yp, w);
   } else {
-    launch_reshare<WIDE, WIDE_INDEX>(x_lo, x_hi, y_lo, y_hi, s_lo, s_hi,
-                                     out_lo, out_hi, n, xp, yp, bc, s);
+    cross_terms_reshare_kernel<WIDE, WALK_WIDE><<<grid, THREADS, 0, st>>>(
+        x_lo, x_hi, y_lo, y_hi, s_lo, s_hi, out_lo, out_hi, n, xp, yp, w);
   }
 }
 
@@ -218,13 +153,14 @@ extern "C" int moose_cross_terms_mul(const void* x0_lo, const void* x0_hi,
                                      int wide, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto u = [](const void* ptr) { return static_cast<const uint64_t*>(ptr); };
+  const unsigned grid = grid_for(n, THREADS);
   if (wide) {
-    cross_terms_mul_kernel<true><<<grid_for(n), THREADS, 0, s>>>(
+    cross_terms_mul_kernel<true><<<grid, THREADS, 0, s>>>(
         u(x0_lo), u(x0_hi), u(x1_lo), u(x1_hi), u(y0_lo), u(y0_hi), u(y1_lo),
         u(y1_hi), static_cast<uint64_t*>(out_lo),
         static_cast<uint64_t*>(out_hi), n);
   } else {
-    cross_terms_mul_kernel<false><<<grid_for(n), THREADS, 0, s>>>(
+    cross_terms_mul_kernel<false><<<grid, THREADS, 0, s>>>(
         u(x0_lo), nullptr, u(x1_lo), nullptr, u(y0_lo), nullptr, u(y1_lo),
         nullptr, static_cast<uint64_t*>(out_lo), nullptr, n);
   }
@@ -247,47 +183,20 @@ extern "C" int moose_cross_terms_reshare(
     long long n, int wide, int dims, const long long* sizes,
     const long long* x_strides, const long long* y_strides, long long xp,
     long long yp, void* stream) {
-  if (n <= 0 || dims < 0 || dims > MAX_DIMS) {
+  Walk<2> w;
+  const long long* const strides[2] = {x_strides, y_strides};
+  if (!walk_init<2>(w, n, dims, sizes, strides)) {
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Bcast bc = {};
-  bc.dims = dims;
-  long long x_last = 0;  // each operand's largest word offset
-  long long y_last = 0;
-  for (int d = 0; d < dims; ++d) {
-    bc.size[d] = sizes[d];
-    bc.xs[d] = x_strides[d];
-    bc.ys[d] = y_strides[d];
-    x_last += (sizes[d] - 1) * x_strides[d];
-    y_last += (sizes[d] - 1) * y_strides[d];
-  }
-  int mode = WIDE_INDEX;
-  if (dims == 1 && bc.xs[0] == 1 && bc.ys[0] == 1) {
-    mode = CONTIG;
-  } else if (n < (1ll << 31) && x_last < (1ll << 31) &&
-             y_last < (1ll << 31)) {
-    mode = FAST;
-    for (int d = 0; d < dims; ++d) {
-      // the round-up divider: shift = ceil(log2 size), magic =
-      // 2^32 (2^shift - size) / size + 1, exact for dividends below 2^31
-      int shift = 0;
-      while ((1ll << shift) < bc.size[d]) ++shift;
-      bc.shift[d] = shift;
-      bc.magic[d] = static_cast<unsigned>(
-          ((1ull << 32) * ((1ull << shift) - bc.size[d])) / bc.size[d] + 1);
-    }
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto u = [](const void* ptr) { return static_cast<const uint64_t*>(ptr); };
   auto o = [](void* ptr) { return static_cast<uint64_t*>(ptr); };
   if (wide) {
-    launch_reshare_mode<true>(mode, u(x_lo), u(x_hi), u(y_lo), u(y_hi),
-                              u(s_lo), u(s_hi), o(out_lo), o(out_hi), n, xp,
-                              yp, bc, s);
+    launch_reshare<true>(u(x_lo), u(x_hi), u(y_lo), u(y_hi), u(s_lo),
+                         u(s_hi), o(out_lo), o(out_hi), n, xp, yp, w, s);
   } else {
-    launch_reshare_mode<false>(mode, u(x_lo), nullptr, u(y_lo), nullptr,
-                               u(s_lo), nullptr, o(out_lo), nullptr, n, xp,
-                               yp, bc, s);
+    launch_reshare<false>(u(x_lo), nullptr, u(y_lo), nullptr, u(s_lo),
+                          nullptr, o(out_lo), nullptr, n, xp, yp, w, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

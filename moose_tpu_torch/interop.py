@@ -23,8 +23,9 @@ def ring_from_numpy(lo_u64: np.ndarray, hi_u64: Optional[np.ndarray] = None,
     dev = devices.resolve(device)
 
     def words(a):
-        a = np.ascontiguousarray(np.asarray(a, dtype=np.uint64))
-        return torch.from_numpy(a.view(np.int64).copy()).to(dev)
+        # a copy, not np.ascontiguousarray: that makes a 0-d array 1-d
+        a = np.array(a, dtype=np.uint64, order="C")
+        return torch.from_numpy(a.view(np.int64)).to(dev)
 
     return words(lo_u64), None if hi_u64 is None else words(hi_u64)
 

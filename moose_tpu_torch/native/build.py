@@ -46,9 +46,13 @@ SIGNATURES = {
         + [ctypes.c_void_p],
     ),
     "trunc_combine": (
-        "moose_trunc_combine",
-        [ctypes.c_void_p] * 16
-        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        "moose_trunc_pairs",
+        [ctypes.POINTER(ctypes.c_void_p)] * 2
+        + [ctypes.c_longlong, ctypes.c_int]
+        + [ctypes.POINTER(ctypes.c_longlong)] * 2
+        + [ctypes.POINTER(ctypes.c_void_p)] * 2
+        + [ctypes.c_void_p] * 2
+        + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     ),
     "cross_terms_mul": (
         "moose_cross_terms_mul",
@@ -75,10 +79,13 @@ SIGNATURES = {
     ),
     "horner": (
         "moose_horner",
-        [ctypes.c_void_p] * 10
+        [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int]
+        + [ctypes.POINTER(ctypes.c_longlong)] * 3
+        + [ctypes.c_void_p] * 4
         + [ctypes.POINTER(ctypes.c_uint64)] * 2
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-           ctypes.c_void_p],
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p],
     ),
     "threefry": (
         "moose_threefry_group",

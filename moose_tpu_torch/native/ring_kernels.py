@@ -7,7 +7,10 @@ kernels the secure dot and the protocol sigmoid run:
   ``v_p = x0_p @ (y0+y1)_p + x1_p @ y0_p mod 2^w`` of a secure matmul,
   ``csrc/dot_cross_terms.cu``;
 - ``trunc_combine`` (K2): the elementwise tail of probabilistic
-  truncation after its five pre-drawn values, ``csrc/trunc_combine.cu``;
+  truncation after its five pre-drawn values, and ``trunc_pairs``, the
+  whole truncation after its draws from the pair layout (or a matrix
+  product's cross terms and zero-share bank) to the pair layout, both
+  through one kernel, ``csrc/trunc_combine.cu``;
 - ``cross_terms_mul`` (K3): the same cross terms elementwise, and
   ``cross_terms_reshare``, a secure multiply's cross terms fused with its
   reshare, reading the operands' pair layout in place and writing the
@@ -19,7 +22,8 @@ kernels the secure dot and the protocol sigmoid run:
   the top one, ``csrc/bits_adder.cu`` (the banks packed into bit masks,
   then the adder on masks);
 - ``horner`` (K6): the fused fixed-point Horner ladder of a secret
-  polynomial, ``csrc/horner.cu``;
+  polynomial, reading x's pair slots in place and writing the result's
+  pair layout (``horner_pairs``), ``csrc/horner.cu``;
 - ``threefry_group`` (K7, the ``moose_tpu/dialects/pallas_prf.py``
   kernel): threefry2x32-20 counter-mode expansion of a group of a
   protocol session's draws into u64 words or 0/1 bits, their seeds
@@ -31,9 +35,9 @@ kernels the secure dot and the protocol sigmoid run:
 A wrapper takes its plain version only for tensors (for K7, a device) on
 the CPU.  For CUDA it launches the kernel or raises: there is no
 fallback.  Each launch adds one to ``LAUNCHES[name]`` (and nothing else
-does), so a run can show that it went through the kernels; K3 counts its
-two entry points apart, K5 its two modes, and K7 its two layouts
-(``prf_threefry``, ``prf_threefry_pallas``), one launch a group.
+does), so a run can show that it went through the kernels; K2 and K3
+count their two entry points apart, K5 its two modes, and K7 its two
+layouts (``prf_threefry``, ``prf_threefry_pallas``), one launch a group.
 
 The plain versions repeat the kernels' arithmetic in PyTorch.  They are
 what the CPU tests hold against the JAX package, and what ``chip_smoke.py``
@@ -56,8 +60,9 @@ from . import build
 Pair = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 LAUNCHES = {
-    "dot_cross_terms": 0, "trunc_combine": 0, "cross_terms_mul": 0,
-    "cross_terms_reshare": 0, "ring_mul": 0, "bit_decompose": 0, "msb": 0, "horner": 0,
+    "dot_cross_terms": 0, "trunc_combine": 0, "trunc_pairs": 0,
+    "cross_terms_mul": 0, "cross_terms_reshare": 0, "ring_mul": 0,
+    "bit_decompose": 0, "msb": 0, "horner": 0,
     "prf_threefry": 0, "prf_threefry_pallas": 0,
 }
 
@@ -112,6 +117,77 @@ def _stream(device: torch.device) -> int:
 def _raise_on(label: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{label}: CUDA launch failed with error {err}")
+
+
+def _roll(t):
+    return None if t is None else torch.roll(t, -1, dims=0)
+
+
+def _at(t, *index):
+    return None if t is None else t[index]
+
+
+def _check_strided(label: str, pair: Pair, shape, device: torch.device,
+                   wide: bool) -> None:
+    """int64 words of ``shape`` on ``device`` that a kernel reads through
+    their strides: any strides, the high word's those of the low."""
+    lo, hi = pair
+    if lo.device != device or lo.dtype != torch.int64:
+        raise ValueError(
+            f"{label}: expected int64 words on {device}, got {lo.dtype} on "
+            f"{lo.device}"
+        )
+    if tuple(lo.shape) != tuple(shape):
+        raise ValueError(
+            f"{label}: expected shape {tuple(shape)}, got {tuple(lo.shape)}"
+        )
+    if wide and (hi is None or hi.dtype != torch.int64 or hi.device != device
+                 or hi.shape != lo.shape or hi.stride() != lo.stride()):
+        raise ValueError(f"{label}: hi words missing or laid out unlike lo")
+
+
+# ring_words.cuh: the most collapsed axes of a strided walk
+_WALK_MAX_DIMS = 8
+_WalkAxes = ctypes.c_longlong * _WALK_MAX_DIMS
+
+
+def _logical_stride(t: torch.Tensor, shape, d: int, lead: int) -> int:
+    """The word stride of ``t`` (``lead`` leading axes, then its own
+    logical shape) along axis ``d`` of the logical ``shape`` it
+    broadcasts to: 0 where ``t`` has no such axis or size 1 there."""
+    td = d - (len(shape) - (t.dim() - lead))
+    return 0 if td < 0 or t.shape[lead + td] == 1 else t.stride(lead + td)
+
+
+def walk_dims(shape, *operands: torch.Tensor, lead: int = 2):
+    """(size, stride of each operand) axes of the logical ``shape``,
+    size-1 axes dropped and neighbours that step alike in every operand
+    merged, innermost last: what a kernel's strided walk
+    (``ring_words.cuh``) takes.  The operands have ``lead`` leading axes
+    (2 for the pair layout, 1 for a pair slot) before their own logical
+    shapes, which broadcast to ``shape``."""
+    dims = []
+    for d, size in enumerate(shape):
+        if size == 1:
+            continue
+        strides = tuple(_logical_stride(t, shape, d, lead) for t in operands)
+        if dims and all(outer == s * size
+                        for outer, s in zip(dims[-1][1:], strides)):
+            dims[-1] = (dims[-1][0] * size,) + strides
+        else:
+            dims.append((size,) + strides)
+    return dims
+
+
+def _walk_axes(label: str, dims, operands: int):
+    """The ctypes arrays (sizes, then each operand's strides) of a walk."""
+    if len(dims) > _WALK_MAX_DIMS:
+        raise ValueError(
+            f"{label}: the walk takes {len(dims)} axes, the kernel at most "
+            f"{_WALK_MAX_DIMS}"
+        )
+    cols = list(zip(*dims)) if dims else [()] * (1 + operands)
+    return [_WalkAxes(*col) for col in cols]
 
 
 # ---------------------------------------------------------------------------
@@ -419,11 +495,44 @@ def trunc_combine_plain(a0: Pair, a1: Pair, draws, width: int,
     return z_lo, z_hi
 
 
+# csrc/trunc_combine.cu: its three inputs, and the draws it reads of the
+# session's five (r, m_r, m_rt, m_rm, z0): m_r cancels in the reveal
+_TRUNC_PAIRS, _TRUNC_CROSS, _TRUNC_ADDITIVE = 0, 1, 2
+_TRUNC_DRAWS_READ = (0, 2, 3, 4)
+
+
+def _trunc_launch(label: str, mode: int, parts, xp: int, dims, draws,
+                  out: Pair, n: int, width: int, amount: int,
+                  device: torch.device) -> None:
+    """One launch of K2's kernel: ``parts`` the (lo, hi) words at which
+    x's summed words start, ``draws`` the session's five (lo, hi)
+    draws."""
+    wide = width == 128
+    words = ctypes.c_void_p * len(parts)
+    x_lo = words(*(_ptr(p[0]) for p in parts))
+    x_hi = words(*(_ptr(p[1]) if wide else None for p in parts))
+    read = [draws[j] for j in _TRUNC_DRAWS_READ]
+    d_lo = (ctypes.c_void_p * 4)(*(_ptr(d[0]) for d in read))
+    d_hi = (ctypes.c_void_p * 4)(*(_ptr(d[1]) if wide else None
+                                   for d in read))
+    sizes, strides = _walk_axes(label, dims, 1)
+    lib = build.library("trunc_combine")
+    with torch.cuda.device(device):
+        err = lib.moose_trunc_pairs(
+            x_lo, x_hi, xp, len(dims), sizes, strides, d_lo, d_hi,
+            _ptr(out[0]), _ptr(out[1]), n, mode, amount, int(wide),
+            _stream(device),
+        )
+    _raise_on(label, err)
+
+
 def trunc_combine(a0: Pair, a1: Pair, draws, width: int, amount: int):
     """The fused tail of ``spmd._trunc_pr_adt``: masks, reveal, overflow
     correction, downshift and additive-to-replicated, from the 2-party
     additive sharing (a0, a1) and the pre-drawn (r, m_r, m_rt, m_rm, z0).
-    Returns the stacked (3, *shape) (z_lo, z_hi)."""
+    Returns the stacked (3, *shape) (z_lo, z_hi).  On the card it is
+    K2's kernel on the additive input (the reveal reads a0 + a1, and not
+    m_r, which cancels in it)."""
     if _on_cpu(a0[0]):
         return trunc_combine_plain(a0, a1, draws, width, amount)
     if not 0 <= amount <= width - 2:
@@ -446,17 +555,92 @@ def trunc_combine(a0: Pair, a1: Pair, draws, width: int, amount: int):
     n = a0[0].numel()
     if n == 0:
         return out_lo, out_hi
-    lib = build.library("trunc_combine")
-    ptrs = []
-    for pair in pairs:
-        ptrs += [_ptr(pair[0]), _ptr(pair[1] if wide else None)]
-    with torch.cuda.device(device):
-        err = lib.moose_trunc_combine(
-            *ptrs, _ptr(out_lo), _ptr(out_hi), n, amount, int(wide),
-            _stream(device),
-        )
-    _raise_on("trunc_combine", err)
+    _trunc_launch("trunc_combine", _TRUNC_ADDITIVE, (a0, a1), 0, [],
+                  tuple(draws), (out_lo, out_hi), n, width, amount, device)
     LAUNCHES["trunc_combine"] += 1
+    return out_lo, out_hi
+
+
+def trunc_pairs_plain(x: Pair, draws: Pair, width: int, amount: int,
+                      bank: Optional[Pair] = None) -> Pair:
+    """:func:`trunc_pairs` in plain PyTorch, as the protocol computes it:
+    the operand's 2-party additive form (slot 0 of each party, or the
+    cross terms plus the zero share of ``bank``), :func:`trunc_combine_plain`
+    over the five draws of the (5, *shape) block, and the pair layout of
+    its result."""
+    if bank is None:
+        z = _slot(x, 0, x[0].shape[2:])
+    else:
+        z = ring.add(*x, *ring.sub(*bank, _roll(bank[0]), _roll(bank[1])))
+    a0 = ring.add(z[0][0], _at(z[1], 0), z[0][1], _at(z[1], 1))
+    a1 = z[0][2], _at(z[1], 2)
+    d = tuple((draws[0][j], _at(draws[1], j)) for j in range(5))
+    q = trunc_combine_plain(a0, a1, d, width, amount)
+    return tuple(
+        None if w is None else torch.stack([w, _roll(w)], dim=1) for w in q
+    )
+
+
+def trunc_pairs(x: Pair, draws: Pair, width: int, amount: int,
+                bank: Optional[Pair] = None) -> Pair:
+    """Probabilistic truncation by ``amount`` after its draws, in one
+    kernel, from the pair layout to the pair layout.
+
+    Without ``bank``, ``x`` is the (lo, hi) words of a consistent
+    replicated sharing in the (3, 2, *shape) pair layout, read in place
+    through its strides, slot 0 of each party only: a0 = x_0 + x_1,
+    a1 = x_2.  With ``bank``, ``x`` is a matrix product's contiguous
+    (3, *shape) cross terms v and ``bank`` the contiguous (3, *shape)
+    zero-share draw: z_p = v_p + s_p - s_{p+1}, a0 = z_0 + z_1,
+    a1 = z_2.  ``draws`` is the contiguous (5, *shape) block of r, m_r,
+    m_rt, m_rm, z0, as the session drew them.  Returns the result's
+    contiguous (3, 2, *shape) pair layout: word for word the pair layout
+    of :func:`trunc_combine` on (a0, a1) and the five draws.
+
+    The reveal depends only on a0 + a1, in which the zero shares cancel,
+    and not on m_r: the kernel reads neither the bank nor m_r (the plain
+    version computes with both, as the protocol does)."""
+    if not 0 <= amount <= width - 2:
+        raise ValueError(
+            f"trunc_pairs: amount {amount} out of range for ring{width}"
+        )
+    lead = (3, 2) if bank is None else (3,)
+    lo = x[0]
+    if tuple(lo.shape[:len(lead)]) != lead:
+        raise ValueError(
+            f"trunc_pairs: expected {lead + ('*shape',)} words, got "
+            f"{tuple(lo.shape)}"
+        )
+    shape = tuple(lo.shape[len(lead):])
+    if tuple(draws[0].shape) != (5,) + shape:
+        raise ValueError(
+            f"trunc_pairs: expected (5, *{shape}) draws, got "
+            f"{tuple(draws[0].shape)}"
+        )
+    if _on_cpu(lo):
+        return trunc_pairs_plain(x, draws, width, amount, bank)
+    device = lo.device
+    _require_cuda("trunc_pairs", device)
+    wide = width == 128
+    if bank is None:
+        _check_strided("trunc_pairs x", x, lo.shape, device, wide)
+    else:
+        _check_pair("trunc_pairs v", x, lo.shape, device, wide)
+        _check_pair("trunc_pairs bank", bank, lo.shape, device, wide)
+    _check_pair("trunc_pairs draws", draws, (5,) + shape, device, wide)
+    out_lo = torch.empty((3, 2) + shape, dtype=torch.int64, device=device)
+    out_hi = torch.empty_like(out_lo) if wide else None
+    n = math.prod(shape)
+    if n == 0:
+        return out_lo, out_hi
+    if bank is None:
+        mode, xp, dims = _TRUNC_PAIRS, lo.stride(0), walk_dims(shape, lo)
+    else:
+        mode, xp, dims = _TRUNC_CROSS, n, []
+    rows = tuple((draws[0][j], _at(draws[1], j)) for j in range(5))
+    _trunc_launch("trunc_pairs", mode, (x,), xp, dims, rows,
+                  (out_lo, out_hi), n, width, amount, device)
+    LAUNCHES["trunc_pairs"] += 1
     return out_lo, out_hi
 
 
@@ -502,36 +686,6 @@ def cross_terms_mul(x0: Pair, x1: Pair, y0: Pair, y1: Pair,
     _raise_on("cross_terms_mul", err)
     LAUNCHES["cross_terms_mul"] += 1
     return out_lo, out_hi
-
-
-# csrc/cross_terms_mul.cu: the most collapsed axes of the reshare's
-# common shape
-_RESHARE_MAX_DIMS = 8
-_ReshareAxes = ctypes.c_longlong * _RESHARE_MAX_DIMS
-
-
-def _logical_stride(t: torch.Tensor, shape, d: int) -> int:
-    """The word stride of pair-layout words ``t`` (3, 2, *own) along axis
-    ``d`` of the logical ``shape`` it broadcasts to: 0 where ``t`` has no
-    such axis or size 1 there."""
-    td = d - (len(shape) - (t.dim() - 2))
-    return 0 if td < 0 or t.shape[2 + td] == 1 else t.stride(2 + td)
-
-
-def reshare_dims(shape, x: torch.Tensor, y: torch.Tensor):
-    """(size, x stride, y stride) axes of the common logical ``shape``,
-    size-1 axes dropped and neighbours that step alike in both operands
-    merged, innermost last: what the reshare kernel walks."""
-    dims = []
-    for d, size in enumerate(shape):
-        if size == 1:
-            continue
-        xs, ys = _logical_stride(x, shape, d), _logical_stride(y, shape, d)
-        if dims and dims[-1][1] == xs * size and dims[-1][2] == ys * size:
-            dims[-1] = (dims[-1][0] * size, xs, ys)
-        else:
-            dims.append((size, xs, ys))
-    return dims
 
 
 def _slot(t: Pair, slot: int, shape) -> Pair:
@@ -605,14 +759,8 @@ def cross_terms_reshare(x: Pair, y: Pair, bank: Pair, width: int) -> Pair:
     n = math.prod(shape)
     if n == 0:
         return out_lo, out_hi
-    dims = reshare_dims(shape, x[0], y[0])
-    if len(dims) > _RESHARE_MAX_DIMS:
-        raise ValueError(
-            f"cross_terms_reshare: the broadcast takes {len(dims)} axes, "
-            f"the kernel at most {_RESHARE_MAX_DIMS}"
-        )
-    sizes, xs, ys = (_ReshareAxes(*col) for col in zip(*dims)) if dims \
-        else (_ReshareAxes(), _ReshareAxes(), _ReshareAxes())
+    dims = walk_dims(shape, x[0], y[0])
+    sizes, xs, ys = _walk_axes("cross_terms_reshare", dims, 2)
     lib = build.library("cross_terms_mul")
     with torch.cuda.device(device):
         err = lib.moose_cross_terms_reshare(
@@ -946,14 +1094,6 @@ def _at_party(party: int, raw: int, like: torch.Tensor, width: int) -> Pair:
     return lo, hi
 
 
-def _roll(t):
-    return None if t is None else torch.roll(t, -1, dims=0)
-
-
-def _at(t, *index):
-    return None if t is None else t[index]
-
-
 def horner_plain(x0: Pair, x1: Pair, width: int, raws, f: int, zbanks: Pair,
                  tdraws: Pair):
     """The unfused ladder over the same draws (``spmd_math._horner_lax``
@@ -980,18 +1120,21 @@ def horner_plain(x0: Pair, x1: Pair, width: int, raws, f: int, zbanks: Pair,
     return acc0, acc1
 
 
-def horner(x0: Pair, x1: Pair, width: int, raws, f: int, zbanks: Pair,
-           tdraws: Pair):
-    """Fused fixed-point Horner ladder (``spmd_math.polynomial_eval``):
-    every step's cross terms, zero-share add, truncation by ``f`` and
-    coefficient add in one kernel.  ``x0``/``x1`` are the (3, *shape)
-    pair slots of x; ``raws`` the raw coefficients highest degree first
-    (``raws[0]`` seeds the accumulator); ``zbanks`` the (steps, 3,
-    *shape) zero-share banks and ``tdraws`` the (steps, 5, *shape)
-    truncation draws, drawn by the caller in the unfused ladder's order.
-    Returns the (slot 0, slot 1) pair slots of the result."""
-    if _on_cpu(x0[0]):
-        return horner_plain(x0, x1, width, raws, f, zbanks, tdraws)
+def horner_lanes(n: int) -> int:
+    """The horner kernel's variant for ``n`` elements: three lanes an
+    element (ten elements a block that computes their masks first) while
+    the ladder's steps bound it, up to 4,096 elements; one thread an
+    element beyond, where its bytes do (``scripts/kernel_ab.py --part
+    horner`` measured the crossing)."""
+    return 3 if n <= _HORNER_LANES_MAX_N else 1
+
+
+# csrc/horner.cu: three lanes an element up to this many elements
+_HORNER_LANES_MAX_N = 1 << 12
+
+
+def _horner_launch(x0: Pair, x1: Pair, width: int, raws, f: int,
+                   zbanks: Pair, tdraws: Pair) -> Pair:
     device = x0[0].device
     _require_cuda("horner", device)
     steps = len(raws) - 1
@@ -1002,31 +1145,83 @@ def horner(x0: Pair, x1: Pair, width: int, raws, f: int, zbanks: Pair,
     if not 0 <= f <= width - 2:
         raise ValueError(f"horner: amount {f} out of range for ring{width}")
     wide = width == 128
-    shape = tuple(x0[0].shape)
-    _check_pair("horner x0", x0, shape, device, wide)
-    _check_pair("horner x1", x1, shape, device, wide)
-    _check_pair("horner zbanks", zbanks, (steps,) + shape, device, wide)
-    _check_pair("horner tdraws", tdraws, (steps, 5) + shape[1:], device, wide)
-    out_lo = torch.empty((2,) + shape, dtype=torch.int64, device=device)
+    full = tuple(x0[0].shape)
+    if len(full) < 1 or full[0] != 3:
+        raise ValueError(f"horner: expected (3, *shape) slots, got {full}")
+    shape = full[1:]
+    _check_strided("horner x0", x0, full, device, wide)
+    _check_strided("horner x1", x1, full, device, wide)
+    _check_pair("horner zbanks", zbanks, (steps,) + full, device, wide)
+    _check_pair("horner tdraws", tdraws, (steps, 5) + shape, device, wide)
+    out_lo = torch.empty((3, 2) + shape, dtype=torch.int64, device=device)
     out_hi = torch.empty_like(out_lo) if wide else None
-    n = math.prod(shape[1:])
-    if n > 0:
-        words = ctypes.c_uint64 * len(raws)
-        c_lo = words(*(int(r) & ring.MASK64 for r in raws))
-        c_hi = words(*((int(r) >> 64) & ring.MASK64 for r in raws))
-        lib = build.library("horner")
-        with torch.cuda.device(device):
-            err = lib.moose_horner(
-                _ptr(x0[0]), _ptr(x0[1] if wide else None),
-                _ptr(x1[0]), _ptr(x1[1] if wide else None),
-                _ptr(zbanks[0]), _ptr(zbanks[1] if wide else None),
-                _ptr(tdraws[0]), _ptr(tdraws[1] if wide else None),
-                _ptr(out_lo), _ptr(out_hi), c_lo, c_hi, steps, f, n,
-                int(wide), _stream(device),
-            )
-        _raise_on("horner", err)
-        LAUNCHES["horner"] += 1
-    return (out_lo[0], _at(out_hi, 0)), (out_lo[1], _at(out_hi, 1))
+    n = math.prod(shape)
+    if n == 0:
+        return out_lo, out_hi
+    dims = walk_dims(shape, x0[0], x1[0], lead=1)
+    sizes, s0, s1 = _walk_axes("horner", dims, 2)
+    words = ctypes.c_uint64 * len(raws)
+    c_lo = words(*(int(r) & ring.MASK64 for r in raws))
+    c_hi = words(*((int(r) >> 64) & ring.MASK64 for r in raws))
+    lib = build.library("horner")
+    with torch.cuda.device(device):
+        err = lib.moose_horner(
+            _ptr(x0[0]), _ptr(x0[1] if wide else None), x0[0].stride(0),
+            _ptr(x1[0]), _ptr(x1[1] if wide else None), x1[0].stride(0),
+            len(dims), sizes, s0, s1,
+            _ptr(tdraws[0]), _ptr(tdraws[1] if wide else None),
+            _ptr(out_lo), _ptr(out_hi), c_lo, c_hi, steps, f, n,
+            horner_lanes(n), int(wide), _stream(device),
+        )
+    _raise_on("horner", err)
+    LAUNCHES["horner"] += 1
+    return out_lo, out_hi
+
+
+def horner(x0: Pair, x1: Pair, width: int, raws, f: int, zbanks: Pair,
+           tdraws: Pair):
+    """Fused fixed-point Horner ladder (``spmd_math.polynomial_eval``):
+    every step's cross terms, zero-share add, truncation by ``f`` and
+    coefficient add in one kernel.  ``x0``/``x1`` are the (3, *shape)
+    pair slots of x, read in place through their strides; ``raws`` the
+    raw coefficients highest degree first (``raws[0]`` seeds the
+    accumulator); ``zbanks`` the contiguous (steps, 3, *shape) zero-share
+    banks and ``tdraws`` the contiguous (steps, 5, *shape) truncation
+    draws, drawn by the caller in the unfused ladder's order.  Returns
+    the (slot 0, slot 1) pair slots of the result: on the card, views of
+    the pair layout :func:`horner_pairs` returns.
+
+    A step's truncation reveals the sum of its reshared cross terms, in
+    which the zero shares cancel, and m_r cancels in the reveal: the
+    kernel reads neither ``zbanks`` (their shape is checked) nor m_r, and
+    the plain version computes with both, as the protocol does."""
+    if _on_cpu(x0[0]):
+        return horner_plain(x0, x1, width, raws, f, zbanks, tdraws)
+    lo, hi = _horner_launch(x0, x1, width, raws, f, zbanks, tdraws)
+    return tuple((lo[:, s], _at(hi, slice(None), s)) for s in (0, 1))
+
+
+def horner_pairs_plain(x: Pair, width: int, raws, f: int, zbanks: Pair,
+                       tdraws: Pair) -> Pair:
+    """:func:`horner_plain` on x's pair slots, its result's two slots
+    stacked into the pair layout."""
+    shape = x[0].shape[2:]
+    acc = horner_plain(_slot(x, 0, shape), _slot(x, 1, shape), width, raws,
+                       f, zbanks, tdraws)
+    return tuple(None if w0 is None else torch.stack([w0, w1], dim=1)
+                 for w0, w1 in zip(*acc))
+
+
+def horner_pairs(x: Pair, width: int, raws, f: int, zbanks: Pair,
+                 tdraws: Pair) -> Pair:
+    """:func:`horner` on x's (3, 2, *shape) pair layout, its two slots
+    read in place: returns the result's contiguous (3, 2, *shape) pair
+    layout."""
+    if _on_cpu(x[0]):
+        return horner_pairs_plain(x, width, raws, f, zbanks, tdraws)
+    shape = x[0].shape[2:]
+    return _horner_launch(_slot(x, 0, shape), _slot(x, 1, shape), width,
+                          raws, f, zbanks, tdraws)
 
 
 # ---------------------------------------------------------------------------

@@ -403,9 +403,9 @@ def _transpose_arr(a, axes=None):
 
 
 # Permute the logical axes (all reversed when ``axes`` is None).  The
-# result is a strided view: ``cross_terms_reshare`` reads it in place,
-# the other kernels' callers make slots contiguous (:func:`slot_words`,
-# ``mul_public``, ``trunc_pr``).
+# result is a strided view: ``cross_terms_reshare``, ``trunc_pairs`` and
+# ``horner`` read it in place, the other kernels' callers make slots
+# contiguous (:func:`slot_words`, ``mul_public``).
 transpose = _structural(_transpose_arr)
 
 
@@ -427,33 +427,35 @@ def sum_axis(x: SpmdRep, axis: int) -> SpmdRep:
 # ---------------------------------------------------------------------------
 
 
+def _trunc_draws(sess: SpmdSession, shape, width: int):
+    """The five truncation draws (mask r, the three additive-share masks,
+    the replicated-compression share z0), in the JAX package's session
+    order, as the specs of a group that writes them into one (5, *shape)
+    block per plane, and the block's (lo, hi) words that the
+    ``trunc_pairs`` kernel reads."""
+    lo = torch.empty((5,) + tuple(shape), dtype=torch.int64,
+                     device=sess.device)
+    hi = None if width == 64 else torch.empty_like(lo)
+    n = math.prod(shape)
+    specs = [
+        ("sample", shape, width,
+         ((lo, j * n), None if hi is None else (hi, j * n)))
+        for j in range(5)
+    ]
+    return specs, (lo, hi)
+
+
 def trunc_pr(sess: SpmdSession, x: SpmdRep, amount: int) -> SpmdRep:
-    # rep -> 2-party additive: a0 = x0 + x1 (party 0 holds both), a1 = x2
-    a0 = ring.add(x.lo[0, 0], _h(x.hi, 0, 0), x.lo[0, 1], _h(x.hi, 0, 1))
-    a1 = (x.lo[1, 1].contiguous(), _contiguous(_h(x.hi, 1, 1)))
-    return _trunc_pr_adt(sess, a0, a1, x.width, amount, x.shape)
-
-
-def _contiguous(t):
-    return None if t is None else t.contiguous()
-
-
-# the five truncation draws (mask r, the three additive-share masks, the
-# replicated-compression share z0), in the JAX package's session order
-def _trunc_specs(shape, width):
-    return [("sample", shape, width)] * 5
-
-
-def _trunc_pr_adt(sess, a0, a1, width, amount, shape,
-                  draws=None) -> SpmdRep:
-    """Probabilistic truncation from a 2-party additive sharing
-    (a0 + a1 = x).  The five PRF draws are one K7 group here unless the
-    caller drew them (``draws``) in a group of its own; the elementwise
-    tail is the ``trunc_combine`` kernel."""
-    if draws is None:
-        draws = sess.sample_group(_trunc_specs(shape, width))
-    z_lo, z_hi = rk.trunc_combine(a0, a1, tuple(draws), width, amount)
-    return _pairs(z_lo, z_hi, width)
+    """Probabilistic truncation of a replicated sharing by ``amount``:
+    its five draws in one K7 group, then the ``trunc_pairs`` kernel,
+    which reads x's pair layout in place (x_0 + x_1 and x_2, the 2-party
+    additive form of the JAX package's ``trunc_pr``) and writes the
+    result's."""
+    specs, draws = _trunc_draws(sess, x.shape, x.width)
+    sess.sample_group(specs)
+    return SpmdRep(
+        *rk.trunc_pairs((x.lo, x.hi), draws, x.width, amount), x.width
+    )
 
 
 def _mul_like_trunc(sess, x: SpmdRep, y: SpmdRep, elementwise: bool,
@@ -463,28 +465,24 @@ def _mul_like_trunc(sess, x: SpmdRep, y: SpmdRep, elementwise: bool,
     additive form (a0 = z_0 + z_1, a1 = z_2) — bit-identical to
     resharing then ``trunc_pr``, with the same draw order: the zero-share
     bank and the five truncation draws are one K7 group.  Elementwise
-    products run the ``cross_terms_reshare`` kernel, matrix products
-    :func:`_cross_terms` (the ``dot_cross_terms`` kernel)."""
+    products run the ``cross_terms_reshare`` kernel, whose pair layout
+    ``trunc_pairs`` reads; matrix products :func:`_cross_terms` (the
+    ``dot_cross_terms`` kernel), whose cross terms ``trunc_pairs`` takes
+    with the bank."""
     width = x.width
     if elementwise:
         shape = tuple(torch.broadcast_shapes(x.shape, y.shape))
     else:
         shape = _dot_shape(x, y)
-    bank, *draws = sess.sample_group(
-        [("bank", shape, width)] + _trunc_specs(shape, width)
-    )
+    specs, draws = _trunc_draws(sess, shape, width)
+    bank = sess.sample_group([("bank", shape, width)] + specs)[0]
     if elementwise:
-        z_lo, z_hi = rk.cross_terms_reshare((x.lo, x.hi), (y.lo, y.hi),
-                                            bank, width)
-        a0 = ring.add(z_lo[0, 0], _h(z_hi, 0, 0), z_lo[0, 1],
-                      _h(z_hi, 0, 1))
-        a1 = (z_lo[2, 0], _h(z_hi, 2, 0))
+        z = rk.cross_terms_reshare((x.lo, x.hi), (y.lo, y.hi), bank, width)
+        out = rk.trunc_pairs(z, draws, width, amount)
     else:
-        v_lo, v_hi = _cross_terms(x, y, elementwise)
-        z_lo, z_hi = ring.add(v_lo, v_hi, *_zero_from_bank(*bank))
-        a0 = ring.add(z_lo[0], _h(z_hi, 0), z_lo[1], _h(z_hi, 1))
-        a1 = (z_lo[2], _h(z_hi, 2))
-    return _trunc_pr_adt(sess, a0, a1, width, amount, shape, draws)
+        v = _cross_terms(x, y, elementwise)
+        out = rk.trunc_pairs(v, draws, width, amount, bank=bank)
+    return SpmdRep(*out, width)
 
 
 # ---------------------------------------------------------------------------

@@ -384,8 +384,10 @@ def polynomial_eval(
 ) -> SpmdFixed:
     """Horner with public coefficients, sub-precision tail coefficients
     dropped to bound the degree.  The whole ladder runs in the
-    ``horner`` kernel; its randomness (per step one zero-share bank and
-    five truncation draws) is drawn here in the unfused ladder's order."""
+    ``horner`` kernel, which reads x's pair layout in place and writes
+    the result's; its randomness (per step one zero-share bank and five
+    truncation draws) is drawn here in the unfused ladder's order, one K7
+    group."""
     f = x.fractional_precision
     t = x.tensor
     width = t.width
@@ -422,12 +424,8 @@ def polynomial_eval(
                    planes(td_lo, td_hi, n * (5 * step + d)))
                   for d in range(5)]
     sess.sample_group(specs)
-    slot0, slot1 = rk.horner(
-        spmd.slot_words(t, 0), spmd.slot_words(t, 1), width, raws, f,
-        (zb_lo, zb_hi), (td_lo, td_hi),
-    )
-    lo = torch.stack([slot0[0], slot1[0]], dim=1)
-    hi = None if width == 64 else torch.stack([slot0[1], slot1[1]], dim=1)
+    lo, hi = rk.horner_pairs((t.lo, t.hi), width, raws, f, (zb_lo, zb_hi),
+                             (td_lo, td_hi))
     return SpmdFixed(SpmdRep(lo, hi, width), x.integral_precision, f)
 
 

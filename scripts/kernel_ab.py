@@ -3,7 +3,7 @@
 one CUDA card, at the main path's shapes and at 2^20 elements.
 
     python3 scripts/kernel_ab.py [--root CHECKOUT] [--label NAME]
-                                 [--part kernels|protocol|all]
+                                 [--part kernels|prf|horner|protocol|all]
 
 ``--root`` is the root of the checkout whose ``moose_tpu_torch`` is
 timed (default: this one), so an older commit unpacked beside this one
@@ -28,15 +28,26 @@ the trainer's largest draw, 2^20 words, the secure dot's (2, 3, 1000,
 1000) draw and the logistic regression's (3, 128, 1024) bit banks, with
 ``ms``, ``ms_back_to_back`` and ``device_ms`` as above.
 
-``--part protocol``: the protocol operations whose draws K7 groups and
-whose reshare K3 fuses, through the checkout's own ``spmd`` and
-``spmd_math`` (whatever kernels and draws it runs for them) at the
-logistic regression's shapes (ring128, fixed(24,40)): ``spmd.mul`` at
-(1024,) and at (64, 1024, 1) x (1, 1024, 1), ``trunc_pr``, ``fx_mul``,
-a bit decomposition, ``prefix_or`` over 64 bits and the 14-step Horner
-polynomial of the sigmoid; and the secure dot's draws, ``share`` and
-``trunc_pr`` at (1000, 1000).  Each row holds the card's words against the
-same operation on the CPU from the same session key, and gives ``ms``,
+``--part horner``: K6 at the logistic regression's (3, 1024), ring128,
+14 steps at amount 62, at (3, 2^12), (3, 2^14), (3, 2^16) and (3, 2^20),
+called as every version takes it (two contiguous pair slots,
+``ring_kernels.horner``), with ``ms``, ``ms_back_to_back`` and
+``device_ms`` as above; where the checkout's kernel has variants
+(``horner_lanes`` exists), both (one lane or three an element) at every
+size, the wrapper's choice first.
+
+``--part protocol``: the protocol operations whose draws K7 groups, whose
+reshare K3 fuses and whose truncation K2 runs whole, through the
+checkout's own ``spmd`` and ``spmd_math`` (whatever kernels and draws it
+runs for them) at the logistic regression's shapes (ring128,
+fixed(24,40)): ``spmd.mul`` at (1024,) and at (64, 1024, 1) x
+(1, 1024, 1), ``trunc_pr``, ``fx_mul`` (``_mul_like_trunc``
+elementwise), ``fx_dot`` of the logit (1024, 101) @ (101, 1)
+(``_mul_like_trunc``'s matrix branch), a bit decomposition,
+``prefix_or`` over 64 bits and the 14-step Horner polynomial of the
+sigmoid; and the secure dot's draws, ``share`` and ``trunc_pr`` at
+(1000, 1000).  Each row holds the card's words against the same
+operation on the CPU from the same session key, and gives ``ms``,
 ``ms_back_to_back``, ``device_ms`` as above and the kernels and copies
 the card ran for one call (``device_launches``).
 
@@ -82,7 +93,8 @@ def main() -> int:
     parser.add_argument("--root", default=os.path.join(HERE, os.pardir))
     parser.add_argument("--label", default="this checkout")
     parser.add_argument("--part", default="all",
-                        choices=("kernels", "prf", "protocol", "all"))
+                        choices=("kernels", "prf", "horner", "protocol",
+                                 "all"))
     opts = parser.parse_args()
     import torch
 
@@ -100,6 +112,8 @@ def main() -> int:
         rows += kernel_rows(torch, cs, rk)
     if opts.part in ("prf", "all"):
         rows += prf_rows(torch, cs, rk)
+    if opts.part in ("horner", "all"):
+        rows += horner_rows(torch, cs, rk)
     if opts.part in ("protocol", "all"):
         rows += protocol_rows(torch, cs)
     smi = cs.nvidia_smi_line()
@@ -213,6 +227,41 @@ def prf_rows(torch, cs, rk):
     return rows
 
 
+def horner_rows(torch, cs, rk):
+    from moose_tpu_torch.dialects.fixedpoint import P_1045, encode_const
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(cs.SEED)
+    steps, f, width = cs.HORNER_STEPS, cs.HORNER_F, 128
+    raws = [encode_const(c, f, width) for c in reversed(P_1045[:steps + 1])]
+    choose = getattr(rk, "horner_lanes", None)
+    rows = []
+    for n in (cs.PATH_N, 1 << 12, 1 << 14, 1 << 16, cs.BIG_N):
+        x0, x1 = (cs.random_words(torch, gen, (3, n), width)
+                  for _ in range(2))
+        zbanks = cs.random_words(torch, gen, (steps, 3, n), width)
+        tdraws = cs.random_words(torch, gen, (steps, 5, n), width)
+        args = (x0, x1, width, raws, f, zbanks, tdraws)
+        bound_ms, _ = cs.horner_bound(n, width, steps, f)
+        variants = [None] if choose is None else (
+            [choose(n)] + [v for v in (1, 3) if v != choose(n)])
+        for lanes in variants:
+            if lanes is not None:
+                rk.horner_lanes = lambda _n, v=lanes: v
+            try:
+                rows.append(time_row(
+                    torch, cs, rk.horner, rk.horner_plain, args,
+                    name="horner", shape=f"(3,{n})", width=width,
+                    steps=steps, amount=f, bound_ms=bound_ms, lanes=lanes,
+                ))
+            finally:
+                if choose is not None:
+                    rk.horner_lanes = choose
+        del x0, x1, zbanks, tdraws
+        torch.cuda.empty_cache()
+    return rows
+
+
 def protocol_rows(torch, cs):
     import numpy as np
 
@@ -251,6 +300,10 @@ def protocol_rows(torch, cs):
          lambda s, d: (spmd.SpmdFixed(shared(s, d, (n,), 1), 24, f),
                        spmd.SpmdFixed(shared(s, d, (n,), 2), 24, f)),
          lambda s, a: spmd.fx_mul(s, *a).tensor),
+        ("fx_dot (1024,101) @ (101,1) fixed(24,40)",
+         lambda s, d: (spmd.SpmdFixed(shared(s, d, (n, 101), 8), 24, f),
+                       spmd.SpmdFixed(shared(s, d, (101, 1), 9), 24, f)),
+         lambda s, a: spmd.fx_dot(s, *a).tensor),
         ("bit_decompose (1024,)",
          lambda s, d: shared(s, d, (n,), 4),
          lambda s, a: spmd_math.bit_decompose(s, a).arr),

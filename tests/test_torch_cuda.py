@@ -309,7 +309,10 @@ def test_bits_adder_kernel_matches_plain(cuda, width, n):
 @pytest.mark.gpu
 @pytest.mark.parametrize("width,f", ((64, 23), (64, 35), (128, 40),
                                      (128, 62)))
-@pytest.mark.parametrize("n,steps", ((7, 1), (1024, 14), (1000, 3)))
+# the last two: the three-lane variant's stage beyond 48 KB (63 steps),
+# and more warps of elements than its grid has blocks
+@pytest.mark.parametrize("n,steps", ((7, 1), (1024, 14), (1000, 3), (40, 63),
+                                     (50000, 2)))
 def test_horner_kernel_matches_plain(cuda, width, f, n, steps):
     rng = np.random.default_rng(n + steps + f)
     raws = [int(v) for v in rng.integers(0, 1 << 63, size=steps + 1)]
@@ -577,3 +580,230 @@ def test_secure_mul_runs_one_reshare_and_one_group(cuda, width, monkeypatch):
     sess._counter = counter
     want = spmd._reshare(sess, *spmd._cross_terms(x, y, True), width)
     _assert_equal((got.lo, got.hi), (want.lo, want.hi))
+
+
+def _view(words, how):
+    """A strided view of pair-layout words: the last two logical axes
+    swapped, or the first logical axis broadcast from size 1."""
+    def one(w):
+        if w is None:
+            return None
+        if how == "transposed":
+            return w.transpose(-1, -2)
+        return w[:, :, :1].expand(w.shape)
+
+    return tuple(one(w) for w in words)
+
+
+# (input, logical shape, view): trunc_pairs on the pair layout (the
+# logistic regression's (1024,), a transposed and a broadcast view, a
+# scalar, 10^6) and on a matrix product's cross terms (the secure dot's
+# (1000, 1000), a ragged one)
+TRUNC_PAIRS_CASES = (
+    ("pairs", (1024,), None), ("pairs", (33, 65), "transposed"),
+    ("pairs", (7, 1000), "broadcast"), ("pairs", (), None),
+    ("pairs", (10 ** 6,), None), ("cross", (1000, 1000), None),
+    ("cross", (5, 3), None),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("amount", (0, 23, 40, "width - 2"))
+@pytest.mark.parametrize("case", TRUNC_PAIRS_CASES, ids=str)
+def test_trunc_pairs_kernel_matches_plain(cuda, width, amount, case):
+    amount = width - 2 if amount == "width - 2" else amount
+    kind, shape, view = case
+    rng = np.random.default_rng(len(shape) + width + amount)
+    bank = None
+    if kind == "pairs":
+        x = _pair_layout(rng, shape, width, cuda)
+        if view:
+            x = _view(x, view)
+            assert not x[0].is_contiguous()
+            shape = tuple(x[0].shape[2:])
+    else:
+        x = _words(rng, (3,) + shape, width, cuda)
+        bank = _words(rng, (3,) + shape, width, cuda)
+    draws = _words(rng, (5,) + shape, width, cuda)
+    before = dict(rk.LAUNCHES)
+    got = rk.trunc_pairs(x, draws, width, amount, bank=bank)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in rk.LAUNCHES.items()
+             if v != before[k]}
+    assert moved == {"trunc_pairs": 1}
+    assert got[0].shape == (3, 2) + shape and got[0].is_contiguous()
+    _assert_equal(got, rk.trunc_pairs_plain(x, draws, width, amount, bank))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+def test_trunc_pairs_kernel_on_edge_words_and_empty(cuda, width):
+    rng = np.random.default_rng(width + 3)
+    z = _edge(rng, (3, 64), width, cuda)
+    x = tuple(None if w is None
+              else torch.stack([w, torch.roll(w, -1, dims=0)], dim=1)
+              for w in z)
+    draws = _edge(rng, (5, 64), width, cuda)
+    for amount in (0, 23, 40, width - 2):
+        _assert_equal(rk.trunc_pairs(x, draws, width, amount),
+                      rk.trunc_pairs_plain(x, draws, width, amount))
+        _assert_equal(rk.trunc_pairs(z, draws, width, amount, bank=z),
+                      rk.trunc_pairs_plain(z, draws, width, amount, z))
+    empty = _words(rng, (3, 2, 0, 4), width, cuda)
+    before = dict(rk.LAUNCHES)
+    got = rk.trunc_pairs(empty, _words(rng, (5, 0, 4), width, cuda), width,
+                         23)
+    assert rk.LAUNCHES == before and got[0].shape == (3, 2, 0, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+def test_trunc_pairs_wrapper_refuses_what_its_kernel_does_not_take(cuda,
+                                                                   width):
+    """A bad amount, shape or layout raises on CUDA tensors; nothing
+    launches and no plain version runs in its place."""
+    rng = np.random.default_rng(11)
+    x = _pair_layout(rng, (4, 6), width, cuda)
+    draws = _words(rng, (5, 4, 6), width, cuda)
+    bank = _words(rng, (3, 4, 6), width, cuda)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA call ran the plain version")
+
+    before = dict(rk.LAUNCHES)
+    saved = rk.trunc_pairs_plain
+    rk.trunc_pairs_plain = plain
+    try:
+        for amount in (-1, width - 1):
+            with pytest.raises(ValueError, match="amount"):
+                rk.trunc_pairs(x, draws, width, amount)
+        with pytest.raises(ValueError, match="draws"):
+            rk.trunc_pairs(x, tuple(None if w is None else w[:, :3]
+                                    for w in draws), width, 23)
+        with pytest.raises(ValueError, match="contiguous"):
+            rk.trunc_pairs(x, tuple(None if w is None else
+                                    w.transpose(1, 2).contiguous()
+                                    .transpose(1, 2) for w in draws),
+                           width, 23)
+        with pytest.raises(ValueError, match="contiguous"):
+            rk.trunc_pairs(tuple(None if w is None else w.transpose(1, 2)
+                                 .contiguous().transpose(1, 2)
+                                 for w in bank), draws, width, 23,
+                           bank=bank)
+        with pytest.raises(ValueError, match="words"):
+            rk.trunc_pairs(bank, draws, width, 23)
+        if width == 128:
+            odd = (x[0], x[1].transpose(2, 3).contiguous().transpose(2, 3))
+            with pytest.raises(ValueError, match="laid out unlike"):
+                rk.trunc_pairs(odd, draws, width, 23)
+    finally:
+        rk.trunc_pairs_plain = saved
+    assert rk.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+def test_truncation_and_horner_run_two_device_launches(cuda, width):
+    """spmd.trunc_pr of (1024,) and polynomial_eval each run one K7 group
+    and one kernel of their own, counted by the wrappers, and nothing
+    else on the card: torch.profiler sees those two kernels and no other
+    device work.  Their words equal the CPU session's."""
+    import chip_smoke
+    from moose_tpu_torch.dialects.fixedpoint import P_1045
+    from moose_tpu_torch.parallel import spmd, spmd_math
+
+    frac = 62 if width == 128 else 20
+
+    def run(device):
+        sess = spmd.SpmdSession(MK, device)
+        rng = np.random.default_rng(width)
+        x = spmd.share(sess, *_words(rng, (1024,), width, device), width)
+        ops = (
+            ("trunc_pairs", lambda: spmd.trunc_pr(sess, x, 40)),
+            ("horner", lambda: spmd_math.polynomial_eval(
+                sess, P_1045, spmd.SpmdFixed(x, 2, frac),
+                min_coeff=2.0 ** -(frac + 4)).tensor),
+        )
+        outs = []
+        for name, op in ops:
+            if device == "cpu":
+                outs.append(op())
+                continue
+            before = dict(rk.LAUNCHES)
+            out, seen = chip_smoke.device_events(torch, op)
+            outs.append(out)
+            moved = {k: v - before[k] for k, v in rk.LAUNCHES.items()
+                     if v != before[k]}
+            ours = [e for e in seen
+                    if any(k in e for k in chip_smoke.PORT_KERNELS)]
+            assert moved == {name: 1, "prf_threefry": 1}, moved
+            assert len(seen) == 2 and len(ours) == 2, seen
+        return [w for rep in outs for w in (rep.lo, rep.hi)]
+
+    want = run("cpu")
+    got = run(cuda)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g.cpu(), w)
+
+
+# lanes an element: both variants of the horner kernel
+HORNER_LANES = (1, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("lanes", HORNER_LANES)
+@pytest.mark.parametrize("case", (((1024,), None), ((1000,), None),
+                                  ((33, 65), "transposed"),
+                                  ((7, 100), "broadcast"), ((), None)),
+                         ids=str)
+def test_horner_pairs_kernel_matches_plain(cuda, width, lanes, case,
+                                           monkeypatch):
+    """horner_pairs reads x's pair slots in place (contiguous, transposed,
+    broadcast, 0-d) in either variant, and writes the pair layout word
+    for word as the plain ladder does."""
+    shape, view = case
+    steps, f = (14, 62) if width == 128 else (9, 35)
+    rng = np.random.default_rng(len(shape) + lanes)
+    raws = [int(v) for v in rng.integers(0, 1 << 63, size=steps + 1)]
+    x = _words(rng, (3, 2) + shape, width, cuda)  # any two slots
+    if view:
+        x = _view(x, view)
+        shape = tuple(x[0].shape[2:])
+    zbanks = _words(rng, (steps, 3) + shape, width, cuda)
+    tdraws = _words(rng, (steps, 5) + shape, width, cuda)
+    monkeypatch.setattr(rk, "horner_lanes", lambda n: lanes)
+    before = rk.LAUNCHES["horner"]
+    got = rk.horner_pairs(x, width, raws, f, zbanks, tdraws)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["horner"] == before + 1
+    assert got[0].shape == (3, 2) + shape and got[0].is_contiguous()
+    slots = [tuple(None if w is None else w[:, s] for w in x) for s in (0, 1)]
+    acc0, acc1 = rk.horner_plain(*slots, width, raws, f, zbanks, tdraws)
+    for g, a, b in zip(got, acc0, acc1):
+        if g is not None:
+            assert torch.equal(g[:, 0], a) and torch.equal(g[:, 1], b)
+
+
+@pytest.mark.gpu
+def test_horner_wrapper_refuses_bad_amounts_and_layouts(cuda):
+    rng = np.random.default_rng(12)
+    x = _words(rng, (3, 2, 8), 128, cuda)
+    banks = _words(rng, (2, 3, 8), 128, cuda)
+    draws = _words(rng, (2, 5, 8), 128, cuda)
+    before = dict(rk.LAUNCHES)
+    for f in (-1, 127):
+        with pytest.raises(ValueError, match="amount"):
+            rk.horner_pairs(x, 128, [1, 2, 3], f, banks, draws)
+    with pytest.raises(ValueError, match="tdraws"):
+        rk.horner_pairs(x, 128, [1, 2, 3], 40, banks, tuple(
+            w[:, :4] for w in draws))
+    with pytest.raises(ValueError, match="contiguous"):
+        rk.horner_pairs(x, 128, [1, 2, 3], 40, tuple(
+            w.transpose(0, 1).contiguous().transpose(0, 1) for w in banks),
+            draws)
+    with pytest.raises(ValueError, match="laid out unlike"):
+        rk.horner_pairs((x[0], x[1].transpose(0, 1).contiguous()
+                         .transpose(0, 1)), 128, [1, 2, 3], 40, banks, draws)
+    assert rk.LAUNCHES == before

@@ -109,3 +109,44 @@ def test_horner_ladder_decodes_the_polynomial():
     value = int(sum(int(w) for w in s0[0][:, 0].numpy().view(np.uint64)))
     value = (value % (1 << 64)) / (1 << f)
     assert abs(value - (1 + 0.25 + 0.0625)) < 2.0 ** -(f - 3)
+
+
+MK = np.array([0x0F1E2D3C, 0x4B5A6978, 0x8796A5B4, 0xC3D2E1F0], np.uint32)
+
+
+@pytest.mark.parametrize("impl", ("threefry", "threefry-pallas"))
+@pytest.mark.parametrize("width,frac", ((64, 20), (128, 40)))
+@pytest.mark.parametrize("layout", ("contiguous", "transposed"))
+def test_polynomial_eval_reads_and_writes_the_pair_layout(impl, width, frac,
+                                                          layout):
+    """polynomial_eval through horner_pairs, which reads x's pair slots
+    in place (a transposed view is not copied) and returns the result's
+    pair layout, equals the JAX package's polynomial_eval word for word
+    under one master key, its draws one group."""
+    from moose_tpu.dialects.fixedpoint import P_1045 as JP_1045
+    from moose_tpu_torch.dialects.fixedpoint import P_1045
+    from moose_tpu_torch.parallel import spmd as tspmd
+    from moose_tpu_torch.parallel import spmd_math as tsm
+
+    from torch_parity import prf
+
+    with prf(impl):
+        js, ts = jspmd.SpmdSession(MK), tspmd.SpmdSession(MK, "cpu")
+        words = rand_words(np.random.default_rng(width + len(layout)),
+                           (3, 6), width)
+        jx = jspmd.share(js, *to_jax(words), width)
+        tx = tspmd.share(ts, *to_port(words), width)
+        if layout == "transposed":
+            jx, tx = jspmd.transpose_2d(jx), tspmd.transpose(tx)
+            assert not tx.lo.is_contiguous()
+        counter = ts._counter
+        got = tsm.polynomial_eval(ts, P_1045, tspmd.SpmdFixed(tx, 2, frac),
+                                  min_coeff=2.0 ** -(frac + 4)).tensor
+        want = jsm.polynomial_eval(js, JP_1045, jspmd.SpmdFixed(jx, 2, frac),
+                                   min_coeff=2.0 ** -(frac + 4)).tensor
+    # every step's six draws (a bank and five truncation draws), one group
+    drawn = ts._counter - counter
+    assert drawn > 0 and drawn % 6 == 0
+    assert got.lo.shape == (3, 2) + tx.shape and got.lo.is_contiguous()
+    assert_words_equal((got.lo, got.hi), (want.lo, want.hi),
+                       f"polynomial_eval {layout} ring{width}")

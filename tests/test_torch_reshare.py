@@ -94,15 +94,15 @@ def test_reshare_dims_collapse_the_common_shape():
         return torch.zeros((3, 2) + shape, dtype=torch.int64)
 
     x, y = words((4, 6, 1)), words((1, 6, 1))
-    assert rk.reshare_dims((4, 6, 1), x, y) == [(4, 6, 0), (6, 1, 1)]
+    assert rk.walk_dims((4, 6, 1), x, y) == [(4, 6, 0), (6, 1, 1)]
     same = words((4, 6, 1))
-    assert rk.reshare_dims((4, 6, 1), same, same) == [(24, 1, 1)]
-    assert rk.reshare_dims((), words(()), words(())) == []
+    assert rk.walk_dims((4, 6, 1), same, same) == [(24, 1, 1)]
+    assert rk.walk_dims((), words(()), words(())) == []
     t = words((6, 4)).transpose(2, 3)  # logical (4, 6), strided
-    assert rk.reshare_dims((4, 6), t, words((4, 6))) == [(4, 1, 6),
-                                                         (6, 4, 1)]
+    assert rk.walk_dims((4, 6), t, words((4, 6))) == [(4, 1, 6),
+                                                      (6, 4, 1)]
     # a lower-rank operand broadcasts over the leading axes
-    assert rk.reshare_dims((2, 3), words((3,)), words((2, 3))) == [
+    assert rk.walk_dims((2, 3), words((3,)), words((2, 3))) == [
         (2, 0, 3), (3, 1, 1)]
 
 
