@@ -35,7 +35,14 @@ Phases (each raises on failure; the script then exits non-zero):
      the logistic regression's (1024,) operand, contiguous, transposed
      and broadcast, at 10^6 ring64, and on the secure dot's (1000, 1000)
      cross terms with their zero-share bank; K6 reading x's pair layout
-     in place at (3, 1024), 14 steps, and at 2^20; then one
+     in place at (3, 1024), 14 steps, and at 2^20; the multinomial
+     classifier's shapes: K1's (3,1024,101)@(3,101,10) logits, K2 at
+     (1024, 10) by 40, 22 and 23, K3 on a tournament round's strided
+     halves, K4 at (3,2,1024,10), K5's msb on (1024,5) halves and its
+     decomposition at 10,240 elements, K6's exp ladder at 10,240
+     elements (one thread an element) and log2's Pade ladders P_2524 and
+     Q_2524 (negative raws, 3 steps) at f = 40 and 23, K7's OR-tree
+     group of equal_zero_bit; then one
      spmd.trunc_pr of (1024,) ring128 and one polynomial_eval (the
      sigmoid's 14 steps) must each run exactly 2 device launches, one K7
      group and their kernel, as the wrappers count them, with no other
@@ -55,18 +62,33 @@ Phases (each raises on failure; the script then exits non-zero):
      from zero weights, each step within 1e-4 of reference_epoch from
      the same input weights and the final weights within 1e-3 of the
      float64 trajectory; then MLPSGDTrainer (hidden 32), two steps, each
-     within 1e-4.  The default threefry PRF is restored afterwards.
-Phases 4 to 7 are the main path: the kernels' launch counters are set
+     within 1e-4.  The default threefry PRF is restored afterwards;
+  8. ONNX multinomial logistic regression (a LinearClassifier with raw
+     class rows and the SOFTMAX post-transform, the protocol softmax over
+     10 classes), 100 features at fixed(24,40): three requests of 1024
+     rows, each within 5e-3 of the float64 softmax and with the argmax
+     of the probabilities agreeing with float64's on at least 0.99 of the
+     rows;
+  9. the protocol library through the eDSL: one traced computation at
+     (1024, 10), fixed(24,40), that runs each of the 25 replicated kinds
+     the library brought (comparisons, bit logic, Mux, Mean, exp, log,
+     log2, sqrt, relu, abs, softmax, argmax, maximum and the structural
+     kinds) and reveals each result to carole, held to float64 within the
+     JAX package's own tolerances, comparisons and argmax exactly.
+Phases 4 to 9 are the main path: the kernels' launch counters are set
 to 0 just before each and read just after.  K1, K2's trunc_pairs and the
-threefry kernel in the phase's stream layout (threefry in 4-6,
+threefry kernel in the phase's stream layout (threefry in 4-6, 8 and 9,
 threefry-pallas in 7, and never the other) must have launched in each,
 and every kernel (K1, K2's trunc_pairs, K3's cross_terms_reshare, K4, K5
-in both modes, K6) in phases 6 and 7.  No seed may be derived on the host there (ring.mix_seed is
-counted), and the K7 launches must stay under their ceilings: 3 for a
-secure dot, 60 for a logistic-regression request or a LogregSGDTrainer
-step; one more request of phase 6 and one more step of phase 7 run under
-torch.profiler, whose device launches must stay under their ceilings
-(LOGREG_DEVICE_CEILING, TRAIN_DEVICE_CEILING).
+in both modes, K6) in phases 6 to 9 (K1 but in phase 9, which holds no
+matrix product).  No seed may be derived on the host
+there (ring.mix_seed is counted), and the K7 launches must stay under
+their ceilings: 3 for a secure dot, 60 for a logistic-regression request
+or a LogregSGDTrainer step, MULTI_K7_CEILING for a multinomial request;
+one more request of phases 6 and 8 and one more step of phase 7 run
+under torch.profiler, whose device launches must stay under their
+ceilings (LOGREG_DEVICE_CEILING, TRAIN_DEVICE_CEILING,
+MULTI_DEVICE_CEILING).
 The line before the last is the kernels' JSON record; the last line is
 the device record.
 
@@ -146,6 +168,18 @@ TRAIN_STEP_TOL = 1e-4  # per step (tests/test_training.py:213)
 TRAIN_TRAJECTORY_TOL = 1e-3  # over the steps (benchmarks/logreg.py:145)
 MLP_HIDDEN = 32
 MLP_STEPS = 2
+# multinomial logistic regression: BASELINE.json config 3 in its
+# multiclass form, 10 classes (benchmarks/softmax_bench.py:152)
+MULTI_FEATURES = 100
+MULTI_CLASSES = 10
+MULTI_ROWS = 1024
+MULTI_REQUESTS = 3
+MULTI_TOL = 5e-3  # tests/test_predictors.py:85
+MULTI_ARGMAX_AGREEMENT = 0.99  # benchmarks/softmax_bench.py:72
+# the protocol library through the eDSL, at the classifier's logits'
+# shape
+LIBRARY_ROWS = 1024
+LIBRARY_COLS = 10
 # launch ceilings of the main path: K7 launches (groups) of a secure dot,
 # of a logistic-regression request and of a LogregSGDTrainer step, and
 # the device launches (PyTorch's and the port's kernels) of one request
@@ -155,6 +189,8 @@ LOGREG_K7_CEILING = 60
 TRAIN_K7_CEILING = 60
 LOGREG_DEVICE_CEILING = 1141  # 1,087 measured on the H100 + 5% (PERF.md)
 TRAIN_DEVICE_CEILING = 1189  # 1,133 measured + 5%
+MULTI_K7_CEILING = 72  # 69 measured on the H100 + 5% (PERF.md)
+MULTI_DEVICE_CEILING = 1502  # 1,431 measured + 5%
 # the session key of the K7 group rows
 GROUP_MASTER = (0x01234567, 0x89ABCDEF, 0xDEADBEEF, 0x0BADF00D)
 
@@ -576,14 +612,18 @@ def compare_bits(torch, rk, gen, n, width, msb_only, reps,
     return row
 
 
-def compare_horner(torch, rk, gen, n, width, steps, f, reps):
-    """K6 as polynomial_eval calls it, with the 2^x Taylor coefficients
-    the sigmoid uses: x's (3, 2, n) pair layout read in place, the
+def compare_horner(torch, rk, gen, n, width, steps, f, reps,
+                   coeffs="P_1045"):
+    """K6 as polynomial_eval calls it, with the named coefficients of
+    ``dialects/fixedpoint.py`` (the 2^x Taylor series of the sigmoid and
+    exp, or log2's Pade numerator and denominator, whose raws include
+    negative words): x's (3, 2, n) pair layout read in place, the
     result's pair layout written; beside the CUDA-event times the device
     time under torch.profiler (``device_ms``)."""
-    from moose_tpu_torch.dialects.fixedpoint import P_1045, encode_const
+    from moose_tpu_torch.dialects import fixedpoint
 
-    raws = [encode_const(c, f, width) for c in reversed(P_1045[:steps + 1])]
+    raws = [fixedpoint.encode_const(c, f, width)
+            for c in reversed(getattr(fixedpoint, coeffs)[:steps + 1])]
     x = random_words(torch, gen, (3, 2, n), width)
     zbanks = random_words(torch, gen, (steps, 3, n), width)
     tdraws = random_words(torch, gen, (steps, 5, n), width)
@@ -592,7 +632,7 @@ def compare_horner(torch, rk, gen, n, width, steps, f, reps):
         torch, rk.horner_pairs, rk.horner_pairs_plain, args,
         horner_bound(n, width, steps, f), reps,
         shape=f"(3,{n})", width=width, steps=steps, amount=f,
-        lanes=rk.horner_lanes(n),
+        lanes=rk.horner_lanes(n), coeffs=coeffs,
     )
     row["device_ms"] = device_time_ms(torch, lambda: rk.horner_pairs(*args))
     return row
@@ -672,22 +712,30 @@ def reshare_bound(x_elems, y_elems, n, width):
     return bound(words * (width // 8), ops)
 
 
-def compare_reshare(torch, rk, ring, gen, x_shape, y_shape, width, reps):
+def compare_reshare(torch, rk, ring, gen, x_shape, y_shape, width, reps,
+                    halves=False):
     """K3's cross_terms_reshare as spmd.mul calls it: consistent
     sharings in the pair layout, broadcast to the common shape in the
-    kernel, and the zero-share bank.  Beside it (``composition_ms``) the
-    composition it replaced on the card: slot copies, the unfused
-    cross_terms_mul kernel, the zero share's rolls and subtraction, the
-    addition and the pair layout's rolls and stacks; and the device time
-    of both under torch.profiler (``device_ms``,
-    ``composition_device_ms``)."""
+    kernel, and the zero-share bank; with ``halves``, x and y are the
+    even and odd halves (strided views) of one (*x_shape[:-1],
+    2 * x_shape[-1]) pair layout, as a tournament round slices them.
+    Beside it (``composition_ms``) the composition it replaced on the
+    card: slot copies, the unfused cross_terms_mul kernel, the zero
+    share's rolls and subtraction, the addition and the pair layout's
+    rolls and stacks; and the device time of both under torch.profiler
+    (``device_ms``, ``composition_device_ms``)."""
     def pair_layout(shape):
         z = random_words(torch, gen, (3,) + shape, width)
         return tuple(None if w is None
                      else torch.stack([w, torch.roll(w, -1, dims=0)], dim=1)
                      for w in z)
 
-    x, y = pair_layout(x_shape), pair_layout(y_shape)
+    if halves:
+        both = pair_layout(x_shape[:-1] + (2 * x_shape[-1],))
+        x, y = (tuple(None if w is None else w[..., start::2] for w in both)
+                for start in (0, 1))
+    else:
+        x, y = pair_layout(x_shape), pair_layout(y_shape)
     shape = tuple(torch.broadcast_shapes(x_shape, y_shape))
     bank = random_words(torch, gen, (3,) + shape, width)
 
@@ -710,7 +758,8 @@ def compare_reshare(torch, rk, ring, gen, x_shape, y_shape, width, reps):
         (x, y, bank, width),
         reshare_bound(math.prod(x_shape), math.prod(y_shape),
                       math.prod(shape), width), reps,
-        shape=f"(3,2,{x_shape}) x (3,2,{y_shape})", width=width,
+        shape=f"(3,2,{x_shape}) x (3,2,{y_shape})"
+        + (" strided halves" if halves else ""), width=width,
         mode="cross_terms_reshare",
     )
     equal, _ = word_diff(torch, composition(), rk.cross_terms_reshare(
@@ -877,6 +926,196 @@ def logistic_reference(predictor, x):
     z = x @ predictor.coeffs[1] + predictor.intercepts[0, 1]
     p = 1.0 / (1.0 + np.exp(-z))
     return np.stack([1.0 - p, p], axis=1)
+
+
+def multinomial_regression(rng, n_features):
+    """The port's multinomial LinearClassifier (MULTI_CLASSES classes)
+    with random weights from ``rng`` of scale 0.1, exported the way
+    skl2onnx writes a multinomial LogisticRegression (raw class rows,
+    SOFTMAX) and imported through ``predictors.from_onnx``."""
+    import numpy as np
+
+    from moose_tpu_torch.predictors import from_onnx, sklearn_export
+
+    coef = rng.normal(scale=0.1, size=(MULTI_CLASSES, n_features))
+    intercept = rng.normal(scale=0.1, size=(MULTI_CLASSES,))
+    model = sklearn_export.logistic_regression_onnx(
+        SimpleNamespace(
+            coef_=coef.astype(np.float32).astype(np.float64),
+            intercept_=intercept.astype(np.float32).astype(np.float64),
+            classes_=np.arange(MULTI_CLASSES)),
+        n_features,
+    )
+    return from_onnx(model)
+
+
+def softmax_reference(predictor, x):
+    """float64 softmax over the classes of x @ coef^T + b, with the
+    weights as the model stores them."""
+    import numpy as np
+
+    z = x @ predictor.coeffs.T + predictor.intercepts
+    e = np.exp(z - z.max(axis=1, keepdims=True))
+    return e / e.sum(axis=1, keepdims=True)
+
+
+def library_computation(pm, rows=LIBRARY_ROWS, cols=LIBRARY_COLS,
+                        precision=(24, 40)):
+    """One traced computation that runs every replicated kind the
+    protocol library brought (``LIBRARY_KINDS``, in output order) on
+    (rows, cols) x, y on alice and bob and p > 0 on carole, and reveals
+    each result to carole: fixed-point results as float64, bits, indices
+    and the shape as they are."""
+    import numpy as np
+
+    alice = pm.host_placement("alice")
+    bob = pm.host_placement("bob")
+    carole = pm.host_placement("carole")
+    rep = pm.replicated_placement("rep", players=[alice, bob, carole])
+    fx = pm.fixed(*precision)
+
+    @pm.computation
+    def library(x: pm.Argument(alice, dtype=pm.float64),
+                y: pm.Argument(bob, dtype=pm.float64),
+                p: pm.Argument(carole, dtype=pm.float64)):
+        with alice:
+            xf = pm.cast(x, dtype=fx)
+        with bob:
+            yf = pm.cast(y, dtype=fx)
+        with carole:
+            pf = pm.cast(p, dtype=fx)
+        with rep:
+            lt = pm.less(xf, yf)
+            lt_p = pm.less(yf, pf)
+            results = [
+                pm.identity(xf),
+                pm.add(xf, pm.constant(np.linspace(-1.0, 1.0, cols),
+                                       dtype=fx)),
+                pm.add_n([xf, yf, pf]),
+                pm.neg(xf),
+                lt,
+                pm.greater(xf, yf),
+                pm.equal(xf, yf),
+                pm.logical_and(lt, lt_p),
+                pm.logical_or(lt, lt_p),
+                pm.logical_xor(lt, lt_p),
+                pm.mux(lt, xf, yf),
+                pm.mean(xf, axis=1),
+                pm.exp(xf),
+                pm.log(pf),
+                pm.log2(pf),
+                pm.sqrt(pf),
+                pm.relu(xf),
+                pm.abs(xf),
+                pm.softmax(xf, axis=1, upmost_index=cols),
+                pm.argmax(xf, axis=1, upmost_index=cols),
+                pm.maximum([xf, yf, pf]),
+                pm.reshape(xf, (rows * cols // 2, 2)),
+                pm.squeeze(pm.expand_dims(pm.mean(yf, axis=1), axis=1),
+                           axis=1),
+                pm.strided_slice(xf, (slice(None), slice(1, cols, 3))),
+                pm.shape(xf),
+            ]
+        with carole:
+            outs = tuple(
+                pm.cast(r, dtype=pm.float64) if kind in _LIBRARY_FIXED
+                else pm.identity(r)
+                for kind, r in zip(LIBRARY_KINDS, results)
+            )
+        return outs
+
+    return library
+
+
+# the kinds library_computation runs, in output order, and those whose
+# results are fixed-point
+LIBRARY_KINDS = (
+    "Identity", "Constant", "AddN", "Neg", "Less", "Greater", "Equal", "And",
+    "Or", "Xor", "Mux", "Mean", "Exp", "Log", "Log2", "Sqrt", "Relu", "Abs",
+    "Softmax", "Argmax", "Maximum", "Reshape", "Squeeze", "Slice", "Shape",
+)
+_LIBRARY_FIXED = frozenset(LIBRARY_KINDS) - {
+    "Less", "Greater", "Equal", "And", "Or", "Xor", "Argmax", "Shape"}
+# max abs error against float64 (relative where given as (atol, rtol)):
+# the JAX package's own limits for its stacked protocols
+# (tests/test_spmd.py:315-370: exp rtol 2e-3 atol 1e-4, log2/log/sqrt
+# 5e-3, softmax 2e-3, max 1e-4); 2^-30 for what only encodes, adds or
+# moves words; 1e-6 for Mean's public multiply; 0 (exact) for bits,
+# indices and the shape
+LIBRARY_TOLS = {
+    "Exp": (1e-4, 2e-3), "Log": 5e-3, "Log2": 5e-3, "Sqrt": 5e-3,
+    "Softmax": 2e-3, "Maximum": 1e-4, "Mean": 1e-6, "Squeeze": 1e-6,
+}
+
+
+def library_inputs(rng, rows=LIBRARY_ROWS, cols=LIBRARY_COLS):
+    """x, y apart by far more than an LSB except where equal (a quarter
+    of the entries, for Equal), and p in [0.1, 100)."""
+    import numpy as np
+
+    x = rng.normal(size=(rows, cols)) * 2.0
+    y = np.where(rng.random((rows, cols)) < 0.25, x,
+                 rng.normal(size=(rows, cols)) * 2.0)
+    p = rng.uniform(0.1, 100.0, size=(rows, cols))
+    return {"x": x, "y": y, "p": p}
+
+
+def library_reference(args):
+    """float64 (or exact) results of LIBRARY_KINDS on ``args``."""
+    import numpy as np
+
+    x, y, p = args["x"], args["y"], args["p"]
+    rows, cols = x.shape
+    e = np.exp(x - x.max(axis=1, keepdims=True))
+    lt, lt_p = x < y, y < p
+    return {
+        "Identity": x, "Constant": x + np.linspace(-1.0, 1.0, cols),
+        "AddN": x + y + p, "Neg": -x, "Less": lt, "Greater": x > y,
+        "Equal": x == y, "And": lt & lt_p, "Or": lt | lt_p,
+        "Xor": lt ^ lt_p, "Mux": np.where(lt, x, y),
+        "Mean": x.mean(axis=1), "Exp": np.exp(x), "Log": np.log(p),
+        "Log2": np.log2(p), "Sqrt": np.sqrt(p), "Relu": np.maximum(x, 0.0),
+        "Abs": np.abs(x), "Softmax": e / e.sum(axis=1, keepdims=True),
+        "Argmax": x.argmax(axis=1), "Maximum": np.maximum(np.maximum(x, y),
+                                                          p),
+        "Reshape": x.reshape(rows * cols // 2, 2), "Squeeze": y.mean(axis=1),
+        "Slice": x[:, 1::3], "Shape": np.array(x.shape),
+    }
+
+
+def library_errors(outputs, args):
+    """Each kind's max abs error against ``library_reference`` (0 for an
+    exact match of bits, indices and shape, inf for a wrong shape or a
+    mismatch there), and the kinds past their tolerance."""
+    import numpy as np
+
+    want = library_reference(args)
+    errs, failed = {}, []
+    for i, kind in enumerate(LIBRARY_KINDS):
+        got = np.asarray(outputs[f"output_{i}"])
+        ref = want[kind]
+        if got.shape != ref.shape:
+            errs[kind] = float("inf")
+        elif kind in _LIBRARY_FIXED:
+            if not np.all(np.isfinite(got)):
+                errs[kind] = float("inf")
+            else:
+                errs[kind] = float(np.abs(got - ref).max())
+        else:
+            exact = np.array_equal(got.astype(np.int64),
+                                   ref.astype(np.int64))
+            errs[kind] = 0.0 if exact else float("inf")
+        tol = LIBRARY_TOLS.get(kind, 0.0 if kind not in _LIBRARY_FIXED
+                               else 2.0 ** -30)
+        if isinstance(tol, tuple):
+            atol, rtol = tol
+            ok = got.shape == ref.shape and np.all(
+                np.abs(got - ref) <= atol + rtol * np.abs(ref))
+        else:
+            ok = errs[kind] <= tol
+        if not ok:
+            failed.append(kind)
+    return errs, failed
 
 
 def training_data(rng, n_rows, n_features):
@@ -1074,6 +1313,9 @@ def main() -> int:
                     yardstick=True),
         compare_dot(torch, rk, ring, gen, 5, 7, 3, 128, reps=20),
         compare_dot(torch, rk, ring, gen, 5, 7, 3, 64, reps=20),
+        compare_dot(torch, rk, ring, gen, MULTI_ROWS, MULTI_FEATURES + 1,
+                    MULTI_CLASSES, 128, reps=20,
+                    label="multinomial logits"),
     ]
     # K2: trunc_pairs at the logistic regression's (1024,) operand (first:
     # the main path's shape), transposed and broadcast, at 10^6 ring64, and
@@ -1093,6 +1335,14 @@ def main() -> int:
         compare_trunc(torch, rk, gen, (LINREG_ROWS, 1), 128, 40, reps=20),
         compare_trunc(torch, rk, gen, (DOT_N, DOT_N), 64, DOT_PRECISION[1],
                       reps=20),
+        # the multinomial classifier's (1024, 10): fx_mul_public by 40,
+        # exp's 2^x by k - 2 - f = 22, int2fl by max_bit_len - 1 - f = 23
+        compare_trunc_pairs(torch, rk, gen, (MULTI_ROWS, MULTI_CLASSES), 128,
+                            40, reps=20),
+        compare_trunc_pairs(torch, rk, gen, (MULTI_ROWS, MULTI_CLASSES), 128,
+                            22, reps=20),
+        compare_trunc_pairs(torch, rk, gen, (MULTI_ROWS, MULTI_CLASSES), 128,
+                            23, reps=20),
     ]
     # the protocol sigmoid's kernels, at the logistic regression's shapes
     # (which time launch latency) and at 2^20 elements
@@ -1112,7 +1362,14 @@ def main() -> int:
         compare_cross_mul(torch, rk, gen, (3, 64, PATH_N), 128, reps=20),
         compare_cross_mul(torch, rk, gen, (3, BIG_N), 128, reps=5),
         compare_cross_mul(torch, rk, gen, (3, 64, PATH_N), 64, reps=20),
-    ]
+    ] + [
+        # the tournament rounds over 10 classes: halves of (1024, 10),
+        # (1024, 5) and (1024, 3), read in place as strided views
+        compare_reshare(torch, rk, ring, gen, (MULTI_ROWS, m),
+                        (MULTI_ROWS, m), 128, reps=20, halves=True)
+        for m in (5, 2, 1)
+    ] + [compare_reshare(torch, rk, ring, gen, (MULTI_ROWS, MULTI_CLASSES),
+                         (MULTI_ROWS, MULTI_CLASSES), 128, reps=20)]
     # K4: the constant at its own shape, as the path passes it, then the
     # rows of earlier runs with it materialised at the shares' shape
     mul_rows = [
@@ -1135,7 +1392,8 @@ def main() -> int:
             ((3, 2, 64, PATH_N), (64, 1), 64, 20),
             ((3, 2, BIG_N), (), 64, 5),
         )
-    ]
+    ] + [compare_ring_mul(torch, rk, gen, (3, 2, MULTI_ROWS, MULTI_CLASSES),
+                          (), 128, reps=20)]
     # K5 at the logistic regression's 1024 elements, the trainers' 128
     # (LogregSGDTrainer) and 128 x 32 = 4096 (MLPSGDTrainer's hidden
     # layer), and at 2^20
@@ -1150,6 +1408,12 @@ def main() -> int:
         compare_bits(torch, rk, gen, BIG_N, 128, False, reps=3),
         compare_bits(torch, rk, gen, BIG_N, 128, True, reps=3),
         compare_bits(torch, rk, gen, PATH_N, 64, False, reps=20),
+        # the multinomial classifier: msb of a tournament round's (1024, 5)
+        # halves, the decomposition of exp's (1024, 10)
+        compare_bits(torch, rk, gen, MULTI_ROWS * 5, 128, True, reps=20,
+                     back_to_back=True, label="(1024,5) tournament halves"),
+        compare_bits(torch, rk, gen, MULTI_ROWS * MULTI_CLASSES, 128, False,
+                     reps=20, back_to_back=True, label="(1024,10) exp"),
     ]
     horner_rows = [
         compare_horner(torch, rk, gen, PATH_N, 128, HORNER_STEPS, HORNER_F,
@@ -1157,6 +1421,17 @@ def main() -> int:
         compare_horner(torch, rk, gen, BIG_N, 128, HORNER_STEPS, HORNER_F,
                        reps=5),
         compare_horner(torch, rk, gen, PATH_N, 64, 9, 35, reps=20),
+        # the multinomial classifier's exp at (1024, 10), past the three-
+        # lane variant's 4,096 elements; log2's Pade ladders (negative
+        # raws, 3 steps) at fixed(24,40) and fixed(14,23)
+        compare_horner(torch, rk, gen, MULTI_ROWS * MULTI_CLASSES, 128,
+                       HORNER_STEPS, HORNER_F, reps=20),
+        compare_horner(torch, rk, gen, MULTI_ROWS * MULTI_CLASSES, 128, 3, 40,
+                       reps=20, coeffs="P_2524"),
+        compare_horner(torch, rk, gen, MULTI_ROWS * MULTI_CLASSES, 128, 3, 40,
+                       reps=20, coeffs="Q_2524"),
+        compare_horner(torch, rk, gen, PATH_N, 128, 3, 23, reps=20,
+                       coeffs="P_2524"),
     ]
     # K7 grouped, as the session draws: the logistic regression's Horner
     # group (14 steps of a (3, 1024) bank and five (1024,) draws,
@@ -1175,6 +1450,9 @@ def main() -> int:
             ([("w128", 3 * DOT_N * DOT_N)] + [("w128", DOT_N * DOT_N)] * 5,
              5, "truncation, 6 at the secure dot's 10^6 ring128"),
             ([("w64", BIG_N)], 20, "one draw of 2^20 words"),
+            ([("bits", 3 * (64 >> j) * MULTI_ROWS * MULTI_CLASSES)
+              for j in range(7)], 20,
+             "equal_zero_bit's OR tree, 7 bit banks at (1024,10)"),
         )
     ]
     # K7 under a given key, one draw: the trainer's largest (sharing its
@@ -1319,13 +1597,75 @@ def main() -> int:
             torch, runtime, rng)
     finally:
         ring.set_prf_impl("threefry")
-        ring.mix_seed = mix_seed
+
+    # phase 8: ONNX multinomial logistic regression, three requests (main
+    # path)
+    multi = multinomial_regression(rng, MULTI_FEATURES)
+    multi_comp = multi.predictor_factory()
+    requests = [
+        rng.normal(size=(MULTI_ROWS, MULTI_FEATURES))
+        for _ in range(MULTI_REQUESTS)
+    ]
+    rk.reset_launches()
+    multi_latencies, multi_errs, multi_agree = [], [], []
+    for xr in requests:
+        out, s = timed(
+            torch, lambda: runtime.evaluate_computation(multi_comp, {"x": xr})
+        )
+        pred = out["output_0"]
+        want = softmax_reference(multi, xr)
+        if pred.shape != want.shape or not np.all(np.isfinite(pred)):
+            raise AssertionError(f"multinomial output malformed: {pred.shape}")
+        multi_errs.append(float(np.abs(pred - want).max()))
+        multi_agree.append(float(np.mean(
+            pred.argmax(axis=1) == want.argmax(axis=1))))
+        multi_latencies.append(s)
+    multi_launches = dict(rk.LAUNCHES)
+    multi_device_launches = device_launches(
+        torch, lambda: runtime.evaluate_computation(multi_comp,
+                                                    {"x": requests[0]}))
+    multi_rows_per_s = MULTI_ROWS * MULTI_REQUESTS / sum(multi_latencies)
+    log(f"multinomial_regression: {MULTI_REQUESTS} requests of {MULTI_ROWS}x"
+        f"{MULTI_FEATURES}, {MULTI_CLASSES} classes, fixed(24, 40) "
+        f"latencies_ms {[round(s * 1e3, 3) for s in multi_latencies]} "
+        f"rows_per_s {multi_rows_per_s:.1f} max_abs_err "
+        f"{max(multi_errs):.3e} argmax_agreement {min(multi_agree):.4f} "
+        f"launches {multi_launches} device launches a request "
+        f"{multi_device_launches}")
+    if max(multi_errs) >= MULTI_TOL:
+        raise AssertionError(
+            f"multinomial error {max(multi_errs)} >= {MULTI_TOL}")
+    if min(multi_agree) < MULTI_ARGMAX_AGREEMENT:
+        raise AssertionError(
+            f"multinomial argmax agreement {min(multi_agree)} < "
+            f"{MULTI_ARGMAX_AGREEMENT}")
+
+    # phase 9: the protocol library through the eDSL, every kind it
+    # brought in one traced computation
+    library_args = library_inputs(rng)
+    library = library_computation(pm)
+    rk.reset_launches()
+    out, library_s = timed(
+        torch, lambda: runtime.evaluate_computation(library, library_args))
+    library_launches = dict(rk.LAUNCHES)
+    library_errs, failed = library_errors(out, library_args)
+    log(f"protocol_library: {len(LIBRARY_KINDS)} kinds at ({LIBRARY_ROWS}, "
+        f"{LIBRARY_COLS}) fixed(24, 40) latency {library_s * 1e3:.3f} ms "
+        f"max_abs_errs {json.dumps(library_errs)} launches "
+        f"{library_launches}")
+    ring.mix_seed = mix_seed
+    if failed:
+        raise AssertionError(
+            f"protocol library kinds past their tolerance: {failed} "
+            f"({library_errs})")
 
     launches_by_path = {
         "secure_dot": dot_launches,
         "linear_regressor": linreg_launches,
         "logistic_regression": logreg_launches,
         "training": training.pop("launches"),
+        "multinomial_regression": multi_launches,
+        "protocol_library": library_launches,
     }
     protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
@@ -1335,6 +1675,9 @@ def main() -> int:
                              "prf_threefry"),
         "logistic_regression": protocol + ("prf_threefry",),
         "training": protocol + ("prf_threefry_pallas",),
+        "multinomial_regression": protocol + ("prf_threefry",),
+        # the library's kinds hold no matrix product: no K1
+        "protocol_library": protocol[1:] + ("prf_threefry",),
     }
     # the stream a phase did not select expands nothing
     unused = {path: "prf_threefry_pallas" for path in required}
@@ -1362,6 +1705,10 @@ def main() -> int:
          logreg_device_launches, LOGREG_DEVICE_CEILING),
         ("device launches a LogregSGDTrainer step",
          training["logreg_device_launches"], TRAIN_DEVICE_CEILING),
+        ("K7 launches a multinomial request",
+         k7["multinomial_regression"] / MULTI_REQUESTS, MULTI_K7_CEILING),
+        ("device launches a multinomial request",
+         multi_device_launches, MULTI_DEVICE_CEILING),
     ):
         log(f"ceiling: {what} {got} <= {ceiling}")
         if got > ceiling:
@@ -1462,6 +1809,15 @@ def main() -> int:
             "max_abs_err": max(logreg_errs),
         },
         "training": training,
+        "multinomial_regression": {
+            "latency_ms": [s * 1e3 for s in multi_latencies],
+            "rows_per_s": multi_rows_per_s,
+            "max_abs_err": max(multi_errs),
+            "argmax_agreement": min(multi_agree),
+            "device_launches": multi_device_launches,
+        },
+        "protocol_library": {"latency_ms": library_s * 1e3,
+                             "max_abs_err": library_errs},
     }
     log(json.dumps(record))
     log(json.dumps({"kernels": kernels}))

@@ -7,8 +7,10 @@ tensors, with the hot ring kernels hand-written in CUDA for Hopper
 ``dot`` under a replicated placement), ONNX ``LinearRegressor``
 inference, ONNX logistic regression (``LinearClassifier`` with the
 exact protocol sigmoid) and the SGD trainers' secure training step
-(``predictors.trainers``), through ``LocalMooseRuntime`` on its stacked
-layout.
+(``predictors.trainers``) and the protocol library's comparisons,
+exp/log/sqrt and max/argmax/softmax (with ONNX multinomial logistic
+regression, the SOFTMAX head), through ``LocalMooseRuntime`` on its
+stacked layout.
 
 The package imports ``torch`` and never ``jax`` nor ``moose_tpu``.  Its
 entry points run on the CUDA card unless the caller passes
@@ -19,22 +21,46 @@ from . import dtypes
 from .dtypes import fixed, float64
 from .edsl.base import (
     Argument,
+    abs,
     add,
+    add_n,
+    argmax,
     cast,
     computation,
     concatenate,
     constant,
     div,
     dot,
+    equal,
+    exp,
     expand_dims,
+    greater,
     host_placement,
+    identity,
     index_axis,
+    less,
+    log,
+    log2,
+    logical_and,
+    logical_or,
+    logical_xor,
+    maximum,
+    mean,
     mirrored_placement,
     mul,
+    mux,
+    neg,
     ones,
+    relu,
     replicated_placement,
+    reshape,
     shape,
     sigmoid,
+    sliced,
+    softmax,
+    sqrt,
+    squeeze,
+    strided_slice,
     sub,
     sum,
     transpose,
@@ -43,7 +69,10 @@ from .edsl.base import (
 __all__ = [
     "Argument",
     "LocalMooseRuntime",
+    "abs",
     "add",
+    "add_n",
+    "argmax",
     "cast",
     "computation",
     "concatenate",
@@ -51,18 +80,39 @@ __all__ = [
     "div",
     "dot",
     "dtypes",
+    "equal",
+    "exp",
     "expand_dims",
     "fixed",
     "float64",
+    "greater",
     "host_placement",
+    "identity",
     "index_axis",
+    "less",
+    "log",
+    "log2",
+    "logical_and",
+    "logical_or",
+    "logical_xor",
+    "maximum",
+    "mean",
     "mirrored_placement",
     "mul",
+    "mux",
+    "neg",
     "ones",
     "predictors",
+    "relu",
     "replicated_placement",
+    "reshape",
     "shape",
     "sigmoid",
+    "sliced",
+    "softmax",
+    "sqrt",
+    "squeeze",
+    "strided_slice",
     "sub",
     "sum",
     "transpose",

@@ -1,9 +1,10 @@
-"""Logical dialect: host and mirrored dispatch of the slice's IR ops.
+"""Logical dialect: host and mirrored dispatch of the port's IR ops.
 
 The part of ``moose_tpu/dialects/logical.py`` the stacked layout
-delegates to — ``_execute_host`` and ``_execute_mir`` — limited to the op kinds of the slice's two graphs
-(the eDSL secure dot and the ONNX linear regressor).  Any other kind
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+delegates to (``_execute_host``, ``_execute_mir``, ``_constant_on_host``
+and ``decode_slice_spec``), limited to the host and mirrored op kinds of
+the port's graphs.  Any other kind raises ``NotImplementedError`` naming
+the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 from .. import dtypes as dt
 from ..computation import HostPlacement, Mirrored3Placement
 from ..values import (
+    HostBitTensor,
     HostFixedTensor,
     HostRingTensor,
     HostShape,
@@ -21,12 +23,16 @@ from ..values import (
     Mir3Tensor,
 )
 
-# op kinds each placement family executes in this slice (Input and
-# Output are resolved by the interpreter's walk)
-HOST_KINDS = frozenset({"Cast", "Shape", "Slice", "Ones", "ExpandDims"})
+# op kinds each placement family executes (Input and Output are resolved
+# by the interpreter's walk)
+HOST_KINDS = frozenset({
+    "Cast", "Shape", "Slice", "Ones", "ExpandDims", "Identity", "Constant",
+})
 MIR_KINDS = frozenset({"Constant", "Cast"})
 
-_LATER = "ROADMAP queue 1, items 6-8"
+# the host and mirrored kinds and values of BASELINE config 2's graphs,
+# and the per-host layout's others
+_LATER = "ROADMAP queue 1, items 6 and 8"
 
 
 def _width_of_dtype(dtype: dt.DType) -> int:
@@ -35,7 +41,8 @@ def _width_of_dtype(dtype: dt.DType) -> int:
 
 def to_host(sess, plc_name: str, v):
     """Materialize a host value on ``plc_name`` (a relabel)."""
-    if isinstance(v, (HostTensor, HostRingTensor, HostShape)):
+    if isinstance(v, (HostTensor, HostBitTensor, HostRingTensor,
+                      HostShape)):
         return sess.place(plc_name, v)
     if isinstance(v, HostFixedTensor):
         return HostFixedTensor(
@@ -60,6 +67,10 @@ def _execute_host(sess, comp, op, plc: HostPlacement, args):
     h = plc.name
     ret_dtype = op.signature.return_type.dtype
 
+    if kind == "Constant":
+        return _constant_on_host(sess, h, op)
+    if kind == "Identity":
+        return to_host(sess, h, args[0])
     if kind == "Cast":
         return _cast_on_host(sess, h, args[0], ret_dtype)
     if kind == "Shape":
@@ -84,6 +95,42 @@ def _execute_host(sess, comp, op, plc: HostPlacement, args):
     raise NotImplementedError(f"host op {kind} ({op.name}; {_LATER})")
 
 
+def _constant_on_host(sess, h, op):
+    """A Constant op's value as a host value on ``h``: a shape, a
+    fixed-point tensor (encoded from float64), a static scalar or a
+    tensor of the op's dtype."""
+    value = op.attributes["value"]
+    ret = op.signature.return_type
+    if isinstance(value, str):
+        raise NotImplementedError(
+            f"string constant {op.name} (storage keys, {_LATER})"
+        )
+    if ret.name == "HostShape":
+        return HostShape(tuple(int(d) for d in np.asarray(value)), h)
+    dtype = ret.dtype
+    if dtype is not None and dtype.is_fixedpoint:
+        t = sess.constant(h, np.asarray(value, dtype=np.float64), dt.float64)
+        return sess.fixedpoint_encode(
+            h, t, dtype.integral_precision, dtype.fractional_precision,
+            _width_of_dtype(dtype),
+        )
+    if isinstance(value, (int, float)):
+        return value  # static scalar (IntType/FloatType)
+    return sess.constant(h, np.asarray(value), dtype)
+
+
+def decode_slice_spec(attributes) -> tuple:
+    """The Python slice tuple of a Slice op's attributes; the ``"..."``
+    marker becomes a real Ellipsis, expanded against the operand's
+    rank."""
+    if "slices" in attributes:
+        return tuple(
+            Ellipsis if s == "..." else slice(*s)
+            for s in attributes["slices"]
+        )
+    return (slice(attributes["begin"], attributes["end"]),)
+
+
 def _cast_on_host(sess, h, v, target: dt.DType):
     v = to_host(sess, h, v)
     if target.is_fixedpoint:
@@ -106,8 +153,7 @@ def _host_slice(sess, op, h, args):
         raise NotImplementedError(
             f"host Slice of {type(x).__name__} ({_LATER})"
         )
-    begin, end = op.attributes["begin"], op.attributes["end"]
-    return HostShape(x.value[slice(begin, end)], h)
+    return HostShape(x.value[decode_slice_spec(op.attributes)[0]], h)
 
 
 def _execute_mir(sess, comp, op, plc: Mirrored3Placement, args):

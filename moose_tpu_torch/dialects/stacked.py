@@ -1,16 +1,17 @@
 """Stacked dialect: executes logical computations in the party-stacked
 layout on one device.
 
-PyTorch counterpart of ``moose_tpu/dialects/stacked.py`` for the slice's
-graphs.  Replicated tensors become ``SpmdRep``/``SpmdFixed`` (one word
-tensor with a leading party axis); host and mirrored ops delegate to the
-logical dialect.  The replicated kinds are those of the eDSL secure dot,
-the ONNX linear regressor, the ONNX logistic regression and the SGD
-trainers' step (``Dot``, ``Concat``, ``Sigmoid``, ``IndexAxis``,
-``ExpandDims``, ``Transpose``, ``Sub`` and the other arithmetic of the
-classifier heads) plus the fixed-point precision move ``Cast``; any
-other kind is refused by :func:`supports` and raises
-``NotImplementedError`` naming its ROADMAP item.
+PyTorch counterpart of ``moose_tpu/dialects/stacked.py``.  Replicated
+tensors become ``SpmdRep``/``SpmdFixed``/``SpmdBits`` (one tensor with a
+leading party axis); host and mirrored ops delegate to the logical
+dialect.  The replicated kinds (:data:`REP_KINDS`) are the reference's
+less four: Decrypt (the AES path, ROADMAP queue 1, item 9) and Conv2D,
+AvgPool2D and MaxPool2D (the convolution, item 3).  Operands are secret
+fixed-point tensors, and bits where a kind takes them; a secret integer
+(the scale-0 lift, item 6) is refused, except the bare index tensor
+``Argmax`` returns, which structural kinds carry and which reveals to a
+``HostRingTensor``.  :func:`unsupported_ops` lists what a graph needs
+beyond that, and every refusal names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,18 +30,41 @@ from ..execution.session import EagerSession
 from ..parallel import spmd
 from ..parallel import spmd_math as sm
 from ..parallel.spmd import SpmdFixed, SpmdRep, SpmdSession
-from ..values import HostFixedTensor, HostRingTensor, Mir3FixedTensor
+from ..parallel.spmd_math import SpmdBits
+from ..values import (
+    HostBitTensor,
+    HostFixedTensor,
+    HostRingTensor,
+    HostShape,
+    Mir3FixedTensor,
+)
 from . import logical
 
 REP_KINDS = frozenset({
-    "Dot", "Concat", "Cast", "Sigmoid", "IndexAxis", "ExpandDims", "Add",
-    "Sub", "Mul", "Div", "Sum", "Transpose",
+    "Identity", "Constant", "Add", "Sub", "Mul", "Dot", "Div", "AddN",
+    "Neg", "Less", "Greater", "Equal", "And", "Or", "Xor", "Mux", "Sum",
+    "Mean", "Exp", "Log", "Log2", "Sqrt", "Sigmoid", "Relu", "Abs",
+    "Softmax", "Argmax", "Maximum", "Concat", "Reshape", "ExpandDims",
+    "Squeeze", "Transpose", "IndexAxis", "Slice", "Shape", "Cast",
 })
 BOUNDARY_KINDS = frozenset({"Input", "Output"})
 
-_LATER = "ROADMAP queue 1, items 3-8"
+# the ROADMAP queue 1 item of each replicated kind the reference's
+# stacked layout runs and the port does not; the reference runs any other
+# kind on its per-host layout only (item 8)
+_REP_ITEMS = {"Decrypt": 9, "Conv2D": 3, "AvgPool2D": 3, "MaxPool2D": 3}
+# secret integers: the scale-0 lift
+_INTEGER = "ROADMAP queue 1, item 6"
 
-_STACKED_VALUES = (SpmdRep, SpmdFixed)
+
+def roadmap_item(placement_kind: str, op_kind: str) -> str:
+    """Where the port's ROADMAP places an op kind it refuses on a
+    placement of ``placement_kind`` (a placement class name)."""
+    if placement_kind != "ReplicatedPlacement":
+        return logical._LATER
+    return f"ROADMAP queue 1, item {_REP_ITEMS.get(op_kind, 8)}"
+
+_STACKED_VALUES = (SpmdRep, SpmdFixed, SpmdBits)
 
 
 class StackedSession:
@@ -73,6 +97,8 @@ def to_rep(sess: StackedSession, v):
             v.integral_precision,
             v.fractional_precision,
         )
+    if isinstance(v, HostBitTensor):
+        return sm.share_bits(sess.spmd, v.value)
     if isinstance(v, Mir3FixedTensor):
         # mirrored values are public; a trivial sharing keeps them cheap
         values, frac = logical._mirrored_to_public_ring(v)
@@ -84,7 +110,7 @@ def to_rep(sess: StackedSession, v):
         )
     raise TypeMismatchError(
         f"cannot share {type(v).__name__} in the port's stacked layout "
-        f"({_LATER})"
+        f"(secret integers: {_INTEGER})"
     )
 
 
@@ -100,7 +126,35 @@ def to_host(sess: StackedSession, plc_name: str, v):
     if isinstance(v, SpmdRep):
         lo, hi = spmd.reveal(v)
         return HostRingTensor(lo, hi, v.width, plc_name)
+    if isinstance(v, SpmdBits):
+        return HostBitTensor(sm.reveal_bits(v), plc_name)
     return logical.to_host(sess.host, plc_name, v)
+
+
+# ---------------------------------------------------------------------------
+# Structural helpers on the logical axes of (3, 2, *shape)
+# ---------------------------------------------------------------------------
+
+
+def _squeeze_arr(a, axis):
+    if axis is None:
+        return a.reshape(a.shape[:2] + tuple(d for d in a.shape[2:]
+                                             if d != 1))
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    for ax in sorted((spmd._laxis(a, ax) for ax in axes), reverse=True):
+        if a.shape[ax] != 1:
+            raise ValueError(f"cannot squeeze axis {ax - 2} of size "
+                             f"{a.shape[ax]}")
+        a = a.squeeze(ax)
+    return a
+
+
+def _slice_arr(a, spec):
+    return a[(slice(None), slice(None)) + tuple(spec)]
+
+
+_squeeze = spmd._structural(_squeeze_arr)
+_strided_slice = spmd._structural(_slice_arr)
 
 
 # ---------------------------------------------------------------------------
@@ -110,15 +164,37 @@ def to_host(sess: StackedSession, plc_name: str, v):
 
 def _fixed(v, kind: str) -> SpmdFixed:
     if not isinstance(v, SpmdFixed):
+        later = f" (secret integers: {_INTEGER})" if isinstance(
+            v, SpmdRep) else ""
         raise TypeMismatchError(
             f"stacked {kind} takes secret fixed-point tensors, got "
-            f"{type(v).__name__} ({_LATER})"
+            f"{type(v).__name__}{later}"
+        )
+    return v
+
+
+def _bits(v, kind: str) -> SpmdBits:
+    if not isinstance(v, SpmdBits):
+        raise TypeMismatchError(
+            f"stacked {kind} takes shared bits, got {type(v).__name__}"
         )
     return v
 
 
 def _fx(t: SpmdRep, like: SpmdFixed) -> SpmdFixed:
     return SpmdFixed(t, like.integral_precision, like.fractional_precision)
+
+
+def _on_inner(x, fn):
+    """``fn`` on the word tensor of a fixed-point sharing (keeping its
+    precision) or of a bare index sharing."""
+    if isinstance(x, SpmdFixed):
+        return _fx(fn(x.tensor), x)
+    if isinstance(x, SpmdRep):
+        return fn(x)
+    raise TypeMismatchError(
+        f"stacked structural ops take secret tensors, got {type(x).__name__}"
+    )
 
 
 def _public_binop(sess, x: SpmdFixed, pub: Mir3FixedTensor, kind: str,
@@ -141,19 +217,25 @@ def _public_binop(sess, x: SpmdFixed, pub: Mir3FixedTensor, kind: str,
     return _fx(spmd.trunc_pr(sess.spmd, out, x.fractional_precision), x)
 
 
-def _align_logical_ranks(x: SpmdFixed, y: SpmdFixed):
-    """Prepend singleton logical axes (after the (party, slot) prefix) to
-    the lower-rank operand, so elementwise ops broadcast by logical
-    shape."""
+def _align_logical_ranks(*vals):
+    """Elementwise operands (fixed-point or bits) broadcast by logical
+    shape: the stacked tensors carry a (party, slot) prefix, so a
+    lower-rank operand gets singleton logical axes after it, as
+    broadcasting would prepend them to the logical shape."""
+    ranks = [len(v.shape) if isinstance(v, SpmdBits) else len(v.tensor.shape)
+             for v in vals]
+    top = max(ranks)
 
-    def lift(v: SpmdFixed, n: int) -> SpmdFixed:
-        if n <= 0:
+    def lift(v, n):
+        if n == 0:
             return v
+        if isinstance(v, SpmdBits):
+            a = v.arr
+            return SpmdBits(a.reshape(a.shape[:2] + (1,) * n + a.shape[2:]))
         t = v.tensor
         return _fx(spmd.reshape(t, (1,) * n + t.shape), v)
 
-    rx, ry = len(x.tensor.shape), len(y.tensor.shape)
-    return lift(x, ry - rx), lift(y, rx - ry)
+    return tuple(lift(v, top - r) for v, r in zip(vals, ranks))
 
 
 _SECRET_BINOPS = {
@@ -171,61 +253,172 @@ def _fx_sum(x: SpmdFixed, axis) -> SpmdFixed:
     return _fx(spmd.sum_axis(t, axis), x)
 
 
+def _fx_mean(sess, x: SpmdFixed, axis) -> SpmdFixed:
+    n = math.prod(x.tensor.shape) if axis is None else x.tensor.shape[axis]
+    return spmd.fx_mul_public(sess.spmd, _fx_sum(x, axis), 1.0 / n)
+
+
+def _relu(sess, x: SpmdFixed) -> SpmdFixed:
+    s = sm.msb(sess.spmd, x.tensor)  # 1 <=> negative
+    zeros = spmd.fill_public(x.tensor.shape, x.tensor.width, 0,
+                             x.tensor.lo.device)
+    return _fx(sm.mux_bit(sess.spmd, s, zeros, x.tensor), x)
+
+
+def _abs(sess, x: SpmdFixed) -> SpmdFixed:
+    s = sm.msb(sess.spmd, x.tensor)
+    return _fx(sm.mux_bit(sess.spmd, s, spmd.neg(x.tensor), x.tensor), x)
+
+
+_FX_MATH = {
+    "Exp": sm.fx_exp,
+    "Log": sm.fx_log,
+    "Log2": sm.fx_log2,
+    "Sqrt": sm.fx_sqrt,
+    "Sigmoid": sm.fx_sigmoid,
+}
+
+
+def _constant(sess: StackedSession, op: Operation, rep):
+    """A replicated Constant: built on the first owner as the host
+    Constant, then shared (a shape stays a host shape)."""
+    host_op = Operation(
+        name=op.name, kind="Constant", inputs=[],
+        placement_name=rep.owners[0], signature=op.signature,
+        attributes=op.attributes,
+    )
+    h = logical._constant_on_host(sess.host, rep.owners[0], host_op)
+    return h if isinstance(h, HostShape) else to_rep(sess, h)
+
+
 def _execute_rep(sess: StackedSession, comp, op: Operation,
                  rep: ReplicatedPlacement, args):
     kind = op.kind
     ret_dtype = op.signature.return_type.dtype
+    attrs = op.attributes
+
+    def fixed(v):
+        return _fixed(to_rep(sess, v), kind)
+
+    if kind == "Identity":
+        return to_rep(sess, args[0])
+
+    if kind == "Constant":
+        return _constant(sess, op, rep)
 
     if kind == "Dot":
-        x = _fixed(to_rep(sess, args[0]), kind)
-        y = _fixed(to_rep(sess, args[1]), kind)
-        return spmd.fx_dot(sess.spmd, x, y)
+        return spmd.fx_dot(sess.spmd, fixed(args[0]), fixed(args[1]))
 
     if kind in _SECRET_BINOPS:
         x, y = args
         if isinstance(y, Mir3FixedTensor) and kind != "Div":
-            return _public_binop(sess, _fixed(to_rep(sess, x), kind), y,
-                                 kind, right=True)
+            return _public_binop(sess, fixed(x), y, kind, right=True)
         if isinstance(x, Mir3FixedTensor) and kind != "Div":
-            return _public_binop(sess, _fixed(to_rep(sess, y), kind), x,
-                                 kind, right=False)
-        xr, yr = _align_logical_ranks(
-            _fixed(to_rep(sess, x), kind), _fixed(to_rep(sess, y), kind)
-        )
+            return _public_binop(sess, fixed(y), x, kind, right=False)
+        xr, yr = _align_logical_ranks(fixed(x), fixed(y))
         return _SECRET_BINOPS[kind](sess.spmd, xr, yr)
 
-    if kind == "Sigmoid":
-        return sm.fx_sigmoid(sess.spmd, _fixed(to_rep(sess, args[0]), kind))
+    if kind == "AddN":
+        vals = [fixed(a) for a in args]
+        out = vals[0]
+        for v in vals[1:]:
+            out = spmd.fx_add(out, v)
+        return out
+
+    if kind == "Neg":
+        x = fixed(args[0])
+        return _fx(spmd.neg(x.tensor), x)
+
+    if kind in ("Less", "Greater", "Equal"):
+        x, y = _align_logical_ranks(fixed(args[0]), fixed(args[1]))
+        fn = {"Less": sm.less, "Greater": sm.greater,
+              "Equal": sm.equal_bit}[kind]
+        return fn(sess.spmd, x.tensor, y.tensor)
+
+    if kind in ("And", "Or", "Xor"):
+        x = _bits(to_rep(sess, args[0]), kind)
+        y = _bits(to_rep(sess, args[1]), kind)
+        if kind == "Xor":
+            return sm.bits_xor(x, y)
+        fn = sm.bits_and if kind == "And" else sm.bits_or
+        return fn(sess.spmd, x, y)
+
+    if kind == "Mux":
+        s, x, y = _align_logical_ranks(
+            _bits(to_rep(sess, args[0]), kind), fixed(args[1]),
+            fixed(args[2]),
+        )
+        return _fx(sm.mux_bit(sess.spmd, s, x.tensor, y.tensor), x)
 
     if kind == "Sum":
-        x = _fixed(to_rep(sess, args[0]), kind)
-        return _fx_sum(x, op.attributes.get("axis"))
+        return _fx_sum(fixed(args[0]), attrs.get("axis"))
 
-    if kind == "IndexAxis":
-        x = _fixed(to_rep(sess, args[0]), kind)
-        out = spmd.index_axis(
-            x.tensor, op.attributes["axis"], op.attributes["index"]
+    if kind == "Mean":
+        return _fx_mean(sess, fixed(args[0]), attrs.get("axis"))
+
+    if kind in _FX_MATH:
+        return _FX_MATH[kind](sess.spmd, fixed(args[0]))
+
+    if kind == "Relu":
+        return _relu(sess, fixed(args[0]))
+
+    if kind == "Abs":
+        return _abs(sess, fixed(args[0]))
+
+    if kind == "Softmax":
+        return sm.fx_softmax(sess.spmd, fixed(args[0]), attrs["axis"],
+                             upmost_index=attrs.get("upmost_index"))
+
+    if kind == "Argmax":
+        return sm.fx_argmax(sess.spmd, fixed(args[0]), attrs["axis"],
+                            upmost_index=attrs.get("upmost_index"))
+
+    if kind == "Maximum":
+        return sm.fx_maximum(
+            sess.spmd, _align_logical_ranks(*[fixed(a) for a in args])
         )
-        return _fx(out, x)
-
-    if kind == "Transpose":
-        x = _fixed(to_rep(sess, args[0]), kind)
-        return _fx(spmd.transpose(x.tensor, op.attributes.get("axes")), x)
-
-    if kind == "ExpandDims":
-        x = _fixed(to_rep(sess, args[0]), kind)
-        out = x.tensor
-        for a in sorted(op.attributes["axis"]):
-            out = spmd.expand_dims(out, a)
-        return _fx(out, x)
 
     if kind == "Concat":
-        vals = [_fixed(to_rep(sess, a), kind) for a in args]
-        axis = op.attributes.get("axis", 0)
-        out = spmd.concat([v.tensor for v in vals], axis)
-        return SpmdFixed(
-            out, vals[0].integral_precision, vals[0].fractional_precision
+        vals = [fixed(a) for a in args]
+        out = spmd.concat([v.tensor for v in vals], attrs.get("axis", 0))
+        return _fx(out, vals[0])
+
+    if kind == "Reshape":
+        shp = to_host(sess, rep.owners[0], args[1])
+        return _on_inner(to_rep(sess, args[0]),
+                         lambda t: spmd.reshape(t, tuple(shp.value)))
+
+    if kind == "ExpandDims":
+        def expand(t):
+            for a in sorted(attrs["axis"]):
+                t = spmd.expand_dims(t, a)
+            return t
+
+        return _on_inner(to_rep(sess, args[0]), expand)
+
+    if kind == "Squeeze":
+        return _on_inner(to_rep(sess, args[0]),
+                         lambda t: _squeeze(t, attrs.get("axis")))
+
+    if kind == "Transpose":
+        return _on_inner(to_rep(sess, args[0]),
+                         lambda t: spmd.transpose(t, attrs.get("axes")))
+
+    if kind == "IndexAxis":
+        return _on_inner(
+            to_rep(sess, args[0]),
+            lambda t: spmd.index_axis(t, attrs["axis"], attrs["index"]),
         )
+
+    if kind == "Slice":
+        spec = logical.decode_slice_spec(attrs)
+        return _on_inner(to_rep(sess, args[0]),
+                         lambda t: _strided_slice(t, spec))
+
+    if kind == "Shape":
+        x = to_rep(sess, args[0])
+        inner = x.tensor if isinstance(x, SpmdFixed) else x
+        return HostShape(tuple(inner.shape), rep.owners[0])
 
     if kind == "Cast":
         if ret_dtype is None or not ret_dtype.is_fixedpoint:
@@ -233,7 +426,7 @@ def _execute_rep(sess: StackedSession, comp, op: Operation,
                 "stacked Cast on a replicated placement must target a "
                 f"fixed-point dtype, got {ret_dtype}"
             )
-        x = _fixed(to_rep(sess, args[0]), kind)
+        x = fixed(args[0])
         cur_f = x.fractional_precision
         new_f = ret_dtype.fractional_precision
         t = x.tensor
@@ -244,7 +437,8 @@ def _execute_rep(sess: StackedSession, comp, op: Operation,
         return SpmdFixed(t, ret_dtype.integral_precision, new_f)
 
     raise NotImplementedError(
-        f"stacked replicated op {kind} ({op.name}; {_LATER})"
+        f"stacked replicated op {kind} ({op.name}; "
+        f"{roadmap_item('ReplicatedPlacement', kind)})"
     )
 
 

@@ -68,6 +68,8 @@ def _lift_array(arr, op, plc_name: str, device) -> HostTensor:
 
 
 def _to_user_value(sess, value):
+    """Decoded floats for a fixed-point value; bools for bits, uint64 (or
+    Python ints at ring128) for ring words, as ``to_numpy`` gives them."""
     if isinstance(value, HostFixedTensor):
         value = sess.host.fixedpoint_decode(value.plc, value, dt.float64)
     return to_numpy(value)
@@ -95,8 +97,10 @@ class Interpreter:
         missing = stacked.unsupported_ops(comp)
         if missing:
             raise NotImplementedError(
-                "the port cannot run these ops yet (ROADMAP queue 1): "
-                + ", ".join(sorted({f"{p} {k}" for p, k in missing}))
+                "the port cannot run these ops yet: " + ", ".join(sorted({
+                    f"{p} {k} ({stacked.roadmap_item(p, k)})"
+                    for p, k in missing
+                }))
             )
         sess = stacked.StackedSession(
             master_key_words("logical"), self.device

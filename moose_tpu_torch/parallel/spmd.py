@@ -416,6 +416,15 @@ def concat(xs, axis: int) -> SpmdRep:
     return SpmdRep(lo, hi, xs[0].width)
 
 
+def stack(xs, axis: int = 0) -> SpmdRep:
+    """Stack sharings of one shape along a new logical axis."""
+    ax = _laxis(xs[0].lo, axis, extra=1)
+    lo = torch.stack([x.lo for x in xs], dim=ax)
+    hi = None if xs[0].hi is None else torch.stack([x.hi for x in xs],
+                                                   dim=ax)
+    return SpmdRep(lo, hi, xs[0].width)
+
+
 def sum_axis(x: SpmdRep, axis: int) -> SpmdRep:
     return SpmdRep(
         *ring.sum_(x.lo, x.hi, axis=_laxis(x.lo, axis)), x.width

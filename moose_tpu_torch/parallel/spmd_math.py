@@ -1,20 +1,27 @@
-"""The protocol sigmoid in the party-stacked layout.
+"""The nonlinear protocol library in the party-stacked layout.
 
-PyTorch counterpart of the part of ``moose_tpu/parallel/spmd_math.py``
-that the exact protocol sigmoid runs: replicated bit sharings, bit
-decomposition through a Kogge-Stone adder, bit-to-arithmetic conversion,
-the most significant bit, selection, Goldschmidt division, the
-fixed-point Horner polynomial and 2^x.  The rest of that module (exp,
-log, sqrt, max/argmax, softmax, the pools) is a later slice (ROADMAP
-queue 1, item 4).
+PyTorch counterpart of ``moose_tpu/parallel/spmd_math.py``: replicated
+bit sharings, bit decomposition through a Kogge-Stone adder,
+bit-to-arithmetic conversion, comparisons (``less``, ``greater``,
+``equal_bit``), selection, Goldschmidt division, the fixed-point Horner
+polynomial, 2^x and e^x, log2/log/sqrt, the sigmoid, and the tournament
+max/argmax and the softmax over an axis.  The pools of that module come
+with the convolution (ROADMAP queue 1, item 3).
 
 A replicated bit sharing is one ``torch.uint8`` tensor
 ``(party=3, slot=2, [bits=k,] *shape)`` of 0/1 with XOR share semantics,
 the JAX package's layout.  Randomness is drawn from the
 :class:`~moose_tpu_torch.parallel.spmd.SpmdSession` in the JAX package's
 order; the kernels (``bit_decompose``/``msb``, ``horner``) take their
-randomness pre-drawn, so shares stay bit-identical to the JAX package's
-under the same master key and PRF.
+randomness pre-drawn, and AND banks that the reference draws back to back
+with nothing drawn in between (an adder's, an OR tree's) come as one K7
+group, so shares stay bit-identical to the JAX package's under the same
+master key and PRF.
+
+The tournaments compare array halves along the reduction axis: every
+round is one comparison over the whole remaining tensor.  The halves are
+strided views; the kernels that read operands in place (K2, K3, K6) walk
+their strides, and the others' callers make their operands contiguous.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..dialects import ring
-from ..dialects.fixedpoint import P_1045, encode_const
+from ..dialects.fixedpoint import P_1045, P_2524, Q_2524, encode_const
 from ..errors import KernelError
 from ..native import ring_kernels as rk
 from . import spmd
@@ -56,6 +63,19 @@ class SpmdBits:
 
 def _roll(t: torch.Tensor) -> torch.Tensor:
     return torch.roll(t, -1, dims=0)
+
+
+def share_bits(sess: SpmdSession, b: torch.Tensor) -> SpmdBits:
+    """XOR-share a plaintext 0/1 tensor: b_0, b_1 from one bit bank,
+    b_2 = b ^ b_0 ^ b_1."""
+    bank = sess.sample_bit_bank(tuple(b.shape))
+    b2 = b.to(U8) ^ bank[0] ^ bank[1]
+    z = torch.stack([bank[0], bank[1], b2])
+    return SpmdBits(torch.stack([z, _roll(z)], dim=1))
+
+
+def reveal_bits(x: SpmdBits) -> torch.Tensor:
+    return x.arr[0, 0] ^ x.arr[1, 0] ^ x.arr[2, 0]
 
 
 def bits_xor(x: SpmdBits, y: SpmdBits) -> SpmdBits:
@@ -156,6 +176,27 @@ def _kogge_stone_banks(x: SpmdBits, y: SpmdBits, k: int,
     return bits_xor(p, shl_bits(g, 1))
 
 
+def _kogge_stone_bank_count(k: int) -> int:
+    """The ANDs of a k-bit Kogge-Stone adder: g = x AND y, then per
+    round the g update and, while 2d < k, the p_run update."""
+    n, d = 1, 1
+    while d < k:
+        n += 2 if d * 2 < k else 1
+        d *= 2
+    return n
+
+
+def kogge_stone(sess, x: SpmdBits, y: SpmdBits, k: int) -> SpmdBits:
+    """Carry-lookahead adder on bit shares, log2(k) rounds of two ANDs
+    over the whole tensor; its AND banks (all of x's shape) are one K7
+    group, drawn in the order the rounds consume them."""
+    banks = sess.sample_group(
+        [("bit_bank", tuple(x.arr.shape[2:]), None)]
+        * _kogge_stone_bank_count(k)
+    )
+    return _kogge_stone_banks(x, y, k, functools.partial(next, iter(banks)))
+
+
 def _draw_adder_banks(sess: SpmdSession, x: SpmdRep) -> torch.Tensor:
     """The decomposition's AND banks, drawn in the order the adder
     consumes them, as one K7 group straight into the (n_ands, 3, k,
@@ -237,11 +278,64 @@ def weighted_bit_sum(ring_bits: SpmdRep, weights: Sequence[int]) -> SpmdRep:
     return spmd.sum_axis(z, 0)
 
 
+def bit_compose(sess, bits: SpmdBits, width: int) -> SpmdRep:
+    """Binary -> arithmetic sharing of a k-bit decomposition:
+    sum_i b2a(bits)[i] * 2^i."""
+    ring_bits = b2a(sess, bits, width)
+    return weighted_bit_sum(ring_bits, [1 << i for i in range(width)])
+
+
 def msb(sess: SpmdSession, x: SpmdRep) -> SpmdBits:
     """The top bit of the decomposition, from the same kernel writing
     only that bit (comparisons need nothing else)."""
     banks = _draw_adder_banks(sess, x)
     return SpmdBits(rk.msb(*_words(x), x.width, banks))
+
+
+# ---------------------------------------------------------------------------
+# Comparisons
+# ---------------------------------------------------------------------------
+
+
+def less(sess, x: SpmdRep, y: SpmdRep) -> SpmdBits:
+    """x < y as msb(x - y) (two's complement; valid for |x - y| <
+    2^(k-1))."""
+    return msb(sess, spmd.sub(x, y))
+
+
+def greater(sess, x: SpmdRep, y: SpmdRep) -> SpmdBits:
+    return less(sess, y, x)
+
+
+def equal_zero_bit(sess, x: SpmdRep) -> SpmdBits:
+    """1 iff x == 0: NOT of the OR tree over x's bits, log2(k) rounds of
+    one AND each.  Nothing is drawn between the rounds, so their banks
+    (one a round, of the halves' shape) are one K7 group drawn after the
+    decomposition's."""
+    bits = bit_decompose(sess, x)
+    halves = []
+    k = x.width
+    while k > 1:
+        halves.append(k // 2)
+        k = k // 2 + k % 2
+    banks = sess.sample_group(
+        [("bit_bank", (half,) + tuple(x.shape), None) for half in halves]
+    )
+    k = x.width
+    for half, bank in zip(halves, banks):
+        a = _bit_slice(bits, 0, half)
+        b = _bit_slice(bits, half, 2 * half)
+        merged = bits_xor(bits_xor(a, b), _bits_and_bank(a, b, bank))
+        if k % 2:
+            merged = SpmdBits(
+                torch.cat([merged.arr, bits.arr[:, :, k - 1:k]], dim=2))
+        k = half + k % 2
+        bits = merged
+    return bits_not(SpmdBits(bits.arr[:, :, 0]))
+
+
+def equal_bit(sess, x: SpmdRep, y: SpmdRep) -> SpmdBits:
+    return equal_zero_bit(sess, spmd.sub(x, y))
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +362,15 @@ def add_public_raw(x: SpmdRep, raw: int) -> SpmdRep:
 
 def public_sub_raw(raw: int, x: SpmdRep) -> SpmdRep:
     return spmd.public_sub(*_const(x, raw), x)
+
+
+def mul_public_raw(x: SpmdRep, raw: int) -> SpmdRep:
+    return spmd.mul_public(x, *_const(x, raw))
+
+
+def fx_add_public_raw(x: SpmdFixed, raw: int) -> SpmdFixed:
+    return SpmdFixed(add_public_raw(x.tensor, raw), x.integral_precision,
+                     x.fractional_precision)
 
 
 def sign_from_msb(msb_ring: SpmdRep) -> SpmdRep:
@@ -483,6 +586,32 @@ def _pow2_positive(sess, x_abs: SpmdRep, i_p: int, f_p: int,
     return spmd.trunc_pr(sess, e_prod, amount)
 
 
+def fx_pow2(sess, x: SpmdFixed, lower_bounded: bool = False) -> SpmdFixed:
+    """2^x for either sign through the shifted positive-only form
+    2^x = 2^(x + f) >> f; unless ``lower_bounded``, x is first clamped
+    from below at -f (where 2^x is below one LSB)."""
+    i_p = x.integral_precision
+    f_p = x.fractional_precision
+    k = i_p + f_p
+    width = x.tensor.width
+    t = x.tensor
+    if not lower_bounded:
+        floor_raw = encode_const(-float(f_p), f_p, width)
+        floor_t = spmd.fill_public(t.shape, width, floor_raw, t.lo.device)
+        under = greater(sess, floor_t, t)
+        t = mux_bit(sess, under, floor_t, t)
+    shifted = add_public_raw(t, encode_const(float(f_p), f_p, width))
+    g = _pow2_positive(
+        sess, shifted, i_p, f_p, int_bound_bits=max(1, k.bit_length())
+    )
+    return SpmdFixed(spmd.trunc_pr(sess, g, f_p), i_p, f_p)
+
+
+def fx_exp(sess, x: SpmdFixed, lower_bounded: bool = False) -> SpmdFixed:
+    scaled = spmd.fx_mul_public(sess, x, math.log2(math.e))
+    return fx_pow2(sess, scaled, lower_bounded=lower_bounded)
+
+
 def fx_sigmoid(sess, x: SpmdFixed) -> SpmdFixed:
     """Exact protocol sigmoid mux(x<0, 1, y) / (1 + y) with y = e^{|x|}
     — one Goldschmidt run in all."""
@@ -504,3 +633,182 @@ def fx_sigmoid(sess, x: SpmdFixed) -> SpmdFixed:
         SpmdFixed(den, i_p, f_p),
         positive_divisor=True,
     )
+
+
+# ---------------------------------------------------------------------------
+# log2, log and sqrt
+# ---------------------------------------------------------------------------
+
+
+def int2fl(sess, x: SpmdRep, max_bit_len: int, frac: int):
+    """Normalize a secret integer to (v, p, s, z) with
+    (1 - 2s)(1 - z) * v * 2^p = x: s its sign, z whether it is 0, v its
+    magnitude upshifted to max_bit_len - 1 bits and truncated to scale
+    ``frac``, p its bit length less ``frac``.  The reversed bit order of
+    the prefix OR is ``torch.flip``."""
+    width = x.width
+    lam = max_bit_len - 1
+
+    s_ring = b2a(sess, msb(sess, x), width)
+    z_ring = b2a(sess, equal_zero_bit(sess, x), width)
+
+    x_pos = mux_ring(sess, s_ring, spmd.neg(x), x)
+    pos_bits = bit_decompose(sess, x_pos)
+    rev = SpmdBits(torch.flip(pos_bits.arr[:, :, :lam], dims=(2,)))
+    b = prefix_or(sess, rev, lam)
+    b_ring = b2a(sess, b, width)
+
+    bit_count = weighted_bit_sum(b_ring, [1] * lam)
+    b_weighted = weighted_bit_sum(b_ring, [1 << i for i in range(lam)])
+    neg_b_sum = public_sub_raw((1 << lam) - 1, b_weighted)
+
+    one_plus = add_public_raw(neg_b_sum, 1)
+    x_up = spmd.mul(sess, x_pos, one_plus)
+    v = spmd.trunc_pr(sess, x_up, max_bit_len - 1 - frac)
+
+    p_minus_f = add_public_raw(bit_count, (-frac) % (1 << width))
+    one_minus_z = public_sub_raw(1, z_ring)
+    p = spmd.mul(sess, p_minus_f, one_minus_z)
+    return v, p, s_ring, z_ring
+
+
+def fx_log2(sess, x: SpmdFixed) -> SpmdFixed:
+    """log2 x = p + P_2524(v) / Q_2524(v) for x = v * 2^p, v in
+    [0.5, 1)."""
+    i_p, f_p = x.integral_precision, x.fractional_precision
+    v, p, _s, _z = int2fl(sess, x.tensor, i_p + f_p, f_p)
+    v_fixed = SpmdFixed(v, i_p, f_p)
+    num = polynomial_eval(sess, P_2524, v_fixed)
+    den = polynomial_eval(sess, Q_2524, v_fixed)
+    quot = fx_div(sess, num, den)
+    p_fixed = SpmdFixed(spmd.shl(p, f_p), i_p, f_p)
+    return spmd.fx_add(p_fixed, quot)
+
+
+def fx_log(sess, x: SpmdFixed) -> SpmdFixed:
+    return spmd.fx_mul_public(sess, fx_log2(sess, x), math.log(2.0))
+
+
+def fx_sqrt(sess, x: SpmdFixed) -> SpmdFixed:
+    """sqrt(x) = 2^(0.5 * log2(x))."""
+    half = spmd.fx_mul_public(sess, fx_log2(sess, x), 0.5)
+    return fx_pow2(sess, half)
+
+
+# ---------------------------------------------------------------------------
+# Maximum, argmax and softmax: tournaments over array halves along the
+# reduction axis, one comparison a round over the whole remaining tensor
+# ---------------------------------------------------------------------------
+
+
+def _slice_axis(x: SpmdRep, axis: int, sl: slice) -> SpmdRep:
+    """A view of x sliced along a logical axis (a positive step)."""
+    idx = (slice(None),) * spmd._laxis(x.lo, axis) + (sl,)
+    return SpmdRep(x.lo[idx], None if x.hi is None else x.hi[idx], x.width)
+
+
+def max_axis(sess, x: SpmdRep, axis: int) -> SpmdRep:
+    """Tournament max along a logical axis, which is reduced away."""
+    n = x.shape[axis]
+    while n > 1:
+        m = n // 2
+        a = _slice_axis(x, axis, slice(0, 2 * m, 2))
+        b = _slice_axis(x, axis, slice(1, 2 * m, 2))
+        lt = less(sess, a, b)
+        mx = mux_bit(sess, lt, b, a)
+        if n % 2:
+            x = spmd.concat([mx, _slice_axis(x, axis, slice(n - 1, n))],
+                            axis)
+            n = m + 1
+        else:
+            x = mx
+            n = m
+    return spmd.index_axis(x, axis, 0)
+
+
+def fx_max(sess, x: SpmdFixed, axis: int) -> SpmdFixed:
+    return SpmdFixed(max_axis(sess, x.tensor, axis), x.integral_precision,
+                     x.fractional_precision)
+
+
+def fx_maximum(sess, xs: Sequence[SpmdFixed]) -> SpmdFixed:
+    """Elementwise maximum of several tensors of one shape."""
+    stacked = spmd.stack([x.tensor for x in xs], axis=0)
+    return SpmdFixed(max_axis(sess, stacked, 0), xs[0].integral_precision,
+                     xs[0].fractional_precision)
+
+
+def argmax_axis(sess, x: SpmdRep, axis: int) -> SpmdRep:
+    """Tournament argmax over (value, index) pairs; the indices start as
+    a public iota (a trivial sharing, high word 0 at ring128) carried
+    through the muxes."""
+    width = x.width
+    nd = len(x.shape)
+    axis %= nd
+    n = x.shape[axis]
+    iota = torch.arange(n, dtype=torch.int64, device=x.lo.device)
+    iota = iota.reshape((1,) * axis + (n,) + (1,) * (nd - 1 - axis))
+    iota = iota.expand(x.shape)
+    idx = spmd.public_to_rep(
+        iota, torch.zeros_like(iota) if width == 128 else None, width
+    )
+    while n > 1:
+        m = n // 2
+        av = _slice_axis(x, axis, slice(0, 2 * m, 2))
+        bv = _slice_axis(x, axis, slice(1, 2 * m, 2))
+        ai = _slice_axis(idx, axis, slice(0, 2 * m, 2))
+        bi = _slice_axis(idx, axis, slice(1, 2 * m, 2))
+        s = b2a(sess, less(sess, av, bv), width)
+        nv = mux_ring(sess, s, bv, av)
+        ni = mux_ring(sess, s, bi, ai)
+        if n % 2:
+            x = spmd.concat([nv, _slice_axis(x, axis, slice(n - 1, n))],
+                            axis)
+            idx = spmd.concat(
+                [ni, _slice_axis(idx, axis, slice(n - 1, n))], axis
+            )
+            n = m + 1
+        else:
+            x, idx = nv, ni
+            n = m
+    return spmd.index_axis(idx, axis, 0)
+
+
+def fx_argmax(sess, x: SpmdFixed, axis: int,
+              upmost_index: Optional[int] = None) -> SpmdRep:
+    """Argmax over the first ``upmost_index`` entries of ``axis`` (the
+    whole axis when None or larger); slicing keeps the indices."""
+    t = x.tensor
+    if upmost_index is not None and upmost_index < t.shape[axis]:
+        t = _slice_axis(t, axis, slice(0, upmost_index))
+    return argmax_axis(sess, t, axis)
+
+
+def fx_softmax(sess, x: SpmdFixed, axis: int,
+               upmost_index: Optional[int] = None) -> SpmdFixed:
+    """Softmax without overflow: subtract the max (over the first
+    ``upmost_index`` entries of ``axis``), clamp from below where e^x
+    falls under one LSB, exp on the bounded path, zero the clamped
+    entries, and normalise by one Goldschmidt division."""
+    i_p, f_p = x.integral_precision, x.fractional_precision
+    width = x.tensor.width
+    device = x.tensor.lo.device
+
+    xmax_src = x.tensor
+    if upmost_index is not None and upmost_index < xmax_src.shape[axis]:
+        xmax_src = _slice_axis(xmax_src, axis, slice(0, upmost_index))
+    xmax = spmd.expand_dims(max_axis(sess, xmax_src, axis), axis)
+    diff = spmd.sub(x.tensor, xmax)
+
+    min_val = -1.0 * math.log(2.0) * min(i_p - 1, f_p - 1)
+    lower = spmd.fill_public(diff.shape, width,
+                             encode_const(min_val, f_p, width), device)
+    gt = greater(sess, lower, diff)
+    clamped = SpmdFixed(mux_bit(sess, gt, lower, diff), i_p, f_p)
+    e_x = fx_exp(sess, clamped, lower_bounded=True)
+
+    zeros = spmd.fill_public(e_x.tensor.shape, width, 0, device)
+    normalized = SpmdFixed(mux_bit(sess, gt, zeros, e_x.tensor), i_p, f_p)
+    total = spmd.expand_dims(spmd.sum_axis(normalized.tensor, axis), axis)
+    return fx_div(sess, normalized, SpmdFixed(total, i_p, f_p),
+                  positive_divisor=True)

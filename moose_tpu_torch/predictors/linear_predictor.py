@@ -7,8 +7,8 @@ LinearClassifier operators and build the encrypted inference graph — one
 replicated fixed-point ``dot`` against mirrored weights, the intercept
 folded in by augmenting the input with a ones column,
 ``y = [1; x] @ [b; W]^T`` — followed by the classifier's head.  The
-LOGISTIC head runs the protocol sigmoid; the SOFTMAX head is a later
-slice (ROADMAP queue 1, item 4).
+LOGISTIC head runs the protocol sigmoid; the SOFTMAX head (multinomial
+logistic regression) the protocol softmax over the classes.
 """
 
 import abc
@@ -229,17 +229,12 @@ def _sigmoid_head(n_classes):
     return normalized
 
 
-def _softmax_head(n_classes):
-    raise NotImplementedError(
-        "the port's LinearClassifier has no SOFTMAX head yet: fx_softmax "
-        "is a later slice (ROADMAP queue 1, item 4)"
-    )
-
-
 _HEADS = {
     PostTransform.NONE: lambda n: (lambda y: y),
     PostTransform.SIGMOID: _sigmoid_head,
-    PostTransform.SOFTMAX: _softmax_head,
+    PostTransform.SOFTMAX: lambda n: (
+        lambda y: pm.softmax(y, axis=1, upmost_index=n)
+    ),
 }
 
 _ONNX_POST_TRANSFORMS = {

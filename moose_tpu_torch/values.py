@@ -1,7 +1,7 @@
 """Runtime values of the port, backed by PyTorch tensors.
 
 The host and mirrored value classes of ``moose_tpu/values.py`` that the
-slice's graphs use.  Tensor payloads are ``torch`` tensors on the
+port's graphs use.  Tensor payloads are ``torch`` tensors on the
 runtime's device; ring words are ``torch.int64`` (see
 ``dialects/ring.py``), ``hi`` present iff the width is 128.
 """
@@ -50,6 +50,19 @@ class HostTensor:
     value: torch.Tensor
     plc: str
     dtype: dt.DType
+
+    @property
+    def shape(self):
+        return tuple(self.value.shape)
+
+
+@dataclasses.dataclass
+class HostBitTensor:
+    """A tensor of bits owned by one host, one bit a ``torch.uint8``
+    lane of 0/1 (the JAX package's layout)."""
+
+    value: torch.Tensor
+    plc: str
 
     @property
     def shape(self):
@@ -106,6 +119,15 @@ def to_numpy(value: Any):
     """Convert a host-level runtime value to numpy for the user."""
     if isinstance(value, HostTensor):
         return value.value.detach().cpu().numpy()
+    if isinstance(value, HostBitTensor):
+        return value.value.detach().cpu().numpy().astype(bool)
+    if isinstance(value, HostRingTensor):
+        # int64 words are the ring's u64 words bit for bit
+        lo = value.lo.detach().cpu().contiguous().numpy().view(np.uint64)
+        if value.width == 64:
+            return lo
+        hi = value.hi.detach().cpu().contiguous().numpy().view(np.uint64)
+        return (hi.astype(object) << 64) + lo.astype(object)
     if isinstance(value, HostShape):
         return np.asarray(value.value, dtype=np.int64)
     raise TypeError(f"cannot convert {type(value).__name__} to numpy")

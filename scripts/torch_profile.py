@@ -2,9 +2,11 @@
 """Where the time goes in the port's main path on one CUDA card.
 
 Runs the eDSL secure dot (1000x1000 at fixed(14,23), ring128), one
-ONNX LinearRegressor request and one ONNX logistic-regression request
-(each 1024x100 at fixed(24,40)) under the default threefry PRF, and one
-LogregSGDTrainer step (128x100 at fixed(24,40)) under threefry-pallas,
+ONNX LinearRegressor request, one ONNX logistic-regression request and
+one ONNX multinomial logistic-regression request (10 classes, the
+SOFTMAX head) (each 1024x100 at fixed(24,40)) under the default threefry
+PRF, and one LogregSGDTrainer step (128x100 at fixed(24,40)) under
+threefry-pallas,
 through the port's LocalMooseRuntime, warm, under torch.profiler, and
 prints for each:
 
@@ -248,6 +250,15 @@ def main() -> int:
         lambda: runtime.evaluate_computation(logreg, {"x": xl})
     )
     print(f"logistic_regression: {json.dumps(logreg_profile)}", flush=True)
+    multi = chip_smoke.multinomial_regression(rng,
+                                              chip_smoke.MULTI_FEATURES)
+    multi_comp = multi.predictor_factory()
+    xm = rng.normal(size=(chip_smoke.MULTI_ROWS, chip_smoke.MULTI_FEATURES))
+    multi_profile = profile_request(
+        lambda: runtime.evaluate_computation(multi_comp, {"x": xm})
+    )
+    print(f"multinomial_regression: {json.dumps(multi_profile)}",
+          flush=True)
     ring.set_prf_impl("threefry-pallas")
     try:
         trainer = trainers.LogregSGDTrainer(chip_smoke.TRAIN_FEATURES,
@@ -272,6 +283,7 @@ def main() -> int:
                       "host_seed_us": seed_us,
                       "secure_dot": dot, "linear_regressor": lin,
                       "logistic_regression": logreg_profile,
+                      "multinomial_regression": multi_profile,
                       "training_step": train}))
     return 0
 

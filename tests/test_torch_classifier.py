@@ -1,13 +1,16 @@
 """LinearClassifier heads of the port on the CPU: the binary logistic
 regression at fixed(14,23) and the two-sigmoid head of a two-class model
 whose rows are not mirrors, bit-identical to the JAX LocalMooseRuntime
-(stacked layout) under fixed keys; the one-vs-rest head (Sum, Div)
-against float64; and the heads the port does not run yet."""
+(stacked layout) under fixed keys; the SOFTMAX head of multinomial
+logistic regression bit-identical too and within 5e-3 of float64; the
+one-vs-rest head (Sum, Div) against float64."""
 
 import numpy as np
 import pytest
 
 import moose_tpu as jm
+from moose_tpu.predictors import from_onnx as jfrom_onnx
+from moose_tpu.predictors import sklearn_export as jsk
 from moose_tpu.predictors.linear_predictor import (
     LinearClassifier as JaxClassifier,
 )
@@ -22,6 +25,7 @@ from moose_tpu_torch.runtime import LocalMooseRuntime as PortRuntime
 
 from test_torch_logreg import (  # noqa: F401  (fixtures)
     IDS,
+    chip_smoke,
     fixed_keys,
     run_binary_parity,
     threefry,
@@ -79,13 +83,49 @@ def test_none_head_is_the_logits():
     assert np.abs(got - (x @ coeffs.T + intercepts)).max() < 1e-6
 
 
-def test_softmax_head_names_its_roadmap_item():
+def _softmax(z):
+    e = np.exp(z - z.max(axis=1, keepdims=True))
+    return e / e.sum(axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("precision", ((14, 23), (24, 40)))
+def test_softmax_head_bit_identical(fixed_keys, precision):
+    # multinomial logistic regression, exported the skl2onnx way (raw
+    # class rows, SOFTMAX), through both runtimes and ONNX imports
+    rng = np.random.default_rng(precision[0])
     model = type("M", (), {
-        "coef_": np.ones((3, 2)), "intercept_": np.zeros(3),
+        "coef_": rng.normal(size=(3, 4)), "intercept_": rng.normal(size=3),
         "classes_": np.arange(3),
     })
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfrom_onnx(tsk.logistic_regression_onnx(model, 2))
+    x = rng.normal(size=(5, 4))
+    jpred = jfrom_onnx(jsk.logistic_regression_onnx(model, 4))
+    want = JaxRuntime(IDS, layout="stacked", use_jit=False) \
+        .evaluate_computation(
+            jpred.predictor_factory(jm.fixed(*precision)), {"x": x}
+        )["output_0"]
+    tpred = tfrom_onnx(tsk.logistic_regression_onnx(model, 4))
+    got = PortRuntime(IDS, device="cpu").evaluate_computation(
+        tpred.predictor_factory(tm.fixed(*precision)), {"x": x}
+    )["output_0"]
+    assert got.shape == (5, 3) and got.dtype == np.float64
+    assert np.array_equal(got, want)
+    z = x @ model.coef_.T + model.intercept_
+    assert np.abs(got - _softmax(z)).max() < 5e-3
+
+
+def test_softmax_head_matches_float64():
+    # ten classes, the multinomial classifier chip_smoke.py serves, cut to
+    # 6 features and 4 rows
+    rng = np.random.default_rng(5)
+    pred = chip_smoke.multinomial_regression(rng, 6)
+    x = rng.normal(size=(4, 6))
+    got = PortRuntime(IDS, device="cpu").evaluate_computation(
+        pred.predictor_factory(), {"x": x}
+    )["output_0"]
+    want = _softmax(x @ pred.coeffs.T + pred.intercepts)
+    assert got.shape == (4, chip_smoke.MULTI_CLASSES)
+    assert np.abs(got - want).max() < chip_smoke.MULTI_TOL
+    assert np.array_equal(got.argmax(axis=1), want.argmax(axis=1))
 
 
 def test_onnx_import_refuses_a_second_linear_node():

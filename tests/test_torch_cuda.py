@@ -807,3 +807,107 @@ def test_horner_wrapper_refuses_bad_amounts_and_layouts(cuda):
         rk.horner_pairs((x[0], x[1].transpose(0, 1).contiguous()
                          .transpose(0, 1)), 128, [1, 2, 3], 40, banks, draws)
     assert rk.LAUNCHES == before
+
+
+# the protocol library's kernel cases: log2's Pade ladders (negative raws,
+# 3 steps) at fixed(24,40) and fixed(14,23); the exp ladder at (1024, 10),
+# past the three-lane variant's 4,096 elements
+@pytest.mark.gpu
+@pytest.mark.parametrize("coeffs", ("P_2524", "Q_2524", "P_1045"))
+@pytest.mark.parametrize("shape,f", (((1024, 10), 40), ((1024,), 23),
+                                     ((1024, 10), 62)), ids=str)
+def test_horner_on_the_protocol_library_ladders(cuda, coeffs, shape, f):
+    from moose_tpu_torch.dialects import fixedpoint
+
+    steps = 14 if coeffs == "P_1045" else 3
+    raws = [fixedpoint.encode_const(c, f, 128)
+            for c in reversed(getattr(fixedpoint, coeffs)[:steps + 1])]
+    rng = np.random.default_rng(f + len(shape))
+    x = _pair_layout(rng, shape, 128, cuda)
+    zbanks = _words(rng, (steps, 3) + shape, 128, cuda)
+    tdraws = _words(rng, (steps, 5) + shape, 128, cuda)
+    assert rk.horner_lanes(int(np.prod(shape))) == (
+        1 if np.prod(shape) > 4096 else 3)
+    got = rk.horner_pairs(x, 128, raws, f, zbanks, tdraws)
+    _assert_equal(got, rk.horner_pairs_plain(x, 128, raws, f, zbanks,
+                                             tdraws))
+
+
+@pytest.mark.gpu
+def test_dot_cross_terms_at_the_multinomial_logits(cuda):
+    rng = np.random.default_rng(1024)
+    x0, x1 = (_words(rng, (3, 1024, 101), 128, cuda) for _ in range(2))
+    y0, y1 = (_words(rng, (3, 101, 10), 128, cuda) for _ in range(2))
+    ys = ring.add(*y0, *y1)
+    _assert_equal(rk.dot_cross_terms(x0, x1, y0, ys, 128),
+                  rk.dot_cross_terms_plain(x0, x1, y0, ys, 128))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("m", (5, 2, 1))
+def test_tournament_halves_through_k3_and_k5(cuda, width, m):
+    """A tournament round's strided halves: K3 reads them in place, and
+    ``less`` (K5's msb) and the mux over them give the CPU session's
+    words."""
+    from moose_tpu_torch.parallel import spmd, spmd_math
+
+    rng = np.random.default_rng(m)
+    both = _pair_layout(rng, (64, 2 * m), width, cuda)
+    x, y = (tuple(None if w is None else w[..., s::2] for w in both)
+            for s in (0, 1))
+    assert not x[0].is_contiguous()
+    bank = _words(rng, (3, 64, m), width, cuda)
+    _assert_equal(rk.cross_terms_reshare(x, y, bank, width),
+                  rk.cross_terms_reshare_plain(x, y, bank, width))
+
+    def run(device):
+        sess = spmd.SpmdSession(MK, device)
+        t = spmd.SpmdRep(*(None if w is None else w.to(device) for w in both),
+                         width)
+        a = spmd_math._slice_axis(t, 1, slice(0, 2 * m, 2))
+        b = spmd_math._slice_axis(t, 1, slice(1, 2 * m, 2))
+        lt = spmd_math.less(sess, a, b)
+        mx = spmd_math.mux_bit(sess, lt, b, a)
+        return lt.arr, mx.lo, mx.hi
+
+    for g, w in zip(run(cuda), run("cpu")):
+        assert (g is None and w is None) or torch.equal(g.cpu(), w)
+
+
+# the protocol library's functions at (512, 10): 5,120 elements, past
+# K6's three-lane variant as the multinomial classifier's (1024, 10) is,
+# at half the plain path's CPU time (positive inputs for the logarithms
+# and the root)
+LIBRARY_FUNCTIONS = (
+    ("less", lambda sm, s, x, y: sm.less(s, x.tensor, y.tensor).arr),
+    ("equal_bit", lambda sm, s, x, y: sm.equal_bit(s, x.tensor,
+                                                   x.tensor).arr),
+    ("fx_exp", lambda sm, s, x, y: sm.fx_exp(s, x).tensor),
+    ("fx_log2", lambda sm, s, x, y: sm.fx_log2(s, y).tensor),
+    ("fx_sqrt", lambda sm, s, x, y: sm.fx_sqrt(s, y).tensor),
+    ("fx_max", lambda sm, s, x, y: sm.fx_max(s, x, 1).tensor),
+    ("fx_argmax", lambda sm, s, x, y: sm.fx_argmax(s, x, 1, 10)),
+    ("fx_softmax", lambda sm, s, x, y: sm.fx_softmax(s, x, 1, 10).tensor),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,fn", LIBRARY_FUNCTIONS,
+                         ids=[n for n, _ in LIBRARY_FUNCTIONS])
+def test_protocol_library_on_the_card_matches_the_cpu(cuda, name, fn):
+    from moose_tpu_torch.parallel import spmd, spmd_math
+
+    rng = np.random.default_rng(len(name))
+    xv = rng.normal(size=(512, 10)) * 2.0
+    yv = rng.uniform(0.1, 100.0, size=(512, 10))
+
+    def run(device):
+        sess = spmd.SpmdSession(MK, device)
+        x, y = (spmd.fx_encode_share(sess, torch.as_tensor(v, device=device),
+                                     24, 40, 128) for v in (xv, yv))
+        out = fn(spmd_math, sess, x, y)
+        return [out] if isinstance(out, torch.Tensor) else [out.lo, out.hi]
+
+    for g, w in zip(run(cuda), run("cpu")):
+        assert torch.equal(g.cpu(), w), name

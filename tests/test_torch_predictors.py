@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import moose_tpu as jm
+from moose_tpu.dialects import stacked as jstacked
 from moose_tpu.edsl import tracer as jtracer
 from moose_tpu.predictors import from_onnx as jfrom_onnx
 from moose_tpu.predictors import linear_predictor as jlp
@@ -128,6 +129,8 @@ def test_port_supports_exactly_the_slice_kinds():
     model = SimpleNamespace(coef_=np.ones(3), intercept_=np.array([1.0]))
     binary = SimpleNamespace(coef_=np.ones((1, 3)), intercept_=np.ones(1),
                              classes_=np.arange(2))
+    multi = SimpleNamespace(coef_=np.ones((3, 3)), intercept_=np.ones(3),
+                            classes_=np.arange(3))
     graphs = [
         jtracer.trace(chip_smoke.secure_dot_computation(jm)),
         jtracer.trace(
@@ -145,6 +148,11 @@ def test_port_supports_exactly_the_slice_kinds():
                 post_transform=jlp.PostTransform.SIGMOID,
             ).predictor_factory()
         ),
+        # the SOFTMAX head of a 3-class multinomial classifier
+        jtracer.trace(
+            jfrom_onnx(jsk.logistic_regression_onnx(multi, 3))
+            .predictor_factory()
+        ),
         # the SGD trainers' steps (traced already)
         jtrainers.LogregSGDTrainer(3).step_computation(4),
         jtrainers.MLPSGDTrainer(3, 2).step_computation(4),
@@ -153,13 +161,16 @@ def test_port_supports_exactly_the_slice_kinds():
     for comp in graphs:
         for plc, kinds in _kinds_by_placement(comp).items():
             traced[plc] |= kinds
-    assert tlogical.HOST_KINDS == traced["HostPlacement"]
+    # host Identity and Constant reveal and build what the protocol
+    # library's kinds take and give (tests/test_torch_stacked_kinds.py)
+    assert tlogical.HOST_KINDS == \
+        traced["HostPlacement"] | {"Identity", "Constant"}
     assert tlogical.MIR_KINDS == traced["Mirrored3Placement"]
-    # Cast on the replicated placement (a fixed-point precision move) and
-    # the Add and Mul beside the heads' Sub are ported with the graphs'
-    # kinds, as the slices' scope says
-    assert tstacked.REP_KINDS == \
-        traced["ReplicatedPlacement"] | {"Cast", "Add", "Mul"}
+    # the replicated kinds are the reference's less the AES and the
+    # convolution kinds, and cover the graphs'
+    assert tstacked.REP_KINDS == jstacked._REP_KINDS - {
+        "Decrypt", "Conv2D", "AvgPool2D", "MaxPool2D"}
+    assert traced["ReplicatedPlacement"] <= tstacked.REP_KINDS
     port_graphs = [
         chip_smoke.secure_dot_computation(tm),
         tfrom_onnx(tsk.linear_regressor_onnx(model, 3)).predictor_factory(),
@@ -168,6 +179,8 @@ def test_port_supports_exactly_the_slice_kinds():
         interop.linear_classifier_from_arrays(
             np.ones((3, 3)), np.ones(3), "SIGMOID"
         ).predictor_factory(),
+        tfrom_onnx(tsk.logistic_regression_onnx(multi, 3))
+        .predictor_factory(),
     ]
     assert all(
         tstacked.supports(ttracer.trace(g)) for g in port_graphs
@@ -189,18 +202,19 @@ def test_unported_kind_names_its_roadmap_item():
     rep = tm.replicated_placement("rep", players=[alice, bob, carole])
 
     @tm.computation
-    def exp(x: tm.Argument(alice, dtype=tm.float64)):
+    def inverse(x: tm.Argument(alice, dtype=tm.float64)):
         with alice:
             xf = tm.cast(x, dtype=tm.fixed(14, 23))
         with rep:
-            z = edsl.exp(xf)
+            z = edsl.inverse(xf)
         with bob:
             out = tm.cast(z, dtype=tm.float64)
         return out
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # Inverse runs on the reference's per-host layout only
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
         PortRuntime(IDS, device="cpu").evaluate_computation(
-            exp, {"x": np.ones((2, 2))}
+            inverse, {"x": np.ones((2, 2))}
         )
 
 

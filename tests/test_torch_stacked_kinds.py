@@ -1,0 +1,203 @@
+"""Each replicated kind the port's stacked dialect gained with the
+protocol library, one traced computation apiece, through the port's
+LocalMooseRuntime on the CPU and the JAX LocalMooseRuntime (stacked
+layout, eager) under fixed keys and the threefry PRF: the outputs are
+equal (decoded floats, bools, uint64 indices or shapes alike).  The
+refused kinds and secret integers name their ROADMAP items."""
+
+import numpy as np
+import pytest
+
+import moose_tpu as jm
+from moose_tpu.dialects import stacked as jstacked
+from moose_tpu.runtime import LocalMooseRuntime as JaxRuntime
+
+import moose_tpu_torch as tm
+from moose_tpu_torch.dialects import stacked as tstacked
+from moose_tpu_torch.errors import TypeMismatchError
+from moose_tpu_torch.runtime import LocalMooseRuntime as PortRuntime
+
+from test_torch_logreg import IDS, fixed_keys, threefry  # noqa: F401
+
+PRECISION = (14, 23)
+# x and y apart by far more than an LSB wherever they are compared; p > 0
+ARGS = {
+    "x": np.array([[1.5, -2.25, 0.5, 3.0], [-0.75, 2.0, -1.25, 0.25]]),
+    "y": np.array([[0.5, -2.25, 1.0, -3.0], [-0.5, 1.75, -1.25, 2.0]]),
+    "p": np.array([[0.25, 1.5, 3.0, 7.5], [0.625, 2.0, 12.0, 0.5]]),
+}
+
+
+def _ops(pm, kind, x, y, p, fx):
+    """The replicated body of one kind's computation: its result and
+    whether the result is fixed-point (decoded to floats on carole)."""
+    if kind == "Identity":
+        return pm.identity(x), True
+    if kind == "Constant":
+        c = pm.constant(np.array([[0.5, -1.0, 2.0, 0.125]] * 2), dtype=fx)
+        return pm.add(x, c), True
+    if kind == "AddN":
+        return pm.add_n([x, y, p]), True
+    if kind == "Neg":
+        return pm.neg(x), True
+    if kind == "Less":
+        return pm.less(x, y), False
+    if kind == "Greater":
+        return pm.greater(x, y), False
+    if kind == "Equal":
+        return pm.equal(x, y), False
+    if kind in ("And", "Or", "Xor"):
+        fn = {"And": pm.logical_and, "Or": pm.logical_or,
+              "Xor": pm.logical_xor}[kind]
+        return fn(pm.less(x, y), pm.less(y, p)), False
+    if kind == "Mux":
+        return pm.mux(pm.less(x, y), x, y), True
+    if kind == "Mux, rank-1 selector":  # bits broadcast by logical shape
+        sel = pm.less(pm.index_axis(x, axis=0, index=0),
+                      pm.index_axis(y, axis=0, index=1))
+        return pm.mux(sel, x, y), True
+    if kind == "Mean":
+        return pm.mean(x, axis=1), True
+    if kind in ("Exp", "Relu", "Abs"):
+        return getattr(pm, kind.lower())(x), True
+    if kind in ("Log", "Log2", "Sqrt"):
+        return getattr(pm, kind.lower())(p), True
+    if kind == "Softmax":
+        return pm.softmax(x, axis=1, upmost_index=3), True
+    if kind == "Argmax":
+        return pm.argmax(x, axis=1, upmost_index=4), False
+    if kind == "Maximum":
+        return pm.maximum([x, y, p]), True
+    if kind == "Reshape":
+        return pm.reshape(x, (4, 2)), True
+    if kind == "Squeeze":
+        return pm.squeeze(pm.expand_dims(x, axis=0), axis=0), True
+    if kind == "Slice":
+        return pm.strided_slice(x, (slice(None), slice(1, 4, 2))), True
+    if kind == "Shape":
+        return pm.shape(x), False
+    raise ValueError(kind)
+
+
+def _computation(pm, kind, precision=PRECISION):
+    alice = pm.host_placement("alice")
+    bob = pm.host_placement("bob")
+    carole = pm.host_placement("carole")
+    rep = pm.replicated_placement("rep", players=[alice, bob, carole])
+    fx = pm.fixed(*precision)
+
+    @pm.computation
+    def graph(x: pm.Argument(alice, dtype=pm.float64),
+              y: pm.Argument(bob, dtype=pm.float64),
+              p: pm.Argument(carole, dtype=pm.float64)):
+        with alice:
+            xf = pm.cast(x, dtype=fx)
+        with bob:
+            yf = pm.cast(y, dtype=fx)
+        with carole:
+            pf = pm.cast(p, dtype=fx)
+        with rep:
+            z, fixed = _ops(pm, kind, xf, yf, pf, fx)
+        with carole:
+            out = pm.cast(z, dtype=pm.float64) if fixed else pm.identity(z)
+        return out
+
+    return graph
+
+
+ADDED_KINDS = (
+    "Identity", "Constant", "AddN", "Neg", "Less", "Greater", "Equal",
+    "And", "Or", "Xor", "Mux", "Mean", "Exp", "Log", "Log2", "Sqrt", "Relu",
+    "Abs", "Softmax", "Argmax", "Maximum", "Reshape", "Squeeze", "Slice",
+    "Shape",
+)
+
+
+def test_rep_kinds_are_the_reference_s_less_four():
+    refused = {"Decrypt", "Conv2D", "AvgPool2D", "MaxPool2D"}
+    assert tstacked.REP_KINDS == jstacked._REP_KINDS - refused
+    assert len(tstacked.REP_KINDS) == 37
+    assert set(ADDED_KINDS) <= tstacked.REP_KINDS
+    items = {kind: tstacked.roadmap_item("ReplicatedPlacement", kind)
+             for kind in refused}
+    assert items == {
+        "Decrypt": "ROADMAP queue 1, item 9",
+        "Conv2D": "ROADMAP queue 1, item 3",
+        "AvgPool2D": "ROADMAP queue 1, item 3",
+        "MaxPool2D": "ROADMAP queue 1, item 3",
+    }
+
+
+@pytest.mark.parametrize("kind", ADDED_KINDS + ("Mux, rank-1 selector",))
+def test_kind_matches_the_jax_stacked_runtime(fixed_keys, kind):
+    want = JaxRuntime(IDS, layout="stacked", use_jit=False) \
+        .evaluate_computation(_computation(jm, kind), ARGS)["output_0"]
+    got = PortRuntime(IDS, device="cpu").evaluate_computation(
+        _computation(tm, kind), ARGS)["output_0"]
+    want = np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("precision,dtype", (
+    ((8, 17), np.uint64), ((14, 23), object),
+))
+def test_argmax_reaches_the_user_as_ring_words(fixed_keys, precision, dtype):
+    # as the reference's to_numpy gives ring words: uint64 at ring64,
+    # Python ints at ring128
+    got = PortRuntime(IDS, device="cpu").evaluate_computation(
+        _computation(tm, "Argmax", precision), ARGS)["output_0"]
+    assert got.dtype == dtype
+    assert np.array_equal(got, ARGS["x"].argmax(axis=1))
+
+
+@pytest.mark.parametrize("kind,item", (
+    ("Conv2D", "item 3"), ("MaxPool2D", "item 3"), ("AvgPool2D", "item 3"),
+))
+def test_refused_kinds_name_their_roadmap_item(kind, item):
+    alice = tm.host_placement("alice")
+    bob = tm.host_placement("bob")
+    carole = tm.host_placement("carole")
+    rep = tm.replicated_placement("rep", players=[alice, bob, carole])
+    from moose_tpu_torch.edsl import base as edsl
+
+    @tm.computation
+    def graph(x: tm.Argument(alice, dtype=tm.float64)):
+        with alice:
+            xf = tm.cast(x, dtype=tm.fixed(*PRECISION))
+        with rep:
+            if kind == "Conv2D":
+                z = edsl.conv2d(xf, xf)
+            elif kind == "MaxPool2D":
+                z = edsl.max_pool2d(xf, (2, 2))
+            else:
+                z = edsl.avg_pool2d(xf, (2, 2))
+        with carole:
+            out = tm.cast(z, dtype=tm.float64)
+        return out
+
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
+        PortRuntime(IDS, device="cpu").evaluate_computation(
+            graph, {"x": np.ones((1, 4, 4, 1))})
+
+
+def test_secret_integers_name_their_roadmap_item(fixed_keys):
+    alice = tm.host_placement("alice")
+    carole = tm.host_placement("carole")
+    rep = tm.replicated_placement(
+        "rep", players=[alice, tm.host_placement("bob"), carole])
+
+    @tm.computation
+    def graph(x: tm.Argument(alice, dtype=tm.float64)):
+        with alice:
+            xf = tm.cast(x, dtype=tm.fixed(*PRECISION))
+        with rep:
+            a = tm.argmax(xf, axis=1, upmost_index=4)
+            z = tm.add(a, a)
+        with carole:
+            out = tm.identity(z)
+        return out
+
+    with pytest.raises(TypeMismatchError, match="item 6"):
+        PortRuntime(IDS, device="cpu").evaluate_computation(
+            graph, {"x": ARGS["x"]})
