@@ -42,7 +42,14 @@ Phases (each raises on failure; the script then exits non-zero):
      decomposition at 10,240 elements, K6's exp ladder at 10,240
      elements (one thread an element) and log2's Pade ladders P_2524 and
      Q_2524 (negative raws, 3 steps) at f = 40 and 23, K7's OR-tree
-     group of equal_zero_bit; then one
+     group of equal_zero_bit; the dense predictors' and the forest's
+     and the correlation's shapes: K1 at (3,1024,100)@(3,100,64),
+     (3,1024,64)@(3,64,32), (3,1024,32)@(3,32,1) and @(3,32,10), K2 at
+     (1024,64), (1024,32) and (1000,1), K3 at those and a forest mux's
+     (1024,) x (1,), K4 on (3,2,1024,1) and (3,2,1), K5's msb at 65,536,
+     32,768 and 122,880 elements (relu's hidden layers, the forest's one
+     less), K6's Pade ladder on one element, K7's group of relu's 16 bit
+     banks of (3,128,65536); then one
      spmd.trunc_pr of (1024,) ring128 and one polynomial_eval (the
      sigmoid's 14 steps) must each run exactly 2 device launches, one K7
      group and their kernel, as the wrappers count them, with no other
@@ -74,21 +81,38 @@ Phases (each raises on failure; the script then exits non-zero):
      the library brought (comparisons, bit logic, Mux, Mean, exp, log,
      log2, sqrt, relu, abs, softmax, argmax, maximum and the structural
      kinds) and reveals each result to carole, held to float64 within the
-     JAX package's own tolerances, comparisons and argmax exactly.
-Phases 4 to 9 are the main path: the kernels' launch counters are set
+     JAX package's own tolerances, comparisons and argmax exactly;
+ 10. BASELINE config 2, the scientific-computing tutorial's
+     multiparty_correlation at fixed(24,40): the two columns of its own
+     generator, 100 and 1,000 rows (past 1,000 its sums of squares leave
+     fixed(24,40)'s range), in the departments' storage of a
+     LocalMooseRuntime; the data scientist's saved correlation, read back
+     as numpy, within the tutorial's 1e-2 of np.corrcoef; each size run
+     twice, its wall and K7 groups printed;
+ 11. BASELINE config 5's MLP (bench.py:644-667): a binary sklearn-layout
+     MLPClassifier, 100 -> 64 -> 32 -> 1, relu, random Glorot weights,
+     through from_onnx and predictor_factory, three requests of 1024
+     rows, each within 2e-2 of the float64 forward pass;
+ 12. a pytorch-layout NeuralNetwork (100 -> 64 relu -> 32 relu -> 10
+     softmax), one request of 1024 rows within phase 8's limits;
+ 13. a random forest (TreeEnsembleClassifier, 8 trees of depth 4, 100
+     features, 2 classes), one request of 1024 rows within 1e-3 of the
+     float64 forest; its one batched less's element count printed.
+Phases 4 to 13 are the main path: the kernels' launch counters are set
 to 0 just before each and read just after.  K1, K2's trunc_pairs and the
-threefry kernel in the phase's stream layout (threefry in 4-6, 8 and 9,
-threefry-pallas in 7, and never the other) must have launched in each,
-and every kernel (K1, K2's trunc_pairs, K3's cross_terms_reshare, K4, K5
-in both modes, K6) in phases 6 to 9 (K1 but in phase 9, which holds no
-matrix product).  No seed may be derived on the host
-there (ring.mix_seed is counted), and the K7 launches must stay under
-their ceilings: 3 for a secure dot, 60 for a logistic-regression request
-or a LogregSGDTrainer step, MULTI_K7_CEILING for a multinomial request;
-one more request of phases 6 and 8 and one more step of phase 7 run
-under torch.profiler, whose device launches must stay under their
-ceilings (LOGREG_DEVICE_CEILING, TRAIN_DEVICE_CEILING,
-MULTI_DEVICE_CEILING).
+threefry kernel in the phase's stream layout (threefry in all but 7,
+threefry-pallas in 7, and never the other) must have launched in each
+but 10 and 13, and every kernel (K1, K2's trunc_pairs, K3's
+cross_terms_reshare, K4, K5 in both modes, K6) in phases 6 to 12 (K1 but
+in phases 9 and 10, which hold no matrix product); phase 13 must launch
+K5's msb, K3's cross_terms_reshare and K7.  No seed may be derived on
+the host there (ring.mix_seed is counted), and the K7 launches must stay
+under their ceilings: 3 for a secure dot, 60 for a logistic-regression
+request or a LogregSGDTrainer step, MULTI_K7_CEILING for a multinomial
+request, MLPC_K7_CEILING for an MLP request; one more request of phases
+6, 8 and 11 and one more step of phase 7 run under torch.profiler, whose
+device launches must stay under their ceilings (LOGREG_DEVICE_CEILING,
+TRAIN_DEVICE_CEILING, MULTI_DEVICE_CEILING, MLPC_DEVICE_CEILING).
 The line before the last is the kernels' JSON record; the last line is
 the device record.
 
@@ -180,6 +204,35 @@ MULTI_ARGMAX_AGREEMENT = 0.99  # benchmarks/softmax_bench.py:72
 # shape
 LIBRARY_ROWS = 1024
 LIBRARY_COLS = 10
+# BASELINE.json config 2, the scientific-computing tutorial
+# (tutorials/scientific_computing_multiple_players.py): its columns, its
+# fixed(24,40) and its 1e-2 against numpy (:181).  The sums of squares
+# and their product grow with n past fixed(24,40)'s range: the JAX
+# package overflows at 4,096 rows, so 1,000 is the largest size here
+CORR_IDS = ("pub_health_dpt", "education_dpt", "data_scientist")
+CORR_PRECISION = (24, 40)
+CORR_SIZES = (100, 1000)
+CORR_TOL = 1e-2
+# BASELINE.json config 5's MLP (bench.py:644-667): a binary sklearn
+# MLPClassifier, 100 features, hidden (64, 32), relu, fixed(24,40),
+# batch 1024, within 2e-2 (bench.py:666)
+MLPC_FEATURES = 100
+MLPC_HIDDEN = (64, 32)
+MLPC_ROWS = 1024
+MLPC_REQUESTS = 3
+MLPC_TOL = 2e-2
+# a pytorch-layout NeuralNetwork at the MLP's widths with a 10-class
+# softmax head, held to phase 8's limits
+NET_HIDDEN = (64, 32)
+NET_CLASSES = 10
+NET_ROWS = 1024
+# a random forest: 8 trees of depth 4 on 100 features, 2 classes, within
+# the JAX package's forest limit (tests/test_predictors.py:108)
+FOREST_TREES = 8
+FOREST_DEPTH = 4
+FOREST_FEATURES = 100
+FOREST_ROWS = 1024
+FOREST_TOL = 1e-3
 # launch ceilings of the main path: K7 launches (groups) of a secure dot,
 # of a logistic-regression request and of a LogregSGDTrainer step, and
 # the device launches (PyTorch's and the port's kernels) of one request
@@ -191,6 +244,8 @@ LOGREG_DEVICE_CEILING = 1141  # 1,087 measured on the H100 + 5% (PERF.md)
 TRAIN_DEVICE_CEILING = 1189  # 1,133 measured + 5%
 MULTI_K7_CEILING = 72  # 69 measured on the H100 + 5% (PERF.md)
 MULTI_DEVICE_CEILING = 1502  # 1,431 measured + 5%
+MLPC_K7_CEILING = 62  # 59 measured on the H100 + 5% (PERF.md)
+MLPC_DEVICE_CEILING = 1488  # 1,417 measured + 5%
 # the session key of the K7 group rows
 GROUP_MASTER = (0x01234567, 0x89ABCDEF, 0xDEADBEEF, 0x0BADF00D)
 
@@ -472,9 +527,10 @@ def compare_kernel(torch, kernel, plain, args, bound_pair, reps,
 
 
 def compare_dot(torch, rk, ring, gen, m, k, n, width, reps, label="",
-                yardstick=False):
+                yardstick=False, device=False):
     """K1 against its plain version; with ``yardstick``, beside it the
-    int8 tensor cores' time for as many multiply-adds."""
+    int8 tensor cores' time for as many multiply-adds; with ``device``,
+    its device time under torch.profiler (``device_ms``)."""
     x0, x1 = (random_words(torch, gen, (3, m, k), width) for _ in range(2))
     y0, y1 = (random_words(torch, gen, (3, k, n), width) for _ in range(2))
     ys = ring.add(*y0, *y1)
@@ -483,6 +539,9 @@ def compare_dot(torch, rk, ring, gen, m, k, n, width, reps, label="",
         (x0, x1, y0, ys, width), dot_bound(m, k, n, width), reps,
         shape=f"(3,{m},{k})@(3,{k},{n})", width=width, path=label,
     )
+    if device:
+        row["device_ms"] = device_time_ms(
+            torch, lambda: rk.dot_cross_terms(x0, x1, y0, ys, width))
     del x0, x1, y0, y1, ys
     row["int8_gemm_ms"] = (
         int8_gemm_ms(torch, gen, dot_int8_macs(m, k, n, width))
@@ -959,6 +1018,195 @@ def softmax_reference(predictor, x):
     return e / e.sum(axis=1, keepdims=True)
 
 
+def correlated_columns(n):
+    """The scientific-computing tutorial's two private columns (alcohol,
+    grades), n rows each, from its own generator
+    (``generate_synthetic_correlated_data``: seed 12, a known
+    anticorrelation)."""
+    import numpy as np
+
+    mu = np.array([10.0, 0.0])
+    r = np.array([[3.40, -2.75], [-2.75, 5.50]])
+    x = np.random.default_rng(12).multivariate_normal(mu, r, size=n)
+    return x[:, 0:1], x[:, 1:2]
+
+
+def correlation_computation(pm):
+    """The tutorial's ``multiparty_correlation`` in the eDSL of ``pm``:
+    each department loads its own column from its own storage and casts
+    it to fixed(24,40); the Pearson correlation runs on the replicated
+    placement; the data scientist saves it as ``correlation``."""
+    fx = pm.fixed(*CORR_PRECISION)
+    health, education, scientist = (pm.host_placement(name)
+                                    for name in CORR_IDS)
+    government = pm.replicated_placement(
+        "encrypted_government", players=[health, education, scientist])
+
+    def pearson(x, y):
+        x_mean = pm.mean(x, 0)
+        y_mean = pm.mean(y, 0)
+        stdv_x = pm.sum(pm.square(pm.sub(x, x_mean)))
+        stdv_y = pm.sum(pm.square(pm.sub(y, y_mean)))
+        corr_num = pm.sum(pm.mul(pm.sub(x, x_mean), pm.sub(y, y_mean)))
+        corr_denom = pm.sqrt(pm.mul(stdv_x, stdv_y))
+        return pm.div(corr_num, corr_denom)
+
+    @pm.computation
+    def multiparty_correlation():
+        with health:
+            alcohol = pm.cast(pm.load("alcohol_data", dtype=pm.float64),
+                              dtype=fx)
+        with education:
+            grades = pm.cast(pm.load("grades_data", dtype=pm.float64),
+                             dtype=fx)
+        with government:
+            correlation = pearson(alcohol, grades)
+        with scientist:
+            correlation = pm.cast(correlation, dtype=pm.float64)
+            correlation = pm.save("correlation", correlation)
+        return correlation
+
+    return multiparty_correlation
+
+
+def run_correlation(runtime_cls, comp, alcohol, grades, **kwargs):
+    """The tutorial's ``run_local`` with ``runtime_cls``: the columns in
+    the departments' storage, the computation called as a user calls it,
+    the result read back from the data scientist's storage.  Returns
+    (result, runtime)."""
+    runtime = runtime_cls(
+        list(CORR_IDS),
+        storage_mapping={CORR_IDS[0]: {"alcohol_data": alcohol},
+                         CORR_IDS[1]: {"grades_data": grades}},
+        **kwargs,
+    )
+    runtime.set_default()
+    outputs = comp()
+    if list(outputs.values()) != [None]:
+        raise AssertionError(f"a Save's output is None, got {outputs}")
+    return runtime.read_value_from_storage(CORR_IDS[2], "correlation"), \
+        runtime
+
+
+def glorot(rng, fan_in, fan_out):
+    """Weights of a dense layer as sklearn initialises them (Glorot
+    uniform); a few training iterations leave them near there."""
+    bound = (6.0 / (fan_in + fan_out)) ** 0.5
+    return rng.uniform(-bound, bound, size=(fan_in, fan_out))
+
+
+def mlp_model(rng, n_features, hidden, n_outputs=1, activation="relu"):
+    """An sklearn MLPClassifier's attributes (``coefs_`` as (in, out),
+    ``intercepts_``, ``activation``), from ``rng``: what
+    ``sklearn_export.mlp_onnx`` reads."""
+    widths = (n_features,) + tuple(hidden) + (n_outputs,)
+    return SimpleNamespace(
+        coefs_=[glorot(rng, a, b) for a, b in zip(widths, widths[1:])],
+        intercepts_=[rng.uniform(-0.1, 0.1, size=b) for b in widths[1:]],
+        activation=activation,
+    )
+
+
+def network_layers(rng, n_features, hidden, n_outputs):
+    """A pytorch dense network's weights ((out, in), as nn.Linear stores
+    them), biases and activations (relu hidden, softmax head): what
+    ``sklearn_export.pytorch_nn_onnx`` takes."""
+    widths = (n_features,) + tuple(hidden) + (n_outputs,)
+    weights = [glorot(rng, a, b).T for a, b in zip(widths, widths[1:])]
+    biases = [rng.uniform(-0.1, 0.1, size=b) for b in widths[1:]]
+    activations = ["Relu"] * len(hidden) + ["Softmax"]
+    return weights, biases, activations
+
+
+def dense_reference(predictor, x):
+    """float64 forward pass of a dense predictor (MLPClassifier or
+    NeuralNetwork) with the weights as the model stores them; an
+    MLPClassifier's one-logit head is [1 - sigmoid, sigmoid]."""
+    import numpy as np
+
+    from moose_tpu_torch.predictors import MLPClassifier
+
+    def softmax(z):
+        e = np.exp(z - z.max(axis=1, keepdims=True))
+        return e / e.sum(axis=1, keepdims=True)
+
+    acts = {"identity": lambda z: z, "relu": lambda z: np.maximum(z, 0),
+            "sigmoid": lambda z: 1.0 / (1.0 + np.exp(-z)),
+            "softmax": softmax}
+    y = x
+    for layer in predictor._stack.layers:
+        y = acts[layer.activation](y @ layer.weights + layer.bias)
+    if not isinstance(predictor, MLPClassifier):
+        return y
+    if y.shape[1] == 1:
+        p = acts["sigmoid"](y)
+        return np.concatenate([1.0 - p, p], axis=1)
+    return softmax(y)
+
+
+def forest_model(rng, n_trees, depth, n_features, n_classes=2):
+    """A RandomForestClassifier's attributes from ``rng``: ``n_trees``
+    complete trees of ``depth`` splits on random features and thresholds,
+    nodes numbered depth first as sklearn numbers them, each leaf holding
+    random class fractions; what ``sklearn_export._tree_arrays`` and
+    ``random_forest_classifier_onnx`` read."""
+    import numpy as np
+
+    def tree():
+        left, right, feature, threshold, value = [], [], [], [], []
+
+        def grow(level):
+            node = len(left)
+            for column in (left, right, feature, threshold, value):
+                column.append(None)
+            if level == depth:
+                left[node] = right[node] = feature[node] = -1
+                threshold[node] = -2.0
+                value[node] = [rng.dirichlet(np.ones(n_classes))]
+                return node
+            feature[node] = int(rng.integers(n_features))
+            threshold[node] = float(rng.normal(scale=0.5))
+            value[node] = [np.full(n_classes, 1.0 / n_classes)]
+            left[node] = grow(level + 1)
+            right[node] = grow(level + 1)
+            return node
+
+        grow(0)
+        return SimpleNamespace(tree_=SimpleNamespace(
+            children_left=np.array(left), children_right=np.array(right),
+            feature=np.array(feature), threshold=np.array(threshold),
+            value=np.array(value), node_count=len(left)))
+
+    return SimpleNamespace(estimators_=[tree() for _ in range(n_trees)],
+                           classes_=np.arange(n_classes))
+
+
+def forest_reference(predictor, x):
+    """float64 class probabilities of an imported binary
+    TreeEnsembleClassifier: each tree walks left where x[feature] <
+    threshold (the protocol's ``less``) down to its leaf weight, the
+    forest sums them; [1 - p, p]."""
+    import numpy as np
+
+    p = np.zeros(x.shape[0])
+    for tree in predictor.trees:
+        node = np.zeros(x.shape[0], dtype=np.int64)
+        for _ in range(len(tree.left)):
+            inner = np.array([tree.left[n] != 0 for n in node])
+            if not inner.any():
+                break
+            go_left = np.array([
+                x[i, tree.split_indices[n]] < tree.split_conditions[n]
+                for i, n in enumerate(node)
+            ])
+            nxt = np.where(go_left, [tree.left[n] for n in node],
+                           [tree.right[n] for n in node])
+            node = np.where(inner, nxt, node)
+        p += np.array([tree.weights[n] for n in node])
+    p += predictor.base_score
+    return np.stack([1.0 - p, p], axis=1)
+
+
 def library_computation(pm, rows=LIBRARY_ROWS, cols=LIBRARY_COLS,
                         precision=(24, 40)):
     """One traced computation that runs every replicated kind the
@@ -1316,6 +1564,17 @@ def main() -> int:
         compare_dot(torch, rk, ring, gen, MULTI_ROWS, MULTI_FEATURES + 1,
                     MULTI_CLASSES, 128, reps=20,
                     label="multinomial logits"),
+    ] + [
+        # the dense predictors' layers at batch 1024: the MLP's 100 -> 64
+        # -> 32 -> 1, the network's 32 -> 10 head
+        compare_dot(torch, rk, ring, gen, MLPC_ROWS, k, n, 128, reps=20,
+                    label=label, device=True)
+        for k, n, label in (
+            (MLPC_FEATURES, MLPC_HIDDEN[0], "MLP layer 1"),
+            (MLPC_HIDDEN[0], MLPC_HIDDEN[1], "MLP layer 2"),
+            (MLPC_HIDDEN[1], 1, "MLP logit"),
+            (NET_HIDDEN[1], NET_CLASSES, "network logits"),
+        )
     ]
     # K2: trunc_pairs at the logistic regression's (1024,) operand (first:
     # the main path's shape), transposed and broadcast, at 10^6 ring64, and
@@ -1343,6 +1602,12 @@ def main() -> int:
                             22, reps=20),
         compare_trunc_pairs(torch, rk, gen, (MULTI_ROWS, MULTI_CLASSES), 128,
                             23, reps=20),
+    ] + [
+        # the MLP's hidden layers' dots and the correlation's centred
+        # column, by 40
+        compare_trunc_pairs(torch, rk, gen, shape, 128, 40, reps=20)
+        for shape in ((MLPC_ROWS, MLPC_HIDDEN[0]), (MLPC_ROWS, MLPC_HIDDEN[1]),
+                      (CORR_SIZES[-1], 1))
     ]
     # the protocol sigmoid's kernels, at the logistic regression's shapes
     # (which time launch latency) and at 2^20 elements
@@ -1369,7 +1634,18 @@ def main() -> int:
                         (MULTI_ROWS, m), 128, reps=20, halves=True)
         for m in (5, 2, 1)
     ] + [compare_reshare(torch, rk, ring, gen, (MULTI_ROWS, MULTI_CLASSES),
-                         (MULTI_ROWS, MULTI_CLASSES), 128, reps=20)]
+                         (MULTI_ROWS, MULTI_CLASSES), 128, reps=20)] + [
+        # relu's x * b2a(msb) on the MLP's hidden layers, a forest mux of a
+        # split's column against a leaf, the correlation's centred product
+        compare_reshare(torch, rk, ring, gen, x_shape, y_shape, 128,
+                        reps=20)
+        for x_shape, y_shape in (
+            ((MLPC_ROWS, MLPC_HIDDEN[0]),) * 2,
+            ((MLPC_ROWS, MLPC_HIDDEN[1]),) * 2,
+            ((FOREST_ROWS,), (1,)),
+            ((CORR_SIZES[-1], 1),) * 2,
+        )
+    ]
     # K4: the constant at its own shape, as the path passes it, then the
     # rows of earlier runs with it materialised at the shares' shape
     mul_rows = [
@@ -1393,7 +1669,13 @@ def main() -> int:
             ((3, 2, BIG_N), (), 64, 5),
         )
     ] + [compare_ring_mul(torch, rk, gen, (3, 2, MULTI_ROWS, MULTI_CLASSES),
-                          (), 128, reps=20)]
+                          (), 128, reps=20)] + [
+        # the MLP head's sigmoid constants on its (1024, 1) logit, the
+        # correlation's Mean (1/n on a (1,) sum)
+        compare_ring_mul(torch, rk, gen, shape, (), 128, reps=20,
+                         back_to_back=True)
+        for shape in ((3, 2, MLPC_ROWS, 1), (3, 2, 1))
+    ]
     # K5 at the logistic regression's 1024 elements, the trainers' 128
     # (LogregSGDTrainer) and 128 x 32 = 4096 (MLPSGDTrainer's hidden
     # layer), and at 2^20
@@ -1414,6 +1696,17 @@ def main() -> int:
                      back_to_back=True, label="(1024,5) tournament halves"),
         compare_bits(torch, rk, gen, MULTI_ROWS * MULTI_CLASSES, 128, False,
                      reps=20, back_to_back=True, label="(1024,10) exp"),
+    ] + [
+        # relu's msb on the MLP's hidden layers and the forest's one less
+        # over every split
+        compare_bits(torch, rk, gen, n, 128, True, reps=20,
+                     back_to_back=True, label=label)
+        for n, label in (
+            (MLPC_ROWS * MLPC_HIDDEN[0], "MLP relu (1024,64)"),
+            (MLPC_ROWS * MLPC_HIDDEN[1], "MLP relu (1024,32)"),
+            (FOREST_ROWS * FOREST_TREES * (2 ** FOREST_DEPTH - 1),
+             "forest splits (1024,120)"),
+        )
     ]
     horner_rows = [
         compare_horner(torch, rk, gen, PATH_N, 128, HORNER_STEPS, HORNER_F,
@@ -1431,6 +1724,9 @@ def main() -> int:
         compare_horner(torch, rk, gen, MULTI_ROWS * MULTI_CLASSES, 128, 3, 40,
                        reps=20, coeffs="Q_2524"),
         compare_horner(torch, rk, gen, PATH_N, 128, 3, 23, reps=20,
+                       coeffs="P_2524"),
+        # the correlation's Sqrt: log2's Pade ladders on one element
+        compare_horner(torch, rk, gen, 1, 128, 3, 40, reps=20,
                        coeffs="P_2524"),
     ]
     # K7 grouped, as the session draws: the logistic regression's Horner
@@ -1453,6 +1749,8 @@ def main() -> int:
             ([("bits", 3 * (64 >> j) * MULTI_ROWS * MULTI_CLASSES)
               for j in range(7)], 20,
              "equal_zero_bit's OR tree, 7 bit banks at (1024,10)"),
+            ([("bits", 3 * 128 * MLPC_ROWS * MLPC_HIDDEN[0])] * 16, 5,
+             "MLP relu's adder, 16 bit banks of (3,128,65536)"),
         )
     ]
     # K7 under a given key, one draw: the trainer's largest (sharing its
@@ -1653,11 +1951,137 @@ def main() -> int:
         f"{LIBRARY_COLS}) fixed(24, 40) latency {library_s * 1e3:.3f} ms "
         f"max_abs_errs {json.dumps(library_errs)} launches "
         f"{library_launches}")
-    ring.mix_seed = mix_seed
     if failed:
         raise AssertionError(
             f"protocol library kinds past their tolerance: {failed} "
             f"({library_errs})")
+
+    # phase 10: BASELINE config 2, the scientific-computing tutorial's
+    # correlation: the columns in the departments' storage, the result
+    # read back from the data scientist's (main path)
+    corr_comp = correlation_computation(pm)
+    rk.reset_launches()
+    correlation = []
+    for n in CORR_SIZES:
+        alcohol, grades = correlated_columns(n)
+        np_corr = float(np.corrcoef(alcohol.ravel(), grades.ravel())[1, 0])
+        for run in ("first", "again"):
+            before = dict(rk.LAUNCHES)
+            (value, _), s = timed(torch, lambda: run_correlation(
+                LocalMooseRuntime, corr_comp, alcohol, grades))
+            k7 = sum(rk.LAUNCHES[c] - before[c]
+                     for c in ("prf_threefry", "prf_threefry_pallas"))
+            if type(value) is not np.ndarray or value.shape != () \
+                    or value.dtype != np.float64 or not np.isfinite(value):
+                raise AssertionError(
+                    f"correlation result malformed: {value!r}")
+            err = abs(float(value) - np_corr)
+            correlation.append({"n": n, "run": run, "wall_ms": s * 1e3,
+                                "correlation": float(value),
+                                "numpy": np_corr, "abs_err": err,
+                                "k7_groups": k7})
+            log(f"correlation: n={n} ({run}) fixed{CORR_PRECISION} wall "
+                f"{s * 1e3:.3f} ms correlation {float(value):.6f} numpy "
+                f"{np_corr:.6f} abs_err {err:.3e} K7 groups {k7}")
+            if err >= CORR_TOL:
+                raise AssertionError(
+                    f"correlation at n={n}: error {err} >= {CORR_TOL}")
+    corr_launches = dict(rk.LAUNCHES)
+    log(f"correlation: launches {corr_launches}")
+
+    # phase 11: BASELINE config 5's MLP, the binary sklearn MLPClassifier
+    # (100 -> 64 -> 32 -> 1, relu), through from_onnx and
+    # predictor_factory, three requests (main path)
+    from moose_tpu_torch import predictors
+    from moose_tpu_torch.predictors import from_onnx, sklearn_export
+
+    mlp = from_onnx(sklearn_export.mlp_onnx(
+        mlp_model(rng, MLPC_FEATURES, MLPC_HIDDEN), MLPC_FEATURES,
+        classifier=True))
+    if not isinstance(mlp, predictors.MLPClassifier):
+        raise AssertionError(f"from_onnx gave {type(mlp).__name__}")
+    mlp_comp = mlp.predictor_factory()
+    requests = [rng.normal(size=(MLPC_ROWS, MLPC_FEATURES))
+                for _ in range(MLPC_REQUESTS)]
+    rk.reset_launches()
+    mlp_latencies, mlp_errs = [], []
+    for xr in requests:
+        out, s = timed(
+            torch, lambda: runtime.evaluate_computation(mlp_comp, {"x": xr}))
+        pred = out["output_0"]
+        want = dense_reference(mlp, xr)
+        if pred.shape != want.shape or not np.all(np.isfinite(pred)):
+            raise AssertionError(f"MLP output malformed: {pred.shape}")
+        mlp_errs.append(float(np.abs(pred - want).max()))
+        mlp_latencies.append(s)
+    mlp_launches = dict(rk.LAUNCHES)
+    mlp_device_launches = device_launches(
+        torch, lambda: runtime.evaluate_computation(mlp_comp,
+                                                    {"x": requests[0]}))
+    mlp_rows_per_s = MLPC_ROWS * MLPC_REQUESTS / sum(mlp_latencies)
+    log(f"mlp_classifier: {MLPC_REQUESTS} requests of {MLPC_ROWS}x"
+        f"{MLPC_FEATURES}, hidden {MLPC_HIDDEN} relu, fixed(24, 40) "
+        f"latencies_ms {[round(s * 1e3, 3) for s in mlp_latencies]} "
+        f"rows_per_s {mlp_rows_per_s:.1f} max_abs_err {max(mlp_errs):.3e} "
+        f"launches {mlp_launches} device launches a request "
+        f"{mlp_device_launches}")
+    if max(mlp_errs) >= MLPC_TOL:
+        raise AssertionError(f"MLP error {max(mlp_errs)} >= {MLPC_TOL}")
+
+    # phase 12: a pytorch-layout NeuralNetwork (100 -> 64 relu -> 32 relu
+    # -> 10 softmax), one request (main path)
+    net = from_onnx(sklearn_export.pytorch_nn_onnx(
+        *network_layers(rng, MLPC_FEATURES, NET_HIDDEN, NET_CLASSES),
+        MLPC_FEATURES))
+    if not isinstance(net, predictors.NeuralNetwork):
+        raise AssertionError(f"from_onnx gave {type(net).__name__}")
+    xr = rng.normal(size=(NET_ROWS, MLPC_FEATURES))
+    net_comp = net.predictor_factory()
+    rk.reset_launches()
+    out, net_s = timed(
+        torch, lambda: runtime.evaluate_computation(net_comp, {"x": xr}))
+    net_launches = dict(rk.LAUNCHES)
+    pred, want = out["output_0"], dense_reference(net, xr)
+    if pred.shape != want.shape or not np.all(np.isfinite(pred)):
+        raise AssertionError(f"network output malformed: {pred.shape}")
+    net_err = float(np.abs(pred - want).max())
+    net_agree = float(np.mean(pred.argmax(axis=1) == want.argmax(axis=1)))
+    log(f"neural_network: {NET_ROWS}x{MLPC_FEATURES}, hidden {NET_HIDDEN} "
+        f"relu, {NET_CLASSES}-class softmax, fixed(24, 40) latency "
+        f"{net_s * 1e3:.3f} ms max_abs_err {net_err:.3e} argmax_agreement "
+        f"{net_agree:.4f} launches {net_launches}")
+    if net_err >= MULTI_TOL:
+        raise AssertionError(f"network error {net_err} >= {MULTI_TOL}")
+    if net_agree < MULTI_ARGMAX_AGREEMENT:
+        raise AssertionError(
+            f"network argmax agreement {net_agree} < "
+            f"{MULTI_ARGMAX_AGREEMENT}")
+
+    # phase 13: a random forest, one request (main path)
+    forest = from_onnx(sklearn_export.random_forest_classifier_onnx(
+        forest_model(rng, FOREST_TREES, FOREST_DEPTH, FOREST_FEATURES),
+        FOREST_FEATURES))
+    if not isinstance(forest, predictors.TreeEnsembleClassifier):
+        raise AssertionError(f"from_onnx gave {type(forest).__name__}")
+    splits = sum(len(tree.inner_nodes()) for tree in forest.trees)
+    xr = rng.normal(size=(FOREST_ROWS, FOREST_FEATURES))
+    forest_comp = forest.predictor_factory()
+    rk.reset_launches()
+    out, forest_s = timed(
+        torch, lambda: runtime.evaluate_computation(forest_comp, {"x": xr}))
+    forest_launches = dict(rk.LAUNCHES)
+    pred, want = out["output_0"], forest_reference(forest, xr)
+    if pred.shape != want.shape or not np.all(np.isfinite(pred)):
+        raise AssertionError(f"forest output malformed: {pred.shape}")
+    forest_err = float(np.abs(pred - want).max())
+    log(f"random_forest: {FOREST_TREES} trees of depth {FOREST_DEPTH}, "
+        f"{FOREST_FEATURES} features, {FOREST_ROWS} rows, fixed(24, 40) "
+        f"latency {forest_s * 1e3:.3f} ms max_abs_err {forest_err:.3e}; "
+        f"one less over ({FOREST_ROWS}, {splits}) = "
+        f"{FOREST_ROWS * splits} elements; launches {forest_launches}")
+    ring.mix_seed = mix_seed
+    if forest_err >= FOREST_TOL:
+        raise AssertionError(f"forest error {forest_err} >= {FOREST_TOL}")
 
     launches_by_path = {
         "secure_dot": dot_launches,
@@ -1666,6 +2090,10 @@ def main() -> int:
         "training": training.pop("launches"),
         "multinomial_regression": multi_launches,
         "protocol_library": library_launches,
+        "correlation": corr_launches,
+        "mlp_classifier": mlp_launches,
+        "neural_network": net_launches,
+        "random_forest": forest_launches,
     }
     protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
@@ -1678,6 +2106,12 @@ def main() -> int:
         "multinomial_regression": protocol + ("prf_threefry",),
         # the library's kinds hold no matrix product: no K1
         "protocol_library": protocol[1:] + ("prf_threefry",),
+        # nor does the correlation
+        "correlation": protocol[1:] + ("prf_threefry",),
+        "mlp_classifier": protocol + ("prf_threefry",),
+        "neural_network": protocol + ("prf_threefry",),
+        # the one less (msb) and the muxes
+        "random_forest": ("msb", "cross_terms_reshare", "prf_threefry"),
     }
     # the stream a phase did not select expands nothing
     unused = {path: "prf_threefry_pallas" for path in required}
@@ -1709,6 +2143,10 @@ def main() -> int:
          k7["multinomial_regression"] / MULTI_REQUESTS, MULTI_K7_CEILING),
         ("device launches a multinomial request",
          multi_device_launches, MULTI_DEVICE_CEILING),
+        ("K7 launches an MLP request",
+         k7["mlp_classifier"] / MLPC_REQUESTS, MLPC_K7_CEILING),
+        ("device launches an MLP request",
+         mlp_device_launches, MLPC_DEVICE_CEILING),
     ):
         log(f"ceiling: {what} {got} <= {ceiling}")
         if got > ceiling:
@@ -1818,6 +2256,19 @@ def main() -> int:
         },
         "protocol_library": {"latency_ms": library_s * 1e3,
                              "max_abs_err": library_errs},
+        "correlation": correlation,
+        "mlp_classifier": {
+            "latency_ms": [s * 1e3 for s in mlp_latencies],
+            "rows_per_s": mlp_rows_per_s,
+            "max_abs_err": max(mlp_errs),
+            "device_launches": mlp_device_launches,
+        },
+        "neural_network": {"latency_ms": net_s * 1e3,
+                           "max_abs_err": net_err,
+                           "argmax_agreement": net_agree},
+        "random_forest": {"latency_ms": forest_s * 1e3,
+                          "max_abs_err": forest_err,
+                          "less_elements": FOREST_ROWS * splits},
     }
     log(json.dumps(record))
     log(json.dumps({"kernels": kernels}))

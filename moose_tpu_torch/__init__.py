@@ -7,10 +7,12 @@ tensors, with the hot ring kernels hand-written in CUDA for Hopper
 ``dot`` under a replicated placement), ONNX ``LinearRegressor``
 inference, ONNX logistic regression (``LinearClassifier`` with the
 exact protocol sigmoid) and the SGD trainers' secure training step
-(``predictors.trainers``) and the protocol library's comparisons,
+(``predictors.trainers``), the protocol library's comparisons,
 exp/log/sqrt and max/argmax/softmax (with ONNX multinomial logistic
-regression, the SOFTMAX head), through ``LocalMooseRuntime`` on its
-stacked layout.
+regression, the SOFTMAX head), Load and Save against the runtime's
+storage (the scientific-computing tutorial's correlation), and the dense
+and tree predictors (sklearn MLPs, pytorch and tf2onnx networks, random
+forests), through ``LocalMooseRuntime`` on its stacked layout.
 
 The package imports ``torch`` and never ``jax`` nor ``moose_tpu``.  Its
 entry points run on the CUDA card unless the caller passes
@@ -39,6 +41,7 @@ from .edsl.base import (
     identity,
     index_axis,
     less,
+    load,
     log,
     log2,
     logical_and,
@@ -54,11 +57,13 @@ from .edsl.base import (
     relu,
     replicated_placement,
     reshape,
+    save,
     shape,
     sigmoid,
     sliced,
     softmax,
     sqrt,
+    square,
     squeeze,
     strided_slice,
     sub,
@@ -90,6 +95,7 @@ __all__ = [
     "identity",
     "index_axis",
     "less",
+    "load",
     "log",
     "log2",
     "logical_and",
@@ -106,11 +112,13 @@ __all__ = [
     "relu",
     "replicated_placement",
     "reshape",
+    "save",
     "shape",
     "sigmoid",
     "sliced",
     "softmax",
     "sqrt",
+    "square",
     "squeeze",
     "strided_slice",
     "sub",

@@ -1,8 +1,9 @@
 """Host-placement kernels on PyTorch tensors.
 
 The subset of ``moose_tpu/dialects/host.py`` that the slice's graphs
-reach: placement relabels, shapes, constants, ``ones``, ``expand_dims``,
-casts and the fixed-point encode/decode.
+reach: placement relabels, shapes, constants, ``fill``, ``ones``,
+``expand_dims``, casts, the fixed-point encode/decode and the ring
+arithmetic and shifts the mirrored dialect maps over its three hosts.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from .. import dtypes as dt
 from ..values import (
+    HostBitTensor,
     HostRingTensor,
     HostShape,
     HostTensor,
@@ -37,6 +39,20 @@ def shape(x, plc: str) -> HostShape:
 def constant(value, plc: str, dtype: dt.DType, device) -> HostTensor:
     arr = np.asarray(value).astype(np.dtype(dtype.numpy_name))
     return HostTensor(torch.as_tensor(arr, device=device), plc, dtype)
+
+
+def fill(shp: HostShape, value, plc: str, ty_name: str, device):
+    if ty_name.startswith("HostRing"):
+        width = 128 if "128" in ty_name else 64
+        lo, hi = ring.fill_like_shape(shp.value, width, int(value), device)
+        return HostRingTensor(lo, hi, width, plc)
+    if ty_name == "HostBitTensor":
+        return HostBitTensor(
+            torch.full(tuple(shp.value), int(value) & 1, dtype=torch.uint8,
+                       device=device),
+            plc,
+        )
+    raise NotImplementedError(f"fill for {ty_name}")
 
 
 def ones(shp: HostShape, dtype: dt.DType, plc: str, device) -> HostTensor:
@@ -64,3 +80,27 @@ def ring_fixedpoint_decode(x: HostRingTensor, frac_precision: int, plc: str,
                            dtype: dt.DType = dt.float64) -> HostTensor:
     v = ring.fixedpoint_decode(x.lo, x.hi, frac_precision)
     return HostTensor(v.to(torch_dtype(dtype)), plc, dtype)
+
+
+def _ring2(fn):
+    def kernel(x: HostRingTensor, y: HostRingTensor,
+               plc: str) -> HostRingTensor:
+        lo, hi = fn(x.lo, x.hi, y.lo, y.hi)
+        return HostRingTensor(lo, hi, x.width, plc)
+
+    return kernel
+
+
+ring_add = _ring2(ring.add)
+ring_sub = _ring2(ring.sub)
+ring_mul = _ring2(ring.mul)
+
+
+def ring_shl(x: HostRingTensor, amount: int, plc: str) -> HostRingTensor:
+    lo, hi = ring.shl(x.lo, x.hi, amount)
+    return HostRingTensor(lo, hi, x.width, plc)
+
+
+def ring_shr(x: HostRingTensor, amount: int, plc: str) -> HostRingTensor:
+    lo, hi = ring.shr(x.lo, x.hi, amount)
+    return HostRingTensor(lo, hi, x.width, plc)

@@ -1,10 +1,10 @@
 """Logical dialect: host and mirrored dispatch of the port's IR ops.
 
 The part of ``moose_tpu/dialects/logical.py`` the stacked layout
-delegates to (``_execute_host``, ``_execute_mir``, ``_constant_on_host``
-and ``decode_slice_spec``), limited to the host and mirrored op kinds of
-the port's graphs.  Any other kind raises ``NotImplementedError`` naming
-the ROADMAP item that ports it.
+delegates to (``to_host``, ``_execute_host``, ``_execute_mir``,
+``_constant_on_host`` and ``decode_slice_spec``), limited to the host and
+mirrored op kinds of the port's graphs.  Any other kind raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -18,20 +18,25 @@ from ..values import (
     HostFixedTensor,
     HostRingTensor,
     HostShape,
+    HostString,
     HostTensor,
+    HostUnit,
     Mir3FixedTensor,
     Mir3Tensor,
 )
+from . import mirrored as mir_ops
 
-# op kinds each placement family executes (Input and Output are resolved
-# by the interpreter's walk)
+# op kinds each placement family executes; Load and Save are resolved by
+# the interpreter's walk at the host boundary, as Input and Output are
 HOST_KINDS = frozenset({
     "Cast", "Shape", "Slice", "Ones", "ExpandDims", "Identity", "Constant",
+    "Load", "Save",
 })
 MIR_KINDS = frozenset({"Constant", "Cast"})
 
-# the host and mirrored kinds and values of BASELINE config 2's graphs,
-# and the per-host layout's others
+# what the host and mirrored placements do not run yet: secret integers
+# and host bit values (the rest of item 6) and the per-host layout's other
+# kinds (item 8)
 _LATER = "ROADMAP queue 1, items 6 and 8"
 
 
@@ -40,9 +45,10 @@ def _width_of_dtype(dtype: dt.DType) -> int:
 
 
 def to_host(sess, plc_name: str, v):
-    """Materialize a host value on ``plc_name`` (a relabel)."""
+    """Materialize a host or mirrored value on ``plc_name``: a relabel,
+    or the owner's copy of a mirrored value."""
     if isinstance(v, (HostTensor, HostBitTensor, HostRingTensor,
-                      HostShape)):
+                      HostShape, HostString, HostUnit)):
         return sess.place(plc_name, v)
     if isinstance(v, HostFixedTensor):
         return HostFixedTensor(
@@ -50,9 +56,24 @@ def to_host(sess, plc_name: str, v):
             v.integral_precision,
             v.fractional_precision,
         )
+    if isinstance(v, Mir3FixedTensor):
+        return HostFixedTensor(
+            mir_ops.demirror(sess, _mirrored_placement(v.tensor),
+                             v.tensor, plc_name),
+            v.integral_precision,
+            v.fractional_precision,
+        )
+    if isinstance(v, Mir3Tensor):
+        return mir_ops.demirror(sess, _mirrored_placement(v), v, plc_name)
     raise NotImplementedError(
         f"placing {type(v).__name__} on host {plc_name} ({_LATER})"
     )
+
+
+def _mirrored_placement(v: Mir3Tensor) -> Mirrored3Placement:
+    """The placement a mirrored value lives on, from its three copies'
+    owners (the port binds no placement table to its sessions)."""
+    return Mirrored3Placement(v.plc, tuple(t.plc for t in v.values))
 
 
 def _mirrored_to_public_ring(v):
@@ -96,15 +117,13 @@ def _execute_host(sess, comp, op, plc: HostPlacement, args):
 
 
 def _constant_on_host(sess, h, op):
-    """A Constant op's value as a host value on ``h``: a shape, a
-    fixed-point tensor (encoded from float64), a static scalar or a
-    tensor of the op's dtype."""
+    """A Constant op's value as a host value on ``h``: a string (a Load
+    or Save key), a shape, a fixed-point tensor (encoded from float64), a
+    static scalar or a tensor of the op's dtype."""
     value = op.attributes["value"]
     ret = op.signature.return_type
     if isinstance(value, str):
-        raise NotImplementedError(
-            f"string constant {op.name} (storage keys, {_LATER})"
-        )
+        return HostString(value, h)
     if ret.name == "HostShape":
         return HostShape(tuple(int(d) for d in np.asarray(value)), h)
     dtype = ret.dtype
@@ -160,29 +179,43 @@ def _execute_mir(sess, comp, op, plc: Mirrored3Placement, args):
     kind = op.kind
     ret_dtype = op.signature.return_type.dtype
 
-    if kind == "Constant" and ret_dtype is not None \
-            and not ret_dtype.is_fixedpoint:
-        vals = tuple(
-            sess.constant(owner, np.asarray(op.attributes["value"]),
-                          ret_dtype)
-            for owner in plc.owners
+    if kind == "Constant" and ret_dtype is not None:
+        value = np.asarray(op.attributes["value"])
+        if not ret_dtype.is_fixedpoint:
+            return Mir3Tensor(
+                tuple(sess.constant(owner, value, ret_dtype)
+                      for owner in plc.owners),
+                plc.name,
+            )
+        floats = Mir3Tensor(
+            tuple(sess.constant(owner, value.astype(np.float64),
+                                dt.float64)
+                  for owner in plc.owners),
+            plc.name,
         )
-        return Mir3Tensor(vals, plc.name)
+        return Mir3FixedTensor(
+            mir_ops.ring_fixedpoint_encode(
+                sess, plc, floats, ret_dtype.fractional_precision,
+                _width_of_dtype(ret_dtype),
+            ),
+            ret_dtype.integral_precision,
+            ret_dtype.fractional_precision,
+        )
 
     if kind == "Cast":
         v = args[0]
         if isinstance(v, Mir3Tensor) and ret_dtype.is_fixedpoint:
-            width = _width_of_dtype(ret_dtype)
-            vals = tuple(
-                sess.ring_fixedpoint_encode(
-                    t.plc, t, ret_dtype.fractional_precision, width
-                )
-                for t in v.values
-            )
             return Mir3FixedTensor(
-                Mir3Tensor(vals, plc.name),
+                mir_ops.ring_fixedpoint_encode(
+                    sess, plc, v, ret_dtype.fractional_precision,
+                    _width_of_dtype(ret_dtype),
+                ),
                 ret_dtype.integral_precision,
                 ret_dtype.fractional_precision,
+            )
+        if isinstance(v, Mir3FixedTensor) and not ret_dtype.is_fixedpoint:
+            return mir_ops.ring_fixedpoint_decode(
+                sess, plc, v.tensor, v.fractional_precision, ret_dtype
             )
         raise NotImplementedError(
             f"mirrored Cast of {type(v).__name__} to {ret_dtype} ({_LATER})"

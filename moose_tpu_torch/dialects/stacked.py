@@ -36,6 +36,7 @@ from ..values import (
     HostFixedTensor,
     HostRingTensor,
     HostShape,
+    HostString,
     Mir3FixedTensor,
 )
 from . import logical
@@ -47,12 +48,19 @@ REP_KINDS = frozenset({
     "Softmax", "Argmax", "Maximum", "Concat", "Reshape", "ExpandDims",
     "Squeeze", "Transpose", "IndexAxis", "Slice", "Shape", "Cast",
 })
-BOUNDARY_KINDS = frozenset({"Input", "Output"})
+# resolved by the interpreter's walk, on any placement
+BOUNDARY_KINDS = frozenset({"Input", "Output", "Load", "Save"})
 
-# the ROADMAP queue 1 item of each replicated kind the reference's
-# stacked layout runs and the port does not; the reference runs any other
-# kind on its per-host layout only (item 8)
-_REP_ITEMS = {"Decrypt": 9, "Conv2D": 3, "AvgPool2D": 3, "MaxPool2D": 3}
+# the ROADMAP queue 1 items of each replicated kind the reference's
+# stacked layout runs and the port does not, and of the secret-shared
+# checkpoints (the reference lowers those to the per-host layout and its
+# checkpoint store); the reference runs any other kind on its per-host
+# layout only (item 8)
+_REP_ITEMS = {
+    "Decrypt": "item 9", "Conv2D": "item 3", "AvgPool2D": "item 3",
+    "MaxPool2D": "item 3", "LoadShares": "items 8 and 10",
+    "SaveShares": "items 8 and 10",
+}
 # secret integers: the scale-0 lift
 _INTEGER = "ROADMAP queue 1, item 6"
 
@@ -62,7 +70,7 @@ def roadmap_item(placement_kind: str, op_kind: str) -> str:
     placement of ``placement_kind`` (a placement class name)."""
     if placement_kind != "ReplicatedPlacement":
         return logical._LATER
-    return f"ROADMAP queue 1, item {_REP_ITEMS.get(op_kind, 8)}"
+    return f"ROADMAP queue 1, {_REP_ITEMS.get(op_kind, 'item 8')}"
 
 _STACKED_VALUES = (SpmdRep, SpmdFixed, SpmdBits)
 
@@ -187,10 +195,10 @@ def _fx(t: SpmdRep, like: SpmdFixed) -> SpmdFixed:
 
 def _on_inner(x, fn):
     """``fn`` on the word tensor of a fixed-point sharing (keeping its
-    precision) or of a bare index sharing."""
+    precision), of a bare index sharing or of shared bits."""
     if isinstance(x, SpmdFixed):
         return _fx(fn(x.tensor), x)
-    if isinstance(x, SpmdRep):
+    if isinstance(x, (SpmdRep, SpmdBits)):
         return fn(x)
     raise TypeMismatchError(
         f"stacked structural ops take secret tensors, got {type(x).__name__}"
@@ -281,14 +289,15 @@ _FX_MATH = {
 
 def _constant(sess: StackedSession, op: Operation, rep):
     """A replicated Constant: built on the first owner as the host
-    Constant, then shared (a shape stays a host shape)."""
+    Constant, then shared (a shape or a string stays on the host)."""
     host_op = Operation(
         name=op.name, kind="Constant", inputs=[],
         placement_name=rep.owners[0], signature=op.signature,
         attributes=op.attributes,
     )
     h = logical._constant_on_host(sess.host, rep.owners[0], host_op)
-    return h if isinstance(h, HostShape) else to_rep(sess, h)
+    # public metadata (shapes, storage keys) is never shared
+    return h if isinstance(h, (HostShape, HostString)) else to_rep(sess, h)
 
 
 def _execute_rep(sess: StackedSession, comp, op: Operation,

@@ -7,6 +7,11 @@ segmented and per-op plans with self-checks) has no counterpart here.
 The master key comes from :func:`master_key_words`, with the JAX
 package's ``MOOSE_TPU_FIXED_KEYS`` test knob, so both packages draw the
 same masks for the same knob value.
+
+The walk resolves the host boundary itself: Input binds an argument,
+Load reads the placement's own store and lifts the array onto the
+device, Save brings its value to its host and writes it to that store as
+numpy once the walk is done, Output reveals to its host.
 """
 
 from __future__ import annotations
@@ -21,7 +26,14 @@ import torch
 
 from ..computation import Computation
 from ..errors import ConfigurationError
-from ..values import HostFixedTensor, HostTensor, to_numpy
+from ..values import (
+    HostFixedTensor,
+    HostRingTensor,
+    HostString,
+    HostTensor,
+    HostUnit,
+    to_numpy,
+)
 from ..dialects import stacked
 from .. import dtypes as dt
 
@@ -52,7 +64,8 @@ def master_key_words(domain: str = "") -> np.ndarray:
 
 
 def _lift_array(arr, op, plc_name: str, device) -> HostTensor:
-    """Bind a host-boundary array as a runtime value on ``device``."""
+    """Bind a host-boundary array (an Input's argument, a Load's stored
+    value) as a runtime value on ``device``, at the op's dtype."""
     dtype = op.signature.return_type.dtype
     if dtype is None or dtype.is_fixedpoint or dtype.name not in (
         "float32", "float64"
@@ -67,9 +80,46 @@ def _lift_array(arr, op, plc_name: str, device) -> HostTensor:
     return HostTensor(value, plc_name, dtype)
 
 
+def _load(storage, op, plc_name: str, key: HostString,
+          query: HostString):
+    """The array stored under ``key`` on ``plc_name``: a storage object
+    (anything with ``.load``, such as ``FilesystemStorage``) reads it with
+    the query, a dict by key."""
+    for what, v in (("key", key), ("query", query)):
+        if not isinstance(v, HostString):
+            raise ValueError(
+                f"Load {op.name}: the {what} must be a string, found "
+                f"{type(v).__name__}"
+            )
+    store = storage.get(plc_name, {})
+    if key.value not in store:
+        raise KeyError(
+            f"no value for key {key.value!r} in storage of {plc_name!r}"
+        )
+    if query.value and hasattr(store, "load"):
+        return store.load(key.value, query.value)
+    return store[key.value]
+
+
+def _save_user_value(sess, value):
+    """Storage form of a Save'd value: numpy, never a device tensor.  Ring
+    words persist as uint64 limb planes ``(1 or 2, *shape)``, lossless
+    through ``.npy``; anything else as the user gets it."""
+    if isinstance(value, HostRingTensor):
+        lo = value.lo.detach().cpu().contiguous().numpy().view(np.uint64)
+        if value.width == 64:
+            return lo[None]
+        hi = value.hi.detach().cpu().contiguous().numpy().view(np.uint64)
+        return np.stack([lo, hi])
+    return _to_user_value(sess, value)
+
+
 def _to_user_value(sess, value):
     """Decoded floats for a fixed-point value; bools for bits, uint64 (or
-    Python ints at ring128) for ring words, as ``to_numpy`` gives them."""
+    Python ints at ring128) for ring words, as ``to_numpy`` gives them;
+    None for a Save's unit."""
+    if isinstance(value, HostUnit):
+        return None
     if isinstance(value, HostFixedTensor):
         value = sess.host.fixedpoint_decode(value.plc, value, dt.float64)
     return to_numpy(value)
@@ -92,8 +142,13 @@ class Interpreter:
         self.device = torch.device(device)
 
     def evaluate(self, comp: Computation,
-                 arguments: Optional[dict] = None) -> dict:
+                 arguments: Optional[dict] = None,
+                 storage: Optional[dict] = None) -> dict:
+        """Run ``comp`` on ``arguments``; Load and Save read and write
+        ``storage``, a mapping of placement name to its store (a dict or
+        an object with ``.load``)."""
         arguments = arguments or {}
+        storage = storage if storage is not None else {}
         missing = stacked.unsupported_ops(comp)
         if missing:
             raise NotImplementedError(
@@ -107,6 +162,7 @@ class Interpreter:
         )
         env: dict[str, Any] = {}
         outputs: dict[str, Any] = {}
+        saves: dict[tuple, Any] = {}
         for name in comp.toposort_names():
             op = comp.operations[name]
             plc = comp.placement_of(op)
@@ -117,13 +173,37 @@ class Interpreter:
                     arguments[name], op, plc.name, self.device
                 )
                 continue
+            if op.kind == "Load":
+                arr = _load(storage, op, plc.name,
+                            *(env[i] for i in op.inputs))
+                env[name] = _lift_array(arr, op, plc.name, self.device)
+                continue
+            if op.kind == "Save":
+                key = env[op.inputs[0]]
+                if not isinstance(key, HostString):
+                    raise ValueError(
+                        f"Save {op.name}: the key must be a string, found "
+                        f"{type(key).__name__}"
+                    )
+                saves[(plc.name, key.value)] = stacked.to_host(
+                    sess, plc.name, env[op.inputs[1]]
+                )
+                env[name] = HostUnit(plc.name)
+                continue
             if op.kind == "Output":
-                value = stacked.to_host(sess, plc.name, env[op.inputs[0]])
+                value = env[op.inputs[0]]
+                if not isinstance(value, HostUnit):
+                    value = stacked.to_host(sess, plc.name, value)
                 env[name] = value
                 outputs[op.attributes.get("tag", name)] = value
                 continue
             args = [env[i] for i in op.inputs]
             env[name] = stacked.execute_op(sess, comp, op, args)
+        # stores are written only once every op has run
+        for (plc_name, key), value in saves.items():
+            storage.setdefault(plc_name, {})[key] = _save_user_value(
+                sess, value
+            )
         return {
             name: _to_user_value(sess, outputs[name])
             for name in ordered_output_names(outputs)

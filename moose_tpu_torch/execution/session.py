@@ -34,6 +34,9 @@ class EagerSession:
     def constant(self, plc, value, dtype: dt.DType):
         return host.constant(value, plc, dtype, self.device)
 
+    def fill(self, plc, shp, value, ty_name: str):
+        return host.fill(shp, value, plc, ty_name, self.device)
+
     def ones(self, plc, shp, dtype=dt.float64):
         return host.ones(shp, dtype, plc, self.device)
 
@@ -42,6 +45,23 @@ class EagerSession:
 
     def cast(self, plc, x, target: dt.DType):
         return host.cast(x, target, plc)
+
+    # ring arithmetic and shifts, as the mirrored dialect maps them over
+    # its three hosts
+    def add(self, plc, x, y):
+        return host.ring_add(x, y, plc)
+
+    def sub(self, plc, x, y):
+        return host.ring_sub(x, y, plc)
+
+    def mul(self, plc, x, y):
+        return host.ring_mul(x, y, plc)
+
+    def shl(self, plc, x, amount: int):
+        return host.ring_shl(x, amount, plc)
+
+    def shr(self, plc, x, amount: int):
+        return host.ring_shr(x, amount, plc)
 
     def ring_fixedpoint_encode(self, plc, x, frac: int, width: int):
         return host.ring_fixedpoint_encode(x, frac, width, plc)

@@ -379,6 +379,13 @@ def _laxis(arr, axis: int, extra: int = 0) -> int:
 
 def _structural(fn):
     def kernel(x: SpmdRep, *args, **kwargs) -> SpmdRep:
+        arr = getattr(x, "arr", None)
+        if arr is not None:
+            # shared bits (SpmdBits, the same (3, 2, *shape) layout):
+            # XOR sharing is linear too, so restructured shares
+            # reconstruct to the restructured bits (the tree ensembles
+            # index their comparison bits)
+            return type(x)(fn(arr, *args, **kwargs))
         lo = fn(x.lo, *args, **kwargs)
         hi = None if x.hi is None else fn(x.hi, *args, **kwargs)
         return SpmdRep(lo, hi, x.width)

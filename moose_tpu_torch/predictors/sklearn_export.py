@@ -1,10 +1,13 @@
-"""Export linear models to skl2onnx-style ONNX with the bundled protobuf
-encoder (``linear_regressor_onnx`` and ``logistic_regression_onnx`` of
-``moose_tpu/predictors/sklearn_export.py``).
+"""Export models to skl2onnx-style ONNX with the bundled protobuf
+encoder: the port's copy of ``moose_tpu/predictors/sklearn_export.py``
+but its convnet fixture.
 
-Only ``coef_``, ``intercept_`` and (for classifiers) ``classes_`` are
-read, so any object carrying them — a fitted sklearn model or a
-``types.SimpleNamespace`` — exports.
+Only attributes are read (``coef_``, ``intercept_`` and ``classes_`` of
+the linear models; ``coefs_``, ``intercepts_`` and ``activation`` of an
+MLP; ``estimators_`` and ``classes_`` of a forest and, of each tree,
+``tree_.children_left``, ``children_right``, ``feature``, ``threshold``,
+``value`` and ``node_count``), so any object carrying them — a fitted
+sklearn model or a ``types.SimpleNamespace`` built from numpy — exports.
 """
 
 import numpy as np
@@ -14,11 +17,12 @@ from . import onnx_proto as op
 FLOAT = op.TensorProto.FLOAT
 
 
-def _model(nodes, n_features, producer="skl2onnx", n_outputs=1):
+def _model(nodes, n_features, initializers=(), producer="skl2onnx",
+           n_outputs=1):
     graph = op.GraphProto(
         name="test_graph",
         node=list(nodes),
-        initializer=[],
+        initializer=list(initializers),
         input=[
             op.make_tensor_value_info("float_input", FLOAT, [None, n_features])
         ],
@@ -71,3 +75,175 @@ def logistic_regression_onnx(sk_model, n_features):
         multi_class=0,
     )
     return _model([node], n_features, n_outputs=n_classes)
+
+
+def _tree_arrays(sk_tree):
+    """Per-tree node arrays in ONNX convention: leaves get child id 0."""
+    t = sk_tree.tree_
+    left = [0 if c == -1 else int(c) for c in t.children_left]
+    right = [0 if c == -1 else int(c) for c in t.children_right]
+    feats = [max(int(f), 0) for f in t.feature]
+    thresh = [float(v) for v in t.threshold]
+    leaves = [i for i in range(t.node_count) if t.children_left[i] == -1]
+    return left, right, feats, thresh, leaves, t.value
+
+
+def random_forest_regressor_onnx(sk_model, n_features):
+    attrs = {
+        "nodes_treeids": [],
+        "nodes_nodeids": [],
+        "nodes_truenodeids": [],
+        "nodes_falsenodeids": [],
+        "nodes_featureids": [],
+        "nodes_values": [],
+        "target_treeids": [],
+        "target_nodeids": [],
+        "target_ids": [],
+        "target_weights": [],
+    }
+    n_trees = len(sk_model.estimators_)
+    for tid, est in enumerate(sk_model.estimators_):
+        left, right, feats, thresh, leaves, value = _tree_arrays(est)
+        for nid in range(len(left)):
+            attrs["nodes_treeids"].append(tid)
+            attrs["nodes_nodeids"].append(nid)
+            attrs["nodes_truenodeids"].append(left[nid])
+            attrs["nodes_falsenodeids"].append(right[nid])
+            attrs["nodes_featureids"].append(feats[nid])
+            attrs["nodes_values"].append(thresh[nid])
+        for leaf in leaves:
+            attrs["target_treeids"].append(tid)
+            attrs["target_nodeids"].append(leaf)
+            attrs["target_ids"].append(0)
+            attrs["target_weights"].append(float(value[leaf][0][0]) / n_trees)
+    node = op.make_node(
+        "TreeEnsembleRegressor",
+        ["float_input"],
+        ["variable"],
+        name="TreeEnsembleRegressor",
+        post_transform="NONE",
+        **attrs,
+    )
+    return _model([node], n_features)
+
+
+def random_forest_classifier_onnx(sk_model, n_features):
+    """Binary: one class_weights entry per leaf carrying P(class 1).
+    Multiclass: sklearn/skl2onnx's shared-tree layout — one entry per
+    (leaf, class) with post_transform NONE (exercises the importer's
+    tree-duplication path)."""
+    n_classes = len(sk_model.classes_)
+    n_trees = len(sk_model.estimators_)
+    attrs = {
+        "nodes_treeids": [],
+        "nodes_nodeids": [],
+        "nodes_truenodeids": [],
+        "nodes_falsenodeids": [],
+        "nodes_featureids": [],
+        "nodes_values": [],
+        "class_treeids": [],
+        "class_nodeids": [],
+        "class_ids": [],
+        "class_weights": [],
+    }
+    for tid, est in enumerate(sk_model.estimators_):
+        left, right, feats, thresh, leaves, value = _tree_arrays(est)
+        for nid in range(len(left)):
+            attrs["nodes_treeids"].append(tid)
+            attrs["nodes_nodeids"].append(nid)
+            attrs["nodes_truenodeids"].append(left[nid])
+            attrs["nodes_falsenodeids"].append(right[nid])
+            attrs["nodes_featureids"].append(feats[nid])
+            attrs["nodes_values"].append(thresh[nid])
+        for leaf in leaves:
+            counts = value[leaf][0]
+            probs = counts / counts.sum()
+            if n_classes == 2:
+                attrs["class_treeids"].append(tid)
+                attrs["class_nodeids"].append(leaf)
+                attrs["class_ids"].append(1)
+                attrs["class_weights"].append(float(probs[1]) / n_trees)
+            else:
+                for cid in range(n_classes):
+                    attrs["class_treeids"].append(tid)
+                    attrs["class_nodeids"].append(leaf)
+                    attrs["class_ids"].append(cid)
+                    attrs["class_weights"].append(float(probs[cid]) / n_trees)
+    node = op.make_node(
+        "TreeEnsembleClassifier",
+        ["float_input"],
+        ["label", "probabilities"],
+        name="TreeEnsembleClassifier",
+        post_transform="NONE",
+        classlabels_int64s=[int(c) for c in sk_model.classes_],
+        **attrs,
+    )
+    return _model([node], n_features, n_outputs=n_classes)
+
+
+def mlp_onnx(sk_model, n_features, classifier=False):
+    """skl2onnx MLP layout: stacked coefficient/intercepts initializers,
+    one hidden-activation node whose output is named next_activations, and
+    (for classifiers) a trailing ZipMap."""
+    inits = []
+    for i, (w, b) in enumerate(zip(sk_model.coefs_, sk_model.intercepts_)):
+        suffix = "" if i == 0 else str(i)
+        inits.append(op.make_initializer(f"coefficient{suffix}", w))
+        inits.append(op.make_initializer(f"intercepts{suffix}", b))
+    act_op = {"logistic": "Sigmoid", "relu": "Relu", "identity": "Identity"}[
+        sk_model.activation
+    ]
+    nodes = [
+        op.make_node("Cast", ["float_input"], ["cast_input"], to=1),
+        op.make_node(act_op, ["pre_activations"], ["next_activations"]),
+    ]
+    if classifier:
+        nodes.append(
+            op.make_node("ZipMap", ["probabilities"], ["output_probability"])
+        )
+    return _model(nodes, n_features, initializers=inits)
+
+
+def pytorch_nn_onnx(weights, biases, activations, n_features):
+    """pytorch-export layout: Gemm nodes + {layer}.weight/.bias raw-data
+    initializers holding (out, in)-shaped float32 weights."""
+    inits = []
+    nodes = []
+    prev = "float_input"
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        w32 = np.asarray(w, dtype=np.float32)
+        b32 = np.asarray(b, dtype=np.float32)
+        inits.append(
+            op.TensorProto(
+                name=f"fc{i}.weight",
+                dims=list(w32.shape),
+                data_type=FLOAT,
+                raw_data=w32.tobytes(),
+            )
+        )
+        inits.append(
+            op.TensorProto(
+                name=f"fc{i}.bias",
+                dims=list(b32.shape),
+                data_type=FLOAT,
+                raw_data=b32.tobytes(),
+            )
+        )
+        out = f"gemm_{i}"
+        nodes.append(
+            op.make_node(
+                "Gemm",
+                [prev, f"fc{i}.weight", f"fc{i}.bias"],
+                [out],
+                alpha=1.0,
+                beta=1.0,
+                transB=1,
+            )
+        )
+        prev = out
+        act = activations[i]
+        if act is not None:
+            out = f"act_{i}"
+            nodes.append(op.make_node(act, [prev], [out]))
+            prev = out
+    return _model(nodes, n_features, initializers=inits, producer="pytorch")

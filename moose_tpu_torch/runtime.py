@@ -1,9 +1,10 @@
 """User-facing runtime of the port.
 
 ``LocalMooseRuntime`` of ``moose_tpu/runtime.py``: several virtual hosts
-in one process with dict storage, executing traced computations in the
+in one process with their storage, executing traced computations in the
 party-stacked layout on one device — the CUDA card unless the caller
-asks for the CPU.
+asks for the CPU.  Storage holds numpy arrays: Load lifts them onto the
+device, Save writes numpy back.
 """
 
 from __future__ import annotations
@@ -53,8 +54,16 @@ class LocalMooseRuntime:
                     f"must be one of {identities}"
                 )
         self.identities = list(identities)
+        # plain dicts are copied; storage objects (FilesystemStorage, or
+        # anything with a .load) are kept as they are, and the walk reads
+        # and writes through them
         self.storage = {
-            identity: dict(storage_mapping.get(identity, {}))
+            identity: (
+                store
+                if hasattr(store := storage_mapping.get(identity, {}),
+                           "load")
+                else dict(store)
+            )
             for identity in identities
         }
         self._interpreter = Interpreter(self.device)
@@ -74,7 +83,9 @@ class LocalMooseRuntime:
                 )
             computation = traced
         computation, arguments = _lift_computation(computation, arguments)
-        return self._interpreter.evaluate(computation, arguments)
+        return self._interpreter.evaluate(
+            computation, arguments, self.storage
+        )
 
     def read_value_from_storage(self, identity: str, key: str):
         return self.storage[identity][key]

@@ -35,6 +35,21 @@ def torch_dtype(dtype: dt.DType) -> torch.dtype:
 
 
 @dataclasses.dataclass
+class HostUnit:
+    """The value of an op that yields nothing, such as Save."""
+
+    plc: str
+
+
+@dataclasses.dataclass
+class HostString:
+    """A string on one host: a Load or Save key, or a Load query."""
+
+    value: str
+    plc: str
+
+
+@dataclasses.dataclass
 class HostShape:
     """Shapes are runtime values in the IR; the port carries them as
     Python tuples."""

@@ -2,13 +2,16 @@
 """Where the time goes in the port's main path on one CUDA card.
 
 Runs the eDSL secure dot (1000x1000 at fixed(14,23), ring128), one
-ONNX LinearRegressor request, one ONNX logistic-regression request and
-one ONNX multinomial logistic-regression request (10 classes, the
-SOFTMAX head) (each 1024x100 at fixed(24,40)) under the default threefry
-PRF, and one LogregSGDTrainer step (128x100 at fixed(24,40)) under
-threefry-pallas,
-through the port's LocalMooseRuntime, warm, under torch.profiler, and
-prints for each:
+ONNX LinearRegressor request, one ONNX logistic-regression request, one
+ONNX multinomial logistic-regression request (10 classes, the SOFTMAX
+head) and one request of BASELINE config 5's MLP (a binary sklearn
+MLPClassifier, 100 -> 64 -> 32 -> 1, relu) (each 1024x100 at
+fixed(24,40)), and BASELINE config 2's correlation (the
+scientific-computing tutorial at 1,000 rows, its columns loaded from
+storage and its result saved there) under the default threefry PRF, and
+one LogregSGDTrainer step (128x100 at fixed(24,40)) under
+threefry-pallas, through the port's LocalMooseRuntime, warm, under
+torch.profiler, and prints for each:
 
 - the host wall time of the request (median of three, without the
   profiler) and the device's busy and idle share (busy = the sum of
@@ -259,6 +262,29 @@ def main() -> int:
     )
     print(f"multinomial_regression: {json.dumps(multi_profile)}",
           flush=True)
+    from moose_tpu_torch.predictors import from_onnx, sklearn_export
+
+    mlp = from_onnx(sklearn_export.mlp_onnx(
+        chip_smoke.mlp_model(rng, chip_smoke.MLPC_FEATURES,
+                             chip_smoke.MLPC_HIDDEN),
+        chip_smoke.MLPC_FEATURES, classifier=True))
+    mlp_comp = mlp.predictor_factory()
+    xp = rng.normal(size=(chip_smoke.MLPC_ROWS, chip_smoke.MLPC_FEATURES))
+    mlp_profile = profile_request(
+        lambda: runtime.evaluate_computation(mlp_comp, {"x": xp})
+    )
+    print(f"mlp_classifier: {json.dumps(mlp_profile)}", flush=True)
+    alcohol, grades = chip_smoke.correlated_columns(
+        chip_smoke.CORR_SIZES[-1])
+    ids = chip_smoke.CORR_IDS
+    corr_runtime = LocalMooseRuntime(
+        list(ids), storage_mapping={ids[0]: {"alcohol_data": alcohol},
+                                    ids[1]: {"grades_data": grades}})
+    corr_comp = chip_smoke.correlation_computation(pm)
+    corr_profile = profile_request(
+        lambda: corr_runtime.evaluate_computation(corr_comp)
+    )
+    print(f"correlation: {json.dumps(corr_profile)}", flush=True)
     ring.set_prf_impl("threefry-pallas")
     try:
         trainer = trainers.LogregSGDTrainer(chip_smoke.TRAIN_FEATURES,
@@ -284,6 +310,8 @@ def main() -> int:
                       "secure_dot": dot, "linear_regressor": lin,
                       "logistic_regression": logreg_profile,
                       "multinomial_regression": multi_profile,
+                      "mlp_classifier": mlp_profile,
+                      "correlation": corr_profile,
                       "training_step": train}))
     return 0
 

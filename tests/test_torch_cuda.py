@@ -19,12 +19,15 @@ from moose_tpu_torch.native import ring_kernels as rk
 WIDTHS = (64, 128)
 # (m, k, n): ragged shapes; the edges of K1's 64-row and 32/64-column
 # output tiles in m and n (64, 65, 128, 129 rows; 32, 33, 64, 65 columns);
-# the thin n of the predictors and trainers (1, 8, 32); and k = 0
+# the thin n of the predictors and trainers (1, 8, 32); the dense
+# predictors' layers at batch 1024 (100 -> 64 -> 32 -> 1, and one more k
+# each); and k = 0
 DOT_SHAPES = (
     (5, 7, 3), (1, 1, 1), (4, 101, 1), (9, 33, 17), (70, 130, 66),
     (64, 16, 32), (65, 16, 33), (128, 48, 64), (129, 20, 65),
     (128, 100, 1), (100, 128, 1), (128, 100, 8), (128, 100, 32),
-    (100, 128, 32), (5, 0, 3),
+    (100, 128, 32), (1024, 100, 64), (1024, 101, 64), (1024, 64, 32),
+    (1024, 65, 32), (1024, 32, 1), (1024, 33, 1), (5, 0, 3),
 )
 
 
@@ -304,6 +307,24 @@ def test_bits_adder_kernel_matches_plain(cuda, width, n):
         want = rk.bit_decompose_plain(*x, width, banks)
         assert torch.equal(bits, want)
         assert torch.equal(top, want[:, :, width - 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (32768, 65536))
+def test_msb_kernel_at_the_mlp_relu_sizes(cuda, n):
+    # relu's msb of the (1024, 32) and (1024, 64) hidden layers, ring128,
+    # its 16 bit banks drawn on the card as the session draws them
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n)
+    x = tuple(torch.randint(-2**63, 2**63 - 1, (3, 2, n), generator=gen,
+                            dtype=torch.int64, device=cuda) for _ in range(2))
+    banks = torch.randint(0, 2, (rk.adder_bank_count(128), 3, 128, n),
+                          generator=gen, dtype=torch.uint8, device=cuda)
+    before = rk.LAUNCHES["msb"]
+    top = rk.msb(*x, 128, banks)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["msb"] == before + 1
+    assert torch.equal(top, rk.msb_plain(*x, 128, banks))
 
 
 @pytest.mark.gpu
@@ -911,3 +932,69 @@ def test_protocol_library_on_the_card_matches_the_cpu(cuda, name, fn):
 
     for g, w in zip(run(cuda), run("cpu")):
         assert torch.equal(g.cpu(), w), name
+
+
+def _on_both(monkeypatch, run):
+    """``run(device)`` on the card and on the CPU under fixed keys."""
+    monkeypatch.setenv("MOOSE_TPU_FIXED_KEYS", "card-vs-cpu")
+    monkeypatch.setenv("MOOSE_TPU_ALLOW_WEAK_PRF", "1")
+    return run("cuda"), run("cpu")
+
+
+@pytest.mark.gpu
+def test_correlation_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    import moose_tpu_torch as tm
+    from moose_tpu_torch.runtime import LocalMooseRuntime
+
+    chip_smoke = _chip_smoke()
+    columns = chip_smoke.correlated_columns(64)
+
+    def run(device):
+        before = dict(rk.LAUNCHES)
+        value, runtime = chip_smoke.run_correlation(
+            LocalMooseRuntime, chip_smoke.correlation_computation(tm),
+            *columns, device=device)
+        launched = {k: v - before[k] for k, v in rk.LAUNCHES.items()}
+        return value, launched
+
+    (got, launched), (want, _) = _on_both(monkeypatch, run)
+    # numpy back from the card's storage, the CPU's words
+    assert type(got) is np.ndarray and np.array_equal(got, want)
+    for name in ("trunc_pairs", "cross_terms_reshare", "ring_mul", "msb",
+                 "bit_decompose", "horner", "prf_threefry"):
+        assert launched[name] >= 1, name
+    assert launched["dot_cross_terms"] == 0
+
+
+@pytest.mark.gpu
+def test_mlp_request_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    from moose_tpu_torch.predictors import from_onnx, sklearn_export
+    from moose_tpu_torch.runtime import LocalMooseRuntime
+
+    chip_smoke = _chip_smoke()
+    rng = np.random.default_rng(11)
+    model = chip_smoke.mlp_model(rng, chip_smoke.MLPC_FEATURES,
+                                 chip_smoke.MLPC_HIDDEN)
+    pred = from_onnx(sklearn_export.mlp_onnx(
+        model, chip_smoke.MLPC_FEATURES, classifier=True))
+    comp = pred.predictor_factory()
+    x = rng.normal(size=(64, chip_smoke.MLPC_FEATURES))
+
+    def run(device):
+        return LocalMooseRuntime(["alice", "bob", "carole"], device=device) \
+            .evaluate_computation(comp, {"x": x})["output_0"]
+
+    got, want = _on_both(monkeypatch, run)
+    assert np.array_equal(got, want)
+    assert np.abs(got - chip_smoke.dense_reference(pred, x)).max() < \
+        chip_smoke.MLPC_TOL
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    return chip_smoke

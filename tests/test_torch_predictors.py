@@ -125,6 +125,23 @@ def _kinds_by_placement(comp):
     return kinds
 
 
+def _dense_and_tree_models(sk):
+    """The MLPs (binary and multiclass), the pytorch network and the
+    forests, exported by ``sk`` (either package's sklearn_export)."""
+    rng = np.random.default_rng(0)
+    weights, biases, acts = chip_smoke.network_layers(rng, 3, (2,), 3)
+    forest = chip_smoke.forest_model(rng, 2, 2, 3)
+    return [
+        sk.mlp_onnx(chip_smoke.mlp_model(rng, 3, (2,)), 3, classifier=True),
+        sk.mlp_onnx(chip_smoke.mlp_model(rng, 3, (2,), 3, "logistic"), 3,
+                    classifier=True),
+        sk.pytorch_nn_onnx(weights, biases, acts, 3),
+        sk.random_forest_classifier_onnx(forest, 3),
+        sk.random_forest_regressor_onnx(
+            SimpleNamespace(estimators_=forest.estimators_), 3),
+    ]
+
+
 def test_port_supports_exactly_the_slice_kinds():
     model = SimpleNamespace(coef_=np.ones(3), intercept_=np.array([1.0]))
     binary = SimpleNamespace(coef_=np.ones((1, 3)), intercept_=np.ones(1),
@@ -156,13 +173,21 @@ def test_port_supports_exactly_the_slice_kinds():
         # the SGD trainers' steps (traced already)
         jtrainers.LogregSGDTrainer(3).step_computation(4),
         jtrainers.MLPSGDTrainer(3, 2).step_computation(4),
+        # BASELINE config 2: Load, string keys, Save
+        jtracer.trace(chip_smoke.correlation_computation(jm)),
+    ] + [
+        # the dense and tree predictors
+        jtracer.trace(jfrom_onnx(model).predictor_factory())
+        for model in _dense_and_tree_models(jsk)
     ]
     traced = {k: set() for k in _kinds_by_placement(graphs[0])}
     for comp in graphs:
         for plc, kinds in _kinds_by_placement(comp).items():
             traced[plc] |= kinds
     # host Identity and Constant reveal and build what the protocol
-    # library's kinds take and give (tests/test_torch_stacked_kinds.py)
+    # library's kinds take and give (tests/test_torch_stacked_kinds.py);
+    # the correlation brings Load and Save
+    assert {"Load", "Save"} <= traced["HostPlacement"]
     assert tlogical.HOST_KINDS == \
         traced["HostPlacement"] | {"Identity", "Constant"}
     assert tlogical.MIR_KINDS == traced["Mirrored3Placement"]
@@ -181,6 +206,10 @@ def test_port_supports_exactly_the_slice_kinds():
         ).predictor_factory(),
         tfrom_onnx(tsk.logistic_regression_onnx(multi, 3))
         .predictor_factory(),
+        chip_smoke.correlation_computation(tm),
+    ] + [
+        tfrom_onnx(model).predictor_factory()
+        for model in _dense_and_tree_models(tsk)
     ]
     assert all(
         tstacked.supports(ttracer.trace(g)) for g in port_graphs
@@ -282,7 +311,8 @@ def test_import_adds_no_jax_or_moose_tpu_module():
         "import moose_tpu_torch, moose_tpu_torch.runtime, "
         "moose_tpu_torch.predictors, moose_tpu_torch.interop, "
         "moose_tpu_torch.native.build, moose_tpu_torch.dialects.pallas_prf, "
-        "moose_tpu_torch.predictors.trainers\n"
+        "moose_tpu_torch.predictors.trainers, moose_tpu_torch.storage, "
+        "moose_tpu_torch.dialects.mirrored\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'moose_tpu'))\n"
