@@ -49,7 +49,12 @@ Phases (each raises on failure; the script then exits non-zero):
      (1024,) x (1,), K4 on (3,2,1024,1) and (3,2,1), K5's msb at 65,536,
      32,768 and 122,880 elements (relu's hidden layers, the forest's one
      less), K6's Pade ladder on one element, K7's group of relu's 16 bit
-     banks of (3,128,65536); then one
+     banks of (3,128,65536); the ResNet's shapes: K1 on its im2col
+     columns (3,65536,27)@(3,27,4) and (3,16384,36)@(3,36,4) and its Gemm
+     (3,1024,4)@(3,4,3), K5's msb at 262,144 and 131,072 elements (the
+     first relu, the max pool's first round), K7's group of that relu's
+     16 bit banks of (3,128,262144), timed against its bound only (its
+     plain version is held at 65,536); then one
      spmd.trunc_pr of (1024,) ring128 and one polynomial_eval (the
      sigmoid's 14 steps) must each run exactly 2 device launches, one K7
      group and their kernel, as the wrappers count them, with no other
@@ -97,22 +102,33 @@ Phases (each raises on failure; the script then exits non-zero):
      softmax), one request of 1024 rows within phase 8's limits;
  13. a random forest (TreeEnsembleClassifier, 8 trees of depth 4, 100
      features, 2 classes), one request of 1024 rows within 1e-3 of the
-     float64 forest; its one batched less's element count printed.
-Phases 4 to 13 are the main path: the kernels' launch counters are set
+     float64 forest; its one batched less's element count printed;
+ 14. BASELINE config 5's small ResNet (sklearn_export.resnet_block_onnx,
+     3 -> 4 channels, 8x8 images, 3 classes, weights from SEED): Conv3x3
+     -> BN -> Relu -> MaxPool2x2 -> [Conv3x3 -> BN -> Relu -> Conv3x3 ->
+     BN] + skip -> Relu -> GlobalAveragePool -> Gemm -> Softmax, through
+     from_onnx (ConvNet) and predictor_factory at fixed(24,40): three
+     requests of 1024 NCHW images, each within 5e-3 of a float64 forward
+     pass in numpy (resnet_reference) and with its argmax agreeing on at
+     least 0.99 of the rows; its walls, rows/s, device launches, busy
+     time and idle share (one more request under torch.profiler) and
+     peak device memory printed.
+Phases 4 to 14 are the main path: the kernels' launch counters are set
 to 0 just before each and read just after.  K1, K2's trunc_pairs and the
 threefry kernel in the phase's stream layout (threefry in all but 7,
 threefry-pallas in 7, and never the other) must have launched in each
 but 10 and 13, and every kernel (K1, K2's trunc_pairs, K3's
-cross_terms_reshare, K4, K5 in both modes, K6) in phases 6 to 12 (K1 but
-in phases 9 and 10, which hold no matrix product); phase 13 must launch
-K5's msb, K3's cross_terms_reshare and K7.  No seed may be derived on
+cross_terms_reshare, K4, K5 in both modes, K6) in phases 6 to 12 and 14
+(K1 but in phases 9 and 10, which hold no matrix product); phase 13 must
+launch K5's msb, K3's cross_terms_reshare and K7.  No seed may be derived on
 the host there (ring.mix_seed is counted), and the K7 launches must stay
 under their ceilings: 3 for a secure dot, 60 for a logistic-regression
 request or a LogregSGDTrainer step, MULTI_K7_CEILING for a multinomial
-request, MLPC_K7_CEILING for an MLP request; one more request of phases
-6, 8 and 11 and one more step of phase 7 run under torch.profiler, whose
-device launches must stay under their ceilings (LOGREG_DEVICE_CEILING,
-TRAIN_DEVICE_CEILING, MULTI_DEVICE_CEILING, MLPC_DEVICE_CEILING).
+request, MLPC_K7_CEILING for an MLP request, RESNET_K7_CEILING for a
+ResNet request; one more request of phases 6, 8, 11 and 14 and one more
+step of phase 7 run under torch.profiler, whose device launches must
+stay under their ceilings (LOGREG_DEVICE_CEILING, TRAIN_DEVICE_CEILING,
+MULTI_DEVICE_CEILING, MLPC_DEVICE_CEILING, RESNET_DEVICE_CEILING).
 The line before the last is the kernels' JSON record; the last line is
 the device record.
 
@@ -233,6 +249,19 @@ FOREST_DEPTH = 4
 FOREST_FEATURES = 100
 FOREST_ROWS = 1024
 FOREST_TOL = 1e-3
+# BASELINE config 5's small ResNet ("ONNX MLP / small ResNet encrypted
+# inference, batch=1024"): sklearn_export.resnet_block_onnx at the widths
+# examples/resnet_inference.py builds it with (3 -> 4 channels, 8x8
+# images, 3 classes), weights from SEED, fixed(24,40); held to the
+# float64 forward pass within tests/test_conv.py:254's limit and phase
+# 8's argmax agreement
+RESNET_CH = 3
+RESNET_MID = 4
+RESNET_SIZE = 8
+RESNET_CLASSES = 3
+RESNET_ROWS = 1024
+RESNET_REQUESTS = 3
+RESNET_TOL = 5e-3
 # launch ceilings of the main path: K7 launches (groups) of a secure dot,
 # of a logistic-regression request and of a LogregSGDTrainer step, and
 # the device launches (PyTorch's and the port's kernels) of one request
@@ -246,6 +275,8 @@ MULTI_K7_CEILING = 72  # 69 measured on the H100 + 5% (PERF.md)
 MULTI_DEVICE_CEILING = 1502  # 1,431 measured + 5%
 MLPC_K7_CEILING = 62  # 59 measured on the H100 + 5% (PERF.md)
 MLPC_DEVICE_CEILING = 1488  # 1,417 measured + 5%
+RESNET_K7_CEILING = 92  # 88 measured on the H100 + 5% (PERF.md)
+RESNET_DEVICE_CEILING = 2165  # 2,062 measured + 5%
 # the session key of the K7 group rows
 GROUP_MASTER = (0x01234567, 0x89ABCDEF, 0xDEADBEEF, 0x0BADF00D)
 
@@ -326,6 +357,14 @@ def device_launches(torch, fn):
     """The kernels and copies the card ran for one call of ``fn``, under
     torch.profiler."""
     return len(device_events(torch, fn)[1])
+
+
+def device_busy(torch, fn):
+    """(launches, busy ms) of one call of ``fn`` under torch.profiler:
+    the kernels and copies the card ran for it, and their summed
+    durations (one stream, so they do not overlap)."""
+    _, events = profiled(torch, fn)
+    return len(events), sum(e.device_time_total for e in events) / 1e3
 
 
 # the device kernels of moose_tpu_torch/csrc, as the profiler names them
@@ -899,6 +938,29 @@ def compare_group(torch, rk, ring, draws, layout, reps, label):
     return row
 
 
+def time_group(torch, rk, draws, layout, reps, label):
+    """K7's group kernel alone, in one layout, where its plain version
+    would take seconds a call: CUDA-event and device time and the bound,
+    no comparison (``equal`` and ``max_abs_err`` None)."""
+    out = [rk.GroupDraw(kind == "bits", n, tuple(
+        (torch.empty(n, dtype=torch.uint8 if kind == "bits" else torch.int64,
+                     device="cuda"), 0)
+        for _ in range(2 if kind == "w128" else 1))) for kind, n in draws]
+
+    def kernel():
+        rk.threefry_group(GROUP_MASTER, 0, 1000, layout, out)
+
+    bound_ms, bound_by = group_bound(draws, layout)
+    row = dict(
+        shape=f"group of {len(draws)} ({label})", mode=layout, equal=None,
+        max_abs_err=None, ms=cuda_time_ms(torch, kernel, reps=reps),
+        plain_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, device_ms=device_time_ms(torch, kernel),
+    )
+    del out
+    return row
+
+
 def compare_threefry(torch, rk, n, layout, bits, reps, label):
     """K7 in one layout against its plain version.  There is no library
     call: PyTorch's generators are Philox, another function."""
@@ -1205,6 +1267,48 @@ def forest_reference(predictor, x):
         p += np.array([tree.weights[n] for n in node])
     p += predictor.base_score
     return np.stack([1.0 - p, p], axis=1)
+
+
+def conv_nchw(x, w, pad):
+    """float64 convolution of NCHW ``x`` by OIHW ``w``, stride 1, zero
+    padding ``pad`` on every side."""
+    import numpy as np
+
+    _, _, h, wd = x.shape
+    _, _, kh, kw = w.shape
+    xp = np.pad(x, ((0, 0), (0, 0), (pad, pad), (pad, pad)))
+    oh, ow = h + 2 * pad - kh + 1, wd + 2 * pad - kw + 1
+    return sum(
+        np.einsum("nchw,oc->nohw", xp[:, :, i:i + oh, j:j + ow], w[:, :, i, j])
+        for i in range(kh) for j in range(kw)
+    )
+
+
+def resnet_reference(params, x):
+    """float64 class probabilities of ``resnet_block_onnx``'s graph on
+    NCHW ``x``, with the float32 weights its ONNX bytes carry (the
+    forward pass of tests/test_conv.py:226-252): Conv3x3 -> BN -> Relu
+    -> MaxPool2x2 -> [Conv3x3 -> BN -> Relu -> Conv3x3 -> BN] + skip ->
+    Relu -> GlobalAveragePool -> Gemm -> Softmax."""
+    import numpy as np
+
+    def f32(a):
+        return np.asarray(a, dtype=np.float32).astype(np.float64)
+
+    def bn(v, i):
+        g, b, m, var = (f32(params[f"{name}{i}"]).reshape(1, -1, 1, 1)
+                        for name in "gbmv")
+        return g * (v - m) / np.sqrt(var + 1e-5) + b
+
+    h = np.maximum(bn(conv_nchw(x, f32(params["w0"]), 1), 0), 0)
+    n, c, hh, ww = h.shape
+    h = h.reshape(n, c, hh // 2, 2, ww // 2, 2).max(axis=(3, 5))
+    r = np.maximum(bn(conv_nchw(h, f32(params["w1"]), 1), 1), 0)
+    r = bn(conv_nchw(r, f32(params["w2"]), 1), 2)
+    h = np.maximum(r + h, 0)
+    logits = h.mean(axis=(2, 3)) @ f32(params["wf"]).T + f32(params["bf"])
+    e = np.exp(logits - logits.max(axis=1, keepdims=True))
+    return e / e.sum(axis=1, keepdims=True)
 
 
 def library_computation(pm, rows=LIBRARY_ROWS, cols=LIBRARY_COLS,
@@ -1575,6 +1679,19 @@ def main() -> int:
             (MLPC_HIDDEN[1], 1, "MLP logit"),
             (NET_HIDDEN[1], NET_CLASSES, "network logits"),
         )
+    ] + [
+        # the ResNet's im2col contractions at batch 1024: the first 3x3
+        # conv over 8x8 images of 3 channels, the block's two over the
+        # pooled 4x4 maps of 4 channels, and the Gemm head
+        compare_dot(torch, rk, ring, gen, m, k, n, 128, reps=20,
+                    label=label, device=True)
+        for m, k, n, label in (
+            (RESNET_ROWS * RESNET_SIZE ** 2, 9 * RESNET_CH, RESNET_MID,
+             "ResNet conv 1"),
+            (RESNET_ROWS * (RESNET_SIZE // 2) ** 2, 9 * RESNET_MID,
+             RESNET_MID, "ResNet block convs"),
+            (RESNET_ROWS, RESNET_MID, RESNET_CLASSES, "ResNet Gemm"),
+        )
     ]
     # K2: trunc_pairs at the logistic regression's (1024,) operand (first:
     # the main path's shape), transposed and broadcast, at 10^6 ring64, and
@@ -1706,6 +1823,12 @@ def main() -> int:
             (MLPC_ROWS * MLPC_HIDDEN[1], "MLP relu (1024,32)"),
             (FOREST_ROWS * FOREST_TREES * (2 ** FOREST_DEPTH - 1),
              "forest splits (1024,120)"),
+            # the ResNet's first relu over (1024,8,8,4) and its max pool's
+            # first round over (1024,4,4,2,4) halves
+            (RESNET_ROWS * RESNET_SIZE ** 2 * RESNET_MID,
+             "ResNet relu (1024,8,8,4)"),
+            (RESNET_ROWS * RESNET_SIZE ** 2 * RESNET_MID // 2,
+             "ResNet max pool round 1"),
         )
     ]
     horner_rows = [
@@ -1753,6 +1876,17 @@ def main() -> int:
              "MLP relu's adder, 16 bit banks of (3,128,65536)"),
         )
     ]
+    # the ResNet's first relu: 16 bit banks of (3,128,262144), the
+    # widest group of any path, timed and bounded; its words are held to
+    # the plain version at the MLP relu's 65,536 elements above
+    group_rows += [
+        time_group(torch, rk, [("bits", 3 * 128 * RESNET_ROWS
+                                * RESNET_SIZE ** 2 * RESNET_MID)] * 16,
+                   layout, reps=5,
+                   label="ResNet relu's adder, 16 bit banks of "
+                         "(3,128,262144)")
+        for layout in ("threefry", "threefry-pallas")
+    ]
     # K7 under a given key, one draw: the trainer's largest (sharing its
     # 128x100 ring128 batch), the logistic regression's bit banks
     # (3, 128, 1024), 2^20 words and the secure dot's (2, 3, 1000, 1000)
@@ -1777,7 +1911,8 @@ def main() -> int:
     for name, rows in rows_by_kernel.items():
         for row in rows:
             log(f"compare {name}: {json.dumps(row)}")
-            if not row["equal"]:
+            # equal is None on a row timed without its plain version
+            if row["equal"] is False:
                 raise AssertionError(f"{name} disagrees with plain: {row}")
     torch.cuda.empty_cache()
     protocol_device_launches = protocol_launches(torch, rk)
@@ -2079,9 +2214,63 @@ def main() -> int:
         f"latency {forest_s * 1e3:.3f} ms max_abs_err {forest_err:.3e}; "
         f"one less over ({FOREST_ROWS}, {splits}) = "
         f"{FOREST_ROWS * splits} elements; launches {forest_launches}")
-    ring.mix_seed = mix_seed
     if forest_err >= FOREST_TOL:
         raise AssertionError(f"forest error {forest_err} >= {FOREST_TOL}")
+
+    # phase 14: BASELINE config 5's small ResNet through from_onnx and
+    # predictor_factory, three requests of NCHW images (main path)
+    resnet_proto, resnet_params = sklearn_export.resnet_block_onnx(
+        seed=SEED, in_ch=RESNET_CH, mid_ch=RESNET_MID, size=RESNET_SIZE,
+        n_classes=RESNET_CLASSES)
+    resnet = from_onnx(resnet_proto)
+    if not isinstance(resnet, predictors.ConvNet):
+        raise AssertionError(f"from_onnx gave {type(resnet).__name__}")
+    resnet_comp = resnet.predictor_factory()
+    requests = [
+        rng.normal(size=(RESNET_ROWS, RESNET_CH, RESNET_SIZE, RESNET_SIZE))
+        * 0.5 for _ in range(RESNET_REQUESTS)
+    ]
+    rk.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    resnet_latencies, resnet_errs, resnet_agree = [], [], []
+    for xr in requests:
+        out, s = timed(torch, lambda: runtime.evaluate_computation(
+            resnet_comp, {"x": xr}))
+        pred, want = out["output_0"], resnet_reference(resnet_params, xr)
+        if pred.shape != want.shape or not np.all(np.isfinite(pred)):
+            raise AssertionError(f"ResNet output malformed: {pred.shape}")
+        resnet_errs.append(float(np.abs(pred - want).max()))
+        resnet_agree.append(
+            float(np.mean(pred.argmax(axis=1) == want.argmax(axis=1))))
+        resnet_latencies.append(s)
+    resnet_launches = dict(rk.LAUNCHES)
+    ring.mix_seed = mix_seed
+    resnet_device_launches, resnet_busy_ms = device_busy(
+        torch, lambda: runtime.evaluate_computation(resnet_comp,
+                                                    {"x": requests[0]}))
+    resnet_wall_ms = statistics.median(resnet_latencies) * 1e3
+    resnet_rows_per_s = RESNET_ROWS * RESNET_REQUESTS / sum(resnet_latencies)
+    resnet_record = {
+        "latency_ms": [s * 1e3 for s in resnet_latencies],
+        "rows_per_s": resnet_rows_per_s,
+        "max_abs_err": max(resnet_errs),
+        "argmax_agreement": min(resnet_agree),
+        "device_launches": resnet_device_launches,
+        "device_busy_ms": resnet_busy_ms,
+        "device_idle_share": max(0.0, 1.0 - resnet_busy_ms / resnet_wall_ms),
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+    }
+    log(f"resnet: {RESNET_REQUESTS} requests of {RESNET_ROWS}x{RESNET_CH}x"
+        f"{RESNET_SIZE}x{RESNET_SIZE}, mid {RESNET_MID}, {RESNET_CLASSES} "
+        f"classes, fixed(24, 40) {json.dumps(resnet_record)} launches "
+        f"{resnet_launches}")
+    if max(resnet_errs) >= RESNET_TOL:
+        raise AssertionError(
+            f"ResNet error {max(resnet_errs)} >= {RESNET_TOL}")
+    if min(resnet_agree) < MULTI_ARGMAX_AGREEMENT:
+        raise AssertionError(
+            f"ResNet argmax agreement {min(resnet_agree)} < "
+            f"{MULTI_ARGMAX_AGREEMENT}")
 
     launches_by_path = {
         "secure_dot": dot_launches,
@@ -2094,6 +2283,7 @@ def main() -> int:
         "mlp_classifier": mlp_launches,
         "neural_network": net_launches,
         "random_forest": forest_launches,
+        "resnet": resnet_launches,
     }
     protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
@@ -2112,6 +2302,9 @@ def main() -> int:
         "neural_network": protocol + ("prf_threefry",),
         # the one less (msb) and the muxes
         "random_forest": ("msb", "cross_terms_reshare", "prf_threefry"),
+        # the convolutions and the Gemm on K1, BatchNorm's scale on K4,
+        # the relus' and the max pool's msb, softmax's exp on K5 and K6
+        "resnet": protocol + ("prf_threefry",),
     }
     # the stream a phase did not select expands nothing
     unused = {path: "prf_threefry_pallas" for path in required}
@@ -2147,6 +2340,10 @@ def main() -> int:
          k7["mlp_classifier"] / MLPC_REQUESTS, MLPC_K7_CEILING),
         ("device launches an MLP request",
          mlp_device_launches, MLPC_DEVICE_CEILING),
+        ("K7 launches a ResNet request",
+         k7["resnet"] / RESNET_REQUESTS, RESNET_K7_CEILING),
+        ("device launches a ResNet request",
+         resnet_device_launches, RESNET_DEVICE_CEILING),
     ):
         log(f"ceiling: {what} {got} <= {ceiling}")
         if got > ceiling:
@@ -2196,8 +2393,10 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "equal": all(r["equal"] for r in rows),
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "equal": all(r["equal"] for r in rows
+                         if r["equal"] is not None),
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["max_abs_err"] is not None),
             "tolerance": "exact word equality",
             "shape": head["shape"],
             "ms": head["ms"],
@@ -2224,7 +2423,8 @@ def main() -> int:
                         "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms")
                 }),
-                "max_abs_err": max((r["max_abs_err"] for r in mine),
+                "max_abs_err": max((r["max_abs_err"] for r in mine
+                                    if r["max_abs_err"] is not None),
                                    default=None),
             })
         kernels.append(entry)
@@ -2269,6 +2469,7 @@ def main() -> int:
         "random_forest": {"latency_ms": forest_s * 1e3,
                           "max_abs_err": forest_err,
                           "less_elements": FOREST_ROWS * splits},
+        "resnet": resnet_record,
     }
     log(json.dumps(record))
     log(json.dumps({"kernels": kernels}))

@@ -10,9 +10,10 @@ exact protocol sigmoid) and the SGD trainers' secure training step
 (``predictors.trainers``), the protocol library's comparisons,
 exp/log/sqrt and max/argmax/softmax (with ONNX multinomial logistic
 regression, the SOFTMAX head), Load and Save against the runtime's
-storage (the scientific-computing tutorial's correlation), and the dense
-and tree predictors (sklearn MLPs, pytorch and tf2onnx networks, random
-forests), through ``LocalMooseRuntime`` on its stacked layout.
+storage (the scientific-computing tutorial's correlation), the dense and
+tree predictors (sklearn MLPs, pytorch and tf2onnx networks, random
+forests), and secure convolution and pooling with the ONNX convnet (a
+small ResNet), through ``LocalMooseRuntime`` on its stacked layout.
 
 The package imports ``torch`` and never ``jax`` nor ``moose_tpu``.  Its
 entry points run on the CUDA card unless the caller passes
@@ -27,10 +28,12 @@ from .edsl.base import (
     add,
     add_n,
     argmax,
+    avg_pool2d,
     cast,
     computation,
     concatenate,
     constant,
+    conv2d,
     div,
     dot,
     equal,
@@ -47,6 +50,7 @@ from .edsl.base import (
     logical_and,
     logical_or,
     logical_xor,
+    max_pool2d,
     maximum,
     mean,
     mirrored_placement,
@@ -78,10 +82,12 @@ __all__ = [
     "add",
     "add_n",
     "argmax",
+    "avg_pool2d",
     "cast",
     "computation",
     "concatenate",
     "constant",
+    "conv2d",
     "div",
     "dot",
     "dtypes",
@@ -101,6 +107,7 @@ __all__ = [
     "logical_and",
     "logical_or",
     "logical_xor",
+    "max_pool2d",
     "maximum",
     "mean",
     "mirrored_placement",

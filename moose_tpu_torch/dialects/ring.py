@@ -34,7 +34,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ..errors import ConfigurationError
+from ..errors import ConfigurationError, KernelError
 
 MASK32 = 0xFFFFFFFF
 MASK64 = (1 << 64) - 1
@@ -201,6 +201,81 @@ def sum_(lo, hi, axis: int):
     lo_out = s_ll + (s_lh << 32)
     carry = lshr64(s_lh, 32) + ult(lo_out, s_ll).to(I64)
     return lo_out, s_hi + carry
+
+
+# ---------------------------------------------------------------------------
+# Convolution helpers: patch extraction for a convolution (im2col, then
+# the secure dot's matrix product) and the pools
+# ---------------------------------------------------------------------------
+
+
+def conv_out_size(size: int, k: int, stride: int, pad0: int, pad1: int) -> int:
+    return (size + pad0 + pad1 - k) // stride + 1
+
+
+def resolve_padding(padding, h, w, kh, kw, sh, sw):
+    """Normalize padding to ((ph0, ph1), (pw0, pw1)).
+
+    Accepts "VALID", "SAME" (TF convention: output = ceil(in/stride)),
+    or explicit ((ph0, ph1), (pw0, pw1))."""
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    if padding == "SAME":
+        def same(size, k, s):
+            out = -(-size // s)
+            total = max(0, (out - 1) * s + k - size)
+            return total // 2, total - total // 2
+
+        return same(h, kh, sh), same(w, kw, sw)
+    (p0, p1), (q0, q1) = padding
+    return (int(p0), int(p1)), (int(q0), int(q1))
+
+
+def check_maxpool_padding(padding, h, w, kh, kw, sh, sw):
+    """Shared padding policy for secret max pooling: implicit padding
+    would pad with the ring encoding of 0, while the host kernel pads
+    with -inf — negative inputs would silently produce different results
+    per placement.  Rejected unless MOOSE_TPU_MAXPOOL_ZERO_PAD=1
+    explicitly accepts zero-padding semantics."""
+    (p0, p1), (q0, q1) = resolve_padding(padding, h, w, kh, kw, sh, sw)
+    if (p0, p1, q0, q1) == (0, 0, 0, 0):
+        return
+    if os.environ.get("MOOSE_TPU_MAXPOOL_ZERO_PAD") == "1":
+        return
+    raise KernelError(
+        "padded max_pool2d on a secret-shared placement pads with the "
+        "ring encoding of 0, while the host kernel pads with -inf — "
+        "negative inputs would silently produce different results per "
+        "placement.  Use VALID padding, pad on the host side, or set "
+        "MOOSE_TPU_MAXPOOL_ZERO_PAD=1 to accept zero-padding semantics."
+    )
+
+
+def im2col(x, kh: int, kw: int, strides, padding):
+    """Extract conv patches from an NHWC tensor of any dtype (ring words
+    or bits).
+
+    Returns (patches, out_h, out_w) where patches has shape
+    (N, out_h, out_w, kh*kw*C), the taps in row-major (i, j) order with
+    the channels inside each tap — the layout of an HWIO kernel reshaped
+    to (kh*kw*C, O)."""
+    sh, sw = strides
+    n, h, w, c = x.shape
+    (ph0, ph1), (pw0, pw1) = resolve_padding(padding, h, w, kh, kw, sh, sw)
+    if ph0 or ph1 or pw0 or pw1:
+        # zero padding is exact for secret shares too: sharing is linear,
+        # so zero-padded shares reconstruct to a zero-padded secret
+        padded = x.new_zeros((n, h + ph0 + ph1, w + pw0 + pw1, c))
+        padded[:, ph0:ph0 + h, pw0:pw0 + w] = x
+        x = padded
+    out_h = conv_out_size(h, kh, sh, ph0, ph1)
+    out_w = conv_out_size(w, kw, sw, pw0, pw1)
+    cols = [
+        x[:, i:i + (out_h - 1) * sh + 1:sh, j:j + (out_w - 1) * sw + 1:sw]
+        for i in range(kh)
+        for j in range(kw)
+    ]
+    return torch.cat(cols, dim=-1), out_h, out_w
 
 
 # ---------------------------------------------------------------------------

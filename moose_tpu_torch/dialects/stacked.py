@@ -5,13 +5,12 @@ PyTorch counterpart of ``moose_tpu/dialects/stacked.py``.  Replicated
 tensors become ``SpmdRep``/``SpmdFixed``/``SpmdBits`` (one tensor with a
 leading party axis); host and mirrored ops delegate to the logical
 dialect.  The replicated kinds (:data:`REP_KINDS`) are the reference's
-less four: Decrypt (the AES path, ROADMAP queue 1, item 9) and Conv2D,
-AvgPool2D and MaxPool2D (the convolution, item 3).  Operands are secret
-fixed-point tensors, and bits where a kind takes them; a secret integer
-(the scale-0 lift, item 6) is refused, except the bare index tensor
-``Argmax`` returns, which structural kinds carry and which reveals to a
-``HostRingTensor``.  :func:`unsupported_ops` lists what a graph needs
-beyond that, and every refusal names its ROADMAP item.
+less one: Decrypt (the AES path, ROADMAP queue 1, item 9).  Operands are
+secret fixed-point tensors, and bits where a kind takes them; a secret
+integer (the scale-0 lift, item 6) is refused, except the bare index
+tensor ``Argmax`` returns, which structural kinds carry and which
+reveals to a ``HostRingTensor``.  :func:`unsupported_ops` lists what a
+graph needs beyond that, and every refusal names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -47,6 +46,7 @@ REP_KINDS = frozenset({
     "Mean", "Exp", "Log", "Log2", "Sqrt", "Sigmoid", "Relu", "Abs",
     "Softmax", "Argmax", "Maximum", "Concat", "Reshape", "ExpandDims",
     "Squeeze", "Transpose", "IndexAxis", "Slice", "Shape", "Cast",
+    "Conv2D", "AvgPool2D", "MaxPool2D",
 })
 # resolved by the interpreter's walk, on any placement
 BOUNDARY_KINDS = frozenset({"Input", "Output", "Load", "Save"})
@@ -57,8 +57,7 @@ BOUNDARY_KINDS = frozenset({"Input", "Output", "Load", "Save"})
 # checkpoint store); the reference runs any other kind on its per-host
 # layout only (item 8)
 _REP_ITEMS = {
-    "Decrypt": "item 9", "Conv2D": "item 3", "AvgPool2D": "item 3",
-    "MaxPool2D": "item 3", "LoadShares": "items 8 and 10",
+    "Decrypt": "item 9", "LoadShares": "items 8 and 10",
     "SaveShares": "items 8 and 10",
 }
 # secret integers: the scale-0 lift
@@ -317,6 +316,25 @@ def _execute_rep(sess: StackedSession, comp, op: Operation,
 
     if kind == "Dot":
         return spmd.fx_dot(sess.spmd, fixed(args[0]), fixed(args[1]))
+
+    if kind == "Conv2D":
+        x, k = fixed(args[0]), fixed(args[1])
+        if x.fractional_precision != k.fractional_precision:
+            raise TypeMismatchError(
+                "conv operands disagree on fractional precision: "
+                f"{x.fractional_precision} vs {k.fractional_precision}"
+            )
+        return spmd.fx_conv2d(
+            sess.spmd, x, k, strides=tuple(attrs.get("strides", (1, 1))),
+            padding=attrs.get("padding", "VALID"),
+        )
+
+    if kind in ("AvgPool2D", "MaxPool2D"):
+        strides = attrs.get("strides")
+        fn = sm.fx_avg_pool2d if kind == "AvgPool2D" else sm.fx_max_pool2d
+        return fn(sess.spmd, fixed(args[0]), tuple(attrs["pool_size"]),
+                  None if strides is None else tuple(strides),
+                  attrs.get("padding", "VALID"))
 
     if kind in _SECRET_BINOPS:
         x, y = args

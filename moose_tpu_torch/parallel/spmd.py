@@ -1,15 +1,17 @@
 """Party-stacked execution of the 3-party replicated protocol on one device.
 
 PyTorch counterpart of ``moose_tpu/parallel/spmd.py``: sharing, the
-secure dot and elementwise multiply, public-constant arithmetic,
-truncation and the fixed-point layer.  A replicated sharing is ONE pair
-of int64 word tensors with leading axes ``(party=3, slot=2)``:
-x = x0 + x1 + x2, party i holds the pair
+secure dot, convolution and elementwise multiply, public-constant
+arithmetic, truncation and the fixed-point layer.  A replicated sharing
+is ONE pair of int64 word tensors with leading axes ``(party=3,
+slot=2)``: x = x0 + x1 + x2, party i holds the pair
 (x_i, x_{i+1}), ``lo[i, 0]`` is x_i and ``lo[i, 1]`` is x_{i+1}.
 Share-local math is one tensor op over the party axis; resharing is a
 roll over it (for a secure multiply, inside the ``cross_terms_reshare``
 kernel).  The port runs on one device, so the JAX package's mesh
-pinning and sharding constraints have no counterpart here.
+pinning, sharding constraints and mesh helpers (``make_mesh``,
+``rep_sharding``, ``constrain``, ``fabric_party_mesh``) have no
+counterpart here.
 
 Randomness comes from :class:`SpmdSession` in the JAX package's exact
 nonce schedule, so under the same master key and the threefry PRF both
@@ -26,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from ..devices import DEFAULT_DEVICE, resolve
 from ..dialects import ring
 from ..native import ring_kernels as rk
 
@@ -53,6 +56,24 @@ class SpmdFixed:
 # ---------------------------------------------------------------------------
 # Session: seed schedule for the PRF draws
 # ---------------------------------------------------------------------------
+
+
+def derive_step_keys(master_key, n: int, salt: int = 0x9E3779B9,
+                     device=DEFAULT_DEVICE) -> torch.Tensor:
+    """Per-iteration session keys for protocol steps run in a loop: mask
+    freshness per step is a protocol concern, so the derivation lives
+    here rather than in each caller.  Returns the JAX package's uint32
+    words (n, 4) as an int64 tensor, each word in [0, 2^32): PyTorch's
+    uint32 has no multiply or xor on every device."""
+    device = resolve(device)
+    steps = torch.arange(n, dtype=torch.int64, device=device)
+    mk = torch.tensor([int(w) & ring.MASK32 for w in master_key],
+                      dtype=torch.int64, device=device)
+    words = torch.stack(
+        [steps, steps * (salt & ring.MASK32), steps ^ 0xC2B2AE35, steps | 1],
+        dim=1,
+    )
+    return torch.bitwise_and(mk[None, :] ^ words, ring.MASK32)
 
 
 class SpmdSession:
@@ -242,35 +263,62 @@ def slot_words(t: SpmdRep, slot: int, shape=None):
     return words(t.lo), words(t.hi)
 
 
-def _cross_terms(x: SpmdRep, y: SpmdRep, elementwise: bool):
-    """v_i = x_i·(y_i + y_{i+1}) + x_{i+1}·y_i per party: the regrouped
-    3-term cross product of the JAX package, two products instead of
-    three.  Elementwise products (operands broadcast to their common
-    logical shape) run the ``cross_terms_mul`` kernel; matrix products
-    the ``dot_cross_terms`` kernel, which takes ``y0 + y1`` summed
-    beforehand.  On the CPU each kernel is its plain version."""
-    if elementwise:
-        shape = torch.broadcast_shapes(x.shape, y.shape)
-        return rk.cross_terms_mul(
-            slot_words(x, 0, shape), slot_words(x, 1, shape),
-            slot_words(y, 0, shape), slot_words(y, 1, shape), x.width,
-        )
-    _dot_shape(x, y)
-    y0 = slot_words(y, 0)
-    ys = ring.add(*y0, *slot_words(y, 1))
-    return rk.dot_cross_terms(
-        slot_words(x, 0), slot_words(x, 1), y0, ys, x.width
+def _mul_terms(x: SpmdRep, y: SpmdRep):
+    """Elementwise cross terms v_i = x_i·(y_i + y_{i+1}) + x_{i+1}·y_i
+    per party (the regrouped 3-term cross product of the JAX package, two
+    products instead of three), the operands broadcast to their common
+    logical shape, in the ``cross_terms_mul`` kernel.  The protocol's
+    multiplies run it fused with the reshare (:func:`mul`); this unfused
+    form is the composition that fusion is held against."""
+    shape = torch.broadcast_shapes(x.shape, y.shape)
+    return rk.cross_terms_mul(
+        slot_words(x, 0, shape), slot_words(x, 1, shape),
+        slot_words(y, 0, shape), slot_words(y, 1, shape), x.width,
     )
 
 
-def _dot_shape(x: SpmdRep, y: SpmdRep):
-    """The (m, n) logical shape of the secure matmul x @ y."""
-    if len(x.shape) != 2 or len(y.shape) != 2:
+def _dot_terms(x: SpmdRep, y: SpmdRep):
+    """Cross terms of the secure matmul x @ y, party-batched in the
+    ``dot_cross_terms`` kernel, which takes ``y0 + y1`` summed
+    beforehand.  A vector operand is promoted to a matrix for the kernel
+    and its unit axis squeezed from the (3, *shape) result, as the JAX
+    package's ``ring.matmul`` does: (m, k) @ (k,) gives (m,), (k,) @
+    (k, n) gives (n,) and (k,) @ (k,) a 0-d result."""
+    if len(x.shape) not in (1, 2) or len(y.shape) not in (1, 2):
         raise NotImplementedError(
-            "the port's secure dot takes matrices (m, k) @ (k, n); vector "
-            "operands are a later slice (ROADMAP queue 1, item 3)"
+            f"the port's secure dot takes matrices and vectors, got "
+            f"{x.shape} @ {y.shape}"
         )
-    return (x.shape[0], y.shape[1])
+    shape = x.shape[:-1] + y.shape[1:]
+    if len(x.shape) == 1:
+        x = reshape(x, (1,) + x.shape)
+    if len(y.shape) == 1:
+        y = reshape(y, y.shape + (1,))
+    y0 = slot_words(y, 0)
+    ys = ring.add(*y0, *slot_words(y, 1))
+    v = rk.dot_cross_terms(
+        slot_words(x, 0), slot_words(x, 1), y0, ys, x.width
+    )
+    return tuple(None if w is None else w.view((3,) + shape) for w in v)
+
+
+def _conv_terms(strides, padding):
+    """The contraction of a secure convolution, NHWC x HWIO -> (N, OH,
+    OW, O): the patches of x (:func:`im2col`) as a (N*OH*OW, KH*KW*C)
+    matrix against the kernel reshaped to (KH*KW*C, O), through
+    :func:`_dot_terms` — the card runs the secure dot's kernel, as the
+    JAX package runs ``ring.conv2d`` (im2col, then its ring matmul)."""
+
+    def contract(x: SpmdRep, k: SpmdRep):
+        kh, kw, c, o = k.shape
+        patches = im2col(x, kh, kw, strides, padding)
+        n, oh, ow, depth = patches.shape
+        v = _dot_terms(reshape(patches, (n * oh * ow, depth)),
+                       reshape(k, (kh * kw * c, o)))
+        return tuple(None if w is None else w.view((3, n, oh, ow, o))
+                     for w in v)
+
+    return contract
 
 
 def _reshare(sess, v_lo, v_hi, width):
@@ -283,7 +331,7 @@ def mul(sess: SpmdSession, x: SpmdRep, y: SpmdRep) -> SpmdRep:
     ``cross_terms_reshare`` kernel, which reads the operands' pair layout
     in place (broadcasting them to their common logical shape) and the
     zero-share bank, and writes the reshared pair layout; word for word
-    ``_reshare(sess, *_cross_terms(x, y, True), width)``."""
+    ``_reshare(sess, *_mul_terms(x, y), width)``."""
     shape = torch.broadcast_shapes(x.shape, y.shape)
     bank = sess.sample_bank(shape, x.width)
     return SpmdRep(
@@ -295,8 +343,30 @@ def mul(sess: SpmdSession, x: SpmdRep, y: SpmdRep) -> SpmdRep:
 
 def dot(sess: SpmdSession, x: SpmdRep, y: SpmdRep) -> SpmdRep:
     """Secure matmul: regrouped party-batched cross terms + reshare."""
-    v_lo, v_hi = _cross_terms(x, y, elementwise=False)
-    return _reshare(sess, v_lo, v_hi, x.width)
+    return _reshare(sess, *_dot_terms(x, y), x.width)
+
+
+def conv2d(sess: SpmdSession, x: SpmdRep, k: SpmdRep, strides=(1, 1),
+           padding="VALID") -> SpmdRep:
+    """Secure convolution (NHWC x HWIO): the cross-product and zero-share
+    reshare of mul/dot with the convolution's contraction."""
+    return _reshare(sess, *_conv_terms(strides, padding)(x, k), x.width)
+
+
+def im2col(x: SpmdRep, kh: int, kw: int, strides=(1, 1),
+           padding="VALID") -> SpmdRep:
+    """Patch extraction applied share-locally (pure data movement;
+    sharing is linear, so patched shares reconstruct to the patched
+    secret).  The (party, slot) prefix folds into the batch axis for
+    ``ring.im2col`` and unfolds after."""
+
+    def go(a):
+        three, two, n, h, w, c = a.shape
+        patches, out_h, out_w = ring.im2col(
+            a.reshape(three * two * n, h, w, c), kh, kw, strides, padding)
+        return patches.view(three, two, n, out_h, out_w, patches.shape[-1])
+
+    return SpmdRep(go(x.lo), None if x.hi is None else go(x.hi), x.width)
 
 
 def public_to_rep(lo, hi, width: int) -> SpmdRep:
@@ -474,29 +544,31 @@ def trunc_pr(sess: SpmdSession, x: SpmdRep, amount: int) -> SpmdRep:
     )
 
 
-def _mul_like_trunc(sess, x: SpmdRep, y: SpmdRep, elementwise: bool,
+def _mul_like_trunc(sess, x: SpmdRep, y: SpmdRep, contract,
                     amount: int) -> SpmdRep:
-    """Fused multiply-and-truncate (elementwise or matrix product):
-    cross terms + zero-share, fed straight into truncation's 2-party
-    additive form (a0 = z_0 + z_1, a1 = z_2) — bit-identical to
-    resharing then ``trunc_pr``, with the same draw order: the zero-share
-    bank and the five truncation draws are one K7 group.  Elementwise
-    products run the ``cross_terms_reshare`` kernel, whose pair layout
-    ``trunc_pairs`` reads; matrix products :func:`_cross_terms` (the
-    ``dot_cross_terms`` kernel), whose cross terms ``trunc_pairs`` takes
-    with the bank."""
+    """Fused multiply-and-truncate: cross terms + zero-share, fed straight
+    into truncation's 2-party additive form (a0 = z_0 + z_1, a1 = z_2) —
+    bit-identical to resharing then ``trunc_pr``, with the same draw
+    order: the zero-share bank at the product's shape and the five
+    truncation draws are one K7 group.  ``contract`` is the product's
+    cross terms: :func:`_mul_terms` (elementwise) runs fused with the
+    reshare in the ``cross_terms_reshare`` kernel, whose pair layout
+    ``trunc_pairs`` reads; a contraction (:func:`_dot_terms`, a
+    :func:`_conv_terms`) gives the (3, *shape) cross terms, which
+    ``trunc_pairs`` takes with the bank."""
     width = x.width
-    if elementwise:
+    if contract is _mul_terms:
         shape = tuple(torch.broadcast_shapes(x.shape, y.shape))
+        v = None
     else:
-        shape = _dot_shape(x, y)
+        v = contract(x, y)
+        shape = tuple(v[0].shape[1:])
     specs, draws = _trunc_draws(sess, shape, width)
     bank = sess.sample_group([("bank", shape, width)] + specs)[0]
-    if elementwise:
+    if v is None:
         z = rk.cross_terms_reshare((x.lo, x.hi), (y.lo, y.hi), bank, width)
         out = rk.trunc_pairs(z, draws, width, amount)
     else:
-        v = _cross_terms(x, y, elementwise)
         out = rk.trunc_pairs(v, draws, width, amount, bank=bank)
     return SpmdRep(*out, width)
 
@@ -532,10 +604,9 @@ def fx_sub(x: SpmdFixed, y: SpmdFixed) -> SpmdFixed:
     )
 
 
-def _fx_product(sess, x: SpmdFixed, y: SpmdFixed,
-                elementwise: bool) -> SpmdFixed:
+def _fx_product(sess, x: SpmdFixed, y: SpmdFixed, contract) -> SpmdFixed:
     z = _mul_like_trunc(
-        sess, x.tensor, y.tensor, elementwise, x.fractional_precision
+        sess, x.tensor, y.tensor, contract, x.fractional_precision
     )
     return SpmdFixed(
         z,
@@ -545,11 +616,18 @@ def _fx_product(sess, x: SpmdFixed, y: SpmdFixed,
 
 
 def fx_mul(sess, x: SpmdFixed, y: SpmdFixed) -> SpmdFixed:
-    return _fx_product(sess, x, y, elementwise=True)
+    return _fx_product(sess, x, y, _mul_terms)
 
 
 def fx_dot(sess, x: SpmdFixed, y: SpmdFixed) -> SpmdFixed:
-    return _fx_product(sess, x, y, elementwise=False)
+    return _fx_product(sess, x, y, _dot_terms)
+
+
+def fx_conv2d(sess, x: SpmdFixed, k: SpmdFixed, strides=(1, 1),
+              padding="VALID") -> SpmdFixed:
+    """Fixed-point secure convolution: one multiplication depth, fused
+    with the single truncation like fx_mul/fx_dot."""
+    return _fx_product(sess, x, k, _conv_terms(strides, padding))
 
 
 def _fx_raw(value: float, frac: int, width: int) -> int:
@@ -584,3 +662,10 @@ def fx_add_public(x: SpmdFixed, value: float) -> SpmdFixed:
         x.integral_precision,
         x.fractional_precision,
     )
+
+
+def fx_mean_rows(sess, x: SpmdFixed) -> SpmdFixed:
+    """Mean over the leading data axis (axis 0 of the logical shape)."""
+    summed = SpmdFixed(sum_axis(x.tensor, 0), x.integral_precision,
+                       x.fractional_precision)
+    return fx_mul_public(sess, summed, 1.0 / x.tensor.shape[0])

@@ -5,8 +5,8 @@ bit sharings, bit decomposition through a Kogge-Stone adder,
 bit-to-arithmetic conversion, comparisons (``less``, ``greater``,
 ``equal_bit``), selection, Goldschmidt division, the fixed-point Horner
 polynomial, 2^x and e^x, log2/log/sqrt, the sigmoid, and the tournament
-max/argmax and the softmax over an axis.  The pools of that module come
-with the convolution (ROADMAP queue 1, item 3).
+max/argmax and the softmax over an axis, and the average and max
+pools.
 
 A replicated bit sharing is one ``torch.uint8`` tensor
 ``(party=3, slot=2, [bits=k,] *shape)`` of 0/1 with XOR share semantics,
@@ -812,3 +812,47 @@ def fx_softmax(sess, x: SpmdFixed, axis: int,
     total = spmd.expand_dims(spmd.sum_axis(normalized.tensor, axis), axis)
     return fx_div(sess, normalized, SpmdFixed(total, i_p, f_p),
                   positive_divisor=True)
+
+
+# ---------------------------------------------------------------------------
+# Pooling (stacked forms of fixedpoint.{avg,max}_pool2d)
+# ---------------------------------------------------------------------------
+
+
+def _pool_patches(x: SpmdFixed, pool, strides, padding):
+    ph, pw = pool
+    strides = tuple(strides) if strides is not None else (ph, pw)
+    patches = spmd.im2col(x.tensor, ph, pw, strides, padding)
+    # (N, OH, OW, taps*C) with the window laid out [tap0 C..., tap1 C...]
+    taps = ph * pw
+    shp = patches.shape
+    c = shp[-1] // taps
+    return spmd.reshape(patches, shp[:3] + (taps, c)), taps
+
+
+def fx_avg_pool2d(sess, x: SpmdFixed, pool, strides=None,
+                  padding="VALID") -> SpmdFixed:
+    """Average pooling: share-local window sum (im2col + tap-axis sum,
+    no interaction) then one public 1/n multiply + truncation."""
+    patches, taps = _pool_patches(x, pool, strides, padding)
+    summed = spmd.sum_axis(patches, 3)
+    return spmd.fx_mul_public(
+        sess,
+        SpmdFixed(summed, x.integral_precision, x.fractional_precision),
+        1.0 / taps,
+    )
+
+
+def fx_max_pool2d(sess, x: SpmdFixed, pool, strides=None,
+                  padding="VALID") -> SpmdFixed:
+    """Max pooling: tournament max over the window taps (log2(taps)
+    comparison rounds over the whole tensor, along the taps axis of the
+    (N, OH, OW, taps, C) patches).  Padding policy shared with the
+    per-host dialect (ring.check_maxpool_padding)."""
+    ph, pw = pool
+    h, w = x.tensor.shape[1:3]
+    strides = tuple(strides) if strides is not None else (ph, pw)
+    ring.check_maxpool_padding(padding, h, w, ph, pw, *strides)
+    patches, taps = _pool_patches(x, pool, strides, padding)
+    t = max_axis(sess, patches, 3)
+    return SpmdFixed(t, x.integral_precision, x.fractional_precision)

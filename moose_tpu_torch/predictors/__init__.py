@@ -2,10 +2,12 @@
 trainers.  The port runs the linear models (``LinearRegressor``,
 ``LinearClassifier``), the dense networks (``MLPRegressor``,
 ``MLPClassifier``, ``NeuralNetwork``), the tree ensembles
-(``TreeEnsembleRegressor``, ``TreeEnsembleClassifier``) and the
-trainers' step (``LogregSGDTrainer``, ``MLPSGDTrainer``); the convnet and
-the AES input wrapper are later slices (see ROADMAP.md)."""
+(``TreeEnsembleRegressor``, ``TreeEnsembleClassifier``), the convnet
+(``ConvNet``) and the trainers' step (``LogregSGDTrainer``,
+``MLPSGDTrainer``); the AES input wrapper is a later slice (see
+ROADMAP.md)."""
 
+from . import convnet_predictor
 from . import layers
 from . import linear_predictor
 from . import multilayer_perceptron_predictor
@@ -17,6 +19,7 @@ from . import predictor_utils
 from . import sklearn_export
 from . import trainers
 from . import tree_ensemble
+from .convnet_predictor import ConvNet
 from .linear_predictor import LinearClassifier, LinearRegressor
 from .multilayer_perceptron_predictor import MLPClassifier, MLPRegressor
 from .neural_network_predictor import NeuralNetwork
@@ -30,6 +33,7 @@ from .tree_ensemble import (
 )
 
 __all__ = [
+    "ConvNet",
     "DecisionTreeRegressor",
     "LinearClassifier",
     "LinearRegressor",
@@ -42,6 +46,7 @@ __all__ = [
     "SecureTrainer",
     "TreeEnsembleClassifier",
     "TreeEnsembleRegressor",
+    "convnet_predictor",
     "from_onnx",
     "layers",
     "linear_predictor",

@@ -3,12 +3,12 @@
 ``pymoose/pymoose/predictors/onnx_convert.py:8-92``).
 
 ``from_onnx`` sniffs the graph (op types, parameter naming, producer) and
-dispatches to the matching predictor family's ``from_onnx``: the linear
-models, the sklearn MLPs, the pytorch and tf2onnx dense networks and the
-tree ensembles.  A convolutional export is refused: the convnet waits for
-ROADMAP queue 1, item 3.
+dispatches to the matching predictor family's ``from_onnx``: the
+convnet, the linear models, the sklearn MLPs, the pytorch and tf2onnx
+dense networks and the tree ensembles.
 """
 
+from . import convnet_predictor
 from . import linear_predictor
 from . import multilayer_perceptron_predictor
 from . import neural_network_predictor
@@ -29,16 +29,14 @@ def from_onnx(model_proto):
     serialized bytes or a path to a ``.onnx`` file).
 
     Raises ``ValueError`` if the predictor type cannot be inferred or the
-    graph is malformed for the inferred type, and
-    ``NotImplementedError`` for a convolutional graph."""
+    graph is malformed for the inferred type."""
     model_proto = onnx_proto.load_model(model_proto)
 
     graph_op_types = {node.op_type for node in model_proto.graph.node}
     if "Conv" in graph_op_types:
-        raise NotImplementedError(
-            "the port does not import convolutional models yet (the "
-            "convnet predictor, ROADMAP queue 1, item 3)"
-        )
+        # a convolutional export (ResNet-style; the reference zoo is
+        # Gemm-only)
+        return convnet_predictor.ConvNet.from_onnx(model_proto)
 
     if model_proto.producer_name in ("pytorch", "tf2onnx"):
         return neural_network_predictor.NeuralNetwork.from_onnx(model_proto)

@@ -1,6 +1,7 @@
 """Export models to skl2onnx-style ONNX with the bundled protobuf
-encoder: the port's copy of ``moose_tpu/predictors/sklearn_export.py``
-but its convnet fixture.
+encoder: the port's copy of ``moose_tpu/predictors/sklearn_export.py``,
+which writes the same bytes for the same arguments.  A model's weights
+carry between the two packages as those bytes.
 
 Only attributes are read (``coef_``, ``intercept_`` and ``classes_`` of
 the linear models; ``coefs_``, ``intercepts_`` and ``activation`` of an
@@ -247,3 +248,90 @@ def pytorch_nn_onnx(weights, biases, activations, n_features):
             nodes.append(op.make_node(act, [prev], [out]))
             prev = out
     return _model(nodes, n_features, initializers=inits, producer="pytorch")
+
+
+def resnet_block_onnx(seed=0, in_ch=3, mid_ch=4, size=8, n_classes=3):
+    """A miniature ResNet-style convnet ONNX export (pytorch layout:
+    NCHW input, OIHW conv weights, Gemm head with transB):
+
+        Conv3x3(pad 1) -> BN -> Relu -> MaxPool2x2
+        -> [Conv3x3(pad 1) -> BN -> Relu -> Conv3x3(pad 1) -> BN] + skip
+        -> Relu -> GlobalAveragePool -> Flatten -> Gemm -> Softmax
+
+    Returns (model_proto, params dict) so tests can evaluate a reference
+    implementation with the same weights."""
+    rng = np.random.default_rng(seed)
+
+    def conv_w(o, i, k=3):
+        return (rng.normal(size=(o, i, k, k)) * (0.5 / (i * k))).astype(
+            np.float64
+        )
+
+    p = {
+        "w0": conv_w(mid_ch, in_ch),
+        "g0": 1 + 0.1 * rng.normal(size=mid_ch),
+        "b0": 0.1 * rng.normal(size=mid_ch),
+        "m0": 0.05 * rng.normal(size=mid_ch),
+        "v0": np.abs(1 + 0.1 * rng.normal(size=mid_ch)),
+        "w1": conv_w(mid_ch, mid_ch),
+        "g1": 1 + 0.1 * rng.normal(size=mid_ch),
+        "b1": 0.1 * rng.normal(size=mid_ch),
+        "m1": 0.05 * rng.normal(size=mid_ch),
+        "v1": np.abs(1 + 0.1 * rng.normal(size=mid_ch)),
+        "w2": conv_w(mid_ch, mid_ch),
+        "g2": 1 + 0.1 * rng.normal(size=mid_ch),
+        "b2": 0.1 * rng.normal(size=mid_ch),
+        "m2": 0.05 * rng.normal(size=mid_ch),
+        "v2": np.abs(1 + 0.1 * rng.normal(size=mid_ch)),
+        "wf": (rng.normal(size=(n_classes, mid_ch)) * 0.5).astype(
+            np.float64
+        ),
+        "bf": 0.1 * rng.normal(size=n_classes),
+    }
+
+    def init(name, arr):
+        a32 = np.asarray(arr, dtype=np.float32)
+        return op.TensorProto(
+            name=name, dims=list(a32.shape), data_type=FLOAT,
+            raw_data=a32.tobytes(),
+        )
+
+    inits = [init(k, v) for k, v in p.items()]
+    nodes = [
+        op.make_node("Conv", ["x", "w0"], ["c0"], strides=[1, 1],
+                     pads=[1, 1, 1, 1], group=1),
+        op.make_node("BatchNormalization",
+                     ["c0", "g0", "b0", "m0", "v0"], ["n0"]),
+        op.make_node("Relu", ["n0"], ["r0"]),
+        op.make_node("MaxPool", ["r0"], ["p0"], kernel_shape=[2, 2],
+                     strides=[2, 2]),
+        op.make_node("Conv", ["p0", "w1"], ["c1"], strides=[1, 1],
+                     pads=[1, 1, 1, 1], group=1),
+        op.make_node("BatchNormalization",
+                     ["c1", "g1", "b1", "m1", "v1"], ["n1"]),
+        op.make_node("Relu", ["n1"], ["r1"]),
+        op.make_node("Conv", ["r1", "w2"], ["c2"], strides=[1, 1],
+                     pads=[1, 1, 1, 1], group=1),
+        op.make_node("BatchNormalization",
+                     ["c2", "g2", "b2", "m2", "v2"], ["n2"]),
+        op.make_node("Add", ["n2", "p0"], ["sum"]),
+        op.make_node("Relu", ["sum"], ["r2"]),
+        op.make_node("GlobalAveragePool", ["r2"], ["gap"]),
+        op.make_node("Gemm", ["gap", "wf", "bf"], ["logits"],
+                     alpha=1.0, beta=1.0, transB=1),
+        op.make_node("Softmax", ["logits"], ["variable"]),
+    ]
+    graph = op.GraphProto(
+        name="resnet_block",
+        node=nodes,
+        initializer=inits,
+        input=[
+            op.make_tensor_value_info(
+                "x", FLOAT, [None, in_ch, size, size]
+            )
+        ],
+        output=[
+            op.make_tensor_value_info("variable", FLOAT, [None, n_classes])
+        ],
+    )
+    return op.make_model(graph, producer_name="pytorch"), p

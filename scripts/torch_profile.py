@@ -6,7 +6,9 @@ ONNX LinearRegressor request, one ONNX logistic-regression request, one
 ONNX multinomial logistic-regression request (10 classes, the SOFTMAX
 head) and one request of BASELINE config 5's MLP (a binary sklearn
 MLPClassifier, 100 -> 64 -> 32 -> 1, relu) (each 1024x100 at
-fixed(24,40)), and BASELINE config 2's correlation (the
+fixed(24,40)), one request of config 5's small ResNet (the ONNX convnet
+of sklearn_export.resnet_block_onnx, 1024 NCHW images of 3x8x8, 3
+classes, at fixed(24,40)), and BASELINE config 2's correlation (the
 scientific-computing tutorial at 1,000 rows, its columns loaded from
 storage and its result saved there) under the default threefry PRF, and
 one LogregSGDTrainer step (128x100 at fixed(24,40)) under
@@ -274,6 +276,18 @@ def main() -> int:
         lambda: runtime.evaluate_computation(mlp_comp, {"x": xp})
     )
     print(f"mlp_classifier: {json.dumps(mlp_profile)}", flush=True)
+    resnet_model, _ = sklearn_export.resnet_block_onnx(
+        seed=chip_smoke.SEED, in_ch=chip_smoke.RESNET_CH,
+        mid_ch=chip_smoke.RESNET_MID, size=chip_smoke.RESNET_SIZE,
+        n_classes=chip_smoke.RESNET_CLASSES)
+    resnet_comp = from_onnx(resnet_model).predictor_factory()
+    xc = rng.normal(size=(chip_smoke.RESNET_ROWS, chip_smoke.RESNET_CH,
+                          chip_smoke.RESNET_SIZE,
+                          chip_smoke.RESNET_SIZE)) * 0.5
+    resnet_profile = profile_request(
+        lambda: runtime.evaluate_computation(resnet_comp, {"x": xc})
+    )
+    print(f"resnet: {json.dumps(resnet_profile)}", flush=True)
     alcohol, grades = chip_smoke.correlated_columns(
         chip_smoke.CORR_SIZES[-1])
     ids = chip_smoke.CORR_IDS
@@ -311,6 +325,7 @@ def main() -> int:
                       "logistic_regression": logreg_profile,
                       "multinomial_regression": multi_profile,
                       "mlp_classifier": mlp_profile,
+                      "resnet": resnet_profile,
                       "correlation": corr_profile,
                       "training_step": train}))
     return 0

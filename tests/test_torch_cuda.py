@@ -21,13 +21,15 @@ WIDTHS = (64, 128)
 # output tiles in m and n (64, 65, 128, 129 rows; 32, 33, 64, 65 columns);
 # the thin n of the predictors and trainers (1, 8, 32); the dense
 # predictors' layers at batch 1024 (100 -> 64 -> 32 -> 1, and one more k
-# each); and k = 0
+# each); the ResNet's im2col contractions at batch 1024 (1,024 and 256
+# row tiles against a 4-column output) and its Gemm head; and k = 0
 DOT_SHAPES = (
     (5, 7, 3), (1, 1, 1), (4, 101, 1), (9, 33, 17), (70, 130, 66),
     (64, 16, 32), (65, 16, 33), (128, 48, 64), (129, 20, 65),
     (128, 100, 1), (100, 128, 1), (128, 100, 8), (128, 100, 32),
     (100, 128, 32), (1024, 100, 64), (1024, 101, 64), (1024, 64, 32),
-    (1024, 65, 32), (1024, 32, 1), (1024, 33, 1), (5, 0, 3),
+    (1024, 65, 32), (1024, 32, 1), (1024, 33, 1), (65536, 27, 4),
+    (16384, 36, 4), (1024, 4, 3), (5, 0, 3),
 )
 
 
@@ -314,6 +316,18 @@ def test_bits_adder_kernel_matches_plain(cuda, width, n):
 def test_msb_kernel_at_the_mlp_relu_sizes(cuda, n):
     # relu's msb of the (1024, 32) and (1024, 64) hidden layers, ring128,
     # its 16 bit banks drawn on the card as the session draws them
+    _check_msb(cuda, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (131072, 262144))
+def test_msb_kernel_at_the_resnet_sizes(cuda, n):
+    # the ResNet's max pool's first round over (1024, 4, 4, 2, 4) halves
+    # and its first relu over (1024, 8, 8, 4)
+    _check_msb(cuda, n)
+
+
+def _check_msb(cuda, n):
     gen = torch.Generator(device=cuda)
     gen.manual_seed(n)
     x = tuple(torch.randint(-2**63, 2**63 - 1, (3, 2, n), generator=gen,
@@ -599,7 +613,7 @@ def test_secure_mul_runs_one_reshare_and_one_group(cuda, width, monkeypatch):
     assert moved == {"cross_terms_reshare": 1, "prf_threefry": 1}
     monkeypatch.undo()
     sess._counter = counter
-    want = spmd._reshare(sess, *spmd._cross_terms(x, y, True), width)
+    want = spmd._reshare(sess, *spmd._mul_terms(x, y), width)
     _assert_equal((got.lo, got.hi), (want.lo, want.hi))
 
 
@@ -988,6 +1002,37 @@ def test_mlp_request_on_the_card_matches_the_cpu(cuda, monkeypatch):
     assert np.array_equal(got, want)
     assert np.abs(got - chip_smoke.dense_reference(pred, x)).max() < \
         chip_smoke.MLPC_TOL
+
+
+@pytest.mark.gpu
+def test_resnet_request_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    from moose_tpu_torch.predictors import from_onnx, sklearn_export
+    from moose_tpu_torch.runtime import LocalMooseRuntime
+
+    chip_smoke = _chip_smoke()
+    model, params = sklearn_export.resnet_block_onnx(
+        seed=chip_smoke.SEED, in_ch=chip_smoke.RESNET_CH,
+        mid_ch=chip_smoke.RESNET_MID, size=chip_smoke.RESNET_SIZE,
+        n_classes=chip_smoke.RESNET_CLASSES)
+    comp = from_onnx(model).predictor_factory()
+    x = np.random.default_rng(12).normal(
+        size=(16, chip_smoke.RESNET_CH, chip_smoke.RESNET_SIZE,
+              chip_smoke.RESNET_SIZE)) * 0.5
+
+    def run(device):
+        before = dict(rk.LAUNCHES)
+        out = LocalMooseRuntime(["alice", "bob", "carole"], device=device) \
+            .evaluate_computation(comp, {"x": x})["output_0"]
+        return out, {k: v - before[k] for k, v in rk.LAUNCHES.items()}
+
+    (got, launched), (want, _) = _on_both(monkeypatch, run)
+    assert np.array_equal(got, want)
+    assert np.abs(got - chip_smoke.resnet_reference(params, x)).max() < \
+        chip_smoke.RESNET_TOL
+    for name in ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
+                 "ring_mul", "msb", "bit_decompose", "horner",
+                 "prf_threefry"):
+        assert launched[name] >= 1, name
 
 
 def _chip_smoke():

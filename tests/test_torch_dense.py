@@ -29,6 +29,7 @@ from moose_tpu_torch.predictors import from_onnx as tfrom_onnx
 from moose_tpu_torch.predictors import layers as tlayers
 from moose_tpu_torch.predictors import onnx_proto as op
 from moose_tpu_torch.predictors import sklearn_export as tsk
+from moose_tpu_torch.predictors.convnet_predictor import ConvNet
 from moose_tpu_torch.predictors.multilayer_perceptron_predictor import (
     MLPClassifier,
     MLPRegressor,
@@ -259,10 +260,16 @@ def test_from_onnx_dispatches_each_family():
         assert type(jfrom_onnx(model.encode())).__name__ == cls.__name__
 
 
-def test_from_onnx_refuses_a_convnet_naming_item_3():
+def test_from_onnx_gives_a_convnet():
     model, _ = jsk.resnet_block_onnx()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
-        tfrom_onnx(model.encode())
+    data = model.encode()
+    got, want = tfrom_onnx(data), jfrom_onnx(data)
+    assert isinstance(got, ConvNet)
+    assert got.input_shape == want.input_shape == (3, 8, 8)
+    assert [n.op_type for n in got.nodes] == [n.op_type for n in want.nodes]
+    assert got.initializers.keys() == want.initializers.keys()
+    for name, arr in want.initializers.items():
+        assert np.array_equal(got.initializers[name], arr), name
 
 
 def test_from_onnx_refuses_an_unknown_graph():

@@ -126,8 +126,9 @@ def _kinds_by_placement(comp):
 
 
 def _dense_and_tree_models(sk):
-    """The MLPs (binary and multiclass), the pytorch network and the
-    forests, exported by ``sk`` (either package's sklearn_export)."""
+    """The MLPs (binary and multiclass), the pytorch network, the
+    forests and the convnet (config 5's small ResNet), exported by ``sk``
+    (either package's sklearn_export)."""
     rng = np.random.default_rng(0)
     weights, biases, acts = chip_smoke.network_layers(rng, 3, (2,), 3)
     forest = chip_smoke.forest_model(rng, 2, 2, 3)
@@ -139,6 +140,8 @@ def _dense_and_tree_models(sk):
         sk.random_forest_classifier_onnx(forest, 3),
         sk.random_forest_regressor_onnx(
             SimpleNamespace(estimators_=forest.estimators_), 3),
+        sk.resnet_block_onnx(seed=3, in_ch=2, mid_ch=3, size=6,
+                             n_classes=2)[0],
     ]
 
 
@@ -191,11 +194,11 @@ def test_port_supports_exactly_the_slice_kinds():
     assert tlogical.HOST_KINDS == \
         traced["HostPlacement"] | {"Identity", "Constant"}
     assert tlogical.MIR_KINDS == traced["Mirrored3Placement"]
-    # the replicated kinds are the reference's less the AES and the
-    # convolution kinds, and cover the graphs'
-    assert tstacked.REP_KINDS == jstacked._REP_KINDS - {
-        "Decrypt", "Conv2D", "AvgPool2D", "MaxPool2D"}
+    # the replicated kinds are the reference's less the AES kind, and
+    # cover the graphs'
+    assert tstacked.REP_KINDS == jstacked._REP_KINDS - {"Decrypt"}
     assert traced["ReplicatedPlacement"] <= tstacked.REP_KINDS
+    assert {"Conv2D", "MaxPool2D"} <= traced["ReplicatedPlacement"]
     port_graphs = [
         chip_smoke.secure_dot_computation(tm),
         tfrom_onnx(tsk.linear_regressor_onnx(model, 3)).predictor_factory(),
@@ -312,7 +315,8 @@ def test_import_adds_no_jax_or_moose_tpu_module():
         "moose_tpu_torch.predictors, moose_tpu_torch.interop, "
         "moose_tpu_torch.native.build, moose_tpu_torch.dialects.pallas_prf, "
         "moose_tpu_torch.predictors.trainers, moose_tpu_torch.storage, "
-        "moose_tpu_torch.dialects.mirrored\n"
+        "moose_tpu_torch.dialects.mirrored, "
+        "moose_tpu_torch.predictors.convnet_predictor\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'moose_tpu'))\n"

@@ -1,7 +1,7 @@
 """K3's fused entry point ``cross_terms_reshare`` (a secure elementwise
 multiply's cross terms and reshare, reading the operands' pair layout in
 place) on the CPU, through its plain version: word for word equal to the
-composition it replaces, ``_reshare(sess, *_cross_terms(x, y, True),
+composition it replaces, ``_reshare(sess, *_mul_terms(x, y),
 width)``, and to the JAX package's ``spmd.mul`` under one master key and
 the threefry PRF, at ring64 and ring128, at one shape and broadcast
 shapes (the sigmoid's (3, 2, k, rows, 1) operands at small sizes), and
@@ -66,7 +66,7 @@ def test_reshare_matches_the_composition_and_jax(threefry, width, shapes):
     assert_words_equal((got.lo, got.hi), (want.lo, want.hi), "spmd.mul")
     # the composition it replaces, from the same nonce
     ts._counter = counter
-    old = tspmd._reshare(ts, *tspmd._cross_terms(tx, ty, True), width)
+    old = tspmd._reshare(ts, *tspmd._mul_terms(tx, ty), width)
     assert torch.equal(got.lo, old.lo)
     assert width == 64 or torch.equal(got.hi, old.hi)
 

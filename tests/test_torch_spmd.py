@@ -134,11 +134,17 @@ def test_structural_ops_match(threefry, width):
 
 
 def test_vector_dot_names_its_roadmap_item(threefry):
-    _, ts = _sessions()
-    v = tspmd.share(ts, *to_port(rand_words(np.random.default_rng(1),
-                                            (4,), 64)), 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tspmd.dot(ts, v, v)
+    # named when the port refused vector operands, naming the ROADMAP
+    # item that would bring them; they came with it: v @ v runs, a 0-d
+    # product word for word the reference's (tests/test_torch_conv.py
+    # holds the other vector shapes)
+    js, ts = _sessions()
+    words = rand_words(np.random.default_rng(1), (4,), 64)
+    jv = jspmd.share(js, *to_jax(words), 64)
+    tv = tspmd.share(ts, *to_port(words), 64)
+    got = tspmd.dot(ts, tv, tv)
+    assert got.shape == ()
+    _assert_rep_equal(got, jspmd.dot(js, jv, jv), "vector dot")
 
 
 def test_session_keeps_seed_words_on_the_host():

@@ -2,8 +2,9 @@
 protocol library, one traced computation apiece, through the port's
 LocalMooseRuntime on the CPU and the JAX LocalMooseRuntime (stacked
 layout, eager) under fixed keys and the threefry PRF: the outputs are
-equal (decoded floats, bools, uint64 indices or shapes alike).  The
-refused kinds and secret integers name their ROADMAP items."""
+equal (decoded floats, bools, uint64 indices or shapes alike); the
+convolution and the pools likewise.  The refused kind (Decrypt) and
+secret integers name their ROADMAP items."""
 
 import numpy as np
 import pytest
@@ -105,6 +106,7 @@ def _computation(pm, kind, precision=PRECISION):
     return graph
 
 
+CONV_KINDS = ("Conv2D", "AvgPool2D", "MaxPool2D")
 ADDED_KINDS = (
     "Identity", "Constant", "AddN", "Neg", "Less", "Greater", "Equal",
     "And", "Or", "Xor", "Mux", "Mean", "Exp", "Log", "Log2", "Sqrt", "Relu",
@@ -114,18 +116,13 @@ ADDED_KINDS = (
 
 
 def test_rep_kinds_are_the_reference_s_less_four():
-    refused = {"Decrypt", "Conv2D", "AvgPool2D", "MaxPool2D"}
-    assert tstacked.REP_KINDS == jstacked._REP_KINDS - refused
-    assert len(tstacked.REP_KINDS) == 37
-    assert set(ADDED_KINDS) <= tstacked.REP_KINDS
-    items = {kind: tstacked.roadmap_item("ReplicatedPlacement", kind)
-             for kind in refused}
-    assert items == {
-        "Decrypt": "ROADMAP queue 1, item 9",
-        "Conv2D": "ROADMAP queue 1, item 3",
-        "AvgPool2D": "ROADMAP queue 1, item 3",
-        "MaxPool2D": "ROADMAP queue 1, item 3",
-    }
+    # four kinds were refused until the convolution came; now only the
+    # AES path's Decrypt is
+    assert tstacked.REP_KINDS == jstacked._REP_KINDS - {"Decrypt"}
+    assert len(tstacked.REP_KINDS) == 40
+    assert set(ADDED_KINDS) | set(CONV_KINDS) <= tstacked.REP_KINDS
+    assert tstacked.roadmap_item("ReplicatedPlacement", "Decrypt") == \
+        "ROADMAP queue 1, item 9"
 
 
 @pytest.mark.parametrize("kind", ADDED_KINDS + ("Mux, rank-1 selector",))
@@ -151,10 +148,77 @@ def test_argmax_reaches_the_user_as_ring_words(fixed_keys, precision, dtype):
     assert np.array_equal(got, ARGS["x"].argmax(axis=1))
 
 
-@pytest.mark.parametrize("kind,item", (
-    ("Conv2D", "item 3"), ("MaxPool2D", "item 3"), ("AvgPool2D", "item 3"),
-))
+def _conv_computation(pm, kind, precision=PRECISION):
+    """A Conv2D of alice's NHWC input by bob's HWIO kernel, or a 2x2
+    pool of alice's input, revealed to carole as floats."""
+    alice = pm.host_placement("alice")
+    bob = pm.host_placement("bob")
+    carole = pm.host_placement("carole")
+    rep = pm.replicated_placement("rep", players=[alice, bob, carole])
+    fx = pm.fixed(*precision)
+
+    if kind == "Conv2D":
+        @pm.computation
+        def graph(x: pm.Argument(alice, dtype=pm.float64),
+                  k: pm.Argument(bob, dtype=pm.float64)):
+            with alice:
+                xf = pm.cast(x, dtype=fx)
+            with bob:
+                kf = pm.cast(k, dtype=fx)
+            with rep:
+                z = pm.conv2d(xf, kf, strides=(1, 1), padding="SAME")
+            with carole:
+                out = pm.cast(z, dtype=pm.float64)
+            return out
+
+        return graph
+    pool = pm.avg_pool2d if kind == "AvgPool2D" else pm.max_pool2d
+
+    @pm.computation
+    def graph(x: pm.Argument(alice, dtype=pm.float64)):
+        with alice:
+            xf = pm.cast(x, dtype=fx)
+        with rep:
+            z = pool(xf, (2, 2))
+        with carole:
+            out = pm.cast(z, dtype=pm.float64)
+        return out
+
+    return graph
+
+
+CONV_ARGS = {
+    "x": np.random.default_rng(10).normal(size=(2, 4, 4, 2)),
+    "k": np.random.default_rng(11).normal(size=(3, 3, 2, 3)) * 0.3,
+}
+
+
+@pytest.mark.parametrize("kind", CONV_KINDS)
+def test_conv_kinds_match_the_jax_stacked_runtime(fixed_keys, kind):
+    args = dict(CONV_ARGS) if kind == "Conv2D" else {"x": CONV_ARGS["x"]}
+    want = JaxRuntime(IDS, layout="stacked", use_jit=False) \
+        .evaluate_computation(_conv_computation(jm, kind), args)["output_0"]
+    got = PortRuntime(IDS, device="cpu").evaluate_computation(
+        _conv_computation(tm, kind), args)["output_0"]
+    want = np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert np.array_equal(got, want)
+    x = args["x"]
+    if kind == "Conv2D":
+        xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+        ref = sum(xp[:, i:i + 4, j:j + 4] @ args["k"][i, j]
+                  for i in range(3) for j in range(3))
+    else:
+        windows = x.reshape(2, 2, 2, 2, 2, 2)
+        ref = (windows.mean(axis=(2, 4)) if kind == "AvgPool2D"
+               else windows.max(axis=(2, 4)))
+    assert np.abs(got - ref).max() < 1e-4
+
+
+@pytest.mark.parametrize("kind,item", (("Decrypt", "item 9"),))
 def test_refused_kinds_name_their_roadmap_item(kind, item):
+    from moose_tpu_torch import vtypes
+
     alice = tm.host_placement("alice")
     bob = tm.host_placement("bob")
     carole = tm.host_placement("carole")
@@ -162,23 +226,19 @@ def test_refused_kinds_name_their_roadmap_item(kind, item):
     from moose_tpu_torch.edsl import base as edsl
 
     @tm.computation
-    def graph(x: tm.Argument(alice, dtype=tm.float64)):
-        with alice:
-            xf = tm.cast(x, dtype=tm.fixed(*PRECISION))
+    def graph(key: tm.Argument(alice, vtype=vtypes.AesKeyType()),
+              ct: tm.Argument(alice, vtype=vtypes.AesTensorType(
+                  tm.fixed(*PRECISION)))):
         with rep:
-            if kind == "Conv2D":
-                z = edsl.conv2d(xf, xf)
-            elif kind == "MaxPool2D":
-                z = edsl.max_pool2d(xf, (2, 2))
-            else:
-                z = edsl.avg_pool2d(xf, (2, 2))
+            z = edsl.decrypt(key, ct)
         with carole:
             out = tm.cast(z, dtype=tm.float64)
         return out
 
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
         PortRuntime(IDS, device="cpu").evaluate_computation(
-            graph, {"x": np.ones((1, 4, 4, 1))})
+            graph, {"key": np.zeros(16, np.uint8),
+                    "ct": np.zeros(16, np.uint8)})
 
 
 def test_secret_integers_name_their_roadmap_item(fixed_keys):

@@ -176,7 +176,8 @@ def test_mul_like_trunc_matches_reference(stream, width, case, amount):
     (js, ts), ((jx, tx), (jy, ty)) = _product_operands(case, width)
     dot = case == "dot"
     counter = ts._counter
-    got = tspmd._mul_like_trunc(ts, tx, ty, not dot, amount)
+    got = tspmd._mul_like_trunc(
+        ts, tx, ty, tspmd._dot_terms if dot else tspmd._mul_terms, amount)
     # one group: the zero-share bank and the five truncation draws
     assert ts._counter == counter + 6
     want = _reference(got.shape, width, lambda: jspmd._mul_like_trunc(
