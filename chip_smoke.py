@@ -54,7 +54,9 @@ Phases (each raises on failure; the script then exits non-zero):
      (3,1024,4)@(3,4,3), K5's msb at 262,144 and 131,072 elements (the
      first relu, the max pool's first round), K7's group of that relu's
      16 bit banks of (3,128,262144), timed against its bound only (its
-     plain version is held at 65,536); then one
+     plain version is held at 65,536); config 4's bit_compose: K3's
+     reshare over b2a's (3,2,128,1024,100) ring128 and K4 on it by the
+     (128,1,1) weights 2^i; then one
      spmd.trunc_pr of (1024,) ring128 and one polynomial_eval (the
      sigmoid's 14 steps) must each run exactly 2 device launches, one K7
      group and their kernel, as the wrappers count them, with no other
@@ -112,23 +114,47 @@ Phases (each raises on failure; the script then exits non-zero):
      pass in numpy (resnet_reference) and with its argmax agreeing on at
      least 0.99 of the rows; its walls, rows/s, device launches, busy
      time and idle share (one more request under torch.profiler) and
-     peak device memory printed.
-Phases 4 to 14 are the main path: the kernels' launch counters are set
+     peak device memory printed;
+ 15. BASELINE config 4, encrypted-input inference at config 3's width:
+     phase 6's logistic regression through AesWrapper(LinearClassifier)
+     .from_onnx at fixed(24,40), the client's 1024 x 100 features
+     AES-GCM-encrypted (encrypt_fixed_array, frac 40, key and nonce from
+     SEED: a (224, 1024, 100) wire array), the key a replicated AesKeyType
+     argument; Decrypt's circuit under MPC, then the classifier's whole
+     forward pass (aes_inference_computation): three requests, each within
+     5e-3 of the float64 [1 - sigmoid(z), sigmoid(z)]; the wrapper's own
+     predictor (the linear map) within 1e-6 of the float64 logits; Decrypt
+     alone, cast to float64 on a host, equal to round(x * 2^40) / 2^40
+     element for element; walls, rows/s, K7 groups, device launches, busy
+     time and idle share, peak device memory printed;
+ 16. BASELINE config 4's share generation: one phase-6 request under the
+     reference's aes-ctr PRF (each draw's seed derived on the host as
+     the JAX session derives it, its stream AES-128-CTR expanded on the
+     host, one copy to the card a group), within
+     5e-3 of float64 and equal to the same request on the CPU under the
+     same fixed keys; its keystream bytes, host expansion time and wall
+     printed.  The PRF choice and the key knobs are restored afterwards.
+Phases 4 to 16 are the main path: the kernels' launch counters are set
 to 0 just before each and read just after.  K1, K2's trunc_pairs and the
 threefry kernel in the phase's stream layout (threefry in all but 7,
 threefry-pallas in 7, and never the other) must have launched in each
 but 10 and 13, and every kernel (K1, K2's trunc_pairs, K3's
 cross_terms_reshare, K4, K5 in both modes, K6) in phases 6 to 12 and 14
-(K1 but in phases 9 and 10, which hold no matrix product); phase 13 must
-launch K5's msb, K3's cross_terms_reshare and K7.  No seed may be derived on
-the host there (ring.mix_seed is counted), and the K7 launches must stay
+(K1 but in phases 9 and 10, which hold no matrix product), 15 and 16;
+phase 13 must launch K5's msb, K3's cross_terms_reshare and K7; phase
+16 must launch no K7 and expand its draws on the host
+(LAUNCHES["prf_aes_ctr_host"]), and no other phase may.  No seed may be
+derived on the host in phases 4 to 15 (ring.mix_seed is counted), and
+the K7 launches must stay
 under their ceilings: 3 for a secure dot, 60 for a logistic-regression
 request or a LogregSGDTrainer step, MULTI_K7_CEILING for a multinomial
 request, MLPC_K7_CEILING for an MLP request, RESNET_K7_CEILING for a
-ResNet request; one more request of phases 6, 8, 11 and 14 and one more
-step of phase 7 run under torch.profiler, whose device launches must
-stay under their ceilings (LOGREG_DEVICE_CEILING, TRAIN_DEVICE_CEILING,
-MULTI_DEVICE_CEILING, MLPC_DEVICE_CEILING, RESNET_DEVICE_CEILING).
+ResNet request, AES_K7_CEILING for an AES-input request; one more
+request of phases 6, 8, 11, 14 and 15 and one more step of phase 7 run
+under torch.profiler, whose device launches must stay under their
+ceilings (LOGREG_DEVICE_CEILING, TRAIN_DEVICE_CEILING,
+MULTI_DEVICE_CEILING, MLPC_DEVICE_CEILING, RESNET_DEVICE_CEILING,
+AES_DEVICE_CEILING).
 The line before the last is the kernels' JSON record; the last line is
 the device record.
 
@@ -262,6 +288,19 @@ RESNET_CLASSES = 3
 RESNET_ROWS = 1024
 RESNET_REQUESTS = 3
 RESNET_TOL = 5e-3
+# BASELINE config 4 (AES/PRF-based share generation), served two ways.
+# Encrypted-input inference: phase 6's logistic regression (config 3's
+# width: 100 features, batch 1024, fixed(24,40)) behind AesWrapper, each
+# client row AES-GCM-encrypted (encrypt_fixed_array, frac 40) under a key
+# and nonce from SEED, the key a replicated AesKeyType argument; held to
+# phase 6's limit, and Decrypt alone exactly.  Share generation under the
+# reference's aes-ctr PRF: one phase-6 request, held to phase 6's limit
+# and to the same request's words on the CPU
+AES_FEATURES = 100
+AES_ROWS = 1024
+AES_REQUESTS = 3
+AES_PRECISION = (24, 40)
+AES_TOL = LOGREG_TOL
 # launch ceilings of the main path: K7 launches (groups) of a secure dot,
 # of a logistic-regression request and of a LogregSGDTrainer step, and
 # the device launches (PyTorch's and the port's kernels) of one request
@@ -277,6 +316,8 @@ MLPC_K7_CEILING = 62  # 59 measured on the H100 + 5% (PERF.md)
 MLPC_DEVICE_CEILING = 1488  # 1,417 measured + 5%
 RESNET_K7_CEILING = 92  # 88 measured on the H100 + 5% (PERF.md)
 RESNET_DEVICE_CEILING = 2165  # 2,062 measured + 5%
+AES_K7_CEILING = 141  # 134 counted on the CPU (any batch) + 5%
+AES_DEVICE_CEILING = 15014  # 14,299 measured on the H100 + 5% (PERF.md)
 # the session key of the K7 group rows
 GROUP_MASTER = (0x01234567, 0x89ABCDEF, 0xDEADBEEF, 0x0BADF00D)
 
@@ -1018,15 +1059,17 @@ def linear_regressor(rng, n_features):
     return from_onnx(model)
 
 
-def logistic_regression(rng, n_features):
+def logistic_regression(rng, n_features, aes=False):
     """The port's binary LinearClassifier with random weights from
     ``rng`` (scale 0.1, so the logits of unit-normal rows spread over the
     sigmoid as a fitted model's do), exported the way skl2onnx writes
     sklearn's LogisticRegression (mirrored class rows, LOGISTIC) and
-    imported through ``predictors.from_onnx``."""
+    imported through ``predictors.from_onnx``; with ``aes``, through
+    ``AesWrapper(LinearClassifier).from_onnx``."""
     import numpy as np
 
-    from moose_tpu_torch.predictors import from_onnx, sklearn_export
+    from moose_tpu_torch.predictors import (
+        AesWrapper, LinearClassifier, from_onnx, sklearn_export)
 
     coef = rng.normal(scale=0.1, size=(1, n_features)).astype(np.float32)
     intercept = rng.normal(scale=0.1, size=(1,)).astype(np.float32)
@@ -1036,6 +1079,8 @@ def logistic_regression(rng, n_features):
                         classes_=np.array([0, 1])),
         n_features,
     )
+    if aes:
+        return AesWrapper(LinearClassifier).from_onnx(model)
     return from_onnx(model)
 
 
@@ -1047,6 +1092,66 @@ def logistic_reference(predictor, x):
     z = x @ predictor.coeffs[1] + predictor.intercepts[0, 1]
     p = 1.0 / (1.0 + np.exp(-z))
     return np.stack([1.0 - p, p], axis=1)
+
+
+def aes_key_nonce(seed=SEED):
+    """An AES-128 key and a 96-bit base nonce drawn from ``seed``."""
+    import numpy as np
+
+    raw = np.random.default_rng(seed).integers(0, 256, size=28)
+    return bytes(int(b) for b in raw[:16]), bytes(int(b) for b in raw[16:])
+
+
+def aes_inference_computation(pm, model, fixedpoint_dtype):
+    """BASELINE config 4's encrypted-input inference over a classifier
+    wrapped by ``AesWrapper``: the wrapper's front end (the ciphertext on
+    alice, the key on the replicated placement, Decrypt under MPC), then
+    the classifier's whole forward pass, post-transform included,
+    revealed to bob.  (The wrapper's own ``aes_predictor_factory`` runs
+    ``predictor_fn`` alone, the linear map without the post-transform,
+    in the JAX package as in the port.)  ``pm`` is the eDSL module of
+    either package."""
+    import importlib
+
+    mixin = importlib.import_module(
+        pm.__name__ + ".predictors.predictor").AesInputMixin
+
+    @pm.computation
+    def aes_inference(
+        aes_data: pm.Argument(model.alice, vtype=pm.AesTensorType(
+            dtype=fixedpoint_dtype)),
+        aes_key: pm.Argument(model.replicated, vtype=pm.AesKeyType()),
+    ):
+        x = model.handle_aes_input(aes_key, aes_data,
+                                   decryptor=model.replicated)
+        with model.replicated:
+            y = super(mixin, model).__call__(x, fixedpoint_dtype)
+        return model.handle_output(y, prediction_handler=model.bob)
+
+    return aes_inference
+
+
+def decrypt_computation(pm, fixedpoint_dtype):
+    """Decrypt alone: the ciphertext on alice, the key replicated, the
+    plaintext decrypted under MPC and cast to float64 on bob."""
+    alice = pm.host_placement("alice")
+    bob = pm.host_placement("bob")
+    carole = pm.host_placement("carole")
+    rep = pm.replicated_placement("rep", players=[alice, bob, carole])
+
+    @pm.computation
+    def decrypt(
+        aes_data: pm.Argument(alice, vtype=pm.AesTensorType(
+            dtype=fixedpoint_dtype)),
+        aes_key: pm.Argument(rep, vtype=pm.AesKeyType()),
+    ):
+        with rep:
+            x = pm.decrypt(aes_key, aes_data)
+        with bob:
+            out = pm.cast(x, dtype=pm.float64)
+        return out
+
+    return decrypt
 
 
 def multinomial_regression(rng, n_features):
@@ -1761,6 +1866,9 @@ def main() -> int:
             ((MLPC_ROWS, MLPC_HIDDEN[1]),) * 2,
             ((FOREST_ROWS,), (1,)),
             ((CORR_SIZES[-1], 1),) * 2,
+            # b2a's two multiplies in bit_compose, over the decrypted
+            # block's 128 bits of every element of config 4's batch
+            ((128, AES_ROWS, AES_FEATURES),) * 2,
         )
     ]
     # K4: the constant at its own shape, as the path passes it, then the
@@ -1792,6 +1900,10 @@ def main() -> int:
         compare_ring_mul(torch, rk, gen, shape, (), 128, reps=20,
                          back_to_back=True)
         for shape in ((3, 2, MLPC_ROWS, 1), (3, 2, 1))
+    ] + [
+        # bit_compose's 2^i weights on the 128 bits of config 4's batch
+        compare_ring_mul(torch, rk, gen, (3, 2, 128, AES_ROWS, AES_FEATURES),
+                         (128, 1, 1), 128, reps=5, back_to_back=True)
     ]
     # K5 at the logistic regression's 1024 elements, the trainers' 128
     # (LogregSGDTrainer) and 128 x 32 = 4096 (MLPSGDTrainer's hidden
@@ -2244,7 +2356,6 @@ def main() -> int:
             float(np.mean(pred.argmax(axis=1) == want.argmax(axis=1))))
         resnet_latencies.append(s)
     resnet_launches = dict(rk.LAUNCHES)
-    ring.mix_seed = mix_seed
     resnet_device_launches, resnet_busy_ms = device_busy(
         torch, lambda: runtime.evaluate_computation(resnet_comp,
                                                     {"x": requests[0]}))
@@ -2272,6 +2383,134 @@ def main() -> int:
             f"ResNet argmax agreement {min(resnet_agree)} < "
             f"{MULTI_ARGMAX_AGREEMENT}")
 
+    # phase 15: BASELINE config 4, encrypted-input inference at config 3's
+    # width through AesWrapper(LinearClassifier), three requests (main
+    # path)
+    from moose_tpu_torch.dialects import aes
+
+    aes_fixed = pm.fixed(*AES_PRECISION)
+    aes_model = logistic_regression(rng, AES_FEATURES, aes=True)
+    if type(aes_model).__name__ != "AesLinearClassifier":
+        raise AssertionError(f"AesWrapper gave {type(aes_model).__name__}")
+    aes_comp = aes_inference_computation(pm, aes_model, aes_fixed)
+    key, nonce = aes_key_nonce()
+    aes_key = aes.bytes_to_bits_be(key)
+    requests = [rng.normal(size=(AES_ROWS, AES_FEATURES))
+                for _ in range(AES_REQUESTS)]
+    t0 = time.perf_counter()
+    wires = [aes.encrypt_fixed_array(key, nonce, xr, AES_PRECISION[1])
+             for xr in requests]
+    encrypt_s = (time.perf_counter() - t0) / AES_REQUESTS
+    if wires[0].shape != (224, AES_ROWS, AES_FEATURES):
+        raise AssertionError(f"wire array of shape {wires[0].shape}")
+
+    def aes_args(wire):
+        return {"aes_data": wire, "aes_key": aes_key}
+
+    rk.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    aes_latencies, aes_errs = [], []
+    for xr, wire in zip(requests, wires):
+        out, s = timed(torch, lambda: runtime.evaluate_computation(
+            aes_comp, aes_args(wire)))
+        pred, want = out["output_0"], logistic_reference(aes_model, xr)
+        if pred.shape != want.shape or not np.all(np.isfinite(pred)):
+            raise AssertionError(f"AES output malformed: {pred.shape}")
+        aes_errs.append(float(np.abs(pred - want).max()))
+        aes_latencies.append(s)
+    aes_launches = dict(rk.LAUNCHES)
+    aes_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    aes_device_launches, aes_busy_ms = device_busy(
+        torch, lambda: runtime.evaluate_computation(aes_comp,
+                                                    aes_args(wires[0])))
+    # the wrapper's own predictor is the linear map (the reference's
+    # AesInputMixin runs predictor_fn without the post-transform)
+    logits = runtime.evaluate_computation(
+        aes_model.aes_predictor_factory(aes_fixed),
+        aes_args(wires[0]))["output_0"]
+    z = requests[0] @ aes_model.coeffs[1] + aes_model.intercepts[0, 1]
+    logits_err = float(np.abs(logits - np.stack([-z, z], axis=1)).max())
+    # Decrypt alone: the client's fixed-point encoding, exactly
+    decrypted, decrypt_s = timed(torch, lambda: runtime.evaluate_computation(
+        decrypt_computation(pm, aes_fixed), aes_args(wires[0])))
+    exact = np.round(requests[0] * 2.0 ** AES_PRECISION[1]) \
+        / 2.0 ** AES_PRECISION[1]
+    decrypt_exact = bool(np.array_equal(decrypted["output_0"], exact))
+    aes_wall_ms = statistics.median(aes_latencies) * 1e3
+    aes_record = {
+        "latency_ms": [s * 1e3 for s in aes_latencies],
+        "rows_per_s": AES_ROWS * AES_REQUESTS / sum(aes_latencies),
+        "max_abs_err": max(aes_errs),
+        "client_encrypt_ms": encrypt_s * 1e3,
+        "k7_groups": aes_launches["prf_threefry"] / AES_REQUESTS,
+        "device_launches": aes_device_launches,
+        "device_busy_ms": aes_busy_ms,
+        "device_idle_share": max(0.0, 1.0 - aes_busy_ms / aes_wall_ms),
+        "peak_memory_gib": aes_peak_gib,
+        "wrapper_logits_max_abs_err": logits_err,
+        "decrypt_only_ms": decrypt_s * 1e3,
+        "decrypt_only_exact": decrypt_exact,
+    }
+    log(f"aes_inference: {AES_REQUESTS} requests of {AES_ROWS}x"
+        f"{AES_FEATURES} AES-GCM-encrypted rows, fixed{AES_PRECISION} "
+        f"{json.dumps(aes_record)} launches {aes_launches}")
+    if max(aes_errs) >= AES_TOL:
+        raise AssertionError(f"AES inference error {max(aes_errs)} >= "
+                             f"{AES_TOL}")
+    if logits_err >= LINREG_TOL:
+        raise AssertionError(f"AES wrapper logits error {logits_err}")
+    if not decrypt_exact:
+        raise AssertionError("Decrypt's output is not the encoded input")
+
+    # the threefry paths are done: aes-ctr derives its seeds on the host
+    ring.mix_seed = mix_seed
+
+    # phase 16: BASELINE config 4's share generation under the
+    # reference's aes-ctr PRF: one phase-6 request on the card and the
+    # same request on the CPU under the same fixed keys (main path)
+    import os
+
+    knobs = ("MOOSE_TPU_FIXED_KEYS", "MOOSE_TPU_ALLOW_WEAK_PRF")
+    saved = {k: os.environ.get(k) for k in knobs}
+    prev_prf = ring.get_prf_impl()
+    ring.set_prf_impl("aes-ctr")
+    os.environ.update(dict(zip(knobs, (f"chip-smoke-{SEED}", "1"))))
+    try:
+        xr = rng.normal(size=(LOGREG_ROWS, LOGREG_FEATURES))
+        rk.reset_launches()
+        out, ctr_s = timed(torch, lambda: runtime.evaluate_computation(
+            logreg, {"x": xr}))
+        ctr_launches = dict(rk.LAUNCHES)
+        ctr_host = dict(rk.AES_CTR_HOST)
+        cpu_out = LocalMooseRuntime(
+            ["alice", "bob", "carole"], device="cpu",
+        ).evaluate_computation(logreg, {"x": xr})
+    finally:
+        ring.set_prf_impl(prev_prf)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    pred = out["output_0"]
+    ctr_err = float(np.abs(pred - logistic_reference(classifier, xr)).max())
+    ctr_record = {
+        "latency_ms": ctr_s * 1e3,
+        "max_abs_err": ctr_err,
+        "equal_to_cpu": bool(np.array_equal(pred, cpu_out["output_0"])),
+        "host_expansions": ctr_launches["prf_aes_ctr_host"],
+        "keystream_bytes": ctr_host["bytes"],
+        "host_expansion_ms": ctr_host["ms"],
+        "keystream_mb_per_s": ctr_host["bytes"] / ctr_host["ms"] / 1e3,
+    }
+    log(f"aes_ctr_logistic_regression: 1 request of {LOGREG_ROWS}x"
+        f"{LOGREG_FEATURES} fixed(24, 40) under aes-ctr "
+        f"{json.dumps(ctr_record)} launches {ctr_launches}")
+    if ctr_err >= LOGREG_TOL:
+        raise AssertionError(f"aes-ctr logistic regression error {ctr_err}")
+    if not ctr_record["equal_to_cpu"]:
+        raise AssertionError("aes-ctr request differs from the CPU's")
+
     launches_by_path = {
         "secure_dot": dot_launches,
         "linear_regressor": linreg_launches,
@@ -2284,6 +2523,8 @@ def main() -> int:
         "neural_network": net_launches,
         "random_forest": forest_launches,
         "resnet": resnet_launches,
+        "aes_inference": aes_launches,
+        "aes_ctr_logistic_regression": ctr_launches,
     }
     protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
@@ -2305,16 +2546,24 @@ def main() -> int:
         # the convolutions and the Gemm on K1, BatchNorm's scale on K4,
         # the relus' and the max pool's msb, softmax's exp on K5 and K6
         "resnet": protocol + ("prf_threefry",),
+        # Decrypt's 80 ANDs and its bit shares on K7, bit_compose's b2a
+        # on K3 and its weights on K4, then phase 6's request
+        "aes_inference": protocol + ("prf_threefry",),
+        # every draw expanded on the host: no K7
+        "aes_ctr_logistic_regression": protocol + ("prf_aes_ctr_host",),
     }
-    # the stream a phase did not select expands nothing
-    unused = {path: "prf_threefry_pallas" for path in required}
-    unused["training"] = "prf_threefry"
+    # the streams a phase did not select expand nothing
+    streams = ("prf_threefry", "prf_threefry_pallas", "prf_aes_ctr_host")
+    selected = {path: "prf_threefry" for path in required}
+    selected["training"] = "prf_threefry_pallas"
+    selected["aes_ctr_logistic_regression"] = "prf_aes_ctr_host"
     for path, names in required.items():
         for name in names:
             if launches_by_path[path][name] < 1:
                 raise AssertionError(f"{path} never launched {name}")
-        if launches_by_path[path][unused[path]] != 0:
-            raise AssertionError(f"{path} launched {unused[path]}")
+        for name in streams:
+            if name != selected[path] and launches_by_path[path][name]:
+                raise AssertionError(f"{path} launched {name}")
     if host_seeds[0]:
         raise AssertionError(
             f"the main path derived {host_seeds[0]} seeds on the host")
@@ -2344,6 +2593,10 @@ def main() -> int:
          k7["resnet"] / RESNET_REQUESTS, RESNET_K7_CEILING),
         ("device launches a ResNet request",
          resnet_device_launches, RESNET_DEVICE_CEILING),
+        ("K7 launches an AES-input request",
+         k7["aes_inference"] / AES_REQUESTS, AES_K7_CEILING),
+        ("device launches an AES-input request",
+         aes_device_launches, AES_DEVICE_CEILING),
     ):
         log(f"ceiling: {what} {got} <= {ceiling}")
         if got > ceiling:
@@ -2470,6 +2723,8 @@ def main() -> int:
                           "max_abs_err": forest_err,
                           "less_elements": FOREST_ROWS * splits},
         "resnet": resnet_record,
+        "aes_inference": aes_record,
+        "aes_ctr_logistic_regression": ctr_record,
     }
     log(json.dumps(record))
     log(json.dumps({"kernels": kernels}))

@@ -13,7 +13,9 @@ regression, the SOFTMAX head), Load and Save against the runtime's
 storage (the scientific-computing tutorial's correlation), the dense and
 tree predictors (sklearn MLPs, pytorch and tf2onnx networks, random
 forests), and secure convolution and pooling with the ONNX convnet (a
-small ResNet), through ``LocalMooseRuntime`` on its stacked layout.
+small ResNet), and encrypted-input inference (AES-GCM decryption under
+MPC, ``pm.decrypt``, the ``AesWrapper`` predictors) with the reference's
+``aes-ctr`` PRF, through ``LocalMooseRuntime`` on its stacked layout.
 
 The package imports ``torch`` and never ``jax`` nor ``moose_tpu``.  Its
 entry points run on the CUDA card unless the caller passes
@@ -21,30 +23,66 @@ entry points run on the CUDA card unless the caller passes
 """
 
 from . import dtypes
-from .dtypes import fixed, float64
+from .dtypes import (
+    bool_,
+    fixed,
+    fixed64,
+    fixed128,
+    float32,
+    float64,
+    int32,
+    int64,
+    uint32,
+    uint64,
+)
+from .computation import (
+    AdditivePlacement,
+    Computation,
+    HostPlacement,
+    Mirrored3Placement,
+    Operation,
+    ReplicatedPlacement,
+)
+from .vtypes import (
+    AesKeyType,
+    AesTensorType,
+    BytesType,
+    FloatType,
+    IntType,
+    ShapeType,
+    StringType,
+    TensorType,
+    UnitType,
+)
 from .edsl.base import (
     Argument,
     abs,
     add,
     add_n,
     argmax,
+    atleast_2d,
     avg_pool2d,
     cast,
     computation,
     concatenate,
     constant,
     conv2d,
+    decrypt,
     div,
     dot,
     equal,
     exp,
     expand_dims,
+    get_current_placement,
+    get_current_runtime,
     greater,
     host_placement,
     identity,
     index_axis,
+    inverse,
     less,
     load,
+    load_shares,
     log,
     log2,
     logical_and,
@@ -58,10 +96,14 @@ from .edsl.base import (
     mux,
     neg,
     ones,
+    output,
     relu,
     replicated_placement,
     reshape,
     save,
+    save_shares,
+    select,
+    set_current_runtime,
     shape,
     sigmoid,
     sliced,
@@ -73,21 +115,29 @@ from .edsl.base import (
     sub,
     sum,
     transpose,
+    zeros,
 )
 
 __all__ = [
-    "Argument",
-    "LocalMooseRuntime",
     "abs",
     "add",
     "add_n",
+    "AdditivePlacement",
+    "AesKeyType",
+    "AesTensorType",
     "argmax",
+    "Argument",
+    "atleast_2d",
     "avg_pool2d",
+    "bool_",
+    "BytesType",
     "cast",
+    "Computation",
     "computation",
     "concatenate",
     "constant",
     "conv2d",
+    "decrypt",
     "div",
     "dot",
     "dtypes",
@@ -95,13 +145,26 @@ __all__ = [
     "exp",
     "expand_dims",
     "fixed",
+    "fixed128",
+    "fixed64",
+    "float32",
     "float64",
+    "FloatType",
+    "get_current_placement",
+    "get_current_runtime",
     "greater",
     "host_placement",
+    "HostPlacement",
     "identity",
     "index_axis",
+    "int32",
+    "int64",
+    "IntType",
+    "inverse",
     "less",
     "load",
+    "load_shares",
+    "LocalMooseRuntime",
     "log",
     "log2",
     "logical_and",
@@ -110,17 +173,25 @@ __all__ = [
     "max_pool2d",
     "maximum",
     "mean",
+    "Mirrored3Placement",
     "mirrored_placement",
     "mul",
     "mux",
     "neg",
     "ones",
+    "Operation",
+    "output",
     "predictors",
     "relu",
     "replicated_placement",
+    "ReplicatedPlacement",
     "reshape",
     "save",
+    "save_shares",
+    "select",
+    "set_current_runtime",
     "shape",
+    "ShapeType",
     "sigmoid",
     "sliced",
     "softmax",
@@ -128,9 +199,15 @@ __all__ = [
     "square",
     "squeeze",
     "strided_slice",
+    "StringType",
     "sub",
     "sum",
+    "TensorType",
     "transpose",
+    "uint32",
+    "uint64",
+    "UnitType",
+    "zeros",
 ]
 
 

@@ -70,6 +70,18 @@ def cast(x: HostTensor, target: dt.DType, plc: str) -> HostTensor:
     return HostTensor(x.value.to(torch_dtype(target)), plc, target)
 
 
+def cast_ring_lo(x: HostRingTensor, target: dt.DType,
+                 plc: str) -> HostTensor:
+    """Cast the low words of ring values, read as uint64 (small
+    non-negative values, such as a revealed Argmax index), to
+    ``target``."""
+    if target.is_float:
+        value = ring.u64_to_float64(x.lo)
+    else:
+        value = x.lo
+    return HostTensor(value.to(torch_dtype(target)), plc, target)
+
+
 def ring_fixedpoint_encode(x: HostTensor, frac_precision: int, width: int,
                            plc: str) -> HostRingTensor:
     lo, hi = ring.fixedpoint_encode(x.value, frac_precision, width)

@@ -14,6 +14,8 @@ import numpy as np
 from .. import dtypes as dt
 from ..computation import HostPlacement, Mirrored3Placement
 from ..values import (
+    AesTensor,
+    HostAesKey,
     HostBitTensor,
     HostFixedTensor,
     HostRingTensor,
@@ -48,7 +50,8 @@ def to_host(sess, plc_name: str, v):
     """Materialize a host or mirrored value on ``plc_name``: a relabel,
     or the owner's copy of a mirrored value."""
     if isinstance(v, (HostTensor, HostBitTensor, HostRingTensor,
-                      HostShape, HostString, HostUnit)):
+                      HostShape, HostString, HostUnit, AesTensor,
+                      HostAesKey)):
         return sess.place(plc_name, v)
     if isinstance(v, HostFixedTensor):
         return HostFixedTensor(
@@ -163,6 +166,9 @@ def _cast_on_host(sess, h, v, target: dt.DType):
         )
     if isinstance(v, HostFixedTensor):
         return sess.fixedpoint_decode(h, v, target)
+    if isinstance(v, HostRingTensor):
+        # a revealed index (Argmax): its low words as uint64, then cast
+        return sess.cast_ring_lo(h, v, target)
     return sess.cast(h, v, target)
 
 

@@ -11,14 +11,17 @@ compares (carries, borrows) flip the sign bit first.
 A ring value is ``(lo, hi)`` with ``hi=None`` for width 64 — the two-word
 layout of the JAX package, so shares convert word for word.
 
-The PRF is threefry2x32-20 in counter mode, in one of two streams
-chosen for the process with :func:`set_prf_impl` (or ``MOOSE_TPU_PRF``
-at import).  ``"threefry"``, the default, reproduces ``jax.random.bits``
-on a threefry key (``jax_threefry_partitionable``): for the flat index i
-the block ``(i >> 32, i & 0xFFFFFFFF)`` is encrypted under the key words
-``(s >> 32, s & 0xFFFFFFFF)`` of the u64 key ``s``.  ``"threefry-pallas"``
-is the JAX package's K7 stream (``pallas_prf.py``).  Seeds are four u32
-words.  A protocol session's draws come in groups whose seeds the CUDA
+The PRF is one of three streams chosen for the process with
+:func:`set_prf_impl` (or ``MOOSE_TPU_PRF`` at import).  Two are
+threefry2x32-20 in counter mode: ``"threefry"``, the default, reproduces
+``jax.random.bits`` on a threefry key (``jax_threefry_partitionable``):
+for the flat index i the block ``(i >> 32, i & 0xFFFFFFFF)`` is
+encrypted under the key words ``(s >> 32, s & 0xFFFFFFFF)`` of the u64
+key ``s``; ``"threefry-pallas"`` is the JAX package's K7 stream
+(``pallas_prf.py``).  The third, ``"aes-ctr"``, is the reference's own
+construction: AES-128 in counter mode keyed by the seed's 16 bytes,
+expanded on the host (``crypto/aes_prng.py``), as the JAX package
+expands it.  Seeds are four u32 words.  A protocol session's draws come in groups whose seeds the CUDA
 kernel ``csrc/threefry.cu`` derives on the card from the master key and
 the nonce schedule (:func:`session_nonce`, :func:`draw_seed`) and
 expands; a seed given here is expanded by the same kernel under its key
@@ -332,7 +335,7 @@ _GOLDEN64 = 0x9E3779B97F4A7C15
 
 Seed = Tuple[int, int, int, int]
 
-PRF_IMPLS = ("threefry", "threefry-pallas")
+PRF_IMPLS = ("threefry", "threefry-pallas", "aes-ctr")
 
 
 def _checked_prf_impl(name: str) -> str:
@@ -341,10 +344,6 @@ def _checked_prf_impl(name: str) -> str:
             "the rbg PRF is XLA's RngBitGenerator, which has no "
             "counterpart outside XLA; the port offers "
             f"{PRF_IMPLS}"
-        )
-    if name == "aes-ctr":
-        raise NotImplementedError(
-            "the aes-ctr PRF is not ported yet (ROADMAP queue 1, item 2)"
         )
     if name not in PRF_IMPLS:
         raise ConfigurationError(
@@ -359,9 +358,10 @@ _PRF_IMPL = _checked_prf_impl(os.environ.get("MOOSE_TPU_PRF", "threefry"))
 def set_prf_impl(name: str) -> None:
     """Select the process's PRF stream: ``"threefry"`` (the default;
     ``jax.random.bits`` on a threefry key) or ``"threefry-pallas"`` (the
-    JAX package's K7 stream).  Both are threefry2x32-20, a cryptographic
-    PRF, expanded by ``csrc/threefry.cu`` on the card.  ``"rbg"`` raises
-    ``ConfigurationError`` and ``"aes-ctr"`` ``NotImplementedError``."""
+    JAX package's K7 stream), both threefry2x32-20 expanded by
+    ``csrc/threefry.cu`` on the card; or ``"aes-ctr"``, the reference's
+    AES-128-CTR, expanded on the host.  All three are cryptographic
+    PRFs.  ``"rbg"`` raises ``ConfigurationError``."""
     global _PRF_IMPL
     _PRF_IMPL = _checked_prf_impl(name)
 
@@ -372,8 +372,8 @@ def get_prf_impl() -> str:
 
 def require_strong_prf(context: str) -> None:
     """Refuse a non-cryptographic PRF where parties distrust each other.
-    Both of the port's streams are threefry, so this passes whenever the
-    selection did; it stands where the JAX package gates its rbg
+    All of the port's streams are cryptographic, so this passes whenever
+    the selection did; it stands where the JAX package gates its rbg
     default."""
     if _PRF_IMPL not in PRF_IMPLS:
         raise ConfigurationError(
@@ -489,12 +489,47 @@ def _random_bits_u64(seed, shape, device):
     return random_bits_u64(seed, shape, device)
 
 
+def seed_bytes(seed) -> bytes:
+    """The 16 key bytes of an ``aes-ctr`` stream: the seed's four u32
+    words little-endian, as ``np.uint32`` words lay them out."""
+    return b"".join(w.to_bytes(4, "little") for w in _seed_words(seed))
+
+
+def aes_ctr_words(seed, n: int, width: int):
+    """``n`` ring elements of the ``aes-ctr`` stream of ``seed`` as numpy
+    uint64 ``(lo, hi)`` (hi None at ring64): u64 words little-endian, a
+    ring128 element drawing its high word first."""
+    from ..crypto.aes_prng import AesCtrRng
+
+    rng = AesCtrRng(seed_bytes(seed))
+    if width == 64:
+        return rng.uniform_u64(n), None
+    return rng.uniform_u128(n)
+
+
+def aes_ctr_bits(seed, n: int):
+    """``n`` bits of the ``aes-ctr`` stream of ``seed`` tagged for bits
+    (:func:`_bit_domain_seed`), as numpy uint8 0/1: one keystream byte's
+    low bit each."""
+    from ..crypto.aes_prng import AesCtrRng
+
+    return AesCtrRng(seed_bytes(_bit_domain_seed(seed))).bits(n)
+
+
+def _words_tensor(words, shape, device):
+    return torch.from_numpy(words.view("<i8").reshape(shape)).to(device)
+
+
 def sample_uniform_seeded(shape, seed, width: int, device):
     """Uniform ring elements from ``seed``: one u64 draw for ring64; for
-    ring128 one ``(2,)+shape`` draw with ``lo = both[1]``,
-    ``hi = both[0]``, as the JAX package draws them under either
-    stream."""
+    ring128 under threefry one ``(2,)+shape`` draw with ``lo = both[1]``,
+    ``hi = both[0]``, under aes-ctr each element's high word first, as
+    the JAX package draws them."""
     shape = tuple(int(s) for s in shape)
+    if _PRF_IMPL == "aes-ctr":
+        lo, hi = aes_ctr_words(seed, math.prod(shape), width)
+        return (_words_tensor(lo, shape, device),
+                None if hi is None else _words_tensor(hi, shape, device))
     if width == 64:
         return _random_bits_u64(seed, shape, device), None
     both = _random_bits_u64(seed, (2,) + shape, device)
@@ -514,9 +549,13 @@ def sample_bits_seeded(shape, seed, device):
     Under ``"threefry"``: ``jax.random.bits(key, shape, uint8) & 1``, i.e.
     bit 0 of ``y0 ^ y1`` for the counter block of each flat index.  Under
     ``"threefry-pallas"``: ``ceil(n/64)`` words of K7's stream, element
-    ``64w + j`` being bit ``j`` of word ``w``."""
+    ``64w + j`` being bit ``j`` of word ``w``.  Under ``"aes-ctr"``: one
+    keystream byte's low bit each."""
     tagged = _bit_domain_seed(seed)
     shape = tuple(int(s) for s in shape)
+    if _PRF_IMPL == "aes-ctr":
+        bits = aes_ctr_bits(seed, math.prod(shape))
+        return torch.from_numpy(bits.reshape(shape)).to(device)
     if _PRF_IMPL == "threefry-pallas":
         from . import pallas_prf
 

@@ -5,19 +5,25 @@ PyTorch counterpart of ``moose_tpu/dialects/stacked.py``.  Replicated
 tensors become ``SpmdRep``/``SpmdFixed``/``SpmdBits`` (one tensor with a
 leading party axis); host and mirrored ops delegate to the logical
 dialect.  The replicated kinds (:data:`REP_KINDS`) are the reference's
-less one: Decrypt (the AES path, ROADMAP queue 1, item 9).  Operands are
-secret fixed-point tensors, and bits where a kind takes them; a secret
-integer (the scale-0 lift, item 6) is refused, except the bare index
-tensor ``Argmax`` returns, which structural kinds carry and which
-reveals to a ``HostRingTensor``.  :func:`unsupported_ops` lists what a
-graph needs beyond that, and every refusal names its ROADMAP item.
+41, Decrypt (AES-GCM decryption under MPC, ``dialects/aes.py``) among
+them.  Operands are secret fixed-point tensors, and bits where a kind
+takes them; a secret integer (the scale-0 lift, item 6) is refused,
+except the bare index tensor ``Argmax`` returns, which structural kinds
+carry and which reveals to a ``HostRingTensor``.  AES values cross the
+host boundary as the reference's stacked layout takes them
+(:func:`lift_aes_input`).  :func:`unsupported_ops` lists what a graph
+needs beyond that, and every refusal names its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
+import torch
+
 from ..computation import (
+    AES_TY_NAMES,
     Computation,
     HostPlacement,
     Mirrored3Placement,
@@ -38,7 +44,7 @@ from ..values import (
     HostString,
     Mir3FixedTensor,
 )
-from . import logical
+from . import aes, logical
 
 REP_KINDS = frozenset({
     "Identity", "Constant", "Add", "Sub", "Mul", "Dot", "Div", "AddN",
@@ -46,19 +52,17 @@ REP_KINDS = frozenset({
     "Mean", "Exp", "Log", "Log2", "Sqrt", "Sigmoid", "Relu", "Abs",
     "Softmax", "Argmax", "Maximum", "Concat", "Reshape", "ExpandDims",
     "Squeeze", "Transpose", "IndexAxis", "Slice", "Shape", "Cast",
-    "Conv2D", "AvgPool2D", "MaxPool2D",
+    "Decrypt", "Conv2D", "AvgPool2D", "MaxPool2D",
 })
 # resolved by the interpreter's walk, on any placement
 BOUNDARY_KINDS = frozenset({"Input", "Output", "Load", "Save"})
 
-# the ROADMAP queue 1 items of each replicated kind the reference's
-# stacked layout runs and the port does not, and of the secret-shared
-# checkpoints (the reference lowers those to the per-host layout and its
-# checkpoint store); the reference runs any other kind on its per-host
-# layout only (item 8)
+# the ROADMAP queue 1 items of the secret-shared checkpoints (the
+# reference lowers those to the per-host layout and its checkpoint
+# store); the reference runs any other kind the port lacks on its
+# per-host layout only (item 8)
 _REP_ITEMS = {
-    "Decrypt": "item 9", "LoadShares": "items 8 and 10",
-    "SaveShares": "items 8 and 10",
+    "LoadShares": "items 8 and 10", "SaveShares": "items 8 and 10",
 }
 # secret integers: the scale-0 lift
 _INTEGER = "ROADMAP queue 1, item 6"
@@ -447,6 +451,9 @@ def _execute_rep(sess: StackedSession, comp, op: Operation,
         inner = x.tensor if isinstance(x, SpmdFixed) else x
         return HostShape(tuple(inner.shape), rep.owners[0])
 
+    if kind == "Decrypt":
+        return aes.decrypt_stacked(sess.spmd, op, args[0], args[1])
+
     if kind == "Cast":
         if ret_dtype is None or not ret_dtype.is_fixedpoint:
             raise TypeMismatchError(
@@ -470,7 +477,11 @@ def _execute_rep(sess: StackedSession, comp, op: Operation,
 
 
 def unsupported_ops(comp: Computation) -> list:
-    """``(placement kind, op kind)`` of every op the port cannot run yet."""
+    """``(placement kind, op kind)`` of every op the port cannot run yet.
+    As the reference's stacked layout, it takes AES values on a host only
+    at the boundary (Input, Output) and through Identity, and Decrypt
+    only on a replicated placement: the reference runs the rest on its
+    per-host layout (item 8)."""
     missing = []
     for op in comp.operations.values():
         plc = comp.placements.get(op.placement_name)
@@ -479,7 +490,10 @@ def unsupported_ops(comp: Computation) -> list:
         if isinstance(plc, ReplicatedPlacement):
             ok = op.kind in REP_KINDS
         elif isinstance(plc, HostPlacement):
-            ok = op.kind in logical.HOST_KINDS
+            ok = op.kind in logical.HOST_KINDS and (
+                op.kind == "Identity" or not any(
+                    ty is not None and ty.name in AES_TY_NAMES
+                    for ty in op.signature.input_types))
         elif isinstance(plc, Mirrored3Placement):
             ok = op.kind in logical.MIR_KINDS
         else:
@@ -492,6 +506,22 @@ def unsupported_ops(comp: Computation) -> list:
 def supports(comp: Computation) -> bool:
     """Whether every op of ``comp`` has a path in the port."""
     return not unsupported_ops(comp)
+
+
+def lift_aes_input(sess: StackedSession, comp, op, arr, plc_name: str,
+                   device):
+    """An AES boundary value of the stacked layout: a ciphertext stays a
+    host bit tensor (shared at Decrypt); a replicated-placement key is
+    shared where it is lifted, straight into the party-stacked bit
+    layout, so its bit bank claims its nonce index at the Input op."""
+    plc = comp.placements[plc_name]
+    ret = op.signature.return_type
+    if isinstance(plc, ReplicatedPlacement) and ret.name in (
+            "AesKey", "ReplicatedAesKey"):
+        bits = torch.as_tensor(np.asarray(arr).astype(np.uint8),
+                               device=device)
+        return aes.StackedAesKey(sm.share_bits(sess.spmd, bits))
+    return aes.lift_input(comp, op, arr, plc_name, device)
 
 
 def execute_op(sess: StackedSession, comp: Computation, op: Operation,

@@ -10,7 +10,7 @@ same masks for the same knob value.
 
 The walk resolves the host boundary itself: Input binds an argument,
 Load reads the placement's own store and lifts the array onto the
-device, Save brings its value to its host and writes it to that store as
+device (an AES value through ``stacked.lift_aes_input``), Save brings its value to its host and writes it to that store as
 numpy once the walk is done, Output reveals to its host.
 """
 
@@ -24,7 +24,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..computation import Computation
+from ..computation import AES_TY_NAMES, Computation
 from ..errors import ConfigurationError
 from ..values import (
     HostFixedTensor,
@@ -166,17 +166,22 @@ class Interpreter:
         for name in comp.toposort_names():
             op = comp.operations[name]
             plc = comp.placement_of(op)
-            if op.kind == "Input":
-                if name not in arguments:
+            if op.kind in ("Input", "Load"):
+                if op.kind == "Load":
+                    arr = _load(storage, op, plc.name,
+                                *(env[i] for i in op.inputs))
+                elif name in arguments:
+                    arr = arguments[name]
+                else:
                     raise ValueError(f"missing argument {name!r}")
-                env[name] = _lift_array(
-                    arguments[name], op, plc.name, self.device
-                )
-                continue
-            if op.kind == "Load":
-                arr = _load(storage, op, plc.name,
-                            *(env[i] for i in op.inputs))
-                env[name] = _lift_array(arr, op, plc.name, self.device)
+                if op.signature.return_type.name in AES_TY_NAMES:
+                    # a replicated key is shared here, at its Input, as
+                    # the reference's walk shares it
+                    env[name] = stacked.lift_aes_input(
+                        sess, comp, op, arr, plc.name, self.device
+                    )
+                else:
+                    env[name] = _lift_array(arr, op, plc.name, self.device)
                 continue
             if op.kind == "Save":
                 key = env[op.inputs[0]]

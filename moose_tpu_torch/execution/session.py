@@ -46,6 +46,9 @@ class EagerSession:
     def cast(self, plc, x, target: dt.DType):
         return host.cast(x, target, plc)
 
+    def cast_ring_lo(self, plc, x, target: dt.DType):
+        return host.cast_ring_lo(x, target, plc)
+
     # ring arithmetic and shifts, as the mirrored dialect maps them over
     # its three hosts
     def add(self, plc, x, y):

@@ -39,6 +39,12 @@ does), so a run can show that it went through the kernels; K2 and K3
 count their two entry points apart, K5 its two modes, and K7 its two
 layouts (``prf_threefry``, ``prf_threefry_pallas``), one launch a group.
 
+The ``aes-ctr`` PRF is no kernel: :func:`aes_ctr_group` expands a group
+on the host, as the JAX package does, and copies it to the device once.
+``LAUNCHES["prf_aes_ctr_host"]`` counts those expansions (one a group),
+apart from every kernel's count, and ``AES_CTR_HOST`` the keystream
+bytes they drew and the host time they took.
+
 The plain versions repeat the kernels' arithmetic in PyTorch.  They are
 what the CPU tests hold against the JAX package, and what ``chip_smoke.py``
 holds each kernel against on the card; they are no yardstick of speed.
@@ -50,8 +56,10 @@ from __future__ import annotations
 
 import ctypes
 import math
+import time
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..dialects import ring
@@ -64,12 +72,17 @@ LAUNCHES = {
     "cross_terms_mul": 0, "cross_terms_reshare": 0, "ring_mul": 0,
     "bit_decompose": 0, "msb": 0, "horner": 0,
     "prf_threefry": 0, "prf_threefry_pallas": 0,
+    # host expansions of the aes-ctr PRF, one a group: no kernel
+    "prf_aes_ctr_host": 0,
 }
+# keystream bytes the aes-ctr expansions drew, and their host time
+AES_CTR_HOST = {"bytes": 0, "ms": 0.0}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    AES_CTR_HOST.update(bytes=0, ms=0.0)
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -1474,3 +1487,60 @@ def threefry_bits(k0: int, k1: int, n: int, layout: str,
     y0 ^ y1 per block for ``"threefry"``; for ``"threefry-pallas"`` 64
     bits per word, element 64w + j being bit j of word w."""
     return _threefry(k0, k1, n, layout, device, bits=True)
+
+
+# ---------------------------------------------------------------------------
+# The aes-ctr PRF: expanded on the host, grouped
+# ---------------------------------------------------------------------------
+
+
+def aes_ctr_group(master, domain: int, first: int, draws) -> None:
+    """Expand a group of consecutive draws of one protocol session under
+    the ``aes-ctr`` PRF into their planes: draw j is the session's draw
+    ``first + j``, its seed ``ring.draw_seed`` (the same derivation as
+    the threefry streams'), its words or bits the AES-128-CTR stream of
+    that seed (``ring.aes_ctr_words``, ``ring.aes_ctr_bits``).
+
+    This is the reference's construction, and the JAX package expands it
+    on the host too: there is no kernel and no fallback here.  The whole
+    group is staged in one host buffer and copied to the device once,
+    then each plane is filled from it on the device.  Counted under
+    ``LAUNCHES["prf_aes_ctr_host"]`` (one a group) and
+    ``AES_CTR_HOST``; every word equals the draws' one by one."""
+    draws = list(draws)
+    if not draws:
+        return
+    device = draws[0].planes[0][0].device
+    _check_group("aes-ctr", draws, device)
+    master = ring._seed_words(master)
+    t0 = time.perf_counter()
+    parts, places, at, drawn = [], [], 0, 0
+    for j, draw in enumerate(draws):
+        if draw.n == 0:
+            continue
+        seed = ring.draw_seed(master, domain, first + j)
+        if draw.bits:
+            chunks = [ring.aes_ctr_bits(seed, draw.n)]
+        else:
+            lo, hi = ring.aes_ctr_words(
+                seed, draw.n, 64 if len(draw.planes) == 1 else 128)
+            chunks = [lo] if hi is None else [hi, lo]  # the planes' order
+        for plane, chunk in zip(draw.planes, chunks):
+            raw = chunk.view(np.uint8)
+            places.append((plane, at, draw.n, draw.bits))
+            parts.append(raw)
+            drawn += raw.size
+            at += raw.size
+            if at % 8:  # the next plane's words start 8-byte aligned
+                parts.append(np.zeros(8 - at % 8, dtype=np.uint8))
+                at += 8 - at % 8
+    AES_CTR_HOST["ms"] += (time.perf_counter() - t0) * 1e3
+    if not places:
+        return
+    staged = torch.from_numpy(np.concatenate(parts)).to(device)
+    for (buf, offset), start, n, bits in places:
+        src = staged[start:start + n * (1 if bits else 8)]
+        buf.view(-1)[offset:offset + n].copy_(
+            src if bits else src.view(torch.int64))
+    LAUNCHES["prf_aes_ctr_host"] += 1
+    AES_CTR_HOST["bytes"] += drawn

@@ -81,9 +81,12 @@ class SpmdSession:
     u32 words) in the JAX package's nonce schedule: draw ``i`` of the
     session is seeded from the master key, the domain and nonce index
     ``i``.  Draws come in groups (:meth:`sample_group`) of consecutive
-    indices; on a CUDA ``device`` one K7 launch expands a group and
-    derives its seeds on the card, on the CPU each seed is derived on the
-    host and the draw expanded by the plain version."""
+    indices; under the threefry streams on a CUDA ``device`` one K7
+    launch expands a group and derives its seeds on the card, on the CPU
+    each seed is derived on the host and the draw expanded by the plain
+    version.  Under ``aes-ctr`` the seeds are derived and the group
+    expanded on the host on either device, as the JAX package does, and
+    copied to the device once (``ring_kernels.aes_ctr_group``)."""
 
     def __init__(self, master_key, device, domain: int = 0):
         self._master = tuple(int(w) & ring.MASK32 for w in master_key)
@@ -109,7 +112,8 @@ class SpmdSession:
         (hi None at ring64), one plane for bits.  Returns, in order, each
         draw's (lo, hi) words or bits, views of one buffer the group
         allocates, and None for a draw given its ``out``.  The counter
-        ends where the draws one by one would leave it."""
+        ends where the draws one by one would leave it, under every
+        PRF."""
         layout = ring.get_prf_impl()
         # per draw: (bits, n, planes, shape); planes given by ``out``, or
         # the offset into the group's own buffer and shape of the view
@@ -153,7 +157,11 @@ class SpmdSession:
         ]
         first = self._counter
         self._counter += len(draws)
-        rk.threefry_group(self._master, self._domain, first, layout, draws)
+        if layout == "aes-ctr":
+            rk.aes_ctr_group(self._master, self._domain, first, draws)
+        else:
+            rk.threefry_group(self._master, self._domain, first, layout,
+                              draws)
         outs = []
         for bits, n, planes, shape in plan:
             if shape is None:

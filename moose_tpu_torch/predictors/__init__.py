@@ -3,9 +3,9 @@ trainers.  The port runs the linear models (``LinearRegressor``,
 ``LinearClassifier``), the dense networks (``MLPRegressor``,
 ``MLPClassifier``, ``NeuralNetwork``), the tree ensembles
 (``TreeEnsembleRegressor``, ``TreeEnsembleClassifier``), the convnet
-(``ConvNet``) and the trainers' step (``LogregSGDTrainer``,
-``MLPSGDTrainer``); the AES input wrapper is a later slice (see
-ROADMAP.md)."""
+(``ConvNet``), the trainers' step (``LogregSGDTrainer``,
+``MLPSGDTrainer``) and the AES input wrapper (``AesWrapper``), which
+gives any of those predictors an encrypted-input front end."""
 
 from . import convnet_predictor
 from . import layers
@@ -24,7 +24,7 @@ from .linear_predictor import LinearClassifier, LinearRegressor
 from .multilayer_perceptron_predictor import MLPClassifier, MLPRegressor
 from .neural_network_predictor import NeuralNetwork
 from .onnx_convert import from_onnx
-from .predictor import Predictor
+from .predictor import AesWrapper, Predictor
 from .trainers import LogregSGDTrainer, MLPSGDTrainer, SecureTrainer
 from .tree_ensemble import (
     DecisionTreeRegressor,
@@ -33,6 +33,7 @@ from .tree_ensemble import (
 )
 
 __all__ = [
+    "AesWrapper",
     "ConvNet",
     "DecisionTreeRegressor",
     "LinearClassifier",

@@ -1,6 +1,6 @@
-"""Predictor base class (the plaintext-input part of
-``moose_tpu/predictors/predictor.py``; the AES input wrapper is a later
-slice)."""
+"""Predictor base class and the AES input wrapper, as
+``moose_tpu/predictors/predictor.py`` (its serving hook,
+``traced_predictor``, comes with serving: ROADMAP queue 1, item 11)."""
 
 import abc
 import dataclasses
@@ -93,3 +93,72 @@ class Predictor(metaclass=abc.ABCMeta):
             return predictor
 
         return self._memoized(("plain", fixedpoint_dtype), build)
+
+
+class AesInputMixin:
+    """Encrypted-input front end: the client uploads an AES-GCM
+    ciphertext, the key is secret-shared on the replicated placement, and
+    decryption happens under MPC (the plaintext never exists on any one
+    machine).  Composed onto a concrete predictor class by
+    :func:`AesWrapper`."""
+
+    def __call__(self, fixedpoint_dtype=utils.DEFAULT_FIXED_DTYPE):
+        return self.aes_predictor_factory(fixedpoint_dtype)
+
+    @classmethod
+    def handle_aes_input(cls, aes_key, aes_data, decryptor):
+        if not isinstance(aes_data.vtype, pm.AesTensorType):
+            raise TypeError(
+                f"expected AesTensorType input, found {aes_data.vtype}"
+            )
+        if not aes_data.vtype.dtype.is_fixedpoint:
+            raise TypeError("AES tensor payload must be fixed-point")
+        if not isinstance(aes_key.vtype, pm.AesKeyType):
+            raise TypeError(
+                f"expected AesKeyType input, found {aes_key.vtype}"
+            )
+        with decryptor:
+            return pm.decrypt(aes_key, aes_data)
+
+    def aes_predictor_factory(
+        self, fixedpoint_dtype=utils.DEFAULT_FIXED_DTYPE
+    ):
+        """The AES-input computation: alice supplies the ciphertext, the
+        replicated placement the key; the model runs on the decrypted
+        sharing and bob receives the prediction."""
+
+        def build():
+            @pm.computation
+            def predictor(
+                aes_data: pm.Argument(
+                    self.alice,
+                    vtype=pm.AesTensorType(dtype=fixedpoint_dtype),
+                ),
+                aes_key: pm.Argument(
+                    self.replicated, vtype=pm.AesKeyType()
+                ),
+            ):
+                x = self.handle_aes_input(
+                    aes_key, aes_data, decryptor=self.replicated
+                )
+                with self.replicated:
+                    pred = self.predictor_fn(x, fixedpoint_dtype)
+                return self.handle_output(
+                    pred, prediction_handler=self.bob
+                )
+
+            return predictor
+
+        return self._memoized(("aes", fixedpoint_dtype), build)
+
+
+def AesWrapper(inner_model_cls):
+    """Extend a predictor class with AES-encrypted input handling: the
+    mixin's methods take precedence over the inner class's ``__call__``
+    while everything else (from_onnx, predictor_fn, weights) is
+    inherited unchanged."""
+    return type(
+        f"Aes{inner_model_cls.__name__}",
+        (AesInputMixin, inner_model_cls),
+        {},
+    )

@@ -42,6 +42,13 @@ class DecisionTreeRegressor(predictor.Predictor):
         split_indices = tree_json["split_indices"]
         return cls(weights, (left, right), split_conditions, split_indices)
 
+    def aes_predictor_factory(self):
+        raise NotImplementedError(
+            f"{self.__class__.__name__} is not meant to be used directly as "
+            "an AesPredictor model. Consider expressing your decision tree "
+            "as a tree ensemble with another AesPredictor implementation."
+        )
+
     def inner_nodes(self):
         """Indices of inner (split) nodes, in traversal-independent order."""
         return [

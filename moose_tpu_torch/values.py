@@ -1,7 +1,7 @@
 """Runtime values of the port, backed by PyTorch tensors.
 
-The host and mirrored value classes of ``moose_tpu/values.py`` that the
-port's graphs use.  Tensor payloads are ``torch`` tensors on the
+The host, mirrored and AES value classes of ``moose_tpu/values.py``
+that the port's graphs use.  Tensor payloads are ``torch`` tensors on the
 runtime's device; ring words are ``torch.int64`` (see
 ``dialects/ring.py``), ``hi`` present iff the width is 128.
 """
@@ -128,6 +128,37 @@ class Mir3FixedTensor:
     @property
     def plc(self) -> str:
         return self.tensor.plc
+
+
+# ---------------------------------------------------------------------------
+# AES / encrypted values
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class HostAesKey:
+    """An AES-128 key on one host: a HostBitTensor with leading axis
+    128."""
+
+    bits: HostBitTensor
+    plc: str
+
+    def ty_name(self) -> str:
+        return "HostAesKey"
+
+
+@dataclasses.dataclass
+class AesTensor:
+    """AES-128-GCM ciphertext of a fixed-point tensor: per element a
+    96-bit nonce and 128 ciphertext bits, each a HostBitTensor with that
+    leading bit axis."""
+
+    nonce_bits: HostBitTensor
+    cipher_bits: HostBitTensor
+    plc: str
+
+    def ty_name(self) -> str:
+        return "AesTensor"
 
 
 def to_numpy(value: Any):

@@ -10,10 +10,14 @@ fixed(24,40)), one request of config 5's small ResNet (the ONNX convnet
 of sklearn_export.resnet_block_onnx, 1024 NCHW images of 3x8x8, 3
 classes, at fixed(24,40)), and BASELINE config 2's correlation (the
 scientific-computing tutorial at 1,000 rows, its columns loaded from
-storage and its result saved there) under the default threefry PRF, and
-one LogregSGDTrainer step (128x100 at fixed(24,40)) under
-threefry-pallas, through the port's LocalMooseRuntime, warm, under
-torch.profiler, and prints for each:
+storage and its result saved there) and one request of BASELINE config
+4's encrypted-input inference (AesWrapper in front of the logistic
+regression, 1024x100 AES-GCM-encrypted rows) under the default threefry
+PRF, one LogregSGDTrainer step (128x100 at fixed(24,40)) under
+threefry-pallas, and one logistic-regression request under the
+reference's aes-ctr PRF (config 4's share generation), through the
+port's LocalMooseRuntime, warm, under torch.profiler, and prints for
+each:
 
 - the host wall time of the request (median of three, without the
   profiler) and the device's busy and idle share (busy = the sum of
@@ -30,6 +34,11 @@ torch.profiler, and prints for each:
 - the seeds derived on the host in the request (``ring.mix_seed``
   calls; the card derives a session's seeds in K7) and, once, what one
   host derivation costs on this machine's CPU;
+- under aes-ctr, the host expansions (one a group), the keystream bytes
+  and the host time they took, and the device time of their copies
+  (``prf_aes_ctr``); for the encrypted input, the device time of
+  Decrypt's circuit (``aes_decrypt_device_ms``, inclusive of the PRF
+  groups and kernels it launches, so outside the layers' sum);
 - the number of kernels the card ran (PyTorch's and the port's);
 - the top kernels by device time.
 
@@ -59,7 +68,7 @@ from torch.profiler import (  # noqa: E402
 
 import chip_smoke  # noqa: E402
 import moose_tpu_torch as pm  # noqa: E402
-from moose_tpu_torch.dialects import ring  # noqa: E402
+from moose_tpu_torch.dialects import aes, ring  # noqa: E402
 from moose_tpu_torch.native import ring_kernels as rk  # noqa: E402
 from moose_tpu_torch.predictors import trainers  # noqa: E402
 from moose_tpu_torch.runtime import LocalMooseRuntime  # noqa: E402
@@ -70,7 +79,11 @@ LAYERS = (
     (rk, "threefry_group", "prf_expand"),
     (ring, "fixedpoint_encode", "fixedpoint_encode"),
     (ring, "fixedpoint_decode", "fixedpoint_decode"),
+    (rk, "aes_ctr_group", "prf_aes_ctr"),
 )
+# ranges whose device time is reported whole, beside the layers: they
+# hold other layers' ranges and kernels
+INCLUSIVE = ((aes, "decrypt_stacked", "aes_decrypt"),)
 # the CUDA kernels launch through ctypes, outside any PyTorch op, so the
 # profiler gives their time to no range: their layers are read off the
 # kernel names instead.  K7 launches inside the prf_expand ranges, one
@@ -153,6 +166,7 @@ def profile_request(fn, warm=2):
         fn()
     wall_ms = _wall_ms(fn)
     HOST_SEEDS[0] = 0
+    rk.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         # the profiler now and then loses the first kernel of its region:
@@ -162,11 +176,16 @@ def profile_request(fn, warm=2):
         fn()
         torch.cuda.synchronize()
     labels = {label for _, _, label in LAYERS}
+    inclusive = dict.fromkeys((label for _, _, label in INCLUSIVE), 0.0)
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     layers = dict.fromkeys(sorted(labels), 0.0)
     ranges = dict.fromkeys(sorted(labels), 0)
     kernels = {}
     for evt in prof.events():
+        if evt.name in inclusive:
+            if evt.device_type == cpu:
+                inclusive[evt.name] += evt.device_time_total / 1e3
+            continue
         if evt.name in labels:
             if evt.device_type == cpu:
                 layers[evt.name] += evt.device_time_total / 1e3
@@ -209,6 +228,10 @@ def profile_request(fn, warm=2):
         "prf_ranges": ranges["prf_expand"],
         "prf_expand_holds_K7": prf_launches == ranges["prf_expand"],
         "host_seed_derivations": HOST_SEEDS[0],
+        "prf_aes_ctr_host_expansions": rk.LAUNCHES["prf_aes_ctr_host"],
+        "aes_ctr_keystream_bytes": rk.AES_CTR_HOST["bytes"],
+        "aes_ctr_host_ms": rk.AES_CTR_HOST["ms"],
+        **{f"{label}_device_ms": ms for label, ms in inclusive.items()},
         "K1_stages": stages(K1_STAGES),
         "K5_stages": stages(K5_STAGES),
         "top_kernels": [
@@ -224,7 +247,7 @@ def main() -> int:
         return 2
     smi = chip_smoke.nvidia_smi_line()
     print(f"card: {smi}", flush=True)
-    for mod, name, label in LAYERS:
+    for mod, name, label in LAYERS + INCLUSIVE:
         _wrap(mod, name, label)
     seed_us = _host_seed_us(_count_host_seeds())
     print(f"host seed derivation: {seed_us:.3f} us", flush=True)
@@ -299,6 +322,22 @@ def main() -> int:
         lambda: corr_runtime.evaluate_computation(corr_comp)
     )
     print(f"correlation: {json.dumps(corr_profile)}", flush=True)
+    aes_model = chip_smoke.logistic_regression(
+        rng, chip_smoke.AES_FEATURES, aes=True)
+    aes_comp = chip_smoke.aes_inference_computation(
+        pm, aes_model, pm.fixed(*chip_smoke.AES_PRECISION))
+    key, nonce = chip_smoke.aes_key_nonce()
+    aes_args = {
+        "aes_data": aes.encrypt_fixed_array(
+            key, nonce, rng.normal(size=(chip_smoke.AES_ROWS,
+                                         chip_smoke.AES_FEATURES)),
+            chip_smoke.AES_PRECISION[1]),
+        "aes_key": aes.bytes_to_bits_be(key),
+    }
+    aes_profile = profile_request(
+        lambda: runtime.evaluate_computation(aes_comp, aes_args)
+    )
+    print(f"aes_inference: {json.dumps(aes_profile)}", flush=True)
     ring.set_prf_impl("threefry-pallas")
     try:
         trainer = trainers.LogregSGDTrainer(chip_smoke.TRAIN_FEATURES,
@@ -314,6 +353,15 @@ def main() -> int:
     finally:
         ring.set_prf_impl("threefry")
     print(f"training_step: {json.dumps(train)}", flush=True)
+    ring.set_prf_impl("aes-ctr")
+    try:
+        ctr_profile = profile_request(
+            lambda: runtime.evaluate_computation(logreg, {"x": xl})
+        )
+    finally:
+        ring.set_prf_impl("threefry")
+    print(f"aes_ctr_logistic_regression: {json.dumps(ctr_profile)}",
+          flush=True)
     after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader"],
@@ -327,7 +375,9 @@ def main() -> int:
                       "mlp_classifier": mlp_profile,
                       "resnet": resnet_profile,
                       "correlation": corr_profile,
-                      "training_step": train}))
+                      "aes_inference": aes_profile,
+                      "training_step": train,
+                      "aes_ctr_logistic_regression": ctr_profile}))
     return 0
 
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1-K7) against their plain PyTorch versions,
-on the card, word for word.  Every test here needs a CUDA device and
+on the card, word for word, and whole requests on the card against the
+same requests on the CPU.  Every test here needs a CUDA device and
 skips without one.
 
 The card's machine has no JAX, and tests/conftest.py imports it, so run
@@ -1032,6 +1033,76 @@ def test_resnet_request_on_the_card_matches_the_cpu(cuda, monkeypatch):
     for name in ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                  "ring_mul", "msb", "bit_decompose", "horner",
                  "prf_threefry"):
+        assert launched[name] >= 1, name
+
+
+@pytest.mark.gpu
+def test_aes_input_request_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    # phase 15's request at a batch of 8 rows: Decrypt's circuit, then
+    # the logistic regression
+    import moose_tpu_torch as tm
+    from moose_tpu_torch.dialects import aes
+    from moose_tpu_torch.runtime import LocalMooseRuntime
+
+    chip_smoke = _chip_smoke()
+    model = chip_smoke.logistic_regression(
+        np.random.default_rng(13), chip_smoke.AES_FEATURES, aes=True)
+    comp = chip_smoke.aes_inference_computation(
+        tm, model, tm.fixed(*chip_smoke.AES_PRECISION))
+    x = np.random.default_rng(14).normal(size=(8, chip_smoke.AES_FEATURES))
+    key, nonce = chip_smoke.aes_key_nonce()
+    args = {"aes_data": aes.encrypt_fixed_array(
+        key, nonce, x, chip_smoke.AES_PRECISION[1]),
+        "aes_key": aes.bytes_to_bits_be(key)}
+
+    def run(device):
+        before = dict(rk.LAUNCHES)
+        out = LocalMooseRuntime(["alice", "bob", "carole"], device=device) \
+            .evaluate_computation(comp, args)["output_0"]
+        return out, {k: v - before[k] for k, v in rk.LAUNCHES.items()}
+
+    (got, launched), (want, _) = _on_both(monkeypatch, run)
+    assert np.array_equal(got, want)
+    assert np.abs(got - chip_smoke.logistic_reference(model, x)).max() < \
+        chip_smoke.AES_TOL
+    for name in ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
+                 "ring_mul", "msb", "bit_decompose", "horner",
+                 "prf_threefry"):
+        assert launched[name] >= 1, name
+    assert launched["prf_threefry"] == 134
+
+
+@pytest.mark.gpu
+def test_aes_ctr_request_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    # phase 16's request at 64 rows: every draw expanded on the host
+    from moose_tpu_torch.runtime import LocalMooseRuntime
+
+    chip_smoke = _chip_smoke()
+    model = chip_smoke.logistic_regression(
+        np.random.default_rng(15), chip_smoke.LOGREG_FEATURES)
+    comp = model.predictor_factory()
+    x = np.random.default_rng(16).normal(
+        size=(64, chip_smoke.LOGREG_FEATURES))
+
+    def run(device):
+        before = dict(rk.LAUNCHES)
+        out = LocalMooseRuntime(["alice", "bob", "carole"], device=device) \
+            .evaluate_computation(comp, {"x": x})["output_0"]
+        return out, {k: v - before[k] for k, v in rk.LAUNCHES.items()}
+
+    prev = ring.get_prf_impl()
+    ring.set_prf_impl("aes-ctr")
+    try:
+        (got, launched), (want, _) = _on_both(monkeypatch, run)
+    finally:
+        ring.set_prf_impl(prev)
+    assert np.array_equal(got, want)
+    assert np.abs(got - chip_smoke.logistic_reference(model, x)).max() < \
+        chip_smoke.LOGREG_TOL
+    assert launched["prf_threefry"] == launched["prf_threefry_pallas"] == 0
+    assert launched["prf_aes_ctr_host"] == 50
+    for name in ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
+                 "ring_mul", "msb", "bit_decompose", "horner"):
         assert launched[name] >= 1, name
 
 

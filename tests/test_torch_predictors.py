@@ -25,6 +25,7 @@ from moose_tpu.predictors import trainers as jtrainers
 from moose_tpu.runtime import LocalMooseRuntime as JaxRuntime
 
 import moose_tpu_torch as tm
+from moose_tpu_torch.computation import Computation as TComputation
 from moose_tpu_torch import interop
 from moose_tpu_torch.dialects import logical as tlogical
 from moose_tpu_torch.dialects import stacked as tstacked
@@ -194,9 +195,8 @@ def test_port_supports_exactly_the_slice_kinds():
     assert tlogical.HOST_KINDS == \
         traced["HostPlacement"] | {"Identity", "Constant"}
     assert tlogical.MIR_KINDS == traced["Mirrored3Placement"]
-    # the replicated kinds are the reference's less the AES kind, and
-    # cover the graphs'
-    assert tstacked.REP_KINDS == jstacked._REP_KINDS - {"Decrypt"}
+    # the replicated kinds are the reference's, and cover the graphs'
+    assert tstacked.REP_KINDS == jstacked._REP_KINDS
     assert traced["ReplicatedPlacement"] <= tstacked.REP_KINDS
     assert {"Conv2D", "MaxPool2D"} <= traced["ReplicatedPlacement"]
     port_graphs = [
@@ -316,7 +316,9 @@ def test_import_adds_no_jax_or_moose_tpu_module():
         "moose_tpu_torch.native.build, moose_tpu_torch.dialects.pallas_prf, "
         "moose_tpu_torch.predictors.trainers, moose_tpu_torch.storage, "
         "moose_tpu_torch.dialects.mirrored, "
-        "moose_tpu_torch.predictors.convnet_predictor\n"
+        "moose_tpu_torch.predictors.convnet_predictor, "
+        "moose_tpu_torch.crypto.aes_prng, moose_tpu_torch.crypto.blake3, "
+        "moose_tpu_torch.dialects.aes, moose_tpu_torch.dialects.bristol\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'moose_tpu'))\n"
@@ -330,7 +332,14 @@ def test_import_adds_no_jax_or_moose_tpu_module():
 
 
 def test_package_source_imports_no_jax_or_moose_tpu():
-    for path in sorted((REPO / "moose_tpu_torch").rglob("*.py")):
+    paths = sorted((REPO / "moose_tpu_torch").rglob("*.py"))
+    # the AES path's own copies of the framework-neutral modules
+    scanned = {p.relative_to(REPO).as_posix() for p in paths}
+    assert {"moose_tpu_torch/crypto/aes_prng.py",
+            "moose_tpu_torch/crypto/blake3.py",
+            "moose_tpu_torch/dialects/aes.py",
+            "moose_tpu_torch/dialects/bristol.py"} <= scanned
+    for path in paths:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -355,3 +364,16 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
     )
     assert out.returncode != 0
     assert out.stdout == ""
+
+
+def test_every_public_name_of_the_reference_is_a_top_level_name():
+    # the names moose_tpu/__init__.py imports from its own modules
+    tree = ast.parse((REPO / "moose_tpu" / "__init__.py").read_text())
+    names = [alias.asname or alias.name for node in tree.body
+             if isinstance(node, ast.ImportFrom) and node.level == 1
+             for alias in node.names]
+    assert len(names) == 87
+    assert [n for n in names if not hasattr(tm, n)] == []
+    assert set(names) <= set(tm.__all__)
+    assert tm.fixed64(8, 27).name == "fixed64"
+    assert tm.Computation is TComputation

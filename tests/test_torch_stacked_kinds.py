@@ -3,8 +3,10 @@ protocol library, one traced computation apiece, through the port's
 LocalMooseRuntime on the CPU and the JAX LocalMooseRuntime (stacked
 layout, eager) under fixed keys and the threefry PRF: the outputs are
 equal (decoded floats, bools, uint64 indices or shapes alike); the
-convolution and the pools likewise.  The refused kind (Decrypt) and
-secret integers name their ROADMAP items."""
+convolution and the pools likewise, and a revealed Argmax index cast to
+floats on a host.  The port runs all 41 of the reference's kinds, Decrypt
+among them (its parity with the JAX package: tests/test_torch_aes.py);
+secret integers name their ROADMAP item."""
 
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ from moose_tpu.runtime import LocalMooseRuntime as JaxRuntime
 
 import moose_tpu_torch as tm
 from moose_tpu_torch.dialects import stacked as tstacked
+from moose_tpu_torch.edsl import tracer
 from moose_tpu_torch.errors import TypeMismatchError
 from moose_tpu_torch.runtime import LocalMooseRuntime as PortRuntime
 
@@ -116,13 +119,15 @@ ADDED_KINDS = (
 
 
 def test_rep_kinds_are_the_reference_s_less_four():
-    # four kinds were refused until the convolution came; now only the
-    # AES path's Decrypt is
-    assert tstacked.REP_KINDS == jstacked._REP_KINDS - {"Decrypt"}
-    assert len(tstacked.REP_KINDS) == 40
-    assert set(ADDED_KINDS) | set(CONV_KINDS) <= tstacked.REP_KINDS
-    assert tstacked.roadmap_item("ReplicatedPlacement", "Decrypt") == \
-        "ROADMAP queue 1, item 9"
+    # four kinds were refused until the convolution came, and Decrypt
+    # until the AES path: now the port runs the reference's 41
+    assert tstacked.REP_KINDS == jstacked._REP_KINDS
+    assert len(tstacked.REP_KINDS) == 41
+    assert set(ADDED_KINDS) | set(CONV_KINDS) | {"Decrypt"} <= \
+        tstacked.REP_KINDS
+    # a Decrypt on a host runs on the reference's per-host layout only
+    assert tstacked.roadmap_item("HostPlacement", "Decrypt") == \
+        "ROADMAP queue 1, items 6 and 8"
 
 
 @pytest.mark.parametrize("kind", ADDED_KINDS + ("Mux, rank-1 selector",))
@@ -216,8 +221,11 @@ def test_conv_kinds_match_the_jax_stacked_runtime(fixed_keys, kind):
 
 
 @pytest.mark.parametrize("kind,item", (("Decrypt", "item 9"),))
-def test_refused_kinds_name_their_roadmap_item(kind, item):
+def test_refused_kinds_name_their_roadmap_item(fixed_keys, kind, item):
+    # item 9 brought the last refused kind: a Decrypt of a host key now
+    # runs, and its plaintext is exact
     from moose_tpu_torch import vtypes
+    from moose_tpu_torch.dialects import aes
 
     alice = tm.host_placement("alice")
     bob = tm.host_placement("bob")
@@ -235,10 +243,13 @@ def test_refused_kinds_name_their_roadmap_item(kind, item):
             out = tm.cast(z, dtype=tm.float64)
         return out
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-        PortRuntime(IDS, device="cpu").evaluate_computation(
-            graph, {"key": np.zeros(16, np.uint8),
-                    "ct": np.zeros(16, np.uint8)})
+    assert kind in tstacked.REP_KINDS and not tstacked.unsupported_ops(
+        tracer.trace(graph))
+    key, values = bytes(range(16)), ARGS["x"]
+    wire = aes.encrypt_fixed_array(key, bytes(12), values, PRECISION[1])
+    got = PortRuntime(IDS, device="cpu").evaluate_computation(
+        graph, {"key": aes.bytes_to_bits_be(key), "ct": wire})["output_0"]
+    assert np.array_equal(got, values)
 
 
 def test_secret_integers_name_their_roadmap_item(fixed_keys):
@@ -261,3 +272,42 @@ def test_secret_integers_name_their_roadmap_item(fixed_keys):
     with pytest.raises(TypeMismatchError, match="item 6"):
         PortRuntime(IDS, device="cpu").evaluate_computation(
             graph, {"x": ARGS["x"]})
+
+
+def _argmax_cast_computation(pm, dtype):
+    alice = pm.host_placement("alice")
+    carole = pm.host_placement("carole")
+    rep = pm.replicated_placement(
+        "rep", players=[alice, pm.host_placement("bob"), carole])
+
+    @pm.computation
+    def graph(x: pm.Argument(alice, dtype=pm.float64)):
+        with alice:
+            xf = pm.cast(x, dtype=dtype)
+        with rep:
+            a = pm.argmax(xf, axis=0, upmost_index=4)
+        with carole:
+            out = pm.cast(a, dtype=pm.float64)
+        return out
+
+    return graph
+
+
+@pytest.mark.parametrize("dtype", ("fixed(14,23)", "fixed64(8,27)"))
+def test_argmax_index_cast_on_a_host_matches_the_jax_stacked_runtime(
+        fixed_keys, dtype):
+    # a revealed index is ring words on the host: its low words, lifted
+    # to uint64, cast to floats (ring128 and ring64)
+    make = {"fixed(14,23)": lambda pm: pm.fixed(14, 23),
+            "fixed64(8,27)": lambda pm: pm.fixed64(8, 27)}[dtype]
+    x = np.array([[1.5, -2.0, 0.25], [-0.5, 3.0, 0.75],
+                  [2.5, 1.0, -1.25], [0.5, -3.5, 1.75]])
+    want = JaxRuntime(IDS, layout="stacked", use_jit=False) \
+        .evaluate_computation(_argmax_cast_computation(jm, make(jm)),
+                              {"x": x})["output_0"]
+    got = PortRuntime(IDS, device="cpu").evaluate_computation(
+        _argmax_cast_computation(tm, make(tm)), {"x": x})["output_0"]
+    want = np.asarray(want)
+    assert got.dtype == want.dtype == np.float64
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, x.argmax(axis=0).astype(np.float64))

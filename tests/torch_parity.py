@@ -68,6 +68,14 @@ def threefry_pallas():
 
 
 @pytest.fixture
+def aes_ctr():
+    """Both packages on the reference's aes-ctr PRF, restored
+    afterwards."""
+    with prf("aes-ctr"):
+        yield
+
+
+@pytest.fixture
 def cuda():
     """The device of tests that need the card; they skip without one."""
     import torch
