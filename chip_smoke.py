@@ -133,19 +133,33 @@ Phases (each raises on failure; the script then exits non-zero):
      host, one copy to the card a group), within
      5e-3 of float64 and equal to the same request on the CPU under the
      same fixed keys; its keystream bytes, host expansion time and wall
-     printed.  The PRF choice and the key knobs are restored afterwards.
-Phases 4 to 16 are the main path: the kernels' launch counters are set
+     printed.  The PRF choice and the key knobs are restored afterwards;
+ 17. computations from bytes, under threefry and the same fixed keys
+     (restored afterwards): phase 6's logistic regression traced,
+     serialized (serde), compiled by elk_compiler with the logical passes
+     (BYTES_PASSES) and served by LocalMooseRuntime.evaluate_compiled,
+     three requests of 1024 x 100, each within 5e-3 of float64 and equal
+     element for element to evaluate_computation of the traced graph on
+     the same request; its serialized bytes equal to the JAX package's
+     (BYTES_GOLDEN), and that blob, the textual round trip
+     (parse_computation(to_textual(...))) and the graphs of phases 14 and
+     15 from bytes equal to their phase's evaluate_computation on one
+     request; the three requests' launch counts equal to phase 6's; blob
+     bytes, serialize, deserialize, elk-compile and parse ms, textual
+     characters, both walls a request, rows/s, device launches, busy time
+     and idle share printed.
+Phases 4 to 17 are the main path: the kernels' launch counters are set
 to 0 just before each and read just after.  K1, K2's trunc_pairs and the
 threefry kernel in the phase's stream layout (threefry in all but 7,
 threefry-pallas in 7, and never the other) must have launched in each
 but 10 and 13, and every kernel (K1, K2's trunc_pairs, K3's
 cross_terms_reshare, K4, K5 in both modes, K6) in phases 6 to 12 and 14
-(K1 but in phases 9 and 10, which hold no matrix product), 15 and 16;
-phase 13 must launch K5's msb, K3's cross_terms_reshare and K7; phase
-16 must launch no K7 and expand its draws on the host
+(K1 but in phases 9 and 10, which hold no matrix product), 15, 16 and
+17; phase 13 must launch K5's msb, K3's cross_terms_reshare and K7;
+phase 16 must launch no K7 and expand its draws on the host
 (LAUNCHES["prf_aes_ctr_host"]), and no other phase may.  No seed may be
-derived on the host in phases 4 to 15 (ring.mix_seed is counted), and
-the K7 launches must stay
+derived on the host in phases 4 to 15 and 17 (ring.mix_seed is
+counted), and the K7 launches must stay
 under their ceilings: 3 for a secure dot, 60 for a logistic-regression
 request or a LogregSGDTrainer step, MULTI_K7_CEILING for a multinomial
 request, MLPC_K7_CEILING for an MLP request, RESNET_K7_CEILING for a
@@ -301,6 +315,15 @@ AES_ROWS = 1024
 AES_REQUESTS = 3
 AES_PRECISION = (24, 40)
 AES_TOL = LOGREG_TOL
+# Computations from bytes: phase 6's logistic regression serialized,
+# compiled by elk_compiler with the logical passes and served by
+# evaluate_compiled, three requests; the same graph as the JAX package
+# serialized it (tests/golden_torch_logreg.msgpack, which
+# tests/test_torch_serde.py regenerates); held to phase 6's limit and,
+# word for word, to evaluate_computation under the same fixed keys
+BYTES_REQUESTS = 3
+BYTES_PASSES = ["typing", "prune", "toposort", "wellformed"]
+BYTES_GOLDEN = "tests/golden_torch_logreg.msgpack"
 # launch ceilings of the main path: K7 launches (groups) of a secure dot,
 # of a logistic-regression request and of a LogregSGDTrainer step, and
 # the device launches (PyTorch's and the port's kernels) of one request
@@ -631,15 +654,19 @@ def compare_dot(torch, rk, ring, gen, m, k, n, width, reps, label="",
 
 
 def compare_trunc(torch, rk, gen, shape, width, amount, reps):
+    """K2's trunc_combine (an additive sharing and its draws in), with its
+    device time under torch.profiler (``device_ms``)."""
     a0, a1, *draws = (random_words(torch, gen, shape, width)
                       for _ in range(7))
-    return compare_kernel(
-        torch, rk.trunc_combine, rk.trunc_combine_plain,
-        (a0, a1, tuple(draws), width, amount),
+    args = (a0, a1, tuple(draws), width, amount)
+    row = compare_kernel(
+        torch, rk.trunc_combine, rk.trunc_combine_plain, args,
         trunc_bound(math.prod(shape), width, amount), reps,
         shape=str(tuple(shape)), width=width, amount=amount,
         mode="trunc_combine",
     )
+    row["device_ms"] = device_time_ms(torch, lambda: rk.trunc_combine(*args))
+    return row
 
 
 def compare_trunc_pairs(torch, rk, gen, shape, width, amount, reps,
@@ -1059,17 +1086,26 @@ def linear_regressor(rng, n_features):
     return from_onnx(model)
 
 
-def logistic_regression(rng, n_features, aes=False):
+def logistic_regression(rng, n_features, aes=False,
+                        package="moose_tpu_torch"):
     """The port's binary LinearClassifier with random weights from
     ``rng`` (scale 0.1, so the logits of unit-normal rows spread over the
     sigmoid as a fitted model's do), exported the way skl2onnx writes
     sklearn's LogisticRegression (mirrored class rows, LOGISTIC) and
     imported through ``predictors.from_onnx``; with ``aes``, through
-    ``AesWrapper(LinearClassifier).from_onnx``."""
+    ``AesWrapper(LinearClassifier).from_onnx``.  ``package`` names the
+    package whose predictors import the model (the tests pass the JAX
+    package's)."""
+    import importlib
+
     import numpy as np
 
-    from moose_tpu_torch.predictors import (
-        AesWrapper, LinearClassifier, from_onnx, sklearn_export)
+    predictors = importlib.import_module(package + ".predictors")
+    sklearn_export = importlib.import_module(
+        package + ".predictors.sklearn_export")
+    AesWrapper, LinearClassifier, from_onnx = (
+        predictors.AesWrapper, predictors.LinearClassifier,
+        predictors.from_onnx)
 
     coef = rng.normal(scale=0.1, size=(1, n_features)).astype(np.float32)
     intercept = rng.normal(scale=0.1, size=(1,)).astype(np.float32)
@@ -1082,6 +1118,18 @@ def logistic_regression(rng, n_features, aes=False):
     if aes:
         return AesWrapper(LinearClassifier).from_onnx(model)
     return from_onnx(model)
+
+
+def phase6_rng():
+    """A generator from SEED in the state phase 6 draws its classifier
+    from: past phase 4's operands and phase 5's weights and requests."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    for shape in ((DOT_N, DOT_N),) * 2 + ((1, LINREG_FEATURES), (1,)) \
+            + ((LINREG_ROWS, LINREG_FEATURES),) * LINREG_REQUESTS:
+        rng.normal(size=shape)
+    return rng
 
 
 def logistic_reference(predictor, x):
@@ -1693,6 +1741,108 @@ def step_device_launches(torch, runtime, rng):
         torch, lambda: runtime.evaluate_computation(comp, args))
 
 
+def run_from_bytes(torch, rk, runtime, serde, textual, elk_compiler,
+                   tracer, logreg, classifier, rng, golden, graphs):
+    """Phase 17, under fixed keys: phase 6's logistic regression
+    (``logreg``) traced, serialized, compiled by ``elk_compiler`` with
+    BYTES_PASSES and served by ``runtime.evaluate_compiled``, three
+    requests, each within phase 6's limit and equal to
+    ``evaluate_computation`` of the traced graph; then, once each, the
+    textual round trip, the JAX package's blob ``golden`` (which must be
+    this graph's bytes) and the graphs of ``graphs`` (name: (computation,
+    arguments)) from bytes, each equal to ``evaluate_computation`` of its
+    computation as its phase calls it.  Returns (record, the launches of
+    the three requests)."""
+    import numpy as np
+
+    def ms_of(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def equal(got, want):
+        return got.keys() == want.keys() and all(
+            np.array_equal(np.asarray(got[k]), np.asarray(want[k]))
+            for k in want)
+
+    traced = tracer.trace(logreg)
+    blob, serialize_ms = ms_of(lambda: serde.serialize_computation(traced))
+    _, deserialize_ms = ms_of(lambda: serde.deserialize_computation(blob))
+    compiled, compile_ms = ms_of(
+        lambda: elk_compiler.compile_computation(blob, BYTES_PASSES))
+    if blob != golden:
+        raise AssertionError(
+            "phase 6's graph does not serialize to the JAX package's bytes")
+    requests = [rng.normal(size=(LOGREG_ROWS, LOGREG_FEATURES))
+                for _ in range(BYTES_REQUESTS)]
+    rk.reset_launches()
+    outs, walls = [], []
+    for xr in requests:
+        out, s = timed(torch, lambda: runtime.evaluate_compiled(
+            compiled, {"x": xr}))
+        outs.append(out)
+        walls.append(s)
+    launches = dict(rk.LAUNCHES)
+    errs, equal_words, direct_walls = [], [], []
+    for xr, out in zip(requests, outs):
+        pred, want = out["output_0"], logistic_reference(classifier, xr)
+        if pred.shape != want.shape or not np.all(np.isfinite(pred)):
+            raise AssertionError(f"from-bytes output malformed: {pred.shape}")
+        errs.append(float(np.abs(pred - want).max()))
+        direct, s = timed(torch, lambda: runtime.evaluate_computation(
+            traced, {"x": xr}))
+        direct_walls.append(s)
+        equal_words.append(equal(out, direct))
+    text = textual.to_textual(traced)
+    parsed, parse_ms = ms_of(lambda: textual.parse_computation(text))
+    args = {"x": requests[0]}
+    checks = {
+        "textual": equal(runtime.evaluate_computation(parsed, args),
+                         outs[0]),
+        "jax_blob": equal(runtime.evaluate_compiled(golden, args), outs[0]),
+    }
+    for name, (comp, comp_args) in graphs.items():
+        graph = tracer.trace(comp)
+        checks[name] = equal(
+            runtime.evaluate_compiled(serde.serialize_computation(graph),
+                                      comp_args),
+            runtime.evaluate_computation(comp, comp_args))
+    busy_launches, busy_ms = device_busy(
+        torch, lambda: runtime.evaluate_compiled(compiled, args))
+    wall_ms = statistics.median(walls) * 1e3
+    record = {
+        "blob_bytes": len(blob),
+        "serialize_ms": serialize_ms,
+        "deserialize_ms": deserialize_ms,
+        "elk_compile_ms": compile_ms,
+        "textual_chars": len(text),
+        "parse_ms": parse_ms,
+        "evaluate_compiled_ms": [s * 1e3 for s in walls],
+        "evaluate_computation_ms": [s * 1e3 for s in direct_walls],
+        "rows_per_s": LOGREG_ROWS * BYTES_REQUESTS / sum(walls),
+        "max_abs_err": max(errs),
+        "equal_to_evaluate_computation": equal_words,
+        "equal": checks,
+        "k7_groups": launches["prf_threefry"] / BYTES_REQUESTS,
+        "device_launches": busy_launches,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+    }
+    log(f"from_bytes: {BYTES_REQUESTS} requests of {LOGREG_ROWS}x"
+        f"{LOGREG_FEATURES} fixed(24, 40), passes {BYTES_PASSES} "
+        f"{json.dumps(record)} launches {launches}")
+    if max(errs) >= LOGREG_TOL:
+        raise AssertionError(f"from-bytes error {max(errs)} >= {LOGREG_TOL}")
+    if not all(equal_words):
+        raise AssertionError(
+            f"evaluate_compiled differs from evaluate_computation: "
+            f"{equal_words}")
+    for name, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"{name} from bytes differs")
+    return record, launches
+
+
 def timed(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1765,9 +1915,9 @@ def main() -> int:
         compare_dot(torch, rk, ring, gen, f, t, h, 128, reps=20,
                     label="MLP trainer x^T dh"),
         compare_dot(torch, rk, ring, gen, 256, 3000, 64, 128, reps=5,
-                    label="two segments"),
+                    label="two segments", device=True),
         compare_dot(torch, rk, ring, gen, DOT_N, DOT_N, DOT_N, 64, reps=5,
-                    yardstick=True),
+                    yardstick=True, device=True),
         compare_dot(torch, rk, ring, gen, 5, 7, 3, 128, reps=20),
         compare_dot(torch, rk, ring, gen, 5, 7, 3, 64, reps=20),
         compare_dot(torch, rk, ring, gen, MULTI_ROWS, MULTI_FEATURES + 1,
@@ -1894,7 +2044,7 @@ def main() -> int:
             ((3, 2, BIG_N), (), 64, 5),
         )
     ] + [compare_ring_mul(torch, rk, gen, (3, 2, MULTI_ROWS, MULTI_CLASSES),
-                          (), 128, reps=20)] + [
+                          (), 128, reps=20, back_to_back=True)] + [
         # the MLP head's sigmoid constants on its (1024, 1) logit, the
         # correlation's Mean (1/n on a (1,) sum)
         compare_ring_mul(torch, rk, gen, shape, (), 128, reps=20,
@@ -2511,6 +2661,42 @@ def main() -> int:
     if not ctr_record["equal_to_cpu"]:
         raise AssertionError("aes-ctr request differs from the CPU's")
 
+    # phase 17: computations from bytes (main path): phase 6's logistic
+    # regression serialized, compiled by elk_compiler and served by
+    # evaluate_compiled under threefry and fixed keys, each request held
+    # to evaluate_computation's words; the textual round trip, the JAX
+    # package's blob and the ResNet's and the AES input's graphs likewise
+    from pathlib import Path
+
+    from moose_tpu_torch import elk_compiler, serde, textual
+    from moose_tpu_torch.edsl import tracer
+
+    os.environ.update(dict(zip(knobs, (f"chip-smoke-{SEED}", "1"))))
+    ring.mix_seed = counted_mix_seed
+    try:
+        bytes_record, bytes_launches = run_from_bytes(
+            torch, rk, runtime, serde, textual, elk_compiler, tracer,
+            logreg, classifier, rng,
+            golden=(Path(__file__).resolve().parent
+                    / BYTES_GOLDEN).read_bytes(),
+            graphs={
+                "resnet": (resnet_comp, {"x": rng.normal(size=(
+                    RESNET_ROWS, RESNET_CH, RESNET_SIZE, RESNET_SIZE))
+                    * 0.5}),
+                "aes_inference": (aes_comp, aes_args(wires[0])),
+            })
+    finally:
+        ring.mix_seed = mix_seed
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if bytes_launches != logreg_launches:
+        raise AssertionError(
+            f"from bytes launched {bytes_launches}, phase 6 "
+            f"{logreg_launches}")
+
     launches_by_path = {
         "secure_dot": dot_launches,
         "linear_regressor": linreg_launches,
@@ -2525,6 +2711,7 @@ def main() -> int:
         "resnet": resnet_launches,
         "aes_inference": aes_launches,
         "aes_ctr_logistic_regression": ctr_launches,
+        "from_bytes": bytes_launches,
     }
     protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
@@ -2551,6 +2738,8 @@ def main() -> int:
         "aes_inference": protocol + ("prf_threefry",),
         # every draw expanded on the host: no K7
         "aes_ctr_logistic_regression": protocol + ("prf_aes_ctr_host",),
+        # phase 6's request from bytes
+        "from_bytes": protocol + ("prf_threefry",),
     }
     # the streams a phase did not select expand nothing
     streams = ("prf_threefry", "prf_threefry_pallas", "prf_aes_ctr_host")
@@ -2725,6 +2914,7 @@ def main() -> int:
         "resnet": resnet_record,
         "aes_inference": aes_record,
         "aes_ctr_logistic_regression": ctr_record,
+        "from_bytes": bytes_record,
     }
     log(json.dumps(record))
     log(json.dumps({"kernels": kernels}))

@@ -15,7 +15,11 @@ tree predictors (sklearn MLPs, pytorch and tf2onnx networks, random
 forests), and secure convolution and pooling with the ONNX convnet (a
 small ResNet), and encrypted-input inference (AES-GCM decryption under
 MPC, ``pm.decrypt``, the ``AesWrapper`` predictors) with the reference's
-``aes-ctr`` PRF, through ``LocalMooseRuntime`` on its stacked layout.
+``aes-ctr`` PRF, through ``LocalMooseRuntime`` on its stacked layout;
+and computations from bytes: the msgpack and textual codecs
+(``serde``, ``textual``), the logical compiler passes
+(``compilation``, ``elk_compiler``, the ``bin.elk`` CLI) and
+``LocalMooseRuntime.evaluate_compiled``.
 
 The package imports ``torch`` and never ``jax`` nor ``moose_tpu``.  Its
 entry points run on the CUDA card unless the caller passes
@@ -141,6 +145,7 @@ __all__ = [
     "div",
     "dot",
     "dtypes",
+    "elk_compiler",
     "equal",
     "exp",
     "expand_dims",
@@ -212,14 +217,14 @@ __all__ = [
 
 
 def __getattr__(name):
-    # the runtime and the predictors load on first use: the predictors
-    # import this package for its eDSL surface
+    # the runtime, the predictors and the compiler load on first use: the
+    # predictors import this package for its eDSL surface
     if name == "LocalMooseRuntime":
         from .runtime import LocalMooseRuntime
 
         return LocalMooseRuntime
-    if name == "predictors":
+    if name in ("predictors", "elk_compiler"):
         import importlib
 
-        return importlib.import_module(".predictors", __name__)
+        return importlib.import_module(f".{name}", __name__)
     raise AttributeError(f"module 'moose_tpu_torch' has no attribute {name!r}")

@@ -74,10 +74,11 @@ def _lift_array(arr, op, plc_name: str, device) -> HostTensor:
             f"op {op.name}: the port binds float inputs only "
             "(ROADMAP queue 1, item 6)"
         )
-    value = torch.as_tensor(
-        np.asarray(arr, dtype=np.dtype(dtype.numpy_name)), device=device
-    )
-    return HostTensor(value, plc_name, dtype)
+    arr = np.asarray(arr, dtype=np.dtype(dtype.numpy_name))
+    if not arr.flags.writeable:
+        # a read-only buffer (np.frombuffer): torch would share it, and warn
+        arr = arr.copy()
+    return HostTensor(torch.as_tensor(arr, device=device), plc_name, dtype)
 
 
 def _load(storage, op, plc_name: str, key: HostString,

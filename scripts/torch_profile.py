@@ -2,7 +2,9 @@
 """Where the time goes in the port's main path on one CUDA card.
 
 Runs the eDSL secure dot (1000x1000 at fixed(14,23), ring128), one
-ONNX LinearRegressor request, one ONNX logistic-regression request, one
+ONNX LinearRegressor request, one ONNX logistic-regression request (also
+from bytes: serialized, compiled by elk_compiler with the logical
+passes and served by evaluate_compiled), one
 ONNX multinomial logistic-regression request (10 classes, the SOFTMAX
 head) and one request of BASELINE config 5's MLP (a binary sklearn
 MLPClassifier, 100 -> 64 -> 32 -> 1, relu) (each 1024x100 at
@@ -278,6 +280,16 @@ def main() -> int:
         lambda: runtime.evaluate_computation(logreg, {"x": xl})
     )
     print(f"logistic_regression: {json.dumps(logreg_profile)}", flush=True)
+    from moose_tpu_torch import elk_compiler, serde
+    from moose_tpu_torch.edsl import tracer
+
+    logreg_bin = elk_compiler.compile_computation(
+        serde.serialize_computation(tracer.trace(logreg)),
+        chip_smoke.BYTES_PASSES)
+    bytes_profile = profile_request(
+        lambda: runtime.evaluate_compiled(logreg_bin, {"x": xl})
+    )
+    print(f"from_bytes: {json.dumps(bytes_profile)}", flush=True)
     multi = chip_smoke.multinomial_regression(rng,
                                               chip_smoke.MULTI_FEATURES)
     multi_comp = multi.predictor_factory()
@@ -371,6 +383,7 @@ def main() -> int:
                       "host_seed_us": seed_us,
                       "secure_dot": dot, "linear_regressor": lin,
                       "logistic_regression": logreg_profile,
+                      "from_bytes": bytes_profile,
                       "multinomial_regression": multi_profile,
                       "mlp_classifier": mlp_profile,
                       "resnet": resnet_profile,

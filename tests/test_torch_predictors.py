@@ -318,7 +318,11 @@ def test_import_adds_no_jax_or_moose_tpu_module():
         "moose_tpu_torch.dialects.mirrored, "
         "moose_tpu_torch.predictors.convnet_predictor, "
         "moose_tpu_torch.crypto.aes_prng, moose_tpu_torch.crypto.blake3, "
-        "moose_tpu_torch.dialects.aes, moose_tpu_torch.dialects.bristol\n"
+        "moose_tpu_torch.dialects.aes, moose_tpu_torch.dialects.bristol, "
+        "moose_tpu_torch.serde, moose_tpu_torch.textual, "
+        "moose_tpu_torch.compilation, moose_tpu_torch.compilation.print, "
+        "moose_tpu_torch.elk_compiler, moose_tpu_torch.bin.elk, "
+        "moose_tpu_torch.logger\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'moose_tpu'))\n"
@@ -333,12 +337,19 @@ def test_import_adds_no_jax_or_moose_tpu_module():
 
 def test_package_source_imports_no_jax_or_moose_tpu():
     paths = sorted((REPO / "moose_tpu_torch").rglob("*.py"))
-    # the AES path's own copies of the framework-neutral modules
+    # the AES path's own copies of the framework-neutral modules, and
+    # the codecs, compiler passes and CLI of computations from bytes
     scanned = {p.relative_to(REPO).as_posix() for p in paths}
     assert {"moose_tpu_torch/crypto/aes_prng.py",
             "moose_tpu_torch/crypto/blake3.py",
             "moose_tpu_torch/dialects/aes.py",
-            "moose_tpu_torch/dialects/bristol.py"} <= scanned
+            "moose_tpu_torch/dialects/bristol.py",
+            "moose_tpu_torch/serde.py", "moose_tpu_torch/textual.py",
+            "moose_tpu_torch/elk_compiler.py", "moose_tpu_torch/logger.py",
+            "moose_tpu_torch/bin/elk.py"} <= scanned
+    assert {f"moose_tpu_torch/compilation/{name}.py" for name in (
+        "__init__", "typing", "pruning", "toposort", "networking",
+        "well_formed", "print")} <= scanned
     for path in paths:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

@@ -5,8 +5,8 @@ and through its PyTorch port; ring words cross as numpy uint64 arrays
 and are compared word for word.
 """
 
-from __future__ import annotations
-
+# no `from __future__ import annotations`: the eDSL reads the
+# pm.Argument annotations of the graphs below as objects
 import contextlib
 import os
 
@@ -120,3 +120,143 @@ def assert_words_equal(port_pair, want, label=""):
         assert got_hi is None, f"{label}: unexpected hi words"
     else:
         assert np.array_equal(got_hi, want_hi), f"{label}: hi words differ"
+
+
+# ---------------------------------------------------------------------------
+# Small graphs of every family the port serves, built alike in both
+# packages (tests/test_torch_serde.py, test_torch_textual.py,
+# test_torch_compiler.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_NAMES = ("secure_dot", "logreg", "multinomial", "correlation", "mlp",
+               "forest", "resnet", "aes_input", "library", "structural")
+
+
+def load_chip_smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _structural(pm):
+    """Conv2D with explicit padding and strides, Transpose, a pool,
+    Concat and ExpandDims: the attributes msgpack hands back as lists."""
+    alice = pm.host_placement("alice")
+    bob = pm.host_placement("bob")
+    carole = pm.host_placement("carole")
+    rep = pm.replicated_placement("rep", players=[alice, bob, carole])
+    fx = pm.fixed(14, 23)
+
+    @pm.computation
+    def structural(x: pm.Argument(alice, dtype=pm.float64)):
+        with alice:
+            xf = pm.cast(x, dtype=fx)
+            k = pm.cast(pm.constant(np.full((2, 2, 1, 2), 0.5),
+                                    dtype=pm.float64), dtype=fx)
+        with rep:
+            y = pm.conv2d(pm.reshape(xf, (1, 4, 4, 1)), k, strides=(2, 1),
+                          padding=((1, 0), (0, 1)))
+            t = pm.transpose(y, axes=(0, 3, 1, 2))
+            p = pm.avg_pool2d(y, pool_size=(2, 2), strides=(1, 1))
+            c = pm.concatenate([pm.reshape(t, (1, 16)),
+                                pm.reshape(p, (1, 6))], axis=1)
+            e = pm.expand_dims(c, axis=[0, 2])
+        with bob:
+            out = pm.cast(e, dtype=pm.float64)
+        return out
+
+    return structural
+
+
+def graph_pair(name):
+    """(JAX computation, port computation) of the family ``name``, at a
+    few features: ONNX models exported once and imported by each
+    package, eDSL graphs written once for either package's module."""
+    from types import SimpleNamespace
+
+    import moose_tpu as jm
+    import moose_tpu_torch as tm
+    from moose_tpu import predictors as jpred
+    from moose_tpu_torch import predictors as tpred
+    from moose_tpu_torch.predictors import sklearn_export as tsk
+
+    cs = load_chip_smoke()
+    rng = np.random.default_rng(5)
+
+    def onnx(model):
+        data = model.encode()
+        return tuple(p.from_onnx(data).predictor_factory()
+                     for p in (jpred, tpred))
+
+    if name == "secure_dot":
+        return tuple(cs.secure_dot_computation(p) for p in (jm, tm))
+    if name in ("logreg", "multinomial"):
+        k = 1 if name == "logreg" else 3
+        return onnx(tsk.logistic_regression_onnx(SimpleNamespace(
+            coef_=rng.normal(size=(k, 5)), intercept_=rng.normal(size=(k,)),
+            classes_=np.arange(max(k, 2))), 5))
+    if name == "correlation":
+        return tuple(cs.correlation_computation(p) for p in (jm, tm))
+    if name == "mlp":
+        return onnx(tsk.mlp_onnx(cs.mlp_model(rng, 5, (4, 3)), 5,
+                                 classifier=True))
+    if name == "forest":
+        return onnx(tsk.random_forest_classifier_onnx(
+            cs.forest_model(rng, 2, 2, 5), 5))
+    if name == "resnet":
+        model, _ = tsk.resnet_block_onnx(seed=3, in_ch=2, mid_ch=3, size=6,
+                                         n_classes=2)
+        return onnx(model)
+    if name == "aes_input":
+        sk = SimpleNamespace(coef_=rng.normal(size=(1, 2)),
+                             intercept_=rng.normal(size=(1,)),
+                             classes_=np.array([0, 1]))
+        proto = tsk.logistic_regression_onnx(sk, 2)
+        return tuple(
+            cs.aes_inference_computation(
+                p, pr.AesWrapper(pr.LinearClassifier).from_onnx(proto),
+                p.fixed(24, 40))
+            for p, pr in ((jm, jpred), (tm, tpred)))
+    if name == "library":
+        return tuple(cs.library_computation(p, rows=2, cols=4)
+                     for p in (jm, tm))
+    if name == "structural":
+        return tuple(_structural(p) for p in (jm, tm))
+    raise KeyError(name)
+
+
+def traced_pair(name):
+    """Both packages' traces of :func:`graph_pair`'s ``name``."""
+    from moose_tpu.edsl import tracer as jtracer
+    from moose_tpu_torch.edsl import tracer as ttracer
+
+    jc, tc = graph_pair(name)
+    return jtracer.trace(jc), ttracer.trace(tc)
+
+
+def same_graph(a, b):
+    """Structural equality of two graphs (either package's), attribute
+    values compared as numpy arrays where they are arrays."""
+    assert list(a.operations) == list(b.operations)
+    assert a.placements.keys() == b.placements.keys()
+    for name, plc in a.placements.items():
+        other = b.placements[name]
+        assert (type(plc).__name__, plc.kind) == (type(other).__name__,
+                                                  other.kind)
+        assert getattr(plc, "owners", None) == getattr(other, "owners", None)
+    for name, op in a.operations.items():
+        other = b.operations[name]
+        assert (op.kind, op.inputs, op.placement_name) == (
+            other.kind, other.inputs, other.placement_name), name
+        assert op.signature.to_textual() == other.signature.to_textual()
+        assert op.attributes.keys() == other.attributes.keys(), name
+        for key, value in op.attributes.items():
+            if isinstance(value, np.ndarray):
+                assert np.array_equal(value, other.attributes[key])
+            else:
+                assert repr(value) == repr(other.attributes[key]), (name,
+                                                                    key)
