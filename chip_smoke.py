@@ -148,7 +148,23 @@ Phases (each raises on failure; the script then exits non-zero):
      bytes, serialize, deserialize, elk-compile and parse ms, textual
      characters, both walls a request, rows/s, device launches, busy time
      and idle share printed.
-Phases 4 to 17 are the main path: the kernels' launch counters are set
+ 18. the per-host layout (LocalMooseRuntime(layout="per-host"): one host
+     tensor a share, every draw a single K7 launch from a seed derived on
+     the host, as the JAX package's eager per-host walk draws them):
+     (a) phase 4's secure dot, within 2e-4, K1 once a party; (b) phase
+     6's logistic regression, two requests within 5e-3, each equal word
+     for word to the same request per-host on the CPU under fixed keys,
+     and one more request under torch.profiler (device launches, busy ms,
+     idle share); (c) one request under threefry-pallas, which launches
+     both streams (the ring draws in K7's layout, the zero shares' bits
+     in threefry's, as the reference draws them); (d) the "auto" routing:
+     a host-only graph (host Dot, Exp, Mean, Softmax) and a replicated
+     product of host-selected columns (Select keeps the stacked layout
+     off) must run per-host, and a replicated Inverse is routed
+     per-host, where the reference refuses it too.  Every evaluation of phases 4 to 17 must
+     have run on the stacked layout, and phase 18's on the per-host one
+     (``last_plan["layout"]``).
+Phases 4 to 18 are the main path: the kernels' launch counters are set
 to 0 just before each and read just after.  K1, K2's trunc_pairs and the
 threefry kernel in the phase's stream layout (threefry in all but 7,
 threefry-pallas in 7, and never the other) must have launched in each
@@ -168,7 +184,11 @@ request of phases 6, 8, 11, 14 and 15 and one more step of phase 7 run
 under torch.profiler, whose device launches must stay under their
 ceilings (LOGREG_DEVICE_CEILING, TRAIN_DEVICE_CEILING,
 MULTI_DEVICE_CEILING, MLPC_DEVICE_CEILING, RESNET_DEVICE_CEILING,
-AES_DEVICE_CEILING).
+AES_DEVICE_CEILING).  Phase 18 must launch K1, K2's trunc_combine, K3's
+cross_terms_mul, K4 and K7 (in (a) K1, K2 and K7), threefry's K7 layout
+in (a), (b) and (d) and both in (c); its K7 launches and its host seed
+derivations (one ring.mix_seed a key and a seed) stay under the counts
+of the same requests on the CPU + 5% (PER_HOST_*).
 The line before the last is the kernels' JSON record; the last line is
 the device record.
 
@@ -341,6 +361,19 @@ RESNET_K7_CEILING = 92  # 88 measured on the H100 + 5% (PERF.md)
 RESNET_DEVICE_CEILING = 2165  # 2,062 measured + 5%
 AES_K7_CEILING = 141  # 134 counted on the CPU (any batch) + 5%
 AES_DEVICE_CEILING = 15014  # 14,299 measured on the H100 + 5% (PERF.md)
+# the per-host layout (phase 18): its K7 launches (single draws) and
+# host seed derivations a secure dot and a logistic-regression request,
+# as counted on the CPU (tests/test_torch_per_host_runtime.py holds
+# them); the ceilings are these + 5%
+PER_HOST_DOT_K7, PER_HOST_DOT_SEEDS = 16, 23
+PER_HOST_LOGREG_K7, PER_HOST_LOGREG_SEEDS = 780, 899
+PER_HOST_LOGREG_REQUESTS = 2
+
+
+def per_host_ceiling(count):
+    return math.ceil(count * 1.05)
+
+
 # the session key of the K7 group rows
 GROUP_MASTER = (0x01234567, 0x89ABCDEF, 0xDEADBEEF, 0x0BADF00D)
 
@@ -486,16 +519,17 @@ def random_words(torch, gen, shape, width):
     return draw(), None if width == 64 else draw()
 
 
-def dot_bound(m, k, n, width):
+def dot_bound(m, k, n, width, parties=3, terms=2):
     """Least time of the exact cross terms on an H100: bytes (4 operands
     read once, one output written once) against the int8 tensor-core
     limb formulation K1 runs (w/8 u8 limbs per word, the limb pairs below
-    the ring modulus, two contractions, three parties)."""
+    the ring modulus, two contractions, ``parties`` parties).  With
+    ``terms`` 1, the product-only mode: two operands, one contraction."""
     word = width // 8
-    nbytes = 3 * (2 * m * k + 2 * k * n + m * n) * word
+    nbytes = parties * terms * (m * k + k * n) * word + parties * m * n * word
     limbs = width // 8
     pairs = limbs * (limbs + 1) // 2
-    ops = 2 * 3 * pairs * 2 * m * k * n
+    ops = 2 * parties * pairs * terms * m * k * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT8_TENSOR_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
@@ -650,6 +684,44 @@ def compare_dot(torch, rk, ring, gen, m, k, n, width, reps, label="",
         int8_gemm_ms(torch, gen, dot_int8_macs(m, k, n, width))
         if yardstick else None
     )
+    return row
+
+
+def compare_party_dot(torch, rk, ring, gen, m, k, n, width, reps,
+                      label=""):
+    """K1 at one party, as the per-host layout launches it
+    (``party_dot_cross_terms`` on (m, k) and (k, n) operands), against
+    its plain version, with its device time."""
+    x0, x1 = (random_words(torch, gen, (m, k), width) for _ in range(2))
+    y0, y1 = (random_words(torch, gen, (k, n), width) for _ in range(2))
+    ys = ring.add(*y0, *y1)
+    args = (x0, x1, y0, ys, width)
+    row = compare_kernel(
+        torch, rk.party_dot_cross_terms, rk.dot_cross_terms_plain, args,
+        dot_bound(m, k, n, width, parties=1), reps,
+        shape=f"(1,{m},{k})@(1,{k},{n})", width=width, path=label,
+    )
+    row["device_ms"] = device_time_ms(
+        torch, lambda: rk.party_dot_cross_terms(*args))
+    row["int8_gemm_ms"] = None
+    return row
+
+
+def compare_ring_matmul(torch, rk, gen, m, k, n, width, reps, label=""):
+    """K1 in its product-only mode, as a host ring Dot runs it
+    (``ring_matmul``: (m, k) @ (k, n) words, depth k), against the plain
+    ring product, with its device time."""
+    a = random_words(torch, gen, (m, k), width)
+    b = random_words(torch, gen, (k, n), width)
+    args = (a, b, width)
+    row = compare_kernel(
+        torch, rk.ring_matmul, rk.ring_matmul_plain, args,
+        dot_bound(m, k, n, width, parties=1, terms=1), reps,
+        shape=f"({m},{k})@({k},{n})", width=width, path=label,
+        product_only=True,
+    )
+    row["device_ms"] = device_time_ms(torch, lambda: rk.ring_matmul(*args))
+    row["int8_gemm_ms"] = None
     return row
 
 
@@ -1843,6 +1915,292 @@ def run_from_bytes(torch, rk, runtime, serde, textual, elk_compiler,
     return record, launches
 
 
+def host_math_computation(pm):
+    """A host-only graph: a fixed-point host Dot, Exp, Mean and Softmax
+    on alice (``auto`` keeps it per-host: there is nothing to stack)."""
+    alice, bob = pm.host_placement("alice"), pm.host_placement("bob")
+
+    @pm.computation
+    def host_math(x: pm.Argument(alice, dtype=pm.float64),
+                  y: pm.Argument(bob, dtype=pm.float64)):
+        with alice:
+            xf = pm.cast(x, dtype=pm.fixed(24, 40))
+            yf = pm.cast(y, dtype=pm.fixed(24, 40))
+            e = pm.exp(pm.dot(xf, pm.transpose(yf)))
+            z = pm.softmax(pm.sub(e, pm.mean(e, axis=0)), axis=1,
+                           upmost_index=2)
+        with bob:
+            out = pm.cast(z, dtype=pm.float64)
+        return out
+
+    return host_math
+
+
+def host_math_reference(x, y):
+    import numpy as np
+
+    e = np.exp(x @ y.T)
+    e = e - e.mean(axis=0)
+    z = np.exp(e - e.max(axis=1, keepdims=True))
+    return z / z.sum(axis=1, keepdims=True)
+
+
+def selected_product_computation(pm):
+    """A replicated product of host-selected columns (the first and the
+    last of three): Select's data-dependent shape keeps the stacked
+    layout off the graph, in the reference and the port."""
+    import numpy as np
+
+    alice, bob, carole = (pm.host_placement(n)
+                          for n in ("alice", "bob", "carole"))
+    rep = pm.replicated_placement("rep", players=[alice, bob, carole])
+    keep = np.array([True, False, True])
+
+    @pm.computation
+    def selected(x: pm.Argument(alice, dtype=pm.float64),
+                 y: pm.Argument(bob, dtype=pm.float64)):
+        with alice:
+            xs = pm.cast(pm.select(x, 1, pm.constant(keep, dtype=pm.bool_)),
+                         dtype=pm.fixed(24, 40))
+        with bob:
+            ys = pm.cast(pm.select(y, 1, pm.constant(keep, dtype=pm.bool_)),
+                         dtype=pm.fixed(24, 40))
+        with rep:
+            z = pm.mul(xs, ys)
+        with carole:
+            out = pm.cast(z, dtype=pm.float64)
+        return out
+
+    return selected
+
+
+def inverse_computation(pm):
+    """A replicated Inverse: no stacked kind, and the reference's
+    per-host layout has none either (moose_tpu/dialects/logical.py:880),
+    so both refuse it there."""
+    from importlib import import_module
+
+    edsl = import_module(f"{pm.__name__}.edsl.base")
+    alice, bob, carole = (pm.host_placement(n)
+                          for n in ("alice", "bob", "carole"))
+    rep = pm.replicated_placement("rep", players=[alice, bob, carole])
+
+    @pm.computation
+    def inverse(x: pm.Argument(alice, dtype=pm.float64)):
+        with alice:
+            xf = pm.cast(x, dtype=pm.fixed(14, 23))
+        with rep:
+            z = edsl.inverse(xf)
+        with bob:
+            out = pm.cast(z, dtype=pm.float64)
+        return out
+
+    return inverse
+
+
+def run_per_host(torch, rk, ring, pm, runtime_cls, classifier, logreg, rng):
+    """Phase 18: the per-host layout on the card, (a) to (d) of the
+    module's docstring.  Returns (record, launches by path); raises on
+    any failed check."""
+    import os
+
+    import numpy as np
+
+    from moose_tpu_torch.edsl import tracer
+
+    ids = ["alice", "bob", "carole"]
+    draws, seeds = [0], [0]
+    threefry, mix_seed = rk._threefry, ring.mix_seed
+
+    def counted_threefry(*args, **kwargs):
+        draws[0] += 1
+        return threefry(*args, **kwargs)
+
+    def counted_mix_seed(*args, **kwargs):
+        seeds[0] += 1
+        return mix_seed(*args, **kwargs)
+
+    def k7(launches):
+        return launches["prf_threefry"] + launches["prf_threefry_pallas"]
+
+    def check(what, got, limit):
+        log(f"ceiling: {what} {got} <= {limit}")
+        if got > limit:
+            raise AssertionError(f"{what}: {got} > {limit}")
+
+    knobs = ("MOOSE_TPU_FIXED_KEYS", "MOOSE_TPU_ALLOW_WEAK_PRF")
+    saved = {k: os.environ.get(k) for k in knobs}
+    rk._threefry, ring.mix_seed = counted_threefry, counted_mix_seed
+    record, launches = {}, {}
+    try:
+        runtime = runtime_cls(ids, layout="per-host")
+
+        # (a) the secure dot
+        x = rng.normal(size=(DOT_N, DOT_N))
+        y = rng.normal(size=(DOT_N, DOT_N))
+        comp = secure_dot_computation(pm)
+        rk.reset_launches()
+        seeds[0] = 0
+        out, dot_s = timed(torch, lambda: runtime.evaluate_computation(
+            comp, {"x": x, "y": y}))
+        launches["per_host_secure_dot"] = dict(rk.LAUNCHES)
+        dot_seeds = seeds[0]
+        z = out["output_0"]
+        dot_err = float(np.abs(z - x @ y).max())
+        record["secure_dot"] = {
+            "latency_ms": dot_s * 1e3, "max_abs_err": dot_err,
+            "k7_launches": k7(launches["per_host_secure_dot"]),
+            "host_seed_derivations": dot_seeds,
+        }
+        log(f"per_host secure_dot: {DOT_N}x{DOT_N} fixed{DOT_PRECISION} "
+            f"{json.dumps(record['secure_dot'])} launches "
+            f"{launches['per_host_secure_dot']}")
+        if z.shape != (DOT_N, DOT_N) or not np.all(np.isfinite(z)):
+            raise AssertionError(f"per-host dot output malformed: {z.shape}")
+        if dot_err >= DOT_TOL:
+            raise AssertionError(f"per-host dot error {dot_err}")
+        if launches["per_host_secure_dot"]["dot_cross_terms"] != 3:
+            raise AssertionError("per-host secure dot: K1 not once a party")
+        check("per-host secure dot K7 launches",
+              record["secure_dot"]["k7_launches"],
+              per_host_ceiling(PER_HOST_DOT_K7))
+        check("per-host secure dot host seeds", dot_seeds,
+              per_host_ceiling(PER_HOST_DOT_SEEDS))
+
+        # (b) the logistic regression under fixed keys, against the CPU
+        os.environ.update(dict(zip(knobs, (f"chip-smoke-{SEED}", "1"))))
+        requests = [rng.normal(size=(LOGREG_ROWS, LOGREG_FEATURES))
+                    for _ in range(PER_HOST_LOGREG_REQUESTS)]
+        rk.reset_launches()
+        seeds[0] = 0
+        walls, errs, outs = [], [], []
+        for xr in requests:
+            out, s = timed(torch, lambda: runtime.evaluate_computation(
+                logreg, {"x": xr}))
+            pred, want = out["output_0"], logistic_reference(classifier, xr)
+            if pred.shape != want.shape or not np.all(np.isfinite(pred)):
+                raise AssertionError(f"per-host logreg malformed: "
+                                     f"{pred.shape}")
+            errs.append(float(np.abs(pred - want).max()))
+            walls.append(s)
+            outs.append(pred)
+        launches["per_host_logistic_regression"] = dict(rk.LAUNCHES)
+        logreg_seeds = seeds[0] / len(requests)
+        cpu = runtime_cls(ids, layout="per-host", device="cpu")
+        draws[0] = seeds[0] = 0
+        t0 = time.perf_counter()
+        cpu_outs = [cpu.evaluate_computation(logreg, {"x": xr})["output_0"]
+                    for xr in requests]
+        cpu_s = (time.perf_counter() - t0) / len(requests)
+        cpu_draws, cpu_seeds = (draws[0] / len(requests),
+                                seeds[0] / len(requests))
+        equal = all(np.array_equal(a, b) for a, b in zip(outs, cpu_outs))
+        n_dev, busy_ms = device_busy(torch, lambda: runtime
+                                     .evaluate_computation(
+                                         logreg, {"x": requests[0]}))
+        wall_ms = statistics.median(walls) * 1e3
+        record["logistic_regression"] = {
+            "latency_ms": [s * 1e3 for s in walls],
+            "rows_per_s": LOGREG_ROWS * len(walls) / sum(walls),
+            "max_abs_err": max(errs), "equal_to_cpu": equal,
+            "cpu_latency_ms": cpu_s * 1e3,
+            "k7_launches": k7(launches["per_host_logistic_regression"])
+            / len(requests),
+            "host_seed_derivations": logreg_seeds,
+            "cpu_k7_draws": cpu_draws, "cpu_host_seed_derivations": cpu_seeds,
+            "device_launches": n_dev, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        }
+        log(f"per_host logistic_regression: {len(requests)} requests of "
+            f"{LOGREG_ROWS}x{LOGREG_FEATURES} fixed(24, 40) "
+            f"{json.dumps(record['logistic_regression'])} launches "
+            f"{launches['per_host_logistic_regression']}")
+        if max(errs) >= LOGREG_TOL:
+            raise AssertionError(f"per-host logreg error {max(errs)}")
+        if not equal:
+            raise AssertionError("per-host logreg differs from the CPU's")
+        check("per-host K7 launches a logistic-regression request",
+              record["logistic_regression"]["k7_launches"],
+              per_host_ceiling(PER_HOST_LOGREG_K7))
+        check("per-host host seeds a logistic-regression request",
+              logreg_seeds, per_host_ceiling(PER_HOST_LOGREG_SEEDS))
+
+        # (c) one request under threefry-pallas: both streams
+        ring.set_prf_impl("threefry-pallas")
+        try:
+            xr = rng.normal(size=(LOGREG_ROWS, LOGREG_FEATURES))
+            rk.reset_launches()
+            seeds[0] = 0
+            out, pallas_s = timed(torch, lambda: runtime
+                                  .evaluate_computation(logreg, {"x": xr}))
+            launches["per_host_pallas"] = dict(rk.LAUNCHES)
+        finally:
+            ring.set_prf_impl("threefry")
+        pallas_err = float(np.abs(
+            out["output_0"] - logistic_reference(classifier, xr)).max())
+        record["threefry_pallas"] = {
+            "latency_ms": pallas_s * 1e3, "max_abs_err": pallas_err,
+            "k7_launches": k7(launches["per_host_pallas"]),
+            "host_seed_derivations": seeds[0],
+        }
+        log(f"per_host threefry-pallas: 1 request "
+            f"{json.dumps(record['threefry_pallas'])} launches "
+            f"{launches['per_host_pallas']}")
+        if pallas_err >= LOGREG_TOL:
+            raise AssertionError(f"per-host pallas error {pallas_err}")
+        check("per-host K7 launches under threefry-pallas",
+              record["threefry_pallas"]["k7_launches"],
+              per_host_ceiling(PER_HOST_LOGREG_K7))
+        check("per-host host seeds under threefry-pallas", seeds[0],
+              per_host_ceiling(PER_HOST_LOGREG_SEEDS))
+
+        # (d) "auto": what it routes per-host
+        auto = runtime_cls(ids)
+        hx = rng.normal(size=(LOGREG_ROWS, LOGREG_FEATURES)) * 0.1
+        hy = rng.normal(size=(2, LOGREG_FEATURES)) * 0.1
+        sx, sy = (rng.normal(size=(LOGREG_ROWS, 3)) for _ in range(2))
+        rk.reset_launches()
+        host_out = auto.evaluate_computation(
+            host_math_computation(pm), {"x": hx, "y": hy})["output_0"]
+        host_layout = auto.last_plan["layout"]
+        sel_out = auto.evaluate_computation(
+            selected_product_computation(pm), {"x": sx, "y": sy})["output_0"]
+        sel_layout = auto.last_plan["layout"]
+        launches["per_host_auto"] = dict(rk.LAUNCHES)
+        inverse = tracer.trace(inverse_computation(pm))
+        inverse_layout = auto.layout_for(inverse)
+        try:
+            auto.evaluate_computation(inverse, {"x": np.eye(2) * 2.0})
+            inverse_refused = None
+        except NotImplementedError as e:
+            inverse_refused = str(e)
+        record["auto"] = {
+            "host_only": {"layout": host_layout, "max_abs_err": float(
+                np.abs(host_out - host_math_reference(hx, hy)).max())},
+            "select": {"layout": sel_layout, "max_abs_err": float(np.abs(
+                sel_out - sx[:, [0, 2]] * sy[:, [0, 2]]).max())},
+            "inverse": {"layout": inverse_layout,
+                        "refused": inverse_refused},
+        }
+        log(f"per_host auto: {json.dumps(record['auto'])} launches "
+            f"{launches['per_host_auto']}")
+        if (host_layout, sel_layout, inverse_layout) != ("per-host",) * 3:
+            raise AssertionError(f"auto routing: {record['auto']}")
+        for name in ("host_only", "select"):
+            if record["auto"][name]["max_abs_err"] >= 1e-6:
+                raise AssertionError(f"auto {name}: {record['auto'][name]}")
+        if inverse_refused != "replicated op Inverse (inverse_0)":
+            raise AssertionError(f"replicated Inverse: {inverse_refused}")
+    finally:
+        rk._threefry, ring.mix_seed = threefry, mix_seed
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return record, launches
+
+
 def timed(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2164,6 +2522,33 @@ def main() -> int:
             (2 * 3 * DOT_N * DOT_N, False, 5, "secure dot's (2,3,1000,1000)"),
         )
     ]
+    # the per-host layout's shapes (phase 18): K1 at one party (the
+    # secure dot's and the logistic regression's per-party products) and
+    # in its product-only mode (the host-only graph's host Dot), K3
+    # unfused and K4 on a (1024, 1) share, K7's single draws of a
+    # (1024, 1) ring128 mask and of the (128, 1024, 1) zero-share bits
+    dot_rows += [
+        compare_party_dot(torch, rk, ring, gen, DOT_N, DOT_N, DOT_N, 128,
+                          reps=5, label="per-host secure dot, one party"),
+        compare_party_dot(torch, rk, ring, gen, LOGREG_ROWS,
+                          LOGREG_FEATURES + 1, 1, 128, reps=20,
+                          label="per-host logreg, one party"),
+        compare_ring_matmul(torch, rk, gen, LOGREG_ROWS, LOGREG_FEATURES, 2,
+                            128, reps=20, label="per-host host Dot"),
+        compare_ring_matmul(torch, rk, gen, DOT_N, DOT_N, DOT_N, 128,
+                            reps=5, label="host ring Dot at 1000^3"),
+    ]
+    cross_rows.append(compare_cross_mul(torch, rk, gen, (PATH_N, 1), 128,
+                                        reps=20))
+    mul_rows.append(compare_ring_mul(torch, rk, gen, (PATH_N, 1),
+                                     (PATH_N, 1), 128, reps=20,
+                                     back_to_back=True))
+    threefry_rows += [
+        compare_threefry(torch, rk, 2 * PATH_N, layout, False, 20,
+                         "per-host draw at (1024,1) ring128")
+        for layout in ("threefry", "threefry-pallas")
+    ] + [compare_threefry(torch, rk, 128 * PATH_N, "threefry", True, 20,
+                          "per-host zero-share bits at (128,1024,1)")]
     rows_by_kernel = {
         "dot_cross_terms": dot_rows, "trunc_combine": trunc_rows,
         "cross_terms_mul": cross_rows, "ring_mul": mul_rows,
@@ -2189,6 +2574,20 @@ def main() -> int:
 
     ring.mix_seed = counted_mix_seed
 
+    # every evaluation records the layout it ran on, by phase
+    layouts = {}
+    phase = [3]
+    evaluate = LocalMooseRuntime.evaluate_computation
+
+    def recorded(self, *args, **kwargs):
+        out = evaluate(self, *args, **kwargs)
+        layouts.setdefault(phase[0], set()).add(
+            self.last_plan.get("layout"))
+        return out
+
+    LocalMooseRuntime.evaluate_computation = recorded
+
+    phase[0] = 4
     # phase 4: the eDSL secure dot through the runtime (main path)
     rng = np.random.default_rng(SEED)
     x = rng.normal(size=(DOT_N, DOT_N))
@@ -2217,6 +2616,7 @@ def main() -> int:
     log(f"secure_dot: warm latency median "
         f"{statistics.median(warm) * 1e3:.3f} ms over {len(warm)} runs")
 
+    phase[0] = 5
     # phase 5: ONNX LinearRegressor, three requests (main path)
     predictor = linear_regressor(rng, LINREG_FEATURES)
     linreg = predictor.predictor_factory()
@@ -2248,6 +2648,7 @@ def main() -> int:
             f"linear regressor error {max(linreg_errs)} >= {LINREG_TOL}"
         )
 
+    phase[0] = 6
     # phase 6: ONNX logistic regression, three requests (main path)
     classifier = logistic_regression(rng, LOGREG_FEATURES)
     logreg = classifier.predictor_factory()
@@ -2284,6 +2685,7 @@ def main() -> int:
             f"logistic regression error {max(logreg_errs)} >= {LOGREG_TOL}"
         )
 
+    phase[0] = 7
     # phase 7: secure training under threefry-pallas (main path)
     ring.set_prf_impl("threefry-pallas")
     try:
@@ -2293,6 +2695,7 @@ def main() -> int:
     finally:
         ring.set_prf_impl("threefry")
 
+    phase[0] = 8
     # phase 8: ONNX multinomial logistic regression, three requests (main
     # path)
     multi = multinomial_regression(rng, MULTI_FEATURES)
@@ -2335,6 +2738,7 @@ def main() -> int:
             f"multinomial argmax agreement {min(multi_agree)} < "
             f"{MULTI_ARGMAX_AGREEMENT}")
 
+    phase[0] = 9
     # phase 9: the protocol library through the eDSL, every kind it
     # brought in one traced computation
     library_args = library_inputs(rng)
@@ -2353,6 +2757,7 @@ def main() -> int:
             f"protocol library kinds past their tolerance: {failed} "
             f"({library_errs})")
 
+    phase[0] = 10
     # phase 10: BASELINE config 2, the scientific-computing tutorial's
     # correlation: the columns in the departments' storage, the result
     # read back from the data scientist's (main path)
@@ -2386,6 +2791,7 @@ def main() -> int:
     corr_launches = dict(rk.LAUNCHES)
     log(f"correlation: launches {corr_launches}")
 
+    phase[0] = 11
     # phase 11: BASELINE config 5's MLP, the binary sklearn MLPClassifier
     # (100 -> 64 -> 32 -> 1, relu), through from_onnx and
     # predictor_factory, three requests (main path)
@@ -2425,6 +2831,7 @@ def main() -> int:
     if max(mlp_errs) >= MLPC_TOL:
         raise AssertionError(f"MLP error {max(mlp_errs)} >= {MLPC_TOL}")
 
+    phase[0] = 12
     # phase 12: a pytorch-layout NeuralNetwork (100 -> 64 relu -> 32 relu
     # -> 10 softmax), one request (main path)
     net = from_onnx(sklearn_export.pytorch_nn_onnx(
@@ -2454,6 +2861,7 @@ def main() -> int:
             f"network argmax agreement {net_agree} < "
             f"{MULTI_ARGMAX_AGREEMENT}")
 
+    phase[0] = 13
     # phase 13: a random forest, one request (main path)
     forest = from_onnx(sklearn_export.random_forest_classifier_onnx(
         forest_model(rng, FOREST_TREES, FOREST_DEPTH, FOREST_FEATURES),
@@ -2479,6 +2887,7 @@ def main() -> int:
     if forest_err >= FOREST_TOL:
         raise AssertionError(f"forest error {forest_err} >= {FOREST_TOL}")
 
+    phase[0] = 14
     # phase 14: BASELINE config 5's small ResNet through from_onnx and
     # predictor_factory, three requests of NCHW images (main path)
     resnet_proto, resnet_params = sklearn_export.resnet_block_onnx(
@@ -2533,6 +2942,7 @@ def main() -> int:
             f"ResNet argmax agreement {min(resnet_agree)} < "
             f"{MULTI_ARGMAX_AGREEMENT}")
 
+    phase[0] = 15
     # phase 15: BASELINE config 4, encrypted-input inference at config 3's
     # width through AesWrapper(LinearClassifier), three requests (main
     # path)
@@ -2615,6 +3025,7 @@ def main() -> int:
     # the threefry paths are done: aes-ctr derives its seeds on the host
     ring.mix_seed = mix_seed
 
+    phase[0] = 16
     # phase 16: BASELINE config 4's share generation under the
     # reference's aes-ctr PRF: one phase-6 request on the card and the
     # same request on the CPU under the same fixed keys (main path)
@@ -2661,6 +3072,7 @@ def main() -> int:
     if not ctr_record["equal_to_cpu"]:
         raise AssertionError("aes-ctr request differs from the CPU's")
 
+    phase[0] = 17
     # phase 17: computations from bytes (main path): phase 6's logistic
     # regression serialized, compiled by elk_compiler and served by
     # evaluate_compiled under threefry and fixed keys, each request held
@@ -2697,6 +3109,20 @@ def main() -> int:
             f"from bytes launched {bytes_launches}, phase 6 "
             f"{logreg_launches}")
 
+    # phase 18: the per-host layout (main path, its own draw and seed
+    # counts: this layout derives each draw's seed on the host)
+    phase[0] = 18
+    per_host_record, per_host_launches = run_per_host(
+        torch, rk, ring, pm, LocalMooseRuntime, classifier, logreg, rng)
+    LocalMooseRuntime.evaluate_computation = evaluate
+    log(f"layouts by phase: "
+        f"{json.dumps({p: sorted(v) for p, v in layouts.items()})}")
+    for p in range(4, 19):
+        want = {"per-host" if p == 18 else "stacked"}
+        if layouts.get(p) != want:
+            raise AssertionError(
+                f"phase {p} ran on {layouts.get(p)}, not {want}")
+
     launches_by_path = {
         "secure_dot": dot_launches,
         "linear_regressor": linreg_launches,
@@ -2712,9 +3138,12 @@ def main() -> int:
         "aes_inference": aes_launches,
         "aes_ctr_logistic_regression": ctr_launches,
         "from_bytes": bytes_launches,
+        **per_host_launches,
     }
     protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
+    per_host_kernels = ("dot_cross_terms", "trunc_combine",
+                        "cross_terms_mul", "ring_mul")
     required = {
         "secure_dot": ("dot_cross_terms", "trunc_pairs", "prf_threefry"),
         "linear_regressor": ("dot_cross_terms", "trunc_pairs",
@@ -2740,18 +3169,33 @@ def main() -> int:
         "aes_ctr_logistic_regression": protocol + ("prf_aes_ctr_host",),
         # phase 6's request from bytes
         "from_bytes": protocol + ("prf_threefry",),
+        # the per-host layout: K1 a party, K2's additive tail, K7 single
+        # draws; the logistic regression's elementwise products on K3
+        # unfused and its public factors on K4
+        "per_host_secure_dot": ("dot_cross_terms", "trunc_combine",
+                                "prf_threefry"),
+        "per_host_logistic_regression": per_host_kernels + (
+            "prf_threefry",),
+        "per_host_pallas": per_host_kernels + ("prf_threefry",
+                                               "prf_threefry_pallas"),
+        # (the host Mean's factor on K4)
+        "per_host_auto": ("dot_cross_terms", "trunc_combine",
+                          "cross_terms_mul", "ring_mul", "prf_threefry"),
     }
-    # the streams a phase did not select expand nothing
+    # the streams a phase did not select expand nothing; the per-host
+    # layout under threefry-pallas draws its zero shares' bits in
+    # threefry's layout, as the reference does
     streams = ("prf_threefry", "prf_threefry_pallas", "prf_aes_ctr_host")
-    selected = {path: "prf_threefry" for path in required}
-    selected["training"] = "prf_threefry_pallas"
-    selected["aes_ctr_logistic_regression"] = "prf_aes_ctr_host"
+    selected = {path: ("prf_threefry",) for path in required}
+    selected["training"] = ("prf_threefry_pallas",)
+    selected["aes_ctr_logistic_regression"] = ("prf_aes_ctr_host",)
+    selected["per_host_pallas"] = ("prf_threefry", "prf_threefry_pallas")
     for path, names in required.items():
         for name in names:
             if launches_by_path[path][name] < 1:
                 raise AssertionError(f"{path} never launched {name}")
         for name in streams:
-            if name != selected[path] and launches_by_path[path][name]:
+            if name not in selected[path] and launches_by_path[path][name]:
                 raise AssertionError(f"{path} launched {name}")
     if host_seeds[0]:
         raise AssertionError(
@@ -2915,6 +3359,7 @@ def main() -> int:
         "aes_inference": aes_record,
         "aes_ctr_logistic_regression": ctr_record,
         "from_bytes": bytes_record,
+        "per_host": per_host_record,
     }
     log(json.dumps(record))
     log(json.dumps({"kernels": kernels}))

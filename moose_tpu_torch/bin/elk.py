@@ -10,7 +10,7 @@ Examples:
   python -m moose_tpu_torch.bin.elk stats op_hist comp.moose
 
 The port's own copy of ``moose_tpu/bin/elk.py``.  ``--arg-specs`` feeds
-only the lowering pass, which is not ported (ROADMAP queue 1, item 8):
+only the lowering pass, which is not ported (ROADMAP queue 1, item 8b):
 it is read and passed on, and the lowering pass raises.
 """
 

@@ -3,8 +3,8 @@
 
 The port's own copy of ``moose_tpu/compilation/__init__.py``, with the
 logical passes: typing, prune, networking, toposort, the well-formedness
-check and the DOT print.  The lowering pass (the per-host layout,
-ROADMAP queue 1, item 8) and the static analyzer behind ``lint`` and
+check and the DOT print.  The lowering pass (to the host-level graph
+of the physical executor, ROADMAP queue 1, item 8b) and the static analyzer behind ``lint`` and
 ``strict`` (item 13) are not ported: asking for them raises, naming the
 item, and nothing runs in their place.
 """
@@ -24,7 +24,7 @@ from .well_formed import well_formed_check
 
 DEFAULT_PASSES = ["typing", "lowering", "prune", "networking", "toposort"]
 
-_LOWERING = "ROADMAP queue 1, item 8"
+_LOWERING = "ROADMAP queue 1, item 8b"
 _ANALYZER = "ROADMAP queue 1, item 13"
 
 

@@ -9,18 +9,21 @@
 // splits words into 8-bit limbs and runs the limb products on the matrix
 // unit with exact accumulation.
 //
-// The arithmetic.  The two products of a party are one product of depth
-// K' = 2k: [x0 | x1] (m x K') @ [ysum ; y0] (K' x n).  A word is L = w/8
-// unsigned limbs; diagonal d of the output is S_d = sum_{i+j=d} A_i B_j
-// and the result sum_d S_d 2^(8d) mod 2^w, so only the pairs with
-// i + j < L count: 136 at ring128, 36 at ring64.  The limb products run
-// as wgmma m64nNk32 .s32.u8.u8 (unsigned operands need no centering),
-// accumulating mod 2^32.  S_d is needed only mod 2^(w-8d), so diagonals
-// d >= L-4 never need more than 32 bits; for d <= L-5 the true sum stays
-// below 2^32 while K' <= SEG_DEPTH = (2^32-1) / ((L-4) * 255^2), rounded
-// down to a whole chunk (5504 at ring128, 16512 at ring64).  A deeper
-// contraction is cut into segments of that depth inside the kernel and
-// each segment's sums are folded into the w-bit result before the next.
+// The arithmetic.  The two products of a party are one product of
+// depth K' = 2k: [x0 | x1] (m x K') @ [ysum ; y0] (K' x n).  In the
+// product-only mode (terms = 1: a plain ring product x0_p @ ysum_p, as
+// a host ring Dot needs) K' = k, and x1 and y0 are never read.  A word
+// is L = w/8 unsigned limbs; diagonal d of the output is
+// S_d = sum_{i+j=d} A_i B_j and the result sum_d S_d 2^(8d) mod 2^w, so
+// only the pairs with i + j < L count: 136 at ring128, 36 at ring64.
+// The limb products run as wgmma m64nNk32 .s32.u8.u8 (unsigned operands
+// need no centering), accumulating mod 2^32.  S_d is needed only mod
+// 2^(w-8d), so diagonals d >= L-4 never need more than 32 bits; for
+// d <= L-5 the true sum stays below 2^32 while
+// K' <= SEG_DEPTH = (2^32-1) / ((L-4) * 255^2), rounded down to a whole
+// chunk (5504 at ring128, 16512 at ring64).  A deeper contraction is
+// cut into segments of that depth inside the kernel and each segment's
+// sums are folded into the w-bit result before the next.
 //
 // Two device kernels per call:
 //  1. dot_cross_terms_split writes the u8 limb planes, K-major, into
@@ -236,8 +239,8 @@ dot_cross_terms_split(const uint64_t* __restrict__ x0_lo,
                       const uint64_t* __restrict__ ys_lo,
                       const uint64_t* __restrict__ ys_hi,
                       uint8_t* __restrict__ a8, uint8_t* __restrict__ b8,
-                      int m, int k, int n, int mt, int nt, int kc,
-                      long long items_a, long long items) {
+                      int m, int k, int depth, int n, int mt, int nt,
+                      int kc, long long items_a, long long items) {
   using G = Geometry<L>;
   const long long t = static_cast<long long>(blockIdx.x) * SPLIT_THREADS +
                       threadIdx.x;
@@ -267,13 +270,13 @@ dot_cross_terms_split(const uint64_t* __restrict__ x0_lo,
     const int kx = first ? kk : kk - k;
     uint64_t wl = 0ull, wh = 0ull;
     if (is_a) {
-      if (row < m && kk < 2 * k) {
+      if (row < m && kk < depth) {
         const long long g = (static_cast<long long>(p) * m + row) * k + kx;
         wl = first ? x0_lo[g] : x1_lo[g];
         if (L == 16) wh = first ? x0_hi[g] : x1_hi[g];
       }
     } else {
-      if (row < n && kk < 2 * k) {
+      if (row < n && kk < depth) {
         const long long g = (static_cast<long long>(p) * k + kx) * n + row;
         wl = first ? ys_lo[g] : y0_lo[g];
         if (L == 16) wh = first ? ys_hi[g] : y0_hi[g];
@@ -479,14 +482,16 @@ dot_cross_terms_gemm(const uint8_t* __restrict__ a8,
 template <int L>
 int launch(const void* const* words, void* out_lo, void* out_hi, void* a8,
            void* b8, long long a8_bytes, long long b8_bytes, int parties,
-           int m, int k, int n, cudaStream_t s) {
+           int m, int k, int n, int terms, cudaStream_t s) {
   using G = Geometry<L>;
+  const long long depth = static_cast<long long>(terms) * k;
   const long long mt = (m + BM - 1) / BM;
   const long long nt = (n + G::BN - 1) / G::BN;
-  const long long kc = (2ll * k + BK - 1) / BK;
+  const long long kc = (depth + BK - 1) / BK;
   const long long need_a = parties * mt * kc * G::A_STAGE;
   const long long need_b = parties * nt * kc * G::B_STAGE;
-  if (parties < 1 || parties > 65535 || mt > 65535 || nt > 0x7FFFFFFF ||
+  if (terms < 1 || terms > 2 || depth > 0x7FFFFFFF || parties < 1 ||
+      parties > 65535 || mt > 65535 || nt > 0x7FFFFFFF ||
       kc > 0x7FFFFFFF || a8_bytes < need_a || b8_bytes < need_b)
     return static_cast<int>(cudaErrorInvalidValue);
   auto u = [](const void* ptr) { return static_cast<const uint64_t*>(ptr); };
@@ -499,8 +504,9 @@ int launch(const void* const* words, void* out_lo, void* out_hi, void* a8,
                                0, s>>>(
         u(words[0]), u(words[1]), u(words[2]), u(words[3]), u(words[4]),
         u(words[5]), u(words[6]), u(words[7]), static_cast<uint8_t*>(a8),
-        static_cast<uint8_t*>(b8), m, k, n, static_cast<int>(mt),
-        static_cast<int>(nt), static_cast<int>(kc), items_a, items);
+        static_cast<uint8_t*>(b8), m, k, static_cast<int>(depth), n,
+        static_cast<int>(mt), static_cast<int>(nt), static_cast<int>(kc),
+        items_a, items);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -520,21 +526,24 @@ int launch(const void* const* words, void* out_lo, void* out_hi, void* a8,
 }  // namespace
 
 // Launches on `stream` the split stage into the caller's scratch a8 / b8
-// (of a8_bytes / b8_bytes) and the GEMM stage into out_lo / out_hi; returns the first cudaGetLastError() that is not 0
-// (cudaErrorInvalidValue for a shape the grid cannot hold or scratch too
-// small).  The *_hi pointers are ignored (and may be null) when wide == 0.
+// (of a8_bytes / b8_bytes) and the GEMM stage into out_lo / out_hi; returns
+// the first cudaGetLastError() that is not 0 (cudaErrorInvalidValue for a
+// shape the grid cannot hold, scratch too small, or terms not 1 or 2).
+// The *_hi pointers are ignored (and may be null) when wide == 0; with
+// terms == 1 (x0 @ ysum alone) x1 and y0 are not read, but must still be
+// pointers the caller may read (x0 and ysum will do).
 extern "C" int moose_dot_cross_terms(
     const void* x0_lo, const void* x0_hi, const void* x1_lo,
     const void* x1_hi, const void* y0_lo, const void* y0_hi,
     const void* ys_lo, const void* ys_hi, void* out_lo, void* out_hi,
     void* a8, void* b8, long long a8_bytes, long long b8_bytes, int parties,
-    int m, int k, int n, int wide, void* stream) {
+    int m, int k, int n, int wide, int terms, void* stream) {
   const void* words[8] = {x0_lo, x0_hi, x1_lo, x1_hi,
                           y0_lo, y0_hi, ys_lo, ys_hi};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wide)
     return launch<16>(words, out_lo, out_hi, a8, b8, a8_bytes, b8_bytes,
-                      parties, m, k, n, s);
+                      parties, m, k, n, terms, s);
   return launch<8>(words, out_lo, out_hi, a8, b8, a8_bytes, b8_bytes, parties,
-                   m, k, n, s);
+                   m, k, n, terms, s);
 }

@@ -165,6 +165,58 @@ def shr(lo, hi, amount: int):
     )
 
 
+def shr_arith(lo, hi, amount: int):
+    """Arithmetic (sign-extending) right shift by a static amount: the
+    host fixed-point truncation (the secure path uses TruncPr).  int64's
+    own ``>>`` is the arithmetic shift."""
+    amount = int(amount)
+    if hi is None:
+        if amount == 0:
+            return lo, None
+        return lo >> min(amount, 63), None
+    if amount == 0:
+        return lo, hi
+    sign_fill = hi >> 63
+    if amount >= 128:
+        return sign_fill, sign_fill
+    if amount >= 64:
+        new_lo = hi if amount == 64 else hi >> min(amount - 64, 63)
+        return new_lo, sign_fill
+    return (
+        torch.bitwise_or(lshr64(lo, amount), hi << (64 - amount)),
+        hi >> amount,
+    )
+
+
+def bit_extract(lo, hi, bit_idx: int):
+    """Bit ``bit_idx`` as a ``torch.uint8`` 0/1 tensor."""
+    bit_idx = int(bit_idx)
+    word = lo if bit_idx < 64 else hi
+    return torch.bitwise_and(word >> (bit_idx % 64), 1).to(torch.uint8)
+
+
+def from_bit(bit, width: int):
+    """A 0/1 uint8 tensor injected into the ring (RingInject at bit 0)."""
+    lo = bit.to(I64)
+    return lo, (torch.zeros_like(lo) if width == 128 else None)
+
+
+def equal_bits(lo1, hi1, lo2, hi2):
+    """Plaintext ring equality as uint8 0/1."""
+    eq = lo1 == lo2
+    if hi1 is not None:
+        eq = torch.logical_and(eq, hi1 == hi2)
+    return eq.to(torch.uint8)
+
+
+def from_numpy_u64(arr, device):
+    """A numpy array's values as ring64 words (``hi`` None)."""
+    import numpy as np
+
+    words = np.array(arr, dtype=np.uint64, order="C")
+    return torch.from_numpy(words.view(np.int64)).to(device), None
+
+
 def fill_like_shape(shape, width: int, value: int, device):
     value = int(value) % (1 << width)
     lo = torch.full(
@@ -279,6 +331,93 @@ def im2col(x, kh: int, kw: int, strides, padding):
         for j in range(kw)
     ]
     return torch.cat(cols, dim=-1), out_h, out_w
+
+
+def _promote(lo1, hi1, lo2, hi2):
+    """Vector operands of a matrix product as matrices, as
+    ``ring.matmul`` of the JAX package promotes them."""
+    if lo1.dim() == 1:
+        lo1 = lo1[None, :]
+        hi1 = None if hi1 is None else hi1[None, :]
+    if lo2.dim() == 1:
+        lo2 = lo2[:, None]
+        hi2 = None if hi2 is None else hi2[:, None]
+    return lo1, hi1, lo2, hi2
+
+
+def _squeeze(t, a_vec: bool, b_vec: bool):
+    """The unit axes a promotion added, dropped from a product."""
+    if t is None:
+        return None
+    if a_vec and b_vec:
+        return t[0, 0]
+    if a_vec:
+        return t[0]
+    if b_vec:
+        return t[..., 0]
+    return t
+
+
+def matmul(lo1, hi1, lo2, hi2):
+    """Ring matrix product (Dot) mod 2^w; vector operands are promoted to
+    matrices and the unit axes squeezed from the result.  On the card it
+    is K1 (``dot_cross_terms`` as ``x0 @ ysum`` with zero ``x1`` and
+    ``y0``): PyTorch has no int64 matrix product on CUDA."""
+    from ..native import ring_kernels as rk
+
+    a_vec, b_vec = lo1.dim() == 1, lo2.dim() == 1
+    lo1, hi1, lo2, hi2 = _promote(lo1, hi1, lo2, hi2)
+    width = 64 if hi1 is None else 128
+    lo, hi = rk.ring_matmul((lo1, hi1), (lo2, hi2), width)
+    return _squeeze(lo, a_vec, b_vec), _squeeze(hi, a_vec, b_vec)
+
+
+def dot_cross_terms(x0, x1, y0, y1, width: int):
+    """One party's cross terms of a secure matrix product,
+    ``x0 @ (y0 + y1) + x1 @ y0`` mod 2^w, for (lo, hi) pairs: K1 at one
+    party on the card.  Vector operands are promoted, then squeezed."""
+    from ..native import ring_kernels as rk
+
+    a_vec, b_vec = x0[0].dim() == 1, y0[0].dim() == 1
+    x0l, x0h, y0l, y0h = _promote(*x0, *y0)
+    x1l, x1h, y1l, y1h = _promote(*x1, *y1)
+    lo, hi = rk.party_dot_cross_terms(
+        (x0l, x0h), (x1l, x1h), (y0l, y0h), add(y0l, y0h, y1l, y1h), width
+    )
+    return _squeeze(lo, a_vec, b_vec), _squeeze(hi, a_vec, b_vec)
+
+
+def conv_columns(x_lo, x_hi, kshape, strides, padding):
+    """An NHWC input's im2col columns for an HWIO kernel of ``kshape``,
+    flattened to (N*OH*OW, KH*KW*C), and the output's (N, OH, OW)."""
+    kh, kw, c, _ = kshape
+    n = x_lo.shape[0]
+    p_lo, out_h, out_w = im2col(x_lo, kh, kw, strides, padding)
+    rows = n * out_h * out_w
+    cols_lo = p_lo.reshape(rows, kh * kw * c)
+    cols_hi = None
+    if x_hi is not None:
+        p_hi, _, _ = im2col(x_hi, kh, kw, strides, padding)
+        cols_hi = p_hi.reshape(rows, kh * kw * c)
+    return (cols_lo, cols_hi), (n, out_h, out_w)
+
+
+def kernel_matrix(k_lo, k_hi):
+    """An HWIO kernel reshaped to (KH*KW*C, O)."""
+    kh, kw, c, o = k_lo.shape
+    return (k_lo.reshape(kh * kw * c, o),
+            None if k_hi is None else k_hi.reshape(kh * kw * c, o))
+
+
+def conv2d(x_lo, x_hi, k_lo, k_hi, strides=(1, 1), padding="VALID"):
+    """Ring convolution: x (N, H, W, C) * kernel (KH, KW, C, O) ->
+    (N, OH, OW, O), exact mod 2^w via im2col and :func:`matmul`."""
+    cols, (n, out_h, out_w) = conv_columns(
+        x_lo, x_hi, tuple(k_lo.shape), strides, padding)
+    lo, hi = matmul(*cols, *kernel_matrix(k_lo, k_hi))
+    o = k_lo.shape[-1]
+    return (lo.reshape(n, out_h, out_w, o),
+            None if hi is None else hi.reshape(n, out_h, out_w, o))
 
 
 # ---------------------------------------------------------------------------
@@ -566,3 +705,24 @@ def sample_bits_seeded(shape, seed, device):
     return rk.threefry_bits(
         k0, k1, math.prod(shape), "threefry", device
     ).reshape(shape)
+
+
+def sample_bit_tensor_seeded(shape, seed, device):
+    """Uniform bits as ``torch.uint8`` 0/1 from the UNTAGGED ``seed``: the
+    JAX package's ``host.sample_bit_tensor_seeded``, which draws
+    ``jax.random.bits(key, shape, uint8) & 1`` on ``_key_from_seed(seed)``
+    under both threefry streams (it has no threefry-pallas branch), and
+    one AES-CTR keystream byte's low bit each under ``"aes-ctr"``.  The
+    per-host layout's zero shares of bits and its shared bit inputs draw
+    here."""
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    if _PRF_IMPL == "aes-ctr":
+        from ..crypto.aes_prng import AesCtrRng
+
+        bits = AesCtrRng(seed_bytes(seed)).bits(n)
+        return torch.from_numpy(bits.reshape(shape)).to(device)
+    from ..native import ring_kernels as rk
+
+    k0, k1 = stream_key(seed, "threefry", bits=False)
+    return rk.threefry_bits(k0, k1, n, "threefry", device).reshape(shape)

@@ -59,10 +59,10 @@ BOUNDARY_KINDS = frozenset({"Input", "Output", "Load", "Save"})
 
 # the ROADMAP queue 1 items of the secret-shared checkpoints (the
 # reference lowers those to the per-host layout and its checkpoint
-# store); the reference runs any other kind the port lacks on its
-# per-host layout only (item 8)
+# store); any other kind this layout refuses runs on the per-host
+# layout
 _REP_ITEMS = {
-    "LoadShares": "items 8 and 10", "SaveShares": "items 8 and 10",
+    "LoadShares": logical._CHECKPOINTS, "SaveShares": logical._CHECKPOINTS,
 }
 # secret integers: the scale-0 lift
 _INTEGER = "ROADMAP queue 1, item 6"
@@ -71,9 +71,10 @@ _INTEGER = "ROADMAP queue 1, item 6"
 def roadmap_item(placement_kind: str, op_kind: str) -> str:
     """Where the port's ROADMAP places an op kind it refuses on a
     placement of ``placement_kind`` (a placement class name)."""
-    if placement_kind != "ReplicatedPlacement":
+    if op_kind == "Decrypt":
         return logical._LATER
-    return f"ROADMAP queue 1, {_REP_ITEMS.get(op_kind, 'item 8')}"
+    return _REP_ITEMS.get(op_kind, "the per-host layout runs it")
+
 
 _STACKED_VALUES = (SpmdRep, SpmdFixed, SpmdBits)
 
@@ -476,19 +477,51 @@ def _execute_rep(sess: StackedSession, comp, op: Operation,
     )
 
 
+# replicated kinds whose operands must agree on the value family: a
+# secret integer (bare ring shares) against a secret fixed-point tensor
+_MIXED_SENSITIVE_KINDS = frozenset({
+    "Add", "Sub", "Mul", "Dot", "Div", "AddN", "Less", "Greater",
+    "Equal", "Maximum", "Mux", "Concat",
+})
+
+
+def _rep_screen(op: Operation) -> bool:
+    """The reference's signature screens of a replicated op: no float
+    constant to share, a Cast only within the fixed family, no secret
+    integer mixed with a secret fixed-point tensor."""
+    sig = op.signature
+    ret_dtype = sig.return_type.dtype if sig.return_type else None
+    if op.kind == "Constant" and ret_dtype is not None \
+            and ret_dtype.is_float:
+        return False
+    if op.kind == "Cast" and (ret_dtype is None
+                              or not ret_dtype.is_fixedpoint):
+        return False
+    if op.kind in _MIXED_SENSITIVE_KINDS:
+        dts = [ty.dtype for ty in (sig.return_type, *sig.input_types)
+               if getattr(ty, "dtype", None) is not None]
+        if any(d.is_integer for d in dts) and any(
+                d.is_fixedpoint for d in dts):
+            return False
+    return True
+
+
 def unsupported_ops(comp: Computation) -> list:
-    """``(placement kind, op kind)`` of every op the port cannot run yet.
-    As the reference's stacked layout, it takes AES values on a host only
-    at the boundary (Input, Output) and through Identity, and Decrypt
-    only on a replicated placement: the reference runs the rest on its
-    per-host layout (item 8)."""
+    """``(placement kind, op kind)`` of every op this layout does not
+    run, by the reference's ``stacked.supports``: a replicated kind
+    beyond :data:`REP_KINDS` or past its signature screens, Select (its
+    shape depends on the data), and AES values on a host anywhere but at
+    the boundary (Input, Output) and through Identity.  The runtime runs
+    such a graph on the per-host layout, as the reference does."""
     missing = []
     for op in comp.operations.values():
         plc = comp.placements.get(op.placement_name)
         if op.kind in BOUNDARY_KINDS:
             continue
-        if isinstance(plc, ReplicatedPlacement):
-            ok = op.kind in REP_KINDS
+        if op.kind == "Select":
+            ok = False
+        elif isinstance(plc, ReplicatedPlacement):
+            ok = op.kind in REP_KINDS and _rep_screen(op)
         elif isinstance(plc, HostPlacement):
             ok = op.kind in logical.HOST_KINDS and (
                 op.kind == "Identity" or not any(
@@ -506,6 +539,16 @@ def unsupported_ops(comp: Computation) -> list:
 def supports(comp: Computation) -> bool:
     """Whether every op of ``comp`` has a path in the port."""
     return not unsupported_ops(comp)
+
+
+def make_session(master_key, device, key_domain: int = 0) -> StackedSession:
+    """Dialect hook of the interpreter."""
+    return StackedSession(master_key, device, key_domain)
+
+
+def bind_placements(sess, comp: Computation) -> None:
+    """Dialect hook of the interpreter: this layout's values carry what
+    their conversions need."""
 
 
 def lift_aes_input(sess: StackedSession, comp, op, arr, plc_name: str,

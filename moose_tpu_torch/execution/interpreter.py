@@ -1,21 +1,26 @@
 """Logical-computation interpreter: walks the IR and executes each op
-eagerly in the stacked layout.
+eagerly, in the per-host layout (``dialects/logical.py``) or the
+party-stacked one (``dialects/stacked.py``).
 
 The eager walk of ``moose_tpu/execution/interpreter.py``.  PyTorch runs
 eagerly, so the JAX package's validated-jit ladder (whole-graph,
 segmented and per-op plans with self-checks) has no counterpart here.
 The master key comes from :func:`master_key_words`, with the JAX
-package's ``MOOSE_TPU_FIXED_KEYS`` test knob, so both packages draw the
-same masks for the same knob value.
+package's ``MOOSE_TPU_FIXED_KEYS`` test knob, under which the per-host
+layout's public nonces also come from the JAX package's pinned stream
+(:func:`fixed_sync_seed`), so both packages draw the same masks for the
+same knob value.
 
 The walk resolves the host boundary itself: Input binds an argument,
 Load reads the placement's own store and lifts the array onto the
-device (an AES value through ``stacked.lift_aes_input``), Save brings its value to its host and writes it to that store as
-numpy once the walk is done, Output reveals to its host.
+device (an AES value through the dialect's ``lift_aes_input``), Save
+brings its value to its host and writes it to that store as numpy once
+the walk is done, Output reveals to its host.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 import secrets
@@ -34,7 +39,7 @@ from ..values import (
     HostUnit,
     to_numpy,
 )
-from ..dialects import stacked
+from ..dialects import host
 from .. import dtypes as dt
 
 
@@ -61,6 +66,21 @@ def master_key_words(domain: str = "") -> np.ndarray:
         ).digest()
         return np.frombuffer(digest, dtype=np.uint32)
     return np.frombuffer(secrets.token_bytes(16), dtype=np.uint32)
+
+
+def fixed_sync_seed() -> Optional[int]:
+    """The Philox seed that pins the per-host layout's public sync-key
+    nonces under ``MOOSE_TPU_FIXED_KEYS``: the JAX package's
+    ``_fixed_sync_seed``, an 8-byte blake2b digest of the knob value.
+    None when the knob is off; nonces then come from OS entropy."""
+    fixed = os.environ.get("MOOSE_TPU_FIXED_KEYS")
+    if not fixed:
+        return None
+    import hashlib
+
+    digest = hashlib.blake2b(f"{fixed}|sync".encode(),
+                             digest_size=8).digest()
+    return int.from_bytes(digest, "little")
 
 
 def _lift_array(arr, op, plc_name: str, device) -> HostTensor:
@@ -122,7 +142,7 @@ def _to_user_value(sess, value):
     if isinstance(value, HostUnit):
         return None
     if isinstance(value, HostFixedTensor):
-        value = sess.host.fixedpoint_decode(value.plc, value, dt.float64)
+        value = host.fixedpoint_decode(value, value.plc, dt.float64)
     return to_numpy(value)
 
 
@@ -137,10 +157,13 @@ def ordered_output_names(outputs) -> list:
 
 
 class Interpreter:
-    """Eager interpreter of logical computations on one device."""
+    """Eager interpreter of logical computations on one device, in the
+    layout of ``dialect``: ``dialects.logical`` (per-host) or
+    ``dialects.stacked``."""
 
-    def __init__(self, device):
+    def __init__(self, device, dialect):
         self.device = torch.device(device)
+        self.dialect = dialect
 
     def evaluate(self, comp: Computation,
                  arguments: Optional[dict] = None,
@@ -150,17 +173,36 @@ class Interpreter:
         an object with ``.load``)."""
         arguments = arguments or {}
         storage = storage if storage is not None else {}
-        missing = stacked.unsupported_ops(comp)
+        dialect = self.dialect
+        missing = dialect.unsupported_ops(comp)
         if missing:
             raise NotImplementedError(
                 "the port cannot run these ops yet: " + ", ".join(sorted({
-                    f"{p} {k} ({stacked.roadmap_item(p, k)})"
+                    f"{p} {k} ({dialect.roadmap_item(p, k)})"
                     for p, k in missing
                 }))
             )
-        sess = stacked.StackedSession(
-            master_key_words("logical"), self.device
+        sess = dialect.make_session(master_key_words("logical"), self.device)
+        dialect.bind_placements(sess, comp)
+        sync_seed = fixed_sync_seed()
+        sync_ctx = (
+            host.deterministic_sync_keys(sync_seed)
+            if sync_seed is not None else contextlib.nullcontext()
         )
+        with sync_ctx:
+            outputs, saves = self._walk(sess, comp, arguments, storage)
+        # stores are written only once every op has run
+        for (plc_name, key), value in saves.items():
+            storage.setdefault(plc_name, {})[key] = _save_user_value(
+                sess, value)
+        return {
+            name: _to_user_value(sess, outputs[name])
+            for name in ordered_output_names(outputs)
+        }
+
+    def _walk(self, sess, comp: Computation, arguments: dict,
+              storage) -> tuple:
+        dialect = self.dialect
         env: dict[str, Any] = {}
         outputs: dict[str, Any] = {}
         saves: dict[tuple, Any] = {}
@@ -178,7 +220,7 @@ class Interpreter:
                 if op.signature.return_type.name in AES_TY_NAMES:
                     # a replicated key is shared here, at its Input, as
                     # the reference's walk shares it
-                    env[name] = stacked.lift_aes_input(
+                    env[name] = dialect.lift_aes_input(
                         sess, comp, op, arr, plc.name, self.device
                     )
                 else:
@@ -191,7 +233,7 @@ class Interpreter:
                         f"Save {op.name}: the key must be a string, found "
                         f"{type(key).__name__}"
                     )
-                saves[(plc.name, key.value)] = stacked.to_host(
+                saves[(plc.name, key.value)] = dialect.to_host(
                     sess, plc.name, env[op.inputs[1]]
                 )
                 env[name] = HostUnit(plc.name)
@@ -199,18 +241,10 @@ class Interpreter:
             if op.kind == "Output":
                 value = env[op.inputs[0]]
                 if not isinstance(value, HostUnit):
-                    value = stacked.to_host(sess, plc.name, value)
+                    value = dialect.to_host(sess, plc.name, value)
                 env[name] = value
                 outputs[op.attributes.get("tag", name)] = value
                 continue
             args = [env[i] for i in op.inputs]
-            env[name] = stacked.execute_op(sess, comp, op, args)
-        # stores are written only once every op has run
-        for (plc_name, key), value in saves.items():
-            storage.setdefault(plc_name, {})[key] = _save_user_value(
-                sess, value
-            )
-        return {
-            name: _to_user_value(sess, outputs[name])
-            for name in ordered_output_names(outputs)
-        }
+            env[name] = dialect.execute_op(sess, comp, op, args)
+        return outputs, saves

@@ -42,7 +42,7 @@ SIGNATURES = {
         "moose_dot_cross_terms",
         [ctypes.c_void_p] * 12
         + [ctypes.c_longlong] * 2
-        + [ctypes.c_int] * 5
+        + [ctypes.c_int] * 6
         + [ctypes.c_void_p],
     ),
     "trunc_combine": (

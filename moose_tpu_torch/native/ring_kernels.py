@@ -259,9 +259,14 @@ def ring_matmul_plain(a: Pair, b: Pair, width: int) -> Pair:
     return rlo, rhi
 
 
-def dot_cross_terms_plain(x0: Pair, x1: Pair, y0: Pair, ysum: Pair,
+def dot_cross_terms_plain(x0: Pair, x1: Optional[Pair],
+                          y0: Optional[Pair], ysum: Pair,
                           width: int) -> Pair:
+    """``x0 @ ysum + x1 @ y0`` mod 2^width; ``x0 @ ysum`` alone when
+    ``x1`` and ``y0`` are None (the product-only mode)."""
     v = ring_matmul_plain(x0, ysum, width)
+    if x1 is None:
+        return v
     t = ring_matmul_plain(x1, y0, width)
     return ring.add(*v, *t)
 
@@ -283,15 +288,17 @@ def dot_segment_depth(width: int) -> int:
     return depth // _DOT_BK * _DOT_BK
 
 
-def dot_geometry(parties: int, m: int, k: int, n: int, width: int):
-    """(m tiles, n tiles, K' chunks, A8 bytes, B8 bytes) of one call:
+def dot_geometry(parties: int, m: int, k: int, n: int, width: int,
+                 terms: int = 2):
+    """(m tiles, n tiles, K' chunks, A8 bytes, B8 bytes) of one call of
+    ``terms`` contractions (K' = terms * k; 1 in the product-only mode):
     the split stage writes A8 [P][m tiles][chunks][L][64 x 32] and B8
     [P][n tiles][chunks][L][cols x 32] limb bytes."""
     limbs = width // 8
     cols = dot_tile_cols(width)
     mt = -(-m // _DOT_BM)
     nt = -(-n // cols)
-    kc = -(-2 * k // _DOT_BK)
+    kc = -(-terms * k // _DOT_BK)
     a_bytes = parties * mt * kc * limbs * _DOT_BM * _DOT_BK
     b_bytes = parties * nt * kc * limbs * cols * _DOT_BK
     return mt, nt, kc, a_bytes, b_bytes
@@ -315,20 +322,26 @@ def _limb_planes(lo_parts, hi_parts, rows_pad: int, depth: int,
     return planes
 
 
-def dot_limb_planes(x0: Pair, x1: Pair, y0: Pair, ysum: Pair, width: int):
+def dot_limb_planes(x0: Pair, x1: Optional[Pair], y0: Optional[Pair],
+                    ysum: Pair, width: int):
     """The K-major limb planes of the limb GEMM: A8 (P, L, m tiles * 64,
     K'p) of ``[x0 | x1]`` and B8 (P, L, n tiles * cols, K'p) of
-    ``[ysum ; y0]`` transposed, K' = 2k padded to whole 32-byte chunks."""
+    ``[ysum ; y0]`` transposed, K' = 2k padded to whole 32-byte chunks
+    (of ``x0`` and ``ysum`` alone, K' = k, when ``x1`` and ``y0`` are
+    None)."""
     parties, m, k = x0[0].shape
-    n = y0[0].shape[-1]
-    mt, nt, kc, _, _ = dot_geometry(parties, m, k, n, width)
+    n = ysum[0].shape[-1]
+    xs, ys = (x0,), (ysum,)
+    if x1 is not None:
+        xs, ys = (x0, x1), (ysum, y0)
+    mt, nt, kc, _, _ = dot_geometry(parties, m, k, n, width, len(xs))
 
     def t(w):
         return None if w is None else w.transpose(-1, -2)
 
-    a8 = _limb_planes((x0[0], x1[0]), (x0[1], x1[1]), mt * _DOT_BM,
-                      kc * _DOT_BK, width)
-    b8 = _limb_planes((t(ysum[0]), t(y0[0])), (t(ysum[1]), t(y0[1])),
+    a8 = _limb_planes([x[0] for x in xs], [x[1] for x in xs],
+                      mt * _DOT_BM, kc * _DOT_BK, width)
+    b8 = _limb_planes([t(y[0]) for y in ys], [t(y[1]) for y in ys],
                       nt * dot_tile_cols(width), kc * _DOT_BK, width)
     return a8, b8
 
@@ -345,8 +358,8 @@ def dot_limb_tiles(planes: torch.Tensor, tile_rows: int) -> torch.Tensor:
     return v.permute(0, 2, 5, 1, 3, 6, 4, 7).reshape(-1)
 
 
-def dot_cross_terms_limbs_plain(x0: Pair, x1: Pair, y0: Pair, ysum: Pair,
-                                width: int,
+def dot_cross_terms_limbs_plain(x0: Pair, x1: Optional[Pair],
+                                y0: Optional[Pair], ysum: Pair, width: int,
                                 depth: Optional[int] = None) -> Pair:
     """A plain model of the limb GEMM's arithmetic, for the tests: the
     K-major limb planes of the K-concatenated operands, per segment of
@@ -356,7 +369,7 @@ def dot_cross_terms_limbs_plain(x0: Pair, x1: Pair, y0: Pair, ysum: Pair,
     reduced mod 2^32 as the s32 accumulators hold it, and the fold
     ``sum_d S_d << 8d`` mod 2^width into the result."""
     parties, m, _ = x0[0].shape
-    n = y0[0].shape[-1]
+    n = ysum[0].shape[-1]
     limbs = width // 8
     depth = dot_segment_depth(width) if depth is None else depth
     a8, b8 = dot_limb_planes(x0, x1, y0, ysum, width)
@@ -389,18 +402,26 @@ def dot_cross_terms_limbs_plain(x0: Pair, x1: Pair, y0: Pair, ysum: Pair,
     )
 
 
-def _dot_launch(x0: Pair, x1: Pair, y0: Pair, ysum: Pair,
-                width: int) -> Pair:
+def _dot_launch(x0: Pair, x1: Optional[Pair], y0: Optional[Pair],
+                ysum: Pair, width: int) -> Pair:
     device = x0[0].device
-    if device.type != "cuda" or x0[0].dim() != 3 or y0[0].dim() != 3:
+    if device.type != "cuda" or x0[0].dim() != 3 or ysum[0].dim() != 3:
         raise ValueError(
             "dot_cross_terms takes (3, m, k) and (3, k, n) CUDA tensors"
         )
+    if (x1 is None) != (y0 is None):
+        raise ValueError("dot_cross_terms: x1 and y0 are given together")
+    terms = 1 if x1 is None else 2
+    if x1 is None:
+        # the product-only mode: the kernel reads no K' past k, so x1 and
+        # y0 are never read; x0 and ysum stand in as valid pointers
+        x1, y0 = x0, ysum
     parties, m, k = x0[0].shape
-    n = y0[0].shape[-1]
+    n = ysum[0].shape[-1]
     if max(m, k, n) >= 1 << 30:
         raise ValueError(f"dot_cross_terms: shape ({m}, {k}, {n}) too large")
-    mt, _, _, a_bytes, b_bytes = dot_geometry(parties, m, k, n, width)
+    mt, _, _, a_bytes, b_bytes = dot_geometry(parties, m, k, n, width,
+                                              terms)
     if mt > _MAX_GRID_Y or not 0 < parties <= _MAX_GRID_Y:
         raise ValueError(
             f"dot_cross_terms: ({parties}, {m}) rows exceed the grid's "
@@ -426,25 +447,87 @@ def _dot_launch(x0: Pair, x1: Pair, y0: Pair, ysum: Pair,
             _ptr(y0[0]), _ptr(y0[1] if wide else None),
             _ptr(ysum[0]), _ptr(ysum[1] if wide else None),
             _ptr(out_lo), _ptr(out_hi), _ptr(a8), _ptr(b8), a_bytes, b_bytes,
-            parties, m, k, n, int(wide), _stream(device),
+            parties, m, k, n, int(wide), terms, _stream(device),
         )
     _raise_on("dot_cross_terms", err)
     return out_lo, out_hi
 
 
-def dot_cross_terms(x0: Pair, x1: Pair, y0: Pair, ysum: Pair,
-                    width: int) -> Pair:
+def dot_cross_terms(x0: Pair, x1: Optional[Pair], y0: Optional[Pair],
+                    ysum: Pair, width: int) -> Pair:
     """Party-batched cross terms ``v_p = x0_p @ ysum_p + x1_p @ y0_p``
     mod 2^width for ``(3, m, k)`` and ``(3, k, n)`` ring pairs; the
-    caller adds ``ysum = y0 + y1`` first.  On the card one call runs two
-    device kernels (the limb split and the limb GEMM) and counts one
-    launch."""
+    caller adds ``ysum = y0 + y1`` first.  With ``x1`` and ``y0`` None,
+    the product-only mode: ``x0_p @ ysum_p``, one contraction of depth
+    k.  On the card one call runs two device kernels (the limb split and
+    the limb GEMM) and counts one launch."""
     if _on_cpu(x0[0]):
         return dot_cross_terms_plain(x0, x1, y0, ysum, width)
     out = _dot_launch(x0, x1, y0, ysum, width)
     if out[0].numel() > 0:
         LAUNCHES["dot_cross_terms"] += 1
     return out
+
+
+def _as_parties(t: Optional[torch.Tensor], parties: int, rows: int,
+                cols: int) -> Optional[torch.Tensor]:
+    return None if t is None else t.reshape(parties, rows, cols).contiguous()
+
+
+def _batched(x0: Pair, y: Pair, label: str):
+    """The party count and (m, k, n) of a product of (..., m, k) and
+    (..., k, n) ring words whose leading axes K1 takes as its party axis:
+    equal batch axes, or a batched x against a matrix y (folded into
+    x's rows)."""
+    a, b = x0[0], y[0]
+    if a.dim() < 2 or b.dim() < 2 or a.shape[-1] != b.shape[-2]:
+        raise ValueError(
+            f"{label}: cannot multiply {tuple(a.shape)} by {tuple(b.shape)}")
+    k, n = b.shape[-2], b.shape[-1]
+    if b.dim() == 2:
+        return 1, math.prod(a.shape[:-1]), k, n, a.shape[:-1] + (n,)
+    if a.shape[:-2] != b.shape[:-2]:
+        raise NotImplementedError(
+            f"{label}: the card takes equal batch axes, got "
+            f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    parties = math.prod(a.shape[:-2])
+    return parties, a.shape[-2], k, n, a.shape[:-1] + (n,)
+
+
+def party_dot_cross_terms(x0: Pair, x1: Optional[Pair],
+                          y0: Optional[Pair], ysum: Pair,
+                          width: int) -> Pair:
+    """:func:`dot_cross_terms` of one party's (..., m, k) and (..., k, n)
+    operands: ``x0 @ ysum + x1 @ y0`` mod 2^width (``x0 @ ysum`` with
+    ``x1`` and ``y0`` None).  The per-host layout runs each party's
+    product through here: on the card one K1 launch with the batch (one
+    party, or equal batch axes) as K1's party axis."""
+    if _on_cpu(x0[0]):
+        return dot_cross_terms_plain(x0, x1, y0, ysum, width)
+    parties, m, k, n, out_shape = _batched(x0, ysum, "dot_cross_terms")
+    wide = width == 128
+
+    def fold(pair, rows, cols):
+        if pair is None:
+            return None
+        return (_as_parties(pair[0], parties, rows, cols),
+                _as_parties(pair[1] if wide else None, parties, rows, cols))
+
+    lo, hi = dot_cross_terms(fold(x0, m, k), fold(x1, m, k),
+                             fold(y0, k, n), fold(ysum, k, n), width)
+    return lo.reshape(out_shape), (
+        None if hi is None else hi.reshape(out_shape))
+
+
+def ring_matmul(a: Pair, b: Pair, width: int) -> Pair:
+    """``a @ b`` mod 2^width of (..., m, k) and (..., k, n) ring words.
+    For the CPU the plain 16-bit-limb product; on the card K1 in its
+    product-only mode (``x0 @ ysum``, depth k): PyTorch has no int64
+    matrix product on CUDA, and the plain version's float64 limbs may
+    not stand in for the kernel there."""
+    if _on_cpu(a[0]):
+        return ring_matmul_plain(a, b, width)
+    return party_dot_cross_terms(a, None, None, b, width)
 
 
 # ---------------------------------------------------------------------------

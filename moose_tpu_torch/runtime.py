@@ -2,10 +2,19 @@
 
 ``LocalMooseRuntime`` of ``moose_tpu/runtime.py``: several virtual hosts
 in one process with their storage, executing traced computations, or
-serialized ones (``evaluate_compiled``), in the party-stacked layout on
-one device — the CUDA card unless the caller asks for the CPU.  Storage
-holds numpy arrays: Load lifts them onto the device, Save writes numpy
-back.
+serialized ones (``evaluate_compiled``), on one device — the CUDA card
+unless the caller asks for the CPU.  Storage holds numpy arrays: Load
+lifts them onto the device, Save writes numpy back.
+
+Two layouts run a graph, as in the JAX package: the per-host layout
+(``dialects/logical.py``, six separately placed arrays a sharing) and the
+party-stacked one (``dialects/stacked.py``).  ``layout="auto"`` (the
+default) runs a graph with a replicated op that ``stacked.supports``
+admits on the stacked layout and anything else per-host, rerouting a
+graph the stacked layout rejects mid-run (``TypeMismatchError``);
+``"stacked"`` skips the replicated-op screen; ``"per-host"`` always runs
+per-host.  The two layouts draw different masks, so their results agree
+to the truncation's noise, not word for word.
 """
 
 from __future__ import annotations
@@ -18,8 +27,10 @@ from . import devices
 from .computation import Computation
 from .edsl import base as edsl_base
 from .edsl import tracer
-from .errors import ConfigurationError
+from .dialects import logical, stacked
+from .errors import ConfigurationError, TypeMismatchError
 from .execution.interpreter import Interpreter
+from .logger import get_logger
 
 
 def _lift_computation(computation, arguments):
@@ -35,7 +46,7 @@ def _lift_computation(computation, arguments):
 
 # op kinds that only a lowered (host-level) graph contains: such a graph
 # runs on the JAX package's per-host physical executor, which the port
-# does not have yet (ROADMAP queue 1, item 8)
+# does not have yet (ROADMAP queue 1, item 8b)
 _LOWERED_KINDS = frozenset({
     "RingFixedpointEncode", "RingFixedpointDecode",
     "RingFixedpointMean", "PrfKeyGen", "DeriveSeed", "SampleSeeded",
@@ -43,7 +54,10 @@ _LOWERED_KINDS = frozenset({
     "BitDecompose", "BitExtract", "Shl", "Shr", "Fill", "ShlDim",
     "Im2Col",
 })
-_PER_HOST = "the per-host layout is ROADMAP queue 1, item 8"
+_LOWERING = (
+    "lowering and the physical executor are ROADMAP queue 1, item 8b"
+)
+LAYOUTS = ("auto", "per-host", "stacked")
 
 
 class LocalMooseRuntime:
@@ -56,10 +70,11 @@ class LocalMooseRuntime:
         mesh=None,
         device=devices.DEFAULT_DEVICE,
     ):
-        if layout not in (None, "auto", "stacked"):
-            raise ConfigurationError(
-                f"the port runs the stacked layout only, got {layout!r} "
-                f"({_PER_HOST})"
+        layout = "auto" if layout is None else layout
+        if layout not in LAYOUTS:
+            raise ValueError(
+                f"unknown layout {layout!r}; expected 'auto', "
+                "'per-host' or 'stacked'"
             )
         if mesh is not None:
             raise ConfigurationError(
@@ -67,9 +82,9 @@ class LocalMooseRuntime:
                 "queue 1, item 12"
             )
         self.device = devices.resolve(device)
-        self.layout = "stacked"
+        self.layout = layout
         # the JAX package's validated-jit switch, recorded: the port runs
-        # eagerly either way
+        # eagerly either way, and lowers nothing (item 8b)
         self.use_jit = use_jit
         storage_mapping = storage_mapping or {}
         for identity in storage_mapping:
@@ -91,7 +106,14 @@ class LocalMooseRuntime:
             )
             for identity in identities
         }
-        self._interpreter = Interpreter(self.device)
+        self._interpreter = Interpreter(self.device, logical)
+        self._stacked = Interpreter(self.device, stacked)
+        # computations the stacked layout rejected mid-run
+        # (TypeMismatchError): later evaluations go straight to per-host
+        self._stacked_rejected = weakref.WeakSet()
+        # the layout that ran the last evaluation, as the JAX package
+        # reports it (the port's plans are always eager)
+        self.last_plan: Dict = {}
         # weak-keyed on the computation object: repeated evaluations of
         # one AbstractComputation trace it once
         self._trace_cache = weakref.WeakKeyDictionary()
@@ -107,8 +129,8 @@ class LocalMooseRuntime:
             # the JAX package lowers the graph through these passes and
             # runs the per-host physical executor
             raise NotImplementedError(
-                f"compiler_passes lower the graph to the per-host layout "
-                f"({_PER_HOST})"
+                f"compiler_passes lower the graph for the physical "
+                f"executor ({_LOWERING})"
             )
         if isinstance(computation, edsl_base.AbstractComputation):
             traced = self._trace_cache.get(computation)
@@ -118,13 +140,44 @@ class LocalMooseRuntime:
                 )
             computation = traced
         computation, arguments = _lift_computation(computation, arguments)
-        return self._interpreter.evaluate(
-            computation, arguments, self.storage
-        )
+        self.last_plan = {}
+        if self.layout_for(computation) == "stacked":
+            try:
+                result = self._stacked.evaluate(
+                    computation, arguments, self.storage)
+            except TypeMismatchError as e:
+                # stacked.supports admitted the graph but a kernel
+                # rejected a value mid-run; storage is written only after
+                # a walk completes, so the per-host rerun is safe
+                self._stacked_rejected.add(computation)
+                get_logger().warning(
+                    "stacked layout rejected the computation (%s); "
+                    "falling back to the per-host layout", e)
+            else:
+                self.last_plan = _plan("stacked")
+                return result
+        result = self._interpreter.evaluate(
+            computation, arguments, self.storage)
+        self.last_plan = _plan("per-host")
+        return result
+
+    def layout_for(self, computation: Computation) -> str:
+        """The layout an evaluation of ``computation`` starts on: the
+        JAX runtime's routing (``moose_tpu/runtime.py:196-262``).
+        ``"auto"`` keeps a graph without a replicated op per-host (there
+        is nothing to stack); a graph ``stacked.supports`` rejects, or one
+        it rejected mid-run before, runs per-host under either stacked
+        setting."""
+        if self.layout == "per-host" or computation in self._stacked_rejected:
+            return "per-host"
+        if self.layout == "auto" and not _has_replicated_op(computation):
+            return "per-host"
+        return "stacked" if stacked.supports(computation) else "per-host"
 
     def evaluate_compiled(self, comp_bin, arguments=None):
         """Run a serialized computation (``serde.serialize_computation``,
-        ``elk_compiler.compile_computation``) on the stacked layout."""
+        ``elk_compiler.compile_computation``), routed as
+        :meth:`evaluate_computation` routes it."""
         from .serde import deserialize_computation
 
         # each blob is decoded once, and later calls reuse its object
@@ -142,7 +195,7 @@ class LocalMooseRuntime:
         if lowered:
             raise NotImplementedError(
                 f"a lowered computation ({', '.join(lowered)}) runs on the "
-                f"per-host physical executor ({_PER_HOST})"
+                f"per-host physical executor ({_LOWERING})"
             )
         return self.evaluate_computation(comp, arguments)
 
@@ -154,3 +207,19 @@ class LocalMooseRuntime:
             raise ValueError(f"unknown identity {identity}")
         self.storage[identity][key] = value
         return value
+
+
+def _has_replicated_op(computation: Computation) -> bool:
+    from .computation import ReplicatedPlacement
+
+    return any(
+        isinstance(computation.placements.get(op.placement_name),
+                   ReplicatedPlacement)
+        for op in computation.operations.values()
+    )
+
+
+def _plan(layout: str) -> dict:
+    """``last_plan`` of an evaluation: its layout, and the JAX package's
+    plan keys for an eager plan."""
+    return {"layout": layout, "plan_mode": "eager", "pinned_ops": []}

@@ -1,9 +1,11 @@
 """Runtime values of the port, backed by PyTorch tensors.
 
-The host, mirrored and AES value classes of ``moose_tpu/values.py``
-that the port's graphs use.  Tensor payloads are ``torch`` tensors on the
+The host, replicated, additive, mirrored and AES value classes of
+``moose_tpu/values.py``.  Tensor payloads are ``torch`` tensors on the
 runtime's device; ring words are ``torch.int64`` (see
-``dialects/ring.py``), ``hi`` present iff the width is 128.
+``dialects/ring.py``), ``hi`` present iff the width is 128.  PRF keys and
+seeds are four u32 words as a tuple of Python ints: the port derives
+seeds on the host.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ _TORCH_DTYPES = {
     "float64": torch.float64,
     "int32": torch.int32,
     "int64": torch.int64,
+    # the same 64 bits: torch has no uint64 arithmetic on the CPU
+    "uint64": torch.int64,
     "bool": torch.bool,
 }
 
@@ -56,6 +60,33 @@ class HostShape:
 
     value: tuple
     plc: str
+
+
+@dataclasses.dataclass
+class HostSeed:
+    """128-bit seed (reference HostSeed): four u32 words.  ``origin`` is
+    the ``(key origin, sync key)`` pair the seed was derived from, kept
+    for the draw ledger; it never influences execution."""
+
+    value: tuple
+    plc: str
+    origin: Any = None
+
+    def ty_name(self) -> str:
+        return "HostSeed"
+
+
+@dataclasses.dataclass
+class HostPrfKey:
+    """PRF key words (four u32).  ``origin`` is the session key index
+    that minted the key; it never influences execution."""
+
+    value: tuple
+    plc: str
+    origin: Any = None
+
+    def ty_name(self) -> str:
+        return "HostPrfKey"
 
 
 @dataclasses.dataclass
@@ -131,6 +162,84 @@ class Mir3FixedTensor:
 
 
 # ---------------------------------------------------------------------------
+# Replicated (3-party) and additive (2-party) values of the per-host layout
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RepTensor:
+    """Replicated secret sharing: x = x0 + x1 + x2, party i holds
+    (x_i, x_{i+1}) (reference replicated/mod.rs:74-77).  ``shares[i]``
+    is party i's pair, each a HostRingTensor or HostBitTensor placed on
+    owner i."""
+
+    shares: tuple  # ((x00, x10), (x11, x21), (x22, x02))
+    plc: str  # replicated placement name
+
+    def ty_name(self) -> str:
+        inner = self.shares[0][0]
+        if isinstance(inner, HostBitTensor):
+            return "ReplicatedBitTensor"
+        return f"ReplicatedRing{inner.width}Tensor"
+
+    @property
+    def shape(self):
+        return self.shares[0][0].shape
+
+
+@dataclasses.dataclass
+class RepFixedTensor:
+    tensor: RepTensor
+    integral_precision: int
+    fractional_precision: int
+
+    @property
+    def plc(self) -> str:
+        return self.tensor.plc
+
+    def ty_name(self) -> str:
+        inner = self.tensor.shares[0][0]
+        return f"ReplicatedFixed{inner.width}Tensor"
+
+
+@dataclasses.dataclass
+class RepSetup:
+    """Pairwise PRF keys: keys[i] = (k_i, k_{i+1}) held by party i
+    (reference replicated/setup.rs:5-8)."""
+
+    keys: tuple  # ((k00, k10), (k11, k21), (k22, k02)) of HostPrfKey
+    plc: str
+
+
+@dataclasses.dataclass
+class RepBitArray:
+    """N-bit bit decomposition: a replicated bit tensor with a leading
+    bit axis of static length (reference RepBitArray)."""
+
+    tensor: RepTensor
+    num_bits: int
+
+    @property
+    def plc(self) -> str:
+        return self.tensor.plc
+
+    def ty_name(self) -> str:
+        return f"ReplicatedBitArray{self.num_bits}"
+
+
+@dataclasses.dataclass
+class AdtTensor:
+    """2-party additive sharing x = x0 + x1 (reference
+    additive/mod.rs:48)."""
+
+    shares: tuple  # (x0, x1) HostRingTensors
+    plc: str
+
+    def ty_name(self) -> str:
+        return f"AdditiveRing{self.shares[0].width}Tensor"
+
+
+# ---------------------------------------------------------------------------
 # AES / encrypted values
 # ---------------------------------------------------------------------------
 
@@ -164,7 +273,10 @@ class AesTensor:
 def to_numpy(value: Any):
     """Convert a host-level runtime value to numpy for the user."""
     if isinstance(value, HostTensor):
-        return value.value.detach().cpu().numpy()
+        arr = value.value.detach().cpu().numpy()
+        if value.dtype.name == "uint64":
+            return arr.view(np.uint64)
+        return arr
     if isinstance(value, HostBitTensor):
         return value.value.detach().cpu().numpy().astype(bool)
     if isinstance(value, HostRingTensor):
@@ -176,4 +288,8 @@ def to_numpy(value: Any):
         return (hi.astype(object) << 64) + lo.astype(object)
     if isinstance(value, HostShape):
         return np.asarray(value.value, dtype=np.int64)
+    if isinstance(value, HostString):
+        return value.value
+    if isinstance(value, HostUnit):
+        return None
     raise TypeError(f"cannot convert {type(value).__name__} to numpy")

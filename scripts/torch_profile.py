@@ -18,7 +18,10 @@ regression, 1024x100 AES-GCM-encrypted rows) under the default threefry
 PRF, one LogregSGDTrainer step (128x100 at fixed(24,40)) under
 threefry-pallas, and one logistic-regression request under the
 reference's aes-ctr PRF (config 4's share generation), through the
-port's LocalMooseRuntime, warm, under torch.profiler, and prints for
+port's LocalMooseRuntime, warm, under torch.profiler; then the secure
+dot and the logistic-regression request again on the per-host layout
+(``layout="per-host"``: one K7 launch a draw, its seed derived on the
+host, so K7 launches outside any group range there); and prints for
 each:
 
 - the host wall time of the request (median of three, without the
@@ -290,6 +293,17 @@ def main() -> int:
         lambda: runtime.evaluate_compiled(logreg_bin, {"x": xl})
     )
     print(f"from_bytes: {json.dumps(bytes_profile)}", flush=True)
+    per_host = LocalMooseRuntime(["alice", "bob", "carole"],
+                                 layout="per-host")
+    per_host_dot = profile_request(
+        lambda: per_host.evaluate_computation(comp, {"x": x, "y": y})
+    )
+    print(f"per_host_secure_dot: {json.dumps(per_host_dot)}", flush=True)
+    per_host_logreg = profile_request(
+        lambda: per_host.evaluate_computation(logreg, {"x": xl})
+    )
+    print(f"per_host_logistic_regression: {json.dumps(per_host_logreg)}",
+          flush=True)
     multi = chip_smoke.multinomial_regression(rng,
                                               chip_smoke.MULTI_FEATURES)
     multi_comp = multi.predictor_factory()
@@ -384,6 +398,8 @@ def main() -> int:
                       "secure_dot": dot, "linear_regressor": lin,
                       "logistic_regression": logreg_profile,
                       "from_bytes": bytes_profile,
+                      "per_host_secure_dot": per_host_dot,
+                      "per_host_logistic_regression": per_host_logreg,
                       "multinomial_regression": multi_profile,
                       "mlp_classifier": mlp_profile,
                       "resnet": resnet_profile,

@@ -74,6 +74,28 @@ def test_dot_cross_terms_kernel_matches_plain(cuda, width, shape):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("shape", DOT_SHAPES)
+def test_dot_cross_terms_product_only_matches_plain(cuda, width, shape):
+    """K1's product-only mode (x1 and y0 None: x0 @ ysum, depth k), as
+    a host ring Dot launches it, on the party-batched operands and
+    through ``ring_matmul`` on a matrix pair."""
+    m, k, n = shape
+    rng = np.random.default_rng(m + k + n + 1)
+    x0 = _words(rng, (3, m, k), width, cuda)
+    ys = _words(rng, (3, k, n), width, cuda)
+    before = rk.LAUNCHES["dot_cross_terms"]
+    got = rk.dot_cross_terms(x0, None, None, ys, width)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["dot_cross_terms"] == before + 1
+    _assert_equal(got, rk.ring_matmul_plain(x0, ys, width))
+    a, b = (tuple(None if t is None else t[1] for t in p) for p in (x0, ys))
+    got = rk.ring_matmul(a, b, width)
+    assert rk.LAUNCHES["dot_cross_terms"] == before + 2
+    _assert_equal(got, rk.ring_matmul_plain(a, b, width))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
 @pytest.mark.parametrize("amount", (0, 23, 40, 62))
 def test_trunc_combine_kernel_matches_plain(cuda, width, amount):
     rng = np.random.default_rng(amount)
@@ -1103,6 +1125,131 @@ def test_aes_ctr_request_on_the_card_matches_the_cpu(cuda, monkeypatch):
     assert launched["prf_aes_ctr_host"] == 50
     for name in ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                  "ring_mul", "msb", "bit_decompose", "horner"):
+        assert launched[name] >= 1, name
+
+
+# -- the per-host layout ----------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("m,k,n", ((1000, 1000, 1000), (5, 7, 3),
+                                   (1024, 101, 1), (1, 4, 1)))
+def test_dot_cross_terms_at_one_party_matches_plain(cuda, width, m, k, n):
+    """K1 as the per-host layout launches it: one party's
+    x0 @ (y0 + y1) + x1 @ y0 (``party_dot_cross_terms``), and a host
+    ring Dot with zero x1 and y0 (``ring_matmul``)."""
+    rng = np.random.default_rng(m + k + n + width)
+    x0, x1 = (_words(rng, (m, k), width, "cuda") for _ in range(2))
+    y0, y1 = (_words(rng, (k, n), width, "cuda") for _ in range(2))
+    ys = ring.add(*y0, *y1)
+    got = rk.party_dot_cross_terms(x0, x1, y0, ys, width)
+    want = rk.dot_cross_terms_plain(
+        *(tuple(t.cpu() if t is not None else None for t in p)
+          for p in (x0, x1, y0, ys)), width)
+    _assert_equal(tuple(t.cpu() if t is not None else None for t in got),
+                  want)
+    got = rk.ring_matmul(x0, y0, width)
+    want = rk.ring_matmul_plain(
+        tuple(t.cpu() if t is not None else None for t in x0),
+        tuple(t.cpu() if t is not None else None for t in y0), width)
+    _assert_equal(tuple(t.cpu() if t is not None else None for t in got),
+                  want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("shape,axis", (((1024, 2), 0), ((3, 5), 1),
+                                        ((4, 3), None)))
+def test_host_fixedpoint_mean_launches_ring_mul(cuda, width, shape, axis):
+    """A host fixed-point Mean's factor goes through K4 on the card, to
+    the CPU's words."""
+    from moose_tpu_torch.dialects import host
+    from moose_tpu_torch.values import HostRingTensor
+
+    rng = np.random.default_rng(width + len(shape))
+    x = _words(rng, shape, width, "cuda")
+    before = rk.LAUNCHES["ring_mul"]
+    got = host.ring_fixedpoint_mean(HostRingTensor(*x, width, "alice"),
+                                    axis, 40, "alice")
+    assert rk.LAUNCHES["ring_mul"] == before + 1
+    want = host.ring_fixedpoint_mean(
+        HostRingTensor(*(None if t is None else t.cpu() for t in x), width,
+                       "alice"), axis, 40, "alice")
+    _assert_equal((got.lo.cpu(), None if got.hi is None else got.hi.cpu()),
+                  (want.lo, want.hi))
+
+
+def _per_host_on_both(monkeypatch, comp, args):
+    """(card, CPU) outputs and the card's launches of one per-host
+    request under fixed keys."""
+    from moose_tpu_torch.runtime import LocalMooseRuntime
+
+    def run(device):
+        before = dict(rk.LAUNCHES)
+        runtime = LocalMooseRuntime(["alice", "bob", "carole"],
+                                    layout="per-host", device=device)
+        out = runtime.evaluate_computation(comp, args)["output_0"]
+        assert runtime.last_plan["layout"] == "per-host"
+        return out, {k: v - before[k] for k, v in rk.LAUNCHES.items()}
+
+    return _on_both(monkeypatch, run)
+
+
+@pytest.mark.gpu
+def test_per_host_secure_dot_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    import moose_tpu_torch as tm
+
+    chip_smoke = _chip_smoke()
+    rng = np.random.default_rng(17)
+    args = {"x": rng.normal(size=(64, 48)), "y": rng.normal(size=(48, 32))}
+    (got, launched), (want, _) = _per_host_on_both(
+        monkeypatch, chip_smoke.secure_dot_computation(tm), args)
+    assert np.array_equal(got, want)
+    assert np.abs(got - args["x"] @ args["y"]).max() < chip_smoke.DOT_TOL
+    # one K1 a party, one K2 truncation, 16 single draws
+    assert launched["dot_cross_terms"] == 3
+    assert launched["trunc_combine"] == 1
+    assert launched["prf_threefry"] == chip_smoke.PER_HOST_DOT_K7
+
+
+@pytest.mark.gpu
+def test_per_host_logistic_regression_on_the_card_matches_the_cpu(
+        cuda, monkeypatch):
+    chip_smoke = _chip_smoke()
+    model = chip_smoke.logistic_regression(
+        np.random.default_rng(18), chip_smoke.LOGREG_FEATURES)
+    x = np.random.default_rng(19).normal(
+        size=(64, chip_smoke.LOGREG_FEATURES))
+    (got, launched), (want, _) = _per_host_on_both(
+        monkeypatch, model.predictor_factory(), {"x": x})
+    assert np.array_equal(got, want)
+    assert np.abs(got - chip_smoke.logistic_reference(model, x)).max() < \
+        chip_smoke.LOGREG_TOL
+    for name in ("dot_cross_terms", "trunc_combine", "cross_terms_mul",
+                 "ring_mul", "prf_threefry"):
+        assert launched[name] >= 1, name
+    for name in ("trunc_pairs", "cross_terms_reshare", "bit_decompose",
+                 "msb", "horner", "prf_threefry_pallas"):
+        assert launched[name] == 0, name
+    assert launched["prf_threefry"] == chip_smoke.PER_HOST_LOGREG_K7
+
+
+@pytest.mark.gpu
+def test_per_host_host_math_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """chip_smoke's host-only graph (host Dot, Exp, Mean, Softmax),
+    per-host on the card, equal to the CPU's words."""
+    import moose_tpu_torch as tm
+
+    chip_smoke = _chip_smoke()
+    rng = np.random.default_rng(20)
+    args = {"x": rng.normal(size=(64, 10)) * 0.1,
+            "y": rng.normal(size=(2, 10)) * 0.1}
+    (got, launched), (want, _) = _per_host_on_both(
+        monkeypatch, chip_smoke.host_math_computation(tm), args)
+    assert np.array_equal(got, want)
+    assert np.abs(got - chip_smoke.host_math_reference(**args)).max() < 1e-6
+    for name in ("dot_cross_terms", "ring_mul"):
         assert launched[name] >= 1, name
 
 

@@ -73,16 +73,27 @@ def test_segment_depth_and_geometry():
     assert rk.dot_geometry(3, 1000, 1000, 1000, 64) == (
         16, 16, 63, 49545216, 49545216)
     assert rk.dot_geometry(3, 1024, 101, 1, 128)[:3] == (16, 1, 7)
+    # the product-only mode: K' = k, half the chunks
+    assert rk.dot_geometry(1, 1000, 1000, 1000, 128, terms=1) == (
+        16, 32, 32, 16777216, 16777216)
+    assert rk.dot_geometry(1, 1024, 100, 2, 128, terms=1)[:3] == (16, 1, 4)
 
 
 @pytest.mark.parametrize("width", WIDTHS)
 @pytest.mark.parametrize("shape", SHAPES)
-def test_limbs_model_matches_plain(width, shape):
+@pytest.mark.parametrize("product_only", (False, True))
+def test_limbs_model_matches_plain(width, shape, product_only):
+    # product_only: x1 and y0 None, K' = k, the host ring Dot's x0 @ ysum
     m, k, n = shape
     rng = np.random.default_rng(m * 1000 + k * 10 + n)
     args = _port_args(*_operands(rng, m, k, n, width), width)
+    if product_only:
+        args = (args[0], None, None, args[3])
     got = rk.dot_cross_terms_limbs_plain(*args, width)
-    _assert_same(got, rk.dot_cross_terms_plain(*args, width))
+    want = rk.dot_cross_terms_plain(*args, width)
+    _assert_same(got, want)
+    if product_only:
+        _assert_same(want, rk.ring_matmul_plain(args[0], args[3], width))
 
 
 @pytest.mark.parametrize("width", WIDTHS)
@@ -197,3 +208,9 @@ def test_chip_smoke_counts_k1_limb_work():
         ops = 2 * chip_smoke.dot_int8_macs(1000, 1000, 1000, width)
         assert by == "operations"
         assert ms == pytest.approx(ops / chip_smoke.INT8_TENSOR_OPS_PER_S * 1e3)
+        # the product-only mode: one party, one contraction of depth k
+        ms, by = chip_smoke.dot_bound(1000, 1000, 1000, width, parties=1,
+                                      terms=1)
+        assert by == "operations"
+        assert ms == pytest.approx(ops / 6 / chip_smoke.INT8_TENSOR_OPS_PER_S
+                                   * 1e3)

@@ -139,8 +139,8 @@ def test_a_lowered_graph_is_refused_naming_item_8():
     assert "SampleSeeded" in str(err.value)
 
 
-def test_compiler_passes_mesh_and_layouts_are_refused():
-    _, ttraced = traced_pair("secure_dot")
+def test_compiler_passes_mesh_and_layouts_are_refused(threefry):
+    jtraced, ttraced = traced_pair("secure_dot")
     runtime = PortRuntime(IDS, device="cpu")
     args = {"x": np.ones((2, 2)), "y": np.ones((2, 2))}
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -150,8 +150,16 @@ def test_compiler_passes_mesh_and_layouts_are_refused():
         runtime.evaluate_computation(ttraced, args, compiler_passes=[])
     with pytest.raises(ConfigurationError, match="item 12"):
         PortRuntime(IDS, mesh=object(), device="cpu")
-    with pytest.raises(ConfigurationError, match="item 8"):
-        PortRuntime(IDS, layout="per-host", device="cpu")
+    # the per-host layout runs now, a blob too: the JAX package's
+    # per-host words under fixed keys
+    blob = tserde.serialize_computation(ttraced)
+    with fixed_keys_env():
+        want = JaxRuntime(IDS, layout="per-host", use_jit=False) \
+            .evaluate_computation(jtraced, args)["output_0"]
+        per_host = PortRuntime(IDS, layout="per-host", device="cpu")
+        got = per_host.evaluate_compiled(blob, args)["output_0"]
+    assert per_host.last_plan["layout"] == "per-host"
+    assert np.array_equal(got, np.asarray(want))
 
 
 def test_the_reference_s_keyword_set():

@@ -146,6 +146,23 @@ def _dense_and_tree_models(sk):
     ]
 
 
+def _reference_host_kinds() -> set:
+    """The op kinds the reference's ``logical._execute_host`` runs, read
+    from its source: each ``kind == "X"`` and ``kind in (...)`` test and
+    the kind tables it consults."""
+    import inspect
+    import re
+
+    from moose_tpu.dialects import logical as jlogical
+
+    src = inspect.getsource(jlogical._execute_host)
+    kinds = set(re.findall(r'kind == "(\w+)"', src))
+    for group in re.findall(r"kind in \(([^)]*)\)", src):
+        kinds |= set(re.findall(r'"(\w+)"', group))
+    return kinds | set(jlogical._HOST_MATH) | set(
+        jlogical._HOST_STRUCTURAL_KINDS)
+
+
 def test_port_supports_exactly_the_slice_kinds():
     model = SimpleNamespace(coef_=np.ones(3), intercept_=np.array([1.0]))
     binary = SimpleNamespace(coef_=np.ones((1, 3)), intercept_=np.ones(1),
@@ -188,13 +205,20 @@ def test_port_supports_exactly_the_slice_kinds():
     for comp in graphs:
         for plc, kinds in _kinds_by_placement(comp).items():
             traced[plc] |= kinds
-    # host Identity and Constant reveal and build what the protocol
-    # library's kinds take and give (tests/test_torch_stacked_kinds.py);
-    # the correlation brings Load and Save
+    # the correlation brings Load and Save, which the walk resolves; the
+    # host kinds are the reference's _execute_host's, so the graphs'
+    # are among them
     assert {"Load", "Save"} <= traced["HostPlacement"]
-    assert tlogical.HOST_KINDS == \
-        traced["HostPlacement"] | {"Identity", "Constant"}
+    assert tlogical.HOST_KINDS == _reference_host_kinds()
+    assert traced["HostPlacement"] - {"Load", "Save"} <= tlogical.HOST_KINDS
     assert tlogical.MIR_KINDS == traced["Mirrored3Placement"]
+    # the one host kind of the reference the port's per-host layout
+    # refuses: Decrypt, whose per-host AES path is item 8b
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        tlogical._execute_host(None, None, SimpleNamespace(
+            kind="Decrypt", name="decrypt_0", signature=SimpleNamespace(
+                return_type=SimpleNamespace(dtype=None))),
+            tm.host_placement("alice"), [None, None])
     # the replicated kinds are the reference's, and cover the graphs'
     assert tstacked.REP_KINDS == jstacked._REP_KINDS
     assert traced["ReplicatedPlacement"] <= tstacked.REP_KINDS
@@ -226,28 +250,22 @@ def test_port_supports_exactly_the_slice_kinds():
 
 
 def test_unported_kind_names_its_roadmap_item():
-    from moose_tpu_torch.edsl import base as edsl
-
-    alice = tm.host_placement("alice")
-    bob = tm.host_placement("bob")
-    carole = tm.host_placement("carole")
-    rep = tm.replicated_placement("rep", players=[alice, bob, carole])
-
-    @tm.computation
-    def inverse(x: tm.Argument(alice, dtype=tm.float64)):
-        with alice:
-            xf = tm.cast(x, dtype=tm.fixed(14, 23))
-        with rep:
-            z = edsl.inverse(xf)
-        with bob:
-            out = tm.cast(z, dtype=tm.float64)
-        return out
-
-    # Inverse runs on the reference's per-host layout only
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        PortRuntime(IDS, device="cpu").evaluate_computation(
-            inverse, {"x": np.ones((2, 2))}
-        )
+    # a replicated Inverse is no stacked kind: under "auto" the runtime
+    # takes it to the per-host layout, as the JAX runtime does, where the
+    # reference has no replicated Inverse either (moose_tpu/dialects/
+    # logical.py:880): both raise the same error
+    args = {"x": np.array([[2.0, 1.0], [1.0, 3.0]])}
+    runtime = PortRuntime(IDS, device="cpu")
+    comp = ttracer.trace(chip_smoke.inverse_computation(tm))
+    assert not tstacked.supports(comp)
+    assert runtime.layout_for(comp) == "per-host"
+    with pytest.raises(NotImplementedError) as want:
+        JaxRuntime(IDS, use_jit=False).evaluate_computation(
+            chip_smoke.inverse_computation(jm), args)
+    with pytest.raises(NotImplementedError) as got:
+        runtime.evaluate_computation(comp, args)
+    assert str(got.value) == str(want.value) == \
+        "replicated op Inverse (inverse_0)"
 
 
 def _recast_computation(pm):
@@ -293,9 +311,21 @@ def test_runtime_defaults_to_cuda_and_raises_without_it():
         interop.ring_from_numpy(np.zeros(2, np.uint64))
 
 
-def test_per_host_layout_is_refused():
-    with pytest.raises(ConfigurationError, match="stacked"):
-        PortRuntime(IDS, layout="per-host", device="cpu")
+def test_per_host_layout_is_refused(fixed_keys):
+    # the per-host layout runs now: a precision recast (two truncations)
+    # gives the JAX package's per-host words under fixed keys
+    args = {"x": np.random.default_rng(5).normal(size=(3, 4))}
+    want = _only_output(
+        JaxRuntime(IDS, layout="per-host", use_jit=False)
+        .evaluate_computation(_recast_computation(jm), args)
+    )
+    runtime = PortRuntime(IDS, layout="per-host", device="cpu")
+    got = _only_output(runtime.evaluate_computation(
+        _recast_computation(tm), args))
+    assert runtime.last_plan["layout"] == "per-host"
+    assert np.array_equal(got, want)
+    with pytest.raises(ValueError, match="unknown layout"):
+        PortRuntime(IDS, layout="sideways", device="cpu")
 
 
 def test_interop_round_trips_words():
@@ -322,7 +352,13 @@ def test_import_adds_no_jax_or_moose_tpu_module():
         "moose_tpu_torch.serde, moose_tpu_torch.textual, "
         "moose_tpu_torch.compilation, moose_tpu_torch.compilation.print, "
         "moose_tpu_torch.elk_compiler, moose_tpu_torch.bin.elk, "
-        "moose_tpu_torch.logger\n"
+        "moose_tpu_torch.logger, moose_tpu_torch.dialects.host, "
+        "moose_tpu_torch.dialects.additive, "
+        "moose_tpu_torch.dialects.replicated, "
+        "moose_tpu_torch.dialects.fixedpoint, "
+        "moose_tpu_torch.dialects.logical, "
+        "moose_tpu_torch.execution.session, "
+        "moose_tpu_torch.execution.interpreter\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'moose_tpu'))\n"
@@ -347,6 +383,11 @@ def test_package_source_imports_no_jax_or_moose_tpu():
             "moose_tpu_torch/serde.py", "moose_tpu_torch/textual.py",
             "moose_tpu_torch/elk_compiler.py", "moose_tpu_torch/logger.py",
             "moose_tpu_torch/bin/elk.py"} <= scanned
+    # the per-host layout's dialects and session
+    assert {f"moose_tpu_torch/{name}.py" for name in (
+        "dialects/host", "dialects/additive", "dialects/replicated",
+        "dialects/fixedpoint", "dialects/logical", "execution/session",
+        "execution/interpreter")} <= scanned
     assert {f"moose_tpu_torch/compilation/{name}.py" for name in (
         "__init__", "typing", "pruning", "toposort", "networking",
         "well_formed", "print")} <= scanned

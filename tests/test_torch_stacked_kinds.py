@@ -125,9 +125,10 @@ def test_rep_kinds_are_the_reference_s_less_four():
     assert len(tstacked.REP_KINDS) == 41
     assert set(ADDED_KINDS) | set(CONV_KINDS) | {"Decrypt"} <= \
         tstacked.REP_KINDS
-    # a Decrypt on a host runs on the reference's per-host layout only
+    # a Decrypt on a host runs on the reference's per-host layout only,
+    # whose AES path is the port's item 8b
     assert tstacked.roadmap_item("HostPlacement", "Decrypt") == \
-        "ROADMAP queue 1, items 6 and 8"
+        "ROADMAP queue 1, item 8b"
 
 
 @pytest.mark.parametrize("kind", ADDED_KINDS + ("Mux, rank-1 selector",))
@@ -252,26 +253,45 @@ def test_refused_kinds_name_their_roadmap_item(fixed_keys, kind, item):
     assert np.array_equal(got, values)
 
 
-def test_secret_integers_name_their_roadmap_item(fixed_keys):
-    alice = tm.host_placement("alice")
-    carole = tm.host_placement("carole")
-    rep = tm.replicated_placement(
-        "rep", players=[alice, tm.host_placement("bob"), carole])
+def test_secret_integers_name_their_roadmap_item(fixed_keys, caplog):
+    # the stacked layout still refuses a secret integer (item 6) with a
+    # TypeMismatchError; the runtime now reroutes such a graph to the
+    # per-host layout, as the JAX runtime does (moose_tpu/runtime.py:
+    # 231-246), which adds the bare index shares
+    def graph_of(pm):
+        alice = pm.host_placement("alice")
+        carole = pm.host_placement("carole")
+        rep = pm.replicated_placement(
+            "rep", players=[alice, pm.host_placement("bob"), carole])
 
-    @tm.computation
-    def graph(x: tm.Argument(alice, dtype=tm.float64)):
-        with alice:
-            xf = tm.cast(x, dtype=tm.fixed(*PRECISION))
-        with rep:
-            a = tm.argmax(xf, axis=1, upmost_index=4)
-            z = tm.add(a, a)
-        with carole:
-            out = tm.identity(z)
-        return out
+        @pm.computation
+        def graph(x: pm.Argument(alice, dtype=pm.float64)):
+            with alice:
+                xf = pm.cast(x, dtype=pm.fixed(*PRECISION))
+            with rep:
+                a = pm.argmax(xf, axis=1, upmost_index=4)
+                z = pm.add(a, a)
+            with carole:
+                out = pm.identity(z)
+            return out
 
+        return graph
+
+    runtime = PortRuntime(IDS, device="cpu")
+    comp = tracer.trace(graph_of(tm))
+    assert tstacked.supports(comp)
     with pytest.raises(TypeMismatchError, match="item 6"):
-        PortRuntime(IDS, device="cpu").evaluate_computation(
-            graph, {"x": ARGS["x"]})
+        runtime._stacked.evaluate(comp, {"x": ARGS["x"]})
+    with caplog.at_level("WARNING", logger="moose_tpu_torch"):
+        got = runtime.evaluate_computation(comp, {"x": ARGS["x"]})
+    assert "falling back to the per-host layout" in caplog.text
+    assert runtime.last_plan["layout"] == "per-host"
+    assert runtime.layout_for(comp) == "per-host"
+    want = JaxRuntime(IDS, layout="per-host", use_jit=False) \
+        .evaluate_computation(graph_of(jm), {"x": ARGS["x"]})["output_0"]
+    assert np.array_equal(got["output_0"], np.asarray(want))
+    assert np.array_equal(got["output_0"].astype(np.int64),
+                          2 * ARGS["x"].argmax(axis=1))
 
 
 def _argmax_cast_computation(pm, dtype):

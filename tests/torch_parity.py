@@ -123,6 +123,96 @@ def assert_words_equal(port_pair, want, label=""):
 
 
 # ---------------------------------------------------------------------------
+# The per-host layout's values, carried across as numpy
+# (tests/test_torch_per_host_*.py)
+# ---------------------------------------------------------------------------
+
+
+def jax_host_to_numpy(x):
+    """A JAX host ring tensor as numpy (lo, hi) words, a bit tensor as
+    uint8: the form of ``interop.host_to_numpy``."""
+    from moose_tpu.values import HostBitTensor
+
+    if isinstance(x, HostBitTensor):
+        return np.asarray(x.value).astype(np.uint8)
+    return jax_words((x.lo, x.hi))
+
+
+def jax_host_from_numpy(value, plc):
+    from moose_tpu.values import HostBitTensor, HostRingTensor
+
+    if isinstance(value, tuple):
+        lo, hi = to_jax(value)
+        return HostRingTensor(lo, hi, 64 if hi is None else 128, plc)
+    return HostBitTensor(jnp.asarray(np.asarray(value, np.uint8)), plc)
+
+
+def jax_shares_to_numpy(x):
+    """A JAX RepTensor's or AdtTensor's shares in the form of
+    ``interop.shares_to_numpy``."""
+    from moose_tpu.values import AdtTensor
+
+    if isinstance(x, AdtTensor):
+        return tuple((jax_host_to_numpy(s), s.plc) for s in x.shares)
+    return tuple(tuple((jax_host_to_numpy(s), s.plc) for s in pair)
+                 for pair in x.shares)
+
+
+def jax_rep_from_numpy(shares, plc):
+    from moose_tpu.values import RepTensor
+
+    return RepTensor(tuple(
+        tuple(jax_host_from_numpy(v, owner) for v, owner in pair)
+        for pair in shares), plc)
+
+
+def jax_adt_from_numpy(shares, plc):
+    from moose_tpu.values import AdtTensor
+
+    return AdtTensor(tuple(jax_host_from_numpy(v, owner)
+                           for v, owner in shares), plc)
+
+
+def _same_numpy_value(a, b, label):
+    if isinstance(a, tuple) and len(a) == 2 and isinstance(
+            a[0], np.ndarray) and not isinstance(a[1], str):
+        assert isinstance(b, tuple), f"{label}: ring against bits"
+        for got, want in zip(a, b):
+            if want is None:
+                assert got is None, f"{label}: unexpected hi words"
+                continue
+            assert got.shape == want.shape, f"{label}: shape"
+            assert np.array_equal(got, want), f"{label}: words differ"
+        return
+    if isinstance(a, tuple):
+        assert len(a) == len(b), label
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_numpy_value(x, y, f"{label}[{i}]")
+        return
+    if isinstance(a, str):
+        assert a == b, f"{label}: owner {a} != {b}"
+        return
+    assert a.shape == b.shape and np.array_equal(a, b), \
+        f"{label}: values differ"
+
+
+def assert_shares_equal(port_value, jax_value, label=""):
+    """A port value of the per-host layout (a host ring or bit tensor, a
+    RepTensor or an AdtTensor) equals the JAX one share for share, word
+    for word, owners included."""
+    from moose_tpu.values import AdtTensor, RepTensor
+
+    if isinstance(jax_value, (RepTensor, AdtTensor)):
+        got = interop.shares_to_numpy(port_value)
+        want = jax_shares_to_numpy(jax_value)
+        assert port_value.plc == jax_value.plc, f"{label}: placement"
+    else:
+        got = (interop.host_to_numpy(port_value), port_value.plc)
+        want = (jax_host_to_numpy(jax_value), jax_value.plc)
+    _same_numpy_value(got, want, label)
+
+
+# ---------------------------------------------------------------------------
 # Small graphs of every family the port serves, built alike in both
 # packages (tests/test_torch_serde.py, test_torch_textual.py,
 # test_torch_compiler.py)
