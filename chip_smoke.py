@@ -161,10 +161,29 @@ Phases (each raises on failure; the script then exits non-zero):
      a host-only graph (host Dot, Exp, Mean, Softmax) and a replicated
      product of host-selected columns (Select keeps the stacked layout
      off) must run per-host, and a replicated Inverse is routed
-     per-host, where the reference refuses it too.  Every evaluation of phases 4 to 17 must
-     have run on the stacked layout, and phase 18's on the per-host one
-     (``last_plan["layout"]``).
-Phases 4 to 18 are the main path: the kernels' launch counters are set
+     per-host, where the reference refuses it too.  Its runtimes pass
+     use_jit=False: the logical walk, not the lowered route of phase 19.
+ 19. the lowered route at config 3's width (1024 x 100, fixed(24,40),
+     threefry, fixed keys): (a) phase 6's logistic regression through
+     LocalMooseRuntime(layout="per-host").evaluate_computation(...,
+     compiler_passes=DEFAULT_PASSES), one cold request (its lowering
+     inside host.deterministic_sync_keys(SEED)) and two warm ones, each
+     within 5e-3 and equal word for word to the same request on the CPU
+     lowered under the same seed; the lowering's host ms, op count and
+     top ten kinds, the walls, the launches (K1 in its product-only
+     mode, K4, K7 single draws and nothing else), host seeds, device
+     busy ms and idle share printed; (b) the same lowered graph written
+     by serde and served by evaluate_compiled: word-equal to (a), with
+     (a)'s launch counts; (c) the route: phase 6's graph per-host at
+     use_jit=True runs lowered on the physical executor, at use_jit=False
+     on the logical walk (``last_plan["lowered"]``); (d) Decrypt in the
+     per-host layout: phase 15's encrypted-input inference (replicated
+     key, RepBitOps circuit) per-host, one request at AES_PER_HOST_ROWS x
+     100 within 5e-3, and Decrypt alone exact; walls, launches and peak
+     memory printed.
+Every evaluation of phases 4 to 17 must have run on the stacked layout,
+and phase 18's and 19's on the per-host one (``last_plan["layout"]``).
+Phases 4 to 19 are the main path: the kernels' launch counters are set
 to 0 just before each and read just after.  K1, K2's trunc_pairs and the
 threefry kernel in the phase's stream layout (threefry in all but 7,
 threefry-pallas in 7, and never the other) must have launched in each
@@ -188,7 +207,11 @@ AES_DEVICE_CEILING).  Phase 18 must launch K1, K2's trunc_combine, K3's
 cross_terms_mul, K4 and K7 (in (a) K1, K2 and K7), threefry's K7 layout
 in (a), (b) and (d) and both in (c); its K7 launches and its host seed
 derivations (one ring.mix_seed a key and a seed) stay under the counts
-of the same requests on the CPU + 5% (PER_HOST_*).
+of the same requests on the CPU + 5% (PER_HOST_*).  Phase 19's lowered
+requests must launch K1, K4 and threefry's K7 and none of K2, K3, K5 and
+K6 (the lowered graph holds the reference's composition, no fused step);
+its per-host Decrypt must launch K1, K2's trunc_combine, K3's
+cross_terms_mul, K4 and K7.
 The line before the last is the kernels' JSON record; the last line is
 the device record.
 
@@ -368,6 +391,10 @@ AES_DEVICE_CEILING = 15014  # 14,299 measured on the H100 + 5% (PERF.md)
 PER_HOST_DOT_K7, PER_HOST_DOT_SEEDS = 16, 23
 PER_HOST_LOGREG_K7, PER_HOST_LOGREG_SEEDS = 780, 899
 PER_HOST_LOGREG_REQUESTS = 2
+LOWERED_REQUESTS = 3  # one cold, two warm
+# config 4's per-host request: the circuit's host-op count does not
+# depend on the rows (PERF.md §6, phase 19 (d))
+AES_PER_HOST_ROWS = 1024
 
 
 def per_host_ceiling(count):
@@ -2033,7 +2060,7 @@ def run_per_host(torch, rk, ring, pm, runtime_cls, classifier, logreg, rng):
     rk._threefry, ring.mix_seed = counted_threefry, counted_mix_seed
     record, launches = {}, {}
     try:
-        runtime = runtime_cls(ids, layout="per-host")
+        runtime = runtime_cls(ids, layout="per-host", use_jit=False)
 
         # (a) the secure dot
         x = rng.normal(size=(DOT_N, DOT_N))
@@ -2086,7 +2113,8 @@ def run_per_host(torch, rk, ring, pm, runtime_cls, classifier, logreg, rng):
             outs.append(pred)
         launches["per_host_logistic_regression"] = dict(rk.LAUNCHES)
         logreg_seeds = seeds[0] / len(requests)
-        cpu = runtime_cls(ids, layout="per-host", device="cpu")
+        cpu = runtime_cls(ids, layout="per-host", use_jit=False,
+                          device="cpu")
         draws[0] = seeds[0] = 0
         t0 = time.perf_counter()
         cpu_outs = [cpu.evaluate_computation(logreg, {"x": xr})["output_0"]
@@ -2155,7 +2183,7 @@ def run_per_host(torch, rk, ring, pm, runtime_cls, classifier, logreg, rng):
               per_host_ceiling(PER_HOST_LOGREG_SEEDS))
 
         # (d) "auto": what it routes per-host
-        auto = runtime_cls(ids)
+        auto = runtime_cls(ids, use_jit=False)
         hx = rng.normal(size=(LOGREG_ROWS, LOGREG_FEATURES)) * 0.1
         hy = rng.normal(size=(2, LOGREG_FEATURES)) * 0.1
         sx, sy = (rng.normal(size=(LOGREG_ROWS, 3)) for _ in range(2))
@@ -2198,6 +2226,215 @@ def run_per_host(torch, rk, ring, pm, runtime_cls, classifier, logreg, rng):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    return record, launches
+
+
+def _fixed_keys(os):
+    """Set the fixed-key knobs; return their previous values."""
+    knobs = ("MOOSE_TPU_FIXED_KEYS", "MOOSE_TPU_ALLOW_WEAK_PRF")
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(dict(zip(knobs, (f"chip-smoke-{SEED}", "1"))))
+    return saved
+
+
+def _restore(os, saved):
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def run_lowered(torch, rk, ring, pm, runtime_cls, classifier, logreg,
+                aes_model, aes_comp, aes_key, rng):
+    """Phase 19: the lowered route and the per-host Decrypt, (a) to (d)
+    of the module's docstring.  Returns (record, launches by path);
+    raises on any failed check."""
+    import collections
+    import os
+
+    import numpy as np
+
+    from moose_tpu_torch import serde
+    from moose_tpu_torch.compilation import (
+        DEFAULT_PASSES,
+        compile_computation,
+    )
+    from moose_tpu_torch.compilation.lowering import (
+        arg_specs_from_arguments,
+    )
+    from moose_tpu_torch.dialects import aes, host
+    from moose_tpu_torch.edsl import tracer
+
+    ids = ["alice", "bob", "carole"]
+    seeds = [0]
+    mix_seed = ring.mix_seed
+
+    def counted_mix_seed(*args, **kwargs):
+        seeds[0] += 1
+        return mix_seed(*args, **kwargs)
+
+    record, launches = {}, {}
+    saved = _fixed_keys(os)
+    ring.mix_seed = counted_mix_seed
+    try:
+        # (a) through evaluate_computation(compiler_passes=DEFAULT_PASSES)
+        requests = [rng.normal(size=(LOGREG_ROWS, LOGREG_FEATURES))
+                    for _ in range(LOWERED_REQUESTS)]
+        traced = tracer.trace(logreg)
+        specs = arg_specs_from_arguments({"x": requests[0]})
+        t0 = time.perf_counter()
+        with host.deterministic_sync_keys(SEED):
+            lowered = compile_computation(traced, DEFAULT_PASSES, specs)
+        lower_ms = (time.perf_counter() - t0) * 1e3
+        hist = collections.Counter(op.kind
+                                   for op in lowered.operations.values())
+        runtime = runtime_cls(ids, layout="per-host")
+        rk.reset_launches()
+        seeds[0] = 0
+        walls, outs, errs = [], [], []
+        for i, xr in enumerate(requests):
+            def request():
+                return runtime.evaluate_computation(
+                    logreg, {"x": xr}, compiler_passes=DEFAULT_PASSES)
+            if i == 0:
+                # the cold request lowers: under the seed of `lowered`
+                with host.deterministic_sync_keys(SEED):
+                    out, s = timed(torch, request)
+            else:
+                out, s = timed(torch, request)
+            if not runtime.last_plan.get("lowered"):
+                raise AssertionError(f"not lowered: {runtime.last_plan}")
+            pred, want = out["output_0"], logistic_reference(classifier, xr)
+            if pred.shape != want.shape or not np.all(np.isfinite(pred)):
+                raise AssertionError(f"lowered logreg malformed: "
+                                     f"{pred.shape}")
+            errs.append(float(np.abs(pred - want).max()))
+            walls.append(s)
+            outs.append(pred)
+        launches["lowered_logistic_regression"] = dict(rk.LAUNCHES)
+        lowered_seeds = seeds[0] / len(requests)
+        cpu = runtime_cls(ids, layout="per-host", device="cpu")
+        t0 = time.perf_counter()
+        with host.deterministic_sync_keys(SEED):
+            cpu_outs = [cpu.evaluate_computation(
+                logreg, {"x": xr}, compiler_passes=DEFAULT_PASSES)["output_0"]
+                for xr in requests]
+        cpu_s = (time.perf_counter() - t0) / len(requests)
+        equal = all(np.array_equal(a, b) for a, b in zip(outs, cpu_outs))
+        n_dev, busy_ms = device_busy(torch, lambda: runtime
+                                     .evaluate_computation(
+                                         logreg, {"x": requests[1]},
+                                         compiler_passes=DEFAULT_PASSES))
+        warm_ms = statistics.median(walls[1:]) * 1e3
+        counts = launches["lowered_logistic_regression"]
+        record["lowered_logistic_regression"] = {
+            "lowering_host_ms": lower_ms,
+            "ops": len(lowered.operations),
+            "top_kinds": hist.most_common(10),
+            "latency_ms": [s * 1e3 for s in walls],
+            "max_abs_err": max(errs), "equal_to_cpu": equal,
+            "cpu_latency_ms": cpu_s * 1e3,
+            "k1_product_only_launches": counts["dot_cross_terms"]
+            / len(requests),
+            "k4_launches": counts["ring_mul"] / len(requests),
+            "k7_launches": counts["prf_threefry"] / len(requests),
+            "host_seed_derivations": lowered_seeds,
+            "device_launches": n_dev, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / warm_ms),
+        }
+        log(f"lowered logistic_regression: {len(requests)} requests of "
+            f"{LOGREG_ROWS}x{LOGREG_FEATURES} fixed(24, 40) "
+            f"{json.dumps(record['lowered_logistic_regression'])} "
+            f"launches {counts}")
+        if max(errs) >= LOGREG_TOL:
+            raise AssertionError(f"lowered logreg error {max(errs)}")
+        if not equal:
+            raise AssertionError("lowered logreg differs from the CPU's")
+
+        # (b) the lowered graph from bytes
+        blob = serde.serialize_computation(lowered)
+        rk.reset_launches()
+        bytes_walls, bytes_equal = [], []
+        for xr, want in zip(requests, outs):
+            out, s = timed(torch, lambda: runtime.evaluate_compiled(
+                blob, {"x": xr}))
+            bytes_walls.append(s)
+            bytes_equal.append(bool(np.array_equal(out["output_0"], want)))
+        launches["lowered_from_bytes"] = dict(rk.LAUNCHES)
+        record["lowered_from_bytes"] = {
+            "blob_bytes": len(blob),
+            "latency_ms": [s * 1e3 for s in bytes_walls],
+            "equal_to_a": bytes_equal,
+        }
+        log(f"lowered from bytes: {json.dumps(record['lowered_from_bytes'])}"
+            f" launches {launches['lowered_from_bytes']}")
+        if not all(bytes_equal):
+            raise AssertionError("evaluate_compiled differs from (a)")
+        if launches["lowered_from_bytes"] != counts:
+            raise AssertionError(
+                f"from bytes launched {launches['lowered_from_bytes']}, "
+                f"(a) {counts}")
+
+        # (c) the route follows use_jit
+        routes = {}
+        for use_jit in (True, False):
+            r = runtime_cls(ids, layout="per-host", use_jit=use_jit)
+            out, s = timed(torch, lambda: r.evaluate_computation(
+                logreg, {"x": requests[0]}))
+            routes[str(use_jit)] = {
+                "lowered": r.last_plan["lowered"], "latency_ms": s * 1e3,
+                "max_abs_err": float(np.abs(out["output_0"] - (
+                    logistic_reference(classifier, requests[0]))).max()),
+            }
+        record["route"] = routes
+        log(f"lowered route: {json.dumps(routes)}")
+        if (routes["True"]["lowered"], routes["False"]["lowered"]) != (
+                True, False):
+            raise AssertionError(f"use_jit route: {routes}")
+        if max(v["max_abs_err"] for v in routes.values()) >= LOGREG_TOL:
+            raise AssertionError(f"route error: {routes}")
+    finally:
+        ring.mix_seed = mix_seed
+        _restore(os, saved)
+
+    # (d) config 4's encrypted input per-host: Decrypt alone, then the
+    # inference
+    key, nonce = aes_key_nonce()
+    xr = rng.normal(size=(AES_PER_HOST_ROWS, AES_FEATURES))
+    wire = aes.encrypt_fixed_array(key, nonce, xr, AES_PRECISION[1])
+    args = {"aes_data": wire, "aes_key": aes_key}
+    runtime = runtime_cls(ids, layout="per-host")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    decrypted, decrypt_s = timed(torch, lambda: runtime.evaluate_computation(
+        decrypt_computation(pm, pm.fixed(*AES_PRECISION)), args))
+    decrypt_lowered = runtime.last_plan["lowered"]
+    exact = np.round(xr * 2.0 ** AES_PRECISION[1]) / 2.0 ** AES_PRECISION[1]
+    decrypt_exact = bool(np.array_equal(decrypted["output_0"], exact))
+    rk.reset_launches()
+    out, aes_s = timed(torch, lambda: runtime.evaluate_computation(
+        aes_comp, args))
+    launches["per_host_decrypt"] = dict(rk.LAUNCHES)
+    pred, want = out["output_0"], logistic_reference(aes_model, xr)
+    if pred.shape != want.shape or not np.all(np.isfinite(pred)):
+        raise AssertionError(f"per-host AES output malformed: {pred.shape}")
+    aes_err = float(np.abs(pred - want).max())
+    record["per_host_decrypt"] = {
+        "rows": AES_PER_HOST_ROWS, "features": AES_FEATURES,
+        "decrypt_only_ms": decrypt_s * 1e3, "decrypt_only_exact":
+        decrypt_exact, "latency_ms": aes_s * 1e3, "max_abs_err": aes_err,
+        "lowered": decrypt_lowered or runtime.last_plan["lowered"],
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+    }
+    log(f"per_host decrypt: {json.dumps(record['per_host_decrypt'])} "
+        f"launches {launches['per_host_decrypt']}")
+    if not decrypt_exact:
+        raise AssertionError("per-host Decrypt is not the encoded input")
+    if aes_err >= AES_TOL:
+        raise AssertionError(f"per-host AES inference error {aes_err}")
+    if record["per_host_decrypt"]["lowered"]:
+        raise AssertionError("an AES graph was lowered")
     return record, launches
 
 
@@ -3114,11 +3351,17 @@ def main() -> int:
     phase[0] = 18
     per_host_record, per_host_launches = run_per_host(
         torch, rk, ring, pm, LocalMooseRuntime, classifier, logreg, rng)
+
+    # phase 19: the lowered route and the per-host Decrypt (main path)
+    phase[0] = 19
+    lowered_record, lowered_launches = run_lowered(
+        torch, rk, ring, pm, LocalMooseRuntime, classifier, logreg,
+        aes_model, aes_comp, aes_key, rng)
     LocalMooseRuntime.evaluate_computation = evaluate
     log(f"layouts by phase: "
         f"{json.dumps({p: sorted(v) for p, v in layouts.items()})}")
-    for p in range(4, 19):
-        want = {"per-host" if p == 18 else "stacked"}
+    for p in range(4, 20):
+        want = {"per-host" if p >= 18 else "stacked"}
         if layouts.get(p) != want:
             raise AssertionError(
                 f"phase {p} ran on {layouts.get(p)}, not {want}")
@@ -3139,11 +3382,13 @@ def main() -> int:
         "aes_ctr_logistic_regression": ctr_launches,
         "from_bytes": bytes_launches,
         **per_host_launches,
+        **lowered_launches,
     }
     protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
     per_host_kernels = ("dot_cross_terms", "trunc_combine",
                         "cross_terms_mul", "ring_mul")
+    lowered_kernels = ("dot_cross_terms", "ring_mul", "prf_threefry")
     required = {
         "secure_dot": ("dot_cross_terms", "trunc_pairs", "prf_threefry"),
         "linear_regressor": ("dot_cross_terms", "trunc_pairs",
@@ -3181,7 +3426,21 @@ def main() -> int:
         # (the host Mean's factor on K4)
         "per_host_auto": ("dot_cross_terms", "trunc_combine",
                           "cross_terms_mul", "ring_mul", "prf_threefry"),
+        # the lowered graph: host ring Dots on K1 in its product-only
+        # mode, host ring Muls on K4, every SampleSeeded one K7 draw
+        "lowered_logistic_regression": lowered_kernels,
+        "lowered_from_bytes": lowered_kernels,
+        # Decrypt's ANDs draw on K7, bit_compose's b2a multiplies on K3
+        # and its weights on K4, then the per-host classifier
+        "per_host_decrypt": per_host_kernels + ("prf_threefry",),
     }
+    # the lowered graph holds the reference's composition: no fused step
+    for path in ("lowered_logistic_regression", "lowered_from_bytes"):
+        for name in ("trunc_combine", "trunc_pairs", "cross_terms_mul",
+                     "cross_terms_reshare", "bit_decompose", "msb",
+                     "horner"):
+            if launches_by_path[path][name]:
+                raise AssertionError(f"{path} launched {name}")
     # the streams a phase did not select expand nothing; the per-host
     # layout under threefry-pallas draws its zero shares' bits in
     # threefry's layout, as the reference does
@@ -3360,6 +3619,7 @@ def main() -> int:
         "aes_ctr_logistic_regression": ctr_record,
         "from_bytes": bytes_record,
         "per_host": per_host_record,
+        "lowered": lowered_record,
     }
     log(json.dumps(record))
     log(json.dumps({"kernels": kernels}))

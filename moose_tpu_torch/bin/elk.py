@@ -6,12 +6,11 @@ Subcommands:
   stats    — static graph metrics: op-hist, op-count, out-degree
 
 Examples:
-  python -m moose_tpu_torch.bin.elk compile comp.moose -o comp.bin --passes typing,prune,toposort,wellformed
+  python -m moose_tpu_torch.bin.elk compile comp.moose -o comp.bin --passes typing,lowering,prune,networking,toposort --arg-specs specs.json
   python -m moose_tpu_torch.bin.elk stats op_hist comp.moose
 
 The port's own copy of ``moose_tpu/bin/elk.py``.  ``--arg-specs`` feeds
-only the lowering pass, which is not ported (ROADMAP queue 1, item 8b):
-it is read and passed on, and the lowering pass raises.
+the lowering pass: a JSON object of input name to ``[shape, dtype]``.
 """
 
 from __future__ import annotations

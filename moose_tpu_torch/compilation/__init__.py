@@ -1,12 +1,17 @@
 """Compiler: passes over the placement-IR (reference
 ``moose/src/compilation/mod.rs:17-132``).
 
-The port's own copy of ``moose_tpu/compilation/__init__.py``, with the
-logical passes: typing, prune, networking, toposort, the well-formedness
-check and the DOT print.  The lowering pass (to the host-level graph
-of the physical executor, ROADMAP queue 1, item 8b) and the static analyzer behind ``lint`` and
-``strict`` (item 13) are not ported: asking for them raises, naming the
-item, and nothing runs in their place.
+The port's own copy of ``moose_tpu/compilation/__init__.py``: typing,
+lowering (to the host-level graph of the physical executor, run through
+the dialect kernels under a ``SymbolicSession``), prune, networking,
+toposort, the well-formedness check and the DOT print, with the
+reference's DEFAULT_PASSES.  Lowering needs a static shape for every
+Input and Load (``arg_specs``, usually
+``lowering.arg_specs_from_arguments`` of the first evaluation's
+arguments), baked into the lowered graph as HostShape constants.  The
+static analyzer behind ``lint`` and ``strict`` (ROADMAP queue 1,
+item 13) is not ported: asking for it raises, naming the item, and
+nothing runs in its place.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Optional
 
 from ..computation import Computation
 from ..errors import CompilationError
+from .lowering import lower
 from .networking import networking_pass
 from .pruning import prune
 from .toposort import toposort_pass
@@ -24,7 +30,6 @@ from .well_formed import well_formed_check
 
 DEFAULT_PASSES = ["typing", "lowering", "prune", "networking", "toposort"]
 
-_LOWERING = "ROADMAP queue 1, item 8b"
 _ANALYZER = "ROADMAP queue 1, item 13"
 
 
@@ -36,7 +41,8 @@ def compile_computation(
 ) -> Computation:
     """Run compiler passes over ``comp`` and return the compiled graph
     (reference compile(), compilation/mod.rs:120-132).  ``arg_specs``
-    feeds only the lowering pass and is accepted for it."""
+    feeds the lowering pass: ``{input name: (shape, numpy dtype)}``, a
+    string or a static scalar."""
     if strict:
         raise NotImplementedError(
             f"strict=True runs the static analyzer, which is not ported "
@@ -45,18 +51,15 @@ def compile_computation(
     if passes is None:
         passes = list(DEFAULT_PASSES)
     for p in passes:
-        comp = _run_pass(comp, p)
+        comp = _run_pass(comp, p, arg_specs)
     return comp
 
 
-def _run_pass(comp, p):
+def _run_pass(comp, p, arg_specs):
     if p == "typing":
         return typing_pass(comp)
     if p == "lowering":
-        raise NotImplementedError(
-            f"the lowering pass (the per-host layout) is not ported "
-            f"({_LOWERING})"
-        )
+        return lower(comp, arg_specs)
     if p == "prune":
         return prune(comp)
     if p == "networking":

@@ -4,10 +4,10 @@ sub-protocol (truncation with a third-party mask provider).
 The port of ``moose_tpu/dialects/additive.py`` (``moose/src/additive/``):
 compositions of session methods, word for word the JAX package's.
 Sharing convention: x = x_0 + x_1; party i holds x_i
-(additive/mod.rs:48).  :func:`trunc_draws` is the one statement of the
-truncation's draws and their order: :func:`trunc_pr` shares its mask
-from them, and the per-host layout's fused truncation
-(``replicated.trunc_pr``, K2 on the card) takes them alone.
+(additive/mod.rs:48).  :func:`gen_trunc_mask` records its ops in the
+JAX package's order, which lowering needs op for op;
+:func:`trunc_draws` takes the same draws alone for the per-host layout's
+fused truncation (``replicated.trunc_pr``, K2 on the card).
 """
 
 from __future__ import annotations
@@ -121,18 +121,18 @@ def gen_trunc_mask(sess, provider: str, adt, amount: int, shp, width: int):
     """Provider samples r and additively shares (r, r_top, r_msb) where
     r_top = (r << 1) >> (amount + 1) and r_msb = r >> (k-1)
     (additive/trunc.rs:36-66)."""
-    r, *masks = trunc_draws(sess, provider, shp, width)
+    r = _draw(sess, provider, shp, width)
     r_msb = sess.shr(provider, r, width - 1)
     r_top = sess.shr(provider, sess.shl(provider, r, 1), amount + 1)
-    return tuple(_share_with(sess, adt, v, m)
-                 for v, m in zip((r, r_top, r_msb), masks))
+    return tuple(share_from(sess, adt, v) for v in (r, r_top, r_msb))
 
 
 def trunc_draws(sess, provider: str, shp, width: int):
-    """The truncation mask's four draws at the provider, in the
-    reference's order: r, then the first share of each of r, r_top and
-    r_msb (``share_from``'s draw).  The shares' second halves and
-    r_top/r_msb follow from these without a draw."""
+    """The draws of :func:`gen_trunc_mask` alone, in its order: r, then
+    the first share of each of r, r_top and r_msb (``share_from``'s
+    draw); its shifts and subtractions draw nothing.  The fused
+    truncation (``replicated.trunc_pr``) takes these and does the rest
+    in K2."""
     return tuple(_draw(sess, provider, shp, width) for _ in range(4))
 
 

@@ -1,10 +1,14 @@
-"""AES-128 decryption of encrypted inputs under MPC, in the party-stacked
-layout.
+"""AES-128 decryption of encrypted inputs, on host bits and under MPC in
+both layouts.
 
 PyTorch counterpart of ``moose_tpu/dialects/aes.py``: the plaintext
 AES-128 of numpy (the S-box and the block cipher, the tables of the
 ``aes-ctr`` PRF, the client-side encryption of the wire format) and the
-bit-sliced AES-GCM decryption circuit over replicated bit shares.
+bit-sliced AES-GCM decryption circuit, over one of three bit backends:
+host bits (``HostBitOps``), the per-host layout's replicated bit shares
+(``RepBitOps``, one session call a bit op, so the symbolic session
+records the circuit when a Decrypt is lowered) and the party-stacked
+shares (``StackedBitOps``).
 
 The 16 state bytes are held as 8 bit planes of shape ``(16,) + elem``
 (plane j = bit j of every byte, MSB first), so ShiftRows, MixColumns,
@@ -12,17 +16,13 @@ the squarings and the S-box's affine map are XORs and gathers over
 whole planes.  The S-box is ``A·x^254 ⊕ 0x63`` along the addition chain
 x2, x3, x12, x15, x240, x252, x254: each GF(2^8) product is ONE
 broadcast AND of shape ``(8, 8, 16, ...)`` and XOR folds, so AES-128 is
-80 ANDs (40 on the state, 40 in the key schedule), each one
-``spmd_math.bits_and`` drawing one bit bank in the reference's order.
+80 ANDs (40 on the state, 40 in the key schedule), each one replicated
+AND drawing its zero shares in the reference's order.
 
 Bit conventions match the reference: arrays carry a leading bit axis,
 index ``8*b + j`` = bit j (MSB first) of byte b.  One AES-GCM block's
 keystream is ``AES(key, nonce ‖ counter=2)``; plaintext = ciphertext ⊕
 keystream, composed MSB first into Z_{2^128}.
-
-The per-host backends (``HostBitOps``, ``RepBitOps``, ``decrypt_host``,
-``decrypt_rep``) come with the per-host layout (ROADMAP queue 1, items 6
-and 8).
 """
 
 from __future__ import annotations
@@ -38,7 +38,17 @@ from ..parallel import spmd
 from ..parallel import spmd_math as sm
 from ..parallel.spmd import SpmdFixed
 from ..parallel.spmd_math import SpmdBits
-from ..values import AesTensor, HostAesKey, HostBitTensor
+from ..values import (
+    AesTensor,
+    HostAesKey,
+    HostBitTensor,
+    HostFixedTensor,
+    RepAesKey,
+    RepBitArray,
+    RepFixedTensor,
+    RepTensor,
+)
+from . import replicated as rep_ops
 
 # ---------------------------------------------------------------------------
 # Plaintext GF(2^8) / AES-128 (numpy ints): the circuit's linear bit
@@ -186,8 +196,120 @@ _REDUCE = {e: _gpow(2, e) for e in range(8, 15)}
 
 
 # ---------------------------------------------------------------------------
-# The party-stacked bit backend
+# The bit backends: host bits and the per-host layout's replicated shares
+# (session calls), the party-stacked shares (tensor ops)
 # ---------------------------------------------------------------------------
+
+
+class HostBitOps:
+    """The circuit's bit operations on one host's bits."""
+
+    def __init__(self, sess, plc: str):
+        self.sess = sess
+        self.plc = plc
+
+    def xor(self, x, y):
+        return self.sess.xor(self.plc, x, y)
+
+    def and_(self, x, y):
+        return self.sess.and_(self.plc, x, y)
+
+    def not_(self, x):
+        return self.sess.bit_neg(self.plc, x)
+
+    def expand0(self, x, axis):
+        return self.sess.expand_dims(self.plc, x, axis)
+
+    def concat0(self, xs):
+        return self.sess.concat(self.plc, xs, 0)
+
+    def stack(self, xs):
+        return self.concat0([self.expand0(x, 0) for x in xs])
+
+    def slice0(self, x, b, e):
+        return self.sess.strided_slice(self.plc, x, (slice(b, e),))
+
+    def take0(self, x, idx):
+        return self.concat0([self.slice0(x, i, i + 1) for i in idx])
+
+    def index2(self, x, i, j):
+        y = self.sess.index_axis(self.plc, x, 0, i)
+        return self.sess.index_axis(self.plc, y, 0, j)
+
+    def _ndim(self, x) -> int:
+        return x.value.ndim
+
+    def xor_public(self, x, mask: np.ndarray):
+        m = mask.reshape(mask.shape + (1,) * (self._ndim(x) - mask.ndim))
+        c = self.sess.constant(self.plc, m.astype(bool))
+        return self.sess.xor(self.plc, x, c)
+
+    def compose_ring128(self, bits):
+        """bits: leading axis 128, index i = weight 2^i."""
+        return self.sess.compose_bits(self.plc, bits, 128)
+
+
+class RepBitOps:
+    """The circuit's bit operations on the per-host layout's replicated
+    bit shares: every AND one ``replicated.and_bits`` (its zero shares
+    one draw a party)."""
+
+    def __init__(self, sess, rep):
+        self.sess = sess
+        self.rep = rep
+
+    def xor(self, x, y):
+        return rep_ops.xor(self.sess, self.rep, x, y)
+
+    def and_(self, x, y):
+        return rep_ops.and_bits(self.sess, self.rep, x, y)
+
+    def not_(self, x):
+        return rep_ops.neg_bits(self.sess, self.rep, x)
+
+    def expand0(self, x, axis):
+        return rep_ops.expand_dims(self.sess, self.rep, x, axis)
+
+    def concat0(self, xs):
+        return rep_ops.concat(self.sess, self.rep, xs, 0)
+
+    def stack(self, xs):
+        return self.concat0([self.expand0(x, 0) for x in xs])
+
+    def slice0(self, x, b, e):
+        return rep_ops.strided_slice(self.sess, self.rep, x, (slice(b, e),))
+
+    def take0(self, x, idx):
+        return self.concat0([self.slice0(x, i, i + 1) for i in idx])
+
+    def index2(self, x, i, j):
+        y = rep_ops.index_axis(self.sess, self.rep, x, 0, i)
+        return rep_ops.index_axis(self.sess, self.rep, y, 0, j)
+
+    def _ndim(self, x) -> int:
+        return x.shares[0][0].value.ndim
+
+    def xor_public(self, x, mask: np.ndarray):
+        """XOR with a public constant into share x_0, held by party 0
+        (first slot) and party 2 (second slot), as ``neg_bits`` flips
+        it."""
+        m = mask.reshape(mask.shape + (1,) * (self._ndim(x) - mask.ndim))
+        p = self.rep.owners
+        s = x.shares
+        c0 = self.sess.constant(p[0], m.astype(bool))
+        c2 = self.sess.constant(p[2], m.astype(bool))
+        return RepTensor(
+            (
+                (self.sess.xor(p[0], s[0][0], c0), s[0][1]),
+                s[1],
+                (s[2][0], self.sess.xor(p[2], s[2][1], c2)),
+            ),
+            self.rep.name,
+        )
+
+    def compose_ring128(self, bits):
+        return rep_ops.bit_compose(self.sess, self.rep, bits, 128)
+
 
 
 @functools.lru_cache(maxsize=None)
@@ -441,7 +563,7 @@ def aesgcm_decrypt_block(B, key_bits, nonce_bits, cipher_bits):
 
 
 # ---------------------------------------------------------------------------
-# The stacked layout's entry points
+# The entry points of the logical dialects' Decrypt
 # ---------------------------------------------------------------------------
 
 
@@ -453,6 +575,54 @@ def _ret_precision(op):
             f"{dtype}"
         )
     return dtype.integral_precision, dtype.fractional_precision
+
+
+def decrypt_host(sess, h: str, key, ciphertext, op) -> HostFixedTensor:
+    """Decrypt on a host placement (encrypted/ops.rs host_kernel): a
+    replicated key is revealed to the host first."""
+    from . import logical
+
+    if isinstance(key, RepAesKey):
+        rep = logical._rep_placement_of(sess, key.bits.tensor)
+        bits = rep_ops.reveal(sess, rep, key.bits.tensor, h)
+    elif isinstance(key, HostAesKey):
+        bits = sess.place(h, key.bits)
+    else:
+        raise TypeMismatchError(f"Decrypt key: {type(key).__name__}")
+    if not isinstance(ciphertext, AesTensor):
+        raise TypeMismatchError(
+            f"Decrypt ciphertext: {type(ciphertext).__name__}"
+        )
+    ring = aesgcm_decrypt_block(
+        HostBitOps(sess, h),
+        bits,
+        sess.place(h, ciphertext.nonce_bits),
+        sess.place(h, ciphertext.cipher_bits),
+    )
+    integ, frac = _ret_precision(op)
+    return HostFixedTensor(ring, integ, frac)
+
+
+def decrypt_rep(sess, rep, key, ciphertext, op) -> RepFixedTensor:
+    """Decrypt under MPC in the per-host layout (encrypted/ops.rs
+    rep_kernel): a host key is shared first, then the nonce and the
+    ciphertext bits; the plaintext is never revealed."""
+    if isinstance(key, HostAesKey):
+        key_bits = rep_ops.share(sess, rep, key.bits)
+    elif isinstance(key, RepAesKey):
+        key_bits = key.bits.tensor
+    else:
+        raise TypeMismatchError(f"Decrypt key: {type(key).__name__}")
+    if not isinstance(ciphertext, AesTensor):
+        raise TypeMismatchError(
+            f"Decrypt ciphertext: {type(ciphertext).__name__}"
+        )
+    nonce = rep_ops.share(sess, rep, ciphertext.nonce_bits)
+    cipher = rep_ops.share(sess, rep, ciphertext.cipher_bits)
+    ring = aesgcm_decrypt_block(RepBitOps(sess, rep), key_bits, nonce,
+                                cipher)
+    integ, frac = _ret_precision(op)
+    return RepFixedTensor(ring, integ, frac)
 
 
 @dataclasses.dataclass
@@ -485,11 +655,12 @@ def decrypt_stacked(spmd_sess, op, key, ciphertext) -> SpmdFixed:
     return SpmdFixed(ring, integ, frac)
 
 
-def lift_input(comp, op, arr, plc: str, device):
-    """A user's bit array as a host AES value: an AesTensor ((224,) +
-    shape: 96 nonce bits, 128 ciphertext bits) or a host AesKey ((128,)
-    + shape).  A replicated-placement key is shared where it is lifted
-    (``stacked.lift_aes_input``)."""
+def lift_input(sess, comp, op, arr, plc: str, device):
+    """A user's bit array as an AES value: an AesTensor ((224,) + shape:
+    96 nonce bits, 128 ciphertext bits) or an AesKey ((128,) + shape).  A
+    replicated-placement key arrives as cleartext bits on the first owner
+    and is shared there in the per-host layout, with ``sess`` (the
+    stacked layout shares it itself, ``stacked.lift_aes_input``)."""
     ret = op.signature.return_type
     bits = torch.as_tensor(np.asarray(arr).astype(np.uint8), device=device)
     plc_obj = comp.placements[plc]
@@ -505,13 +676,18 @@ def lift_input(comp, op, arr, plc: str, device):
             HostBitTensor(bits[96:], owner),
             owner,
         )
-    if ret.name in ("AesKey", "HostAesKey") and plc_obj.kind == "Host":
+    if ret.name in ("AesKey", "HostAesKey", "ReplicatedAesKey"):
         if bits.shape[0] != 128:
             raise KernelError(
                 f"AesKey input {op.name}: leading axis must be 128, found "
                 f"{bits.shape[0]}"
             )
-        return HostAesKey(HostBitTensor(bits, plc), plc)
+        if plc_obj.kind == "Host":
+            return HostAesKey(HostBitTensor(bits, plc), plc)
+        if plc_obj.kind == "Replicated":
+            host_bits = HostBitTensor(bits, plc_obj.owners[0])
+            shared = rep_ops.share(sess, plc_obj, host_bits)
+            return RepAesKey(RepBitArray(shared, 128))
     raise TypeMismatchError(
         f"cannot lift AES input of type {ret.name} on a {plc_obj.kind} "
         "placement"

@@ -704,7 +704,11 @@ def cast(x, target: dt.DType, plc: str):
         return HostTensor(x.value.to(torch_dtype(target)), plc, target)
     if target.is_boolean:
         return HostBitTensor((x.value != 0).to(torch.uint8), plc)
-    return HostTensor(x.value.to(torch_dtype(target)), plc, target)
+    value = x.value
+    if x.dtype.name == "uint64" and target.is_float:
+        # the int64 words hold uint64 values
+        value = ring.u64_to_float64(value)
+    return HostTensor(value.to(torch_dtype(target)), plc, target)
 
 
 def cast_ring_lo(x: HostRingTensor, target: dt.DType,

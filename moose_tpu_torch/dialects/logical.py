@@ -16,9 +16,9 @@ Deviation (the JAX package's, kept): plaintext *host* fixed-point math
 the float kernel and re-encodes.  The secure replicated path uses the
 ring protocols of ``fixedpoint.py``.
 
-Not ported yet (ROADMAP queue 1, item 8b): Decrypt in this layout, whose
-per-host bit circuit and replicated AES key the stacked layout does not
-use, and a replicated AES key lifted at its Input.
+The dispatch is written against the session surface only, so it runs on
+the eager session and, for lowering, on the symbolic one
+(``execution/symbolic.py``) alike.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ import torch
 
 from .. import dtypes as dt
 from ..computation import (
-    AES_TY_NAMES,
     Computation,
     HostPlacement,
     Mirrored3Placement,
@@ -54,15 +53,12 @@ from . import fixedpoint as fx
 from . import mirrored as mir_ops
 from . import replicated as rep_ops
 
-# what neither layout runs yet: the per-host layout's AES path and the
-# lowered graphs of the physical executor
-_LATER = "ROADMAP queue 1, item 8b"
 # the secret-shared checkpoints
 _CHECKPOINTS = "ROADMAP queue 1, items 8 and 10"
 
 # the kinds the host and mirrored placements execute: the reference's
-# _execute_host and _execute_mir (Decrypt refuses in this layout, naming
-# item 8b); the stacked layout runs its host and mirrored ops here
+# _execute_host and _execute_mir; the stacked layout runs its host and
+# mirrored ops here
 HOST_KINDS = frozenset({
     "Constant", "Identity", "Output", "Cast", "Shape", "Ones", "Zeros",
     "Inverse", "Add", "Sub", "Mul", "Div", "Dot", "Conv2D", "AvgPool2D",
@@ -159,41 +155,28 @@ def make_session(master_key, device, key_domain: int = 0):
 
 
 def lift_aes_input(sess, comp, op, arr, plc_name: str, device):
-    """Dialect hook: an AES boundary value on a host, as host bits.  A
-    replicated AES key is shared into this layout's replicated bits by
-    the per-host AES path (item 8b)."""
+    """Dialect hook: an AES boundary value as host bits, and a replicated
+    AES key shared from its first owner into this layout's replicated
+    bits, as the reference's walk shares it at its Input."""
     from . import aes
 
-    if isinstance(comp.placements[plc_name], ReplicatedPlacement):
-        raise NotImplementedError(
-            f"a replicated AES key in the per-host layout ({op.name}; "
-            f"{_LATER})")
-    return aes.lift_input(comp, op, arr, plc_name, device)
+    return aes.lift_input(sess, comp, op, arr, plc_name, device)
 
 
 def unsupported_ops(comp: Computation) -> list:
     """``(placement kind, op kind)`` of the ops this layout refuses with
-    a ROADMAP item: the secret-shared checkpoints, Decrypt and a
-    replicated AES key.  Any other kind the reference lacks raises its
-    own error when it is reached."""
-    missing = []
-    for op in comp.operations.values():
-        plc = comp.placements.get(op.placement_name)
-        ret = op.signature.return_type
-        if op.kind in ("LoadShares", "SaveShares", "Decrypt") or (
-            op.kind in ("Input", "Load")
-            and isinstance(plc, ReplicatedPlacement)
-            and ret is not None and ret.name in AES_TY_NAMES
-        ):
-            missing.append((type(plc).__name__, op.kind))
-    return missing
+    a ROADMAP item: the secret-shared checkpoints.  Any other kind the
+    reference lacks raises its own error when it is reached."""
+    return [
+        (type(comp.placements.get(op.placement_name)).__name__, op.kind)
+        for op in comp.operations.values()
+        if op.kind in ("LoadShares", "SaveShares")
+    ]
 
 
 def roadmap_item(placement_kind: str, op_kind: str) -> str:
     """The ROADMAP item of a kind :func:`unsupported_ops` lists."""
-    if op_kind in ("LoadShares", "SaveShares"):
-        return _CHECKPOINTS
-    return _LATER
+    return _CHECKPOINTS
 
 
 def _rep_placement_of(sess, x: RepTensor) -> ReplicatedPlacement:
@@ -566,8 +549,9 @@ def _execute_host(sess, comp, op, plc: HostPlacement, args):
         return sess.select(h, x, axis, index)
 
     if kind == "Decrypt":
-        raise NotImplementedError(
-            f"host Decrypt in the per-host layout ({op.name}; {_LATER})")
+        from . import aes
+
+        return aes.decrypt_host(sess, h, args[0], args[1], op)
 
     raise NotImplementedError(f"host op {kind} ({op.name})")
 
@@ -899,9 +883,9 @@ def _execute_rep(sess, comp, op, plc: ReplicatedPlacement, args):
         )
 
     if kind == "Decrypt":
-        raise NotImplementedError(
-            f"replicated Decrypt in the per-host layout ({op.name}; "
-            f"{_LATER})")
+        from . import aes
+
+        return aes.decrypt_rep(sess, rep, args[0], args[1], op)
 
     raise NotImplementedError(f"replicated op {kind} ({op.name})")
 

@@ -444,15 +444,22 @@ def index(sess, rep, x: RepTensor, axis: int, idx: int) -> RepTensor:
 
 def trunc_pr(sess, rep, x: RepTensor, amount: int) -> RepTensor:
     """Convert to a 2-party additive sharing between parties 0 and 1,
-    truncate with party 2 as the mask provider, convert back: the draws
-    of ``additive.trunc_pr`` and :func:`adt_to_rep` in their order, then
+    truncate with party 2 as the mask provider, convert back:
+    ``adt_to_rep(additive.trunc_pr(rep_to_adt(x)))``.  A session with
+    ``fused_trunc`` (the eager one) takes the draws of
+    ``additive.trunc_pr`` and :func:`adt_to_rep` in their order, then
     the arithmetic between them in one K2 ``trunc_combine``, word for
-    word ``adt_to_rep(additive.trunc_pr(rep_to_adt(x)))``."""
+    word the composition; the symbolic session records the composition
+    itself."""
     from . import additive
     from ..computation import AdditivePlacement
 
     p = rep.owners
     adt = AdditivePlacement(f"{rep.name}.adt", p[:2])
+    if not sess.fused_trunc:
+        y = additive.trunc_pr(sess, adt, rep_to_adt(sess, adt, x), amount,
+                              p[2])
+        return adt_to_rep(sess, rep, y)
     a0, a1 = rep_to_adt(sess, adt, x).shares
     shp = sess.shape(p[0], a0)
     width = a0.width

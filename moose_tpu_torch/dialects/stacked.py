@@ -71,8 +71,6 @@ _INTEGER = "ROADMAP queue 1, item 6"
 def roadmap_item(placement_kind: str, op_kind: str) -> str:
     """Where the port's ROADMAP places an op kind it refuses on a
     placement of ``placement_kind`` (a placement class name)."""
-    if op_kind == "Decrypt":
-        return logical._LATER
     return _REP_ITEMS.get(op_kind, "the per-host layout runs it")
 
 
@@ -564,7 +562,7 @@ def lift_aes_input(sess: StackedSession, comp, op, arr, plc_name: str,
         bits = torch.as_tensor(np.asarray(arr).astype(np.uint8),
                                device=device)
         return aes.StackedAesKey(sm.share_bits(sess.spmd, bits))
-    return aes.lift_input(comp, op, arr, plc_name, device)
+    return aes.lift_input(sess.host, comp, op, arr, plc_name, device)
 
 
 def execute_op(sess: StackedSession, comp: Computation, op: Operation,

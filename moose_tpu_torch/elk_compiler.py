@@ -17,9 +17,10 @@ def compile_computation(comp_bin: bytes, passes: Optional[list] = None,
     the compiled computation re-serialized; the bytes feed
     ``LocalMooseRuntime.evaluate_compiled`` directly.
 
-    ``arg_specs`` feeds only the lowering pass, and ``strict`` the static
-    analyzer; neither is ported (ROADMAP queue 1, items 8 and 13), so
-    asking for them raises."""
+    ``arg_specs`` supplies the static shapes the lowering pass needs:
+    ``{input_name: ((shape...), np_dtype)}``.  ``strict`` runs the static
+    analyzer, which is not ported (ROADMAP queue 1, item 13): asking for
+    it raises."""
     from .compilation import compile_computation as _compile
     from .serde import deserialize_computation, serialize_computation
 

@@ -146,6 +146,20 @@ def _to_user_value(sess, value):
     return to_numpy(value)
 
 
+def binding_cache_key(arguments, use_jit):
+    """Plan-cache key of one argument binding: shapes/dtypes for arrays,
+    values for static scalars/strings (the JAX package's key, shared by
+    the runtime's lowered-graph cache and the physical executor)."""
+    parts = [use_jit]
+    for name, val in sorted(arguments.items()):
+        if isinstance(val, (str, int, float)):
+            parts.append((name, val))
+        else:
+            arr = np.asarray(val)
+            parts.append((name, arr.shape, str(arr.dtype)))
+    return tuple(parts)
+
+
 def ordered_output_names(outputs) -> list:
     """Outputs in declaration order (the tracer names them output_{i})."""
 

@@ -39,6 +39,10 @@ class EagerSession:
     draw the same keys from the same master key.  Without one, the
     master key is drawn from OS entropy at the first key."""
 
+    # replicated.trunc_pr runs its tail after the draws in one
+    # trunc_combine (K2 on the card); the symbolic session does not
+    fused_trunc = True
+
     def __init__(self, device, session_id: Optional[str] = None,
                  master_key=None, key_domain: int = 0):
         self.session_id = session_id or secrets.token_hex(8)

@@ -6,30 +6,39 @@ serialized ones (``evaluate_compiled``), on one device — the CUDA card
 unless the caller asks for the CPU.  Storage holds numpy arrays: Load
 lifts them onto the device, Save writes numpy back.
 
-Two layouts run a graph, as in the JAX package: the per-host layout
-(``dialects/logical.py``, six separately placed arrays a sharing) and the
-party-stacked one (``dialects/stacked.py``).  ``layout="auto"`` (the
+A graph runs as the JAX runtime routes it.  ``layout="auto"`` (the
 default) runs a graph with a replicated op that ``stacked.supports``
-admits on the stacked layout and anything else per-host, rerouting a
-graph the stacked layout rejects mid-run (``TypeMismatchError``);
+admits on the party-stacked layout (``dialects/stacked.py``), rerouting
+a graph the stacked layout rejects mid-run (``TypeMismatchError``);
 ``"stacked"`` skips the replicated-op screen; ``"per-host"`` always runs
-per-host.  The two layouts draw different masks, so their results agree
-to the truncation's noise, not word for word.
+per-host.  Per-host, a graph is lowered (``compilation``, the
+reference's DEFAULT_PASSES) and runs on the physical executor
+(``execution/physical.py``) when the caller passes ``compiler_passes``,
+when it is already lowered, or under ``use_jit`` when its estimated
+lowered size passes the JAX package's segment limit
+(:meth:`LocalMooseRuntime._auto_lower_passes`); else it runs on the
+logical walk (``dialects/logical.py``).  ``use_jit`` resolves as the JAX
+package resolves it (``MOOSE_TPU_JIT``, default on) and only chooses the
+route: the port executes eagerly either way.  The two layouts draw
+different masks, so their results agree to the truncation's noise, not
+word for word; the walk and the lowered graph do too.
 """
 
 from __future__ import annotations
 
+import os
 import weakref
 from collections import OrderedDict
 from typing import Dict, List, Optional
 
 from . import devices
-from .computation import Computation
+from .computation import AES_TY_NAMES, Computation
 from .edsl import base as edsl_base
 from .edsl import tracer
 from .dialects import logical, stacked
 from .errors import ConfigurationError, TypeMismatchError
-from .execution.interpreter import Interpreter
+from .execution.interpreter import Interpreter, binding_cache_key
+from .execution.physical import PhysicalInterpreter
 from .logger import get_logger
 
 
@@ -44,9 +53,9 @@ def _lift_computation(computation, arguments):
     return computation, dict(arguments or {})
 
 
-# op kinds that only a lowered (host-level) graph contains: such a graph
-# runs on the JAX package's per-host physical executor, which the port
-# does not have yet (ROADMAP queue 1, item 8b)
+# op kinds that only a lowered (host-level) graph contains: the positive
+# marker for routing to the physical executor.  All-host graphs without
+# these are logical computations and keep the logical walk
 _LOWERED_KINDS = frozenset({
     "RingFixedpointEncode", "RingFixedpointDecode",
     "RingFixedpointMean", "PrfKeyGen", "DeriveSeed", "SampleSeeded",
@@ -54,9 +63,17 @@ _LOWERED_KINDS = frozenset({
     "BitDecompose", "BitExtract", "Shl", "Shr", "Fill", "ShlDim",
     "Im2Col",
 })
-_LOWERING = (
-    "lowering and the physical executor are ROADMAP queue 1, item 8b"
-)
+# the JAX package's rough lowered sizes of replicated-placement ops, in
+# host ops (moose_tpu/dialects/logical.py EXPANSION_WEIGHTS): they decide
+# whether a graph is lowered under use_jit
+EXPANSION_WEIGHTS = {
+    "Softmax": 11000, "Sqrt": 13500, "Log": 9500, "Log2": 9500,
+    "Div": 4100, "Inverse": 4100, "Exp": 4600, "Sigmoid": 4600,
+    "Pow2": 4600, "Argmax": 3000, "MaxPool2D": 3000, "AvgPool2D": 150,
+    "Maximum": 2000, "Less": 950, "Greater": 950, "Equal": 1200,
+    "Sign": 950, "Abs": 1000, "Relu": 1000, "Mux": 200,
+    "Dot": 170, "Mul": 130, "Conv2D": 250, "Decrypt": 200000,
+}
 LAYOUTS = ("auto", "per-host", "stacked")
 
 
@@ -83,8 +100,11 @@ class LocalMooseRuntime:
             )
         self.device = devices.resolve(device)
         self.layout = layout
-        # the JAX package's validated-jit switch, recorded: the port runs
-        # eagerly either way, and lowers nothing (item 8b)
+        # the JAX package's validated-jit switch: it chooses the route
+        # (a big per-host graph is lowered), and the port runs eagerly on
+        # either route
+        if use_jit is None:
+            use_jit = os.environ.get("MOOSE_TPU_JIT", "1") != "0"
         self.use_jit = use_jit
         storage_mapping = storage_mapping or {}
         for identity in storage_mapping:
@@ -108,11 +128,16 @@ class LocalMooseRuntime:
         }
         self._interpreter = Interpreter(self.device, logical)
         self._stacked = Interpreter(self.device, stacked)
+        self._physical = PhysicalInterpreter(self.device)
+        # (traced computation, passes, binding) -> lowered Computation,
+        # weak-keyed on the computation as the JAX runtime keys it
+        self._compiled_cache = weakref.WeakKeyDictionary()
         # computations the stacked layout rejected mid-run
         # (TypeMismatchError): later evaluations go straight to per-host
         self._stacked_rejected = weakref.WeakSet()
         # the layout that ran the last evaluation, as the JAX package
-        # reports it (the port's plans are always eager)
+        # reports it, and whether the physical executor ran it (the
+        # port's plans are always eager)
         self.last_plan: Dict = {}
         # weak-keyed on the computation object: repeated evaluations of
         # one AbstractComputation trace it once
@@ -125,13 +150,6 @@ class LocalMooseRuntime:
 
     def evaluate_computation(self, computation, arguments=None,
                              compiler_passes=None):
-        if compiler_passes is not None:
-            # the JAX package lowers the graph through these passes and
-            # runs the per-host physical executor
-            raise NotImplementedError(
-                f"compiler_passes lower the graph for the physical "
-                f"executor ({_LOWERING})"
-            )
         if isinstance(computation, edsl_base.AbstractComputation):
             traced = self._trace_cache.get(computation)
             if traced is None:
@@ -141,7 +159,9 @@ class LocalMooseRuntime:
             computation = traced
         computation, arguments = _lift_computation(computation, arguments)
         self.last_plan = {}
-        if self.layout_for(computation) == "stacked":
+        lowered = _is_lowered(computation)
+        if compiler_passes is None and self.layout_for(computation) == \
+                "stacked":
             try:
                 result = self._stacked.evaluate(
                     computation, arguments, self.storage)
@@ -156,19 +176,93 @@ class LocalMooseRuntime:
             else:
                 self.last_plan = _plan("stacked")
                 return result
-        result = self._interpreter.evaluate(
-            computation, arguments, self.storage)
-        self.last_plan = _plan("per-host")
+        if compiler_passes is None and self.use_jit and not lowered:
+            # a protocol-heavy graph expands to thousands of host ops in
+            # one logical op: the JAX runtime lowers it to bound its jit
+            # programs, and the port follows its route
+            compiler_passes = self._auto_lower_passes(computation)
+        if compiler_passes is not None:
+            computation = self._lowered(computation, arguments,
+                                        compiler_passes)
+            lowered = True
+        if lowered:
+            result = self._physical.evaluate(
+                computation, self.storage, arguments, use_jit=self.use_jit)
+        else:
+            result = self._interpreter.evaluate(
+                computation, arguments, self.storage)
+        self.last_plan = _plan("per-host", lowered)
         return result
+
+    def _lowered(self, computation, arguments, passes):
+        """``computation`` compiled through ``passes`` for the shapes of
+        ``arguments`` (and of its Loads in storage), cached under the JAX
+        runtime's key: the passes, the binding and the specs."""
+        from .compilation import compile_computation
+        from .compilation.lowering import arg_specs_from_arguments
+
+        specs = arg_specs_from_arguments(
+            arguments, storage=self.storage, comp=computation)
+        # callable passes have no stable identity: run them uncached
+        cacheable = all(isinstance(p, str) for p in passes)
+        key = None
+        if cacheable:
+            per_comp = self._compiled_cache.get(computation)
+            if per_comp is None:
+                per_comp = self._compiled_cache[computation] = {}
+            # a storage write that changes a loaded value's shape must
+            # miss the cache
+            key = (
+                tuple(passes),
+                binding_cache_key(arguments, self.use_jit),
+                tuple(sorted(
+                    (n, s) if isinstance(s, (str, int, float))
+                    else (n, tuple(s[0]), str(s[1]))
+                    for n, s in specs.items()
+                )),
+            )
+            compiled = per_comp.get(key)
+            if compiled is not None:
+                return compiled
+        compiled = compile_computation(computation, passes=passes,
+                                       arg_specs=specs)
+        if cacheable:
+            per_comp[key] = compiled
+        return compiled
+
+    @staticmethod
+    def _auto_lower_passes(computation):
+        """DEFAULT_PASSES when the graph's estimated lowered size passes
+        the segment limit, else None (the logical walk): the JAX
+        runtime's decision (``moose_tpu/runtime.py:365-389``).  An
+        AES-typed graph is never lowered here."""
+        from .compilation import DEFAULT_PASSES
+        from .computation import ReplicatedPlacement
+
+        limit = _segment_limit()
+        total = 0
+        for op in computation.operations.values():
+            for ty in (op.signature.return_type, *op.signature.input_types):
+                if ty is not None and ty.name in AES_TY_NAMES:
+                    return None
+            plc = computation.placements.get(op.placement_name)
+            if isinstance(plc, ReplicatedPlacement):
+                total += EXPANSION_WEIGHTS.get(op.kind, 20)
+            else:
+                total += 3
+            if total > limit:
+                return list(DEFAULT_PASSES)
+        return None
 
     def layout_for(self, computation: Computation) -> str:
         """The layout an evaluation of ``computation`` starts on: the
         JAX runtime's routing (``moose_tpu/runtime.py:196-262``).
         ``"auto"`` keeps a graph without a replicated op per-host (there
-        is nothing to stack); a graph ``stacked.supports`` rejects, or one
-        it rejected mid-run before, runs per-host under either stacked
-        setting."""
-        if self.layout == "per-host" or computation in self._stacked_rejected:
+        is nothing to stack); a lowered graph, a graph ``stacked.supports``
+        rejects, or one it rejected mid-run before, runs per-host under
+        either stacked setting."""
+        if (self.layout == "per-host" or _is_lowered(computation)
+                or computation in self._stacked_rejected):
             return "per-host"
         if self.layout == "auto" and not _has_replicated_op(computation):
             return "per-host"
@@ -177,7 +271,8 @@ class LocalMooseRuntime:
     def evaluate_compiled(self, comp_bin, arguments=None):
         """Run a serialized computation (``serde.serialize_computation``,
         ``elk_compiler.compile_computation``), routed as
-        :meth:`evaluate_computation` routes it."""
+        :meth:`evaluate_computation` routes it: a lowered graph runs on
+        the physical executor."""
         from .serde import deserialize_computation
 
         # each blob is decoded once, and later calls reuse its object
@@ -190,13 +285,6 @@ class LocalMooseRuntime:
         else:
             # a hot computation must not be evicted ahead of cold ones
             self._bin_cache.move_to_end(comp_bin)
-        lowered = sorted({op.kind for op in comp.operations.values()
-                          if op.kind in _LOWERED_KINDS})
-        if lowered:
-            raise NotImplementedError(
-                f"a lowered computation ({', '.join(lowered)}) runs on the "
-                f"per-host physical executor ({_LOWERING})"
-            )
         return self.evaluate_computation(comp, arguments)
 
     def read_value_from_storage(self, identity: str, key: str):
@@ -219,7 +307,28 @@ def _has_replicated_op(computation: Computation) -> bool:
     )
 
 
-def _plan(layout: str) -> dict:
-    """``last_plan`` of an evaluation: its layout, and the JAX package's
-    plan keys for an eager plan."""
-    return {"layout": layout, "plan_mode": "eager", "pinned_ops": []}
+def _is_lowered(computation: Computation) -> bool:
+    return any(op.kind in _LOWERED_KINDS
+               for op in computation.operations.values())
+
+
+def _segment_limit() -> int:
+    """The JAX package's jit segment limit (``MOOSE_TPU_JIT_SEGMENT``,
+    default 2000; 0 disables), against which a graph's estimated lowered
+    size decides the route."""
+    raw = os.environ.get("MOOSE_TPU_JIT_SEGMENT", "2000")
+    try:
+        n = int(raw)
+    except ValueError as e:
+        raise ConfigurationError(
+            f"MOOSE_TPU_JIT_SEGMENT must be an integer, got {raw!r}"
+        ) from e
+    return n if n > 0 else (1 << 62)
+
+
+def _plan(layout: str, lowered: bool = False) -> dict:
+    """``last_plan`` of an evaluation: its layout, whether the physical
+    executor ran a lowered graph, and the JAX package's plan keys for an
+    eager plan."""
+    return {"layout": layout, "lowered": lowered, "plan_mode": "eager",
+            "pinned_ops": []}

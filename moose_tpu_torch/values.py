@@ -257,6 +257,21 @@ class HostAesKey:
 
 
 @dataclasses.dataclass
+class RepAesKey:
+    """An AES-128 key bit-shared on a replicated placement in the
+    per-host layout: a replicated bit array with leading axis 128."""
+
+    bits: RepBitArray
+
+    @property
+    def plc(self) -> str:
+        return self.bits.plc
+
+    def ty_name(self) -> str:
+        return "ReplicatedAesKey"
+
+
+@dataclasses.dataclass
 class AesTensor:
     """AES-128-GCM ciphertext of a fixed-point tensor: per element a
     96-bit nonce and 128 ciphertext bits, each a HostBitTensor with that

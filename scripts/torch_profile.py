@@ -20,9 +20,12 @@ threefry-pallas, and one logistic-regression request under the
 reference's aes-ctr PRF (config 4's share generation), through the
 port's LocalMooseRuntime, warm, under torch.profiler; then the secure
 dot and the logistic-regression request again on the per-host layout
-(``layout="per-host"``: one K7 launch a draw, its seed derived on the
-host, so K7 launches outside any group range there); and prints for
-each:
+(``layout="per-host"`` on the logical walk: one K7 launch a draw, its
+seed derived on the host, so K7 launches outside any group range
+there), the logistic-regression request lowered (``compiler_passes=
+DEFAULT_PASSES``) and run by the physical executor, and last the
+encrypted-input request per-host (the RepBitOps circuit); and prints
+for each:
 
 - the host wall time of the request (median of three, without the
   profiler) and the device's busy and idle share (busy = the sum of
@@ -294,7 +297,7 @@ def main() -> int:
     )
     print(f"from_bytes: {json.dumps(bytes_profile)}", flush=True)
     per_host = LocalMooseRuntime(["alice", "bob", "carole"],
-                                 layout="per-host")
+                                 layout="per-host", use_jit=False)
     per_host_dot = profile_request(
         lambda: per_host.evaluate_computation(comp, {"x": x, "y": y})
     )
@@ -303,6 +306,16 @@ def main() -> int:
         lambda: per_host.evaluate_computation(logreg, {"x": xl})
     )
     print(f"per_host_logistic_regression: {json.dumps(per_host_logreg)}",
+          flush=True)
+    from moose_tpu_torch.compilation import DEFAULT_PASSES
+
+    lowered = LocalMooseRuntime(["alice", "bob", "carole"],
+                                layout="per-host")
+    lowered_logreg = profile_request(
+        lambda: lowered.evaluate_computation(
+            logreg, {"x": xl}, compiler_passes=DEFAULT_PASSES)
+    )
+    print(f"lowered_logistic_regression: {json.dumps(lowered_logreg)}",
           flush=True)
     multi = chip_smoke.multinomial_regression(rng,
                                               chip_smoke.MULTI_FEATURES)
@@ -388,6 +401,11 @@ def main() -> int:
         ring.set_prf_impl("threefry")
     print(f"aes_ctr_logistic_regression: {json.dumps(ctr_profile)}",
           flush=True)
+    per_host_aes = profile_request(
+        lambda: per_host.evaluate_computation(aes_comp, aes_args), warm=1
+    )
+    print(f"per_host_aes_inference: {json.dumps(per_host_aes)}",
+          flush=True)
     after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader"],
@@ -400,6 +418,8 @@ def main() -> int:
                       "from_bytes": bytes_profile,
                       "per_host_secure_dot": per_host_dot,
                       "per_host_logistic_regression": per_host_logreg,
+                      "lowered_logistic_regression": lowered_logreg,
+                      "per_host_aes_inference": per_host_aes,
                       "multinomial_regression": multi_profile,
                       "mlp_classifier": mlp_profile,
                       "resnet": resnet_profile,

@@ -361,28 +361,41 @@ def test_aes_wrapper_classifier_equals_the_reference(wrapper_reference):
         chip_smoke.LOGREG_TOL
 
 
-def test_aes_inputs_outside_the_stacked_layout_name_their_item():
-    alice, bob, carole, rep = _placements(tm)
+def _host_decrypt(pm):
+    alice, bob, carole, rep = _placements(pm)
 
-    @tm.computation
+    @pm.computation
     def host_decrypt(
-        aes_data: tm.Argument(alice, vtype=tm.AesTensorType(
-            dtype=tm.fixed(*PRECISION))),
-        aes_key: tm.Argument(alice, vtype=tm.AesKeyType()),
+        aes_data: pm.Argument(alice, vtype=pm.AesTensorType(
+            dtype=pm.fixed(*PRECISION))),
+        aes_key: pm.Argument(alice, vtype=pm.AesKeyType()),
     ):
         with alice:
-            x = tm.decrypt(aes_key, aes_data)
+            x = pm.decrypt(aes_key, aes_data)
         with bob:
-            out = tm.cast(x, dtype=tm.float64)
+            out = pm.cast(x, dtype=pm.float64)
         return out
 
+    return host_decrypt
+
+
+def test_aes_inputs_outside_the_stacked_layout_run_per_host(threefry):
+    """A host Decrypt is not the stacked layout's: the runtime runs it on
+    the per-host layout, as the JAX runtime does, with the JAX runtime's
+    words (the element count of every JAX run here, 2)."""
+    host_decrypt = _host_decrypt(tm)
     assert tstacked.unsupported_ops(ttracer.trace(host_decrypt)) == \
         [("HostPlacement", "Decrypt")]
-    # the runtime takes it to the per-host layout, whose AES path is
-    # item 8b
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        PortRuntime(IDS, device="cpu").evaluate_computation(
-            host_decrypt, {"aes_data": np.zeros((224, 1), np.uint8),
-                           "aes_key": np.zeros(128, np.uint8)})
+    args = {"aes_data": taes.encrypt_fixed_array(KEY, NONCE, FEATURES,
+                                                 PRECISION[1]),
+            "aes_key": taes.bytes_to_bits_be(KEY)}
+    runtime = PortRuntime(IDS, device="cpu")
+    got = runtime.evaluate_computation(host_decrypt, args)["output_0"]
+    want = JaxRuntime(IDS, use_jit=False).evaluate_computation(
+        _host_decrypt(jm), args)["output_0"]
+    assert runtime.last_plan["layout"] == "per-host"
+    assert np.array_equal(got, np.asarray(want))
+    assert np.array_equal(got, np.round(FEATURES * 2.0 ** PRECISION[1])
+                          / 2.0 ** PRECISION[1])
     assert tstacked.supports(ttracer.trace(chip_smoke.decrypt_computation(
         tm, tm.fixed(*PRECISION))))

@@ -5,8 +5,9 @@ Counterparts of tests/test_compiler.py's prune, networking, typing,
 well-formedness and DOT tests: each graph is built alike in both
 packages, and each pass's output in the port is held to the JAX pass's
 output on the same graph through the serialized bytes (errors through
-their class and message).  The passes the port does not have (lowering,
-the analyzer behind lint and strict) raise, naming their ROADMAP item."""
+their class and message).  The lowering pass is held to the JAX one in
+tests/test_torch_lowering.py; the analyzer behind lint and strict, which
+the port does not have, raises, naming its ROADMAP item."""
 
 import importlib
 import subprocess
@@ -354,18 +355,37 @@ def test_elk_compiler_matches_the_jax_package_s_bytes(name):
 
 
 @pytest.mark.parametrize("how,item", (
-    (dict(passes=DEFAULT_PASSES), "item 8"),
-    (dict(passes=["typing", "lowering"]), "item 8"),
+    (dict(passes=DEFAULT_PASSES), None),
+    (dict(passes=["typing", "lowering"]), None),
     (dict(passes=["lint"]), "item 13"),
     (dict(passes=["typing"], strict=True), "item 13"),
 ))
 def test_unported_passes_raise_naming_their_item(how, item):
-    _, ttraced = traced_pair("logreg")
-    with pytest.raises(NotImplementedError, match=item):
-        tcompile(ttraced, **how)
-    with pytest.raises(NotImplementedError, match=item):
-        telk.compile_computation(tserde.serialize_computation(ttraced),
-                                 **how)
+    """The analyzer's passes raise, naming item 13; the lowering passes,
+    ported, give the JAX package's bytes under pinned nonces, through
+    ``compile_computation`` and ``elk_compiler`` alike."""
+    from moose_tpu.dialects import host as jhost
+    from moose_tpu_torch.dialects import host as thost
+
+    jtraced, ttraced = traced_pair("logreg")
+    blob = tserde.serialize_computation(ttraced)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            tcompile(ttraced, **how)
+        with pytest.raises(NotImplementedError, match=item):
+            telk.compile_computation(blob, **how)
+    else:
+        specs = {"x": ((8, 5), "float64")}
+        with thost.deterministic_sync_keys(14):
+            got = tserde.serialize_computation(
+                tcompile(ttraced, arg_specs=specs, **how))
+        with thost.deterministic_sync_keys(14):
+            got_blob = telk.compile_computation(blob, arg_specs=specs,
+                                                **how)
+        with jhost.deterministic_sync_keys(14):
+            want = jserde.serialize_computation(
+                jcompile(jtraced, arg_specs=specs, **how))
+        assert got == want and got_blob == want
     # no pass runs in their place: the default is the JAX package's list
     assert DEFAULT_PASSES == ["typing", "lowering", "prune", "networking",
                               "toposort"]
@@ -403,18 +423,44 @@ def test_elk_cli_matches_the_jax_package_s(tmp_path, capsysbinary):
 
 
 def test_elk_cli_passes_arg_specs_on_to_the_lowering_pass(tmp_path):
+    """``elk compile --passes typing,lowering --arg-specs`` lowers as the
+    JAX CLI lowers: the same graph, whose DeriveSeed sync keys alone
+    differ (each lowering draws its own nonces)."""
     _, ttraced = traced_pair("secure_dot")
     src = tmp_path / "dot.bin"
     src.write_bytes(tserde.serialize_computation(ttraced))
     specs = tmp_path / "specs.json"
     specs.write_text('{"x": [[2, 2], "float64"], "y": [[2, 2], "float64"]}')
-    out = subprocess.run(
-        [sys.executable, "-m", "moose_tpu_torch.bin.elk", "compile",
-         str(src), "--passes", "typing,lowering", "--arg-specs",
-         str(specs)], cwd=REPO, capture_output=True, text=True,
-        timeout=300)
-    assert out.returncode != 0
-    assert "item 8" in out.stderr
+    args = ["compile", str(src), "--passes", "typing,lowering",
+            "--arg-specs", str(specs)]
+    _port_elk(*args, "-o", str(tmp_path / "port.bin"))
+    jelk_cli.main(args + ["-o", str(tmp_path / "jax.bin")])
+    got = tserde.load_computation(str(tmp_path / "port.bin"))
+    want = jserde.load_computation(str(tmp_path / "jax.bin"))
+    assert [(op.name, op.kind, op.inputs, op.placement_name)
+            for op in got.operations.values()] == \
+        [(op.name, op.kind, op.inputs, op.placement_name)
+         for op in want.operations.values()]
+    seeds = 0
+    for op in want.operations.values():
+        mine = got.operations[op.name]
+        assert mine.signature.to_textual() == op.signature.to_textual()
+        if op.kind == "DeriveSeed":
+            seeds += 1
+            continue
+        assert tserde.serialize_computation(_only(got, op.name)) == \
+            jserde.serialize_computation(_only(want, op.name)), op.name
+    assert seeds > 0
+
+
+def _only(comp, name):
+    """A graph of ``comp``'s one op ``name``, for comparing its bytes."""
+    c = IR[0] if type(comp).__module__.startswith("moose_tpu.") else IR[1]
+    one = c.Computation()
+    op = comp.operations[name]
+    one.add_placement(comp.placements[op.placement_name])
+    one.add_operation(op)
+    return one
 
 
 def test_logger_is_the_port_s_own():

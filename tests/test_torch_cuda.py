@@ -1188,7 +1188,8 @@ def _per_host_on_both(monkeypatch, comp, args):
     def run(device):
         before = dict(rk.LAUNCHES)
         runtime = LocalMooseRuntime(["alice", "bob", "carole"],
-                                    layout="per-host", device=device)
+                                    layout="per-host", use_jit=False,
+                                    device=device)
         out = runtime.evaluate_computation(comp, args)["output_0"]
         assert runtime.last_plan["layout"] == "per-host"
         return out, {k: v - before[k] for k, v in rk.LAUNCHES.items()}
@@ -1251,6 +1252,115 @@ def test_per_host_host_math_on_the_card_matches_the_cpu(cuda, monkeypatch):
     assert np.abs(got - chip_smoke.host_math_reference(**args)).max() < 1e-6
     for name in ("dot_cross_terms", "ring_mul"):
         assert launched[name] >= 1, name
+
+
+def _lowered_logreg(rows=64):
+    """chip_smoke's config-3 model lowered (DEFAULT_PASSES, nonces pinned)
+    for ``rows`` rows, with its arguments."""
+    from moose_tpu_torch.compilation import (
+        DEFAULT_PASSES,
+        compile_computation,
+    )
+    from moose_tpu_torch.compilation.lowering import (
+        arg_specs_from_arguments,
+    )
+    from moose_tpu_torch.dialects import host
+    from moose_tpu_torch.edsl import tracer
+
+    chip_smoke = _chip_smoke()
+    model = chip_smoke.logistic_regression(
+        np.random.default_rng(21), chip_smoke.LOGREG_FEATURES)
+    args = {"x": np.random.default_rng(22).normal(
+        size=(rows, chip_smoke.LOGREG_FEATURES))}
+    with host.deterministic_sync_keys(chip_smoke.SEED):
+        lowered = compile_computation(
+            tracer.trace(model.predictor_factory()), DEFAULT_PASSES,
+            arg_specs_from_arguments(args))
+    return chip_smoke, model, lowered, args
+
+
+@pytest.mark.gpu
+def test_physical_executor_launches_k1_k4_and_k7(cuda, monkeypatch):
+    """A lowered config-3 request on the card: every host ring Dot on K1
+    in its product-only mode, every host ring Mul on K4, every
+    SampleSeeded one K7 draw, and no fused protocol step; the CPU's
+    words."""
+    from moose_tpu_torch.execution.physical import execute_physical
+
+    chip_smoke, model, lowered, args = _lowered_logreg()
+    kinds = [op.kind for op in lowered.operations.values()]
+
+    def run(device):
+        before = dict(rk.LAUNCHES)
+        out = execute_physical(lowered, {}, args,
+                               device=device)["output_0"]
+        return out, {k: v - before[k] for k, v in rk.LAUNCHES.items()}
+
+    (got, launched), (want, cpu_launched) = _on_both(monkeypatch, run)
+    assert np.array_equal(got, want)
+    assert np.abs(got - chip_smoke.logistic_reference(
+        model, args["x"])).max() < chip_smoke.LOGREG_TOL
+    assert launched["dot_cross_terms"] == kinds.count("Dot") > 0
+    assert launched["ring_mul"] >= 1
+    assert launched["prf_threefry"] == kinds.count("SampleSeeded")
+    for name in ("trunc_combine", "trunc_pairs", "cross_terms_mul",
+                 "cross_terms_reshare", "bit_decompose", "msb", "horner",
+                 "prf_threefry_pallas"):
+        assert launched[name] == 0, name
+    assert not any(cpu_launched.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ("Mul", "Dot"))
+def test_physical_executor_raises_rather_than_run_a_plain_version(cuda,
+                                                                  kind):
+    """A host ring Mul or Dot whose second operand is not on the card
+    raises in its kernel's wrapper; no plain version runs in its
+    place."""
+    from types import SimpleNamespace
+
+    from moose_tpu_torch.execution.physical import execute_kernel
+    from moose_tpu_torch.execution.session import EagerSession
+    from moose_tpu_torch.values import HostRingTensor
+
+    rng = np.random.default_rng(23)
+    x = HostRingTensor(*_words(rng, (4, 4), 128, "cuda"), 128, "alice")
+    y = HostRingTensor(*_words(rng, (4, 4), 128, "cpu"), 128, "alice")
+    op = SimpleNamespace(kind=kind, name="op_0", attributes={},
+                         signature=SimpleNamespace(return_type=None))
+    before = dict(rk.LAUNCHES)
+    with pytest.raises((ValueError, RuntimeError)):
+        execute_kernel(EagerSession("cuda"), op, "alice", [x, y])
+    assert rk.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_lowered_request_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """The lowered route through the runtime and from bytes: the cold
+    request lowers under pinned nonces, and the card's words are the
+    CPU's, as chip_smoke's phase 19 holds them at full width."""
+    from moose_tpu_torch import serde
+    from moose_tpu_torch.compilation import DEFAULT_PASSES
+    from moose_tpu_torch.dialects import host
+    from moose_tpu_torch.runtime import LocalMooseRuntime
+
+    chip_smoke, model, lowered, args = _lowered_logreg(rows=32)
+    blob = serde.serialize_computation(lowered)
+
+    def run(device):
+        runtime = LocalMooseRuntime(["alice", "bob", "carole"],
+                                    layout="per-host", device=device)
+        with host.deterministic_sync_keys(chip_smoke.SEED):
+            out = runtime.evaluate_computation(
+                model.predictor_factory(), args,
+                compiler_passes=DEFAULT_PASSES)["output_0"]
+        assert runtime.last_plan["lowered"] is True
+        from_bytes = runtime.evaluate_compiled(blob, args)["output_0"]
+        return out, from_bytes
+
+    (got, got_bytes), (want, want_bytes) = _on_both(monkeypatch, run)
+    assert np.array_equal(got, want) and np.array_equal(got_bytes, want)
+    assert np.array_equal(want_bytes, want)
 
 
 def _chip_smoke():

@@ -8,9 +8,9 @@ logistic regression as the JAX package serialized it
 (``golden_torch_logreg.msgpack``, chip_smoke.py phase 17's graph), also
 after the port's ``elk_compiler``, and config 4's AES-input graph.
 Probabilities below 2 at fixed(24,40) decode exactly, so equal floats
-are equal ring words.  Then what the port refuses, each naming its
-ROADMAP item (lowered graphs, ``compiler_passes``, a device mesh), and
-the bounded memo of decoded blobs.  Each JAX run costs 10-30 s of eager
+are equal ring words.  Then a lowered blob and ``compiler_passes`` on
+the physical executor, a device mesh (refused, naming its ROADMAP
+item), and the bounded memo of decoded blobs.  Each JAX run costs 10-30 s of eager
 compiles, so each graph runs there once."""
 
 from pathlib import Path
@@ -127,36 +127,61 @@ def test_from_bytes_equals_the_traced_graph(threefry):
         cs.LOGREG_TOL
 
 
-def test_a_lowered_graph_is_refused_naming_item_8():
+def test_a_jax_lowered_graph_runs_on_the_physical_executor(threefry):
+    """A lowered blob the JAX package wrote (its DEFAULT_PASSES) runs on
+    the port's physical executor: the JAX runtime's words under fixed
+    keys."""
     jtraced, _ = traced_pair("secure_dot")
     args = {"x": np.ones((2, 2)), "y": np.ones((2, 2))}
     lowered = jcompile(jtraced, JAX_DEFAULT_PASSES,
                        arg_specs=arg_specs_from_arguments(args))
     blob = jserialize(lowered)
     runtime = PortRuntime(IDS, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8") as err:
-        runtime.evaluate_compiled(blob, args)
-    assert "SampleSeeded" in str(err.value)
+    with fixed_keys_env():
+        want = JaxRuntime(IDS, use_jit=False).evaluate_compiled(blob, args)
+        got = runtime.evaluate_compiled(blob, args)
+    assert runtime.last_plan["lowered"] is True
+    assert np.array_equal(got["output_0"], np.asarray(want["output_0"]))
+    assert np.abs(got["output_0"] - 2.0).max() < load_chip_smoke().DOT_TOL
 
 
-def test_compiler_passes_mesh_and_layouts_are_refused(threefry):
+def test_compiler_passes_lower_and_a_mesh_is_refused(threefry):
+    """``compiler_passes`` lower the graph for the physical executor, as
+    in the JAX runtime (word-equal under pinned nonces and fixed keys);
+    passes without the lowering leave a logical graph the physical
+    executor cannot run, in both packages alike; a mesh names item 12."""
+    from moose_tpu.dialects import host as jhost
+    from moose_tpu_torch.dialects import host as thost
+
     jtraced, ttraced = traced_pair("secure_dot")
     runtime = PortRuntime(IDS, device="cpu")
     args = {"x": np.ones((2, 2)), "y": np.ones((2, 2))}
-    with pytest.raises(NotImplementedError, match="item 8"):
-        runtime.evaluate_computation(ttraced, args,
-                                     compiler_passes=["typing"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        runtime.evaluate_computation(ttraced, args, compiler_passes=[])
+    with fixed_keys_env():
+        with jhost.deterministic_sync_keys(5):
+            want = JaxRuntime(IDS, use_jit=False).evaluate_computation(
+                jtraced, args, compiler_passes=JAX_DEFAULT_PASSES)
+        with thost.deterministic_sync_keys(5):
+            got = runtime.evaluate_computation(
+                ttraced, args, compiler_passes=JAX_DEFAULT_PASSES)
+    assert runtime.last_plan["lowered"] is True
+    assert np.array_equal(got["output_0"], np.asarray(want["output_0"]))
+    for passes in (["typing"], []):
+        with pytest.raises(KeyError, match="dtype"):
+            JaxRuntime(IDS, use_jit=False).evaluate_computation(
+                jtraced, args, compiler_passes=passes)
+        with pytest.raises(KeyError, match="dtype"):
+            runtime.evaluate_computation(ttraced, args,
+                                         compiler_passes=passes)
     with pytest.raises(ConfigurationError, match="item 12"):
         PortRuntime(IDS, mesh=object(), device="cpu")
-    # the per-host layout runs now, a blob too: the JAX package's
-    # per-host words under fixed keys
+    # the per-host layout runs a blob too: the JAX package's per-host
+    # words under fixed keys
     blob = tserde.serialize_computation(ttraced)
     with fixed_keys_env():
         want = JaxRuntime(IDS, layout="per-host", use_jit=False) \
             .evaluate_computation(jtraced, args)["output_0"]
-        per_host = PortRuntime(IDS, layout="per-host", device="cpu")
+        per_host = PortRuntime(IDS, layout="per-host", use_jit=False,
+                               device="cpu")
         got = per_host.evaluate_compiled(blob, args)["output_0"]
     assert per_host.last_plan["layout"] == "per-host"
     assert np.array_equal(got, np.asarray(want))
@@ -164,12 +189,14 @@ def test_compiler_passes_mesh_and_layouts_are_refused(threefry):
 
 def test_the_reference_s_keyword_set():
     """(identities, storage_mapping, use_jit, layout, mesh), as
-    examples/logistic_regression.py calls it; use_jit is recorded, the
-    port runs eagerly either way."""
+    examples/logistic_regression.py calls it; use_jit resolves as the
+    JAX runtime resolves it (``MOOSE_TPU_JIT``), and the port runs
+    eagerly either way."""
     runtime = PortRuntime(IDS, {"alice": {}}, False, "stacked", None,
                           device="cpu")
     assert runtime.use_jit is False and runtime.layout == "stacked"
-    assert PortRuntime(IDS, device="cpu").use_jit is None
+    assert PortRuntime(IDS, device="cpu").use_jit is \
+        JaxRuntime(IDS).use_jit
 
 
 def _echo_blob(tag):

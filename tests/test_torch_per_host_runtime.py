@@ -1,6 +1,7 @@
 """The per-host layout end to end: both runtimes' ``layout="per-host"``
-(the JAX one at ``use_jit=False``: at ``True`` it lowers a big graph to
-its physical executor, which the port does not have) give equal outputs
+at ``use_jit=False`` (the logical walk: at ``True`` both lower a big
+graph to their physical executors, tests/test_torch_physical_models.py)
+give equal outputs
 under fixed keys for the secure dot and config 3's logistic regression
 at 8 x 5 in both threefry streams, and for every kind of the logical
 dialect's ``_execute_host``, ``_execute_rep`` and ``_execute_mir``
@@ -24,7 +25,6 @@ import moose_tpu as jm
 from moose_tpu.runtime import LocalMooseRuntime as JaxRuntime
 
 import moose_tpu_torch as tm
-from moose_tpu_torch import vtypes
 from moose_tpu_torch.dialects import logical as tlogical
 from moose_tpu_torch.edsl import tracer as ttracer
 from moose_tpu_torch.native import ring_kernels as rk
@@ -60,10 +60,11 @@ def _per_host(jcomp, tcomp, args, stream="threefry"):
     with prf(stream), fixed_keys_env():
         want = JaxRuntime(IDS, layout="per-host", use_jit=False) \
             .evaluate_computation(jcomp, args)
-        runtime = PortRuntime(IDS, layout="per-host", device="cpu")
+        runtime = PortRuntime(IDS, layout="per-host", use_jit=False,
+                              device="cpu")
         got = runtime.evaluate_computation(tcomp, args)
-    assert runtime.last_plan == {"layout": "per-host", "plan_mode": "eager",
-                                 "pinned_ops": []}
+    assert runtime.last_plan == {"layout": "per-host", "lowered": False,
+                                 "plan_mode": "eager", "pinned_ops": []}
     return got, want
 
 
@@ -312,7 +313,9 @@ def _reference_rep_kinds() -> set:
 
 def test_the_kinds_cover_the_dialect():
     # the protocol library's 25 replicated kinds run in
-    # test_torch_per_host_fixedpoint.py; Decrypt refuses (item 8b)
+    # test_torch_per_host_fixedpoint.py, Decrypt in
+    # test_decrypt_in_the_per_host_layout_matches_the_jax_runtime and
+    # test_torch_aes_per_host.py
     assert {k.split(":")[1] for k in KINDS if k.startswith("host:")} | \
         {"Decrypt"} == tlogical.HOST_KINDS
     rep = {k.split(":")[1] for k in KINDS if k.startswith("rep:")}
@@ -320,26 +323,35 @@ def test_the_kinds_cover_the_dialect():
         _reference_rep_kinds()
 
 
-def test_decrypt_in_the_per_host_layout_names_item_8b():
-    alice, bob, carole = (tm.host_placement(n) for n in IDS)
-    rep = tm.replicated_placement("rep", players=[alice, bob, carole])
+def test_decrypt_in_the_per_host_layout_matches_the_jax_runtime():
+    """A replicated AES key lifted at its Input and a replicated Decrypt
+    (the bit-sliced circuit on replicated bit shares, ``RepBitOps``):
+    the JAX runtime's per-host words, and the exact plaintext."""
+    from moose_tpu_torch.dialects import aes as taes
 
-    @tm.computation
-    def graph(aes_data: tm.Argument(alice, vtype=vtypes.AesTensorType(
-                  dtype=tm.fixed(*FX))),
-              aes_key: tm.Argument(rep, vtype=vtypes.AesKeyType())):
-        with rep:
-            x = tm.decrypt(aes_key, aes_data)
-        with bob:
-            out = tm.cast(x, dtype=tm.float64)
-        return out
+    def graph(pm):
+        alice, bob, carole = (pm.host_placement(n) for n in IDS)
+        rep = pm.replicated_placement("rep", players=[alice, bob, carole])
 
-    with pytest.raises(NotImplementedError, match="item 8b") as e:
-        PortRuntime(IDS, layout="per-host", device="cpu") \
-            .evaluate_computation(graph, {
-                "aes_data": np.zeros((224, 1), np.uint8),
-                "aes_key": np.zeros(128, np.uint8)})
-    assert "Decrypt" in str(e.value)
+        @pm.computation
+        def decrypt(aes_data: pm.Argument(alice, vtype=pm.AesTensorType(
+                        dtype=pm.fixed(*FX))),
+                    aes_key: pm.Argument(rep, vtype=pm.AesKeyType())):
+            with rep:
+                x = pm.decrypt(aes_key, aes_data)
+            with bob:
+                out = pm.cast(x, dtype=pm.float64)
+            return out
+
+        return decrypt
+
+    key, nonce = bytes(range(16)), bytes(range(40, 52))
+    vals = np.array([1.5, -2.25])
+    args = {"aes_data": taes.encrypt_fixed_array(key, nonce, vals, FX[1]),
+            "aes_key": taes.bytes_to_bits_be(key)}
+    got, want = _per_host(graph(jm), graph(tm), args)
+    _outputs_equal(got, want)
+    assert np.array_equal(got["output_0"], vals)
 
 
 # -- auto routing -------------------------------------------------------------

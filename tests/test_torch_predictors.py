@@ -163,6 +163,45 @@ def _reference_host_kinds() -> set:
         jlogical._HOST_STRUCTURAL_KINDS)
 
 
+def _host_decrypt_matches_the_reference():
+    """Both packages' ``logical._execute_host`` of one host Decrypt of
+    two elements: equal ring words, the exact plaintext."""
+    import jax.numpy as jnp
+
+    from moose_tpu import dtypes as jdt
+    from moose_tpu import values as jv
+    from moose_tpu.dialects import logical as jlogical
+    from moose_tpu.execution.session import EagerSession as JaxSession
+
+    from moose_tpu_torch import dtypes as tdt
+    from moose_tpu_torch import values as tv
+    from moose_tpu_torch.dialects import aes as taes
+    from moose_tpu_torch.execution.session import EagerSession
+
+    key, nonce, vals = bytes(range(16)), bytes(range(9, 21)), [0.5, -3.0]
+    wire = taes.encrypt_fixed_array(key, nonce, np.array(vals), 23)
+    key_bits = np.repeat(taes.bytes_to_bits_be(key)[:, None], 2, axis=1)
+    results = []
+    for v, dt, asarray, sess, logical in (
+        (jv, jdt, jnp.asarray, JaxSession(), jlogical),
+        (tv, tdt, torch.as_tensor, EagerSession("cpu"), tlogical),
+    ):
+        op = SimpleNamespace(kind="Decrypt", name="decrypt_0",
+                             signature=SimpleNamespace(return_type=(
+                                 SimpleNamespace(dtype=dt.fixed(14, 23)))))
+        k = v.HostAesKey(v.HostBitTensor(asarray(key_bits), "alice"),
+                         "alice")
+        ct = v.AesTensor(v.HostBitTensor(asarray(wire[:96]), "alice"),
+                         v.HostBitTensor(asarray(wire[96:]), "alice"),
+                         "alice")
+        out = logical._execute_host(sess, None, op, SimpleNamespace(
+            name="alice", kind="Host"), [k, ct])
+        results.append(np.asarray(out.tensor.lo).view(np.uint64))
+    assert np.array_equal(results[0], results[1])
+    assert np.array_equal(results[1].view(np.int64),
+                          np.round(np.array(vals) * 2.0 ** 23))
+
+
 def test_port_supports_exactly_the_slice_kinds():
     model = SimpleNamespace(coef_=np.ones(3), intercept_=np.array([1.0]))
     binary = SimpleNamespace(coef_=np.ones((1, 3)), intercept_=np.ones(1),
@@ -212,13 +251,10 @@ def test_port_supports_exactly_the_slice_kinds():
     assert tlogical.HOST_KINDS == _reference_host_kinds()
     assert traced["HostPlacement"] - {"Load", "Save"} <= tlogical.HOST_KINDS
     assert tlogical.MIR_KINDS == traced["Mirrored3Placement"]
-    # the one host kind of the reference the port's per-host layout
-    # refuses: Decrypt, whose per-host AES path is item 8b
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        tlogical._execute_host(None, None, SimpleNamespace(
-            kind="Decrypt", name="decrypt_0", signature=SimpleNamespace(
-                return_type=SimpleNamespace(dtype=None))),
-            tm.host_placement("alice"), [None, None])
+    # the last host kind of the reference to come to the port's per-host
+    # layout: Decrypt, the bit-sliced circuit on host bits, whose words
+    # are the reference's
+    _host_decrypt_matches_the_reference()
     # the replicated kinds are the reference's, and cover the graphs'
     assert tstacked.REP_KINDS == jstacked._REP_KINDS
     assert traced["ReplicatedPlacement"] <= tstacked.REP_KINDS

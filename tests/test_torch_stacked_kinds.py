@@ -126,9 +126,9 @@ def test_rep_kinds_are_the_reference_s_less_four():
     assert set(ADDED_KINDS) | set(CONV_KINDS) | {"Decrypt"} <= \
         tstacked.REP_KINDS
     # a Decrypt on a host runs on the reference's per-host layout only,
-    # whose AES path is the port's item 8b
+    # and on the port's (tests/test_torch_aes.py)
     assert tstacked.roadmap_item("HostPlacement", "Decrypt") == \
-        "ROADMAP queue 1, item 8b"
+        "the per-host layout runs it"
 
 
 @pytest.mark.parametrize("kind", ADDED_KINDS + ("Mux, rank-1 selector",))

@@ -350,3 +350,164 @@ def same_graph(a, b):
             else:
                 assert repr(value) == repr(other.attributes[key]), (name,
                                                                     key)
+
+
+# -- graphs of the lowering and physical-executor tests ----------------------
+
+
+def _compiler_graph(pm, name):
+    """The five graphs of tests/test_compiler.py's lowering tests, for
+    either package's module: host math, a replicated dot and sigmoid at
+    fixed(14, 23), a Load/Save round trip and a replicated multiply at
+    fixed(8, 27)."""
+    alice = pm.host_placement("alice")
+    bob = pm.host_placement("bob")
+    carole = pm.host_placement("carole")
+    rep = pm.replicated_placement("rep", players=[alice, bob, carole])
+
+    if name == "host_math":
+        @pm.computation
+        def host_math(x: pm.Argument(placement=alice, dtype=pm.float64)):
+            with alice:
+                y = pm.exp(x) + pm.constant(np.array([1.0, 1.0, 1.0]),
+                                            dtype=pm.float64)
+            return y
+
+        return host_math
+    if name == "rep_dot":
+        @pm.computation
+        def rep_dot(x: pm.Argument(placement=alice, dtype=pm.float64),
+                    w: pm.Argument(placement=bob, dtype=pm.float64)):
+            with alice:
+                xf = pm.cast(x, dtype=pm.fixed(14, 23))
+            with bob:
+                wf = pm.cast(w, dtype=pm.fixed(14, 23))
+            with rep:
+                y = pm.dot(xf, wf)
+            with carole:
+                out = pm.cast(y, dtype=pm.float64)
+            return out
+
+        return rep_dot
+    if name == "rep_sigmoid":
+        @pm.computation
+        def rep_sigmoid(x: pm.Argument(placement=alice, dtype=pm.float64)):
+            with alice:
+                xf = pm.cast(x, dtype=pm.fixed(14, 23))
+            with rep:
+                y = pm.sigmoid(xf)
+            with carole:
+                out = pm.cast(y, dtype=pm.float64)
+            return out
+
+        return rep_sigmoid
+    if name == "save_load":
+        @pm.computation
+        def save_load(key: pm.Argument(placement=alice,
+                                       vtype=pm.StringType())):
+            with alice:
+                x = pm.load(key, dtype=pm.float64)
+                y = x * x
+                res = pm.save("squared", y)
+            return res
+
+        return save_load
+    if name == "rep_mul":
+        @pm.computation
+        def rep_mul(x: pm.Argument(placement=alice, dtype=pm.float64),
+                    y: pm.Argument(placement=bob, dtype=pm.float64)):
+            with alice:
+                xf = pm.cast(x, dtype=pm.fixed(8, 27))
+            with bob:
+                yf = pm.cast(y, dtype=pm.fixed(8, 27))
+            with rep:
+                z = pm.mul(xf, yf)
+            with carole:
+                out = pm.cast(z, dtype=pm.float64)
+            return out
+
+        return rep_mul
+    if name == "select":
+        # a host Select whose result no later op needs the shape of: the
+        # reference's lowering cannot go further (ROADMAP queue 3)
+        keep = np.array([True, False, True])
+
+        @pm.computation
+        def select(x: pm.Argument(placement=alice, dtype=pm.float64)):
+            with alice:
+                s = pm.select(x, 1, pm.constant(keep, dtype=pm.bool_))
+                y = pm.mul(s, s)
+            with bob:
+                out = pm.identity(y)
+            return out
+
+        return select
+    raise KeyError(name)
+
+
+COMPILER_GRAPHS = ("host_math", "rep_dot", "rep_sigmoid", "save_load",
+                   "rep_mul")
+# the five graphs above, config 3 at 8 x 5, a softmax head, a small
+# convolution and a Select
+LOWERING_GRAPHS = COMPILER_GRAPHS + ("logreg", "multinomial", "structural",
+                                     "select")
+
+
+def lowering_case(name):
+    """(JAX trace, port trace, arguments, storage) of one lowering graph,
+    its arguments made from a seed with numpy."""
+    import moose_tpu as jm
+    import moose_tpu_torch as tm
+    from moose_tpu.edsl import tracer as jtracer
+    from moose_tpu_torch.edsl import tracer as ttracer
+
+    rng = np.random.default_rng(14)
+    storage = {}
+    if name in COMPILER_GRAPHS + ("select",):
+        jc, tc = (_compiler_graph(pm, name) for pm in (jm, tm))
+        args = {
+            "host_math": lambda: {"x": np.array([0.0, 1.0, 2.0])},
+            "rep_dot": lambda: {"x": rng.normal(size=(8, 5)),
+                                "w": rng.normal(size=(5, 2))},
+            "rep_sigmoid": lambda: {
+                "x": np.linspace(-3, 3, 12).reshape(3, 4)},
+            "save_load": lambda: {"key": "data"},
+            "rep_mul": lambda: {"x": np.array([1.5, -2.0, 0.25]),
+                                "y": np.array([4.0, 0.5, -8.0])},
+            "select": lambda: {"x": rng.normal(size=(2, 3))},
+        }[name]()
+        if name == "save_load":
+            storage = {"alice": {"data": np.array([2.0, 3.0])}}
+    else:
+        jc, tc = graph_pair(name)
+        shape = (4, 4) if name == "structural" else (8, 5)
+        args = {"x": rng.normal(size=shape)}
+    return jtracer.trace(jc), ttracer.trace(tc), args, storage
+
+
+def lowered_pair(name, seed=20261017):
+    """Both packages' ``compile_computation(traced, DEFAULT_PASSES +
+    ["wellformed"], arg_specs)`` of one lowering graph, each inside its
+    own ``deterministic_sync_keys(seed)``; with the case's arguments and
+    storage."""
+    from moose_tpu.compilation import DEFAULT_PASSES as JPASSES
+    from moose_tpu.compilation import compile_computation as jcompile
+    from moose_tpu.compilation.lowering import (
+        arg_specs_from_arguments as jspecs,
+    )
+    from moose_tpu.dialects import host as jhost
+    from moose_tpu_torch.compilation import DEFAULT_PASSES as TPASSES
+    from moose_tpu_torch.compilation import compile_computation as tcompile
+    from moose_tpu_torch.compilation.lowering import (
+        arg_specs_from_arguments as tspecs,
+    )
+    from moose_tpu_torch.dialects import host as thost
+
+    jt, tt, args, storage = lowering_case(name)
+    with jhost.deterministic_sync_keys(seed):
+        jl = jcompile(jt, JPASSES + ["wellformed"],
+                      jspecs(args, storage=storage, comp=jt))
+    with thost.deterministic_sync_keys(seed):
+        tl = tcompile(tt, TPASSES + ["wellformed"],
+                      tspecs(args, storage=storage, comp=tt))
+    return jl, tl, args, storage
