@@ -56,7 +56,11 @@ Phases (each raises on failure; the script then exits non-zero):
      16 bit banks of (3,128,262144), timed against its bound only (its
      plain version is held at 65,536); config 4's bit_compose: K3's
      reshare over b2a's (3,2,128,1024,100) ring128 and K4 on it by the
-     (128,1,1) weights 2^i; then one
+     (128,1,1) weights 2^i; the per-host layout's shapes: K1 at one
+     party (the secure dot's, the logistic regression's and phase 20's
+     trainer step's (1,128,100)@(1,100,1) and (1,100,128)@(1,128,1)) and
+     in its product-only mode, K3 unfused, K4 and K7's single draws at
+     (1024,1); then one
      spmd.trunc_pr of (1024,) ring128 and one polynomial_eval (the
      sigmoid's 14 steps) must each run exactly 2 device launches, one K7
      group and their kernel, as the wrappers count them, with no other
@@ -181,10 +185,39 @@ Phases (each raises on failure; the script then exits non-zero):
      key, RepBitOps circuit) per-host, one request at AES_PER_HOST_ROWS x
      100 within 5e-3, and Decrypt alone exact; walls, launches and peak
      memory printed.
+ 20. secure training sessions at benchmarks/logreg.py's width (100
+     features, batches of 128, fixed(24,40), ring128; 1,280 rows from
+     SEED by its recipe): (a) training.TrainingSession trains
+     LogregSGDTrainer (10 steps an epoch) over LocalTrainingCluster with
+     LocalMooseRuntime(use_jit=False) and one CheckpointStore(
+     FilesystemStorage) a party: init, 2 epochs (load_shares -> steps ->
+     save_shares on the per-host walk, each committed), export; the
+     weights within 1e-3 of two reference_epochs in float64; the init,
+     epoch, export and commit walls, one epoch's launches and K7 single
+     draws, one more epoch's device launches, busy ms and idle share under
+     torch.profiler, and the checkpoint bytes a party printed; (b) under
+     fixed keys the same training twice, the second through a cluster
+     that loses a peer (a retryable PeerUnreachableError) after epoch 2's
+     session and before its commit: one resume, every party's committed
+     #s0/#s1 words and the weights equal to the first run's bit for bit,
+     and a fresh driver over those stores skips epochs 1 and 2 and
+     commits nothing; (c) the same trainer at 2 steps an epoch (256 x
+     100) under use_jit=True, its epochs lowered (DEFAULT_PASSES) and run
+     by the physical executor with ring-typed Load and Save, on the card
+     and on the CPU under fixed keys and pinned lowering nonces: equal
+     committed words; the lowering's host ms and op count printed; (d)
+     parallel.spmd.logreg_train_step, benchmarks/logreg.py's run_spmd
+     workload (10 steps of 128 x 100 from zero weights, one session key a
+     step from derive_step_keys), within 1e-3 of its float64 replica
+     (plaintext_sgd), ms per step printed; (e) (a)'s exported weights
+     through training.export.trained_predictor, one 1024 x 100
+     logistic-regression request on the stacked layout within 5e-3.
 Every evaluation of phases 4 to 17 must have run on the stacked layout,
-and phase 18's and 19's on the per-host one (``last_plan["layout"]``).
-Phases 4 to 19 are the main path: the kernels' launch counters are set
-to 0 just before each and read just after.  K1, K2's trunc_pairs and the
+phase 18's and 19's on the per-host one (``last_plan["layout"]``), and
+phase 20's on both (the sessions per-host, the trained model stacked).
+Phases 4 to 20 are the main path: the kernels' launch counters are set
+to 0 just before each (each of phase 20's (a) to (e) apart) and read
+just after.  K1, K2's trunc_pairs and the
 threefry kernel in the phase's stream layout (threefry in all but 7,
 threefry-pallas in 7, and never the other) must have launched in each
 but 10 and 13, and every kernel (K1, K2's trunc_pairs, K3's
@@ -211,7 +244,11 @@ of the same requests on the CPU + 5% (PER_HOST_*).  Phase 19's lowered
 requests must launch K1, K4 and threefry's K7 and none of K2, K3, K5 and
 K6 (the lowered graph holds the reference's composition, no fused step);
 its per-host Decrypt must launch K1, K2's trunc_combine, K3's
-cross_terms_mul, K4 and K7.
+cross_terms_mul, K4 and K7.  Phase 20's walk (a, b) must launch K1, K2's
+trunc_combine, K3's cross_terms_mul, K4 and K7; its lowered epochs (c)
+K1, K4 and K7 and none of K2, K3, K5 and K6; logreg_train_step (d) K1,
+K2's trunc_pairs, K3's cross_terms_reshare, K4 and K7; the trained model
+(e) every kernel of phase 6; (d) and (e) derive no seed on the host.
 The line before the last is the kernels' JSON record; the last line is
 the device record.
 
@@ -395,6 +432,20 @@ LOWERED_REQUESTS = 3  # one cold, two warm
 # config 4's per-host request: the circuit's host-op count does not
 # depend on the rows (PERF.md §6, phase 19 (d))
 AES_PER_HOST_ROWS = 1024
+# Secure training sessions (phase 20): benchmarks/logreg.py's training
+# width (1-8, 32-35: 100 features, batches of 128, fixed(24,40), ring128)
+# through training.TrainingSession, checkpointed on each party; the
+# exported weights within tests/test_training.py:255-257's 1e-3 of
+# reference_epoch, logreg_train_step's trajectory within
+# benchmarks/logreg.py:145's 1e-3 of its float64 replica
+SESSION_FEATURES = 100
+SESSION_BATCH = 128
+SESSION_STEPS = 10  # steps an epoch: 1,280 rows
+SESSION_EPOCHS = 2
+SESSION_LR = 0.1
+SESSION_TOL = 1e-3
+SESSION_LOWERED_STEPS = 2  # (c): 256 rows, also run on the CPU
+TRAINED_ROWS = 1024  # (e): one request of the exported model
 
 
 def per_host_ceiling(count):
@@ -2438,6 +2489,440 @@ def run_lowered(torch, rk, ring, pm, runtime_cls, classifier, logreg,
     return record, launches
 
 
+def plaintext_sgd(x, y, batch_size, n_batches, lr):
+    """Float64 replica of ``spmd.logreg_train_step``'s math from zero
+    weights (degree-3 polynomial sigmoid, plain SGD), as
+    ``benchmarks/logreg.py:107-119``'s ``_plaintext_sgd`` at any width."""
+    import numpy as np
+
+    n_features = x.shape[1]
+    w = np.zeros((n_features, 1))
+    xb = x.reshape(n_batches, batch_size, n_features)
+    yb = y.reshape(n_batches, batch_size, 1)
+    for i in range(n_batches):
+        t = xb[i] @ w
+        preds = 0.5 + 0.19828547 * t - 0.00446928 * (t ** 3)
+        grad = xb[i].T @ (preds - yb[i])
+        w = w - (lr / batch_size) * grad
+    return w
+
+
+def spmd_training(torch, spmd, x, y, batch_size, lr, device):
+    """``benchmarks/logreg.py``'s ``run_spmd`` workload on the port: from
+    zero weights, one ``logreg_train_step`` a batch of ``batch_size``
+    rows, each step under its own session key (``derive_step_keys``),
+    its batch shared inside the step.  Returns the revealed weights as
+    float64 numpy."""
+    import numpy as np
+
+    # run_spmd's master key
+    mk = np.frombuffer(b"moose-tpu-logreg", dtype=np.uint32)
+    n_batches = x.shape[0] // batch_size
+    xb = torch.as_tensor(x, device=device).reshape(
+        n_batches, batch_size, x.shape[1])
+    yb = torch.as_tensor(y, device=device).reshape(n_batches, batch_size, 1)
+    sess = spmd.SpmdSession(mk, device)
+    w = spmd.fx_encode_share(
+        sess, torch.zeros((x.shape[1], 1), dtype=torch.float64,
+                          device=device), 24, 40, 128)
+    # one copy of the (n, 4) key words to the host: a session's master
+    # key is Python ints
+    keys = spmd.derive_step_keys(mk, n_batches, device=device).tolist()
+    for k, xi, yi in zip(keys, xb, yb):
+        s = spmd.SpmdSession(k, device)
+        xs = spmd.fx_encode_share(s, xi, 24, 40, 128)
+        ys = spmd.fx_encode_share(s, yi, 24, 40, 128)
+        w = spmd.logreg_train_step(s, xs, ys, w, lr)
+    return spmd.fx_reveal_decode(w).cpu().numpy()
+
+
+class TimedCluster:
+    """A training cluster that times each session and each commit and
+    counts the kernels each session launched (``LAUNCHES`` before and
+    after, never reset).  With ``fail_at``, the ``fail_at``-th session
+    (counting from 1) raises a retryable ``PeerUnreachableError`` once,
+    after it ran and before its commit: a peer lost between an epoch's
+    session and its commit."""
+
+    def __init__(self, cluster, sync, rk, fail_at=None):
+        self.cluster = cluster
+        self.parties = cluster.parties
+        self.sync = sync
+        self.rk = rk
+        self.fail_at = fail_at
+        self.sessions = []  # (computation, seconds, launches, lowered)
+        self.commit_s = []
+
+    def run(self, comp, arguments, timeout):
+        from moose_tpu_torch.errors import PeerUnreachableError
+
+        before = dict(self.rk.LAUNCHES)
+        self.sync()
+        t0 = time.perf_counter()
+        out = self.cluster.run(comp, arguments, timeout)
+        self.sync()
+        seconds = time.perf_counter() - t0
+        self.sessions.append((
+            comp, seconds,
+            {k: v - before.get(k, 0) for k, v in self.rk.LAUNCHES.items()},
+            self.cluster.runtime.last_plan.get("lowered"),
+        ))
+        if len(self.sessions) == self.fail_at:
+            raise PeerUnreachableError(
+                "injected: a peer lost after the session, before its commit")
+        return out
+
+    def control(self, party, cmd, **args):
+        t0 = time.perf_counter()
+        out = self.cluster.control(party, cmd, **args)
+        if cmd == "commit":
+            self.commit_s.append(time.perf_counter() - t0)
+        return out
+
+    def walls(self, comp):
+        return [s for c, s, _, _ in self.sessions if c is comp]
+
+    def launches(self, comp):
+        return [n for c, _, n, _ in self.sessions if c is comp]
+
+
+def committed_words(stores, trainer):
+    """Every party's committed ``#s0``/``#s1`` limb planes."""
+    import numpy as np
+
+    return {(party, key): np.asarray(store.load(key))
+            for party, store in stores.items()
+            for key in trainer.expected_staged()}
+
+
+def directory_bytes(root):
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def run_training_sessions(torch, rk, ring, pm, runtime_cls, device="cuda"):
+    """Phase 20: secure training sessions, (a) to (e) of the module's
+    docstring, with the port's runtimes on ``device`` (on the CPU, as
+    the tests run it small, without the profiled epoch).  Returns
+    (record, launches by path); raises on any failed check."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from moose_tpu_torch.compilation import (
+        DEFAULT_PASSES,
+        compile_computation,
+    )
+    from moose_tpu_torch.compilation.lowering import (
+        arg_specs_from_arguments,
+    )
+    from moose_tpu_torch.dialects import host
+    from moose_tpu_torch.parallel import spmd
+    from moose_tpu_torch.predictors.trainers import LogregSGDTrainer
+    from moose_tpu_torch.storage import FilesystemStorage
+    from moose_tpu_torch.training import (
+        CheckpointStore,
+        TrainingConfig,
+        TrainingSession,
+        export,
+    )
+    from moose_tpu_torch.training.session import LocalTrainingCluster
+
+    ids = ["alice", "bob", "carole"]
+    fixed = pm.fixed(24, 40)
+    steps = SESSION_STEPS
+    rows = SESSION_BATCH * steps
+    on_card = torch.device(device).type == "cuda"
+    x, y = training_data(np.random.default_rng(SEED), rows,
+                         SESSION_FEATURES)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def trainer_of(n_steps):
+        return LogregSGDTrainer(
+            n_features=SESSION_FEATURES, learning_rate=SESSION_LR,
+            steps_per_epoch=n_steps, fixedpoint_dtype=fixed)
+
+    def train(root, trainer, xs, ys, on=device, use_jit=False,
+              fail_at=None):
+        stores = {p: CheckpointStore(FilesystemStorage(
+            os.path.join(root, p)), party=p) for p in ids}
+        runtime = runtime_cls(ids, storage_mapping=stores,
+                              use_jit=use_jit, device=on)
+        cluster = TimedCluster(LocalTrainingCluster(runtime, ids), sync, rk,
+                               fail_at)
+        session = TrainingSession(trainer, cluster,
+                                  TrainingConfig(epochs=SESSION_EPOCHS))
+        return session, session.run(xs, ys), cluster, stores, runtime
+
+    def reference(session, trainer, xs, ys):
+        state = {"w": session._initial_value("w", (SESSION_FEATURES, 1))}
+        for _ in range(SESSION_EPOCHS):
+            state = trainer.reference_epoch(state, xs, ys)
+        return state["w"]
+
+    record, launches = {}, {}
+    seeds = [0]
+    mix_seed = ring.mix_seed
+
+    def counted_mix_seed(*args, **kwargs):
+        seeds[0] += 1
+        return mix_seed(*args, **kwargs)
+
+    # the walk derives each draw's seed on the host, as phase 18's does:
+    # counted here, apart from the stacked paths' count
+    ring.mix_seed = counted_mix_seed
+    try:
+        # (a) init and two epochs on the walk, then the export
+        trainer = trainer_of(steps)
+        epoch_comp = trainer.epoch_computation(rows)
+        with tempfile.TemporaryDirectory() as root:
+            rk.reset_launches()
+            session, report, cluster, stores, runtime = train(
+                root, trainer, x, y)
+            launches["training_session"] = dict(rk.LAUNCHES)
+            session_seeds = seeds[0]
+            w = report["weights"]["w"]
+            want = reference(session, trainer, x, y)
+            if w.shape != want.shape or not np.all(np.isfinite(w)):
+                raise AssertionError(f"trained weights malformed: {w.shape}")
+            err = float(np.abs(w - want).max())
+            epoch_s = cluster.walls(epoch_comp)
+            epoch_launches = cluster.launches(epoch_comp)[0]
+            n_dev = busy_ms = None
+            if on_card:
+                # one more epoch under the profiler; its stage is dropped
+                n_dev, busy_ms = device_busy(
+                    torch, lambda: runtime.evaluate_computation(
+                        epoch_comp, {"x": x, "y": y}))
+                for store in stores.values():
+                    store.discard_staged()
+            generation = {
+                p: sum(np.asarray(store.load(k)).nbytes
+                       for k in trainer.expected_staged())
+                for p, store in stores.items()}
+            record["session"] = {
+                "rows": rows, "features": SESSION_FEATURES,
+                "steps_per_epoch": steps, "epochs": report["epochs_committed"],
+                "init_ms": cluster.walls(trainer.init_computation())[0] * 1e3,
+                "epoch_ms": [s * 1e3 for s in epoch_s],
+                "export_ms": cluster.walls(trainer.export_computation())[0]
+                * 1e3,
+                # one commit a party, three an epoch
+                "commit_ms": [s * 1e3 for s in cluster.commit_s],
+                "commit_fanout_ms": [
+                    sum(cluster.commit_s[i:i + len(ids)]) * 1e3
+                    for i in range(0, len(cluster.commit_s), len(ids))],
+                "max_abs_err": err,
+                "epoch_launches": epoch_launches,
+                "epoch_k7_single_draws": epoch_launches["prf_threefry"]
+                + epoch_launches["prf_threefry_pallas"],
+                "host_seed_derivations": session_seeds,
+                "epoch_device_launches": n_dev, "epoch_device_busy_ms":
+                busy_ms,
+                "epoch_device_idle_share": None if busy_ms is None else max(
+                    0.0, 1.0 - busy_ms / (statistics.median(epoch_s) * 1e3)),
+                "checkpoint_array_bytes_per_party": generation,
+                "checkpoint_directory_bytes_per_party": {
+                    p: directory_bytes(os.path.join(root, p)) for p in ids},
+            }
+        log(f"training session: {json.dumps(record['session'])} launches "
+            f"{launches['training_session']}")
+        if err >= SESSION_TOL:
+            raise AssertionError(f"trained weights off by {err}")
+        if report["epochs_committed"] != list(range(SESSION_EPOCHS + 1)):
+            raise AssertionError(f"committed {report['epochs_committed']}")
+
+        # (b) bit-exact resume under fixed keys: an uninterrupted run, a
+        # run that loses a peer after epoch 2's session, and a fresh
+        # driver over the resumed run's stores
+        saved = _fixed_keys(os)
+        try:
+            rk.reset_launches()
+            runs = {}
+            for fault in (False, True):
+                with tempfile.TemporaryDirectory() as root:
+                    _, rep, cluster, stores, _ = train(
+                        root, trainer, x, y,
+                        fail_at=SESSION_EPOCHS + 1 if fault else None)
+                    words = committed_words(stores, trainer)
+                    again = None
+                    if fault:
+                        again = TrainingSession(
+                            trainer_of(steps), LocalTrainingCluster(
+                                runtime_cls(ids, storage_mapping=stores,
+                                            use_jit=False, device=device),
+                                ids),
+                            TrainingConfig(epochs=SESSION_EPOCHS),
+                        ).run(x, y)
+                    runs[fault] = (rep, words, again)
+            launches["training_resume"] = dict(rk.LAUNCHES)
+        finally:
+            _restore(os, saved)
+        (clean, clean_words, _), (resumed, resumed_words, again) = (
+            runs[False], runs[True])
+        record["resume"] = {
+            "resumes": resumed["resumes"],
+            "attempts": {str(k): v for k, v in resumed["attempts"].items()},
+            "words_equal": all(np.array_equal(clean_words[k],
+                                              resumed_words[k])
+                               for k in clean_words),
+            "weights_equal": bool(np.array_equal(
+                clean["weights"]["w"], resumed["weights"]["w"])),
+            "fresh_driver_skipped": again["epochs_skipped"],
+            "fresh_driver_committed": again["epochs_committed"],
+            "fresh_driver_weights_equal": bool(np.array_equal(
+                again["weights"]["w"], clean["weights"]["w"])),
+        }
+        log(f"training resume: {json.dumps(record['resume'])} launches "
+            f"{launches['training_resume']}")
+        if (clean["resumes"], resumed["resumes"]) != (0, 1):
+            raise AssertionError(
+                f"resumes {clean['resumes']}, {resumed['resumes']}")
+        if not (record["resume"]["words_equal"]
+                and record["resume"]["weights_equal"]
+                and record["resume"]["fresh_driver_weights_equal"]):
+            raise AssertionError("the resumed run is not bit-exact")
+        if again["epochs_skipped"] != list(range(1, SESSION_EPOCHS + 1)) \
+                or again["epochs_committed"]:
+            raise AssertionError(f"a fresh driver replayed: {again}")
+
+        # (c) the lowered route (use_jit=True: the epoch graph's estimated
+        # size passes the segment limit), on the card and on the CPU under
+        # the same fixed keys and pinned lowering nonces
+        low_rows = SESSION_BATCH * SESSION_LOWERED_STEPS
+        xl, yl = x[:low_rows], y[:low_rows]
+        low = trainer_of(SESSION_LOWERED_STEPS)
+        low_epoch = low.epoch_computation(low_rows)
+        t0 = time.perf_counter()
+        with host.deterministic_sync_keys(SEED):
+            lowered = compile_computation(
+                low_epoch, DEFAULT_PASSES,
+                arg_specs_from_arguments({"x": xl, "y": yl}))
+        lower_ms = (time.perf_counter() - t0) * 1e3
+        saved = _fixed_keys(os)
+        try:
+            out = {}
+            for on in (device, "cpu"):
+                with tempfile.TemporaryDirectory() as root:
+                    rk.reset_launches()
+                    t0 = time.perf_counter()
+                    with host.deterministic_sync_keys(SEED):
+                        _, rep, cluster, stores, _ = train(
+                            root, low, xl, yl, on=on, use_jit=True)
+                    out[on] = (rep, committed_words(stores, low), cluster,
+                               time.perf_counter() - t0, dict(rk.LAUNCHES))
+        finally:
+            _restore(os, saved)
+        rep, words, cluster, card_s, launches["training_lowered"] = out[device]
+        cpu_rep, cpu_words, _, cpu_s, _ = out["cpu"]
+        lowered_routes = [lw for c, _, _, lw in cluster.sessions
+                          if c is low_epoch]
+        low_launches = cluster.launches(low_epoch)
+        record["lowered"] = {
+            "rows": low_rows, "steps_per_epoch": SESSION_LOWERED_STEPS,
+            "lowering_host_ms": lower_ms, "ops": len(lowered.operations),
+            "epoch_lowered": lowered_routes,
+            "epoch_ms": [s * 1e3 for s in cluster.walls(low_epoch)],
+            "run_s": card_s, "cpu_run_s": cpu_s,
+            "words_equal_to_cpu": all(np.array_equal(words[k], cpu_words[k])
+                                      for k in words),
+            "weights_equal_to_cpu": bool(np.array_equal(
+                rep["weights"]["w"], cpu_rep["weights"]["w"])),
+            "max_abs_err": float(np.abs(rep["weights"]["w"] - reference(
+                TrainingSession(low, None), low, xl, yl)).max()),
+            "epoch_launches": low_launches[0],
+        }
+        log(f"training lowered: {json.dumps(record['lowered'])} launches "
+            f"{launches['training_lowered']}")
+        if lowered_routes != [True] * SESSION_EPOCHS:
+            raise AssertionError(f"epochs not lowered: {lowered_routes}")
+        if not (record["lowered"]["words_equal_to_cpu"]
+                and record["lowered"]["weights_equal_to_cpu"]):
+            raise AssertionError("the lowered epochs differ from the CPU's")
+        if record["lowered"]["max_abs_err"] >= SESSION_TOL:
+            raise AssertionError(
+                f"lowered weights off by {record['lowered']['max_abs_err']}")
+        # the lowered epoch holds the reference's composition: no fused
+        # step
+        for counts in low_launches:
+            for name in ("trunc_combine", "trunc_pairs", "cross_terms_mul",
+                         "cross_terms_reshare", "bit_decompose", "msb",
+                         "horner"):
+                if counts[name]:
+                    raise AssertionError(f"a lowered epoch launched {name}")
+    finally:
+        ring.mix_seed = mix_seed
+
+    # (d) and (e) run on the stacked protocol, whose seeds the card
+    # derives: no seed on the host
+    ring.mix_seed = counted_mix_seed
+    seeds[0] = 0
+    try:
+        # (d) logreg_train_step: benchmarks/logreg.py's run_spmd
+        # workload
+        rk.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        w_fit = spmd_training(torch, spmd, x, y, SESSION_BATCH, SESSION_LR,
+                              device)
+        sync()
+        cold_s = time.perf_counter() - t0
+        launches["logreg_train_step"] = dict(rk.LAUNCHES)
+        sync()
+        t0 = time.perf_counter()
+        spmd_training(torch, spmd, x, y, SESSION_BATCH, SESSION_LR, device)
+        sync()
+        warm_s = time.perf_counter() - t0
+        w_ref = plaintext_sgd(x, y, SESSION_BATCH, steps, SESSION_LR)
+        traj_err = float(np.abs(w_fit - w_ref).max())
+        record["logreg_train_step"] = {
+            "steps": steps, "batch": SESSION_BATCH,
+            "cold_ms_per_step": cold_s * 1e3 / steps,
+            "ms_per_step": warm_s * 1e3 / steps,
+            "trajectory_max_abs_err": traj_err,
+        }
+        log(f"logreg_train_step: {json.dumps(record['logreg_train_step'])} "
+            f"launches {launches['logreg_train_step']}")
+        if w_fit.shape != w_ref.shape or not np.all(np.isfinite(w_fit)):
+            raise AssertionError(f"logreg_train_step malformed: {w_fit.shape}")
+        if traj_err >= SESSION_TOL:
+            raise AssertionError(
+                f"logreg_train_step trajectory off by {traj_err}")
+
+        # (e) (a)'s exported weights served as a logistic regression
+        model = export.trained_predictor(w)
+        request = np.random.default_rng(SEED + 1).normal(
+            size=(TRAINED_ROWS, SESSION_FEATURES))
+        runtime = runtime_cls(ids, device=device)
+        rk.reset_launches()
+        served, served_s = timed(torch, lambda: runtime.evaluate_computation(
+            model.predictor_factory(fixed), {"x": request}))
+        launches["trained_predictor"] = dict(rk.LAUNCHES)
+        pred, want = served["output_0"], logistic_reference(model, request)
+        if pred.shape != want.shape or not np.all(np.isfinite(pred)):
+            raise AssertionError(f"trained predictor malformed: {pred.shape}")
+        record["trained_predictor"] = {
+            "rows": TRAINED_ROWS, "latency_ms": served_s * 1e3,
+            "max_abs_err": float(np.abs(pred - want).max()),
+            "layout": runtime.last_plan["layout"],
+        }
+        log(f"trained predictor: {json.dumps(record['trained_predictor'])} "
+            f"launches {launches['trained_predictor']}")
+        served_err = record["trained_predictor"]["max_abs_err"]
+        if served_err >= LOGREG_TOL:
+            raise AssertionError(f"trained predictor error {served_err}")
+    finally:
+        ring.mix_seed = mix_seed
+    if seeds[0] and on_card:
+        raise AssertionError(f"(d) and (e) derived {seeds[0]} host seeds")
+    return record, launches
+
+
 def timed(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2770,6 +3255,14 @@ def main() -> int:
         compare_party_dot(torch, rk, ring, gen, LOGREG_ROWS,
                           LOGREG_FEATURES + 1, 1, 128, reps=20,
                           label="per-host logreg, one party"),
+        # phase 20's per-host training step at the trainer width: x @ w
+        # and x^T err, one party
+        compare_party_dot(torch, rk, ring, gen, SESSION_BATCH,
+                          SESSION_FEATURES, 1, 128, reps=20,
+                          label="per-host trainer forward, one party"),
+        compare_party_dot(torch, rk, ring, gen, SESSION_FEATURES,
+                          SESSION_BATCH, 1, 128, reps=20,
+                          label="per-host trainer x^T err, one party"),
         compare_ring_matmul(torch, rk, gen, LOGREG_ROWS, LOGREG_FEATURES, 2,
                             128, reps=20, label="per-host host Dot"),
         compare_ring_matmul(torch, rk, gen, DOT_N, DOT_N, DOT_N, 128,
@@ -3357,11 +3850,19 @@ def main() -> int:
     lowered_record, lowered_launches = run_lowered(
         torch, rk, ring, pm, LocalMooseRuntime, classifier, logreg,
         aes_model, aes_comp, aes_key, rng)
+
+    # phase 20: secure training sessions (main path, each of (a) to (e)
+    # counted on its own)
+    phase[0] = 20
+    session_record, session_launches = run_training_sessions(
+        torch, rk, ring, pm, LocalMooseRuntime)
     LocalMooseRuntime.evaluate_computation = evaluate
     log(f"layouts by phase: "
         f"{json.dumps({p: sorted(v) for p, v in layouts.items()})}")
-    for p in range(4, 20):
-        want = {"per-host" if p >= 18 else "stacked"}
+    for p in range(4, 21):
+        # phase 20: the sessions per-host, the trained model stacked
+        want = ({"per-host", "stacked"} if p == 20
+                else {"per-host" if p >= 18 else "stacked"})
         if layouts.get(p) != want:
             raise AssertionError(
                 f"phase {p} ran on {layouts.get(p)}, not {want}")
@@ -3383,6 +3884,7 @@ def main() -> int:
         "from_bytes": bytes_launches,
         **per_host_launches,
         **lowered_launches,
+        **session_launches,
     }
     protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
@@ -3433,6 +3935,18 @@ def main() -> int:
         # Decrypt's ANDs draw on K7, bit_compose's b2a multiplies on K3
         # and its weights on K4, then the per-host classifier
         "per_host_decrypt": per_host_kernels + ("prf_threefry",),
+        # phase 20: the walk's epochs (a per-host step: K1 a party and
+        # dot, K2's trunc_combine, K3 unfused, K4, K7 single draws), the
+        # lowered epochs (K1 product-only, K4, K7), logreg_train_step on
+        # the stacked protocol (its polynomial sigmoid compares nothing:
+        # no K5 or K6) and the trained model served stacked
+        "training_session": per_host_kernels + ("prf_threefry",),
+        "training_resume": per_host_kernels + ("prf_threefry",),
+        "training_lowered": lowered_kernels,
+        "logreg_train_step": ("dot_cross_terms", "trunc_pairs",
+                              "cross_terms_reshare", "ring_mul",
+                              "prf_threefry"),
+        "trained_predictor": protocol + ("prf_threefry",),
     }
     # the lowered graph holds the reference's composition: no fused step
     for path in ("lowered_logistic_regression", "lowered_from_bytes"):
@@ -3620,6 +4134,7 @@ def main() -> int:
         "from_bytes": bytes_record,
         "per_host": per_host_record,
         "lowered": lowered_record,
+        "training_sessions": session_record,
     }
     log(json.dumps(record))
     log(json.dumps({"kernels": kernels}))

@@ -12,8 +12,8 @@ package's bytes.
 Boundary ops (Input/Load/Save/Output) are re-emitted verbatim with
 host-level types and their source names preserved, so argument binding
 and output naming survive lowering.  SaveShares and LoadShares, the
-secret-shared checkpoints, are not lowered yet (ROADMAP queue 1,
-item 10).
+secret-shared checkpoints, expand into ring-typed Save and Load ops on
+each party's own storage (:func:`_lower_shares_boundary`).
 """
 
 from __future__ import annotations
@@ -44,6 +44,8 @@ from ..values import (
     HostString,
     HostTensor,
     HostUnit,
+    RepFixedTensor,
+    RepTensor,
 )
 
 
@@ -143,6 +145,104 @@ def _lift_boundary(sess, op, plc_name: str, shape, np_dtype):
     if dtype.is_boolean:
         return HostBitTensor(SymArray(name, shape), plc_name)
     return HostTensor(SymArray(name, shape), plc_name, dtype)
+
+
+def share_key(key: str, slot: int) -> str:
+    """Party-local storage key of one element of a saved share pair.
+    Every party uses the same two keys: ``<key>#s0`` holds x_i (the
+    party's own additive share), ``<key>#s1`` holds x_{i+1} (its copy of
+    the next party's), so a checkpoint directory is meaningless without
+    the other two parties' storages."""
+    return f"{key}#s{slot}"
+
+
+def _shares_of(v):
+    """(RepTensor, integral, fractional) of a replicated value."""
+    if isinstance(v, RepFixedTensor):
+        return v.tensor, v.integral_precision, v.fractional_precision
+    if isinstance(v, RepTensor):
+        return v, None, None
+    raise CompilationError(
+        f"expected a replicated sharing, found {type(v).__name__}"
+    )
+
+
+def _lower_shares_boundary(sess, comp, op, plc, env):
+    """Expand SaveShares/LoadShares into per-party ring-typed Save/Load
+    ops: party i touches only the two ring tensors it already holds
+    ((x_i, x_{i+1}) of the 2-of-3 replicated sharing), through its own
+    storage, so the checkpointed model never exists in the clear on any
+    host.  Op for op the reference's expansion: the per-share ops are
+    named ``<op>_p{i}s{slot}`` and the last Save keeps the logical op's
+    name, so Output-of-Unit edges keep resolving."""
+    from ..execution.symbolic import _ring_ty
+
+    if plc.kind != "Replicated":
+        raise CompilationError(
+            f"op {op.name}: {op.kind} requires a replicated placement, "
+            f"found {plc.kind}"
+        )
+    key_val = env[op.inputs[0]]
+    if not isinstance(key_val, HostString):
+        raise CompilationError(
+            f"op {op.name}: {op.kind} key must be a string constant "
+            "(checkpoint keys must be stable across sessions so "
+            "compiled-plan caches hit)"
+        )
+    key = key_val.value
+    ret = op.signature.return_type
+
+    if op.kind == "SaveShares":
+        value = logical.to_rep(sess, plc, env[op.inputs[1]])
+        rep_tensor, _, _ = _shares_of(value)
+        width = rep_tensor.shares[0][0].width
+        owners = comp.placements[plc.name].owners
+        last = None
+        for i, owner in enumerate(owners):
+            for slot in (0, 1):
+                share = rep_tensor.shares[i][slot]
+                key_name = sess._string_const(share_key(key, slot), owner)
+                is_last = i == len(owners) - 1 and slot == 1
+                sess.add_operation(
+                    "Save",
+                    [key_name, sess._name_of(share)],
+                    owner,
+                    Signature((_STRING_TY, _ring_ty(width)), _UNIT_TY),
+                    {},
+                    name=op.name if is_last else f"{op.name}_p{i}s{slot}",
+                )
+                last = owner
+        return HostUnit(last)
+
+    # LoadShares: reassemble the replicated sharing from each party's
+    # own persisted pair; shape and precision are static op metadata
+    dtype = ret.dtype
+    if dtype is None or not dtype.is_fixedpoint:
+        raise CompilationError(
+            f"op {op.name}: LoadShares requires a fixed-point return "
+            f"dtype, found {dtype!r}"
+        )
+    shape = tuple(op.attributes["shape"])
+    width = 64 if dtype.name == "fixed64" else 128
+    shares = []
+    for i, owner in enumerate(comp.placements[plc.name].owners):
+        pair = []
+        for slot in (0, 1):
+            key_name = sess._string_const(share_key(key, slot), owner)
+            load_name = sess.add_operation(
+                "Load",
+                [key_name],
+                owner,
+                Signature((_STRING_TY,), _ring_ty(width)),
+                {},
+                name=f"{op.name}_p{i}s{slot}",
+            )
+            pair.append(sess._ring(load_name, shape, width, owner))
+        shares.append(tuple(pair))
+    return RepFixedTensor(
+        RepTensor(tuple(shares), plc.name),
+        dtype.integral_precision, dtype.fractional_precision,
+    )
 
 
 def lower(comp: Computation, arg_specs: Optional[dict] = None) -> Computation:
@@ -307,10 +407,8 @@ def lower(comp: Computation, arg_specs: Optional[dict] = None) -> Computation:
             continue
 
         if kind in ("SaveShares", "LoadShares"):
-            raise NotImplementedError(
-                f"lowering {kind} ({name}): the secret-shared checkpoints "
-                "are ROADMAP queue 1, item 10"
-            )
+            env[name] = _lower_shares_boundary(sess, comp, op, plc, env)
+            continue
 
         if kind == "Output":
             value = env[op.inputs[0]]

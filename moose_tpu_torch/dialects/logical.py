@@ -53,9 +53,6 @@ from . import fixedpoint as fx
 from . import mirrored as mir_ops
 from . import replicated as rep_ops
 
-# the secret-shared checkpoints
-_CHECKPOINTS = "ROADMAP queue 1, items 8 and 10"
-
 # the kinds the host and mirrored placements execute: the reference's
 # _execute_host and _execute_mir; the stacked layout runs its host and
 # mirrored ops here
@@ -164,19 +161,11 @@ def lift_aes_input(sess, comp, op, arr, plc_name: str, device):
 
 
 def unsupported_ops(comp: Computation) -> list:
-    """``(placement kind, op kind)`` of the ops this layout refuses with
-    a ROADMAP item: the secret-shared checkpoints.  Any other kind the
-    reference lacks raises its own error when it is reached."""
-    return [
-        (type(comp.placements.get(op.placement_name)).__name__, op.kind)
-        for op in comp.operations.values()
-        if op.kind in ("LoadShares", "SaveShares")
-    ]
-
-
-def roadmap_item(placement_kind: str, op_kind: str) -> str:
-    """The ROADMAP item of a kind :func:`unsupported_ops` lists."""
-    return _CHECKPOINTS
+    """Nothing: this layout runs every kind the reference's per-host walk
+    runs, the secret-shared checkpoints included (the interpreter's
+    walk binds LoadShares and stages SaveShares).  A kind the reference
+    lacks raises its own error when it is reached."""
+    return []
 
 
 def _rep_placement_of(sess, x: RepTensor) -> ReplicatedPlacement:

@@ -57,21 +57,16 @@ REP_KINDS = frozenset({
 # resolved by the interpreter's walk, on any placement
 BOUNDARY_KINDS = frozenset({"Input", "Output", "Load", "Save"})
 
-# the ROADMAP queue 1 items of the secret-shared checkpoints (the
-# reference lowers those to the per-host layout and its checkpoint
-# store); any other kind this layout refuses runs on the per-host
-# layout
-_REP_ITEMS = {
-    "LoadShares": logical._CHECKPOINTS, "SaveShares": logical._CHECKPOINTS,
-}
 # secret integers: the scale-0 lift
 _INTEGER = "ROADMAP queue 1, item 6"
 
 
 def roadmap_item(placement_kind: str, op_kind: str) -> str:
-    """Where the port's ROADMAP places an op kind it refuses on a
-    placement of ``placement_kind`` (a placement class name)."""
-    return _REP_ITEMS.get(op_kind, "the per-host layout runs it")
+    """Where an op kind this layout refuses on a placement of
+    ``placement_kind`` (a placement class name) runs: every such kind,
+    the secret-shared checkpoints (LoadShares, SaveShares) among them,
+    runs on the per-host layout, as in the reference."""
+    return "the per-host layout runs it"
 
 
 _STACKED_VALUES = (SpmdRep, SpmdFixed, SpmdBits)

@@ -15,7 +15,13 @@ The walk resolves the host boundary itself: Input binds an argument,
 Load reads the placement's own store and lifts the array onto the
 device (an AES value through the dialect's ``lift_aes_input``), Save
 brings its value to its host and writes it to that store as numpy once
-the walk is done, Output reveals to its host.
+the walk is done, Output reveals to its host.  The secret-shared
+checkpoints run on the per-host layout (the stacked layout's
+``unsupported_ops`` lists them, so the runtime routes them per-host, as
+the reference's ``stacked.supports`` does): LoadShares reads each
+owner's ``<key>#s0``/``#s1`` limb planes from that owner's own store,
+and SaveShares writes each party's held pair back the same way, so the
+value is never reconstructed.
 """
 
 from __future__ import annotations
@@ -37,6 +43,10 @@ from ..values import (
     HostString,
     HostTensor,
     HostUnit,
+    RepFixedTensor,
+    RepTensor,
+    limbs_to_ring,
+    ring_to_limbs,
     to_numpy,
 )
 from ..dialects import host
@@ -83,10 +93,17 @@ def fixed_sync_seed() -> Optional[int]:
     return int.from_bytes(digest, "little")
 
 
-def _lift_array(arr, op, plc_name: str, device) -> HostTensor:
+def _lift_array(arr, op, plc_name: str, device):
     """Bind a host-boundary array (an Input's argument, a Load's stored
-    value) as a runtime value on ``device``, at the op's dtype."""
-    dtype = op.signature.return_type.dtype
+    value) as a runtime value on ``device``, at the op's dtype.  A
+    ring-typed boundary (a lowered LoadShares) reads uint64 limb planes,
+    :func:`~moose_tpu_torch.values.ring_to_limbs`'s form."""
+    ret = op.signature.return_type
+    if ret.name in ("HostRing64Tensor", "HostRing128Tensor"):
+        return limbs_to_ring(
+            arr, 64 if ret.name == "HostRing64Tensor" else 128, plc_name,
+            device)
+    dtype = ret.dtype
     if dtype is None or dtype.is_fixedpoint or dtype.name not in (
         "float32", "float64"
     ):
@@ -125,14 +142,73 @@ def _load(storage, op, plc_name: str, key: HostString,
 def _save_user_value(sess, value):
     """Storage form of a Save'd value: numpy, never a device tensor.  Ring
     words persist as uint64 limb planes ``(1 or 2, *shape)``, lossless
-    through ``.npy``; anything else as the user gets it."""
+    through ``.npy`` (the SaveShares/LoadShares round trip); anything
+    else as the user gets it."""
     if isinstance(value, HostRingTensor):
-        lo = value.lo.detach().cpu().contiguous().numpy().view(np.uint64)
-        if value.width == 64:
-            return lo[None]
-        hi = value.hi.detach().cpu().contiguous().numpy().view(np.uint64)
-        return np.stack([lo, hi])
+        return ring_to_limbs(value)
     return _to_user_value(sess, value)
+
+
+def _load_shares(storage, op, plc, key) -> list:
+    """The six limb arrays of a LoadShares binding, party-major and
+    slot-minor: each owner's ``<key>#s0`` and ``#s1`` from that owner's
+    own store."""
+    from ..compilation.lowering import share_key
+
+    if not isinstance(key, HostString):
+        raise ValueError(
+            f"LoadShares {op.name}: the key must be a string, found "
+            f"{type(key).__name__}"
+        )
+    arrs = []
+    for owner in plc.owners:
+        store = storage.get(owner, {})
+        for slot in (0, 1):
+            skey = share_key(key.value, slot)
+            if skey not in store:
+                raise KeyError(
+                    f"no value for key {skey!r} in storage of {owner!r}"
+                )
+            arrs.append(store[skey])
+    return arrs
+
+
+def _lift_shares(arrs, op, plc, device) -> RepFixedTensor:
+    """Reassemble a replicated sharing from the six party-held limb
+    arrays of a LoadShares binding (party-major, slot-minor)."""
+    dtype = op.signature.return_type.dtype
+    width = 64 if dtype.name == "fixed64" else 128
+    it = iter(arrs)
+    shares = tuple(
+        tuple(limbs_to_ring(next(it), width, owner, device)
+              for _ in range(2))
+        for owner in plc.owners
+    )
+    return RepFixedTensor(
+        RepTensor(shares, plc.name),
+        dtype.integral_precision,
+        dtype.fractional_precision,
+    )
+
+
+def _stage_shares(sess, plc, key, value, saves) -> None:
+    """Stage a SaveShares op: each party's two held ring tensors land in
+    ``saves`` under that party's own (owner, key) slots; the plaintext is
+    never reconstructed."""
+    from ..compilation.lowering import _shares_of, share_key
+    from ..dialects import logical
+
+    if not isinstance(key, HostString):
+        raise ValueError(
+            f"SaveShares: the key must be a string, found "
+            f"{type(key).__name__}"
+        )
+    rep_tensor, _, _ = _shares_of(logical.to_rep(sess, plc, value))
+    for i, owner in enumerate(plc.owners):
+        for slot in (0, 1):
+            saves[(owner, share_key(key.value, slot))] = (
+                rep_tensor.shares[i][slot]
+            )
 
 
 def _to_user_value(sess, value):
@@ -239,6 +315,16 @@ class Interpreter:
                     )
                 else:
                     env[name] = _lift_array(arr, op, plc.name, self.device)
+                continue
+            if op.kind == "LoadShares":
+                env[name] = _lift_shares(
+                    _load_shares(storage, op, plc, env[op.inputs[0]]),
+                    op, plc, self.device)
+                continue
+            if op.kind == "SaveShares":
+                _stage_shares(sess, plc, env[op.inputs[0]],
+                              env[op.inputs[1]], saves)
+                env[name] = HostUnit(plc.owners[-1])
                 continue
             if op.kind == "Save":
                 key = env[op.inputs[0]]

@@ -305,14 +305,10 @@ def _recv_sources(comp: Computation, order) -> dict:
 
 def _lift_boundary(arr, op, plc: str, device):
     """Bind an Input's argument or a Load's stored array at the lowered
-    op's host type: bits (an AES input's wire array) or a float tensor.
-    A ring-typed Load is a lowered LoadShares (item 10)."""
+    op's host type: bits (an AES input's wire array), ring words (a
+    lowered LoadShares: uint64 limb planes, ``values.limbs_to_ring``) or
+    a float tensor."""
     ret = op.signature.return_type
-    if ret.name.startswith("HostRing"):
-        raise NotImplementedError(
-            f"{op.kind} {op.name} of ring words: the secret-shared "
-            "checkpoints are ROADMAP queue 1, item 10"
-        )
     if ret.dtype is not None and ret.dtype.is_boolean:
         return HostBitTensor(torch.as_tensor(
             np.asarray(arr).astype(np.uint8), device=device), plc)

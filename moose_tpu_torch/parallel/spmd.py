@@ -677,3 +677,43 @@ def fx_mean_rows(sess, x: SpmdFixed) -> SpmdFixed:
     summed = SpmdFixed(sum_axis(x.tensor, 0), x.integral_precision,
                        x.fractional_precision)
     return fx_mul_public(sess, summed, 1.0 / x.tensor.shape[0])
+
+
+def fx_sigmoid_poly(sess, x: SpmdFixed) -> SpmdFixed:
+    """Degree-3 polynomial sigmoid approximation
+    sigma(t) ~ 0.5 + 0.198285*t - 0.004469*t^3 (least squares on [-5, 5],
+    max error ~0.06), the standard secure-logreg approximation; the
+    protocol sigmoid (exp and division) is ``spmd_math.fx_sigmoid``."""
+    x2 = fx_mul(sess, x, x)
+    x3 = fx_mul(sess, x2, x)
+    t1 = fx_mul_public(sess, x, 0.19828547)
+    t3 = fx_mul_public(sess, x3, -0.00446928)
+    return fx_add_public(fx_add(t1, t3), 0.5)
+
+
+# ---------------------------------------------------------------------------
+# Flagship computation: secure logistic-regression training step (the
+# reference's benchmark workload, benchmarks/logreg.py's run_spmd)
+# ---------------------------------------------------------------------------
+
+
+def logreg_train_step(sess: SpmdSession, x: SpmdFixed, y: SpmdFixed,
+                      w: SpmdFixed, lr: float, mesh=None) -> SpmdFixed:
+    """One secure SGD step on (batch, features) ``x``, (batch, 1) ``y``
+    and (features, 1) ``w``: w -= lr * X^T (sigmoid(Xw) - y) / batch, with
+    :func:`fx_sigmoid_poly`.  The JAX package shards ``x`` over a device
+    ``mesh``; the port runs on one card, and a mesh is ROADMAP queue 1,
+    item 12."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "logreg_train_step over a device mesh: the port runs on one "
+            "card; a mesh is ROADMAP queue 1, item 12"
+        )
+    logits = fx_dot(sess, x, w)  # (batch, 1)
+    preds = fx_sigmoid_poly(sess, logits)
+    err = fx_sub(preds, y)  # (batch, 1)
+    xt = fx_transpose(x)  # (features, batch)
+    grad = fx_dot(sess, xt, err)  # (features, 1)
+    n = x.tensor.shape[0]
+    step = fx_mul_public(sess, grad, lr / n)
+    return fx_sub(w, step)

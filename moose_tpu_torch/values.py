@@ -285,6 +285,38 @@ class AesTensor:
         return "AesTensor"
 
 
+def ring_to_limbs(value: HostRingTensor) -> np.ndarray:
+    """Persistence form of a ring tensor: uint64 limb planes with a
+    leading limb axis, ``(1, *shape)`` for ring64 and ``(2, *shape)``
+    (lo, hi) for ring128.  The int64 words are reinterpreted bit for bit,
+    so the ``.npy`` bytes are the JAX package's (secret-shared
+    checkpoints, ``SaveShares``/``LoadShares``)."""
+    limbs = [value.lo] if value.width == 64 else [value.lo, value.hi]
+    return np.stack([
+        limb.detach().cpu().contiguous().numpy().view(np.uint64)
+        for limb in limbs
+    ])
+
+
+def limbs_to_ring(arr, width: int, plc: str, device) -> HostRingTensor:
+    """Inverse of :func:`ring_to_limbs`: a ``(n_limbs, *shape)`` uint64
+    array as a :class:`HostRingTensor` of ``width`` on ``device``."""
+    want = 1 if width == 64 else 2
+    arr = np.asarray(arr)
+    if arr.ndim < 1 or arr.shape[0] != want:
+        raise ValueError(
+            f"ring{width} limb array needs leading axis {want}, found "
+            f"shape {tuple(arr.shape)}"
+        )
+    # a copy, not a view: a read-only buffer (np.load's mmap, frombuffer)
+    # would be shared with torch
+    words = np.array(arr, dtype=np.uint64, order="C").view(np.int64)
+    lo = torch.from_numpy(words[0, ...]).to(device)
+    hi = (torch.from_numpy(words[1, ...]).to(device) if width == 128
+          else None)
+    return HostRingTensor(lo, hi, width, plc)
+
+
 def to_numpy(value: Any):
     """Convert a host-level runtime value to numpy for the user."""
     if isinstance(value, HostTensor):

@@ -23,9 +23,12 @@ dot and the logistic-regression request again on the per-host layout
 (``layout="per-host"`` on the logical walk: one K7 launch a draw, its
 seed derived on the host, so K7 launches outside any group range
 there), the logistic-regression request lowered (``compiler_passes=
-DEFAULT_PASSES``) and run by the physical executor, and last the
-encrypted-input request per-host (the RepBitOps circuit); and prints
-for each:
+DEFAULT_PASSES``) and run by the physical executor, the encrypted-input
+request per-host (the RepBitOps circuit), and last one training epoch on
+the walk (``LogregSGDTrainer`` at chip_smoke.py phase 20's width: ten
+SGD steps of 128 x 100 between ``load_shares`` and ``save_shares``, each
+party's pair in its own ``CheckpointStore``; the staged pair is dropped
+after each run); and prints for each:
 
 - the host wall time of the request (median of three, without the
   profiler) and the device's busy and idle share (busy = the sum of
@@ -249,6 +252,43 @@ def profile_request(fn, warm=2):
     }
 
 
+def _training_epoch():
+    """The profile of one warm epoch of phase 20's trainer on the walk,
+    from the epoch-0 checkpoint its init graph committed."""
+    import tempfile
+
+    from moose_tpu_torch.storage import FilesystemStorage
+    from moose_tpu_torch.training import CheckpointStore
+
+    ids = ["alice", "bob", "carole"]
+    rows = chip_smoke.SESSION_BATCH * chip_smoke.SESSION_STEPS
+    x, y = chip_smoke.training_data(np.random.default_rng(chip_smoke.SEED),
+                                    rows, chip_smoke.SESSION_FEATURES)
+    trainer = trainers.LogregSGDTrainer(
+        n_features=chip_smoke.SESSION_FEATURES,
+        learning_rate=chip_smoke.SESSION_LR,
+        steps_per_epoch=chip_smoke.SESSION_STEPS,
+        fixedpoint_dtype=pm.fixed(24, 40))
+    with tempfile.TemporaryDirectory() as root:
+        stores = {p: CheckpointStore(FilesystemStorage(
+            os.path.join(root, p)), party=p) for p in ids}
+        runtime = LocalMooseRuntime(ids, storage_mapping=stores,
+                                    use_jit=False)
+        runtime.evaluate_computation(
+            trainer.init_computation(),
+            {"w": np.zeros((chip_smoke.SESSION_FEATURES, 1))})
+        for store in stores.values():
+            store.commit(0)
+        comp = trainer.epoch_computation(rows)
+
+        def epoch():
+            runtime.evaluate_computation(comp, {"x": x, "y": y})
+            for store in stores.values():
+                store.discard_staged()
+
+        return profile_request(epoch, warm=1)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
@@ -406,6 +446,8 @@ def main() -> int:
     )
     print(f"per_host_aes_inference: {json.dumps(per_host_aes)}",
           flush=True)
+    epoch = _training_epoch()
+    print(f"training_epoch: {json.dumps(epoch)}", flush=True)
     after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader"],
@@ -426,6 +468,7 @@ def main() -> int:
                       "correlation": corr_profile,
                       "aes_inference": aes_profile,
                       "training_step": train,
+                      "training_epoch": epoch,
                       "aes_ctr_logistic_regression": ctr_profile}))
     return 0
 

@@ -1363,6 +1363,83 @@ def test_lowered_request_on_the_card_matches_the_cpu(cuda, monkeypatch):
     assert np.array_equal(want_bytes, want)
 
 
+def _epoch_on_both(monkeypatch, tmp_path, use_jit):
+    """Every party's committed words, the exported weights and the card's
+    launches of one training session (init and two epochs of
+    LogregSGDTrainer at 32 x 6, two steps an epoch) on the card and on the
+    CPU under fixed keys, the lowering's nonces pinned."""
+    from moose_tpu_torch.dialects import host
+    from moose_tpu_torch.predictors.trainers import LogregSGDTrainer
+    from moose_tpu_torch.runtime import LocalMooseRuntime
+    from moose_tpu_torch.storage import FilesystemStorage
+    from moose_tpu_torch.training import (
+        CheckpointStore,
+        TrainingConfig,
+        TrainingSession,
+    )
+    from moose_tpu_torch.training.session import LocalTrainingCluster
+
+    chip_smoke = _chip_smoke()
+    ids = ["alice", "bob", "carole"]
+    x, y = chip_smoke.training_data(np.random.default_rng(21), 32, 6)
+
+    def run(device):
+        before = dict(rk.LAUNCHES)
+        stores = {p: CheckpointStore(FilesystemStorage(
+            str(tmp_path / device / p)), party=p) for p in ids}
+        runtime = LocalMooseRuntime(ids, storage_mapping=stores,
+                                    use_jit=use_jit, device=device)
+        trainer = LogregSGDTrainer(6, 0.1, steps_per_epoch=2)
+        with host.deterministic_sync_keys(chip_smoke.SEED):
+            report = TrainingSession(
+                trainer, LocalTrainingCluster(runtime, ids),
+                TrainingConfig(epochs=2)).run(x, y)
+        words = {(p, k): np.asarray(stores[p].load(k)) for p in ids
+                 for k in trainer.expected_staged()}
+        return (words, report["weights"]["w"],
+                {k: v - before[k] for k, v in rk.LAUNCHES.items()})
+
+    return _on_both(monkeypatch, run)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_jit", (False, True), ids=("walk", "lowered"))
+def test_training_epochs_on_the_card_match_the_cpu(cuda, monkeypatch,
+                                                   tmp_path, use_jit):
+    (words, w, launched), (cpu_words, cpu_w, _) = _epoch_on_both(
+        monkeypatch, tmp_path, use_jit)
+    assert words.keys() == cpu_words.keys() and len(words) == 6
+    for key, want in cpu_words.items():
+        assert np.array_equal(words[key], want), key
+    assert np.array_equal(w, cpu_w)
+    # the walk's step: K1 a party, K2's additive tail, K3 unfused, K4,
+    # K7 single draws; the lowered epoch: K1 product-only, K4, K7
+    kernels = (("dot_cross_terms", "ring_mul", "prf_threefry") if use_jit
+               else ("dot_cross_terms", "trunc_combine", "cross_terms_mul",
+                     "ring_mul", "prf_threefry"))
+    for name in kernels:
+        assert launched[name] >= 1, name
+    for name in ("trunc_pairs", "cross_terms_reshare", "bit_decompose",
+                 "msb", "horner", "prf_threefry_pallas"):
+        assert launched[name] == 0, name
+
+
+@pytest.mark.gpu
+def test_logreg_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    from moose_tpu_torch.parallel import spmd
+
+    chip_smoke = _chip_smoke()
+    x, y = chip_smoke.training_data(np.random.default_rng(22), 3 * 32, 8)
+    before = dict(rk.LAUNCHES)
+    got = chip_smoke.spmd_training(torch, spmd, x, y, 32, 0.1, "cuda")
+    launched = {k: v - before[k] for k, v in rk.LAUNCHES.items()}
+    want = chip_smoke.spmd_training(torch, spmd, x, y, 32, 0.1, "cpu")
+    assert np.array_equal(got, want)
+    for name in ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
+                 "ring_mul", "prf_threefry"):
+        assert launched[name] >= 1, name
+
+
 def _chip_smoke():
     import sys
     from pathlib import Path

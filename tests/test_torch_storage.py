@@ -8,8 +8,9 @@ package's ``moose_tpu.storage`` on the same files; the correlation at
 the tutorial test's 64 rows bit-identical to the JAX LocalMooseRuntime
 (stacked layout) under fixed keys and both threefry streams, and the
 same overflow word for word at 4,096 rows, where fixed(24,40)'s range
-ends; LoadShares and SaveShares refused naming their ROADMAP items;
-``mirrored.py`` against ``moose_tpu/dialects/mirrored.py``.
+ends; LoadShares and SaveShares through each party's own store, as the
+JAX runtime runs them; ``mirrored.py`` against
+``moose_tpu/dialects/mirrored.py``.
 
 Each JAX correlation costs 20-35 s on the CPU (its eager kernels compile
 per shape), so each runs once per module, in a fixture."""
@@ -205,21 +206,47 @@ def test_saved_ring_words_are_the_reference_s_limb_planes():
 
 
 def test_load_shares_and_save_shares_name_their_roadmap_items():
+    # ROADMAP queue 1, item 10 ported them, and nothing names an item any
+    # more: the walk reads each party's own #s0/#s1 limb planes and saves
+    # the pair it holds under the new key, word for word as the JAX
+    # runtime does; the stacked layout leaves them to the per-host layout
+    from moose_tpu.edsl import base as jedsl
+    from moose_tpu_torch.dialects import stacked as tstacked
     from moose_tpu_torch.edsl import base as edsl
 
-    alice, bob, carole = (tm.host_placement(n) for n in IDS)
-    rep = tm.replicated_placement("rep", players=[alice, bob, carole])
+    def checkpoint_of(pm, base):
+        alice, bob, carole = (pm.host_placement(n) for n in IDS)
+        rep = pm.replicated_placement("rep", players=[alice, bob, carole])
 
-    @tm.computation
-    def checkpoint():
-        with rep:
-            w = edsl.load_shares("w", (2, 1), tm.fixed(24, 40))
-            unit = edsl.save_shares("w_next", w)
-        return unit
+        @pm.computation
+        def checkpoint():
+            with rep:
+                w = base.load_shares("w", (2, 1), pm.fixed(24, 40))
+                unit = base.save_shares("w_next", w)
+            return unit
 
-    with pytest.raises(NotImplementedError, match="items 8 and 10") as e:
-        PortRuntime(IDS, device="cpu").evaluate_computation(checkpoint)
-    assert "LoadShares" in str(e.value) and "SaveShares" in str(e.value)
+        return checkpoint
+
+    rng = np.random.default_rng(6)
+    stored = {p: {f"w#s{slot}": rng.integers(
+        0, 1 << 64, size=(2, 2, 1), dtype=np.uint64) for slot in (0, 1)}
+        for p in IDS}
+    runtime = PortRuntime(IDS, storage_mapping=stored, device="cpu")
+    out = runtime.evaluate_computation(checkpoint_of(tm, edsl))
+    assert runtime.last_plan["layout"] == "per-host"
+    jax_runtime = JaxRuntime(IDS, storage_mapping=stored, use_jit=False)
+    want = jax_runtime.evaluate_computation(checkpoint_of(jm, jedsl))
+    assert out == want == {"output_0": None}
+    for p in IDS:
+        for slot in (0, 1):
+            got = runtime.storage[p][f"w_next#s{slot}"]
+            assert got.dtype == np.uint64
+            assert np.array_equal(got, stored[p][f"w#s{slot}"])
+            assert np.array_equal(
+                got, np.asarray(jax_runtime.storage[p][f"w_next#s{slot}"]))
+    assert tstacked.roadmap_item("ReplicatedPlacement", "LoadShares") == \
+        tstacked.roadmap_item("ReplicatedPlacement", "SaveShares") == \
+        "the per-host layout runs it"
 
 
 # -- the mirrored dialect --------------------------------------------------

@@ -169,11 +169,19 @@ def test_step_graph_traces_the_jax_op_kinds(kind):
 
 
 def test_checkpointed_epochs_name_their_roadmap_items():
-    trainer = _trainers("logreg")[1]
-    for build in (trainer.init_computation, trainer.export_computation,
-                  lambda: trainer.epoch_computation(ROWS)):
-        with pytest.raises(NotImplementedError, match="items 8 and 10"):
-            build()
+    # ROADMAP queue 1, item 10 ported the checkpointed epochs: each graph
+    # traces the JAX package's op kinds (its bytes:
+    # tests/test_torch_training_session.py), and the one part still to
+    # port, the build-time range lint the JAX graphs pass, names item 13
+    jtrainer, trainer = _trainers("logreg")
+    for name, args in (("init", ()), ("export", ()), ("epoch", (ROWS,))):
+        comp = getattr(trainer, f"{name}_computation")(*args)
+        assert _kinds(comp) == _kinds(
+            getattr(jtrainer, f"{name}_computation")(*args))
+    assert ("ReplicatedPlacement", "SaveShares") in _kinds(
+        trainer.epoch_computation(ROWS))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        trainer._range_lint(trainer.epoch_computation(ROWS), ROWS)
 
 
 @pytest.mark.parametrize("width", (64, 128))
