@@ -212,12 +212,31 @@ Phases (each raises on failure; the script then exits non-zero):
      (plaintext_sgd), ms per step printed; (e) (a)'s exported weights
      through training.export.trained_predictor, one 1024 x 100
      logistic-regression request on the stacked layout within 5e-3.
+ 21. the static analyzer on the main path (``chip_smoke.run_analyzer``):
+     (a) phase 20's graphs (init, the 10-step epoch at 1,280 rows,
+     export) linted at their trace by the trainers' build-time range and
+     keystream gate, its host ms each, launching nothing; the same
+     trainer at ranges of +-1e9 refused with MSA701 at its trace; (b)
+     phase 6's config-3 graph (1024 x 100, fixed(24,40), threefry): the
+     shape-only stacked draw replay (``stacked_draw_trace`` on ``meta``
+     tensors) launches nothing and equals the draw ledger of one request
+     on the card, event for event, which launches every kernel of phase 6
+     within 5e-3; (c) the static per-host draw counts
+     (``host_draw_counts``) equal the ledger of phase 18's per-host
+     request on the card, which launches K1, K2's trunc_combine, K3's
+     cross_terms_mul, K4 and K7; (d) config 3 compiled with
+     ``DEFAULT_PASSES + ["lint"]`` and ``strict=True`` (no error, its host
+     ms and diagnostics by rule printed), served by evaluate_compiled on
+     the card within 5e-3 launching K1, K4 and K7, ``python -m
+     moose_tpu_torch.bin.prancer --format json`` on its blob exiting 0,
+     and a phase-6 request's ``last_timings`` holding
+     ``evaluate_computation`` and ``execute``, the second no longer.
 Every evaluation of phases 4 to 17 must have run on the stacked layout,
 phase 18's and 19's on the per-host one (``last_plan["layout"]``), and
-phase 20's on both (the sessions per-host, the trained model stacked).
-Phases 4 to 20 are the main path: the kernels' launch counters are set
-to 0 just before each (each of phase 20's (a) to (e) apart) and read
-just after.  K1, K2's trunc_pairs and the
+phase 20's and 21's on both (the sessions per-host, the trained model
+stacked; the draw oracles one each).  Phases 4 to 21 are the main path:
+the kernels' launch counters are set to 0 just before each (each of
+phase 20's and 21's parts apart) and read just after.  K1, K2's trunc_pairs and the
 threefry kernel in the phase's stream layout (threefry in all but 7,
 threefry-pallas in 7, and never the other) must have launched in each
 but 10 and 13, and every kernel (K1, K2's trunc_pairs, K3's
@@ -2798,6 +2817,11 @@ def run_training_sessions(torch, rk, ring, pm, runtime_cls, device="cuda"):
         xl, yl = x[:low_rows], y[:low_rows]
         low = trainer_of(SESSION_LOWERED_STEPS)
         low_epoch = low.epoch_computation(low_rows)
+        # every graph of the session traced (and linted, which lowers it
+        # and draws sync keys) before the nonces are pinned, so the card's
+        # run and the CPU's draw the same nonces
+        low.init_computation()
+        low.export_computation()
         t0 = time.perf_counter()
         with host.deterministic_sync_keys(SEED):
             lowered = compile_computation(
@@ -2920,6 +2944,201 @@ def run_training_sessions(torch, rk, ring, pm, runtime_cls, device="cuda"):
         ring.mix_seed = mix_seed
     if seeds[0] and on_card:
         raise AssertionError(f"(d) and (e) derived {seeds[0]} host seeds")
+    return record, launches
+
+
+def run_analyzer(torch, rk, pm, runtime_cls, classifier, logreg, rng,
+                 device="cuda"):
+    """Phase 21: the static analyzer on the main path, (a) to (d) of the
+    module's docstring, with the port's runtimes on ``device``.  Returns
+    (record, launches by path); raises on any failed check."""
+    import os
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+
+    from moose_tpu_torch import serde
+    from moose_tpu_torch.compilation import (
+        DEFAULT_PASSES,
+        compile_computation,
+    )
+    from moose_tpu_torch.compilation.analysis import Severity, analyze
+    from moose_tpu_torch.compilation.analysis.keystream import (
+        host_draw_counts,
+        stacked_draw_trace,
+    )
+    from moose_tpu_torch.compilation.lowering import (
+        arg_specs_from_arguments,
+    )
+    from moose_tpu_torch.edsl import tracer
+    from moose_tpu_torch.errors import MalformedComputationError
+    from moose_tpu_torch.execution import drawledger
+    from moose_tpu_torch.predictors.trainers import LogregSGDTrainer
+
+    ids = ["alice", "bob", "carole"]
+    record, launches = {}, {}
+
+    on_card = torch.device(device).type == "cuda"
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def wall(fn):
+        if on_card:
+            return timed(torch, fn)
+        t0 = time.perf_counter()
+        return fn(), time.perf_counter() - t0
+
+    def launched_nothing(what):
+        if any(rk.LAUNCHES.values()):
+            raise AssertionError(f"{what} launched {dict(rk.LAUNCHES)}")
+
+    def request_error(out, xr):
+        pred, want = out["output_0"], logistic_reference(classifier, xr)
+        if pred.shape != want.shape or not np.all(np.isfinite(pred)):
+            raise AssertionError(f"analyzer request malformed: {pred.shape}")
+        err = float(np.abs(pred - want).max())
+        if err >= LOGREG_TOL:
+            raise AssertionError(f"analyzer request error {err}")
+        return err
+
+    # (a) the trainers' build-time gate over phase 20's graphs
+    rows = SESSION_BATCH * SESSION_STEPS
+    trainer = LogregSGDTrainer(
+        n_features=SESSION_FEATURES, learning_rate=SESSION_LR,
+        steps_per_epoch=SESSION_STEPS, fixedpoint_dtype=pm.fixed(24, 40))
+    rk.reset_launches()
+    gate = {}
+    for name, args, n_rows in (("init", (), None), ("epoch", (rows,), rows),
+                               ("export", (), None)):
+        comp, trace_ms = host_ms(
+            lambda: getattr(trainer, f"{name}_computation")(*args))
+        _, lint_ms = host_ms(lambda: trainer._range_lint(comp, n_rows))
+        gate[name] = {"ops": len(comp.operations), "lint_ms": lint_ms,
+                      "trace_and_lint_ms": trace_ms}
+    hostile = LogregSGDTrainer(
+        n_features=SESSION_FEATURES, learning_rate=SESSION_LR,
+        steps_per_epoch=SESSION_STEPS, fixedpoint_dtype=pm.fixed(24, 40),
+        feature_range=(-1e9, 1e9), weight_range=(-1e9, 1e9))
+    try:
+        hostile.epoch_computation(rows)
+    except MalformedComputationError as e:
+        refused = sorted({d.rule for d in e.diagnostics})
+    else:
+        raise AssertionError("the range gate let a +-1e9 epoch through")
+    if "MSA701" not in refused:
+        raise AssertionError(f"the range gate refused with {refused}")
+    launched_nothing("the range gate")
+    record["gate"] = {"graphs": gate, "refused_with": refused}
+    log(f"analyzer gate: {json.dumps(record['gate'])}")
+
+    # (b) the stacked draw oracle: the meta replay against the card
+    traced = tracer.trace(logreg)
+    specs = {"x": (LOGREG_ROWS, LOGREG_FEATURES)}
+    rk.reset_launches()
+    static, replay_ms = host_ms(lambda: stacked_draw_trace(traced, specs))
+    launched_nothing("the meta replay")
+    runtime = runtime_cls(ids, device=device)
+    xr = rng.normal(size=(LOGREG_ROWS, LOGREG_FEATURES))
+    rk.reset_launches()
+    with drawledger.recording() as ledger:
+        out, stacked_s = wall(
+            lambda: runtime.evaluate_computation(logreg, {"x": xr}))
+    launches["analyzer_stacked_request"] = dict(rk.LAUNCHES)
+    if runtime.last_plan["layout"] != "stacked":
+        raise AssertionError("the stacked oracle ran per-host")
+    dynamic = ledger.stacked_trace()
+    if dynamic != static:
+        at = next((i for i, (a, b) in enumerate(zip(static, dynamic))
+                   if a != b), min(len(static), len(dynamic)))
+        raise AssertionError(
+            f"stacked draw trace diverged at event {at} (static "
+            f"{len(static)}, card {len(dynamic)})")
+    record["stacked_oracle"] = {
+        "replay_host_ms": replay_ms, "events": len(static),
+        "counts": ledger.stacked_counts(),
+        "request_ms": stacked_s * 1e3,
+        "max_abs_err": request_error(out, xr),
+    }
+    log(f"analyzer stacked oracle: {json.dumps(record['stacked_oracle'])} "
+        f"launches {launches['analyzer_stacked_request']}")
+
+    # (c) the per-host draw oracle: phase 18's request on the card
+    knobs = ("MOOSE_TPU_FIXED_KEYS", "MOOSE_TPU_ALLOW_WEAK_PRF")
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(dict(zip(knobs, (f"chip-smoke-{SEED}", "1"))))
+    try:
+        counts, counts_ms = host_ms(lambda: host_draw_counts(traced, specs))
+        per_host = runtime_cls(ids, layout="per-host", use_jit=False,
+                               device=device)
+        rk.reset_launches()
+        with drawledger.recording() as ledger:
+            out, per_host_s = wall(lambda: per_host.evaluate_computation(
+                logreg, {"x": xr}))
+        launches["analyzer_per_host_request"] = dict(rk.LAUNCHES)
+    finally:
+        _restore(os, saved)
+    if per_host.last_plan != {"layout": "per-host", "lowered": False,
+                              "plan_mode": "eager", "pinned_ops": []}:
+        raise AssertionError(f"per-host oracle ran {per_host.last_plan}")
+    if ledger.host_report() != counts:
+        raise AssertionError("per-host draw counts differ from the card's")
+    record["per_host_oracle"] = {
+        "static_host_ms": counts_ms,
+        "keys": len(counts),
+        "draws": sum(c["draws"] for c in counts.values()),
+        "request_ms": per_host_s * 1e3,
+        "max_abs_err": request_error(out, xr),
+    }
+    log(f"analyzer per-host oracle: "
+        f"{json.dumps(record['per_host_oracle'])} launches "
+        f"{launches['analyzer_per_host_request']}")
+
+    # (d) a strict compile with a trailing lint pass, served and linted
+    args = {"x": xr}
+    lowered, strict_ms = host_ms(lambda: compile_computation(
+        traced, DEFAULT_PASSES + ["lint"], arg_specs_from_arguments(args),
+        strict=True))
+    diagnostics, analyze_ms = host_ms(lambda: analyze(lowered))
+    if any(d.severity >= Severity.ERROR for d in diagnostics):
+        raise AssertionError("the strict compile left an error")
+    by_rule = dict(sorted(Counter(d.rule for d in diagnostics).items()))
+    blob = serde.serialize_computation(lowered)
+    compiled = runtime_cls(ids, use_jit=True, device=device)
+    rk.reset_launches()
+    out, compiled_s = wall(lambda: compiled.evaluate_compiled(blob, args))
+    launches["analyzer_strict_compiled"] = dict(rk.LAUNCHES)
+    compiled_err = request_error(out, xr)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "config3.lowered.bin")
+        with open(path, "wb") as f:
+            f.write(blob)
+        cli = subprocess.run(
+            [sys.executable, "-m", "moose_tpu_torch.bin.prancer", path,
+             "--format", "json"],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    if cli.returncode != 0:
+        raise AssertionError(f"prancer exited {cli.returncode}: "
+                             f"{cli.stderr[-2000:]}")
+    cli_records = json.loads(cli.stdout)
+    runtime.evaluate_computation(logreg, {"x": xr})
+    timings = dict(runtime.last_timings)
+    if not {"evaluate_computation", "execute"} <= set(timings) or \
+            timings["execute"] > timings["evaluate_computation"]:
+        raise AssertionError(f"phase-6 request timings {timings}")
+    record["strict_compile"] = {
+        "ops": len(lowered.operations), "compile_host_ms": strict_ms,
+        "analyze_host_ms": analyze_ms, "diagnostics_by_rule": by_rule,
+        "request_ms": compiled_s * 1e3, "max_abs_err": compiled_err,
+        "prancer_records": len(cli_records),
+        "last_timings_us": timings,
+    }
+    log(f"analyzer strict compile: {json.dumps(record['strict_compile'])} "
+        f"launches {launches['analyzer_strict_compiled']}")
     return record, launches
 
 
@@ -3856,12 +4075,19 @@ def main() -> int:
     phase[0] = 20
     session_record, session_launches = run_training_sessions(
         torch, rk, ring, pm, LocalMooseRuntime)
+
+    # phase 21: the static analyzer (main path, each of (a) to (d)
+    # counted on its own)
+    phase[0] = 21
+    analyzer_record, analyzer_launches = run_analyzer(
+        torch, rk, pm, LocalMooseRuntime, classifier, logreg, rng)
     LocalMooseRuntime.evaluate_computation = evaluate
     log(f"layouts by phase: "
         f"{json.dumps({p: sorted(v) for p, v in layouts.items()})}")
-    for p in range(4, 21):
-        # phase 20: the sessions per-host, the trained model stacked
-        want = ({"per-host", "stacked"} if p == 20
+    for p in range(4, 22):
+        # phase 20: the sessions per-host, the trained model stacked;
+        # phase 21: a draw oracle on each layout
+        want = ({"per-host", "stacked"} if p >= 20
                 else {"per-host" if p >= 18 else "stacked"})
         if layouts.get(p) != want:
             raise AssertionError(
@@ -3885,6 +4111,7 @@ def main() -> int:
         **per_host_launches,
         **lowered_launches,
         **session_launches,
+        **analyzer_launches,
     }
     protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
@@ -3947,9 +4174,16 @@ def main() -> int:
                               "cross_terms_reshare", "ring_mul",
                               "prf_threefry"),
         "trained_predictor": protocol + ("prf_threefry",),
+        # phase 21: the stacked oracle's request (phase 6's), the
+        # per-host oracle's (phase 18's) and the strict compile served
+        # lowered (phase 19's)
+        "analyzer_stacked_request": protocol + ("prf_threefry",),
+        "analyzer_per_host_request": per_host_kernels + ("prf_threefry",),
+        "analyzer_strict_compiled": lowered_kernels,
     }
     # the lowered graph holds the reference's composition: no fused step
-    for path in ("lowered_logistic_regression", "lowered_from_bytes"):
+    for path in ("lowered_logistic_regression", "lowered_from_bytes",
+                 "analyzer_strict_compiled"):
         for name in ("trunc_combine", "trunc_pairs", "cross_terms_mul",
                      "cross_terms_reshare", "bit_decompose", "msb",
                      "horner"):
@@ -4135,6 +4369,7 @@ def main() -> int:
         "per_host": per_host_record,
         "lowered": lowered_record,
         "training_sessions": session_record,
+        "analyzer": analyzer_record,
     }
     log(json.dumps(record))
     log(json.dumps({"kernels": kernels}))

@@ -9,9 +9,8 @@ reference's DEFAULT_PASSES.  Lowering needs a static shape for every
 Input and Load (``arg_specs``, usually
 ``lowering.arg_specs_from_arguments`` of the first evaluation's
 arguments), baked into the lowered graph as HostShape constants.  The
-static analyzer behind ``lint`` and ``strict`` (ROADMAP queue 1,
-item 13) is not ported: asking for it raises, naming the item, and
-nothing runs in its place.
+``lint`` pass and ``strict=True`` run the static analyzer
+(:mod:`.analysis`) as the reference does.
 """
 
 from __future__ import annotations
@@ -30,8 +29,6 @@ from .well_formed import well_formed_check
 
 DEFAULT_PASSES = ["typing", "lowering", "prune", "networking", "toposort"]
 
-_ANALYZER = "ROADMAP queue 1, item 13"
-
 
 def compile_computation(
     comp: Computation,
@@ -42,16 +39,30 @@ def compile_computation(
     """Run compiler passes over ``comp`` and return the compiled graph
     (reference compile(), compilation/mod.rs:120-132).  ``arg_specs``
     feeds the lowering pass: ``{input name: (shape, numpy dtype)}``, a
-    string or a static scalar."""
-    if strict:
-        raise NotImplementedError(
-            f"strict=True runs the static analyzer, which is not ported "
-            f"({_ANALYZER})"
-        )
+    string or a static scalar.
+
+    With ``strict=True`` the static analyzer (:mod:`.analysis`) runs
+    after the last pass and error-severity diagnostics (share leak,
+    unpaired rendezvous, signature mismatch, ...) raise
+    :class:`~moose_tpu_torch.errors.MalformedComputationError` — a
+    compile-time reject instead of a runtime hang or leak.  Each pass
+    runs in a ``pass:<name>`` telemetry span."""
+    from .. import telemetry
+
     if passes is None:
         passes = list(DEFAULT_PASSES)
     for p in passes:
-        comp = _run_pass(comp, p, arg_specs)
+        pass_name = p if isinstance(p, str) else getattr(
+            p, "__name__", "custom"
+        )
+        with telemetry.span(f"pass:{pass_name}"):
+            comp = _run_pass(comp, p, arg_specs)
+    # an explicit trailing "lint" pass already checked the final graph
+    if strict and (not passes or passes[-1] != "lint"):
+        from .analysis import lint_check
+
+        with telemetry.span("pass:lint"):
+            lint_check(comp)
     return comp
 
 
@@ -70,10 +81,9 @@ def _run_pass(comp, p, arg_specs):
         well_formed_check(comp)
         return comp
     if p == "lint":
-        raise NotImplementedError(
-            f"the lint pass runs the static analyzer, which is not ported "
-            f"({_ANALYZER})"
-        )
+        from .analysis import lint_check
+
+        return lint_check(comp)
     if p == "dump":
         from ..textual import to_textual
 

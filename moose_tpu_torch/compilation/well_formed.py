@@ -11,9 +11,9 @@ from ..errors import MalformedComputationError
 
 def rendezvous_attr_problems(op: Operation, placements: dict) -> list[str]:
     """Problems with a Send/Receive op's rendezvous attributes (empty
-    when well-formed): the rendezvous contract, raised fail-fast by
-    :func:`well_formed_check` (the static analyzer that also collects it
-    comes with ROADMAP queue 1, item 13)."""
+    when well-formed).  The ONE definition of the rendezvous contract:
+    raised fail-fast here, collected as MSA203 diagnostics by
+    ``compilation.analysis.communication``."""
     endpoint_attr = "receiver" if op.kind == "Send" else "sender"
     problems = []
     if "rendezvous_key" not in op.attributes:

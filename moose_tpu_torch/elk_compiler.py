@@ -18,9 +18,14 @@ def compile_computation(comp_bin: bytes, passes: Optional[list] = None,
     ``LocalMooseRuntime.evaluate_compiled`` directly.
 
     ``arg_specs`` supplies the static shapes the lowering pass needs:
-    ``{input_name: ((shape...), np_dtype)}``.  ``strict`` runs the static
-    analyzer, which is not ported (ROADMAP queue 1, item 13): asking for
-    it raises."""
+    ``{input_name: ((shape...), np_dtype)}``.  Passes that require no
+    shapes (typing, prune, toposort, wellformed, lint, dot, dump) work
+    without it.
+
+    ``strict=True`` runs the static analyzer after the passes and raises
+    :class:`~moose_tpu_torch.errors.MalformedComputationError` on any
+    error-severity diagnostic (share leak, unpaired rendezvous,
+    signature mismatch, ...)."""
     from .compilation import compile_computation as _compile
     from .serde import deserialize_computation, serialize_computation
 

@@ -22,6 +22,11 @@ the reference's ``stacked.supports`` does): LoadShares reads each
 owner's ``<key>#s0``/``#s1`` limb planes from that owner's own store,
 and SaveShares writes each party's held pair back the same way, so the
 value is never reconstructed.
+
+An evaluation runs in an ``execute`` telemetry span, and each op in an
+``op:<kind>`` span under ``MOOSE_TPU_TRACE_OPS``.  :meth:`Interpreter
+.replay` runs the walk up to the plan's outputs: on ``meta`` tensors it
+is the stacked layout's shape-only draw replay.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from ..values import (
 )
 from ..dialects import host
 from .. import dtypes as dt
+from .. import telemetry
 
 
 def master_key_words(domain: str = "") -> np.ndarray:
@@ -246,6 +252,84 @@ def ordered_output_names(outputs) -> list:
     return sorted(outputs, key=sort_key)
 
 
+def _segment_limit() -> int:
+    """The JAX package's jit segment limit (``MOOSE_TPU_JIT_SEGMENT``,
+    default 2000; 0 disables): the runtime's route threshold for a
+    graph's estimated lowered size, and the fixed chunk size of
+    :func:`plan_segments`."""
+    raw = os.environ.get("MOOSE_TPU_JIT_SEGMENT", "2000")
+    try:
+        n = int(raw)
+    except ValueError as e:
+        raise ConfigurationError(
+            f"MOOSE_TPU_JIT_SEGMENT must be an integer, got {raw!r}"
+        ) from e
+    return n if n > 0 else (1 << 62)
+
+
+def plan_segments(order, static_env, effective_inputs, limit, chunks=None):
+    """Boundary dataflow of a segmented op order, the JAX package's
+    ``plan_segments``: split ``order`` into consecutive ``limit``-sized
+    chunks (or take ``chunks`` as given) and compute, per chunk, which
+    earlier-produced values it consumes (``in_names``) and which of its
+    values later chunks need (``out_names``).  ``effective_inputs(name)``
+    yields the dataflow inputs of one op.  An input whose producer sits
+    in no chunk (a pending Receive, a host-boundary op resolved outside
+    the chunks) crosses into its consuming chunk as an ordinary input
+    and is never a chunk output.  The schedule analysis
+    (``compilation.analysis.schedule``) reconstructs a worker's plan
+    with it."""
+    if chunks is None:
+        chunks = [order[i:i + limit] for i in range(0, len(order), limit)]
+    produced_by = {}
+    for si, names in enumerate(chunks):
+        for n in names:
+            produced_by[n] = si
+
+    in_names: list[list[str]] = []
+    for si, names in enumerate(chunks):
+        ins = set()
+        for n in names:
+            for i in effective_inputs(n):
+                if i in static_env:
+                    continue
+                if produced_by.get(i, -1) != si:
+                    ins.add(i)
+        in_names.append(sorted(ins))
+    out_names: list[list[str]] = [[] for _ in chunks]
+    for si in range(len(chunks)):
+        needed = set()
+        for sj in range(si + 1, len(chunks)):
+            needed.update(
+                n for n in in_names[sj] if produced_by.get(n) == si
+            )
+        out_names[si] = sorted(needed)
+    return chunks, in_names, out_names
+
+
+@contextlib.contextmanager
+def op_span(kind: str, device):
+    """An ``op:<kind>`` telemetry span (``MOOSE_TPU_TRACE_OPS``) that
+    closes once the card has finished the op: same-named spans
+    aggregate in ``last_timings``, a per-kind time profile of an eager
+    run."""
+    with telemetry.span(f"op:{kind}"):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+
+def _refuse_unsupported(dialect, comp: Computation) -> None:
+    missing = dialect.unsupported_ops(comp)
+    if missing:
+        raise NotImplementedError(
+            "the port cannot run these ops yet: " + ", ".join(sorted({
+                f"{p} {k} ({dialect.roadmap_item(p, k)})"
+                for p, k in missing
+            }))
+        )
+
+
 class Interpreter:
     """Eager interpreter of logical computations on one device, in the
     layout of ``dialect``: ``dialects.logical`` (per-host) or
@@ -264,14 +348,7 @@ class Interpreter:
         arguments = arguments or {}
         storage = storage if storage is not None else {}
         dialect = self.dialect
-        missing = dialect.unsupported_ops(comp)
-        if missing:
-            raise NotImplementedError(
-                "the port cannot run these ops yet: " + ", ".join(sorted({
-                    f"{p} {k} ({dialect.roadmap_item(p, k)})"
-                    for p, k in missing
-                }))
-            )
+        _refuse_unsupported(dialect, comp)
         sess = dialect.make_session(master_key_words("logical"), self.device)
         dialect.bind_placements(sess, comp)
         sync_seed = fixed_sync_seed()
@@ -279,28 +356,48 @@ class Interpreter:
             host.deterministic_sync_keys(sync_seed)
             if sync_seed is not None else contextlib.nullcontext()
         )
-        with sync_ctx:
+        # the span closes once the outputs are numpy on the host, so it
+        # covers the device's work
+        with telemetry.span("execute", jit=False, plan_mode="eager"), \
+                sync_ctx:
             outputs, saves = self._walk(sess, comp, arguments, storage)
-        # stores are written only once every op has run
-        for (plc_name, key), value in saves.items():
-            storage.setdefault(plc_name, {})[key] = _save_user_value(
-                sess, value)
-        return {
-            name: _to_user_value(sess, outputs[name])
-            for name in ordered_output_names(outputs)
-        }
+            # stores are written only once every op has run
+            for (plc_name, key), value in saves.items():
+                storage.setdefault(plc_name, {})[key] = _save_user_value(
+                    sess, value)
+            return {
+                name: _to_user_value(sess, outputs[name])
+                for name in ordered_output_names(outputs)
+            }
+
+    def replay(self, comp: Computation, arguments: dict) -> dict:
+        """Run the walk of :meth:`evaluate` up to the plan's outputs (each
+        Output revealed to its host, nothing decoded, no store written)
+        and return them by tag.  A Load reads ``arguments[op name]``, as
+        the JAX package's plan binds it.  On the ``meta`` device this is
+        the stacked layout's shape-only replay: every kernel wrapper
+        returns meta outputs of its shape and every draw group records
+        in the draw ledger and fills nothing."""
+        dialect = self.dialect
+        _refuse_unsupported(dialect, comp)
+        sess = dialect.make_session(master_key_words("logical"), self.device)
+        dialect.bind_placements(sess, comp)
+        outputs, _ = self._walk(sess, comp, arguments, {},
+                                loads_from_arguments=True)
+        return outputs
 
     def _walk(self, sess, comp: Computation, arguments: dict,
-              storage) -> tuple:
+              storage, loads_from_arguments: bool = False) -> tuple:
         dialect = self.dialect
         env: dict[str, Any] = {}
         outputs: dict[str, Any] = {}
         saves: dict[tuple, Any] = {}
+        trace_ops = telemetry.trace_ops_enabled()
         for name in comp.toposort_names():
             op = comp.operations[name]
             plc = comp.placement_of(op)
             if op.kind in ("Input", "Load"):
-                if op.kind == "Load":
+                if op.kind == "Load" and not loads_from_arguments:
                     arr = _load(storage, op, plc.name,
                                 *(env[i] for i in op.inputs))
                 elif name in arguments:
@@ -346,5 +443,9 @@ class Interpreter:
                 outputs[op.attributes.get("tag", name)] = value
                 continue
             args = [env[i] for i in op.inputs]
-            env[name] = dialect.execute_op(sess, comp, op, args)
+            if trace_ops:
+                with op_span(op.kind, self.device):
+                    env[name] = dialect.execute_op(sess, comp, op, args)
+            else:
+                env[name] = dialect.execute_op(sess, comp, op, args)
         return outputs, saves

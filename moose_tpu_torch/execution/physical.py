@@ -32,7 +32,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .. import devices
+from .. import devices, telemetry
 from .. import dtypes as dt
 from ..computation import Computation
 from ..dialects import host
@@ -57,6 +57,7 @@ from .interpreter import (
     _to_user_value,
     binding_cache_key,
     master_key_words,
+    op_span,
     ordered_output_names,
 )
 from .session import EagerSession
@@ -318,6 +319,7 @@ def _lift_boundary(arr, op, plc: str, device):
 def _run_physical_ops(sess, comp, order, env, outputs, saves, keys, dyn,
                       recv_src):
     """Execute the host-level ops of ``order`` against ``env``."""
+    trace_ops = telemetry.trace_ops_enabled()
     for n in order:
         if n in env:
             continue
@@ -354,6 +356,10 @@ def _run_physical_ops(sess, comp, order, env, outputs, saves, keys, dyn,
             # keyed by Output tag like the reference's executor
             # (execution/asynchronous.rs:623); op name when untagged
             outputs[op.attributes.get("tag", n)] = env[n]
+        elif trace_ops:
+            with op_span(kind, sess.device):
+                env[n] = execute_kernel(
+                    sess, op, plc, [env[i] for i in op.inputs])
         else:
             env[n] = execute_kernel(
                 sess, op, plc, [env[i] for i in op.inputs])
@@ -451,17 +457,20 @@ class PhysicalInterpreter:
         env: dict[str, Any] = dict(plan.static_env)
         outputs: dict[str, Any] = {}
         saves: dict[tuple, Any] = {}
-        _run_physical_ops(sess, comp, plan.order, env, outputs, saves, keys,
-                          dyn, plan.recv_src)
-        self.last_plan_info = {"plan_mode": "eager", "pinned_ops": [],
-                               "plan_state": "static"}
-        for (plc_name, key), value in saves.items():
-            storage.setdefault(plc_name, {})[key] = _save_user_value(
-                sess, value)
-        return {
-            name: _to_user_value(sess, outputs[name])
-            for name in ordered_output_names(outputs)
-        }
+        # the span closes once the outputs are numpy on the host, so it
+        # covers the device's work
+        with telemetry.span("execute", jit=False, plan_mode="eager"):
+            _run_physical_ops(sess, comp, plan.order, env, outputs, saves,
+                              keys, dyn, plan.recv_src)
+            self.last_plan_info = {"plan_mode": "eager", "pinned_ops": [],
+                                   "plan_state": "static"}
+            for (plc_name, key), value in saves.items():
+                storage.setdefault(plc_name, {})[key] = _save_user_value(
+                    sess, value)
+            return {
+                name: _to_user_value(sess, outputs[name])
+                for name in ordered_output_names(outputs)
+            }
 
 
 def execute_physical(

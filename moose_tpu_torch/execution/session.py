@@ -19,6 +19,7 @@ import torch
 
 from .. import dtypes as dt
 from ..dialects import host, ring
+from . import drawledger
 from ..values import (
     HostBitTensor,
     HostFixedTensor,
@@ -93,12 +94,16 @@ class EagerSession:
         return seed
 
     def sample_uniform_seeded(self, plc, shp, seed, width: int):
+        drawledger.record_host_draw(plc, seed, "ring", shp.value, width)
         return host.sample_uniform_seeded(shp, seed, width, plc, self.device)
 
     def sample_bits_seeded(self, plc, shp, seed, width: int):
+        drawledger.record_host_draw(plc, seed, "bits", shp.value, width)
         return host.sample_bits_seeded(shp, seed, width, plc, self.device)
 
     def sample_bit_tensor_seeded(self, plc, shp, seed):
+        drawledger.record_host_draw(plc, seed, "bit_tensor", shp.value,
+                                    None)
         return host.sample_bit_tensor_seeded(shp, seed, plc, self.device)
 
     # -- value movement ----------------------------------------------------

@@ -29,7 +29,7 @@ Design rules:
 /metrics`` serves the Prometheus text, ``GET /healthz`` a JSON health
 document, ``GET /v1/metrics`` the JSON snapshot.  The JAX package's
 ``/debug/profile`` capture needs its ``profiling`` module, which the
-port has not taken yet (ROADMAP queue 1, item 13): that path answers
+port has not taken yet (ROADMAP queue 1, item 13b): that path answers
 404 here.
 """
 

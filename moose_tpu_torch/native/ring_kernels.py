@@ -32,12 +32,20 @@ kernels the secure dot and the protocol sigmoid run:
   ``threefry_bits`` expand one key the caller gives, as a group of one,
   through the same kernel ``csrc/threefry.cu``.
 
-A wrapper takes its plain version only for tensors (for K7, a device) on
-the CPU.  For CUDA it launches the kernel or raises: there is no
-fallback.  Each launch adds one to ``LAUNCHES[name]`` (and nothing else
-does), so a run can show that it went through the kernels; K2 and K3
-count their two entry points apart, K5 its two modes, and K7 its two
-layouts (``prf_threefry``, ``prf_threefry_pallas``), one launch a group.
+A wrapper dispatches on its tensors' device (for K7, the buffers'),
+explicitly: the CPU takes the plain version; CUDA launches the kernel;
+``meta`` is shape only, a wrapper returning meta outputs of its shape
+and a group fill of meta buffers doing nothing, so the shape-only
+replay of the stacked layout
+(``compilation.analysis.keystream.stacked_draw_trace``) computes nothing
+and launches nothing; any other device raises.  The draws under a
+given key (:func:`threefry_words`, :func:`threefry_bits`: the per-host
+layout's single draws, which no stacked walk reaches) take the CPU or
+CUDA only.  There is no fallback: no CUDA tensor takes another branch.  Each launch adds one to
+``LAUNCHES[name]`` (and nothing else does), so a run can show that it
+went through the kernels; K2 and K3 count their two entry points apart,
+K5 its two modes, and K7 its two layouts (``prf_threefry``,
+``prf_threefry_pallas``), one launch a group.
 
 The ``aes-ctr`` PRF is no kernel: :func:`aes_ctr_group` expands a group
 on the host, as the JAX package does, and copies it to the device once.
@@ -87,6 +95,16 @@ def reset_launches() -> None:
 
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
+
+
+def _on_meta(t: torch.Tensor) -> bool:
+    return t.device.type == "meta"
+
+
+def _meta_words(shape, width: int, device) -> Pair:
+    """Shape-only (lo, hi) ring words: a wrapper's output on ``meta``."""
+    lo = torch.empty(tuple(shape), dtype=torch.int64, device=device)
+    return lo, (torch.empty_like(lo) if width == 128 else None)
 
 
 def _check_cuda_words(label: str, t: Optional[torch.Tensor], shape,
@@ -463,6 +481,9 @@ def dot_cross_terms(x0: Pair, x1: Optional[Pair], y0: Optional[Pair],
     the limb GEMM) and counts one launch."""
     if _on_cpu(x0[0]):
         return dot_cross_terms_plain(x0, x1, y0, ysum, width)
+    if _on_meta(x0[0]):
+        return _meta_words(tuple(x0[0].shape[:-1]) + (ysum[0].shape[-1],),
+                           width, x0[0].device)
     out = _dot_launch(x0, x1, y0, ysum, width)
     if out[0].numel() > 0:
         LAUNCHES["dot_cross_terms"] += 1
@@ -631,6 +652,8 @@ def trunc_combine(a0: Pair, a1: Pair, draws, width: int, amount: int):
     m_r, which cancels in it)."""
     if _on_cpu(a0[0]):
         return trunc_combine_plain(a0, a1, draws, width, amount)
+    if _on_meta(a0[0]):
+        return _meta_words((3,) + tuple(a0[0].shape), width, a0[0].device)
     if not 0 <= amount <= width - 2:
         raise ValueError(
             f"trunc_combine: amount {amount} out of range for ring{width}"
@@ -715,6 +738,8 @@ def trunc_pairs(x: Pair, draws: Pair, width: int, amount: int,
         )
     if _on_cpu(lo):
         return trunc_pairs_plain(x, draws, width, amount, bank)
+    if _on_meta(lo):
+        return _meta_words((3, 2) + shape, width, lo.device)
     device = lo.device
     _require_cuda("trunc_pairs", device)
     wide = width == 128
@@ -759,6 +784,8 @@ def cross_terms_mul(x0: Pair, x1: Pair, y0: Pair, y1: Pair,
     one shape (the party axis rides in it)."""
     if _on_cpu(x0[0]):
         return cross_terms_mul_plain(x0, x1, y0, y1, width)
+    if _on_meta(x0[0]):
+        return _meta_words(x0[0].shape, width, x0[0].device)
     device = x0[0].device
     _require_cuda("cross_terms_mul", device)
     shape = tuple(x0[0].shape)
@@ -844,6 +871,8 @@ def cross_terms_reshare(x: Pair, y: Pair, bank: Pair, width: int) -> Pair:
     shape = tuple(torch.broadcast_shapes(x[0].shape[2:], y[0].shape[2:]))
     if _on_cpu(x[0]):
         return cross_terms_reshare_plain(x, y, bank, width)
+    if _on_meta(x[0]):
+        return _meta_words((3, 2) + shape, width, x[0].device)
     device = x[0].device
     _require_cuda("cross_terms_reshare", device)
     wide = width == 128
@@ -941,6 +970,8 @@ def ring_mul(lo1, hi1, lo2, hi2, width: int) -> Pair:
         )
     if _on_cpu(lo1):
         return ring_mul_plain(lo1, hi1, lo2, hi2, width)
+    if _on_meta(lo1):
+        return _meta_words(shape, width, lo1.device)
     device = lo1.device
     _require_cuda("ring_mul", device)
     wide = width == 128
@@ -1130,6 +1161,9 @@ def _bits_adder(lo, hi, width: int, banks, msb_only: bool) -> torch.Tensor:
     if _on_cpu(lo):
         plain = msb_plain if msb_only else bit_decompose_plain
         return plain(lo, hi, width, banks)
+    if _on_meta(lo):
+        return torch.empty((3, 2) + (() if msb_only else (width,)) + data,
+                           dtype=torch.uint8, device=lo.device)
     device = lo.device
     _require_cuda(name, device)
     wide = width == 128
@@ -1293,7 +1327,11 @@ def horner(x0: Pair, x1: Pair, width: int, raws, f: int, zbanks: Pair,
     the plain version computes with both, as the protocol does."""
     if _on_cpu(x0[0]):
         return horner_plain(x0, x1, width, raws, f, zbanks, tdraws)
-    lo, hi = _horner_launch(x0, x1, width, raws, f, zbanks, tdraws)
+    if _on_meta(x0[0]):
+        lo, hi = _meta_words((3, 2) + tuple(x0[0].shape[1:]), width,
+                             x0[0].device)
+    else:
+        lo, hi = _horner_launch(x0, x1, width, raws, f, zbanks, tdraws)
     return tuple((lo[:, s], _at(hi, slice(None), s)) for s in (0, 1))
 
 
@@ -1316,6 +1354,8 @@ def horner_pairs(x: Pair, width: int, raws, f: int, zbanks: Pair,
     if _on_cpu(x[0]):
         return horner_pairs_plain(x, width, raws, f, zbanks, tdraws)
     shape = x[0].shape[2:]
+    if _on_meta(x[0]):
+        return _meta_words((3, 2) + tuple(shape), width, x[0].device)
     return _horner_launch(_slot(x, 0, shape), _slot(x, 1, shape), width,
                           raws, f, zbanks, tdraws)
 
@@ -1516,6 +1556,8 @@ def threefry_group(master, domain: int, first: int, layout: str,
     if device.type == "cpu":
         threefry_group_plain(master, domain, first, layout, draws)
         return
+    if device.type == "meta":
+        return
     _require_cuda("threefry_group", device)
     code, counter = PRF_LAYOUTS[layout]
     for c0 in range(0, len(draws), GROUP_MAX_DRAWS):
@@ -1595,6 +1637,8 @@ def aes_ctr_group(master, domain: int, first: int, draws) -> None:
         return
     device = draws[0].planes[0][0].device
     _check_group("aes-ctr", draws, device)
+    if device.type == "meta":  # shape only: nothing to expand
+        return
     master = ring._seed_words(master)
     t0 = time.perf_counter()
     parts, places, at, drawn = [], [], 0, 0

@@ -30,6 +30,7 @@ import torch
 
 from ..devices import DEFAULT_DEVICE, resolve
 from ..dialects import ring
+from ..execution import drawledger as _ledger
 from ..native import ring_kernels as rk
 
 
@@ -155,6 +156,11 @@ class SpmdSession:
                          else tuple((bufs[bits], at) for at in planes))
             for bits, n, planes, shape in plan
         ]
+        if _ledger.active() is not None:
+            for spec in specs:
+                _ledger.record_stacked_draw(
+                    spec[0], spec[1],
+                    None if spec[0] == "bit_bank" else spec[2])
         first = self._counter
         self._counter += len(draws)
         if layout == "aes-ctr":

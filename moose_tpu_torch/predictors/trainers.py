@@ -20,10 +20,11 @@ initial weights once), ``bob`` owns the labels and receives the revealed
 model at export.
 
 Every traced graph is the JAX package's, byte for byte through
-``serde``.  Not ported yet: the build-time range and keystream lint
-(:meth:`SecureTrainer._range_lint` needs ``compilation/analysis``,
-ROADMAP queue 1, item 13), which only reads a graph, so the graphs are
-traced without it.
+``serde``, and is linted the moment it is traced, as the reference's
+(:meth:`SecureTrainer._range_lint`): a fixed-point configuration that
+cannot hold the declared training ranges, or a graph that breaks the
+keystream discipline, raises ``MalformedComputationError`` before any
+secret is shared.
 """
 
 from __future__ import annotations
@@ -37,9 +38,6 @@ import moose_tpu_torch as pm
 from ..compilation.lowering import share_key
 from ..edsl import tracer
 from . import predictor, predictor_utils
-
-_LINT = "ROADMAP queue 1, item 13"
-
 
 def _sigmoid(t):
     return 1.0 / (1.0 + np.exp(-t))
@@ -145,14 +143,21 @@ class SecureTrainer(predictor.Predictor):
         return arg_specs, arg_ranges
 
     def _range_lint(self, comp, n_rows: int = None):
-        """The JAX package's build-time range and keystream gate over a
-        traced trainer graph (``compilation.analysis.lint_check`` with
-        :meth:`range_specs`).  It only reads the graph; the port's graphs
-        are traced without it."""
-        raise NotImplementedError(
-            "the trainers' range and keystream lint needs "
-            f"compilation/analysis: {_LINT}"
+        """Build-time MSA7xx+MSA8xx gate: every trainer graph is linted
+        the moment it is traced — against the trainer's declared ranges
+        (a fixed-point config that cannot hold the declared training
+        dynamics fails at build time with the bit-growth chain) and
+        against the keystream discipline (the same arg specs let the
+        analyzer lower the graph and audit key topology and stream
+        positions before a single secret is shared)."""
+        from ..compilation.analysis import lint_check
+
+        arg_specs, arg_ranges = self.range_specs(n_rows)
+        lint_check(
+            comp, analyses=["ranges", "keystream"],
+            context={"arg_specs": arg_specs, "arg_ranges": arg_ranges},
         )
+        return comp
 
     def _batches(self, n_rows: int):
         """(start, stop) bounds of each in-graph minibatch step."""
@@ -193,7 +198,7 @@ class SecureTrainer(predictor.Predictor):
                 )
                 for name in names
             ])
-            return tracer.trace(pm.computation(body))
+            return self._range_lint(tracer.trace(pm.computation(body)))
 
         return self._memoized(("init", self.fixedpoint_dtype), build)
 
@@ -236,7 +241,9 @@ class SecureTrainer(predictor.Predictor):
                     annotation=pm.Argument(self.bob, dtype=pm.float64),
                 ),
             ])
-            return tracer.trace(pm.computation(body))
+            return self._range_lint(
+                tracer.trace(pm.computation(body)), n_rows=n_rows
+            )
 
         return self._memoized(
             ("epoch", self.fixedpoint_dtype, n_rows), build
@@ -284,7 +291,9 @@ class SecureTrainer(predictor.Predictor):
                 )
             ]
             body.__signature__ = inspect.Signature(params)
-            return tracer.trace(pm.computation(body))
+            return self._range_lint(
+                tracer.trace(pm.computation(body)), n_rows=n_rows
+            )
 
         return self._memoized(
             ("step", self.fixedpoint_dtype, n_rows), build
@@ -308,7 +317,7 @@ class SecureTrainer(predictor.Predictor):
 
             body.__name__ = "export"
             body.__signature__ = inspect.Signature([])
-            return tracer.trace(pm.computation(body))
+            return self._range_lint(tracer.trace(pm.computation(body)))
 
         return self._memoized(("export", self.fixedpoint_dtype), build)
 

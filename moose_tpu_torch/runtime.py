@@ -21,7 +21,9 @@ logical walk (``dialects/logical.py``).  ``use_jit`` resolves as the JAX
 package resolves it (``MOOSE_TPU_JIT``, default on) and only chooses the
 route: the port executes eagerly either way.  The two layouts draw
 different masks, so their results agree to the truncation's noise, not
-word for word; the walk and the lowered graph do too.
+word for word; the walk and the lowered graph do too.  Each evaluation
+fills ``last_timings`` from its telemetry spans (``telemetry``), as the
+reference's runtime does.
 """
 
 from __future__ import annotations
@@ -31,13 +33,17 @@ import weakref
 from collections import OrderedDict
 from typing import Dict, List, Optional
 
-from . import devices
+from . import devices, telemetry
 from .computation import AES_TY_NAMES, Computation
 from .edsl import base as edsl_base
 from .edsl import tracer
 from .dialects import logical, stacked
 from .errors import ConfigurationError, TypeMismatchError
-from .execution.interpreter import Interpreter, binding_cache_key
+from .execution.interpreter import (
+    Interpreter,
+    _segment_limit,
+    binding_cache_key,
+)
 from .execution.physical import PhysicalInterpreter
 from .logger import get_logger
 
@@ -139,6 +145,9 @@ class LocalMooseRuntime:
         # reports it, and whether the physical executor ran it (the
         # port's plans are always eager)
         self.last_plan: Dict = {}
+        # the last evaluation's phase timings in micros, by telemetry span
+        # name (the reference's per-role elapsed-time map)
+        self.last_timings: Dict[str, int] = {}
         # weak-keyed on the computation object: repeated evaluations of
         # one AbstractComputation trace it once
         self._trace_cache = weakref.WeakKeyDictionary()
@@ -150,12 +159,22 @@ class LocalMooseRuntime:
 
     def evaluate_computation(self, computation, arguments=None,
                              compiler_passes=None):
+        with telemetry.span("evaluate_computation") as root:
+            result = self._evaluate_computation(
+                computation, arguments, compiler_passes)
+        # coarse phase timings in micros (the reference's per-role
+        # elapsed-time map, pymoose/src/bindings.rs:320-328)
+        self.last_timings = telemetry.phase_timings(root)
+        return result
+
+    def _evaluate_computation(self, computation, arguments,
+                              compiler_passes):
         if isinstance(computation, edsl_base.AbstractComputation):
             traced = self._trace_cache.get(computation)
             if traced is None:
-                traced = self._trace_cache[computation] = tracer.trace(
-                    computation
-                )
+                with telemetry.span("trace"):
+                    traced = tracer.trace(computation)
+                self._trace_cache[computation] = traced
             computation = traced
         computation, arguments = _lift_computation(computation, arguments)
         self.last_plan = {}
@@ -224,8 +243,9 @@ class LocalMooseRuntime:
             compiled = per_comp.get(key)
             if compiled is not None:
                 return compiled
-        compiled = compile_computation(computation, passes=passes,
-                                       arg_specs=specs)
+        with telemetry.span("compile"):
+            compiled = compile_computation(computation, passes=passes,
+                                           arg_specs=specs)
         if cacheable:
             per_comp[key] = compiled
         return compiled
@@ -285,6 +305,14 @@ class LocalMooseRuntime:
         else:
             # a hot computation must not be evicted ahead of cold ones
             self._bin_cache.move_to_end(comp_bin)
+        if _is_lowered(comp):
+            with telemetry.span("evaluate_compiled") as root:
+                result = self._physical.evaluate(
+                    comp, self.storage, dict(arguments or {}),
+                    use_jit=self.use_jit)
+            self.last_timings = telemetry.phase_timings(root)
+            self.last_plan = _plan("per-host", True)
+            return result
         return self.evaluate_computation(comp, arguments)
 
     def read_value_from_storage(self, identity: str, key: str):
@@ -310,20 +338,6 @@ def _has_replicated_op(computation: Computation) -> bool:
 def _is_lowered(computation: Computation) -> bool:
     return any(op.kind in _LOWERED_KINDS
                for op in computation.operations.values())
-
-
-def _segment_limit() -> int:
-    """The JAX package's jit segment limit (``MOOSE_TPU_JIT_SEGMENT``,
-    default 2000; 0 disables), against which a graph's estimated lowered
-    size decides the route."""
-    raw = os.environ.get("MOOSE_TPU_JIT_SEGMENT", "2000")
-    try:
-        n = int(raw)
-    except ValueError as e:
-        raise ConfigurationError(
-            f"MOOSE_TPU_JIT_SEGMENT must be an integer, got {raw!r}"
-        ) from e
-    return n if n > 0 else (1 << 62)
 
 
 def _plan(layout: str, lowered: bool = False) -> dict:

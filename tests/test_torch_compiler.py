@@ -354,41 +354,69 @@ def test_elk_compiler_matches_the_jax_package_s_bytes(name):
         jelk.compile_computation(blob, passes)
 
 
-@pytest.mark.parametrize("how,item", (
-    (dict(passes=DEFAULT_PASSES), None),
-    (dict(passes=["typing", "lowering"]), None),
-    (dict(passes=["lint"]), "item 13"),
-    (dict(passes=["typing"], strict=True), "item 13"),
-))
-def test_unported_passes_raise_naming_their_item(how, item):
-    """The analyzer's passes raise, naming item 13; the lowering passes,
-    ported, give the JAX package's bytes under pinned nonces, through
-    ``compile_computation`` and ``elk_compiler`` alike."""
+@pytest.mark.parametrize("how", (
+    dict(passes=DEFAULT_PASSES),
+    dict(passes=["typing", "lowering"]),
+    dict(passes=["lint"]),
+    dict(passes=["typing"], strict=True),
+    dict(passes=DEFAULT_PASSES + ["lint"], strict=True),
+), ids=("default", "lowering", "lint", "strict", "default-lint-strict"))
+def test_unported_passes_raise_naming_their_item(how):
+    """Every pass gives the JAX package's bytes under pinned nonces,
+    through ``compile_computation`` and ``elk_compiler`` alike: the
+    lowering passes, and the static analyzer's ``lint`` pass and
+    ``strict=True`` (ROADMAP queue 1, item 13a), which pass a clean
+    graph through unchanged."""
     from moose_tpu.dialects import host as jhost
     from moose_tpu_torch.dialects import host as thost
 
     jtraced, ttraced = traced_pair("logreg")
     blob = tserde.serialize_computation(ttraced)
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            tcompile(ttraced, **how)
-        with pytest.raises(NotImplementedError, match=item):
-            telk.compile_computation(blob, **how)
-    else:
-        specs = {"x": ((8, 5), "float64")}
-        with thost.deterministic_sync_keys(14):
-            got = tserde.serialize_computation(
-                tcompile(ttraced, arg_specs=specs, **how))
-        with thost.deterministic_sync_keys(14):
-            got_blob = telk.compile_computation(blob, arg_specs=specs,
-                                                **how)
-        with jhost.deterministic_sync_keys(14):
-            want = jserde.serialize_computation(
-                jcompile(jtraced, arg_specs=specs, **how))
-        assert got == want and got_blob == want
+    specs = {"x": ((8, 5), "float64")}
+    with thost.deterministic_sync_keys(14):
+        got = tserde.serialize_computation(
+            tcompile(ttraced, arg_specs=specs, **how))
+    with thost.deterministic_sync_keys(14):
+        got_blob = telk.compile_computation(blob, arg_specs=specs, **how)
+    with jhost.deterministic_sync_keys(14):
+        want = jserde.serialize_computation(
+            jcompile(jtraced, arg_specs=specs, **how))
+    assert got == want and got_blob == want
     # no pass runs in their place: the default is the JAX package's list
     assert DEFAULT_PASSES == ["typing", "lowering", "prune", "networking",
                               "toposort"]
+
+
+def test_strict_compile_refuses_a_share_leak_as_the_reference():
+    """A replicated value moved onto a host unrevealed (MSA101): the
+    ``lint`` pass and ``strict=True`` raise with the JAX package's
+    diagnostics, in ``compile_computation`` and ``elk_compiler``."""
+    from moose_tpu.errors import MalformedComputationError as JaxMalformed
+
+    from moose_tpu_torch.errors import MalformedComputationError
+
+    from torch_analysis_mirror import port_computation
+    from test_analysis import _leak_graph
+
+    def diagnostics(error):
+        return [(d.rule, int(d.severity), d.op, d.placement, d.message)
+                for d in error.diagnostics]
+
+    jcomp = _leak_graph()
+    blob = jserde.serialize_computation(jcomp)
+    with pytest.raises(JaxMalformed) as want:
+        jcompile(jcomp, passes=["typing"], strict=True)
+    for run in (
+        lambda: tcompile(port_computation(jcomp), passes=["typing"],
+                         strict=True),
+        lambda: tcompile(port_computation(jcomp), passes=["lint"]),
+        lambda: telk.compile_computation(blob, passes=["typing"],
+                                         strict=True),
+    ):
+        with pytest.raises(MalformedComputationError) as got:
+            run()
+        assert diagnostics(got.value) == diagnostics(want.value)
+        assert {d.rule for d in got.value.diagnostics} == {"MSA101"}
 
 
 def _port_elk(*argv):

@@ -168,11 +168,17 @@ def test_step_graph_traces_the_jax_op_kinds(kind):
     assert ttrainer.step_computation(ROWS) is comp
 
 
+def _diagnostics(error):
+    return [(d.rule, int(d.severity), d.op, d.placement, d.message)
+            for d in error.diagnostics]
+
+
 def test_checkpointed_epochs_name_their_roadmap_items():
     # ROADMAP queue 1, item 10 ported the checkpointed epochs: each graph
     # traces the JAX package's op kinds (its bytes:
-    # tests/test_torch_training_session.py), and the one part still to
-    # port, the build-time range lint the JAX graphs pass, names item 13
+    # tests/test_torch_training_session.py), and each passes the
+    # build-time range and keystream lint (item 13a) at its trace, as the
+    # JAX graphs do
     jtrainer, trainer = _trainers("logreg")
     for name, args in (("init", ()), ("export", ()), ("epoch", (ROWS,))):
         comp = getattr(trainer, f"{name}_computation")(*args)
@@ -180,8 +186,37 @@ def test_checkpointed_epochs_name_their_roadmap_items():
             getattr(jtrainer, f"{name}_computation")(*args))
     assert ("ReplicatedPlacement", "SaveShares") in _kinds(
         trainer.epoch_computation(ROWS))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        trainer._range_lint(trainer.epoch_computation(ROWS), ROWS)
+    comp = trainer.epoch_computation(ROWS)
+    assert trainer._range_lint(comp, ROWS) is comp
+
+
+@pytest.mark.parametrize("precision,bound", (
+    ((24, 40), 1e9),  # 69.9 raw bits against the ring128 budget of 64
+    ((8, 27), 1e4),  # 40.3 raw bits against the ring64 budget of 35
+), ids=("fixed24_40-1e9", "fixed8_27-1e4"))
+def test_range_gate_refuses_an_overflowing_trainer_as_the_reference(
+        precision, bound):
+    """The trainers lint every graph at its trace: declared feature and
+    weight ranges that overflow the ring raise MSA701 at build time, in
+    the port as in the JAX package, with equal diagnostics."""
+    from moose_tpu.errors import MalformedComputationError as JaxMalformed
+
+    from moose_tpu_torch.errors import MalformedComputationError
+
+    errors = []
+    for pkg, trainers, malformed in ((jm, jtrainers, JaxMalformed),
+                                     (tm, ttrainers,
+                                      MalformedComputationError)):
+        trainer = trainers.LogregSGDTrainer(
+            5, 0.1, fixedpoint_dtype=pkg.fixed(*precision),
+            feature_range=(-bound, bound), weight_range=(-bound, bound))
+        with pytest.raises(malformed) as info:
+            trainer.epoch_computation(16)
+        errors.append(_diagnostics(info.value))
+    want, got = errors
+    assert got == want
+    assert {rule for rule, *_ in got} == {"MSA701"}
+    assert "guaranteed ring overflow" in got[0][-1]
 
 
 @pytest.mark.parametrize("width", (64, 128))

@@ -298,9 +298,24 @@ def test_unported_parts_name_their_roadmap_items():
         GrpcTrainingCluster(object())
     with pytest.raises(NotImplementedError, match="item 11"):
         export.hot_swap(object(), "logreg", np.ones((3, 1)))
+    # the build-time range and keystream lint (item 13a) is ported: the
+    # epoch graph passes it, and its findings are the JAX package's
+    from moose_tpu.compilation.analysis import analyze as janalyze
+
+    from moose_tpu_torch.compilation.analysis import analyze
+
     trainer = ttrainers.LogregSGDTrainer(FEATURES)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        trainer._range_lint(trainer.epoch_computation(ROWS), ROWS)
+    jtrainer = jtrainers.LogregSGDTrainer(FEATURES)
+    comp = trainer.epoch_computation(ROWS)
+    assert trainer._range_lint(comp, ROWS) is comp
+    specs, ranges = trainer.range_specs(ROWS)
+    context = {"arg_specs": specs, "arg_ranges": ranges}
+    got, want = (
+        [(d.rule, int(d.severity), d.op, d.placement, d.message)
+         for d in fn(c, analyses=["ranges"], context=context)]
+        for fn, c in ((analyze, comp),
+                      (janalyze, jtrainer.epoch_computation(ROWS))))
+    assert got == want and got
 
 
 def test_export_writes_the_jax_package_s_onnx(threefry):
