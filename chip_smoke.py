@@ -231,12 +231,39 @@ Phases (each raises on failure; the script then exits non-zero):
      moose_tpu_torch.bin.prancer --format json`` on its blob exiting 0,
      and a phase-6 request's ``last_timings`` holding
      ``evaluate_computation`` and ``execute``, the second no longer.
-Every evaluation of phases 4 to 17 must have run on the stacked layout,
-phase 18's and 19's on the per-host one (``last_plan["layout"]``), and
-phase 20's and 21's on both (the sessions per-host, the trained model
-stacked; the draw oracles one each).  Phases 4 to 21 are the main path:
-the kernels' launch counters are set to 0 just before each (each of
-phase 20's and 21's parts apart) and read just after.  K1, K2's trunc_pairs and the
+ 22. secure-inference serving (``chip_smoke.run_serving``) of phase 6's
+     logistic regression (config 3: 100 features, fixed(24,40),
+     threefry) through ``moose_tpu_torch.serving.InferenceServer`` on
+     the card, ``max_batch`` 1024: (a) registration over the autotuned
+     ladder of 11 power-of-two buckets (one warm-up evaluation a bucket,
+     each bucket's ms and the decision's source printed); (b) a burst of
+     1,024 rows in 1-, 7- and 64-row requests from 8 threads, then one
+     request of 1,000 rows, every row within 5e-3 of float64; rows/s,
+     p50/p99 request latency, batch fill, the device's busy ms and idle
+     share over the burst printed; under fixed keys one batch of exactly
+     1,024 rows (a long max_wait_ms) word-equal to a direct evaluation
+     of that bucket on the card and on the CPU, launching phase 6's
+     counts a request; (c) ``bin/blitzen``'s handler in process on
+     127.0.0.1: /readyz 200, a predict within 5e-3, /metrics parsing, a
+     full queue answering 429 with ``retryable``; (d) ``bin/donner``'s
+     router over two such replicas on the one card: the request routed,
+     then one replica drained (its /readyz 503), a request sent to it
+     retried on the other, and the drained one ejected; (e)
+     ``training.export.hot_swap`` of phase 20's exported weights into
+     the live server under traffic (no request fails, results within
+     5e-3 of the swapped model's float64), then one ``ControlPlane``
+     promote of the phase-6 weights as a generation over
+     ``LocalFleetClient`` under routed tenant traffic; (f)
+     ``save_snapshot`` and a fresh server's ``load_snapshot`` under fixed
+     keys: every probe digest verified, the first request word-equal to
+     the original server's, no re-trace, the restore wall beside (a)'s.
+Every evaluation of phases 4 to 17 and 22 must have run on the stacked
+layout, phase 18's and 19's on the per-host one
+(``last_plan["layout"]``), and phase 20's and 21's on both (the sessions
+per-host, the trained model stacked; the draw oracles one each).  Phases
+4 to 22 are the main path: the kernels' launch counters are set to 0
+just before each (each of phase 20's, 21's and 22's parts apart) and
+read just after.  K1, K2's trunc_pairs and the
 threefry kernel in the phase's stream layout (threefry in all but 7,
 threefry-pallas in 7, and never the other) must have launched in each
 but 10 and 13, and every kernel (K1, K2's trunc_pairs, K3's
@@ -268,6 +295,9 @@ trunc_combine, K3's cross_terms_mul, K4 and K7; its lowered epochs (c)
 K1, K4 and K7 and none of K2, K3, K5 and K6; logreg_train_step (d) K1,
 K2's trunc_pairs, K3's cross_terms_reshare, K4 and K7; the trained model
 (e) every kernel of phase 6; (d) and (e) derive no seed on the host.
+Each of phase 22's paths must launch every kernel of phase 6, and its
+bucket-1024 batches (the fixed-keys batch and the 1,000-row request)
+exactly phase 6's counts a request; the burst one K1 a batch.
 The line before the last is the kernels' JSON record; the last line is
 the device record.
 
@@ -465,6 +495,15 @@ SESSION_LR = 0.1
 SESSION_TOL = 1e-3
 SESSION_LOWERED_STEPS = 2  # (c): 256 rows, also run on the CPU
 TRAINED_ROWS = 1024  # (e): one request of the exported model
+# phase 22: secure-inference serving of phase 6's logistic regression
+SERVE_FEATURES = LOGREG_FEATURES
+SERVE_MAX_BATCH = LOGREG_ROWS  # the ladder's largest bucket
+SERVE_BURST = ((64, 14), (7, 16), (1, 16))  # (rows, requests): 1,024 rows
+SERVE_THREADS = 8
+SERVE_BIG = 1000  # one request of 1,000 rows after the burst
+SERVE_WAIT_MS = 2.0
+SERVE_QUEUE = 64
+SERVE_PROBE_ROWS = 7  # (c)'s and (f)'s request
 
 
 def per_host_ceiling(count):
@@ -2934,6 +2973,8 @@ def run_training_sessions(torch, rk, ring, pm, runtime_cls, device="cuda"):
             "rows": TRAINED_ROWS, "latency_ms": served_s * 1e3,
             "max_abs_err": float(np.abs(pred - want).max()),
             "layout": runtime.last_plan["layout"],
+            # phase 22 hot-swaps these into its live server
+            "weights": [float(v) for v in np.asarray(w).reshape(-1)],
         }
         log(f"trained predictor: {json.dumps(record['trained_predictor'])} "
             f"launches {launches['trained_predictor']}")
@@ -3139,6 +3180,538 @@ def run_analyzer(torch, rk, pm, runtime_cls, classifier, logreg, rng,
     }
     log(f"analyzer strict compile: {json.dumps(record['strict_compile'])} "
         f"launches {launches['analyzer_strict_compiled']}")
+    return record, launches
+
+
+def run_serving(torch, rk, pm, classifier, weights, rng, card,
+                per_request=None, device="cuda"):
+    """Phase 22: secure-inference serving of phase 6's logistic
+    regression, (a) to (f) of the module's docstring, with servers on
+    ``device``.  ``weights`` are phase 20's exported weights (the
+    hot-swapped model), ``per_request`` phase 6's launches a request (the
+    counts a bucket-``SERVE_MAX_BATCH`` batch must launch; None skips
+    that check).  Every number logged carries ``card``.  Returns (record,
+    launches by path); raises on any failed check."""
+    import json as _json
+    import os
+    import re
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from moose_tpu_torch.bin import blitzen, donner
+    from moose_tpu_torch.compilation import autotune
+    from moose_tpu_torch.runtime import LocalMooseRuntime
+    from moose_tpu_torch.serving import (
+        CanaryConfig,
+        ControlPlane,
+        InferenceServer,
+        LocalFleetClient,
+        ServingConfig,
+    )
+    from moose_tpu_torch.training import export
+
+    on_card = torch.device(device).type == "cuda"
+    features, max_batch = SERVE_FEATURES, SERVE_MAX_BATCH
+    kernel_names = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
+                    "ring_mul", "bit_decompose", "msb", "horner",
+                    "prf_threefry")
+    record, launches = {"card": card}, {}
+    closers = []
+
+    def say(what, payload):
+        log(f"serving {what} [{card}]: {_json.dumps(payload)}")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def config(**overrides):
+        values = dict(max_batch=max_batch, max_wait_ms=SERVE_WAIT_MS,
+                      queue_bound=SERVE_QUEUE)
+        values.update(overrides)
+        return ServingConfig(**values)
+
+    def new_server(buckets=(), **overrides):
+        server = InferenceServer(config=config(**overrides), device=device)
+        closers.append(server.close)
+        t0 = time.perf_counter()
+        registered = server.register_model(
+            "logreg", classifier, row_shape=(features,), buckets=buckets)
+        return server, registered, time.perf_counter() - t0
+
+    def clock(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    def within(got, x, model=classifier):
+        want = logistic_reference(model, x)
+        if got.shape != want.shape or not np.all(np.isfinite(got)):
+            raise AssertionError(f"served rows malformed: {got.shape}")
+        return float(np.abs(got - want).max())
+
+    def counted(path, fn):
+        sync()
+        rk.reset_launches()
+        out = fn()
+        sync()
+        launches[path] = dict(rk.LAUNCHES)
+        return out
+
+    def batch_counts(path, batches=1):
+        # a bucket-max_batch batch launches what a phase-6 request does
+        if per_request is None:
+            return
+        got = {k: launches[path][k] for k in kernel_names}
+        want = {k: per_request[k] * batches for k in kernel_names}
+        if got != want:
+            raise AssertionError(f"{path} launched {got}, not {want}")
+
+    def serve(httpd):
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+
+        def stop():
+            httpd.shutdown()
+            httpd.server_close()
+        closers.append(stop)
+        return f"http://127.0.0.1:{httpd.server_port}"
+
+    def post(url, payload, headers=None):
+        request = urllib.request.Request(
+            url, data=_json.dumps(payload).encode(), method="POST",
+            headers={"Content-Type": "application/json", **(headers or {})})
+        try:
+            with urllib.request.urlopen(request, timeout=300) as resp:
+                return resp.status, _json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, _json.loads(e.read())
+
+    def status_of(url):
+        try:
+            with urllib.request.urlopen(url, timeout=60) as resp:
+                return resp.status
+        except urllib.error.HTTPError as e:
+            return e.code
+
+    try:
+        # (a) warm-up: the default autotuned ladder, one evaluation a
+        # bucket, each bucket's eval_s recorded for later registrations
+        decision = autotune.serving_bucket_plan(max_batch)
+        server, registered, register_s = new_server()
+        warm = {b: r["eval_s"] * 1e3
+                for b, r in registered.warmup_report.items()}
+        record["warmup"] = {
+            "buckets": list(registered.buckets),
+            "source": decision.source, "why": decision.why,
+            "register_ms": register_s * 1e3, "warm_ms_by_bucket": warm,
+            "plan_state": sorted({r["plan_state"] for r in
+                                  registered.warmup_report.values()}),
+        }
+        say("warm-up", record["warmup"])
+        if registered.buckets != tuple(decision.choice):
+            raise AssertionError(f"warmed {registered.buckets}")
+
+        # (b) a burst of 1-, 7- and 64-row requests from SERVE_THREADS
+        # threads, then one request of SERVE_BIG rows
+        sizes = [n for n, count in SERVE_BURST for _ in range(count)]
+        burst_x = [rng.normal(size=(n, features)) for n in sizes]
+        results, failures = [None] * len(sizes), []
+
+        def client(k):
+            try:
+                futures = [(i, server.submit("logreg", burst_x[i]))
+                           for i in range(k, len(sizes), SERVE_THREADS)]
+                for i, future in futures:
+                    results[i] = future.result(timeout=600)
+            except Exception as e:  # noqa: BLE001 — counted below
+                failures.append(repr(e))
+
+        def burst():
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(SERVE_THREADS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+
+        _, burst_s = counted("serving_burst", lambda: clock(burst))
+        if failures:
+            raise AssertionError(f"burst requests failed: {failures[:3]}")
+        snap = server.metrics_snapshot()
+        busy = None
+        if on_card:
+            # the same burst once more under the profiler: the card's
+            # busy time over that burst's own wall (the profiler slows
+            # the host, so its wall is kept beside the unprofiled one)
+            def timed_burst():
+                t0 = time.perf_counter()
+                burst()
+                sync()
+                return time.perf_counter() - t0
+            profiled_s, events = profiled(torch, timed_burst)
+            if failures:
+                raise AssertionError(f"burst failed: {failures[:3]}")
+            busy_ms = sum(e.device_time_total for e in events) / 1e3
+            if busy_ms > profiled_s * 1e3:
+                raise AssertionError(
+                    f"the card was busy {busy_ms} ms in a burst of "
+                    f"{profiled_s * 1e3} ms")
+            busy = {
+                "device_busy_ms": busy_ms,
+                "profiled_wall_ms": profiled_s * 1e3,
+                "device_idle_share": 1.0 - busy_ms / (profiled_s * 1e3),
+                "profiled_batches": server.metrics_snapshot()["batches"]
+                - snap["batches"],
+                "profiler_wall_ratio": profiled_s / burst_s,
+            }
+        burst_err = max(within(r, x) for r, x in zip(results, burst_x))
+        if launches["serving_burst"]["dot_cross_terms"] != snap["batches"] \
+                and on_card:
+            raise AssertionError(
+                f"{snap['batches']} burst batches launched K1 "
+                f"{launches['serving_burst']['dot_cross_terms']} times")
+        big_x = rng.normal(size=(SERVE_BIG, features))
+        big, big_s = counted("serving_big_request", lambda: clock(
+            lambda: server.predict("logreg", big_x, timeout_s=600)))
+        big_err = within(big, big_x)
+        batch_counts("serving_big_request")
+        record["burst"] = {
+            "requests": len(sizes), "rows": sum(sizes),
+            "threads": SERVE_THREADS, "wall_ms": burst_s * 1e3,
+            "rows_per_s": sum(sizes) / burst_s, "batches": snap["batches"],
+            "batch_size_hist": snap["batch_size_hist"],
+            "batch_fill_ratio": snap["batch_fill_ratio"],
+            "request_latency_p50_ms": snap["request_latency_p50_s"] * 1e3,
+            "request_latency_p99_ms": snap["request_latency_p99_s"] * 1e3,
+            "queue_wait_p99_ms": snap["queue_wait_p99_s"] * 1e3,
+            "compute_p99_ms": snap["compute_p99_s"] * 1e3,
+            "profiled_burst": busy,
+            "max_abs_err": burst_err,
+            "big_request": {"rows": SERVE_BIG, "wall_ms": big_s * 1e3,
+                            "max_abs_err": big_err},
+            "retraces_after_warm": snap["retraces_after_warm"],
+        }
+        say("burst", record["burst"])
+        if max(burst_err, big_err) >= LOGREG_TOL:
+            raise AssertionError(
+                f"served rows off by {max(burst_err, big_err)}")
+        if snap["retraces_after_warm"]:
+            raise AssertionError("a warm batch re-entered the tracer")
+
+        # (b) under fixed keys: exactly one batch of max_batch rows,
+        # gathered under a long max_wait_ms, word-equal to a direct
+        # evaluation of that bucket on the card and on the CPU
+        saved = _fixed_keys(os)
+        try:
+            fixed, fixed_reg, _ = new_server(
+                max_wait_ms=600_000.0, buckets=(max_batch,),
+                queue_bound=max_batch)
+            per = max(1, max_batch // 16)
+            fixed_x = rng.normal(size=(max_batch, features))
+
+            def one_batch():
+                futures = [fixed.submit("logreg", fixed_x[i:i + per])
+                           for i in range(0, max_batch, per)]
+                return np.concatenate(
+                    [f.result(timeout=600) for f in futures])
+            served = counted("serving_fixed_batch", one_batch)
+            batch_counts("serving_fixed_batch")
+            if fixed.metrics_snapshot()["batch_size_hist"] != {max_batch: 1}:
+                raise AssertionError("the fixed batch was split")
+            direct = {}
+            for where in ((device, "cpu") if on_card else ("cpu",)):
+                runtime = LocalMooseRuntime(
+                    ["alice", "bob", "carole"], device=where)
+                (out,) = runtime.evaluate_computation(
+                    fixed_reg.comp, {fixed_reg.input_name: fixed_x}
+                ).values()
+                direct[where] = np.asarray(out)
+        finally:
+            _restore(os, saved)
+        record["fixed_batch"] = {
+            "rows": max_batch, "requests": max_batch // per,
+            "equal_to_direct": {w: bool(np.array_equal(served, d))
+                                for w, d in direct.items()},
+            "launches": {k: launches["serving_fixed_batch"][k]
+                         for k in kernel_names},
+            "max_abs_err": within(served, fixed_x),
+        }
+        say("fixed-keys batch", record["fixed_batch"])
+        if not all(record["fixed_batch"]["equal_to_direct"].values()):
+            raise AssertionError("the served batch differs from a direct "
+                                 "evaluation of its bucket")
+
+        # (c) blitzen in-process: readiness, a predict, /metrics, 429
+        lifecycle_a = blitzen.ReplicaLifecycle("a")
+        url_a = serve(ThreadingHTTPServer(
+            ("127.0.0.1", 0), blitzen._make_handler(server, lifecycle_a)))
+        if status_of(url_a + "/readyz") != 200:
+            raise AssertionError("replica a not ready after warm-up")
+        probe_x = burst_x[0][:SERVE_PROBE_ROWS]
+        code, body = counted("serving_http", lambda: post(
+            url_a + "/v1/models/logreg:predict", {"x": probe_x.tolist()}))
+        http_y = np.asarray(body.get("y"), dtype=np.float64)
+        if code != 200:
+            raise AssertionError(f"predict answered {code}: {body}")
+        http_err = within(http_y, probe_x)
+        vs_burst = float(np.abs(http_y - results[0][:SERVE_PROBE_ROWS]).max())
+        if max(http_err, vs_burst) >= LOGREG_TOL:
+            raise AssertionError(f"predict off by {http_err}, {vs_burst} "
+                                 f"from (b)'s rows")
+        with urllib.request.urlopen(url_a + "/metrics", timeout=60) as resp:
+            text = resp.read().decode()
+        sample = re.compile(
+            r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? \S+$")
+        samples = [line for line in text.splitlines()
+                   if line and not line.startswith("#")]
+        bad = [line for line in samples if not sample.match(line)]
+        for line in samples:
+            float(line.rsplit(" ", 1)[1])
+        if bad or not samples:
+            raise AssertionError(f"/metrics does not parse: {bad[:3]}")
+        # a full queue: hold the evaluation lock until the scheduler holds
+        # one batch it cannot evaluate, then flood the replica past the
+        # queue's bound
+        answers = []
+
+        def flood():
+            answers.append(post(url_a + "/v1/models/logreg:predict",
+                                {"x": probe_x[:1].tolist()}))
+        with server.registry.eval_lock:
+            flooders = [threading.Thread(target=flood)]
+            flooders[0].start()
+            deadline = time.perf_counter() + 120
+            while server.metrics_snapshot()["queue_depths"]["logreg"] \
+                    or server._queues["logreg"]._in_flight == 0:
+                if time.perf_counter() > deadline:
+                    raise AssertionError("the scheduler took no batch")
+                time.sleep(0.01)
+            flooders += [threading.Thread(target=flood)
+                         for _ in range(SERVE_QUEUE + 8)]
+            for t in flooders[1:]:
+                t.start()
+            while not any(c == 429 for c, _ in answers):
+                if time.perf_counter() > deadline:
+                    raise AssertionError("the queue never answered 429")
+                time.sleep(0.01)
+        for t in flooders:
+            t.join()
+        rejected = [b for c, b in answers if c == 429]
+        if not all(b.get("retryable") is True for b in rejected) or any(
+                c not in (200, 429) for c, _ in answers):
+            raise AssertionError(f"flood answers {answers[:3]}")
+        record["http"] = {
+            "predict_max_abs_err": http_err,
+            "predict_vs_burst_rows": vs_burst,
+            "metrics_samples": len(samples),
+            "flood": {"requests": len(answers), "429": len(rejected),
+                      "200": sum(c == 200 for c, _ in answers)},
+        }
+
+        # (d) donner in front of two replicas on the one card
+        server_b, _, register_b_s = new_server()
+        lifecycle_b = blitzen.ReplicaLifecycle("b")
+        url_b = serve(ThreadingHTTPServer(
+            ("127.0.0.1", 0), blitzen._make_handler(server_b, lifecycle_b)))
+        router = donner.Router([url_a, url_b], config=donner.FleetConfig(
+            backoff_ms=5.0, backoff_cap_ms=50.0, attempt_timeout_s=300.0,
+            eject_after=2))
+        for replica in router.replicas:
+            router.probe_once(replica)
+        if len(router.ready_replicas()) != 2:
+            raise AssertionError("donner sees no two ready replicas")
+        url_d = serve(ThreadingHTTPServer(
+            ("127.0.0.1", 0), donner._make_handler(router)))
+        code, body = counted("serving_routed", lambda: post(
+            url_d + "/v1/models/logreg:predict", {"x": probe_x.tolist()}))
+        if code != 200:
+            raise AssertionError(f"donner answered {code}: {body}")
+        routed_err = within(np.asarray(body["y"]), probe_x)
+        if routed_err >= LOGREG_TOL:
+            raise AssertionError(f"routed predict off by {routed_err}")
+        # replica b drains: readiness flips, donner ejects it
+        lifecycle_b.start_drain()
+        drained = server_b.drain(timeout_s=60)
+        readyz_b = status_of(url_b + "/readyz")
+        router._rr = 0  # the first choice lands on b
+        retry_status, retry_body, retry_info = router.forward(
+            "/v1/models/logreg:predict",
+            _json.dumps({"x": probe_x.tolist()}).encode(), {})
+        for _ in range(2):
+            router.probe_once(router.replicas[1])
+        ejected = router.replicas[1].ejected
+        code, body = post(url_d + "/v1/models/logreg:predict",
+                          {"x": probe_x.tolist()})
+        retry_err = after_err = None
+        if retry_status == 200:
+            retry_err = within(np.asarray(
+                _json.loads(retry_body)["y"], dtype=np.float64), probe_x)
+        if code == 200:
+            after_err = within(np.asarray(body["y"], dtype=np.float64),
+                               probe_x)
+        record["http"]["drain_readyz"] = readyz_b
+        record["routing"] = {
+            "register_b_ms": register_b_s * 1e3,
+            "routed_max_abs_err": routed_err, "b_drained": drained,
+            "b_readyz": readyz_b, "retry_status": retry_status,
+            "retry_attempts": retry_info.get("attempts"),
+            "retry_max_abs_err": retry_err,
+            "b_ejected": ejected, "after_ejection_status": code,
+            "after_ejection_max_abs_err": after_err,
+            "ready_replicas": [r.base_url for r in router.ready_replicas()],
+        }
+        say("http", record["http"])
+        say("routing", record["routing"])
+        if readyz_b != 503 or not drained:
+            raise AssertionError("the drain did not flip /readyz to 503")
+        if retry_status != 200 or not ejected or code != 200 or max(
+                retry_err, after_err) >= LOGREG_TOL:
+            raise AssertionError(f"routing around a drain failed: "
+                                 f"{record['routing']}")
+        server_b.close()
+
+        # (e) hot swap of phase 20's weights under traffic, then one
+        # control-plane promote over LocalFleetClient
+        trained = export.trained_predictor(weights)
+        stop, errors, served_n = threading.Event(), [], [0]
+
+        def traffic(k):
+            while not stop.is_set():
+                try:
+                    server.submit("logreg", burst_x[k % len(sizes)]).result(
+                        timeout=600)
+                    served_n[0] += 1
+                except Exception as e:  # noqa: BLE001 — counted below
+                    errors.append(repr(e))
+                k += 4
+        flows = [threading.Thread(target=traffic, args=(k,))
+                 for k in range(4)]
+        for t in flows:
+            t.start()
+        try:
+            t0 = time.perf_counter()
+            counted("serving_hot_swap",
+                    lambda: export.hot_swap(server, "logreg", weights))
+            swap_s = time.perf_counter() - t0
+        finally:
+            stop.set()
+            for t in flows:
+                t.join()
+        swapped_x = rng.normal(size=(SERVE_PROBE_ROWS, features))
+        swapped_err = within(server.predict("logreg", swapped_x),
+                             swapped_x, trained)
+        # the promote: the phase-6 weights come back as generation g1
+        coef = classifier.coeffs[1].reshape(-1, 1)
+        g1 = export.logreg_onnx_bytes(coef, classifier.intercepts[0, 1])
+        base_t, canary_t = [], []
+        for i in range(10_000):
+            side = donner._assign_generation(
+                "logreg", f"tenant-{i}", {"base": 0.5, "g1": 0.5})
+            (base_t if side == "base" else canary_t).append(f"tenant-{i}")
+            if len(base_t) >= 2 and len(canary_t) >= 2:
+                break
+        stop.clear()
+        routed_codes, routed_failures = [], []
+
+        def tenant_traffic(tenant):
+            body = _json.dumps({"x": probe_x.tolist()}).encode()
+            while not stop.is_set():
+                status, answer, _ = router.forward(
+                    "/v1/models/logreg:predict", body,
+                    {"X-Moose-Tenant": tenant})
+                routed_codes.append(status)
+                if status != 200:
+                    routed_failures.append(
+                        (status, answer[:300].decode(errors="replace")))
+                stop.wait(0.05)
+        tenants = [threading.Thread(target=tenant_traffic, args=(t,))
+                   for t in base_t[:2] + canary_t[:2]]
+        plane = ControlPlane(LocalFleetClient(router, [server]), "logreg",
+                             CanaryConfig(fraction=0.5, watch_s=0.5,
+                                          min_requests=4, p99_slo_s=60.0,
+                                          error_rate_slo=0.2, poll_s=0.1,
+                                          timeout_s=300.0))
+        for t in tenants:
+            t.start()
+        try:
+            t0 = time.perf_counter()
+            report = counted("serving_canary", lambda: plane.run_generation(
+                "g1", g1, features))
+            promote_s = time.perf_counter() - t0
+        finally:
+            stop.set()
+            for t in tenants:
+                t.join()
+        promoted_x = rng.normal(size=(SERVE_PROBE_ROWS, features))
+        promoted_err = within(server.predict("logreg", promoted_x),
+                              promoted_x)
+        record["hot_swap"] = {
+            "swap_ms": swap_s * 1e3, "requests_during": served_n[0],
+            "failed": len(errors), "max_abs_err": swapped_err,
+            "promote": {"promoted": report["promoted"],
+                        "reason": report["reason"],
+                        "observed": report["observed"],
+                        "wall_ms": promote_s * 1e3,
+                        "routed_requests": len(routed_codes),
+                        "non_200": routed_failures,
+                        "max_abs_err": promoted_err},
+        }
+        say("hot swap", record["hot_swap"])
+        if errors or swapped_err >= LOGREG_TOL:
+            raise AssertionError(f"hot swap: {record['hot_swap']}")
+        if not report["promoted"] or promoted_err >= LOGREG_TOL or any(
+                c != 200 for c in routed_codes):
+            raise AssertionError(f"promote: {record['hot_swap']['promote']}")
+        if server.registry.names() != ["logreg"]:
+            raise AssertionError(f"left {server.registry.names()}")
+
+        # (f) snapshot, then a fresh server restores it (fixed keys)
+        saved = _fixed_keys(os)
+        try:
+            with tempfile.TemporaryDirectory() as root:
+                t0 = time.perf_counter()
+                server.save_snapshot(root)
+                save_s = time.perf_counter() - t0
+                fresh = InferenceServer(config=config(), device=device)
+                closers.append(fresh.close)
+                t0 = time.perf_counter()
+                restore = fresh.load_snapshot(root)
+                restore_s = time.perf_counter() - t0
+            snap_x = rng.normal(size=(SERVE_PROBE_ROWS, features))
+            original = server.predict("logreg", snap_x)
+            first = counted("serving_snapshot_request",
+                            lambda: fresh.predict("logreg", snap_x))
+            model = fresh.registry.get("logreg")
+            padded, _ = model.pad(snap_x)
+            _, eval_report = fresh.registry.evaluate(model, padded)
+        finally:
+            _restore(os, saved)
+        record["snapshot"] = {
+            "save_ms": save_s * 1e3, "restore_ms": restore_s * 1e3,
+            "rewarm_ms": restore["rewarm_s"] * 1e3,
+            "warmup_register_ms": register_s * 1e3,
+            "probe_checked": restore["probe_checked"],
+            "aot": restore["aot"]["logreg"],
+            "first_request_equal": bool(np.array_equal(first, original)),
+            "retraced": eval_report["retraced"],
+            "retraces_after_warm":
+                fresh.metrics_snapshot()["retraces_after_warm"],
+            "max_abs_err": within(first, snap_x),
+        }
+        say("snapshot", record["snapshot"])
+        if not record["snapshot"]["first_request_equal"] or \
+                eval_report["retraced"] or \
+                record["snapshot"]["retraces_after_warm"] or \
+                restore["probe_checked"] != len(model.buckets):
+            raise AssertionError(f"snapshot: {record['snapshot']}")
+    finally:
+        for close in reversed(closers):
+            close()
     return record, launches
 
 
@@ -4081,14 +4654,26 @@ def main() -> int:
     phase[0] = 21
     analyzer_record, analyzer_launches = run_analyzer(
         torch, rk, pm, LocalMooseRuntime, classifier, logreg, rng)
+
+    # phase 22: secure-inference serving of phase 6's model (main path,
+    # each of its paths counted on its own); a bucket-1024 batch must
+    # launch what a phase-6 request does
+    phase[0] = 22
+    per_request = {k: v // LOGREG_REQUESTS
+                   for k, v in logreg_launches.items()}
+    serving_record, serving_launches = run_serving(
+        torch, rk, pm, classifier,
+        np.asarray(session_record["trained_predictor"]["weights"]).reshape(
+            -1, 1),
+        rng, smi, per_request=per_request)
     LocalMooseRuntime.evaluate_computation = evaluate
     log(f"layouts by phase: "
         f"{json.dumps({p: sorted(v) for p, v in layouts.items()})}")
-    for p in range(4, 22):
+    for p in range(4, 23):
         # phase 20: the sessions per-host, the trained model stacked;
-        # phase 21: a draw oracle on each layout
-        want = ({"per-host", "stacked"} if p >= 20
-                else {"per-host" if p >= 18 else "stacked"})
+        # phase 21: a draw oracle on each layout; phase 22 stacked
+        want = ({"per-host", "stacked"} if 20 <= p <= 21
+                else {"per-host" if 18 <= p <= 19 else "stacked"})
         if layouts.get(p) != want:
             raise AssertionError(
                 f"phase {p} ran on {layouts.get(p)}, not {want}")
@@ -4112,6 +4697,7 @@ def main() -> int:
         **lowered_launches,
         **session_launches,
         **analyzer_launches,
+        **serving_launches,
     }
     protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
@@ -4180,6 +4766,9 @@ def main() -> int:
         "analyzer_stacked_request": protocol + ("prf_threefry",),
         "analyzer_per_host_request": per_host_kernels + ("prf_threefry",),
         "analyzer_strict_compiled": lowered_kernels,
+        # phase 22: every path serves phase 6's graph on the stacked
+        # layout, one batch at a time on the scheduler thread
+        **{path: protocol + ("prf_threefry",) for path in serving_launches},
     }
     # the lowered graph holds the reference's composition: no fused step
     for path in ("lowered_logistic_regression", "lowered_from_bytes",
@@ -4286,6 +4875,8 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
+            # phase 22: one bucket-1024 batch, phase 6's counts
+            "launches_per_serving_batch": by_path["serving_fixed_batch"],
             "equal": all(r["equal"] for r in rows
                          if r["equal"] is not None),
             "max_abs_err": max(r["max_abs_err"] for r in rows
@@ -4370,6 +4961,7 @@ def main() -> int:
         "lowered": lowered_record,
         "training_sessions": session_record,
         "analyzer": analyzer_record,
+        "serving": serving_record,
     }
     log(json.dumps(record))
     log(json.dumps({"kernels": kernels}))

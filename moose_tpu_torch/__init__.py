@@ -215,6 +215,8 @@ __all__ = [
     "zeros",
 ]
 
+__version__ = "0.1.0"
+
 
 def __getattr__(name):
     # the runtime, the predictors and the compiler load on first use: the

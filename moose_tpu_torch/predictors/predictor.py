@@ -1,6 +1,6 @@
 """Predictor base class and the AES input wrapper, as
-``moose_tpu/predictors/predictor.py`` (its serving hook,
-``traced_predictor``, comes with serving: ROADMAP queue 1, item 11)."""
+``moose_tpu/predictors/predictor.py``, with its serving hook
+``traced_predictor``."""
 
 import abc
 import dataclasses
@@ -93,6 +93,19 @@ class Predictor(metaclass=abc.ABCMeta):
             return predictor
 
         return self._memoized(("plain", fixedpoint_dtype), build)
+
+    def traced_predictor(self, fixedpoint_dtype=utils.DEFAULT_FIXED_DTYPE):
+        """The traced logical computation of :meth:`predictor_factory`,
+        memoized beside it: the serving registry traces once per
+        (instance, dtype) and every runtime and bucket reuses the same
+        Computation object."""
+
+        def build():
+            from ..edsl import tracer
+
+            return tracer.trace(self.predictor_factory(fixedpoint_dtype))
+
+        return self._memoized(("traced", fixedpoint_dtype), build)
 
 
 class AesInputMixin:

@@ -3,9 +3,9 @@
 The port's own copy of ``moose_tpu/training/export.py``: the weights a
 :class:`~moose_tpu_torch.training.session.TrainingSession` revealed to
 the model receiver become a standard predictor artifact, the same
-skl2onnx-layout bytes as the JAX package writes.  Replacing the live
-version in a serving registry (:func:`hot_swap`) needs the port's
-``serving/`` (ROADMAP queue 1, item 11) and raises until then.
+skl2onnx-layout bytes as the JAX package writes, and :func:`hot_swap`
+replaces the live version in an in-process
+:class:`~moose_tpu_torch.serving.InferenceServer`.
 """
 
 from __future__ import annotations
@@ -60,9 +60,9 @@ def onnx_digest(raw: bytes, n_features: int, max_batch: int) -> str:
 
 def hot_swap(server: Any, name: str, weights: np.ndarray,
              intercept: Optional[np.ndarray] = None) -> Any:
-    """Replace the live model ``name`` on an in-process inference server
-    with freshly trained weights.  The port has no ``serving/`` yet."""
-    raise NotImplementedError(
-        "hot_swap needs the port's serving/ (InferenceServer."
-        "replace_model): ROADMAP queue 1, item 11"
-    )
+    """Replace the live model ``name`` on an in-process
+    ``InferenceServer`` with freshly trained weights, zero requests
+    dropped (see ``InferenceServer.replace_model``)."""
+    model = trained_predictor(weights, intercept)
+    n_features = np.asarray(weights).reshape(-1).shape[0]
+    return server.replace_model(name, model, row_shape=(n_features,))

@@ -35,8 +35,10 @@ sys.path.insert(0, str(REPO))
 import chip_smoke  # noqa: E402
 
 IDS = ["alice", "bob", "carole"]
-# tests/test_stacked_backend.py:298's size
-SMALL = dict(seed=3, in_ch=2, mid_ch=3, size=6, n_classes=2)
+# two images of 2 channels at 4x4, 3 mid channels: tests/test_stacked_
+# backend.py:298's batch and channels at a smaller side (the JAX
+# reference compiles its eager kernels once a shape)
+SMALL = dict(seed=3, in_ch=2, mid_ch=3, size=4, n_classes=2)
 FLOAT = op.TensorProto.FLOAT
 
 
@@ -65,7 +67,7 @@ def test_convnet_is_bit_identical_to_the_reference(stream):
     # line up one for one
     assert _ops(ttracer.trace(tpred.predictor_factory())) == \
         _ops(jtracer.trace(jpred.predictor_factory()))
-    x = np.random.default_rng(11).normal(size=(2, 2, 6, 6)) * 0.5
+    x = np.random.default_rng(11).normal(size=(2, 2, 4, 4)) * 0.5
     with prf(stream), fixed_keys_env():
         want = JaxRuntime(IDS, layout="stacked", use_jit=False) \
             .evaluate_computation(jpred.predictor_factory(),

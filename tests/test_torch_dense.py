@@ -9,7 +9,8 @@ fixed keys: the outputs are bit-identical, under the threefry stream and,
 for one model of each family, under threefry-pallas, and within the JAX
 package's own tolerance of sklearn (tests/test_predictors.py:112-160).
 BASELINE config 5's MLP is chip_smoke.py's builder, here at narrow
-widths against float64.  Each JAX run costs 15-35 s on the CPU."""
+widths against float64.  A JAX run at new shapes costs 15-35 s on the
+CPU, so the models share their batch and widths."""
 
 import sys
 from pathlib import Path
@@ -51,6 +52,10 @@ sklearn = pytest.importorskip("sklearn")
 from sklearn import neural_network  # noqa: E402
 
 IDS = ["alice", "bob", "carole"]
+# every JAX run below is ROWS x 4 features with hidden layers of 6: the
+# JAX package's eager kernels compile once a shape, so later runs in the
+# file reuse the first runs' compiles
+ROWS = 6
 
 
 def run_both(export, x, stream="threefry"):
@@ -82,7 +87,7 @@ def _ops(comp):
             for op in comp.operations.values()]
 
 
-def regression_data(rng, n=60, d=5):
+def regression_data(rng, n=60, d=4):
     x = rng.normal(size=(n, d))
     y = x @ rng.normal(size=(d,)) + 0.1 * rng.normal(size=n)
     return x, y
@@ -99,13 +104,13 @@ def classification_data(rng, n, d, classes):
 def test_mlp_regressor_bit_identical(activation):
     x, y = regression_data(np.random.default_rng(1))
     sk = neural_network.MLPRegressor(
-        hidden_layer_sizes=(8,), activation=activation, max_iter=200,
+        hidden_layer_sizes=(ROWS,), activation=activation, max_iter=200,
         random_state=0,
     ).fit(x, y)
-    pred, got, want = run_both(lambda m: m.mlp_onnx(sk, 5), x[:6])
+    pred, got, want = run_both(lambda m: m.mlp_onnx(sk, 4), x[:ROWS])
     assert isinstance(pred, MLPRegressor)
     assert np.array_equal(got, want)
-    assert np.abs(got.ravel() - sk.predict(x[:6])).max() < 5e-3
+    assert np.abs(got.ravel() - sk.predict(x[:ROWS])).max() < 5e-3
 
 
 @pytest.mark.parametrize("stream", ("threefry", "threefry-pallas"))
@@ -120,6 +125,30 @@ def test_mlp_classifier_binary_bit_identical(stream):
     assert isinstance(pred, MLPClassifier)
     assert got.shape == (6, 2) and np.array_equal(got, want)
     assert np.abs(got - sk.predict_proba(x[:6])).max() < 1e-2
+
+
+@pytest.mark.parametrize("precision", ((24, 40), (8, 17)),
+                         ids=("ring128", "ring64"))
+def test_served_mlp_bucket_is_the_jax_package_s(precision):
+    """``tests/test_serving.py``'s MLP padded-batch case on the port's
+    server, held against the JAX package: ROWS - 1 rows of the binary
+    classifier above coalesced into one batch padded to a bucket of ROWS
+    equal the JAX package's direct evaluation of that bucket
+    (``tests/test_torch_serving.py``).  At fixed(24,40) it shares the JAX
+    compiles of the case above."""
+    from test_torch_serving import assert_served_bucket_is_the_jax_package_s
+
+    x, y = classification_data(np.random.default_rng(2), 70, 4, 2)
+    sk = neural_network.MLPClassifier(
+        hidden_layer_sizes=(6,), activation="relu", max_iter=200,
+        random_state=0,
+    ).fit(x, y)
+    with prf("threefry"), fixed_keys_env():
+        got = assert_served_bucket_is_the_jax_package_s(
+            tsk.mlp_onnx(sk, 4, classifier=True).encode(), precision,
+            x[:ROWS - 1], ROWS)
+    if precision == (24, 40):  # full precision also matches sklearn
+        assert np.abs(got - sk.predict_proba(x[:ROWS - 1])).max() < 2e-2
 
 
 def test_mlp_classifier_multiclass_bit_identical():
@@ -142,7 +171,7 @@ def test_pytorch_neural_network_bit_identical():
     b0 = rng.normal(size=(6,)) * 0.1
     w1 = rng.normal(size=(1, 6)) * 0.5
     b1 = rng.normal(size=(1,)) * 0.1
-    x = rng.normal(size=(5, d))
+    x = rng.normal(size=(ROWS, d))
     pred, got, want = run_both(
         lambda m: m.pytorch_nn_onnx([w0, w1], [b0, b1], ["Relu", "Sigmoid"],
                                     d), x)
@@ -157,10 +186,10 @@ def test_pytorch_softmax_network_bit_identical_under_threefry_pallas():
     # chip_smoke.py phase 12's network (relu, relu, softmax) at narrow
     # widths
     rng = np.random.default_rng(5)
-    weights, biases, acts = chip_smoke.network_layers(rng, 6, (5, 4), 3)
-    x = rng.normal(size=(4, 6))
+    weights, biases, acts = chip_smoke.network_layers(rng, 4, (6, 6), 3)
+    x = rng.normal(size=(ROWS, 4))
     pred, got, want = run_both(
-        lambda m: m.pytorch_nn_onnx(weights, biases, acts, 6), x,
+        lambda m: m.pytorch_nn_onnx(weights, biases, acts, 4), x,
         "threefry-pallas")
     assert [layer.activation for layer in pred._stack.layers] == \
         ["relu", "relu", "softmax"]
@@ -199,13 +228,13 @@ def tf2onnx_model(weights, biases, acts, n_features):
 
 def test_tf2onnx_neural_network_bit_identical():
     rng = np.random.default_rng(6)
-    weights = [rng.normal(size=(4, 5)) * 0.5, rng.normal(size=(5, 3)) * 0.5,
-               rng.normal(size=(3, 2)) * 0.5]
-    biases = [rng.normal(size=n) * 0.1 for n in (5, 3, 2)]
+    weights = [rng.normal(size=(4, 6)) * 0.5, rng.normal(size=(6, 6)) * 0.5,
+               rng.normal(size=(6, 3)) * 0.5]
+    biases = [rng.normal(size=n) * 0.1 for n in (6, 6, 3)]
     # a layer without an activation node between two affine layers is
     # the identity
     model = tf2onnx_model(weights, biases, ["Relu", None, "Softmax"], 4)
-    x = rng.normal(size=(5, 4))
+    x = rng.normal(size=(ROWS, 4))
     pred, got, want = run_both(lambda m: model, x)
     assert [layer.activation for layer in pred._stack.layers] == \
         ["relu", "identity", "softmax"]

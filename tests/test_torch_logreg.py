@@ -101,3 +101,23 @@ def test_chip_smoke_logistic_regression_matches_float64():
     want = chip_smoke.logistic_reference(pred, x)
     assert out.shape == want.shape == (6, 2)
     assert np.abs(out - want).max() < chip_smoke.LOGREG_TOL
+
+
+@pytest.mark.parametrize("precision", ((24, 40), (8, 17)),
+                         ids=("ring128", "ring64"))
+def test_served_bucket_is_the_jax_package_s(fixed_keys, precision):
+    """``tests/test_serving.py``'s padded-batch case on the port's
+    server, held against the JAX package: ROWS - 1 rows coalesced into
+    one batch padded to a bucket of ROWS equal the JAX package's direct
+    evaluation of that bucket (``tests/test_torch_serving.py``).  At
+    fixed(24,40) it shares the JAX compiles of the case above."""
+    from test_torch_serving import assert_served_bucket_is_the_jax_package_s
+
+    model, x = binary_model(24)
+    data = tsk.logistic_regression_onnx(model, FEATURES).encode()
+    got = assert_served_bucket_is_the_jax_package_s(
+        data, precision, x[:ROWS - 1], ROWS)
+    if precision == (24, 40):  # full precision also matches float64
+        ref = sigmoid_pair(x[:ROWS - 1], model.coef_[0],
+                           model.intercept_[0])
+        assert np.abs(got - ref).max() < chip_smoke.LOGREG_TOL

@@ -394,7 +394,10 @@ def test_import_adds_no_jax_or_moose_tpu_module():
         "moose_tpu_torch.dialects.fixedpoint, "
         "moose_tpu_torch.dialects.logical, "
         "moose_tpu_torch.execution.session, "
-        "moose_tpu_torch.execution.interpreter\n"
+        "moose_tpu_torch.execution.interpreter, "
+        "moose_tpu_torch.serving, moose_tpu_torch.serving.snapshot, "
+        "moose_tpu_torch.compilation.autotune, "
+        "moose_tpu_torch.bin.blitzen, moose_tpu_torch.bin.donner\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'moose_tpu'))\n"
@@ -426,7 +429,13 @@ def test_package_source_imports_no_jax_or_moose_tpu():
         "execution/interpreter")} <= scanned
     assert {f"moose_tpu_torch/compilation/{name}.py" for name in (
         "__init__", "typing", "pruning", "toposort", "networking",
-        "well_formed", "print")} <= scanned
+        "well_formed", "print", "autotune")} <= scanned
+    # serving and its two front ends
+    assert {f"moose_tpu_torch/{name}.py" for name in (
+        "serving/__init__", "serving/batcher", "serving/config",
+        "serving/controlplane", "serving/metrics", "serving/registry",
+        "serving/server", "serving/snapshot", "bin/blitzen",
+        "bin/donner")} <= scanned
     for path in paths:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

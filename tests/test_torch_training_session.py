@@ -4,8 +4,9 @@ port's per-host walk, against the JAX package's, on the CPU.
 ``training.TrainingSession`` over ``LocalTrainingCluster`` with one
 ``CheckpointStore(FilesystemStorage)`` a party trains a
 ``LogregSGDTrainer`` at 8 rows x 3 features (``tests/test_training.py``'s
-size), init and two epochs, ``steps_per_epoch`` 1 and 2 (and an
-``MLPSGDTrainer`` with 4 hidden units, 1 step an epoch), under
+size), init and two epochs, ``steps_per_epoch`` 1 and 2 (an
+``MLPSGDTrainer`` with 4 hidden units, 1 step an epoch, in
+``tests/test_torch_training_session_mlp.py``), under
 ``threefry`` and fixed keys: every party's committed ``#s0``/``#s1``
 words and the exported weights equal the JAX package's (the JAX
 ``LocalMooseRuntime(use_jit=False)``, its per-host walk), and the
@@ -13,8 +14,9 @@ weights are within 1e-3 of ``reference_epoch`` (``tests/test_training.py:
 255-257``).  A checkpoint directory written by either package resumes in
 the other to the same words; a peer lost between an epoch's session and
 its commit resumes bit-exact.  The trainers' graphs are the JAX
-package's bytes, their constructors take its positional order, and what
-is not ported names its ROADMAP item.
+package's bytes, their constructors take its positional order, a model
+hot-swapped into a serving port server serves the JAX package's rows,
+and what is not ported names its ROADMAP item.
 
 The JAX runs cost 5-25 s each on the CPU (its eager per-host kernels
 compile per shape), so they run once, in a module fixture."""
@@ -117,8 +119,9 @@ def _jax_run(root, steps, epochs, kind="logreg"):
 def runs(tmp_path_factory):
     """The JAX package's runs, under threefry and fixed keys: for each
     ``steps_per_epoch`` init and epoch 1, a copy of that directory, then
-    epoch 2; the MLP's init and two epochs; and epoch 2 resumed from a
-    directory the port wrote."""
+    epoch 2; and epoch 2 resumed from a directory the port wrote.  (The
+    MLP's init and two epochs compile other shapes and run in
+    tests/test_torch_training_session_mlp.py, on another test worker.)"""
     root = tmp_path_factory.mktemp("jax_training")
     out = {}
     with prf("threefry"), fixed_keys_env():
@@ -127,7 +130,6 @@ def runs(tmp_path_factory):
             shutil.copytree(root / f"s{steps}", root / f"s{steps}_epoch1")
             out["logreg", steps] = _jax_run(root / f"s{steps}", steps,
                                             EPOCHS)
-        out["mlp", 1] = _jax_run(root / "mlp", 1, EPOCHS, kind="mlp")
         _port_run(root / "port_epoch1", 1, epochs=1)
         out["port_then_jax"] = _jax_run(root / "port_epoch1", 1, EPOCHS)
     out["root"] = root
@@ -140,10 +142,13 @@ def fixed_keys(monkeypatch):
     monkeypatch.setenv("MOOSE_TPU_ALLOW_WEAK_PRF", "1")
 
 
-@pytest.mark.parametrize("kind,steps", (("logreg", 1), ("logreg", 2),
-                                        ("mlp", 1)))
+@pytest.mark.parametrize("kind,steps", (("logreg", 1), ("logreg", 2)))
 def test_init_and_two_epochs_match_the_jax_package(runs, tmp_path, threefry,
                                                    fixed_keys, kind, steps):
+    check_init_and_two_epochs(runs, tmp_path, kind, steps)
+
+
+def check_init_and_two_epochs(runs, tmp_path, kind, steps):
     report, words, session = _port_run(tmp_path, steps, kind=kind)
     jax_report, jax_words = runs[kind, steps]
     assert report["ok"] and report["epochs_committed"] == [0, 1, 2]
@@ -293,11 +298,43 @@ def test_trainer_graphs_are_the_jax_package_s_bytes(kind, graph):
     assert got == want
 
 
-def test_unported_parts_name_their_roadmap_items():
+def _hot_swapped_rows(serving, export_mod, runtime, w0, w1, x):
+    """A server of ``serving`` over ``runtime`` registers the logistic
+    regression of ``w0`` at one bucket of ``len(x)`` rows,
+    ``export_mod.hot_swap`` replaces it by ``w1``, and ``x`` is served as
+    one request."""
+    config = serving.ServingConfig(max_batch=len(x), max_wait_ms=1000.0)
+    with serving.InferenceServer(config=config, runtime=runtime) as server:
+        server.register_model(
+            "logreg", export_mod.trained_predictor(w0),
+            row_shape=(FEATURES,), buckets=(len(x),))
+        export_mod.hot_swap(server, "logreg", w1)
+        assert server.registry.get("logreg").buckets == (len(x),)
+        return server.predict("logreg", x)
+
+
+def test_unported_parts_name_their_roadmap_items(threefry, fixed_keys):
     with pytest.raises(NotImplementedError, match="item 12"):
         GrpcTrainingCluster(object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        export.hot_swap(object(), "logreg", np.ones((3, 1)))
+    # hot_swap (item 11) is ported: a hot-swapped port server serves the
+    # rows the JAX package's hot-swapped server gives for the same
+    # weights, under fixed keys.  Both serve per-host, as the sessions
+    # above train, so the JAX side reuses their compiles
+    from moose_tpu import serving as jserving
+
+    from moose_tpu_torch import serving as tserving
+
+    rng = np.random.default_rng(17)
+    w0, w1 = (rng.normal(size=(FEATURES, 1)) for _ in range(2))
+    x = _data()[0]
+    got = _hot_swapped_rows(tserving, export, PortRuntime(
+        PARTIES, layout="per-host", use_jit=False, device="cpu"),
+        w0, w1, x)
+    want = _hot_swapped_rows(jserving, jexport, JaxRuntime(
+        PARTIES, layout="per-host", use_jit=False), w0, w1, x)
+    assert np.array_equal(got, np.asarray(want))
+    z = x @ w1
+    assert np.abs(got[:, 1:] - 1 / (1 + np.exp(-z))).max() < 5e-3
     # the build-time range and keystream lint (item 13a) is ported: the
     # epoch graph passes it, and its findings are the JAX package's
     from moose_tpu.compilation.analysis import analyze as janalyze

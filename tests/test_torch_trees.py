@@ -42,10 +42,13 @@ from sklearn import ensemble  # noqa: E402
 
 def test_random_forest_regressor_bit_identical():
     x, y = regression_data(np.random.default_rng(11), n=80)
+    # six leaves a tree: 20 splits, as many as the binary classifier's
+    # below, whose JAX reference then reuses this one's compiles
     sk = ensemble.RandomForestRegressor(
-        n_estimators=4, max_depth=3, random_state=0).fit(x, y)
+        n_estimators=4, max_depth=3, max_leaf_nodes=6,
+        random_state=0).fit(x, y)
     pred, got, want = run_both(
-        lambda m: m.random_forest_regressor_onnx(sk, 5), x[:6])
+        lambda m: m.random_forest_regressor_onnx(sk, 4), x[:6])
     assert isinstance(pred, TreeEnsembleRegressor)
     assert np.array_equal(got, want)
     assert np.abs(got.ravel() - sk.predict(x[:6])).max() < 1e-3
