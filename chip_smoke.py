@@ -257,13 +257,35 @@ Phases (each raises on failure; the script then exits non-zero):
      ``save_snapshot`` and a fresh server's ``load_snapshot`` under fixed
      keys: every probe digest verified, the first request word-equal to
      the original server's, no re-trace, the restore wall beside (a)'s.
+ 23. distributed secure execution (``run_distributed``): (a) config 1's
+     secure dot (1000x1000 @ 1000x1000, fixed(14,23), ring128, within
+     2e-4 of float64) and config 3's logistic regression (1024 x 100,
+     fixed(24,40), within 5e-3) on three workers on the card, first over
+     ``LocalNetworking`` (dasher's path), then as three in-process gRPC
+     ``WorkerServer``s under ``GrpcMooseRuntime``: one cold and three
+     warm requests each, per-role ``elapsed_time_micros``, the gRPC wire
+     counters of each request equal to ``cost_report``'s prediction,
+     one profiled warm gRPC request's device launches, busy ms and idle
+     share; under fixed keys config 3's outputs and every payload on the
+     wire equal to the same run on the CPU; (b) three ``comet``
+     processes on the card and ``cometctl run`` of config 3 from a TOML
+     session file, rows within 5e-3, each process stopped by SIGTERM
+     with exit code 0; (c) ``profiling`` around one warm gRPC request
+     (every phase of a session in one trace) and around a blitzen burst
+     (the batcher's records), ``/debug/profile`` on blitzen and on the
+     metrics server (200, and 409 while a capture runs), and a warm
+     phase-6 request with the profiler's hooks stubbed out, present and
+     off, and on, 10 rounds in turns; (d) ``autotune_plan`` of both
+     graphs on the card and K1's ``measure_dot_micro`` for the mxu,
+     tall and small classes.
 Every evaluation of phases 4 to 17 and 22 must have run on the stacked
 layout, phase 18's and 19's on the per-host one
 (``last_plan["layout"]``), and phase 20's and 21's on both (the sessions
 per-host, the trained model stacked; the draw oracles one each).  Phases
-4 to 22 are the main path: the kernels' launch counters are set to 0
-just before each (each of phase 20's, 21's and 22's parts apart) and
-read just after.  K1, K2's trunc_pairs and the
+4 to 23 are the main path: the kernels' launch counters are set to 0
+just before each (each of phase 20's, 21's, 22's and 23's parts apart)
+and read just after; phase 23's comet processes count in their own
+processes.  K1, K2's trunc_pairs and the
 threefry kernel in the phase's stream layout (threefry in all but 7,
 threefry-pallas in 7, and never the other) must have launched in each
 but 10 and 13, and every kernel (K1, K2's trunc_pairs, K3's
@@ -297,7 +319,9 @@ K2's trunc_pairs, K3's cross_terms_reshare, K4 and K7; the trained model
 (e) every kernel of phase 6; (d) and (e) derive no seed on the host.
 Each of phase 22's paths must launch every kernel of phase 6, and its
 bucket-1024 batches (the fixed-keys batch and the 1,000-row request)
-exactly phase 6's counts a request; the burst one K1 a batch.
+exactly phase 6's counts a request; the burst one K1 a batch.  Each of
+phase 23's in-process paths (its warm requests, counted apart) must
+launch K1, K4 and threefry's K7 and none of K2, K3, K5 and K6.
 The line before the last is the kernels' JSON record; the last line is
 the device record.
 
@@ -504,6 +528,11 @@ SERVE_BIG = 1000  # one request of 1,000 rows after the burst
 SERVE_WAIT_MS = 2.0
 SERVE_QUEUE = 64
 SERVE_PROBE_ROWS = 7  # (c)'s and (f)'s request
+# phase 23: distributed secure execution (config 1's secure dot and config
+# 3's logistic regression on three workers)
+DIST_REQUESTS = 3  # warm requests after one cold
+DIST_OVERHEAD_RUNS = 10  # paired runs of the profiler's cost
+DIST_MICRO_ITERS = 5
 
 
 def per_host_ceiling(count):
@@ -3122,8 +3151,15 @@ def run_analyzer(torch, rk, pm, runtime_cls, classifier, logreg, rng,
         launches["analyzer_per_host_request"] = dict(rk.LAUNCHES)
     finally:
         _restore(os, saved)
-    if per_host.last_plan != {"layout": "per-host", "lowered": False,
-                              "plan_mode": "eager", "pinned_ops": []}:
+    plan = dict(per_host.last_plan)
+    # the walk's plan autotuner table: on the card its False kernel
+    # decisions route nothing (kernel or raise) and say so
+    tuned = plan.pop("autotune", {}).get("decisions", {})
+    applied = tuned.get("pallas_dot", {}).get(
+        "applied", tuned.get("pallas_dot", {}).get("choice"))
+    if plan != {"layout": "per-host", "lowered": False,
+                "plan_mode": "eager", "pinned_ops": []} or (
+            torch.device(device).type == "cuda" and applied is not False):
         raise AssertionError(f"per-host oracle ran {per_host.last_plan}")
     if ledger.host_report() != counts:
         raise AssertionError("per-host draw counts differ from the card's")
@@ -3712,6 +3748,495 @@ def run_serving(torch, rk, pm, classifier, weights, rng, card,
     finally:
         for close in reversed(closers):
             close()
+    return record, launches
+
+
+def run_distributed(torch, rk, ring, pm, classifier, logreg, runtime, rng,
+                    card, device="cuda"):
+    """Phase 23: distributed secure execution, (a) to (d) of the module's
+    docstring: three workers on ``device``, first over LocalNetworking
+    (dasher's path), then as three in-process gRPC WorkerServers under
+    GrpcMooseRuntime, then as three comet processes driven by cometctl;
+    the profiler around them and around a blitzen burst; the plan
+    autotuner's tables and K1's micro.  ``classifier``/``logreg`` are
+    phase 6's model and graph, ``runtime`` phase 6's runtime.  Every
+    number logged carries ``card``.  Returns (record, launches by path);
+    raises on any failed check."""
+    import contextlib
+    import json as _json
+    import os
+    import signal
+    import socket
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+    from pathlib import Path
+
+    import numpy as np
+
+    from moose_tpu_torch import metrics, profiling, serde
+    from moose_tpu_torch.bin import blitzen
+    from moose_tpu_torch.compilation import (
+        DEFAULT_PASSES,
+        autotune,
+        compile_computation,
+    )
+    from moose_tpu_torch.compilation.analysis import cost_report
+    from moose_tpu_torch.compilation.lowering import arg_specs_from_arguments
+    from moose_tpu_torch.dialects import host
+    from moose_tpu_torch.distributed.choreography import start_local_cluster
+    from moose_tpu_torch.distributed.networking import LocalNetworking
+    from moose_tpu_torch.distributed.worker import execute_role
+    from moose_tpu_torch.edsl import tracer
+    from moose_tpu_torch.runtime import GrpcMooseRuntime
+    from moose_tpu_torch.serving import InferenceServer, ServingConfig
+
+    ids = ("alice", "bob", "carole")
+    record, launches = {"card": card}, {}
+    kernel_names = ("dot_cross_terms", "ring_mul", "prf_threefry")
+
+    def say(what, payload):
+        log(f"distributed {what} [{card}]: {_json.dumps(payload)}")
+
+    def sync():
+        torch.cuda.synchronize()
+
+    # config 1's secure dot and config 3's logistic regression, traced
+    # once (a traced graph hits the client's and the workers' caches)
+    x_dot = rng.normal(size=(DOT_N, DOT_N))
+    y_dot = rng.normal(size=(DOT_N, DOT_N))
+    x_log = [rng.normal(size=(LOGREG_ROWS, LOGREG_FEATURES))
+             for _ in range(DIST_REQUESTS + 1)]
+    graphs = {
+        "secure_dot": (tracer.trace(secure_dot_computation(pm)),
+                       lambda k: {"x": x_dot, "y": y_dot},
+                       lambda k: x_dot @ y_dot, DOT_TOL),
+        "logistic_regression": (
+            tracer.trace(logreg),
+            lambda k: {"x": x_log[k]},
+            lambda k: logistic_reference(classifier, x_log[k]),
+            LOGREG_TOL),
+    }
+
+    def error(name, out, k):
+        _, _, reference, _ = graphs[name]
+        got = out["output_0"]
+        want = reference(k)
+        if got.shape != want.shape or not np.all(np.isfinite(got)):
+            raise AssertionError(f"{name} output malformed: {got.shape}")
+        return float(np.abs(got - want).max())
+
+    def local_run(comp, args, net, session, dev=device):
+        results, errors = {}, {}
+
+        def work(identity):
+            try:
+                results[identity] = execute_role(
+                    comp, identity, {}, args, net, session, timeout=300.0,
+                    device=dev)
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors[identity] = e
+
+        threads = [threading.Thread(target=work, args=(i,), daemon=True)
+                   for i in ids]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"local workers failed: {errors}")
+        return results, {k: v for r in results.values()
+                         for k, v in r["outputs"].items()}
+
+    def capture(net):
+        seen = {}
+        put = net._store.put
+
+        def keep(key, value):
+            seen[key] = value
+            put(key, value)
+
+        net._store.put = keep
+        return seen
+
+    # (a) LocalNetworking: one cold and three warm sessions a graph
+    lowered = {}
+    for name, (comp, args_of, _, tol) in graphs.items():
+        args0 = args_of(0)
+        with host.deterministic_sync_keys(SEED):
+            lowered[name] = compile_computation(
+                comp, DEFAULT_PASSES, arg_specs_from_arguments(args0))
+        net = LocalNetworking(device=device)
+        walls, errs = [], []
+        for k in range(DIST_REQUESTS + 1):
+            if k == 1:
+                sync()
+                rk.reset_launches()
+            (results, out), s = timed(torch, lambda: local_run(
+                lowered[name], args_of(k), net, f"local-{name}-{k}"))
+            walls.append(s)
+            errs.append(error(name, out, k))
+        launches[f"distributed_local_{name}"] = dict(rk.LAUNCHES)
+        if max(errs) > tol:
+            raise AssertionError(f"local {name}: error {max(errs)} > {tol}")
+        record[f"local_{name}"] = {
+            "cold_ms": walls[0] * 1e3,
+            "warm_ms": [s * 1e3 for s in walls[1:]],
+            "max_abs_err": max(errs),
+            "elapsed_time_micros": {
+                i: r["elapsed_time_micros"] for i, r in results.items()},
+            "plan_modes": sorted({r["plan_mode"] for r in results.values()}),
+        }
+        say(f"local {name}", record[f"local_{name}"])
+
+    # (a) fixed keys: the card's words are the CPU's, outputs and every
+    # payload on the wire, for config 3 over LocalNetworking
+    saved = _fixed_keys(os)
+    try:
+        words = {}
+        for dev in (device, "cpu"):
+            net = LocalNetworking(device=dev)
+            wire = capture(net)
+            _, out = local_run(lowered["logistic_regression"],
+                               graphs["logistic_regression"][1](0), net,
+                               "fixed-keys", dev=dev)
+            words[dev] = (out, wire)
+    finally:
+        _restore(os, saved)
+    (card_out, card_wire), (cpu_out, cpu_wire) = words[device], words["cpu"]
+    if not (set(card_out) == set(cpu_out) and all(
+            np.array_equal(card_out[k], cpu_out[k]) for k in cpu_out)):
+        raise AssertionError("fixed-keys outputs differ from the CPU's")
+    if card_wire != cpu_wire:
+        diff = sorted(k for k in cpu_wire if card_wire.get(k) != cpu_wire[k])
+        raise AssertionError(f"fixed-keys payloads differ: {diff[:4]}")
+    record["fixed_keys_equal_to_cpu"] = {
+        "outputs": len(cpu_out), "payloads": len(cpu_wire),
+        "payload_bytes": sum(len(v) for v in cpu_wire.values())}
+    say("fixed keys, card against CPU", record["fixed_keys_equal_to_cpu"])
+
+    # (a) three in-process gRPC WorkerServers and GrpcMooseRuntime
+    net_names = {
+        "tx_bytes": "moose_tpu_net_tx_bytes_total",
+        "rx_bytes": "moose_tpu_net_rx_bytes_total",
+        "sends": "moose_tpu_net_sends_total",
+        "send_many_envelopes": "moose_tpu_net_send_many_total",
+        "send_many_payloads": "moose_tpu_net_send_many_payloads_total",
+        "receives": "moose_tpu_net_receives_total",
+    }
+
+    def wire_counts():
+        return {k: metrics.REGISTRY.value(v, transport="grpc")
+                for k, v in net_names.items()}
+
+    servers, endpoints = start_local_cluster(ids, device=device)
+    profiled_trace = None
+    try:
+        client = GrpcMooseRuntime(endpoints, device=device)
+        for name, (comp, args_of, _, tol) in graphs.items():
+            walls, errs, timings = [], [], []
+            for k in range(DIST_REQUESTS + 1):
+                if k == 1:
+                    sync()
+                    rk.reset_launches()
+                before = wire_counts()
+                (out, tim), s = timed(torch, lambda: client
+                                      .evaluate_computation(
+                                          comp, args_of(k), timeout=600))
+                measured = {key: int(v - before[key])
+                            for key, v in wire_counts().items()}
+                walls.append(s)
+                errs.append(error(name, out, k))
+                timings.append(dict(tim))
+            launches[f"distributed_grpc_{name}"] = dict(rk.LAUNCHES)
+            if max(errs) > tol:
+                raise AssertionError(
+                    f"grpc {name}: error {max(errs)} > {tol}")
+            (compiled, _), = client._client._compile_cache[comp].values()
+            report = cost_report(compiled, session_id="0" * 32,
+                                 transport="grpc")
+            predicted = {k: int(report["totals"][k]) for k in net_names}
+            if not report["resolved"] or predicted != measured:
+                raise AssertionError(
+                    f"grpc {name}: measured {measured}, cost model "
+                    f"{predicted}")
+            # one more warm request under the profiler, its wall timed
+            # inside the profiled region: the busy share of that run
+            (_, profiled_s), events = profiled(torch, lambda: timed(
+                torch, lambda: client.evaluate_computation(
+                    comp, args_of(1), timeout=600)))
+            busy_ms = sum(e.device_time_total for e in events) / 1e3
+            if busy_ms > profiled_s * 1e3:
+                raise AssertionError(
+                    f"grpc {name}: the card was busy {busy_ms} ms in a "
+                    f"request of {profiled_s * 1e3} ms")
+            record[f"grpc_{name}"] = {
+                "cold_ms": walls[0] * 1e3,
+                "warm_ms": [s * 1e3 for s in walls[1:]],
+                "max_abs_err": max(errs),
+                "elapsed_time_micros": timings[1:],
+                "plan_modes": client.last_plan_modes,
+                "wire": measured,
+                "wire_equal_to_cost_model": True,
+                "device_launches": len(events),
+                "device_busy_ms": busy_ms,
+                "profiled_wall_ms": profiled_s * 1e3,
+                "device_idle_share": 1.0 - busy_ms / (profiled_s * 1e3),
+            }
+            say(f"grpc {name}", record[f"grpc_{name}"])
+
+        # (c) one profiled request of (a)
+        comp, args_of, _, _ = graphs["logistic_regression"]
+        profiling.start()
+        try:
+            client.evaluate_computation(comp, args_of(2), timeout=600)
+        finally:
+            profiled_trace = profiling.stop()
+    finally:
+        for srv in servers.values():
+            srv.stop()
+
+    def phase_summary(trace):
+        out = {}
+        for e in trace["traceEvents"]:
+            if e.get("ph") == "X":
+                entry = out.setdefault(e["name"], [0, 0.0])
+                entry[0] += 1
+                entry[1] += e["dur"] / 1e3
+        return {k: {"count": c, "ms": ms} for k, (c, ms) in sorted(
+            out.items())}
+
+    phases = phase_summary(profiled_trace)
+    want = {"run_computation", "attempt", "launch", "retrieve",
+            "execute_role", "worker_segment", "serde", "net_send",
+            "net_receive"}
+    if not want <= set(phases):
+        raise AssertionError(f"profile lacks {sorted(want - set(phases))}")
+    if len({e["args"].get("trace_id") for e in profiled_trace["traceEvents"]
+            if e.get("ph") == "X" and e["name"] == "execute_role"}) != 1:
+        raise AssertionError("the workers' roots are not one trace")
+    record["profile_request"] = phases
+    say("profiled request", phases)
+
+    # (b) three comet processes on the card, cometctl run from a TOML
+    # session file (config 3)
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    ports = []
+    for _ in ids:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    spec = ",".join(f"{i}=127.0.0.1:{p}" for i, p in zip(ids, ports))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        procs = {}
+        try:
+            for i, p in zip(ids, ports):
+                procs[i] = subprocess.Popen(
+                    [sys.executable, "-m", "moose_tpu_torch.bin.comet",
+                     "--identity", i, "--port", str(p), "--endpoints", spec,
+                     "--device", str(device)],
+                    cwd=root, env=env, stdout=open(tmp / f"{i}.log", "w"),
+                    stderr=subprocess.STDOUT)
+            t0 = time.perf_counter()
+            for i, p in zip(ids, ports):
+                while True:
+                    if procs[i].poll() is not None:
+                        raise AssertionError(
+                            f"comet {i} exited: "
+                            f"{(tmp / f'{i}.log').read_text()[-2000:]}")
+                    with contextlib.suppress(OSError), socket.create_connection(
+                            ("127.0.0.1", p), timeout=1.0):
+                        break
+                    if time.perf_counter() - t0 > 300:
+                        raise AssertionError(f"comet {i} never listened")
+                    time.sleep(0.2)
+            start_s = time.perf_counter() - t0
+            x = args_of(3)["x"]
+            (tmp / "comp.bin").write_bytes(serde.serialize_computation(comp))
+            (tmp / "args.json").write_text(_json.dumps({"x": x.tolist()}))
+            (tmp / "session.toml").write_text(
+                f'[computation]\npath = "{tmp / "comp.bin"}"\n[roles]\n'
+                + "".join(f'{i} = "127.0.0.1:{p}"\n'
+                          for i, p in zip(ids, ports)))
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "moose_tpu_torch.bin.cometctl", "run",
+                 str(tmp / "session.toml"), "--args", str(tmp / "args.json"),
+                 "--json"],
+                cwd=root, env=env, capture_output=True, text=True,
+                timeout=600)
+            run_s = time.perf_counter() - t0
+            if run.returncode != 0:
+                raise AssertionError(f"cometctl failed: {run.stderr[-3000:]}")
+            rows = np.asarray(_json.loads(
+                run.stdout.strip().splitlines()[-1])["output_0"])
+            comet_err = error("logistic_regression", {"output_0": rows}, 3)
+            if comet_err > LOGREG_TOL:
+                raise AssertionError(f"comet rows: error {comet_err}")
+            role_us = {
+                line.split(":")[0].lstrip("# "): int(
+                    line.split(":")[1].split()[0])
+                for line in run.stderr.splitlines()
+                if line.startswith("# ") and line.endswith(" us")}
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.send_signal(signal.SIGTERM)
+            codes = {}
+            for i, proc in procs.items():
+                try:
+                    codes[i] = proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    codes[i] = proc.wait()
+        if any(codes.values()):
+            raise AssertionError(
+                f"comets did not stop cleanly: {codes}; "
+                + (tmp / "alice.log").read_text()[-2000:])
+    record["comet"] = {
+        "start_s": start_s, "cometctl_run_s": run_s,
+        "max_abs_err": comet_err, "elapsed_time_micros": role_us,
+        "exit_codes": codes,
+    }
+    say("comet processes and cometctl", record["comet"])
+
+    # (c) a blitzen burst under the profiler, and /debug/profile on
+    # blitzen and on the metrics server: a capture, and 409 while busy
+    server = InferenceServer(config=ServingConfig(
+        max_batch=64, max_wait_ms=SERVE_WAIT_MS, queue_bound=SERVE_QUEUE),
+        device=device)
+    metrics_server = metrics.serve_http(0)
+    httpd = None
+    try:
+        # registered before the front end opens, so it answers ready
+        server.register_model("logreg", classifier,
+                              row_shape=(LOGREG_FEATURES,), buckets=(1, 64))
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                    blitzen._make_handler(server))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{httpd.server_port}"
+
+        def post(rows):
+            request = urllib.request.Request(
+                f"{base}/v1/models/logreg:predict",
+                data=_json.dumps({"x": rows.tolist()}).encode(),
+                method="POST", headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(request, timeout=300) as resp:
+                answers.append(_json.loads(resp.read()))
+
+        burst = [rng.normal(size=(4, LOGREG_FEATURES)) for _ in range(16)]
+        answers = []
+        profiling.start()
+        try:
+            threads = [threading.Thread(target=post, args=(rows,))
+                       for rows in burst]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300)
+        finally:
+            burst_trace = profiling.stop()
+        if len(answers) != len(burst):
+            raise AssertionError(
+                f"blitzen answered {len(answers)} of {len(burst)}")
+        served = phase_summary(burst_trace)
+        want = {"serve_queue_wait", "serve_compute", "serve_batch",
+                "execute"}
+        if not want <= set(served):
+            raise AssertionError(
+                f"burst profile lacks {sorted(want - set(served))}")
+        answers = {}
+        for label, url in (
+                ("blitzen", f"{base}/debug/profile"),
+                ("metrics", f"http://127.0.0.1:{metrics_server.port}"
+                            "/debug/profile")):
+            with urllib.request.urlopen(f"{url}?seconds=0.2",
+                                        timeout=60) as resp:
+                body = _json.loads(resp.read())
+                if resp.status != 200 or "traceEvents" not in body:
+                    raise AssertionError(f"{label} capture: {resp.status}")
+            profiling.start()
+            try:
+                urllib.request.urlopen(f"{url}?seconds=0.2", timeout=60)
+                raise AssertionError(f"{label}: no 409 while busy")
+            except urllib.error.HTTPError as e:
+                if e.code != 409:
+                    raise AssertionError(f"{label}: {e.code}, not 409")
+            finally:
+                profiling.stop()
+            answers[label] = {"capture": 200, "busy": 409}
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        metrics_server.close()
+        server.close()
+    record["profile_burst"] = served
+    record["debug_profile"] = answers
+    say("profiled blitzen burst", {"phases": served, "endpoints": answers})
+
+    # (c) the profiler's cost on a warm phase-6 request: hooks stubbed
+    # out, hooks present and off, profiler on; 10 rounds in turns
+    x6 = x_log[0]
+    runtime.evaluate_computation(logreg, {"x": x6})
+    hooks = {name: getattr(profiling, name)
+             for name in ("phase", "fence", "record_complete")}
+    stubs = {"phase": lambda *a, **k: contextlib.nullcontext(),
+             "fence": lambda *a, **k: None,
+             "record_complete": lambda *a, **k: None}
+    walls = {"stubbed": [], "off": [], "on": []}
+    for _ in range(DIST_OVERHEAD_RUNS):
+        for mode in ("stubbed", "off", "on"):
+            if mode == "stubbed":
+                for name, fn in stubs.items():
+                    setattr(profiling, name, fn)
+            elif mode == "on":
+                profiling.start()
+            try:
+                _, s = timed(torch, lambda: runtime.evaluate_computation(
+                    logreg, {"x": x6}))
+            finally:
+                for name, fn in hooks.items():
+                    setattr(profiling, name, fn)
+                if mode == "on":
+                    profiling.stop()
+            walls[mode].append(s * 1e3)
+    medians = {k: statistics.median(v) for k, v in walls.items()}
+    record["profiler_overhead"] = {
+        "median_ms": medians,
+        "off_over_stubbed": medians["off"] / medians["stubbed"] - 1.0,
+        "on_over_off": medians["on"] / medians["off"] - 1.0,
+        "runs": walls,
+    }
+    say("profiler overhead", record["profiler_overhead"])
+
+    # (d) the plan autotuner: the decision tables of config 1's and
+    # config 3's graphs on the card, and K1's micro per shape class
+    tables = {
+        name: autotune.autotune_plan(graphs[name][0],
+                                     device=device).as_dict()
+        for name in graphs
+    }
+    micro = {}
+    for cls in ("mxu", "tall", "small"):
+        row = autotune.measure_dot_micro(128, cls, iters=DIST_MICRO_ITERS,
+                                         device=device)
+        if row is None:
+            raise AssertionError(f"measure_dot_micro({cls}) measured nothing")
+        m, k, n = autotune._DOT_CLASS_SHAPES[cls]
+        bound_ms, bound_by = dot_bound(m, k, n, 128)
+        micro[cls] = {"shape": [m, k, n], "k1_ms": row["cuda_s"] * 1e3,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+    record["autotune"] = {"tables": tables, "dot_micro": micro}
+    say("autotune", record["autotune"])
+    for path, counts in launches.items():
+        for name in kernel_names:
+            if counts[name] < 1:
+                raise AssertionError(f"{path} never launched {name}")
     return record, launches
 
 
@@ -4678,6 +5203,13 @@ def main() -> int:
             raise AssertionError(
                 f"phase {p} ran on {layouts.get(p)}, not {want}")
 
+    # phase 23: distributed secure execution (main path, each of its
+    # in-process paths counted on its own; the comet processes count in
+    # their own processes)
+    phase[0] = 23
+    distributed_record, distributed_launches = run_distributed(
+        torch, rk, ring, pm, classifier, logreg, runtime, rng, smi)
+
     launches_by_path = {
         "secure_dot": dot_launches,
         "linear_regressor": linreg_launches,
@@ -4698,6 +5230,7 @@ def main() -> int:
         **session_launches,
         **analyzer_launches,
         **serving_launches,
+        **distributed_launches,
     }
     protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
@@ -4769,10 +5302,13 @@ def main() -> int:
         # phase 22: every path serves phase 6's graph on the stacked
         # layout, one batch at a time on the scheduler thread
         **{path: protocol + ("prf_threefry",) for path in serving_launches},
+        # phase 23: the workers run lowered graphs (K1 product-only, K4,
+        # K7 single draws)
+        **{path: lowered_kernels for path in distributed_launches},
     }
     # the lowered graph holds the reference's composition: no fused step
     for path in ("lowered_logistic_regression", "lowered_from_bytes",
-                 "analyzer_strict_compiled"):
+                 "analyzer_strict_compiled", *distributed_launches):
         for name in ("trunc_combine", "trunc_pairs", "cross_terms_mul",
                      "cross_terms_reshare", "bit_decompose", "msb",
                      "horner"):
@@ -4877,6 +5413,9 @@ def main() -> int:
             "launches_by_path": by_path,
             # phase 22: one bucket-1024 batch, phase 6's counts
             "launches_per_serving_batch": by_path["serving_fixed_batch"],
+            # phase 23: the workers' warm sessions
+            "launches_distributed": {
+                path: by_path[path] for path in distributed_launches},
             "equal": all(r["equal"] for r in rows
                          if r["equal"] is not None),
             "max_abs_err": max(r["max_abs_err"] for r in rows
@@ -4962,6 +5501,7 @@ def main() -> int:
         "training_sessions": session_record,
         "analyzer": analyzer_record,
         "serving": serving_record,
+        "distributed": distributed_record,
     }
     log(json.dumps(record))
     log(json.dumps({"kernels": kernels}))

@@ -170,6 +170,7 @@ __all__ = [
     "load",
     "load_shares",
     "LocalMooseRuntime",
+    "GrpcMooseRuntime",
     "log",
     "log2",
     "logical_and",
@@ -221,10 +222,10 @@ __version__ = "0.1.0"
 def __getattr__(name):
     # the runtime, the predictors and the compiler load on first use: the
     # predictors import this package for its eDSL surface
-    if name == "LocalMooseRuntime":
-        from .runtime import LocalMooseRuntime
+    if name in ("LocalMooseRuntime", "GrpcMooseRuntime"):
+        from . import runtime
 
-        return LocalMooseRuntime
+        return getattr(runtime, name)
     if name in ("predictors", "elk_compiler"):
         import importlib
 

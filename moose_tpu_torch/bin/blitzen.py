@@ -13,8 +13,8 @@ card (``--device cpu`` runs the plain PyTorch path)::
   GET  /healthz                    liveness: 200 while the process runs
   GET  /readyz                     readiness: 200 only when serving;
                                    503 {"status": "warming"|"draining"}
-  GET  /debug/profile              501: the profiler is ROADMAP queue 1,
-                                   item 13b
+  GET  /debug/profile?seconds=N    bounded profile capture (Perfetto
+                                   JSON; 409 while another runs)
   POST /admin/models/<name>:load   register/hot-swap a generation from
                                    ONNX bytes (only with --admin)
   POST /admin/models/<name>:unload retire a generation (--admin)
@@ -350,16 +350,15 @@ def _make_handler(server, lifecycle=None, admin: bool = False):
                      "models": server.registry.names()},
                 )
             elif self.path.split("?", 1)[0] == "/debug/profile":
-                # the reference captures a bounded profile here; the
-                # port's profiler is not ported yet, and says so
-                self._reply(501, {
-                    "error": "NotImplementedError",
-                    "message": (
-                        "/debug/profile needs the port's profiler: "
-                        "ROADMAP queue 1, item 13b"
-                    ),
-                    "retryable": False,
-                })
+                # bounded on-demand profile capture (?seconds=N): the
+                # serving-side per-request opt-in (profiling.py)
+                from moose_tpu_torch import profiling
+
+                query = (
+                    self.path.split("?", 1)[1] if "?" in self.path else ""
+                )
+                status, payload = profiling.handle_profile_request(query)
+                self._reply(status, payload)
             elif self.path == "/v1/metrics":
                 self._reply(200, server.metrics_snapshot())
             elif self.path == "/metrics":

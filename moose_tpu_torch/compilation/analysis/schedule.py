@@ -56,10 +56,9 @@ so it is safe to run unconditionally.
 The port's own copy of ``moose_tpu/compilation/analysis/schedule.py``:
 the same schedules from the same segmentation rules
 (``execution.interpreter.plan_segments``), so its reports equal the
-reference's; the distributed worker that runs them comes with ROADMAP
-queue 1, item 12.  The plan autotuner's decision object
-(:func:`worker_min_seg_decision`) comes with item 13b; the floor it
-picks is resolved here without it.
+reference's, and the distributed worker (``distributed.worker_plan``)
+builds its plan from them.  :func:`worker_min_seg_decision` gives the
+plan autotuner's decision for the worker's eager floor.
 """
 
 from __future__ import annotations
@@ -406,11 +405,12 @@ def reconstruct_schedules(
             comp, limit=limit, min_seg=worker_min_seg(),
             max_deferred=max_deferred,
         )
-        floor = _min_seg_floor(base)
-        if floor == worker_min_seg():
+        decision = worker_min_seg_decision(comp, base)
+        if decision.choice == worker_min_seg():
             return base
         return reconstruct_schedules(
-            comp, limit=limit, min_seg=floor, max_deferred=max_deferred,
+            comp, limit=limit, min_seg=decision.choice,
+            max_deferred=max_deferred,
         )
     resolved_min = min_seg
     knobs = (resolved_limit, resolved_min, max_deferred)
@@ -435,38 +435,22 @@ def reconstruct_schedules(
 
 
 def worker_min_seg_decision(comp: Computation, base=None):
-    """The autotuned worker eager-floor decision for ``comp``: a
-    ``Decision`` of the plan autotuner, which is not ported (ROADMAP
-    queue 1, item 13b).  :func:`reconstruct_schedules` resolves the same
-    floor through :func:`_min_seg_floor`."""
-    raise NotImplementedError(
-        "worker_min_seg_decision returns a plan-autotuner Decision; the "
-        "autotuner is not ported (ROADMAP queue 1, item 13b)"
-    )
+    """The autotuned worker eager-floor decision for ``comp`` (a
+    :class:`~moose_tpu_torch.compilation.autotune.Decision`): env
+    override > segment-histogram heuristic > default.  ``base`` may
+    carry the env-floor schedules to decide from (avoids a rebuild);
+    without it they come from the memoized reconstruction.  Deterministic
+    given (computation, env): every process resolves the same floor."""
+    from .. import autotune
 
-
-def _min_seg_floor(base: Dict[str, RoleSchedule]) -> int:
-    """The worker eager floor the reference's autotuner picks from the
-    env-floor schedules ``base``: ``MOOSE_TPU_WORKER_MIN_SEG`` when set;
-    else, unless ``MOOSE_TPU_AUTOTUNE=0``, a schedule whose segments are
-    mostly under 16 ops lifts the floor past their median size; else
-    the default floor 4.  The choice alone, without the decision's
-    provenance, so the schedules equal the reference's."""
-    env = os.environ.get("MOOSE_TPU_WORKER_MIN_SEG")
-    if env:
-        return worker_min_seg()
-    floor = 4
+    if base is None:
+        base = reconstruct_schedules(comp, min_seg=worker_min_seg())
     sizes = [
         len(seg.names)
         for sched in base.values()
         for seg in sched.segments
     ]
-    if os.environ.get("MOOSE_TPU_AUTOTUNE", "1") == "0" or not sizes:
-        return floor
-    small = sorted(n for n in sizes if n < 16)
-    if small and len(small) * 2 >= len(sizes):
-        return max(floor, small[len(small) // 2] + 1)
-    return floor
+    return autotune.worker_min_seg_for(sizes)
 
 
 def _analyzable(comp: Computation) -> bool:

@@ -265,6 +265,18 @@ def _mirrored_to_public_ring(v):
 # ---------------------------------------------------------------------------
 
 
+# Rough lowered sizes of replicated-placement math ops, in host ops (the
+# JAX package's ``EXPANSION_WEIGHTS``): the runtime's auto-lowering
+# decision and the stacked layout's expanded-size estimate read them
+EXPANSION_WEIGHTS = {
+    "Softmax": 11000, "Sqrt": 13500, "Log": 9500, "Log2": 9500,
+    "Div": 4100, "Inverse": 4100, "Exp": 4600, "Sigmoid": 4600,
+    "Pow2": 4600, "Argmax": 3000, "MaxPool2D": 3000, "AvgPool2D": 150,
+    "Maximum": 2000, "Less": 950, "Greater": 950, "Equal": 1200,
+    "Sign": 950, "Abs": 1000, "Relu": 1000, "Mux": 200,
+    "Dot": 170, "Mul": 130, "Conv2D": 250, "Decrypt": 200000,
+}
+
 _HOST_STRUCTURAL_KINDS = frozenset(
     {"Reshape", "ExpandDims", "Squeeze", "Transpose", "IndexAxis",
      "AtLeast2D", "Broadcast"}

@@ -1,5 +1,39 @@
-"""Distributed execution of the port: so far only the transport helpers
-the static cost model prices frames with (``fabric.value_leaves`` and
-``leaf_bytes``; ``networking.transfer_key`` and the frame packers).  The
-workers, the networking backends, the choreographer and the fabric
-transport are ROADMAP queue 1, item 12."""
+"""Distributed execution of the port: networking backends, role-filtered
+workers, choreography and the client session supervisor (reference
+``moose/src/networking``, ``moose/src/choreography``,
+``moose/src/execution/grpc.rs``).  The fabric transport and the chaos
+layer are ROADMAP queue 1, item 12."""
+
+from typing import Any
+
+# the reference's lazy re-export, over the names the port has: importing
+# the package loads no transport (grpc is imported by the classes that
+# use it)
+_LAZY = {
+    "LocalNetworking": "networking",
+    "GrpcNetworking": "networking",
+    "ProgressClock": "networking",
+    "execute_role": "worker",
+    "WorkerServer": "choreography",
+    "ChoreographyClient": "choreography",
+    "start_local_cluster": "choreography",
+    "GrpcClientRuntime": "client",
+    "TlsConfig": "tls",
+}
+_NOT_PORTED = ("FabricDomain", "FabricNetworking")
+
+__all__ = sorted(_LAZY) + list(_NOT_PORTED)
+
+
+def __getattr__(name: str) -> Any:
+    if name in _LAZY:
+        import importlib
+
+        module = importlib.import_module(f".{_LAZY[name]}", __name__)
+        return getattr(module, name)
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{name} (the fabric transport: a device-local handoff on one "
+            "card, NCCL across cards) is ROADMAP queue 1, item 12"
+        )
+    raise AttributeError(name)

@@ -1,0 +1,1080 @@
+"""The distributed worker's planned scheduler: per-role segments with
+communication overlap.
+
+The port's own copy of ``moose_tpu/distributed/worker_plan.py``.  The
+worker's **role subgraph** (its own ops, in global topological order) is
+split at Send/Receive/host boundaries into compute segments by the same
+``compilation.analysis.schedule.build_role_schedule`` the static
+analyzer checks (with the autotuned eager floor,
+``schedule.worker_min_seg_decision``), so what prancer proves about a
+plan is what this worker runs, and the cost model's wire prediction is
+the wire this worker emits:
+
+- Sends enqueue on a background sender thread at segment boundaries;
+  each segment's deferred flush group buckets per receiver and every
+  >=2-payload bucket coalesces into one ``send_many`` envelope,
+  deterministically (plan-driven);
+- all Receives are posted up front, and a prefetcher fills arriving
+  payloads into segment input slots while segments compute;
+- plans are vetted before they run: :func:`get_plan` raises the typed
+  :class:`~moose_tpu_torch.errors.PlanRejectedError` on would-hang plans
+  (MSA5xx) and on key-lineage errors (MSA8xx); the worker then runs the
+  legacy scheduler of :mod:`worker`.
+
+A segment runs its ops eagerly on the worker's device
+(``execution.physical.execute_kernel``): PyTorch compiles nothing, so
+the reference's validated-jit self-check ladder, and the knobs that
+choose its scheduler (``MOOSE_TPU_WORKER_JIT``, ``MOOSE_TPU_JIT``,
+``MOOSE_TPU_JIT_SELFCHECK``, the aes-ctr PRF), have no counterpart:
+every role runs through its plan unless the plan is rejected.  Under
+``MOOSE_TPU_FIXED_KEYS`` both schedulers give the same words.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+import weakref
+from collections import deque
+from typing import Any, Optional
+
+from ..compilation.analysis.schedule import build_role_schedule
+from ..errors import NetworkingError, PlanRejectedError, SessionAbortedError
+
+# The segmentation rules (host-step / hoistable / deferrable kind sets,
+# the deferred-send cap, the sliver threshold) live in
+# compilation.analysis.schedule: the worker builds its plan from the same
+# ``build_role_schedule`` the static analyzer checks, so what prancer
+# proves about a plan is what this worker runs.
+
+
+# ---------------------------------------------------------------------------
+# plan statistics (asserted by tests: a warm plan never re-validates)
+# ---------------------------------------------------------------------------
+
+PLAN_STATS = {
+    "plans_built": 0,
+    "cache_hits": 0,
+    "plans_rejected": 0,
+}
+_STATS_LOCK = threading.Lock()
+
+# bridge onto the unified metrics registry (metrics.py): every plan
+# decision is visible on /metrics under these names
+_STAT_METRIC_NAMES = {
+    "plans_built": "moose_tpu_worker_plans_built_total",
+    "cache_hits": "moose_tpu_worker_plan_cache_hits_total",
+    "plans_rejected": "moose_tpu_worker_plans_rejected_total",
+}
+_STAT_HELP = {
+    "plans_built": "role plans built (compile + boundary analysis)",
+    "cache_hits": "role plans served warm from the (computation, role) "
+                  "cache",
+    "plans_rejected": "plans rejected at build time by the MSA5xx "
+                      "schedule analyzer (legacy-scheduler fallback)",
+}
+
+
+_STAT_COUNTERS = None
+
+
+def _stat(key: str, n: int = 1) -> None:
+    global _STAT_COUNTERS
+    with _STATS_LOCK:
+        PLAN_STATS[key] += n
+    if _STAT_COUNTERS is None:
+        from .. import metrics
+
+        _STAT_COUNTERS = {
+            k: metrics.counter(_STAT_METRIC_NAMES[k], _STAT_HELP[k])
+            for k in _STAT_METRIC_NAMES
+        }
+    _STAT_COUNTERS[key].inc(n)
+
+
+def plan_stats() -> dict:
+    with _STATS_LOCK:
+        return dict(PLAN_STATS)
+
+
+# ---------------------------------------------------------------------------
+# cost-model drift watchdog: the static analyzer's predictions are
+# compared against what this worker MEASURED, continuously, on every
+# planned session.  A mismatch is
+# the standing alarm that the planner's cost inputs drifted from the
+# runtime wire path (counter + flight event; the session itself is never
+# failed by its own observability).
+# ---------------------------------------------------------------------------
+
+
+def _drift_fault_applies(identity: str) -> bool:
+    """TEST-ONLY (MOOSE_TPU_DRIFT_FAULT): ``1`` perturbs every party's
+    coalescing, a party name perturbs only that party — the watchdog
+    coverage hook, mirroring MOOSE_TPU_SELFCHECK_FAULT's role for the
+    ladder."""
+    raw = os.environ.get("MOOSE_TPU_DRIFT_FAULT", "")
+    return raw == "1" or (bool(raw) and raw == identity)
+
+
+def _watchdog_enabled() -> bool:
+    return os.environ.get("MOOSE_TPU_COST_WATCHDOG", "1") != "0"
+
+
+# (cost report, value specs) per computation, keyed by (transport,
+# session-id length) — the only two inputs the wire prediction depends
+# on besides the graph itself.  Weak-keyed like the plan cache: serving
+# traffic must not re-serialize placeholder payloads per session.
+_cost_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+_DRIFT_COUNTER = None
+_WATCHDOG_COUNTER = None
+
+
+def _drift_counter():
+    global _DRIFT_COUNTER
+    if _DRIFT_COUNTER is None:
+        from .. import metrics
+
+        _DRIFT_COUNTER = metrics.counter(
+            "moose_tpu_cost_drift_total",
+            "cost-model predictions contradicted by measured session "
+            "counters, by kind (the planner's cost inputs drifted)",
+            ("kind",),
+        )
+    return _DRIFT_COUNTER
+
+
+def _watchdog_counter():
+    global _WATCHDOG_COUNTER
+    if _WATCHDOG_COUNTER is None:
+        from .. import metrics
+
+        _WATCHDOG_COUNTER = metrics.counter(
+            "moose_tpu_cost_watchdog_sessions_total",
+            "planned sessions screened by the cost-drift watchdog, by "
+            "outcome (ok / drift / skipped)",
+            ("outcome",),
+        )
+    return _WATCHDOG_COUNTER
+
+
+def _watchdog_transport(networking) -> Optional[str]:
+    """The cost-model transport semantics matching ``networking``, or
+    None when no exact prediction exists: ChaosNetworking decomposes
+    coalescing fault-by-fault, TcpNetworking has no ``send_many``, and
+    a non-serializing LocalNetworking never touches the wire codec."""
+    name = type(networking).__name__
+    if name == "GrpcNetworking":
+        return "grpc"
+    if name == "FabricNetworking":
+        return "fabric"
+    if name == "LocalNetworking":
+        return "local" if getattr(networking, "_serialize", False) else None
+    return None
+
+
+def _cost_prediction(comp, transport: str, session_id: str,
+                     fabric_ctx=None):
+    key = (transport, len(session_id), fabric_ctx)
+    with _cache_lock:
+        per_comp = _cost_cache.get(comp)
+        if per_comp is None:
+            per_comp = _cost_cache[comp] = {}
+        entry = per_comp.get(key)
+    if entry is not None:
+        return entry
+    from ..compilation.analysis.cost import cost_report, infer_specs
+
+    entry = (
+        cost_report(
+            comp, session_id=session_id, transport=transport,
+            fabric_parties=fabric_ctx[0] if fabric_ctx else None,
+        ),
+        infer_specs(comp),
+    )
+    with _cache_lock:
+        per_comp[key] = entry
+    return entry
+
+
+def _live_bytes_overruns(plan, env: dict, specs, cap: int = 4):
+    """Boundary values whose REAL in-memory bytes exceed the model's
+    ``memory_bytes`` — the observable inputs of the MSA603 live-buffer
+    high-water marks.  Undercounting is the drift that matters (the hwm
+    stops being an upper bound); a conservative model is fine."""
+    from ..compilation.analysis.cost import memory_bytes
+    from .fabric import leaf_bytes, value_leaves
+
+    over: dict = {}
+    names: set = set()
+    for seg in plan.segments:
+        names.update(seg.in_names)
+        names.update(seg.out_names)
+    for name in sorted(names):
+        value = env.get(name)
+        spec = specs.get(name)
+        if value is None or spec is None:
+            continue
+        predicted = memory_bytes(spec)
+        if predicted is None:
+            continue
+        measured = leaf_bytes(value_leaves(value))
+        if measured > predicted:
+            over[name] = {"predicted": predicted, "measured": measured}
+            if len(over) >= cap:
+                break
+    return over
+
+
+def check_cost_drift(comp, identity: str, session_id: str, networking,
+                     sender, receives: int, env: dict,
+                     plan) -> Optional[dict]:
+    """Compare this party's measured session counters (singles,
+    coalesced envelopes/payloads, tx bytes, receives, boundary value
+    bytes) against the static cost model's per-party prediction.  On
+    mismatch: ONE ``cost_drift`` flight event for the session carrying
+    every mismatched kind, plus ``moose_tpu_cost_drift_total{kind}``
+    increments.  Returns the mismatch dict (None when clean/skipped) —
+    and NEVER raises: the watchdog explains sessions, it must not fail
+    them."""
+    from ..logger import get_logger
+
+    try:
+        if not _watchdog_enabled():
+            return None
+        transport = _watchdog_transport(networking)
+        if transport is None:
+            _watchdog_counter().inc(outcome="skipped")
+            return None
+        fabric_ctx = None
+        if transport == "fabric":
+            # None when the fabric is disabled or chaos force-wire
+            # latches make the edge set key-dependent — no exact
+            # prediction exists then, so the watchdog stands down
+            fabric_ctx = networking.fabric_cost_context()
+            if fabric_ctx is None:
+                _watchdog_counter().inc(outcome="skipped")
+                return None
+        report, specs = _cost_prediction(
+            comp, transport, session_id, fabric_ctx
+        )
+        party = report["per_party"].get(identity)
+        if party is None or party["unresolved_sends"]:
+            _watchdog_counter().inc(outcome="skipped")
+            return None
+        stats = sender.stats
+        measured = {
+            "send_many_envelopes": stats["envelopes"],
+            "send_many_payloads": stats["env_payloads"],
+            # local transports count coalesced payloads as sends too
+            # (send_many delegates to send); grpc sends one rpc frame,
+            # and a fabric envelope is one batched permute program
+            "sends": stats["singles"] + (
+                stats["env_payloads"]
+                if transport not in ("grpc", "fabric") else 0
+            ),
+            "receives": int(receives),
+        }
+        predicted = {k: int(party[k]) for k in measured}
+        tx = sender.measured_tx_bytes
+        if tx is not None:
+            measured["tx_bytes"] = int(tx)
+            predicted["tx_bytes"] = int(party["tx_bytes"])
+        mismatches = {
+            k: {"predicted": predicted[k], "measured": measured[k]}
+            for k in measured
+            if measured[k] != predicted[k]
+        }
+        over = _live_bytes_overruns(plan, env, specs)
+        if over:
+            mismatches["live_bytes"] = over
+        if not mismatches:
+            _watchdog_counter().inc(outcome="ok")
+            return None
+        _watchdog_counter().inc(outcome="drift")
+        for kind in mismatches:
+            _drift_counter().inc(kind=kind)
+        from .. import flight
+
+        flight.record(
+            "cost_drift", party=identity, session=session_id,
+            transport=transport, mismatches=mismatches,
+        )
+        get_logger().warning(
+            "cost-model drift on %s (session %s): %s — the static "
+            "analyzer's prediction no longer matches the runtime wire "
+            "path", identity, session_id, sorted(mismatches),
+        )
+        return mismatches
+    except Exception as e:  # noqa: BLE001 — observability must never
+        # fail the session it observes
+        get_logger().debug("cost-drift watchdog errored: %s", e)
+        return None
+
+
+# ---------------------------------------------------------------------------
+# segments
+# ---------------------------------------------------------------------------
+
+
+class _Segment:
+    """One compute segment of a role plan: a run of consecutive
+    non-boundary ops, executed eagerly on the worker's device."""
+
+    def __init__(self, index: int, names: list, in_names: list,
+                 out_names: list, comp_ref, identity: str):
+        self.index = index
+        self.names = names
+        self.in_names = in_names
+        self.out_names = out_names
+        self._comp_ref = comp_ref
+        self._identity = identity
+
+    def run(self, env_in: dict, sess) -> dict:
+        """Execute the segment's ops in the role's session ``sess`` (its
+        device, and its session id, which an ``aes-ctr`` seed derivation
+        reads); returns the values later steps read."""
+        from ..execution.physical import execute_kernel
+
+        comp = self._comp_ref()
+        if comp is None:  # pragma: no cover - defensive
+            raise RuntimeError("computation was garbage-collected")
+        env = dict(env_in)
+        for n in self.names:
+            op = comp.operations[n]
+            env[n] = execute_kernel(
+                sess, op, self._identity, [env[i] for i in op.inputs])
+        return {n: env[n] for n in self.out_names}
+
+
+# ---------------------------------------------------------------------------
+# the role plan
+# ---------------------------------------------------------------------------
+
+
+class RolePlan:
+    """Static execution plan for one (computation, role) pair: the
+    ordered step list (host-boundary ops interleaved with compute
+    segments).  Cached weak-keyed
+    on the computation, so it must not hold it strongly."""
+
+    # MSA704 summary attached by get_plan (advisory; {} until set)
+    ranges_advisory: dict = {}
+
+    def __init__(self, comp, identity: str):
+        self.identity = identity
+        self._comp_ref = weakref.ref(comp)
+
+        # the statically-checkable schedule skeleton — segmentation,
+        # hoisting, deferral, flush grouping — comes from the SAME
+        # reconstruction the MSA5xx analyzer and MSA6xx cost model use
+        # (including the autotuned eager floor: the two-pass min_seg
+        # resolution lives in reconstruct_schedules, so the plan the
+        # analyzer approved and the wire costs the watchdog predicts
+        # are byte-for-byte the plan that runs)
+        from ..compilation.analysis.schedule import (
+            reconstruct_schedules,
+            worker_min_seg_decision,
+        )
+
+        self.autotune_min_seg = worker_min_seg_decision(comp)
+        schedule = reconstruct_schedules(comp).get(identity)
+        if schedule is None:  # role with no ops of its own
+            schedule = build_role_schedule(
+                comp, identity, min_seg=self.autotune_min_seg.choice
+            )
+        self.schedule = schedule
+        self.segments = [
+            _Segment(
+                seg.index, list(seg.names), list(seg.in_names),
+                list(seg.out_names), self._comp_ref, identity,
+            )
+            for seg in schedule.segments
+        ]
+        self.steps = [
+            (kind, payload if kind != "sends" else list(payload))
+            for kind, payload in schedule.steps
+        ]
+        self.recv_names = list(schedule.recv_names)
+
+
+# Resolved-plan cache, weak-keyed on the computation (the worker server
+# memoizes deserialization by computation bytes, so repeat sessions of
+# one computation share the object and hit here).
+_plan_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_cache_lock = threading.Lock()
+
+# MSA5xx verdict per computation: the schedule analysis is pure graph
+# work (no compiles), but on serving traffic the same computation
+# arrives thousands of times — cache the error list weak-keyed like the
+# plans themselves.
+_verdict_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+# MSA704 summary per computation (advisory only — the worker has no
+# declared arg ranges, so this is the structural representable-interval
+# demand; it never rejects a plan).
+_ranges_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+# MSA8xx verdict per computation: key-lineage errors (mis-wired setup,
+# missing domain separation, stream-position reuse) are correctness
+# *and* secrecy bugs, so like the MSA5xx schedule verdict they reject
+# the plan rather than advise.  Weak-keyed: serving traffic replays the
+# same computation object thousands of times.
+_keystream_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _ranges_advisory(comp) -> dict:
+    """The range analysis' per-computation summary (peak raw-bit demand,
+    minimal ring width), attached to every resolved plan so operators
+    can see ring-width headroom per role without rerunning prancer.
+    Advisory by construction: no declared ranges, no errors raised."""
+    with _cache_lock:
+        cached = _ranges_cache.get(comp)
+    if cached is not None:
+        return cached
+    try:
+        from ..compilation.analysis.ranges import range_report
+
+        advisory = dict(range_report(comp)["summary"])
+    except Exception:  # noqa: BLE001 — advisory data must never take
+        # down plan building
+        advisory = {}
+    with _cache_lock:
+        _ranges_cache[comp] = advisory
+    return advisory
+
+
+def _keystream_errors(comp) -> list:
+    """Error-severity MSA8xx findings for ``comp`` (worker graphs are
+    already lowered, so the analyzer sees the real Sample/DeriveSeed
+    ops directly).  An analysis *crash* must never take down plan
+    building — only a clean run that found real errors rejects."""
+    with _cache_lock:
+        cached = _keystream_cache.get(comp)
+    if cached is not None:
+        return cached
+    try:
+        from ..compilation.analysis import Severity
+        from ..compilation.analysis.keystream import analyze_keystream
+
+        errors = [d for d in analyze_keystream(comp)
+                  if d.severity >= Severity.ERROR]
+    except Exception:  # noqa: BLE001 — fail open, like _ranges_advisory
+        errors = []
+    with _cache_lock:
+        _keystream_cache[comp] = errors
+    return errors
+
+
+def _schedule_errors(comp) -> list:
+    with _cache_lock:
+        cached = _verdict_cache.get(comp)
+    if cached is not None:
+        return cached
+    from ..compilation.analysis.schedule import plan_errors
+
+    errors = plan_errors(comp)
+    with _cache_lock:
+        _verdict_cache[comp] = errors
+    return errors
+
+
+def get_plan(comp, identity: str,
+             session_id: Optional[str] = None) -> RolePlan:
+    """Build (or serve warm) the role plan — AFTER the static schedule
+    analyzer approved the computation.  A would-hang plan (MSA5xx
+    error: wait cycle, oversubscribed rendezvous, use-before-arrival)
+    raises :class:`~moose_tpu.errors.PlanRejectedError` at build time;
+    the worker then falls back to the legacy eager scheduler, so the
+    failure mode is a typed diagnostic instead of a runtime hang."""
+    with _cache_lock:
+        per_comp = _plan_cache.get(comp)
+        if per_comp is None:
+            per_comp = _plan_cache[comp] = {}
+        plan = per_comp.get(identity)
+    if plan is not None:
+        _stat("cache_hits")
+        return plan
+    errors = _schedule_errors(comp)
+    if errors:
+        from ..compilation.analysis.diagnostics import format_diagnostics
+
+        _stat("plans_rejected")
+        from .. import flight
+
+        flight.record(
+            "plan_rejected", party=identity, session=session_id,
+            rules=sorted({d.rule for d in errors}),
+            findings=len(errors),
+        )
+        raise PlanRejectedError(
+            f"worker plan for role {identity!r} rejected by the "
+            f"schedule analyzer with {len(errors)} error(s):\n"
+            + format_diagnostics(errors),
+            diagnostics=errors,
+        )
+    key_errors = _keystream_errors(comp)
+    if key_errors:
+        from ..compilation.analysis.diagnostics import format_diagnostics
+
+        _stat("plans_rejected")
+        from .. import flight
+
+        flight.record(
+            "plan_rejected", party=identity, session=session_id,
+            rules=sorted({d.rule for d in key_errors}),
+            findings=len(key_errors),
+        )
+        raise PlanRejectedError(
+            f"worker plan for role {identity!r} rejected by the "
+            f"keystream analyzer with {len(key_errors)} error(s):\n"
+            + format_diagnostics(key_errors),
+            diagnostics=key_errors,
+        )
+    plan = RolePlan(comp, identity)
+    plan.ranges_advisory = _ranges_advisory(comp)
+    with _cache_lock:
+        existing = _plan_cache[comp].get(identity)
+        if existing is not None:
+            return existing
+        _plan_cache[comp][identity] = plan
+    _stat("plans_built")
+    from .. import flight
+
+    # session-stamped so the plan decision reaches the session-filtered
+    # postmortem (last_session_report["flight"])
+    flight.record(
+        "plan_built", party=identity, session=session_id,
+        segments=len(plan.segments),
+        steps=len(plan.steps), receives=len(plan.recv_names),
+        min_ring_width=plan.ranges_advisory.get("min_ring_width"),
+        peak_raw_bits=plan.ranges_advisory.get("peak_raw_bits"),
+        min_seg=plan.autotune_min_seg.choice,
+        min_seg_source=plan.autotune_min_seg.source,
+    )
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# communication overlap: async sender + receive prefetcher
+# ---------------------------------------------------------------------------
+
+
+class _AsyncSender:
+    """Background send queue: the orchestrator enqueues single sends
+    (host-step sends) or whole deferred flush groups (one per segment
+    close) and moves on; this thread serializes and transmits off the
+    critical path.  Coalescing is DETERMINISTIC and plan-driven: within
+    one flush group, payloads bucket per receiver (first-appearance
+    order, payload order preserved) and each >=2-payload bucket becomes
+    exactly one ``send_many`` envelope — never across groups, never
+    timing-dependent — so the static cost model predicts envelope
+    counts and wire bytes exactly and chaos fault schedules (keyed on
+    stable rendezvous keys) replay identically.  Errors become the
+    session's root cause via ``on_error``."""
+
+    def __init__(self, networking, session_id: str, on_error,
+                 progress=None, identity: str = ""):
+        from .. import telemetry
+
+        self._net = networking
+        self._session_id = session_id
+        self._on_error = on_error
+        self._progress = progress
+        self._identity = identity
+        # the sender thread inherits the enclosing trace context (the
+        # session's launch context) so any span it opens stitches into
+        # the session trace instead of starting an orphan root
+        self._ctx = telemetry.current_context()
+        self._items: deque = deque()
+        self._cv = threading.Condition()
+        self._pending = 0
+        self._closed = False
+        self._error = None
+        # per-session measured wire stats (the cost-drift watchdog
+        # compares these against the static cost model's prediction for
+        # this party): singles = payloads transmitted one send() each,
+        # envelopes/env_payloads = coalesced send_many units, tx_bytes =
+        # sum of the transport's reported transmitted bytes (None once
+        # any transmission couldn't report a size)
+        self.stats = {
+            "singles": 0, "envelopes": 0, "env_payloads": 0,
+            "tx_bytes": 0,
+        }
+        self._bytes_unknown = False
+        self._thread = threading.Thread(
+            target=self._run_thread, daemon=True, name="moose-sender",
+        )
+        self._thread.start()
+
+    def _run_thread(self) -> None:
+        from .. import telemetry
+
+        with telemetry.use_context(self._ctx):
+            self._loop()
+
+    def enqueue(self, value, receiver: str, rendezvous_key: str) -> None:
+        """One single-payload transmission unit (a host-step Send with
+        nothing to defer behind): never coalesced."""
+        with self._cv:
+            if self._error is not None:
+                return  # session already failing; drop silently
+            self._items.append(
+                (receiver, [(rendezvous_key, value)])
+            )
+            self._pending += 1
+            self._cv.notify()
+
+    def enqueue_group(self, sends: list) -> None:
+        """One deferred flush group: ``[(value, receiver, key), ...]``
+        buckets per receiver (first-appearance order; per-receiver
+        payload order preserved) and each bucket transmits as ONE unit
+        — a ``send_many`` envelope when it carries >=2 payloads.
+        Payloads to different receivers commute (rendezvous-keyed), so
+        the bucketing never reorders anything a peer can observe."""
+        buckets: dict = {}
+        order: list = []
+        for value, receiver, key in sends:
+            if receiver not in buckets:
+                buckets[receiver] = []
+                order.append(receiver)
+            buckets[receiver].append((key, value))
+        if _drift_fault_applies(self._identity):
+            # TEST-ONLY perturbation (MOOSE_TPU_DRIFT_FAULT): transmit
+            # every payload as its own singleton unit, deliberately
+            # breaking the deterministic coalescing the static cost
+            # model predicts — the watchdog must flag this session as
+            # cost_drift (tests/test_profiling.py)
+            with self._cv:
+                if self._error is not None:
+                    return
+                for receiver in order:
+                    for payload in buckets[receiver]:
+                        self._items.append((receiver, [payload]))
+                        self._pending += 1
+                self._cv.notify()
+            return
+        with self._cv:
+            if self._error is not None:
+                return
+            for receiver in order:
+                self._items.append((receiver, buckets[receiver]))
+                self._pending += len(buckets[receiver])
+            self._cv.notify()
+
+    def _take_unit(self) -> Optional[tuple]:
+        with self._cv:
+            while not self._items and not self._closed:
+                self._cv.wait(0.2)
+            if not self._items:
+                return None
+            return self._items.popleft()
+
+    def _loop(self) -> None:
+        while True:
+            unit = self._take_unit()
+            if unit is None:
+                return
+            receiver, payloads = unit
+            try:
+                if self._error is None:
+                    self._transmit(receiver, payloads)
+            except BaseException as e:  # noqa: BLE001 — root cause
+                with self._cv:
+                    if self._error is None:
+                        self._error = e
+                self._on_error(e)
+            finally:
+                with self._cv:
+                    self._pending -= len(payloads)
+                    self._cv.notify_all()
+
+    def _transmit(self, receiver: str, payloads: list) -> None:
+        from .. import flight, profiling
+
+        send_many = getattr(self._net, "send_many", None)
+        with profiling.phase(
+            "net_send", receiver=receiver, payloads=len(payloads),
+        ):
+            if len(payloads) > 1 and send_many is not None:
+                sent = send_many(payloads, receiver, self._session_id)
+                self.stats["envelopes"] += 1
+                self.stats["env_payloads"] += len(payloads)
+                self._tally_bytes(sent)
+            else:
+                for key, value in payloads:
+                    sent = self._net.send(
+                        value, receiver, key, self._session_id
+                    )
+                    self.stats["singles"] += 1
+                    self._tally_bytes(sent)
+        flight.record(
+            "send", party=self._identity or None,
+            session=self._session_id, receiver=receiver,
+            payloads=len(payloads), coalesced=len(payloads) > 1,
+        )
+        if self._progress is not None:
+            self._progress.bump()
+
+    def _tally_bytes(self, sent) -> None:
+        if sent is None:
+            self._bytes_unknown = True
+        elif not self._bytes_unknown:
+            self.stats["tx_bytes"] += int(sent)
+
+    @property
+    def measured_tx_bytes(self):
+        """Transmitted bytes this session, or None when any transport
+        call couldn't report a size (watchdog then skips the bytes
+        comparison instead of flagging a phantom drift)."""
+        return None if self._bytes_unknown else self.stats["tx_bytes"]
+
+    def flush(self, timeout: float, cancel=None) -> None:
+        """Block until every enqueued send has been transmitted (the
+        worker must not report success while peers still await its
+        payloads); raises the first transmit error, if any."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while self._pending > 0 and self._error is None:
+                if cancel is not None and cancel.is_set():
+                    break
+                if time.monotonic() > deadline:
+                    raise NetworkingError(
+                        f"{self._pending} queued send(s) not flushed "
+                        f"after {timeout}s"
+                    )
+                self._cv.wait(0.2)
+            if self._error is not None:
+                raise self._error
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+
+
+_PREFETCH_COUNTER = None
+
+
+def _prefetch_counter():
+    """Cached family (one registry lookup ever — this sits on the
+    per-receive hot path)."""
+    global _PREFETCH_COUNTER
+    if _PREFETCH_COUNTER is None:
+        from .. import metrics
+
+        _PREFETCH_COUNTER = metrics.counter(
+            "moose_tpu_worker_prefetch_total",
+            "receive waits at the orchestrator, by whether the "
+            "prefetcher already held the payload",
+            ("outcome",),
+        )
+    return _PREFETCH_COUNTER
+
+
+class _ReceivePrefetcher:
+    """Posts EVERY Receive of the role up front and fills arriving
+    payloads into per-name slots while segments compute, so the
+    orchestrator's ``wait`` usually returns immediately.  Pollable
+    transports (try_receive) get one poller thread for all keys; others
+    get one waiter thread per receive (both mirror the legacy
+    scheduler's discipline — receives never occupy compute slots)."""
+
+    def __init__(self, comp, recv_names, networking, session_id: str,
+                 identity: str, timeout: float, cancel, progress,
+                 on_error):
+        from .. import telemetry
+
+        self._net = networking
+        self._session_id = session_id
+        self._identity = identity
+        self._timeout = timeout
+        self._cancel = cancel
+        self._progress = progress
+        self._on_error = on_error
+        self._stop = threading.Event()
+        self._values: dict = {}
+        self._events = {n: threading.Event() for n in recv_names}
+        self._ops = {n: comp.operations[n] for n in recv_names}
+        # prefetch threads inherit the session trace context (no orphan
+        # roots; see _AsyncSender)
+        self._ctx = telemetry.current_context()
+        self._threads: list = []
+        if not recv_names:
+            return
+        if hasattr(networking, "try_receive"):
+            t = threading.Thread(
+                target=self._with_ctx, args=(self._poll,), daemon=True,
+                name=f"moose-{identity}-prefetch",
+            )
+            t.start()
+            self._threads.append(t)
+        else:
+            for n in recv_names:
+                t = threading.Thread(
+                    target=self._with_ctx, args=(self._wait_one, n),
+                    daemon=True,
+                    name=f"moose-{identity}-recv-{n}",
+                )
+                t.start()
+                self._threads.append(t)
+
+    def _with_ctx(self, fn, *args) -> None:
+        from .. import telemetry
+
+        with telemetry.use_context(self._ctx):
+            fn(*args)
+
+    def _arrived(self, name: str, value) -> None:
+        self._values[name] = value
+        self._events[name].set()
+        self._progress.bump()
+
+    def _poll(self) -> None:
+        get_act = getattr(self._net, "activity_for", None)
+        activity = (
+            get_act(self._session_id) if get_act is not None else None
+        )
+        outstanding = dict(self._ops)
+        while outstanding and not self._stop.is_set():
+            if self._cancel is not None and self._cancel.is_set():
+                return
+            if activity is not None:
+                activity.clear()
+            arrived = []
+            for name, op in outstanding.items():
+                try:
+                    ok, val = self._net.try_receive(
+                        op.attributes["sender"],
+                        op.attributes["rendezvous_key"],
+                        self._session_id,
+                        plc=self._identity,
+                    )
+                except BaseException as e:  # noqa: BLE001 — root cause
+                    self._on_error(e)
+                    return
+                if ok:
+                    arrived.append(name)
+                    self._arrived(name, val)
+            for name in arrived:
+                outstanding.pop(name, None)
+            if activity is not None:
+                activity.wait(0.1)
+            else:
+                time.sleep(0.005)
+
+    def _wait_one(self, name: str) -> None:
+        op = self._ops[name]
+        try:
+            val = self._net.receive(
+                op.attributes["sender"],
+                op.attributes["rendezvous_key"],
+                self._session_id,
+                plc=self._identity,
+                timeout=self._timeout,
+                cancel=self._cancel,
+                progress=self._progress,
+            )
+        except SessionAbortedError:
+            return  # the abort is already the session outcome
+        except BaseException as e:  # noqa: BLE001 — root cause
+            self._on_error(e)
+            return
+        self._arrived(name, val)
+
+    def wait(self, name: str):
+        """Block until ``name``'s payload arrived; progress-clock
+        timeout semantics identical to a direct blocking receive."""
+        from .. import flight
+        from .networking import sliced_wait
+
+        from .. import profiling
+
+        op = self._ops[name]
+        hit = self._events[name].is_set()
+        _prefetch_counter().inc(outcome="hit" if hit else "wait")
+        with profiling.phase(
+            "net_receive", key=op.attributes.get("rendezvous_key", ""),
+            prefetched=hit,
+        ):
+            sliced_wait(
+                self._events[name].wait, self._timeout, self._cancel,
+                op.attributes["rendezvous_key"], self._progress,
+            )
+        flight.record(
+            "receive", party=self._identity, session=self._session_id,
+            sender=op.attributes.get("sender"),
+            key=op.attributes.get("rendezvous_key"),
+            prefetched=hit,
+        )
+        return self._values.pop(name)
+
+    def stop(self) -> None:
+        self._stop.set()
+
+
+# ---------------------------------------------------------------------------
+# the orchestrator
+# ---------------------------------------------------------------------------
+
+
+def execute_role_planned(
+    comp,
+    identity: str,
+    storage: dict,
+    arguments: dict,
+    networking,
+    session_id: str,
+    timeout: float,
+    cancel,
+    progress,
+    plan: RolePlan,
+    device,
+) -> dict:
+    """Run one role through its plan on ``device``: host steps and
+    segments execute in the global topological order (a linearization every
+    worker shares, so the cluster stays deadlock-free: any blocked
+    receive's matching send precedes it globally and sends never block),
+    with sends async behind and receives prefetched ahead."""
+    from .. import telemetry
+    from .worker import _AnyEvent, _exec_host_op
+
+    from ..execution.physical import execute_kernel
+    from ..execution.session import EagerSession
+
+    t0 = time.perf_counter()
+    env: dict = {}
+    outputs: dict = {}
+    # the role's one session, as the legacy scheduler's: host steps and
+    # segments run through the same kernel dispatch; lazy master key
+    # makes this cheap even when the role has none
+    host_sess = EagerSession(device, session_id=session_id)
+    local_abort = threading.Event()
+    abort_any = _AnyEvent(cancel, local_abort)
+    failure: list = []
+    flock = threading.Lock()
+
+    def fail(exc: BaseException) -> None:
+        with flock:
+            if not failure:
+                failure.append(exc)
+        local_abort.set()
+
+    sender = _AsyncSender(
+        networking, session_id, fail, progress, identity=identity
+    )
+    prefetcher = _ReceivePrefetcher(
+        comp, plan.recv_names, networking, session_id, identity,
+        timeout, abort_any, progress, fail,
+    )
+    receives_measured = 0
+    with telemetry.span(
+        "execute_role", party=identity, steps=len(plan.steps),
+        plan_mode="eager",
+    ):
+        try:
+            for kind, payload in plan.steps:
+                if abort_any.is_set():
+                    raise SessionAbortedError(
+                        f"session {session_id} aborted"
+                    )
+                if kind == "seg":
+                    from .. import profiling
+
+                    seg = plan.segments[payload]
+                    with telemetry.span(
+                        "worker_segment", party=identity,
+                        segment=seg.index, ops=len(seg.names),
+                    ):
+                        out = seg.run(
+                            {n: env[n] for n in seg.in_names}, host_sess,
+                        )
+                        # device-fenced only while a profiler is active:
+                        # the worker_segment phase then owns its device
+                        # time instead of the next blocking call
+                        profiling.fence(out)
+                    env.update(out)
+                    progress.bump()
+                    continue
+                if kind == "sends":
+                    # one deferred flush group: the sender buckets it
+                    # per receiver and coalesces deterministically (the
+                    # static cost model walks the identical grouping)
+                    from ..values import HostUnit
+
+                    group = []
+                    for n in payload:
+                        op = comp.operations[n]
+                        group.append((
+                            env[op.inputs[0]],
+                            op.attributes["receiver"],
+                            op.attributes["rendezvous_key"],
+                        ))
+                        env[n] = HostUnit(identity)
+                    sender.enqueue_group(group)
+                    continue
+                op = comp.operations[payload]
+                if op.kind == "Send":
+                    # not reachable from build_role_schedule (sends ride
+                    # in flush groups), kept for hand-built plans
+                    sender.enqueue(
+                        env[op.inputs[0]],
+                        op.attributes["receiver"],
+                        op.attributes["rendezvous_key"],
+                    )
+                    from ..values import HostUnit
+
+                    env[payload] = HostUnit(identity)
+                elif op.kind == "Receive":
+                    env[payload] = prefetcher.wait(payload)
+                    receives_measured += 1
+                elif op.kind == "Sample":
+                    # unseeded draw: a hard segment boundary (jitting it
+                    # would bake one draw into the compiled program) but
+                    # NOT an _exec_host_op kind — run the legacy
+                    # scheduler's eager kernel
+                    env[payload] = execute_kernel(
+                        host_sess, op, identity,
+                        [env[i] for i in op.inputs],
+                    )
+                    progress.bump()
+                else:
+                    env[payload] = _exec_host_op(
+                        op, env, identity, arguments, storage, outputs,
+                        host_sess,
+                    )
+                    progress.bump()
+            sender.flush(timeout, abort_any)
+        except BaseException as e:  # noqa: BLE001 — first error wins
+            fail(e)
+        finally:
+            prefetcher.stop()
+            sender.close()
+
+    if failure:
+        exc = failure[0]
+        if cancel is not None and cancel.is_set() and not isinstance(
+            exc, SessionAbortedError
+        ):
+            raise SessionAbortedError(
+                f"session {session_id} aborted"
+            ) from exc
+        raise exc
+    if cancel is not None and cancel.is_set():
+        raise SessionAbortedError(f"session {session_id} aborted")
+
+    # the session SUCCEEDED: screen its measured wire/memory counters
+    # against the static cost model (continuous drift watchdog)
+    check_cost_drift(
+        comp, identity, session_id, networking, sender,
+        receives_measured, env, plan,
+    )
+
+    elapsed = int((time.perf_counter() - t0) * 1e6)
+    return {
+        "outputs": outputs,
+        "elapsed_time_micros": elapsed,
+        "plan_mode": "eager",
+        "pinned_segments": [],
+    }

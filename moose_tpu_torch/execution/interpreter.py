@@ -330,6 +330,41 @@ def _refuse_unsupported(dialect, comp: Computation) -> None:
         )
 
 
+_WARNED_KNOBS: set = set()
+
+
+def _autotune_table(comp: Computation, dialect, device) -> dict:
+    """``last_plan["autotune"]``'s decisions for ``comp``: the plan
+    autotuner's set (``compilation.autotune.autotune_plan``), sized as
+    the reference's interpreter sizes it (the stacked layout's expanded
+    op estimate, ``autotune._estimate_ops``, else the op count).  On the card a ``False`` kernel
+    decision routes nothing (kernel or raise): it is reported with
+    ``"applied": false``, and an override knob behind it is warned about
+    once."""
+    from ..compilation import autotune
+    from ..dialects import stacked
+
+    n_ops = (
+        autotune._estimate_ops(comp)
+        if dialect is stacked else len(comp.operations)
+    )
+    decisions = autotune.autotune_plan(
+        comp, est_ops=n_ops, device=device).as_dict()
+    if torch.device(device).type == "cuda":
+        for knob in ("pallas", "pallas_dot"):
+            d = decisions[knob]
+            if d["choice"] is False:
+                d["applied"] = False
+                if d["source"] == "override" and knob not in _WARNED_KNOBS:
+                    _WARNED_KNOBS.add(knob)
+                    from ..logger import get_logger
+
+                    get_logger().warning(
+                        "%s asks for no kernel; the port has no plain "
+                        "path on the card, so every kernel runs", d["why"])
+    return {"decisions": decisions}
+
+
 class Interpreter:
     """Eager interpreter of logical computations on one device, in the
     layout of ``dialect``: ``dialects.logical`` (per-host) or
@@ -338,6 +373,9 @@ class Interpreter:
     def __init__(self, device, dialect):
         self.device = torch.device(device)
         self.dialect = dialect
+        # the plan autotuner's table of the most recent evaluate(), which
+        # the runtime lifts into last_plan["autotune"]
+        self.last_autotune: Optional[dict] = None
 
     def evaluate(self, comp: Computation,
                  arguments: Optional[dict] = None,
@@ -345,10 +383,13 @@ class Interpreter:
         """Run ``comp`` on ``arguments``; Load and Save read and write
         ``storage``, a mapping of placement name to its store (a dict or
         an object with ``.load``)."""
+        from .. import profiling
+
         arguments = arguments or {}
         storage = storage if storage is not None else {}
         dialect = self.dialect
         _refuse_unsupported(dialect, comp)
+        tuned = _autotune_table(comp, dialect, self.device)
         sess = dialect.make_session(master_key_words("logical"), self.device)
         dialect.bind_placements(sess, comp)
         sync_seed = fixed_sync_seed()
@@ -360,15 +401,47 @@ class Interpreter:
         # covers the device's work
         with telemetry.span("execute", jit=False, plan_mode="eager"), \
                 sync_ctx:
-            outputs, saves = self._walk(sess, comp, arguments, storage)
-            # stores are written only once every op has run
-            for (plc_name, key), value in saves.items():
-                storage.setdefault(plc_name, {})[key] = _save_user_value(
-                    sess, value)
-            return {
-                name: _to_user_value(sess, outputs[name])
-                for name in ordered_output_names(outputs)
-            }
+            with telemetry.span("bind_arguments"):
+                bound = self._bind(comp, arguments)
+            # the walk is the plan's one segment, device-fenced while a
+            # profile is captured
+            with profiling.phase("segment_execute", segment=0,
+                                 ops=len(comp.operations)):
+                outputs, saves = self._walk(sess, comp, arguments, storage,
+                                            bound=bound)
+                profiling.fence(outputs, saves)
+            # the per-(width, class) dot decisions the stacked secure
+            # dot recorded on the card; on the CPU, where the reference's
+            # kernels are off, neither package's dispatch records any
+            from ..compilation import autotune
+
+            tuned["pallas_dot_classes"] = autotune.dot_decision_table()
+            self.last_autotune = tuned
+            with profiling.phase("host_transfer", outputs=len(outputs),
+                                 saves=len(saves)):
+                # stores are written only once every op has run
+                for (plc_name, key), value in saves.items():
+                    storage.setdefault(plc_name, {})[key] = (
+                        _save_user_value(sess, value))
+                return {
+                    name: _to_user_value(sess, outputs[name])
+                    for name in ordered_output_names(outputs)
+                }
+
+    def _bind(self, comp: Computation, arguments: dict) -> dict:
+        """The float Inputs of ``comp`` lifted onto the device ahead of
+        the walk (an AES input is shared at its Input, in the walk's
+        draw order, so it stays there)."""
+        bound = {}
+        for name in comp.toposort_names():
+            op = comp.operations[name]
+            if (op.kind == "Input" and name in arguments
+                    and op.signature.return_type.name not in AES_TY_NAMES
+                    and not isinstance(arguments[name], str)):
+                bound[name] = _lift_array(
+                    arguments[name], op, comp.placement_of(op).name,
+                    self.device)
+        return bound
 
     def replay(self, comp: Computation, arguments: dict) -> dict:
         """Run the walk of :meth:`evaluate` up to the plan's outputs (each
@@ -387,13 +460,16 @@ class Interpreter:
         return outputs
 
     def _walk(self, sess, comp: Computation, arguments: dict,
-              storage, loads_from_arguments: bool = False) -> tuple:
+              storage, loads_from_arguments: bool = False,
+              bound: Optional[dict] = None) -> tuple:
         dialect = self.dialect
-        env: dict[str, Any] = {}
+        env: dict[str, Any] = dict(bound or {})
         outputs: dict[str, Any] = {}
         saves: dict[tuple, Any] = {}
         trace_ops = telemetry.trace_ops_enabled()
         for name in comp.toposort_names():
+            if name in env:
+                continue
             op = comp.operations[name]
             plc = comp.placement_of(op)
             if op.kind in ("Input", "Load"):

@@ -17,9 +17,9 @@ no fused protocol step, so K2, K3, K5 and K6 do not run here.
 
 Not ported: the JAX package's ``jax.jit`` plans (whole-graph, segmented
 and per-op, with their self-checks).  PyTorch runs the plan eagerly at
-any ``use_jit``, which is recorded.  The distributed mode, where a worker
-runs its own ops and Send/Receive go over the networking backend, is
-ROADMAP queue 1, item 12.
+any ``use_jit``, which is recorded.  One worker's share of a lowered
+graph (its own ops, Send/Receive over a networking backend) runs in
+``distributed.worker.execute_role``, on this module's kernels.
 """
 
 from __future__ import annotations
@@ -61,8 +61,6 @@ from .interpreter import (
     ordered_output_names,
 )
 from .session import EagerSession
-
-_DISTRIBUTED = "ROADMAP queue 1, item 12"
 
 
 def _fresh_key_words(domain: str = "") -> tuple:
@@ -419,9 +417,10 @@ class PhysicalInterpreter:
         recorded: the plan runs eagerly either way."""
         if identity is not None:
             raise NotImplementedError(
-                f"the physical executor's distributed mode (identity="
-                f"{identity!r}: one worker's ops, Send/Receive over the "
-                f"network) is {_DISTRIBUTED}"
+                f"the physical executor runs every host in one process; "
+                f"one worker's role (identity={identity!r}: its own ops, "
+                "Send/Receive over a network) runs through "
+                "distributed.worker.execute_role with a networking backend"
             )
         arguments = arguments or {}
         per_comp = self._cache.get(comp)

@@ -27,10 +27,9 @@ Design rules:
 
 ``serve_http(port)`` starts the stdlib exposition server: ``GET
 /metrics`` serves the Prometheus text, ``GET /healthz`` a JSON health
-document, ``GET /v1/metrics`` the JSON snapshot.  The JAX package's
-``/debug/profile`` capture needs its ``profiling`` module, which the
-port has not taken yet (ROADMAP queue 1, item 13b): that path answers
-404 here.
+document, ``GET /v1/metrics`` the JSON snapshot, and ``GET
+/debug/profile?seconds=N`` a bounded profile capture (the Perfetto
+JSON of :mod:`profiling`; 409 while another capture runs).
 """
 
 from __future__ import annotations
@@ -343,7 +342,8 @@ class MetricsServer:
 
     ``GET /metrics`` — Prometheus text (the scrape target);
     ``GET /v1/metrics`` — the JSON snapshot;
-    ``GET /healthz`` — ``{"status": "ok", **health_extra}``.
+    ``GET /healthz`` — ``{"status": "ok", **health_extra}``;
+    ``GET /debug/profile?seconds=N`` — a bounded profile capture.
     """
 
     def __init__(self, port: int, host: str = "127.0.0.1",
@@ -374,6 +374,23 @@ class MetricsServer:
                         200,
                         registry.render_prometheus().encode(),
                         "text/plain; version=0.0.4; charset=utf-8",
+                    )
+                elif self.path.split("?", 1)[0] == "/debug/profile":
+                    # bounded on-demand profile capture: the worker-side
+                    # per-request opt-in (profiling.py)
+                    from . import profiling
+
+                    query = (
+                        self.path.split("?", 1)[1]
+                        if "?" in self.path else ""
+                    )
+                    status, payload = profiling.handle_profile_request(
+                        query
+                    )
+                    self._reply(
+                        status,
+                        json.dumps(payload).encode(),
+                        "application/json",
                     )
                 elif self.path == "/v1/metrics":
                     self._reply(

@@ -303,6 +303,13 @@ def _dot_terms(x: SpmdRep, y: SpmdRep):
             f"the port's secure dot takes matrices and vectors, got "
             f"{x.shape} @ {y.shape}"
         )
+    if x.lo.is_cuda and len(x.shape) == len(y.shape) == 2:
+        from ..compilation import autotune
+
+        # the plan's per-class dot decision, recorded for last_plan where
+        # the reference's dispatch records it (a product of matrices): it
+        # routes nothing, K1 runs whatever it says
+        autotune.dot_kernel_wanted(x.width, x.shape + y.shape[1:])
     shape = x.shape[:-1] + y.shape[1:]
     if len(x.shape) == 1:
         x = reshape(x, (1,) + x.shape)

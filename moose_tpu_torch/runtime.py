@@ -38,6 +38,7 @@ from .computation import AES_TY_NAMES, Computation
 from .edsl import base as edsl_base
 from .edsl import tracer
 from .dialects import logical, stacked
+from .dialects.logical import EXPANSION_WEIGHTS
 from .errors import ConfigurationError, TypeMismatchError
 from .execution.interpreter import (
     Interpreter,
@@ -69,17 +70,6 @@ _LOWERED_KINDS = frozenset({
     "BitDecompose", "BitExtract", "Shl", "Shr", "Fill", "ShlDim",
     "Im2Col",
 })
-# the JAX package's rough lowered sizes of replicated-placement ops, in
-# host ops (moose_tpu/dialects/logical.py EXPANSION_WEIGHTS): they decide
-# whether a graph is lowered under use_jit
-EXPANSION_WEIGHTS = {
-    "Softmax": 11000, "Sqrt": 13500, "Log": 9500, "Log2": 9500,
-    "Div": 4100, "Inverse": 4100, "Exp": 4600, "Sigmoid": 4600,
-    "Pow2": 4600, "Argmax": 3000, "MaxPool2D": 3000, "AvgPool2D": 150,
-    "Maximum": 2000, "Less": 950, "Greater": 950, "Equal": 1200,
-    "Sign": 950, "Abs": 1000, "Relu": 1000, "Mux": 200,
-    "Dot": 170, "Mul": 130, "Conv2D": 250, "Decrypt": 200000,
-}
 LAYOUTS = ("auto", "per-host", "stacked")
 
 
@@ -101,8 +91,8 @@ class LocalMooseRuntime:
             )
         if mesh is not None:
             raise ConfigurationError(
-                "the port runs on one device; a device mesh is ROADMAP "
-                "queue 1, item 12"
+                "the port runs on one device; the device mesh (parties "
+                "as mesh slices) is ROADMAP queue 1, item 12"
             )
         self.device = devices.resolve(device)
         self.layout = layout
@@ -193,7 +183,8 @@ class LocalMooseRuntime:
                     "stacked layout rejected the computation (%s); "
                     "falling back to the per-host layout", e)
             else:
-                self.last_plan = _plan("stacked")
+                self.last_plan = _plan("stacked",
+                                       autotune=self._stacked.last_autotune)
                 return result
         if compiler_passes is None and self.use_jit and not lowered:
             # a protocol-heavy graph expands to thousands of host ops in
@@ -207,10 +198,12 @@ class LocalMooseRuntime:
         if lowered:
             result = self._physical.evaluate(
                 computation, self.storage, arguments, use_jit=self.use_jit)
+            self.last_plan = _plan("per-host", lowered)
         else:
             result = self._interpreter.evaluate(
                 computation, arguments, self.storage)
-        self.last_plan = _plan("per-host", lowered)
+            self.last_plan = _plan(
+                "per-host", autotune=self._interpreter.last_autotune)
         return result
 
     def _lowered(self, computation, arguments, passes):
@@ -340,9 +333,76 @@ def _is_lowered(computation: Computation) -> bool:
                for op in computation.operations.values())
 
 
-def _plan(layout: str, lowered: bool = False) -> dict:
+def _plan(layout: str, lowered: bool = False,
+          autotune: Optional[dict] = None) -> dict:
     """``last_plan`` of an evaluation: its layout, whether the physical
-    executor ran a lowered graph, and the JAX package's plan keys for an
-    eager plan."""
-    return {"layout": layout, "lowered": lowered, "plan_mode": "eager",
+    executor ran a lowered graph, the JAX package's plan keys for an
+    eager plan and, for a walk, the plan autotuner's table (the JAX
+    interpreter's ``last_plan["autotune"]``)."""
+    plan = {"layout": layout, "lowered": lowered, "plan_mode": "eager",
             "pinned_ops": []}
+    if autotune is not None:
+        plan["autotune"] = autotune
+    return plan
+
+
+class GrpcMooseRuntime:
+    """Client runtime for a cluster of gRPC workers (reference
+    GrpcMooseRuntime, execution/grpc.rs:11-146; the port's copy of
+    ``moose_tpu/runtime.py``'s): compiles a traced computation with
+    ``DEFAULT_PASSES``, launches every role on its worker
+    (``distributed.choreography.WorkerServer``, ``bin/comet``), and
+    retrieves the outputs.  The client only compiles and ships bytes;
+    each worker (``WorkerServer(device=)``, ``comet --device``) chooses
+    where the cluster computes.  ``device`` is a start-up check alone,
+    as for every entry point of the port: the card must be there unless
+    the caller passes ``device="cpu"``."""
+
+    def __init__(self, identities: Dict, tls=None,
+                 device=devices.DEFAULT_DEVICE):
+        # masks for genuinely-distributed parties must come from a real
+        # PRF (the rbg default of the reference is not cryptographic)
+        from .dialects.ring import require_strong_prf
+
+        require_strong_prf("GrpcMooseRuntime")
+        devices.resolve(device)
+        self.identities = {
+            (
+                role.name
+                if isinstance(role, edsl_base.HostPlacementExpression)
+                else role
+            ): addr
+            for role, addr in identities.items()
+        }
+        from .distributed.client import GrpcClientRuntime
+
+        self._client = GrpcClientRuntime(self.identities, tls=tls)
+        # per-role elapsed micros of the most recent run (reference
+        # GrpcMooseRuntime, pymoose/src/bindings.rs:320-328)
+        self.last_timings: Dict[str, int] = {}
+        # supervisor outcome of the most recent run: attempts, per-party
+        # errors (mirrors LocalMooseRuntime.last_plan)
+        self.last_session_report: Dict = {}
+        # resolved per-role worker plans of the most recent run
+        # ({party: {"plan_mode", "pinned_segments"}})
+        self.last_plan_modes: Dict = {}
+
+    def set_default(self):
+        edsl_base.set_current_runtime(self)
+
+    def evaluate_computation(self, computation, arguments=None,
+                             timeout: float = 120.0):
+        computation, arguments = _lift_computation(computation, arguments)
+        try:
+            outputs, timings = self._client.run_computation(
+                computation, arguments, timeout=timeout
+            )
+        finally:
+            self.last_session_report = dict(
+                self._client.last_session_report
+            )
+            self.last_plan_modes = dict(
+                self.last_session_report.get("plan_modes") or {}
+            )
+        self.last_timings = dict(timings)
+        return outputs, timings

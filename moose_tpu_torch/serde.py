@@ -24,9 +24,8 @@ The port's own copy of the computation codec of ``moose_tpu/serde.py``:
 it imports nothing of the JAX package and writes the same bytes.  The
 runtime value codec (``serialize_value``/``deserialize_value``, the wire
 format of Send/Receive between distributed workers) writes the JAX
-package's bytes too; the static cost model sizes every Send with it,
-while the distributed runtime that sends them is ROADMAP queue 1,
-item 12.
+package's bytes too: the distributed workers (``distributed/``) send
+them, and the static cost model sizes every Send with it.
 """
 
 from __future__ import annotations

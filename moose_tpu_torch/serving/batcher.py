@@ -305,12 +305,17 @@ class ModelQueue:
             live.append(request)
         if not live:
             return
+        from .. import profiling
+
         # queue-wait component per request, measured at the two instants
-        # the batcher already owns (submit -> dispatch claim).  The
-        # reference also puts it on its profiler's timeline; the port's
-        # profiler is ROADMAP queue 1, item 13b
+        # the batcher already owns (submit -> dispatch claim): the
+        # profiler's timeline and Prometheus agree on it
         for request in live:
             self.metrics.record_queue_wait(now - request.enqueued_s)
+            profiling.record_complete(
+                "serve_queue_wait", request.enqueued_s, now,
+                model=model.name,
+            )
         with telemetry.span(
             "serve_batch",
             model=model.name,
@@ -325,7 +330,14 @@ class ModelQueue:
                 # the result comes back as host numpy, so compute_s
                 # covers the device's work and the scatter below touches
                 # no device tensor
-                result, report = self.registry.evaluate(model, padded)
+                with profiling.phase(
+                    "serve_compute", model=model.name,
+                    bucket=int(bucket),
+                ):
+                    result, report = self.registry.evaluate(
+                        model, padded
+                    )
+                    profiling.fence(result)
                 compute_s = time.perf_counter() - t_compute
                 self.metrics.record_compute(compute_s)
                 sp.attrs["compute_s"] = compute_s

@@ -31,8 +31,8 @@ package's names, so both packages' records read alike.
 
 :class:`LocalTrainingCluster` runs the sessions on a
 ``LocalMooseRuntime``.  The distributed adapter,
-:class:`GrpcTrainingCluster`, needs the port's ``distributed/``
-(ROADMAP queue 1, item 12) and raises until then.
+:class:`GrpcTrainingCluster`, is the next slice of ROADMAP queue 1,
+item 12, and raises until then.
 """
 
 from __future__ import annotations
@@ -122,14 +122,15 @@ class LocalTrainingCluster:
 
 class GrpcTrainingCluster:
     """Distributed adapter: sessions over gRPC workers, checkpoint
-    control through the choreography StorageControl rpc.  The port has
-    no ``distributed/`` yet (ROADMAP queue 1, item 12)."""
+    control through the choreography StorageControl rpc: the next slice
+    of ROADMAP queue 1, item 12 (the workers and the rpc are ported)."""
 
     def __init__(self, client: Any,
                  parties: Optional[list] = None) -> None:
         raise NotImplementedError(
-            "GrpcTrainingCluster needs the port's distributed/ (gRPC "
-            "workers and the StorageControl rpc): ROADMAP queue 1, item 12"
+            "GrpcTrainingCluster (sessions over the port's gRPC workers, "
+            "checkpoint control over their StorageControl rpc) is not "
+            "ported yet: ROADMAP queue 1, item 12"
         )
 
 

@@ -98,8 +98,8 @@ def test_concat_union_tolerates_ragged_operand_ranks():
 ), ids=("default", "autotune-off", "min-seg-2", "min-seg-40",
         "segment-64"))
 def test_the_worker_floor_resolves_as_the_autotuner_does(env, monkeypatch):
-    """Without the autotuner (item 13b), the schedules resolve the
-    worker's eager floor to the reference's choice under each of the
+    """The schedules resolve the worker's eager floor through the
+    autotuner's decision to the reference's choice under each of the
     knobs it reads (rep_sigmoid's segments are mostly tiny: its default
     floor lifts to 7)."""
     for key, value in env.items():
@@ -111,9 +111,13 @@ def test_the_worker_floor_resolves_as_the_autotuner_does(env, monkeypatch):
 
 
 def test_worker_min_seg_decision_names_item_13b():
-    comp = lowered_pair("rep_dot")[1]
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        schedule.worker_min_seg_decision(comp)
+    """Item 13b is ported: the decision is the reference's, choice,
+    source and reason."""
+    jl, tl = lowered_pair("rep_dot")[:2]
+    want = jschedule.worker_min_seg_decision(jl)
+    got = schedule.worker_min_seg_decision(tl)
+    assert (got.knob, got.choice, got.source, got.why) == (
+        want.knob, want.choice, want.source, want.why)
 
 
 # -- the port's own graphs -------------------------------------------------

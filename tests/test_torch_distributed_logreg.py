@@ -1,0 +1,43 @@
+"""Config 3's logistic regression (6 x 4 rows, fixed(24,40), its sigmoid
+lowered to 7,335 host ops) on three port workers, held against the JAX
+package's workers on the CPU: under ``MOOSE_TPU_FIXED_KEYS`` and the
+``threefry`` stream the outputs and every payload on the wire over
+``LocalNetworking`` (the planned scheduler; ``tests/
+test_torch_distributed.py`` holds both schedulers on the secure dot),
+and the outputs of the same lowered bytes on in-process gRPC workers,
+equal the JAX workers' word for word.  A file of its own: the JAX
+workers' first eager run of this graph costs 15-30 s of eager compiles
+on the CPU (their legacy scheduler, as ``test_torch_distributed.py``
+runs it)."""
+
+import pytest
+
+from moose_tpu_torch.distributed.choreography import start_local_cluster
+
+from test_torch_distributed import IDS, check_grpc, check_local, lowered_case
+
+STREAM = "threefry"
+
+
+@pytest.fixture(scope="module")
+def case():
+    return lowered_case("logreg", [STREAM])
+
+
+@pytest.fixture(scope="module")
+def endpoints():
+    """One in-process gRPC cluster of port workers on the CPU."""
+    servers, endpoints = start_local_cluster(IDS, device="cpu")
+    try:
+        yield endpoints
+    finally:
+        for srv in servers.values():
+            srv.stop()
+
+
+def test_local_workers_equal_the_jax_workers_word_for_word(case):
+    check_local(case, "logreg", STREAM, "planned")
+
+
+def test_grpc_workers_equal_the_jax_workers(case, endpoints):
+    check_grpc(case, endpoints, "logreg", STREAM)

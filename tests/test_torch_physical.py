@@ -113,10 +113,12 @@ def test_fresh_keys_vary_and_stay_within_the_tolerance(runs):
 
 
 def test_distributed_mode_names_item_12(runs):
+    """A worker's role runs in the distributed worker, which the
+    physical executor names."""
     _, tl = lowered_pair("rep_mul")[:2]
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="execute_role"):
         execute_physical(tl, {}, {}, identity="alice", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="execute_role"):
         PhysicalInterpreter("cpu").evaluate(tl, {}, {}, identity="bob")
 
 

@@ -397,7 +397,15 @@ def test_import_adds_no_jax_or_moose_tpu_module():
         "moose_tpu_torch.execution.interpreter, "
         "moose_tpu_torch.serving, moose_tpu_torch.serving.snapshot, "
         "moose_tpu_torch.compilation.autotune, "
-        "moose_tpu_torch.bin.blitzen, moose_tpu_torch.bin.donner\n"
+        "moose_tpu_torch.bin.blitzen, moose_tpu_torch.bin.donner, "
+        "moose_tpu_torch.profiling, moose_tpu_torch.distributed, "
+        "moose_tpu_torch.distributed.networking, "
+        "moose_tpu_torch.distributed.worker, "
+        "moose_tpu_torch.distributed.worker_plan, "
+        "moose_tpu_torch.distributed.choreography, "
+        "moose_tpu_torch.distributed.client, "
+        "moose_tpu_torch.distributed.tls, moose_tpu_torch.bin.comet, "
+        "moose_tpu_torch.bin.cometctl, moose_tpu_torch.bin.dasher\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'moose_tpu'))\n"
@@ -436,6 +444,13 @@ def test_package_source_imports_no_jax_or_moose_tpu():
         "serving/controlplane", "serving/metrics", "serving/registry",
         "serving/server", "serving/snapshot", "bin/blitzen",
         "bin/donner")} <= scanned
+    # the profiler and the distributed workers with their bins
+    assert {f"moose_tpu_torch/{name}.py" for name in (
+        "profiling", "distributed/__init__", "distributed/networking",
+        "distributed/worker", "distributed/worker_plan",
+        "distributed/choreography", "distributed/client",
+        "distributed/tls", "bin/comet", "bin/cometctl",
+        "bin/dasher")} <= scanned
     for path in paths:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

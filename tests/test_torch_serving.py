@@ -394,7 +394,8 @@ def _serve(handler):
 def test_blitzen_http_metrics_endpoints():
     """GET /metrics serves Prometheus text from the unified registry
     (queue-depth gauge refreshed at scrape) while /v1/metrics keeps the
-    JSON snapshot; /debug/profile answers 501 naming ROADMAP item 13b."""
+    JSON snapshot; /debug/profile answers a bounded capture (once ROADMAP
+    item 13b's 501)."""
     from moose_tpu_torch.bin.blitzen import _make_handler
 
     config = ServingConfig(max_batch=4, max_wait_ms=1.0, queue_bound=8)
@@ -419,14 +420,12 @@ def test_blitzen_http_metrics_endpoints():
                 f"{base}/v1/metrics", timeout=10
             ).read())
             assert snap["rows_served"] >= 1
-            with pytest.raises(urllib.error.HTTPError) as info:
-                urllib.request.urlopen(
-                    f"{base}/debug/profile?seconds=1", timeout=10)
-            assert info.value.code == 501
-            body = json.loads(info.value.read())
-            assert body["error"] == "NotImplementedError"
-            assert "item 13b" in body["message"]
-            assert body["retryable"] is False
+            # a bounded capture: the Perfetto JSON of the profiler
+            trace = json.loads(urllib.request.urlopen(
+                f"{base}/debug/profile?seconds=0.05", timeout=30).read())
+            assert "traceEvents" in trace
+            assert trace["otherData"]["recorder"] == (
+                "moose_tpu_torch.profiling")
         finally:
             httpd.shutdown()
             httpd.server_close()
