@@ -262,9 +262,10 @@ Phases (each raises on failure; the script then exits non-zero):
      2e-4 of float64) and config 3's logistic regression (1024 x 100,
      fixed(24,40), within 5e-3) on three workers on the card, first over
      ``LocalNetworking`` (dasher's path), then as three in-process gRPC
-     ``WorkerServer``s under ``GrpcMooseRuntime``: one cold and three
-     warm requests each, per-role ``elapsed_time_micros``, the gRPC wire
-     counters of each request equal to ``cost_report``'s prediction,
+     ``WorkerServer``s under ``GrpcMooseRuntime``: one cold and
+     DIST_REQUESTS warm requests each, per-role
+     ``elapsed_time_micros``, the gRPC wire counters of each request
+     equal to ``cost_report``'s prediction,
      one profiled warm gRPC request's device launches, busy ms and idle
      share; under fixed keys config 3's outputs and every payload on the
      wire equal to the same run on the CPU; (b) three ``comet``
@@ -277,15 +278,42 @@ Phases (each raises on failure; the script then exits non-zero):
      phase-6 request with the profiler's hooks stubbed out, present and
      off, and on, 10 rounds in turns; (d) ``autotune_plan`` of both
      graphs on the card and K1's ``measure_dot_micro`` for the mxu,
-     tall and small classes.
+     tall and small classes;
+ 24. secret integers, faults and the other workers (``run_faults``):
+     (a) Add, Mul and Dot (x^T y) of two secret uint64 columns of 1024 x
+     100 words drawn from SEED (a quarter of them at or beyond 2^63) on
+     the stacked layout, FAULT_INT_REQUESTS requests, each equal to
+     numpy's uint64 arithmetic, under fixed keys equal to the CPU's;
+     (b) config 3 (1024 x 100) on three in-process gRPC workers under a
+     ``ChaosConfig`` (FAULT_CHAOS: drop_send, dup_send, delay): the
+     client's retries succeed, the outputs equal the clean run's under
+     fixed keys and lie within 5e-3 of float64, and the drops'
+     ``schedule_digest`` equals the same schedule's on CPU workers;
+     (c) ``TrainingSession(LogregSGDTrainer(100), GrpcTrainingCluster)``
+     on three card workers, FAULT_TRAIN_EPOCHS epochs of
+     FAULT_TRAIN_STEPS steps of 128 x 100, once clean and once with
+     carole killed after FAULT_KILL_AT of her ops and restarted by
+     ``start_chaos_restarter``: at least one resume, every committed
+     ``#s0``/``#s1`` plane and the weights equal to the clean run's, the
+     weights within 1e-3 of float64 ``reference_epoch``s; (d) three
+     ``vixen`` processes over ``TcpNetworking`` on config 3's lowered
+     graph from a file: exit 0, rows within 5e-3 and equal under fixed
+     keys to a LocalNetworking run on the card; (e) three ``rudolph``
+     processes (started beside the vixens) on one ``.session`` file of
+     that graph: the retrieved rows likewise, each process exiting 0 on
+     SIGTERM; (f) config 3's text and its lowered graph's (past 64 KiB)
+     parsed by the native and the Python parser: the same serialized
+     bytes, the native count risen (the lowered text also by default),
+     the host ms of each.
 Every evaluation of phases 4 to 17 and 22 must have run on the stacked
 layout, phase 18's and 19's on the per-host one
 (``last_plan["layout"]``), and phase 20's and 21's on both (the sessions
-per-host, the trained model stacked; the draw oracles one each).  Phases
-4 to 23 are the main path: the kernels' launch counters are set to 0
-just before each (each of phase 20's, 21's, 22's and 23's parts apart)
-and read just after; phase 23's comet processes count in their own
-processes.  K1, K2's trunc_pairs and the
+per-host, the trained model stacked; the draw oracles one each), and
+phase 24 (a)'s on the stacked one.  Phases 4 to 24 are the main path:
+the kernels' launch counters are set to 0 just before each (each of
+phase 20's, 21's, 22's, 23's and 24's parts apart) and read just after;
+phase 23's comet processes and phase 24's vixen and rudolph processes
+count in their own processes.  K1, K2's trunc_pairs and the
 threefry kernel in the phase's stream layout (threefry in all but 7,
 threefry-pallas in 7, and never the other) must have launched in each
 but 10 and 13, and every kernel (K1, K2's trunc_pairs, K3's
@@ -321,7 +349,9 @@ Each of phase 22's paths must launch every kernel of phase 6, and its
 bucket-1024 batches (the fixed-keys batch and the 1,000-row request)
 exactly phase 6's counts a request; the burst one K1 a batch.  Each of
 phase 23's in-process paths (its warm requests, counted apart) must
-launch K1, K4 and threefry's K7 and none of K2, K3, K5 and K6.
+launch K1, K4 and threefry's K7 and none of K2, K3, K5 and K6, and so
+must phase 24's chaos runs (b) and (c); its secret integers (a) K1, K3's
+cross_terms_reshare and K7, and no K2.
 The line before the last is the kernels' JSON record; the last line is
 the device record.
 
@@ -530,9 +560,20 @@ SERVE_QUEUE = 64
 SERVE_PROBE_ROWS = 7  # (c)'s and (f)'s request
 # phase 23: distributed secure execution (config 1's secure dot and config
 # 3's logistic regression on three workers)
-DIST_REQUESTS = 3  # warm requests after one cold
+DIST_REQUESTS = 2  # warm requests after one cold
 DIST_OVERHEAD_RUNS = 10  # paired runs of the profiler's cost
 DIST_MICRO_ITERS = 5
+# phase 24: secret integers, the chaos layer, TCP and filesystem workers,
+# the native parser
+FAULT_INT_COLS = 100  # (a): two secret uint64 columns of LOGREG_ROWS rows
+FAULT_INT_REQUESTS = 3
+FAULT_CHAOS = "drop_send:0.002,dup_send:0.05,delay_ms:1"  # (b), with a seed
+FAULT_ATTEMPTS = 6
+FAULT_RECEIVE_S = 4.0  # (b): a dropped send fails its attempt this soon
+FAULT_CPU_ROWS = 16  # (b): the CPU's run of the same schedule
+FAULT_TRAIN_STEPS = 2  # (c): steps of SESSION_BATCH rows an epoch
+FAULT_TRAIN_EPOCHS = 2
+FAULT_KILL_AT = 0.75  # (c): carole dies after this share of her ops
 
 
 def per_host_ceiling(count):
@@ -1277,6 +1318,37 @@ def compare_threefry(torch, rk, n, layout, bits, reps, label):
         threefry_bound(n, layout, bits), reps,
         shape=f"{n} {'bits' if bits else 'words'} ({label})", mode=layout,
     )
+
+
+def secret_uint64_computation(pm):
+    """Add, Mul and Dot of two secret uint64 columns, each cast back to
+    uint64 on carole: the secret-uint64 acceptance graph
+    (tests/test_integration_acceptance.py) with a Dot beside it."""
+    alice = pm.host_placement("alice")
+    bob = pm.host_placement("bob")
+    carole = pm.host_placement("carole")
+    rep = pm.replicated_placement("rep", players=[alice, bob, carole])
+
+    @pm.computation
+    def secret_uint64(x: pm.Argument(alice, dtype=pm.uint64),
+                      y: pm.Argument(bob, dtype=pm.uint64)):
+        with rep:
+            s = pm.add(x, y)
+            p = pm.mul(x, y)
+            d = pm.dot(pm.transpose(x), y)
+        with carole:
+            outs = tuple(pm.cast(v, dtype=pm.uint64) for v in (s, p, d))
+        return outs
+
+    return secret_uint64
+
+
+def secret_uint64_reference(x, y):
+    """numpy's uint64 arithmetic (wrapping mod 2^64) of the graph above."""
+    import numpy as np
+
+    with np.errstate(over="ignore"):
+        return x + y, x * y, x.T @ y
 
 
 def secure_dot_computation(pm, precision=DOT_PRECISION):
@@ -3861,7 +3933,8 @@ def run_distributed(torch, rk, ring, pm, classifier, logreg, runtime, rng,
         net._store.put = keep
         return seen
 
-    # (a) LocalNetworking: one cold and three warm sessions a graph
+    # (a) LocalNetworking: one cold and DIST_REQUESTS warm sessions a
+    # graph
     lowered = {}
     for name, (comp, args_of, _, tol) in graphs.items():
         args0 = args_of(0)
@@ -3991,7 +4064,7 @@ def run_distributed(torch, rk, ring, pm, classifier, logreg, runtime, rng,
         comp, args_of, _, _ = graphs["logistic_regression"]
         profiling.start()
         try:
-            client.evaluate_computation(comp, args_of(2), timeout=600)
+            client.evaluate_computation(comp, args_of(1), timeout=600)
         finally:
             profiled_trace = profiling.stop()
     finally:
@@ -4055,7 +4128,7 @@ def run_distributed(torch, rk, ring, pm, classifier, logreg, runtime, rng,
                         raise AssertionError(f"comet {i} never listened")
                     time.sleep(0.2)
             start_s = time.perf_counter() - t0
-            x = args_of(3)["x"]
+            x = args_of(DIST_REQUESTS)["x"]
             (tmp / "comp.bin").write_bytes(serde.serialize_computation(comp))
             (tmp / "args.json").write_text(_json.dumps({"x": x.tolist()}))
             (tmp / "session.toml").write_text(
@@ -4074,7 +4147,8 @@ def run_distributed(torch, rk, ring, pm, classifier, logreg, runtime, rng,
                 raise AssertionError(f"cometctl failed: {run.stderr[-3000:]}")
             rows = np.asarray(_json.loads(
                 run.stdout.strip().splitlines()[-1])["output_0"])
-            comet_err = error("logistic_regression", {"output_0": rows}, 3)
+            comet_err = error("logistic_regression", {"output_0": rows},
+                              DIST_REQUESTS)
             if comet_err > LOGREG_TOL:
                 raise AssertionError(f"comet rows: error {comet_err}")
             role_us = {
@@ -4240,6 +4314,447 @@ def run_distributed(torch, rk, ring, pm, classifier, logreg, runtime, rng,
     return record, launches
 
 
+def run_faults(torch, rk, pm, classifier, logreg, card, device="cuda",
+               rows=LOGREG_ROWS):
+    """Phase 24: (a) to (f) of the module's docstring with the port on
+    ``device`` (on the CPU, as the tests run it small, ``rows`` rows).
+    ``classifier``/``logreg`` are phase 6's model and graph.  Every
+    number logged carries ``card``.  Returns (record, launches by path);
+    raises on any failed check."""
+    import contextlib
+    import json as _json
+    import os
+    import signal
+    import socket
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    import numpy as np
+
+    from moose_tpu_torch import serde, textual
+    from moose_tpu_torch.compilation import (
+        DEFAULT_PASSES,
+        compile_computation,
+    )
+    from moose_tpu_torch.compilation.lowering import arg_specs_from_arguments
+    from moose_tpu_torch.dialects import host
+    from moose_tpu_torch.distributed.chaos import ChaosConfig
+    from moose_tpu_torch.distributed.choreography import (
+        ChoreographyClient,
+        start_chaos_restarter,
+        start_local_cluster,
+    )
+    from moose_tpu_torch.distributed.client import GrpcClientRuntime
+    from moose_tpu_torch.distributed.networking import LocalNetworking
+    from moose_tpu_torch.distributed.worker import execute_role
+    from moose_tpu_torch.edsl import tracer
+    from moose_tpu_torch.native import textual as native_textual
+    from moose_tpu_torch.predictors.trainers import LogregSGDTrainer
+    from moose_tpu_torch.runtime import LocalMooseRuntime
+    from moose_tpu_torch.storage import FilesystemStorage
+    from moose_tpu_torch.training import (
+        CheckpointStore,
+        TrainingConfig,
+        TrainingSession,
+    )
+    from moose_tpu_torch.training.session import GrpcTrainingCluster
+
+    ids = ("alice", "bob", "carole")
+    on_card = torch.device(device).type == "cuda"
+    record, launches = {"card": card}, {}
+    root = Path(__file__).resolve().parent
+
+    def say(what, payload):
+        log(f"faults {what} [{card}]: {_json.dumps(payload)}")
+
+    def clock(fn):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def same(a, b):
+        return set(a) == set(b) and all(
+            np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+
+    def free_ports():
+        socks = [socket.socket() for _ in ids]
+        try:
+            for s in socks:
+                s.bind(("127.0.0.1", 0))
+            return [s.getsockname()[1] for s in socks]
+        finally:
+            for s in socks:
+                s.close()
+
+    # (a) secret integers on the stacked layout: values at and beyond
+    # 2^63, exact against numpy's uint64 arithmetic
+    gen = np.random.default_rng(SEED)
+    xu, yu = (gen.integers(0, 2 ** 64, size=(rows, FAULT_INT_COLS),
+                           dtype=np.uint64) for _ in range(2))
+    int_comp = tracer.trace(secret_uint64_computation(pm))
+    want = secret_uint64_reference(xu, yu)
+    runtime = LocalMooseRuntime(ids, device=device)
+    runtime.evaluate_computation(int_comp, {"x": xu, "y": yu})
+    rk.reset_launches()
+    walls = []
+    for _ in range(FAULT_INT_REQUESTS):
+        out, s = clock(lambda: runtime.evaluate_computation(
+            int_comp, {"x": xu, "y": yu}))
+        walls.append(s)
+        for got, ref in zip(out.values(), want):
+            if got.dtype != np.uint64 or not np.array_equal(got, ref):
+                raise AssertionError("secret uint64 values differ from "
+                                     "numpy's")
+    launches["secret_uint64"] = dict(rk.LAUNCHES)
+    if runtime.last_plan["layout"] != "stacked":
+        raise AssertionError(
+            f"secret uint64 ran {runtime.last_plan['layout']}")
+    saved = _fixed_keys(os)
+    try:
+        words = [LocalMooseRuntime(ids, device=dev).evaluate_computation(
+            int_comp, {"x": xu, "y": yu}) for dev in (device, "cpu")]
+    finally:
+        _restore(os, saved)
+    if not same(*words):
+        raise AssertionError("fixed-keys secret uint64 differs from the CPU")
+    record["secret_uint64"] = {
+        "shape": [rows, FAULT_INT_COLS],
+        "operands_at_or_above_2_63": int(
+            (xu >= 2 ** 63).sum() + (yu >= 2 ** 63).sum()),
+        "wall_ms": [s * 1e3 for s in walls],
+        "launches": {k: launches["secret_uint64"][k] for k in (
+            "dot_cross_terms", "cross_terms_reshare", "prf_threefry")},
+        "layout": runtime.last_plan["layout"],
+        "fixed_keys_equal_to_cpu": True,
+    }
+    say("secret uint64", record["secret_uint64"])
+
+    # (b) config 3 over gRPC workers under a chaos schedule: the client's
+    # retries succeed, the words are the clean run's, the schedule the
+    # CPU's for the same seed
+    x3 = np.random.default_rng(SEED + 3).normal(size=(rows,
+                                                      LOGREG_FEATURES))
+    want3 = logistic_reference(classifier, x3)
+    traced3 = tracer.trace(logreg)
+    grpc_kw = dict(ping_interval=0.25, ping_misses=3, startup_grace=10.0,
+                   receive_timeout=FAULT_RECEIVE_S, stall_grace=1.0)
+
+    def cluster_run(dev, chaos, x=x3):
+        servers, endpoints = start_local_cluster(ids, device=dev,
+                                                 chaos=chaos, **grpc_kw)
+        try:
+            client = GrpcClientRuntime(endpoints,
+                                       max_attempts=FAULT_ATTEMPTS,
+                                       backoff_base_s=0.05,
+                                       backoff_cap_s=0.2)
+            with host.deterministic_sync_keys(SEED):
+                out, _ = client.run_computation(traced3, {"x": x},
+                                                timeout=300)
+            return out, client.last_session_report
+        finally:
+            for srv in servers.values():
+                srv.stop()
+
+    spec = f"seed:{SEED},{FAULT_CHAOS}"
+    saved = _fixed_keys(os)
+    try:
+        clean, _ = cluster_run(device, None)
+        chaos = ChaosConfig.from_env(spec)
+        rk.reset_launches()
+        (out, report), chaos_s = clock(lambda: cluster_run(device, chaos))
+        launches["chaos_grpc"] = dict(rk.LAUNCHES)
+        # the rendezvous keys of the lowering do not depend on the rows:
+        # the CPU runs the schedule on FAULT_CPU_ROWS of them
+        cpu_chaos = ChaosConfig.from_env(spec)
+        cpu_out, cpu_report = cluster_run("cpu", cpu_chaos,
+                                          x3[:FAULT_CPU_ROWS])
+    finally:
+        _restore(os, saved)
+    # every key's first send is decided once, whatever the timing, so
+    # the drops are the seed's alone; a duplicate decision also counts
+    # the sends of the failed attempt, which the abort cuts at a time
+    kinds = {"drop_send"}
+    counts = {k: sum(f["kind"] == k for f in report["faults_injected"])
+              for k in ("drop_send", "dup_send", "delay")}
+    err3 = float(np.abs(out["output_0"] - want3).max())
+    if not report["ok"] or not report["faults_injected"]:
+        raise AssertionError(f"chaos run: {report.get('attempts')}")
+    if counts["drop_send"] and report["n_attempts"] < 2:
+        raise AssertionError("a dropped send was not retried")
+    if not same(out, clean) or not cpu_report["ok"]:
+        raise AssertionError("chaos outputs differ from the clean run's")
+    if err3 > LOGREG_TOL:
+        raise AssertionError(f"chaos rows: error {err3} > {LOGREG_TOL}")
+    digest = chaos.schedule_digest(kinds=kinds)
+    if digest != cpu_chaos.schedule_digest(kinds=kinds):
+        raise AssertionError("the card's chaos schedule is not the CPU's")
+    record["chaos_grpc"] = {
+        "spec": spec, "faults": counts,
+        "attempts": report["n_attempts"],
+        "cpu_attempts": cpu_report["n_attempts"],
+        "wall_ms": chaos_s * 1e3, "max_abs_err": err3,
+        "schedule_digest": digest, "equal_to_clean": True,
+    }
+    say("chaos over gRPC", record["chaos_grpc"])
+
+    # (c) TrainingSession over GrpcTrainingCluster: once clean, once with
+    # carole killed mid-epoch and restarted; bit-exact resume
+    xt, yt = training_data(np.random.default_rng(SEED),
+                           SESSION_BATCH * FAULT_TRAIN_STEPS,
+                           SESSION_FEATURES)
+    train_kw = dict(ping_interval=0.25, ping_misses=3, startup_grace=10.0,
+                    receive_timeout=10.0, stall_grace=2.0, device=device)
+
+    def train(tmp, chaos):
+        stores = {p: CheckpointStore(FilesystemStorage(str(tmp / p)),
+                                     party=p) for p in ids}
+        servers, endpoints = start_local_cluster(
+            ids, storages=stores, chaos=chaos, **train_kw)
+        stop = start_chaos_restarter(servers, endpoints, stores, chaos,
+                                     **train_kw)
+        try:
+            trainer = LogregSGDTrainer(
+                n_features=SESSION_FEATURES, learning_rate=SESSION_LR,
+                steps_per_epoch=FAULT_TRAIN_STEPS)
+            session = TrainingSession(
+                trainer, GrpcTrainingCluster(GrpcClientRuntime(
+                    endpoints, max_attempts=3, backoff_base_s=0.1,
+                    backoff_cap_s=0.5)),
+                TrainingConfig(epochs=FAULT_TRAIN_EPOCHS,
+                               session_timeout_s=300,
+                               max_epoch_attempts=8, backoff_base_s=0.2,
+                               backoff_cap_s=1.0))
+            with host.deterministic_sync_keys(SEED):
+                report = session.run(xt, yt)
+            return report, committed_words(stores, trainer), session, \
+                trainer
+        finally:
+            stop()
+            for srv in servers.values():
+                srv.stop()
+
+    saved = _fixed_keys(os)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            # a kill budget never reached counts carole's ops
+            counter = ChaosConfig(seed=SEED, kill_after_ops=10 ** 9,
+                                  party="carole")
+            (clean, clean_words, session, trainer), clean_s = clock(
+                lambda: train(tmp / "clean", counter))
+            total_ops = counter._ops["carole"]
+            kill = ChaosConfig(seed=SEED,
+                               kill_after_ops=int(FAULT_KILL_AT * total_ops),
+                               party="carole", max_kills=1)
+            rk.reset_launches()
+            (chaotic, chaotic_words, _, _), chaos_s = clock(
+                lambda: train(tmp / "chaos", kill))
+            launches["chaos_training"] = dict(rk.LAUNCHES)
+    finally:
+        _restore(os, saved)
+    state = {"w": session._initial_value("w", (SESSION_FEATURES, 1))}
+    for _ in range(FAULT_TRAIN_EPOCHS):
+        state = trainer.reference_epoch(state, xt, yt)
+    w = chaotic["weights"]["w"]
+    train_err = float(np.abs(w - state["w"]).max())
+    if not [f for f in kill.faults if f["kind"] == "kill"]:
+        raise AssertionError("the chaos schedule never killed carole")
+    if not (clean["ok"] and chaotic["ok"] and chaotic["resumes"] >= 1):
+        raise AssertionError(f"resume: {chaotic}")
+    if not np.array_equal(w, clean["weights"]["w"]) or not same(
+            {repr(k): v for k, v in clean_words.items()},
+            {repr(k): v for k, v in chaotic_words.items()}):
+        raise AssertionError("the resumed run's words differ")
+    if w.shape != state["w"].shape or train_err > SESSION_TOL:
+        raise AssertionError(f"trained weights: error {train_err}")
+    record["chaos_training"] = {
+        "epochs": FAULT_TRAIN_EPOCHS, "steps_per_epoch": FAULT_TRAIN_STEPS,
+        "batch": [SESSION_BATCH, SESSION_FEATURES],
+        "carole_ops": total_ops, "kill_after_ops": kill.kill_after_ops,
+        "resumes": chaotic["resumes"], "clean_s": clean_s,
+        "chaos_s": chaos_s, "max_abs_err": train_err,
+        "committed_planes": len(clean_words), "words_equal": True,
+    }
+    say("chaos-resumed training", record["chaos_training"])
+
+    # (d) and (e): config 3's lowered graph from a file on three vixen
+    # processes over TCP, then on three rudolph processes from a
+    # .session file; each against a LocalNetworking run on the card
+    with host.deterministic_sync_keys(SEED):
+        lowered3 = compile_computation(traced3, DEFAULT_PASSES,
+                                       arg_specs_from_arguments({"x": x3}))
+    env = dict(os.environ, PYTHONPATH=str(root))
+    saved = _fixed_keys(os)
+    try:
+        env.update({k: os.environ[k] for k in saved})
+        net = LocalNetworking(device=device)
+        results = {}
+
+        def work(identity):
+            results[identity] = execute_role(
+                lowered3, identity, {}, {"x": x3}, net, "local-24",
+                timeout=300.0, device=device)
+
+        threads = [threading.Thread(target=work, args=(i,), daemon=True)
+                   for i in ids]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        local = {k: v for r in results.values()
+                 for k, v in r["outputs"].items()}
+    finally:
+        _restore(os, saved)
+    if len(results) != len(ids):
+        raise AssertionError("the LocalNetworking workers failed")
+
+    def wait_all(procs, logs, limit=300):
+        codes = {}
+        for i, proc in procs.items():
+            try:
+                codes[i] = proc.wait(timeout=limit)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                codes[i] = proc.wait()
+        if any(codes.values()):
+            raise AssertionError(
+                f"exit codes {codes}: "
+                + "".join(Path(f).read_text()[-1500:] for f in logs))
+        return codes
+
+    def listening(procs, ports, logs, t0):
+        for (i, p), f in zip(zip(ids, ports), logs):
+            while True:
+                if procs[i].poll() is not None:
+                    raise AssertionError(
+                        f"{i} exited: {f.read_text()[-1500:]}")
+                with contextlib.suppress(OSError), \
+                        socket.create_connection(("127.0.0.1", p),
+                                                 timeout=1.0):
+                    break
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError(f"{i} never listened")
+                time.sleep(0.2)
+
+    # the rudolph processes start first and come up while the vixens run
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        blob = serde.serialize_computation(lowered3)
+        (tmp / "comp.bin").write_bytes(blob)
+        (tmp / "args.json").write_text(_json.dumps({"x": x3.tolist()}))
+        sessions = tmp / "sessions"
+        sessions.mkdir()
+        r_ports = free_ports()
+        r_logs = [tmp / f"rudolph-{i}.log" for i in ids]
+        r_procs = {}
+        try:
+            t0 = time.perf_counter()
+            for (i, p), f in zip(zip(ids, r_ports), r_logs):
+                r_procs[i] = subprocess.Popen(
+                    [sys.executable, "-m", "moose_tpu_torch.bin.rudolph",
+                     "--identity", i, "--port", str(p), "--sessions-dir",
+                     str(sessions), "--poll-interval", "0.2", "--device",
+                     str(device)],
+                    cwd=root, env=env, stdout=open(f, "w"),
+                    stderr=subprocess.STDOUT)
+            spec = ",".join(f"{i}=127.0.0.1:{p}"
+                            for i, p in zip(ids, free_ports()))
+            v_logs = [tmp / f"vixen-{i}.log" for i in ids]
+            v_procs = {
+                i: subprocess.Popen(
+                    [sys.executable, "-m", "moose_tpu_torch.bin.vixen",
+                     str(tmp / "comp.bin"), "--identity", i, "--endpoints",
+                     spec, "--session-id", "vixen-24", "--args",
+                     str(tmp / "args.json"), "--passes", "", "--device",
+                     str(device), "--outputs", str(tmp / f"{i}.npz")],
+                    cwd=root, env=env, stdout=open(f, "w"),
+                    stderr=subprocess.STDOUT)
+                for i, f in zip(ids, v_logs)}
+            vixen_codes = wait_all(v_procs, v_logs)
+            vixen_s = time.perf_counter() - t0
+            vixen_out = {}
+            for i in ids:
+                with np.load(tmp / f"{i}.npz") as data:
+                    vixen_out.update({k: data[k] for k in data.files})
+            vixen_err = float(np.abs(vixen_out["output_0"] - want3).max())
+            if not same(vixen_out, local) or vixen_err > LOGREG_TOL:
+                raise AssertionError(f"vixen rows: error {vixen_err}, "
+                                     f"words equal {same(vixen_out, local)}")
+            record["vixen"] = {"wall_s": vixen_s, "exit_codes": vixen_codes,
+                               "max_abs_err": vixen_err,
+                               "words_equal": True}
+            say("vixen over TCP", record["vixen"])
+
+            listening(r_procs, r_ports, r_logs, t0)
+            t1 = time.perf_counter()
+            (sessions / "comp.bin").write_bytes(blob)
+            (sessions / "args.json").write_text(
+                _json.dumps({"x": x3.tolist()}))
+            (sessions / "run.session").write_text(
+                'session_id = "rudolph-24"\narguments = "args.json"\n'
+                '[computation]\npath = "comp.bin"\n[roles]\n'
+                + "".join(f'{i} = "127.0.0.1:{p}"\n'
+                          for i, p in zip(ids, r_ports)))
+            rudolph_out = {}
+            for p in r_ports:
+                result = ChoreographyClient(f"127.0.0.1:{p}").retrieve(
+                    "rudolph-24", timeout=300)
+                if "error" in result:
+                    raise AssertionError(f"rudolph session: {result}")
+                for name, value in (result.get("outputs") or {}).items():
+                    rudolph_out[name] = serde.deserialize_value(value)
+            rudolph_s = time.perf_counter() - t1
+        finally:
+            for proc in r_procs.values():
+                if proc.poll() is None:
+                    proc.send_signal(signal.SIGTERM)
+        rudolph_codes = wait_all(r_procs, r_logs, limit=60)
+        rudolph_err = float(np.abs(rudolph_out["output_0"] - want3).max())
+        if not same(rudolph_out, local) or rudolph_err > LOGREG_TOL:
+            raise AssertionError(f"rudolph rows: error {rudolph_err}")
+        record["rudolph"] = {"session_s": rudolph_s,
+                             "exit_codes_on_sigterm": rudolph_codes,
+                             "max_abs_err": rudolph_err,
+                             "words_equal": True}
+        say("rudolph from a .session file", record["rudolph"])
+
+    # (f) the native textual parser against the Python one: config 3's
+    # text, and its lowered graph's, past _NATIVE_PARSE_THRESHOLD
+    t0 = time.perf_counter()
+    if native_textual.load() is None:
+        raise AssertionError("g++ did not build the native parser")
+    parses = {"build_ms": (time.perf_counter() - t0) * 1e3}
+    texts = {"logistic_regression": textual.to_textual(traced3),
+             "lowered_logistic_regression": textual.to_textual(lowered3)}
+    if len(texts["lowered_logistic_regression"]) < \
+            textual._NATIVE_PARSE_THRESHOLD:
+        raise AssertionError("the lowered text is under the threshold")
+    before = dict(textual.PARSES)
+    for name, text in texts.items():
+        t0 = time.perf_counter()
+        native = textual.parse_computation(text, force_native=True)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        python = textual.parse_computation(text, force_native=False)
+        python_ms = (time.perf_counter() - t0) * 1e3
+        if serde.serialize_computation(native) != \
+                serde.serialize_computation(python):
+            raise AssertionError(f"{name}: the parsers' graphs differ")
+        parses[name] = {"bytes": len(text), "native_ms": native_ms,
+                        "python_ms": python_ms}
+    textual.parse_computation(texts["lowered_logistic_regression"])
+    if textual.PARSES["native"] - before["native"] != len(texts) + 1:
+        raise AssertionError("the native parser did not run")
+    record["textual"] = parses
+    say("native parser", parses)
+    return record, launches
+
+
 def timed(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4249,6 +4764,7 @@ def timed(torch, fn):
 
 
 def main() -> int:
+    started = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -5210,6 +5726,14 @@ def main() -> int:
     distributed_record, distributed_launches = run_distributed(
         torch, rk, ring, pm, classifier, logreg, runtime, rng, smi)
 
+    # phase 24: secret integers, chaos over gRPC and a chaos-resumed
+    # training, vixen over TCP, rudolph, the native parser (main path,
+    # each in-process part counted on its own; the vixen and rudolph
+    # processes count in their own processes)
+    phase[0] = 24
+    fault_record, fault_launches = run_faults(
+        torch, rk, pm, classifier, logreg, smi)
+
     launches_by_path = {
         "secure_dot": dot_launches,
         "linear_regressor": linreg_launches,
@@ -5231,6 +5755,7 @@ def main() -> int:
         **analyzer_launches,
         **serving_launches,
         **distributed_launches,
+        **fault_launches,
     }
     protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
@@ -5305,10 +5830,20 @@ def main() -> int:
         # phase 23: the workers run lowered graphs (K1 product-only, K4,
         # K7 single draws)
         **{path: lowered_kernels for path in distributed_launches},
+        # phase 24: the secret-integer Add, Mul and Dot (K3's reshare,
+        # K1 at ring64, no truncation), then lowered graphs on workers
+        "secret_uint64": ("dot_cross_terms", "cross_terms_reshare",
+                          "prf_threefry"),
+        "chaos_grpc": lowered_kernels,
+        "chaos_training": lowered_kernels,
     }
+    for name in ("trunc_pairs", "trunc_combine"):
+        if launches_by_path["secret_uint64"][name]:
+            raise AssertionError(f"secret integers launched {name}")
     # the lowered graph holds the reference's composition: no fused step
     for path in ("lowered_logistic_regression", "lowered_from_bytes",
-                 "analyzer_strict_compiled", *distributed_launches):
+                 "analyzer_strict_compiled", *distributed_launches,
+                 "chaos_grpc", "chaos_training"):
         for name in ("trunc_combine", "trunc_pairs", "cross_terms_mul",
                      "cross_terms_reshare", "bit_decompose", "msb",
                      "horner"):
@@ -5416,6 +5951,9 @@ def main() -> int:
             # phase 23: the workers' warm sessions
             "launches_distributed": {
                 path: by_path[path] for path in distributed_launches},
+            # phase 24's in-process parts
+            "launches_faults": {
+                path: by_path[path] for path in fault_launches},
             "equal": all(r["equal"] for r in rows
                          if r["equal"] is not None),
             "max_abs_err": max(r["max_abs_err"] for r in rows
@@ -5502,7 +6040,10 @@ def main() -> int:
         "analyzer": analyzer_record,
         "serving": serving_record,
         "distributed": distributed_record,
+        "faults": fault_record,
+        "seconds": time.perf_counter() - started,
     }
+    log(f"chip_smoke: {record['seconds']:.1f} s in all [{smi}]")
     log(json.dumps(record))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

@@ -651,24 +651,34 @@ def softmax(x: HostTensor, axis: int, plc: str) -> HostTensor:
     return HostTensor(torch.softmax(x.value, dim=axis), plc, x.dtype)
 
 
+def _ordered(x: HostTensor):
+    """Words that order as ``x``'s values: a uint64 tensor's int64 words
+    with the sign bit flipped, anything else as it is."""
+    if x.dtype is not None and x.dtype.name == "uint64":
+        return torch.bitwise_xor(x.value, ring.SIGN64)
+    return x.value
+
+
 def argmax(x: HostTensor, axis: int, plc: str) -> HostTensor:
     """Indices as uint64 (their int64 words)."""
-    return HostTensor(torch.argmax(x.value, dim=axis), plc, dt.uint64)
+    return HostTensor(torch.argmax(_ordered(x), dim=axis), plc, dt.uint64)
 
 
 def maximum(xs: Sequence[HostTensor], plc: str) -> HostTensor:
-    out = xs[0].value
+    out = _ordered(xs[0])
     for x in xs[1:]:
-        out = torch.maximum(out, x.value)
+        out = torch.maximum(out, _ordered(x))
+    if xs[0].dtype is not None and xs[0].dtype.name == "uint64":
+        out = torch.bitwise_xor(out, ring.SIGN64)
     return HostTensor(out, plc, xs[0].dtype)
 
 
 def less(x: HostTensor, y: HostTensor, plc: str) -> HostBitTensor:
-    return HostBitTensor((x.value < y.value).to(torch.uint8), plc)
+    return HostBitTensor((_ordered(x) < _ordered(y)).to(torch.uint8), plc)
 
 
 def greater(x: HostTensor, y: HostTensor, plc: str) -> HostBitTensor:
-    return HostBitTensor((x.value > y.value).to(torch.uint8), plc)
+    return HostBitTensor((_ordered(x) > _ordered(y)).to(torch.uint8), plc)
 
 
 def equal(x, y, plc: str) -> HostBitTensor:
@@ -708,6 +718,13 @@ def cast(x, target: dt.DType, plc: str):
     if x.dtype.name == "uint64" and target.is_float:
         # the int64 words hold uint64 values
         value = ring.u64_to_float64(value)
+    elif x.dtype.is_float and target.name == "uint64":
+        # a value at or beyond 2^63 takes the int64 word of its uint64
+        value = value.to(torch.float64)
+        big = value >= 2.0 ** 63
+        return HostTensor(
+            torch.where(big, value - 2.0 ** 64, value).to(torch.int64),
+            plc, target)
     return HostTensor(value.to(torch_dtype(target)), plc, target)
 
 
@@ -727,7 +744,8 @@ def cast_ring_lo(x: HostRingTensor, target: dt.DType,
 
 def ring_fixedpoint_encode(x: HostTensor, frac_precision: int, width: int,
                            plc: str) -> HostRingTensor:
-    lo, hi = ring.fixedpoint_encode(x.value, frac_precision, width)
+    signed = None if x.dtype is None else x.dtype.name != "uint64"
+    lo, hi = ring.fixedpoint_encode(x.value, frac_precision, width, signed)
     return HostRingTensor(lo, hi, width, plc)
 
 

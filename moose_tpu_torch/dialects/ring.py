@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -425,14 +425,25 @@ def conv2d(x_lo, x_hi, k_lo, k_hi, strides=(1, 1), padding="VALID"):
 # ---------------------------------------------------------------------------
 
 
-def fixedpoint_encode(x, frac_precision: int, width: int):
+def fixedpoint_encode(x, frac_precision: int, width: int,
+                      signed: Optional[bool] = None):
     """Encode floats into the ring: round(x * 2^f), two's complement,
-    rounding half to even as ``jnp.round`` does."""
+    rounding half to even as ``jnp.round`` does.
+
+    Integer tensors at scale 0 (the secret-integer dialect) skip the
+    float detour, so every 64-bit value lifts losslessly: the high word
+    of a signed input is its sign extension, of an unsigned one zero.
+    ``signed`` says which; ``None`` reads it off the torch dtype, and a
+    uint64 tensor (its int64 words) must pass ``False``."""
+    if signed is None:
+        signed = x.dtype.is_signed
     if not x.is_floating_point():
-        raise NotImplementedError(
-            "the port encodes float tensors only; the integer dialect's "
-            "scale-0 lift is ROADMAP queue 1, item 6"
-        )
+        if frac_precision == 0:
+            lo = x.to(I64)
+            if width == 64:
+                return lo, None
+            return lo, (lo >> 63 if signed else torch.zeros_like(lo))
+        x = x.to(torch.float64) if signed else u64_to_float64(x.to(I64))
     scaled = torch.round(x.to(torch.float64) * (2.0 ** frac_precision))
     si = scaled.to(I64)
     if width == 64:

@@ -6,10 +6,13 @@ tensors become ``SpmdRep``/``SpmdFixed``/``SpmdBits`` (one tensor with a
 leading party axis); host and mirrored ops delegate to the logical
 dialect.  The replicated kinds (:data:`REP_KINDS`) are the reference's
 41, Decrypt (AES-GCM decryption under MPC, ``dialects/aes.py``) among
-them.  Operands are secret fixed-point tensors, and bits where a kind
-takes them; a secret integer (the scale-0 lift, item 6) is refused,
-except the bare index tensor ``Argmax`` returns, which structural kinds
-carry and which reveals to a ``HostRingTensor``.  AES values cross the
+them.  Operands are secret fixed-point tensors, bits where a kind takes
+them, and secret integers: an integer host tensor lifts at scale 0 into
+the ring its consuming op names (:func:`_op_ring_width`) and is shared
+bare, as is the index tensor ``Argmax`` returns; Add, Sub, Mul, Dot,
+Sum and the structural kinds run on such bare sharings without
+truncation, a bare sharing reveals to a ``HostRingTensor``, and a Cast
+moves it into the fixed family.  AES values cross the
 host boundary as the reference's stacked layout takes them
 (:func:`lift_aes_input`).  :func:`unsupported_ops` lists what a graph
 needs beyond that, and every refusal names its ROADMAP item.
@@ -18,6 +21,7 @@ needs beyond that, and every refusal names its ROADMAP item.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -42,6 +46,7 @@ from ..values import (
     HostRingTensor,
     HostShape,
     HostString,
+    HostTensor,
     Mir3FixedTensor,
 )
 from . import aes, logical
@@ -56,10 +61,6 @@ REP_KINDS = frozenset({
 })
 # resolved by the interpreter's walk, on any placement
 BOUNDARY_KINDS = frozenset({"Input", "Output", "Load", "Save"})
-
-# secret integers: the scale-0 lift
-_INTEGER = "ROADMAP queue 1, item 6"
-
 
 def roadmap_item(placement_kind: str, op_kind: str) -> str:
     """Where an op kind this layout refuses on a placement of
@@ -91,8 +92,13 @@ class StackedSession:
 # ---------------------------------------------------------------------------
 
 
-def to_rep(sess: StackedSession, v):
-    """Materialize a logical value as a party-stacked sharing."""
+def to_rep(sess: StackedSession, v, width: Optional[int] = None):
+    """Materialize a logical value as a party-stacked sharing.
+
+    ``width`` is the ring a secret integer lifts into (the value itself
+    carries none): callers read it off the consuming op's signature with
+    :func:`_op_ring_width`; ``None`` lifts at 64, the integer dialect's
+    own ring."""
     if isinstance(v, _STACKED_VALUES):
         return v
     if isinstance(v, HostFixedTensor):
@@ -113,9 +119,21 @@ def to_rep(sess: StackedSession, v):
             v.integral_precision,
             frac,
         )
+    if isinstance(v, HostRingTensor):
+        return spmd.share(sess.spmd, v.lo, v.hi, v.width)
+    if isinstance(v, HostTensor):
+        if v.dtype is not None and v.dtype.is_integer:
+            # the integer dialect's lift (reference integer/mod.rs:12-15)
+            ring_t = sess.host.ring_fixedpoint_encode(v.plc, v, 0,
+                                                      width or 64)
+            return spmd.share(sess.spmd, ring_t.lo, ring_t.hi, ring_t.width)
+        raise TypeMismatchError(
+            "cannot share a plaintext float tensor; cast to a fixed "
+            "dtype first (reference requires FixedpointEncode before "
+            "Share)"
+        )
     raise TypeMismatchError(
-        f"cannot share {type(v).__name__} in the port's stacked layout "
-        f"(secret integers: {_INTEGER})"
+        f"cannot share {type(v).__name__} in stacked layout"
     )
 
 
@@ -169,13 +187,31 @@ _strided_slice = spmd._structural(_slice_arr)
 
 def _fixed(v, kind: str) -> SpmdFixed:
     if not isinstance(v, SpmdFixed):
-        later = f" (secret integers: {_INTEGER})" if isinstance(
-            v, SpmdRep) else ""
         raise TypeMismatchError(
             f"stacked {kind} takes secret fixed-point tensors, got "
-            f"{type(v).__name__}{later}"
+            f"{type(v).__name__}"
         )
     return v
+
+
+def _op_ring_width(op: Operation) -> Optional[int]:
+    """The ring a secret integer operand of ``op`` lifts into, read off
+    its signature: a fixed-point dtype among its types decides, then a
+    Ring-typed signature by name; ``None`` when nothing says (the lift
+    then takes 64)."""
+    sig = op.signature
+    types = (sig.return_type, *sig.input_types)
+    for ty in types:
+        d = getattr(ty, "dtype", None)
+        if d is not None and d.is_fixedpoint:
+            return 64 if d.name == "fixed64" else 128
+    for ty in types:
+        name = getattr(ty, "name", "") or ""
+        if "Ring128" in name:
+            return 128
+        if "Ring64" in name:
+            return 64
+    return None
 
 
 def _bits(v, kind: str) -> SpmdBits:
@@ -188,6 +224,16 @@ def _bits(v, kind: str) -> SpmdBits:
 
 def _fx(t: SpmdRep, like: SpmdFixed) -> SpmdFixed:
     return SpmdFixed(t, like.integral_precision, like.fractional_precision)
+
+
+def _inner(x, kind: str) -> SpmdRep:
+    """The word sharing of a fixed-point or bare integer sharing."""
+    if isinstance(x, SpmdFixed):
+        return x.tensor
+    if isinstance(x, SpmdRep):
+        return x
+    raise TypeMismatchError(
+        f"stacked {kind} takes secret tensors, got {type(x).__name__}")
 
 
 def _on_inner(x, fn):
@@ -223,12 +269,12 @@ def _public_binop(sess, x: SpmdFixed, pub: Mir3FixedTensor, kind: str,
 
 
 def _align_logical_ranks(*vals):
-    """Elementwise operands (fixed-point or bits) broadcast by logical
-    shape: the stacked tensors carry a (party, slot) prefix, so a
-    lower-rank operand gets singleton logical axes after it, as
-    broadcasting would prepend them to the logical shape."""
-    ranks = [len(v.shape) if isinstance(v, SpmdBits) else len(v.tensor.shape)
-             for v in vals]
+    """Elementwise operands (fixed-point, bare integer sharings or bits)
+    broadcast by logical shape: the stacked tensors carry a (party, slot)
+    prefix, so a lower-rank operand gets singleton logical axes after
+    it, as broadcasting would prepend them to the logical shape."""
+    ranks = [len(v.tensor.shape) if isinstance(v, SpmdFixed)
+             else len(v.shape) for v in vals]
     top = max(ranks)
 
     def lift(v, n):
@@ -237,6 +283,8 @@ def _align_logical_ranks(*vals):
         if isinstance(v, SpmdBits):
             a = v.arr
             return SpmdBits(a.reshape(a.shape[:2] + (1,) * n + a.shape[2:]))
+        if isinstance(v, SpmdRep):
+            return spmd.reshape(v, (1,) * n + v.shape)
         t = v.tensor
         return _fx(spmd.reshape(t, (1,) * n + t.shape), v)
 
@@ -247,15 +295,48 @@ _SECRET_BINOPS = {
     "Add": lambda s, x, y: spmd.fx_add(x, y),
     "Sub": lambda s, x, y: spmd.fx_sub(x, y),
     "Mul": spmd.fx_mul,
+    "Dot": spmd.fx_dot,
     "Div": sm.fx_div,
+}
+# the same kinds on secret integers: wrapping ring arithmetic on the
+# bare sharings, no truncation (Mul and Dot reshare once)
+_INTEGER_BINOPS = {
+    "Add": lambda s, x, y: spmd.add(x, y),
+    "Sub": lambda s, x, y: spmd.sub(x, y),
+    "Mul": spmd.mul,
+    "Dot": spmd.dot,
 }
 
 
-def _fx_sum(x: SpmdFixed, axis) -> SpmdFixed:
-    t = x.tensor
+def _secret_binop(sess, kind: str, x, y):
+    """A secret Add, Sub, Mul, Dot or Div of two sharings of one family:
+    both secret integers (bare) or both fixed-point."""
+    bare_x, bare_y = isinstance(x, SpmdRep), isinstance(y, SpmdRep)
+    if bare_x != bare_y:
+        raise TypeMismatchError(
+            f"{kind} mixes a secret integer with a secret fixed-point "
+            f"tensor (got {type(x).__name__} and {type(y).__name__})"
+        )
+    if kind != "Dot":  # contraction has its own shape rules
+        x, y = _align_logical_ranks(x, y)
+    if not bare_x:
+        return _SECRET_BINOPS[kind](sess.spmd, _fixed(x, kind),
+                                    _fixed(y, kind))
+    if kind not in _INTEGER_BINOPS:
+        raise NotImplementedError(
+            "Div on secret uint64 is undefined (ring division)"
+        )
+    return _INTEGER_BINOPS[kind](sess.spmd, x, y)
+
+
+def _sum(x: SpmdRep, axis) -> SpmdRep:
     if axis is None:
-        t, axis = spmd.reshape(t, (math.prod(t.shape),)), 0
-    return _fx(spmd.sum_axis(t, axis), x)
+        x, axis = spmd.reshape(x, (math.prod(x.shape),)), 0
+    return spmd.sum_axis(x, axis)
+
+
+def _fx_sum(x: SpmdFixed, axis) -> SpmdFixed:
+    return _fx(_sum(x.tensor, axis), x)
 
 
 def _fx_mean(sess, x: SpmdFixed, axis) -> SpmdFixed:
@@ -302,18 +383,19 @@ def _execute_rep(sess: StackedSession, comp, op: Operation,
     kind = op.kind
     ret_dtype = op.signature.return_type.dtype
     attrs = op.attributes
+    lift_width = _op_ring_width(op)
+
+    def as_rep(v):
+        return to_rep(sess, v, width=lift_width)
 
     def fixed(v):
-        return _fixed(to_rep(sess, v), kind)
+        return _fixed(as_rep(v), kind)
 
     if kind == "Identity":
-        return to_rep(sess, args[0])
+        return as_rep(args[0])
 
     if kind == "Constant":
         return _constant(sess, op, rep)
-
-    if kind == "Dot":
-        return spmd.fx_dot(sess.spmd, fixed(args[0]), fixed(args[1]))
 
     if kind == "Conv2D":
         x, k = fixed(args[0]), fixed(args[1])
@@ -336,33 +418,33 @@ def _execute_rep(sess: StackedSession, comp, op: Operation,
 
     if kind in _SECRET_BINOPS:
         x, y = args
-        if isinstance(y, Mir3FixedTensor) and kind != "Div":
-            return _public_binop(sess, fixed(x), y, kind, right=True)
-        if isinstance(x, Mir3FixedTensor) and kind != "Div":
-            return _public_binop(sess, fixed(y), x, kind, right=False)
-        xr, yr = _align_logical_ranks(fixed(x), fixed(y))
-        return _SECRET_BINOPS[kind](sess.spmd, xr, yr)
+        if kind in ("Add", "Sub", "Mul"):
+            if isinstance(y, Mir3FixedTensor):
+                return _public_binop(sess, fixed(x), y, kind, right=True)
+            if isinstance(x, Mir3FixedTensor):
+                return _public_binop(sess, fixed(y), x, kind, right=False)
+        return _secret_binop(sess, kind, as_rep(x), as_rep(y))
 
     if kind == "AddN":
-        vals = [fixed(a) for a in args]
+        vals = [as_rep(a) for a in args]
         out = vals[0]
         for v in vals[1:]:
-            out = spmd.fx_add(out, v)
+            out = (spmd.add(out, v) if isinstance(out, SpmdRep)
+                   else spmd.fx_add(_fixed(out, kind), _fixed(v, kind)))
         return out
 
     if kind == "Neg":
-        x = fixed(args[0])
-        return _fx(spmd.neg(x.tensor), x)
+        return _on_inner(as_rep(args[0]), spmd.neg)
 
     if kind in ("Less", "Greater", "Equal"):
-        x, y = _align_logical_ranks(fixed(args[0]), fixed(args[1]))
+        x, y = _align_logical_ranks(as_rep(args[0]), as_rep(args[1]))
         fn = {"Less": sm.less, "Greater": sm.greater,
               "Equal": sm.equal_bit}[kind]
-        return fn(sess.spmd, x.tensor, y.tensor)
+        return fn(sess.spmd, _inner(x, kind), _inner(y, kind))
 
     if kind in ("And", "Or", "Xor"):
-        x = _bits(to_rep(sess, args[0]), kind)
-        y = _bits(to_rep(sess, args[1]), kind)
+        x = _bits(as_rep(args[0]), kind)
+        y = _bits(as_rep(args[1]), kind)
         if kind == "Xor":
             return sm.bits_xor(x, y)
         fn = sm.bits_and if kind == "And" else sm.bits_or
@@ -370,16 +452,25 @@ def _execute_rep(sess: StackedSession, comp, op: Operation,
 
     if kind == "Mux":
         s, x, y = _align_logical_ranks(
-            _bits(to_rep(sess, args[0]), kind), fixed(args[1]),
-            fixed(args[2]),
+            _bits(as_rep(args[0]), kind), as_rep(args[1]), as_rep(args[2]),
         )
+        if isinstance(x, SpmdRep) and isinstance(y, SpmdRep):
+            return sm.mux_bit(sess.spmd, s, x, y)
+        x, y = _fixed(x, kind), _fixed(y, kind)
         return _fx(sm.mux_bit(sess.spmd, s, x.tensor, y.tensor), x)
 
-    if kind == "Sum":
-        return _fx_sum(fixed(args[0]), attrs.get("axis"))
-
-    if kind == "Mean":
-        return _fx_mean(sess, fixed(args[0]), attrs.get("axis"))
+    if kind in ("Sum", "Mean"):
+        x = as_rep(args[0])
+        if isinstance(x, SpmdRep):
+            if kind == "Mean":
+                raise TypeMismatchError(
+                    "Mean on secret uint64 is undefined (ring division); "
+                    "cast to a fixed dtype first"
+                )
+            return _sum(x, attrs.get("axis"))
+        if kind == "Sum":
+            return _fx_sum(_fixed(x, kind), attrs.get("axis"))
+        return _fx_mean(sess, _fixed(x, kind), attrs.get("axis"))
 
     if kind in _FX_MATH:
         return _FX_MATH[kind](sess.spmd, fixed(args[0]))
@@ -399,18 +490,29 @@ def _execute_rep(sess: StackedSession, comp, op: Operation,
                             upmost_index=attrs.get("upmost_index"))
 
     if kind == "Maximum":
+        vals = [as_rep(a) for a in args]
+        if isinstance(vals[0], SpmdRep):
+            raise TypeMismatchError(
+                "Maximum on secret uint64 needs a signed comparison "
+                "convention; cast to a fixed dtype first"
+            )
         return sm.fx_maximum(
-            sess.spmd, _align_logical_ranks(*[fixed(a) for a in args])
+            sess.spmd, _align_logical_ranks(*[_fixed(v, kind)
+                                              for v in vals])
         )
 
     if kind == "Concat":
-        vals = [fixed(a) for a in args]
-        out = spmd.concat([v.tensor for v in vals], attrs.get("axis", 0))
+        vals = [as_rep(a) for a in args]
+        axis = attrs.get("axis", 0)
+        if isinstance(vals[0], SpmdRep):
+            return spmd.concat(vals, axis)
+        vals = [_fixed(v, kind) for v in vals]
+        out = spmd.concat([v.tensor for v in vals], axis)
         return _fx(out, vals[0])
 
     if kind == "Reshape":
         shp = to_host(sess, rep.owners[0], args[1])
-        return _on_inner(to_rep(sess, args[0]),
+        return _on_inner(as_rep(args[0]),
                          lambda t: spmd.reshape(t, tuple(shp.value)))
 
     if kind == "ExpandDims":
@@ -419,29 +521,29 @@ def _execute_rep(sess: StackedSession, comp, op: Operation,
                 t = spmd.expand_dims(t, a)
             return t
 
-        return _on_inner(to_rep(sess, args[0]), expand)
+        return _on_inner(as_rep(args[0]), expand)
 
     if kind == "Squeeze":
-        return _on_inner(to_rep(sess, args[0]),
+        return _on_inner(as_rep(args[0]),
                          lambda t: _squeeze(t, attrs.get("axis")))
 
     if kind == "Transpose":
-        return _on_inner(to_rep(sess, args[0]),
+        return _on_inner(as_rep(args[0]),
                          lambda t: spmd.transpose(t, attrs.get("axes")))
 
     if kind == "IndexAxis":
         return _on_inner(
-            to_rep(sess, args[0]),
+            as_rep(args[0]),
             lambda t: spmd.index_axis(t, attrs["axis"], attrs["index"]),
         )
 
     if kind == "Slice":
         spec = logical.decode_slice_spec(attrs)
-        return _on_inner(to_rep(sess, args[0]),
+        return _on_inner(as_rep(args[0]),
                          lambda t: _strided_slice(t, spec))
 
     if kind == "Shape":
-        x = to_rep(sess, args[0])
+        x = as_rep(args[0])
         inner = x.tensor if isinstance(x, SpmdFixed) else x
         return HostShape(tuple(inner.shape), rep.owners[0])
 
@@ -454,9 +556,23 @@ def _execute_rep(sess: StackedSession, comp, op: Operation,
                 "stacked Cast on a replicated placement must target a "
                 f"fixed-point dtype, got {ret_dtype}"
             )
-        x = fixed(args[0])
-        cur_f = x.fractional_precision
+        x = as_rep(args[0])
         new_f = ret_dtype.fractional_precision
+        if isinstance(x, SpmdRep):
+            # secret integer -> fixed: the scale-0 shares scaled by 2^f;
+            # the lift above already took the target's ring, and a
+            # sharing made at another width cannot be relabelled, so the
+            # runtime reruns such a graph per-host
+            target_w = 64 if ret_dtype.name == "fixed64" else 128
+            if x.width != target_w:
+                raise TypeMismatchError(
+                    f"stacked Cast to {ret_dtype} needs a ring{target_w} "
+                    f"sharing, got ring{x.width}"
+                )
+            t = spmd.shl(x, new_f) if new_f else x
+            return SpmdFixed(t, ret_dtype.integral_precision, new_f)
+        x = _fixed(x, kind)
+        cur_f = x.fractional_precision
         t = x.tensor
         if new_f > cur_f:
             t = spmd.shl(t, new_f - cur_f)

@@ -1,8 +1,8 @@
 """Distributed execution of the port: networking backends, role-filtered
 workers, choreography and the client session supervisor (reference
 ``moose/src/networking``, ``moose/src/choreography``,
-``moose/src/execution/grpc.rs``).  The fabric transport and the chaos
-layer are ROADMAP queue 1, item 12."""
+``moose/src/execution/grpc.rs``) and the deterministic chaos layer.  The
+fabric transport is ROADMAP queue 1, item 12."""
 
 from typing import Any
 
@@ -12,6 +12,7 @@ from typing import Any
 _LAZY = {
     "LocalNetworking": "networking",
     "GrpcNetworking": "networking",
+    "TcpNetworking": "networking",
     "ProgressClock": "networking",
     "execute_role": "worker",
     "WorkerServer": "choreography",
@@ -19,6 +20,8 @@ _LAZY = {
     "start_local_cluster": "choreography",
     "GrpcClientRuntime": "client",
     "TlsConfig": "tls",
+    "ChaosConfig": "chaos",
+    "ChaosNetworking": "chaos",
 }
 _NOT_PORTED = ("FabricDomain", "FabricNetworking")
 

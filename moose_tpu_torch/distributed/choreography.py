@@ -6,9 +6,10 @@ worker and a JAX worker answer the same client.  A :class:`WorkerServer`
 runs its role on ``device`` (the card unless the caller asks for the
 CPU); on the card it builds the kernels a worker launches (K1, K4, K7)
 before it accepts a session, so a first-use ``nvcc`` never stalls a
-session its peers are waiting on.  The deterministic chaos layer
-(``chaos.py``) and the fabric transport (``FabricDomain``) are ROADMAP
-queue 1, item 12: a worker given either raises.
+session its peers are waiting on.  A worker arms the deterministic chaos
+layer (``chaos.py``) when given a ``ChaosConfig`` or ``MOOSE_TPU_CHAOS``;
+the fabric transport (``FabricDomain``) is ROADMAP queue 1, item 12, and
+a worker given one raises.
 
 Reference ``moose/src/choreography/grpc.rs:34-234`` +
 ``protos/choreography.proto``: LaunchComputation / RetrieveResults /
@@ -152,24 +153,27 @@ class WorkerServer:
         )
         import collections
 
-        import os
-
-        if chaos is not None or os.environ.get("MOOSE_TPU_CHAOS"):
-            raise NotImplementedError(
-                "the deterministic chaos layer (distributed/chaos.py, "
-                "MOOSE_TPU_CHAOS) is ROADMAP queue 1, item 12"
-            )
         if fabric_domain is not None:
             raise NotImplementedError(
                 "the fabric transport (FabricDomain/FabricNetworking: a "
                 "device-local handoff on one card, NCCL across cards) is "
                 "ROADMAP queue 1, item 12"
             )
-        self.chaos = None
         self.fabric_domain = None
+        # chaos: explicit config, or MOOSE_TPU_CHAOS from the
+        # environment (comet daemons pick the same schedule up without
+        # new flags); None disables.  The transport is WRAPPED (wire,
+        # then chaos) so every send/ping of this worker flows through
+        # the fault schedule.
+        from .chaos import ChaosConfig
+
+        self.chaos = chaos if chaos is not None else ChaosConfig.from_env()
         networking = GrpcNetworking(
             identity, self.endpoints, tls=tls, device=self.device
         )
+        if self.chaos is not None:
+            self.chaos.register_kill_hook(identity, self._chaos_kill)
+            networking = self.chaos.wrap(networking, identity)
         self.networking = networking
         self._sessions: dict = {}  # session id -> _SessionState (running)
         # serialized-computation memo: repeat sessions of one computation
@@ -903,6 +907,14 @@ class WorkerServer:
                 )
             self.metrics_port = self.metrics_server.port
         self._server.start()
+        if self.chaos is not None:
+            # an in-process 'restart' constructs a fresh WorkerServer
+            # over the SAME chaos config: the restarted identity is
+            # alive again (its kill-count persists: max_kills bounds
+            # how often the schedule may strike it).  Revived only once
+            # the server serves, so a failed bind keeps the latch the
+            # restarter iterates
+            self.chaos.revive(self.identity)
         return self
 
     def stop(self, grace: float = 0.5):
@@ -912,6 +924,16 @@ class WorkerServer:
         if self.metrics_server is not None:
             self.metrics_server.close()
             self.metrics_server = None
+
+    def _chaos_kill(self):
+        """Chaos ``kill_after_ops`` hook: die like a SIGKILL'd process,
+        stop answering rpcs at once (peers' pings see UNAVAILABLE and
+        their detectors trip) without aborting sessions or fanning out.
+        The wrapped transport raises on every later op of this
+        identity, so the run thread cannot limp along either."""
+        server, self._server = self._server, None
+        if server is not None:
+            server.stop(0)
 
     def wait(self):
         """Block until the server stops (a stop before the wait returns
@@ -945,13 +967,51 @@ def start_local_cluster(identities, storages=None, device="cuda",
 def start_chaos_restarter(servers, endpoints, storages, chaos,
                           restart_delay_s: float = 1.0,
                           poll_s: float = 0.3, **server_kwargs):
-    """The reference's in-process restart loop for chaos-killed workers:
-    it needs the chaos layer (``distributed/chaos.py``), ROADMAP queue
-    1, item 12."""
-    raise NotImplementedError(
-        "start_chaos_restarter needs the chaos layer "
-        "(distributed/chaos.py): ROADMAP queue 1, item 12"
-    )
+    """Watch a chaos config and 'process-restart' any killed in-process
+    worker: stop the stale WorkerServer, rebind a fresh one on the SAME
+    port with the SAME (durable) storage and the SAME chaos config
+    (``start`` revives the identity; max_kills bounds further strikes).
+    ``server_kwargs`` reach the new server (``device=`` among them).
+    Returns a zero-arg stop callable."""
+    import time as _time
+
+    stop_event = threading.Event()
+
+    def loop():
+        from ..logger import get_logger
+
+        while not stop_event.is_set():
+            _time.sleep(poll_s)
+            if chaos is None:
+                continue
+            for party in list(chaos._killed):
+                # a failed restart (a raced port, a transient bind
+                # error) must not kill this watcher: log, retry next poll
+                try:
+                    _time.sleep(restart_delay_s)
+                    old = servers[party]
+                    old.stop(grace=0)
+                    srv = WorkerServer(
+                        party, old.port, dict(endpoints),
+                        storage=(storages or {}).get(party),
+                        chaos=chaos, **server_kwargs,
+                    )
+                    srv.start()
+                    servers[party] = srv
+                except Exception:  # noqa: BLE001 - retried next poll
+                    get_logger().warning(
+                        "chaos restarter: restart of %r failed; "
+                        "retrying", party, exc_info=True,
+                    )
+
+    thread = threading.Thread(target=loop, daemon=True)
+    thread.start()
+
+    def stop():
+        stop_event.set()
+        thread.join(timeout=3.0)
+
+    return stop
 
 
 def _serialize_output(value) -> bytes:

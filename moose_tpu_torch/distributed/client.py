@@ -110,13 +110,20 @@ def _classify_rpc_error(exc: BaseException, what: str) -> MooseError:
 
 
 def _chaos_marks() -> list:
-    """Fault-log marks of the live chaos configs: none, the port has no
-    chaos layer yet (ROADMAP queue 1, item 12)."""
-    return []
+    """Snapshot (config, fault-log length) for every live in-process
+    chaos config, so the report can attribute exactly the faults
+    injected during this run."""
+    from .chaos import active_configs
+
+    return [(cfg, len(cfg.faults)) for cfg in active_configs()]
 
 
 def _chaos_new_faults(marks: list) -> list:
-    return []
+    faults = []
+    for cfg, mark in marks:
+        with cfg._lock:
+            faults.extend(dict(f) for f in cfg.faults[mark:])
+    return faults
 
 
 class GrpcClientRuntime:

@@ -10,15 +10,17 @@ session_id)``, with
   single-process simulator (networking/local.rs);
 - :class:`GrpcNetworking`: one ``SendValue`` rpc, out-of-order delivery
   handled by posting receive cells before sends arrive
-  (networking/grpc.rs:25-234).
+  (networking/grpc.rs:25-234);
+- :class:`TcpNetworking`: length-prefixed frames over the native
+  ``tcp_transport.cpp`` (networking/tcpstream.rs), built with ``g++`` at
+  first use.
 
 Values cross the wire as the JAX package's msgpack bytes
 (``serde.serialize_value``), so a port worker and a JAX worker speak the
 same frames; a received value's tensors land on the backend's
 ``device`` (seeds and keys stay host words).  The static cost model
 (``compilation/analysis/cost.py``) prices every transfer with the frame
-packers here.  The raw TCP transport (:class:`TcpNetworking`, the
-native ``tcp_transport.cpp``) is ROADMAP queue 1, item 12, and raises.
+packers here.
 """
 
 from __future__ import annotations
@@ -393,17 +395,102 @@ class LocalNetworking:
 
 
 class TcpNetworking:
-    """The raw TCP transport of the reference (the native
-    ``tcp_transport.cpp`` and ``native/tcp.py``, networking/
-    tcpstream.rs): ROADMAP queue 1, item 12."""
+    """Raw TCP transport backed by the native C++ library
+    (``native/tcp_transport.cpp``; reference networking/tcpstream.rs).
 
-    def __init__(self, identity: str, endpoints: dict):
-        raise NotImplementedError(
-            "TcpNetworking needs the native TCP transport "
-            "(native/tcp_transport.cpp, native/tcp.py and bin/vixen), "
-            "which the port has not taken yet: ROADMAP queue 1, item 12; "
-            "use GrpcNetworking"
-        )
+    ``endpoints`` maps identity -> "host:port"; the local identity's
+    server must be started with :meth:`start`.  Received tensors land on
+    ``device``."""
+
+    def __init__(self, identity: str, endpoints: dict,
+                 device="cuda"):
+        from ..native import tcp
+
+        self._identity = identity
+        self._endpoints = dict(endpoints)
+        self.device = device
+        self._lib = tcp.load()
+        self._server = None
+
+    def start(self):
+        from ..native import tcp
+
+        _, port = self._endpoints[self._identity].rsplit(":", 1)
+        self._server = tcp.ServerHandle(self._lib, int(port))
+        return self
+
+    def stop(self):
+        if self._server is not None:
+            self._server.close()
+            self._server = None
+
+    def send(self, value, receiver: str, rendezvous_key: str,
+             session_id: str, max_retry_s: float = 30.0):
+        import time
+
+        from ..native import tcp
+        from ..serde import serialize_value
+
+        endpoint = self._endpoints.get(receiver)
+        if endpoint is None:
+            raise NetworkingError(f"unknown receiver identity {receiver!r}")
+        host, port = endpoint.rsplit(":", 1)
+        key = transfer_key(session_id, rendezvous_key)
+        payload = serialize_value(value)
+        m = _net_metrics()
+        m["sends"].inc(transport="tcp")
+        m["tx_bytes"].inc(len(payload), transport="tcp")
+        # retry with backoff so workers may come up in any order
+        # (networking/constants.rs backoff discipline)
+        delay = 0.05
+        deadline = time.monotonic() + max_retry_s
+        while True:
+            try:
+                tcp.send(self._lib, host, int(port), key, payload)
+                return len(payload)
+            except NetworkingError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(delay)
+                delay = min(delay * 2, 2.0)
+
+    def receive(self, sender: str, rendezvous_key: str, session_id: str,
+                plc: str = "", timeout: float = DEFAULT_TIMEOUT_S,
+                cancel=None, progress=None):
+        import time
+
+        from ..errors import ReceiveTimeoutError
+        from ..serde import deserialize_value
+
+        if self._server is None:
+            raise NetworkingError(
+                "TcpNetworking.receive before start(): the local server "
+                "owns the rendezvous store"
+            )
+        key = transfer_key(session_id, rendezvous_key)
+        box: list = []
+
+        def wait_slice(seconds: float) -> bool:
+            # the native wait is uninterruptible, so slices bound how
+            # long a cancel can go unnoticed; a native call that returns
+            # early without a value sleeps out its slice
+            t0 = time.monotonic()
+            try:
+                box.append(
+                    self._server.receive(key, max(1, int(seconds * 1000)))
+                )
+                return True
+            except ReceiveTimeoutError:
+                elapsed = time.monotonic() - t0
+                if elapsed < seconds / 2:
+                    time.sleep(seconds - elapsed)
+                return False
+
+        sliced_wait(wait_slice, timeout, cancel, key, progress)
+        m = _net_metrics()
+        m["receives"].inc(transport="tcp")
+        m["rx_bytes"].inc(len(box[0]), transport="tcp")
+        return deserialize_value(box[0], plc, self.device)
 
 
 SEND_VALUE_METHOD = "/moose.Networking/SendValue"

@@ -43,6 +43,7 @@ import torch
 from ..computation import AES_TY_NAMES, Computation
 from ..errors import ConfigurationError
 from ..values import (
+    HostBitTensor,
     HostFixedTensor,
     HostRingTensor,
     HostString,
@@ -101,23 +102,32 @@ def fixed_sync_seed() -> Optional[int]:
 
 def _lift_array(arr, op, plc_name: str, device):
     """Bind a host-boundary array (an Input's argument, a Load's stored
-    value) as a runtime value on ``device``, at the op's dtype.  A
-    ring-typed boundary (a lowered LoadShares) reads uint64 limb planes,
-    :func:`~moose_tpu_torch.values.ring_to_limbs`'s form."""
+    value) as a runtime value on ``device``, at the op's dtype (the
+    array's own where the op names none).  A ring-typed boundary (a
+    lowered LoadShares) reads uint64 limb planes,
+    :func:`~moose_tpu_torch.values.ring_to_limbs`'s form; a boolean one
+    binds as a bit tensor of uint8, a uint64 one as its int64 words."""
     ret = op.signature.return_type
     if ret.name in ("HostRing64Tensor", "HostRing128Tensor"):
         return limbs_to_ring(
             arr, 64 if ret.name == "HostRing64Tensor" else 128, plc_name,
             device)
     dtype = ret.dtype
-    if dtype is None or dtype.is_fixedpoint or dtype.name not in (
-        "float32", "float64"
-    ):
-        raise NotImplementedError(
-            f"op {op.name}: the port binds float inputs only "
-            "(ROADMAP queue 1, item 6)"
+    if dtype is not None and dtype.is_fixedpoint:
+        raise ValueError(
+            f"op {op.name}: fixed-point host inputs must be loaded as floats "
+            "and cast"
         )
-    arr = np.asarray(arr, dtype=np.dtype(dtype.numpy_name))
+    if dtype is not None and dtype.is_boolean:
+        arr = np.asarray(arr).astype(np.uint8)
+        return HostBitTensor(torch.as_tensor(arr, device=device), plc_name)
+    arr = np.asarray(arr)
+    if dtype is not None:
+        arr = arr.astype(np.dtype(dtype.numpy_name), copy=False)
+    else:
+        dtype = dt.from_numpy(arr.dtype)
+    if dtype.name == "uint64":
+        arr = arr.view(np.int64)
     if not arr.flags.writeable:
         # a read-only buffer (np.frombuffer): torch would share it, and warn
         arr = arr.copy()

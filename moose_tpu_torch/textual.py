@@ -13,10 +13,10 @@ carole)`` is also accepted on parse (a canonical name is synthesized from
 the owner list, as the reference's placements are identified by owners,
 computation.rs:1626).
 
-The port's own copy of ``moose_tpu/textual.py``: the printer and the
-Python parser.  The JAX package hands texts of 64 KiB or more to its
-C++ parser; the port parses every size with the Python grammar, which
-gives the same computation.
+The port's own copy of ``moose_tpu/textual.py``: the printer, the
+Python parser, and the dispatch of a text of 64 KiB or more to the C++
+parser (``native/textual_parser.cpp``), which gives the same
+computation.
 """
 
 from __future__ import annotations
@@ -501,17 +501,34 @@ def _parse_line(line: str, comp: Computation):
     )
 
 
+# Above this size the C++ parallel parser takes over (the reference uses
+# rayon-parallel chunked parsing for the same reason, textual/parsing.rs:83).
+_NATIVE_PARSE_THRESHOLD = 64 << 10
+# computations each parser has read in this process
+PARSES = {"native": 0, "python": 0}
+
+
 def parse_computation(text: str, force_native: Optional[bool] = None
                       ) -> Computation:
     """Parse the textual form into a :class:`Computation`, one op a line
-    (blank lines and ``#``/``//`` comments skipped).  ``force_native=True``
-    asks for the JAX package's C++ parser, which the port does not have
-    (ROADMAP queue 1, item 12); ``None`` and ``False`` parse in Python."""
-    if force_native:
-        raise NotImplementedError(
-            "the native textual parser is not ported; the Python parser "
-            "reads every size (ROADMAP queue 1, item 12)"
-        )
+    (blank lines and ``#``/``//`` comments skipped).  The C++ parser
+    (``native/textual_parser.cpp``, built with ``g++`` at first use)
+    reads a text of ``_NATIVE_PARSE_THRESHOLD`` or more, or any text
+    under ``force_native=True``; where it cannot be built, the Python
+    parser reads it.  :data:`PARSES` counts which parser ran."""
+    use_native = (
+        force_native
+        if force_native is not None
+        else len(text) >= _NATIVE_PARSE_THRESHOLD
+    )
+    if use_native:
+        from .native import textual as native_textual
+
+        records = native_textual.parse_lines(text)
+        if records is not None:
+            PARSES["native"] += 1
+            return _assemble_from_records(records)
+    PARSES["python"] += 1
     comp = Computation()
     for lineno, raw in enumerate(text.splitlines(), 1):
         line = raw.strip()
@@ -521,4 +538,85 @@ def parse_computation(text: str, force_native: Optional[bool] = None
             _parse_line(line, comp)
         except MalformedComputationError as e:
             raise MalformedComputationError(f"line {lineno}: {e}") from e
+    return comp
+
+
+def _resolve_native_attr(value, key: str = ""):
+    """Finish an attribute from the native parser: raw sub-expressions
+    (dtype tokens, tensor literals) go through the Python grammar; lists
+    become the tuples the Python parser produces.  ``key`` canonicalizes
+    128-bit key attributes exactly like the Python grammar does."""
+    if isinstance(value, dict):
+        if "__raw__" in value and len(value) == 1:
+            return _parse_attr_or_hex(value["__raw__"], key)
+        raise MalformedComputationError(
+            f"unexpected native attr payload {value!r}"
+        )
+    if isinstance(value, list):
+        return _normalize_key_bytes(
+            key, tuple(_resolve_native_attr(v) for v in value)
+        )
+    return _normalize_key_bytes(key, value)
+
+
+def _parse_attr_or_hex(src: str, key: str = ""):
+    cur = _Cursor(src)
+    if src.startswith("0x"):
+        m = re.match(r"0x([0-9a-fA-F]+)$", src)
+        if m:
+            return bytes.fromhex(m.group(1))
+    if key in ("sync_key", "rendezvous_key"):
+        m = _BARE_HEX_RE.fullmatch(src)
+        if m:
+            return bytes.fromhex(m.group(1))
+    return _normalize_key_bytes(key, _parse_attr_value(cur))
+
+
+def _assemble_from_records(records) -> Computation:
+    comp = Computation()
+    ty_cache: dict = {}
+    plc_cache: dict = {}
+
+    def ty_of(src: str) -> Ty:
+        ty = ty_cache.get(src)
+        if ty is None:
+            ty = ty_cache[src] = _parse_ty(_Cursor(src))
+        return ty
+
+    def plc_of(src: str) -> str:
+        name = plc_cache.get(src)
+        if name is None:
+            name = plc_cache[src] = _parse_placement(_Cursor(src), comp)
+        else:
+            # the placement is already registered on comp
+            pass
+        return name
+
+    for entry in records:
+        lineno = entry["l"]  # 1-based source line (comments counted)
+        rec = entry["r"]
+        try:
+            if "__line__" in rec:  # structural fallback: full grammar
+                _parse_line(rec["__line__"], comp)
+                continue
+            attrs = {
+                k: _resolve_native_attr(v, k) for k, v in rec["a"].items()
+            }
+            comp.add_operation(
+                Operation(
+                    name=rec["n"],
+                    kind=rec["k"],
+                    inputs=list(rec["in"]),
+                    placement_name=plc_of(rec["p"]),
+                    signature=Signature(
+                        tuple(ty_of(t) for t in rec["it"]),
+                        ty_of(rec["rt"]),
+                    ),
+                    attributes=attrs,
+                )
+            )
+        except (MalformedComputationError, ValueError, KeyError) as e:
+            raise MalformedComputationError(
+                f"line {lineno} (native parse): {e}"
+            ) from e
     return comp

@@ -30,9 +30,9 @@ Flight events: ``epoch_start`` / ``epoch_committed`` /
 package's names, so both packages' records read alike.
 
 :class:`LocalTrainingCluster` runs the sessions on a
-``LocalMooseRuntime``.  The distributed adapter,
-:class:`GrpcTrainingCluster`, is the next slice of ROADMAP queue 1,
-item 12, and raises until then.
+``LocalMooseRuntime``; :class:`GrpcTrainingCluster` on the port's gRPC
+workers (``distributed/``), a chaos-killed worker restarted under it
+included.
 """
 
 from __future__ import annotations
@@ -121,17 +121,35 @@ class LocalTrainingCluster:
 
 
 class GrpcTrainingCluster:
-    """Distributed adapter: sessions over gRPC workers, checkpoint
-    control through the choreography StorageControl rpc: the next slice
-    of ROADMAP queue 1, item 12 (the workers and the rpc are ported)."""
+    """Distributed adapter: sessions run through
+    ``GrpcClientRuntime.run_computation`` (typed wire errors, in-session
+    retries, abort fanout), checkpoint control through the choreography
+    StorageControl rpc."""
 
     def __init__(self, client: Any,
                  parties: Optional[list] = None) -> None:
-        raise NotImplementedError(
-            "GrpcTrainingCluster (sessions over the port's gRPC workers, "
-            "checkpoint control over their StorageControl rpc) is not "
-            "ported yet: ROADMAP queue 1, item 12"
+        self.client = client
+        self.parties = list(parties or client.identities)
+
+    def run(self, comp: Any, arguments: Any, timeout: float) -> Any:
+        outputs, _ = self.client.run_computation(
+            comp, arguments, timeout=timeout
         )
+        return outputs
+
+    def control(self, party: str, cmd: str, **args: Any) -> Any:
+        from ..distributed.client import _classify_rpc_error
+
+        try:
+            return self.client._clients[party].storage_control(cmd, args)
+        except MooseError:
+            raise  # already typed (the wire envelope's class among them)
+        except Exception as e:  # noqa: BLE001 - transport failure
+            # a dead or restarting worker classifies RETRYABLE, so the
+            # epoch supervisor waits it out instead of giving up
+            raise _classify_rpc_error(
+                e, f"storage_control({cmd}) on {party} failed"
+            ) from e
 
 
 class TrainingSession:

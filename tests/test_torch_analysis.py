@@ -8,7 +8,7 @@
   exception.  Its prancer CLI cases run both CLIs on the same files: the
   same standard output, standard error and exit codes.  The distributed
   worker's ranges advisory (``test_worker_plan_carries_ranges_advisory``)
-  waits for the port's distributed runtime, ROADMAP queue 1, item 12.
+  also holds the port's worker plan to the JAX package's.
 - The port's own traced graphs (config 3, the trainers, the protocol
   library of ``chip_smoke.py``) and lowered ones: the diagnostics of
   every analysis, the range report, the reconstructed schedules and the
@@ -48,24 +48,24 @@ from torch_analysis_mirror import (
     cases,
     mirror,
     mirror_cli,
+    mirror_worker_plan,
     normalize,
     run_case,
 )
 from torch_parity import lowered_pair, traced_pair
 
 REPO = Path(__file__).resolve().parent.parent
-DISTRIBUTED = ("test_worker_plan_carries_ranges_advisory",)
 # the analysis catalogue and the range analyzer's internals are compared
 # directly below: these JAX tests call no analysis entry point
 DIRECT = ("test_every_rule_is_catalogued", "test_every_range_rule_is_catalogued",
           "test_concat_union_tolerates_ragged_operand_ranks")
 
 
-@pytest.mark.parametrize("name,params", cases(jax_analysis,
-                                              DISTRIBUTED + DIRECT))
+@pytest.mark.parametrize("name,params", cases(jax_analysis, DIRECT))
 def test_analysis_case_matches_port(name, params, request, monkeypatch):
     mirror(monkeypatch, jax_analysis)
     mirror_cli(monkeypatch)
+    mirror_worker_plan(monkeypatch)
     assert run_case(jax_analysis, name, params, request) > 0
 
 

@@ -595,17 +595,22 @@ def test_entry_points_default_to_the_card():
 
 
 def test_not_ported_transports_name_item_12():
+    # only the fabric transport still names item 12; the TCP transport,
+    # the chaos restarter and chaos-armed workers are ported (their
+    # parity: tests/test_torch_tcp.py, tests/test_torch_chaos.py)
     from moose_tpu_torch import distributed
-    from moose_tpu_torch.distributed import choreography, networking
+    from moose_tpu_torch.distributed import chaos, choreography, networking
 
-    with pytest.raises(NotImplementedError, match="item 12"):
-        networking.TcpNetworking("alice", {})
+    net = networking.TcpNetworking("alice", {}, device="cpu")
+    assert net.device == "cpu" and distributed.TcpNetworking is \
+        networking.TcpNetworking
     with pytest.raises(NotImplementedError, match="item 12"):
         distributed.FabricDomain
-    with pytest.raises(NotImplementedError, match="item 12"):
-        choreography.start_chaos_restarter({}, {}, {}, None)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        WorkerServer("alice", 0, {}, chaos=object(), device="cpu")
+    choreography.start_chaos_restarter({}, {}, {}, None, poll_s=0.01)()
+    cfg = chaos.ChaosConfig(seed=1)
+    srv = WorkerServer("alice", 0, {}, chaos=cfg, device="cpu")
+    assert srv.chaos is cfg
+    assert isinstance(srv.networking, chaos.ChaosNetworking)
     assert distributed.WorkerServer is WorkerServer
 
 

@@ -4,9 +4,9 @@ the CPU.
 - Every test function of ``tests/test_keystream.py`` runs again with its
   analysis calls mirrored (``tests/torch_analysis_mirror.py``): the
   port's diagnostics and ``keystream_report`` on the same graph must equal
-  the JAX package's exactly.  The worker-plan keystream gate
-  (``test_worker_plan_keystream_gate``) waits for the port's distributed
-  runtime, ROADMAP queue 1, item 12.
+  the JAX package's exactly; the worker-plan keystream gate
+  (``test_worker_plan_keystream_gate``) also holds the port's worker plan
+  (its gate's diagnostics and refusal) to the JAX package's.
 - The draw oracles of ``tests/test_keystream_oracle.py`` within the port:
   the static per-(party, key) draw counts of a graph equal the draw
   ledger of a per-host run, and the shape-only ``meta`` replay of the
@@ -44,7 +44,8 @@ from moose_tpu_torch.predictors import trainers as ttrainers
 from moose_tpu_torch.runtime import LocalMooseRuntime as PortRuntime
 
 import test_keystream as jax_keystream
-from torch_analysis_mirror import cases, mirror, run_case
+from torch_analysis_mirror import cases, mirror, mirror_worker_plan, \
+    run_case
 from torch_parity import fixed_keys_env
 
 PARTIES = ["alice", "bob", "carole"]
@@ -52,10 +53,10 @@ RING64, RING128 = (8, 17), (24, 40)
 N_ROWS, N_FEATURES, HIDDEN = 4, 2, 2
 
 
-@pytest.mark.parametrize("name,params", cases(
-    jax_keystream, ("test_worker_plan_keystream_gate",)))
+@pytest.mark.parametrize("name,params", cases(jax_keystream))
 def test_keystream_case_matches_port(name, params, request, monkeypatch):
     mirror(monkeypatch, jax_keystream)
+    mirror_worker_plan(monkeypatch)
     assert run_case(jax_keystream, name, params, request) > 0
 
 

@@ -6,8 +6,8 @@ equal (decoded floats, bools, uint64 indices or shapes alike), and a
 revealed Argmax index cast to floats on a host (the convolution and the
 pools: tests/test_torch_stacked_conv_kinds.py).  The port runs all 41 of
 the reference's kinds, Decrypt among them (its parity with the JAX
-package: tests/test_torch_aes.py); secret integers name their ROADMAP
-item."""
+package: tests/test_torch_aes.py); a bare secret integer runs stacked
+(its graphs in both layouts: tests/test_torch_integer.py)."""
 
 import numpy as np
 import pytest
@@ -19,7 +19,6 @@ from moose_tpu.runtime import LocalMooseRuntime as JaxRuntime
 import moose_tpu_torch as tm
 from moose_tpu_torch.dialects import stacked as tstacked
 from moose_tpu_torch.edsl import tracer
-from moose_tpu_torch.errors import TypeMismatchError
 from moose_tpu_torch.runtime import LocalMooseRuntime as PortRuntime
 
 from test_torch_logreg import IDS, fixed_keys, threefry  # noqa: F401
@@ -187,11 +186,11 @@ def test_refused_kinds_name_their_roadmap_item(fixed_keys, kind, item):
     assert np.array_equal(got, values)
 
 
-def test_secret_integers_name_their_roadmap_item(fixed_keys, caplog):
-    # the stacked layout still refuses a secret integer (item 6) with a
-    # TypeMismatchError; the runtime now reroutes such a graph to the
-    # per-host layout, as the JAX runtime does (moose_tpu/runtime.py:
-    # 231-246), which adds the bare index shares
+def test_secret_integers_name_their_roadmap_item(fixed_keys):
+    # a secret integer (here the bare index sharing Argmax returns, added
+    # to itself) runs on the stacked layout, as in the JAX runtime
+    # (moose_tpu/dialects/stacked.py:398-410): no per-host detour, and
+    # the words are the JAX stacked layout's
     def graph_of(pm):
         alice = pm.host_placement("alice")
         carole = pm.host_placement("carole")
@@ -214,16 +213,15 @@ def test_secret_integers_name_their_roadmap_item(fixed_keys, caplog):
     runtime = PortRuntime(IDS, device="cpu")
     comp = tracer.trace(graph_of(tm))
     assert tstacked.supports(comp)
-    with pytest.raises(TypeMismatchError, match="item 6"):
-        runtime._stacked.evaluate(comp, {"x": ARGS["x"]})
-    with caplog.at_level("WARNING", logger="moose_tpu_torch"):
-        got = runtime.evaluate_computation(comp, {"x": ARGS["x"]})
-    assert "falling back to the per-host layout" in caplog.text
-    assert runtime.last_plan["layout"] == "per-host"
-    assert runtime.layout_for(comp) == "per-host"
-    want = JaxRuntime(IDS, layout="per-host", use_jit=False) \
-        .evaluate_computation(graph_of(jm), {"x": ARGS["x"]})["output_0"]
-    assert np.array_equal(got["output_0"], np.asarray(want))
+    direct = runtime._stacked.evaluate(comp, {"x": ARGS["x"]})
+    got = runtime.evaluate_computation(comp, {"x": ARGS["x"]})
+    assert runtime.last_plan["layout"] == "stacked"
+    assert runtime.layout_for(comp) == "stacked"
+    jrt = JaxRuntime(IDS, layout="stacked", use_jit=False)
+    want = jrt.evaluate_computation(graph_of(jm), {"x": ARGS["x"]})
+    assert jrt.last_plan["layout"] == "stacked"
+    assert np.array_equal(got["output_0"], np.asarray(want["output_0"]))
+    assert np.array_equal(direct["output_0"], got["output_0"])
     assert np.array_equal(got["output_0"].astype(np.int64),
                           2 * ARGS["x"].argmax(axis=1))
 

@@ -14,8 +14,9 @@ says how:
   plan is ``whole-graph``; the port's is always ``eager``.
 - The distributed session's stitched trace and ``comet --telemetry``
   (``test_distributed_session_exports_one_stitched_trace``,
-  ``test_comet_telemetry_flag_wires_exporter``) wait for the port's
-  distributed runtime, ROADMAP queue 1, item 12.
+  ``test_comet_telemetry_flag_wires_exporter``) import the JAX package's
+  cluster, client, tracer and comet inside the test: those names are
+  the port's there too (its workers on the CPU).
 """
 
 import functools
@@ -34,11 +35,30 @@ import test_telemetry as jax_telemetry
 
 DIFFERENT = ("test_runtime_records_phase_timings",
              "test_runtime_surfaces_plan_mode")
-DISTRIBUTED = ("test_distributed_session_exports_one_stitched_trace",
-               "test_comet_telemetry_flag_wires_exporter")
 SHARED = [name for name, fn in vars(jax_telemetry).items()
           if name.startswith("test_") and inspect.isfunction(fn)
-          and name not in DIFFERENT + DISTRIBUTED]
+          and name not in DIFFERENT]
+
+
+def _port_in_place_of_jax_imports(monkeypatch):
+    """The names the JAX tests import inside their bodies (the worker
+    cluster, the gRPC client, the tracer, comet) as the port's."""
+    import moose_tpu.bin
+    import moose_tpu.distributed.choreography as jchoreography
+    import moose_tpu.distributed.client as jclient
+    import moose_tpu.edsl
+
+    from moose_tpu_torch.bin import comet
+    from moose_tpu_torch.distributed import choreography, client
+    from moose_tpu_torch.edsl import tracer
+
+    monkeypatch.setattr(jchoreography, "start_local_cluster",
+                        functools.partial(choreography.start_local_cluster,
+                                          device="cpu"))
+    monkeypatch.setattr(jclient, "GrpcClientRuntime",
+                        client.GrpcClientRuntime)
+    monkeypatch.setattr(moose_tpu.edsl, "tracer", tracer)
+    monkeypatch.setattr(moose_tpu.bin, "comet", comet, raising=False)
 
 
 @pytest.mark.parametrize("name", SHARED)
@@ -47,6 +67,7 @@ def test_telemetry_case_runs_on_the_port(name, request, monkeypatch):
     monkeypatch.setattr(jax_telemetry, "pm", tm)
     monkeypatch.setattr(jax_telemetry, "LocalMooseRuntime",
                         functools.partial(PortRuntime, device="cpu"))
+    _port_in_place_of_jax_imports(monkeypatch)
     fn = getattr(jax_telemetry, name)
     fn(**{arg: request.getfixturevalue(arg)
           for arg in inspect.signature(fn).parameters})

@@ -4,9 +4,10 @@ JAX package's (``moose_tpu/textual.py``) on the CPU.
 The tolerance is equality: ``to_textual`` writes the same string in both
 packages, in both styles; each package parses the other's text into the
 same graph (held through the msgpack bytes of the parse); a text of 64
-KiB or more, which the JAX package hands to its C++ parser where it can
-build it, parses in the port's Python grammar to what the JAX package
-parses; and ``force_native=True`` raises, naming its ROADMAP item."""
+KiB or more, which both packages hand to their C++ parser where they can
+build it, parses in the port to what the JAX package parses; and
+``force_native=True`` takes the port's C++ parser at any size (its
+parity in detail: tests/test_torch_textual_native.py)."""
 
 import numpy as np
 import pytest
@@ -94,12 +95,20 @@ def test_a_large_text_parses_to_the_jax_package_s_graph():
 
 
 def test_force_native_raises_naming_its_item():
+    # force_native=True now runs the port's C++ parser, whose graph
+    # serializes to the Python parser's bytes and the JAX package's
+    from moose_tpu_torch.native import textual as tnative
+
+    assert tnative.load() is not None, "g++ did not build the parser"
     text = ttextual.to_textual(traced_pair("logreg")[1])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ttextual.parse_computation(text, force_native=True)
-    assert tserde.serialize_computation(
-        ttextual.parse_computation(text, force_native=False)) == \
-        tserde.serialize_computation(ttextual.parse_computation(text))
+    before = ttextual.PARSES["native"]
+    native = ttextual.parse_computation(text, force_native=True)
+    assert ttextual.PARSES["native"] == before + 1
+    want = tserde.serialize_computation(
+        ttextual.parse_computation(text, force_native=False))
+    assert tserde.serialize_computation(native) == want
+    assert want == jserde.serialize_computation(
+        jtextual.parse_computation(text, force_native=True))
 
 
 def test_reference_style_lines_parse_alike():

@@ -314,8 +314,15 @@ def _hot_swapped_rows(serving, export_mod, runtime, w0, w1, x):
 
 
 def test_unported_parts_name_their_roadmap_items(threefry, fixed_keys):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        GrpcTrainingCluster(object())
+    # GrpcTrainingCluster is ported (its kill-and-resume over the port's
+    # gRPC workers: tests/test_torch_chaos.py): it takes the client's
+    # parties, as the JAX package's does
+    from types import SimpleNamespace
+
+    from moose_tpu.training.session import GrpcTrainingCluster as JGrpc
+
+    client = SimpleNamespace(identities={p: "" for p in PARTIES})
+    assert GrpcTrainingCluster(client).parties == JGrpc(client).parties
     # hot_swap (item 11) is ported: a hot-swapped port server serves the
     # rows the JAX package's hot-swapped server gives for the same
     # weights, under fixed keys.  Both serve per-host, as the sessions

@@ -164,6 +164,40 @@ def mirror(monkeypatch, module):
             monkeypatch.setattr(module, name, wrapper)
 
 
+def mirror_worker_plan(monkeypatch):
+    """Wrap the JAX worker plan's get_plan and keystream gate: each call
+    also runs the port's (``moose_tpu_torch.distributed.worker_plan``)
+    on the same graph, and the ranges advisory of the plan, the gate's
+    diagnostics and any refusal must be equal."""
+    import moose_tpu.distributed.worker_plan as jwp
+    import moose_tpu_torch.distributed.worker_plan as twp
+
+    def wrap(name, view):
+        jax_fn, port_fn = getattr(jwp, name), getattr(twp, name)
+
+        def call(comp, *args, **kwargs):
+            try:
+                want, error = jax_fn(comp, *args, **kwargs), None
+            except Exception as e:  # noqa: BLE001 - held against the port's
+                error = e
+            try:
+                got = normalize(view(port_fn(port_computation(comp), *args,
+                                             **kwargs)))
+            except Exception as e:  # noqa: BLE001 - compared below
+                got = normalize(e)
+            expect = normalize(error if error is not None else view(want))
+            assert got == expect, f"worker_plan.{name}: the port differs"
+            MIRRORED["calls"] += 1
+            if error is not None:
+                raise error
+            return want
+
+        monkeypatch.setattr(jwp, name, call)
+
+    wrap("get_plan", lambda plan: plan.ranges_advisory)
+    wrap("_keystream_errors", lambda errors: errors)
+
+
 def _captured(fn, args, kwargs):
     """(result or exception, stdout, stderr) of ``fn``; SystemExit too."""
     import contextlib
