@@ -305,13 +305,37 @@ Phases (each raises on failure; the script then exits non-zero):
      parsed by the native and the Python parser: the same serialized
      bytes, the native count risen (the lowered text also by default),
      the host ms of each.
+ 25. the device mesh and the fabric transport (``run_fabric``): (a)
+     phase 6's config 3 (its first request) through
+     ``LocalMooseRuntime(layout="stacked", mesh=spmd.make_mesh())``, the
+     card's (1, 1) mesh, word-equal to phase 6's runtime on it under
+     fixed keys and within 5e-3; ``logreg_train_step(..., mesh=)`` at
+     phase 20's width (10 steps of 128 x 100) with revealed weights equal
+     bit for bit to the mesh-less steps'; the mesh's shape printed; (b) a
+     ``FabricDomain`` of three ``devices.virtual_devices("cuda", 3)``
+     handles under ``trust_model="simulation"``: config 1's secure dot
+     (1000 x 1000) and config 3 over three in-process gRPC workers
+     (``start_local_cluster(..., fabric_domain=)``), one cold and one warm
+     session, word-equal under fixed keys to the same sessions over
+     ``LocalNetworking`` and over gRPC, no wire send, every fabric counter
+     (sends, permutes, batched permutes, payloads, tx bytes) equal to
+     ``cost_report(..., transport="fabric")``, the session report's
+     transport ``fabric``; one more warm config-3 session under
+     torch.profiler (the device-to-device copies a permute); a mixed
+     domain with carole outside it: the outputs equal, its
+     ``trust_boundary`` fallbacks equal to the model's
+     ``fallback_sends``; (c) phase 24 (b)'s chaos schedule over the
+     fabric: the same drop schedule as phase 24's, the dropped keys
+     replayed on the wire (``forced_wire``), the outputs equal to (b)'s.
+     Walls printed.
 Every evaluation of phases 4 to 17 and 22 must have run on the stacked
 layout, phase 18's and 19's on the per-host one
 (``last_plan["layout"]``), and phase 20's and 21's on both (the sessions
 per-host, the trained model stacked; the draw oracles one each), and
-phase 24 (a)'s on the stacked one.  Phases 4 to 24 are the main path:
+phase 24 (a)'s and 25 (a)'s on the stacked one.  Phases 4 to 25 are the
+main path:
 the kernels' launch counters are set to 0 just before each (each of
-phase 20's, 21's, 22's, 23's and 24's parts apart) and read just after;
+phase 20's, 21's, 22's, 23's, 24's and 25's parts apart) and read just after;
 phase 23's comet processes and phase 24's vixen and rudolph processes
 count in their own processes.  K1, K2's trunc_pairs and the
 threefry kernel in the phase's stream layout (threefry in all but 7,
@@ -351,7 +375,9 @@ exactly phase 6's counts a request; the burst one K1 a batch.  Each of
 phase 23's in-process paths (its warm requests, counted apart) must
 launch K1, K4 and threefry's K7 and none of K2, K3, K5 and K6, and so
 must phase 24's chaos runs (b) and (c); its secret integers (a) K1, K3's
-cross_terms_reshare and K7, and no K2.
+cross_terms_reshare and K7, and no K2.  Phase 25's config 3 on the mesh
+must launch every kernel of phase 6, its logreg_train_step those of
+phase 20 (d), and its fabric sessions those of phase 23.
 The line before the last is the kernels' JSON record; the last line is
 the device record.
 
@@ -647,6 +673,53 @@ def profiled(torch, fn):
     cuda = torch.autograd.DeviceType.CUDA
     return out, [e for e in prof.events()
                  if e.device_type == cuda and PROFILER_MARKER not in e.name]
+
+
+PERMUTE_RANGE = "chip_smoke.fabric_permute"
+
+
+def permute_copies(torch, domain, fn):
+    """(result, device events, leaves) of ``fn`` under torch.profiler
+    with the CPU of every thread traced: the device events launched
+    inside ``domain``'s permutes (each call wrapped in a profiler range
+    here, whichever worker thread makes it) and the non-empty tensor
+    leaves those calls were given.  Off the card the events are []."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    inner, leaves = domain.permute, [0]
+
+    def permute(sender, receiver, payload):
+        leaves[0] += sum(isinstance(leaf, torch.Tensor) and leaf.numel() > 0
+                         for leaf in payload)
+        with record_function(PERMUTE_RANGE):
+            return inner(sender, receiver, payload)
+
+    on_card = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if on_card else [])
+    config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    domain.permute = permute
+    try:
+        if on_card:
+            torch.cuda.synchronize()
+        with profile(activities=activities,
+                     experimental_config=config) as prof:
+            out = fn()
+            if on_card:
+                torch.cuda.synchronize()
+    finally:
+        del domain.permute
+
+    def under(event):
+        return list(event.kernels) + [k for child in event.cpu_children
+                                      for k in under(child)]
+
+    # the ranges on the CPU's timeline (on the card each also has a
+    # device-side annotation of the same name)
+    cpu = torch.autograd.DeviceType.CPU
+    ranges = [e for e in prof.events()
+              if e.name == PERMUTE_RANGE and e.device_type == cpu]
+    return out, [k for e in ranges for k in under(e)], leaves[0], len(ranges)
 
 
 def device_events(torch, fn):
@@ -2666,12 +2739,12 @@ def plaintext_sgd(x, y, batch_size, n_batches, lr):
     return w
 
 
-def spmd_training(torch, spmd, x, y, batch_size, lr, device):
+def spmd_training(torch, spmd, x, y, batch_size, lr, device, mesh=None):
     """``benchmarks/logreg.py``'s ``run_spmd`` workload on the port: from
     zero weights, one ``logreg_train_step`` a batch of ``batch_size``
-    rows, each step under its own session key (``derive_step_keys``),
-    its batch shared inside the step.  Returns the revealed weights as
-    float64 numpy."""
+    rows (on ``mesh`` when given), each step under its own session key
+    (``derive_step_keys``), its batch shared inside the step.  Returns
+    the revealed weights as float64 numpy."""
     import numpy as np
 
     # run_spmd's master key
@@ -2691,7 +2764,7 @@ def spmd_training(torch, spmd, x, y, batch_size, lr, device):
         s = spmd.SpmdSession(k, device)
         xs = spmd.fx_encode_share(s, xi, 24, 40, 128)
         ys = spmd.fx_encode_share(s, yi, 24, 40, 128)
-        w = spmd.logreg_train_step(s, xs, ys, w, lr)
+        w = spmd.logreg_train_step(s, xs, ys, w, lr, mesh=mesh)
     return spmd.fx_reveal_decode(w).cpu().numpy()
 
 
@@ -4755,6 +4828,352 @@ def run_faults(torch, rk, pm, classifier, logreg, card, device="cuda",
     return record, launches
 
 
+def run_fabric(torch, rk, pm, classifier, logreg, x6, chaos_digest, card,
+               device="cuda", dot_n=DOT_N):
+    """Phase 25: (a) to (c) of the module's docstring with the port on
+    ``device`` (on the CPU, as a dry run, the secure dot at ``dot_n``).
+    ``classifier``/``logreg`` are phase 6's model and graph, ``x6`` phase
+    6's first request, ``chaos_digest`` phase 24 (b)'s drop schedule.
+    Every number logged carries ``card``.  Returns (record, launches by
+    path); raises on any failed check."""
+    import json as _json
+    import os
+    import threading
+
+    import numpy as np
+
+    from moose_tpu_torch import devices, metrics
+    from moose_tpu_torch.compilation import (
+        DEFAULT_PASSES,
+        compile_computation,
+    )
+    from moose_tpu_torch.compilation.analysis import cost_report
+    from moose_tpu_torch.compilation.lowering import arg_specs_from_arguments
+    from moose_tpu_torch.dialects import host
+    from moose_tpu_torch.distributed.chaos import ChaosConfig
+    from moose_tpu_torch.distributed.choreography import start_local_cluster
+    from moose_tpu_torch.distributed.client import GrpcClientRuntime
+    from moose_tpu_torch.distributed.fabric import FabricDomain
+    from moose_tpu_torch.distributed.networking import LocalNetworking
+    from moose_tpu_torch.distributed.worker import execute_role
+    from moose_tpu_torch.edsl import tracer
+    from moose_tpu_torch.parallel import spmd
+    from moose_tpu_torch.runtime import LocalMooseRuntime
+
+    ids = ("alice", "bob", "carole")
+    on_card = torch.device(device).type == "cuda"
+    record, launches = {"card": card}, {}
+
+    def say(what, payload):
+        log(f"fabric/mesh {what} [{card}]: {_json.dumps(payload)}")
+
+    def clock(fn):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def same(a, b):
+        return set(a) == set(b) and all(
+            np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+
+    def counted(path, fn):
+        rk.reset_launches()
+        out = fn()
+        launches[path] = dict(rk.LAUNCHES)
+        return out
+
+    # (a) the mesh: config 3 on the stacked layout over make_mesh(), and
+    # logreg_train_step at phase 20's width, each word-equal to its
+    # mesh-less run under the same keys
+    mesh = spmd.make_mesh(device=device)
+    meshed = LocalMooseRuntime(ids, layout="stacked", mesh=mesh,
+                               device=device)
+    plain = LocalMooseRuntime(ids, layout="stacked", device=device)
+    meshed.evaluate_computation(logreg, {"x": x6})
+    saved = _fixed_keys(os)
+    try:
+        want6 = plain.evaluate_computation(logreg, {"x": x6})
+        got6, mesh_s = clock(lambda: counted(
+            "mesh_logistic_regression",
+            lambda: meshed.evaluate_computation(logreg, {"x": x6})))
+    finally:
+        _restore(os, saved)
+    err6 = float(np.abs(got6["output_0"]
+                        - logistic_reference(classifier, x6)).max())
+    if not same(got6, want6) or meshed.last_plan["layout"] != "stacked":
+        raise AssertionError("config 3 on the mesh differs from phase 6's")
+    if err6 > LOGREG_TOL:
+        raise AssertionError(f"config 3 on the mesh: error {err6}")
+    xt, yt = training_data(np.random.default_rng(SEED),
+                           SESSION_BATCH * SESSION_STEPS, SESSION_FEATURES)
+    w_plain = spmd_training(torch, spmd, xt, yt, SESSION_BATCH, SESSION_LR,
+                            device)
+    w_mesh, steps_s = clock(lambda: counted(
+        "mesh_logreg_train_step", lambda: spmd_training(
+            torch, spmd, xt, yt, SESSION_BATCH, SESSION_LR, device,
+            mesh=mesh)))
+    if not np.array_equal(w_mesh, w_plain):
+        raise AssertionError("logreg_train_step on the mesh differs")
+    record["mesh"] = {
+        "shape": mesh.shape, "torch_device": str(mesh.torch_device),
+        "logistic_regression": {"wall_ms": mesh_s * 1e3,
+                                "max_abs_err": err6, "words_equal": True},
+        "logreg_train_step": {"steps": SESSION_STEPS,
+                              "ms_per_step": steps_s * 1e3 / SESSION_STEPS,
+                              "weights_equal": True},
+    }
+    say("mesh", record["mesh"])
+
+    # (b) the fabric: config 1's secure dot and config 3 on three
+    # in-process workers whose parties are three handles over the card,
+    # against the same sessions over LocalNetworking and gRPC
+    x_dot = np.random.default_rng(SEED + 25).normal(size=(dot_n, dot_n))
+    y_dot = np.random.default_rng(SEED + 26).normal(size=(dot_n, dot_n))
+    graphs = {
+        "secure_dot": (tracer.trace(secure_dot_computation(pm)),
+                       {"x": x_dot, "y": y_dot}, x_dot @ y_dot, DOT_TOL),
+        "logistic_regression": (tracer.trace(logreg), {"x": x6},
+                                logistic_reference(classifier, x6),
+                                LOGREG_TOL),
+    }
+    domain = FabricDomain(dict(zip(
+        ids, ([h] for h in devices.virtual_devices(device, 3)))),
+        "simulation")
+    fabric_names = {
+        "sends": ("moose_tpu_net_sends_total", {"transport": "fabric"}),
+        "fabric_permutes": ("moose_tpu_fabric_permutes_total", {}),
+        "fabric_batched_permutes":
+            ("moose_tpu_fabric_batched_permutes_total", {}),
+        "fabric_permute_payloads":
+            ("moose_tpu_fabric_permute_payloads_total", {}),
+        "fabric_tx_bytes": ("moose_tpu_fabric_tx_bytes_total", {}),
+    }
+
+    def value(name, **labels):
+        return metrics.REGISTRY.value(name, **labels)
+
+    def fabric_counts():
+        return {k: int(value(n, **lb)) for k, (n, lb) in
+                fabric_names.items()}
+
+    def wire_sends():
+        return int(sum(value(n, transport=t) for t in ("grpc", "local")
+                       for n in ("moose_tpu_net_sends_total",
+                                 "moose_tpu_net_send_many_total")))
+
+    def local_session(comp, args):
+        net, results = LocalNetworking(device=device), {}
+
+        def work(identity):
+            results[identity] = execute_role(
+                comp, identity, {}, args, net, "local-25", timeout=300.0,
+                device=device)
+
+        threads = [threading.Thread(target=work, args=(i,), daemon=True)
+                   for i in ids]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        if len(results) != len(ids):
+            raise AssertionError("the LocalNetworking workers failed")
+        return {k: v for r in results.values()
+                for k, v in r["outputs"].items()}
+
+    def cluster(fabric_domain, runs, chaos=None, **kw):
+        """``runs(client)`` against three in-process gRPC workers."""
+        servers, endpoints = start_local_cluster(
+            ids, device=device, fabric_domain=fabric_domain, chaos=chaos,
+            **kw)
+        try:
+            return runs(GrpcClientRuntime(endpoints, **(
+                {} if chaos is None else dict(
+                    max_attempts=FAULT_ATTEMPTS, backoff_base_s=0.05,
+                    backoff_cap_s=0.2))))
+        finally:
+            for srv in servers.values():
+                srv.stop()
+
+    def session(client, comp, args):
+        with host.deterministic_sync_keys(SEED):
+            out, _ = client.run_computation(comp, args, timeout=600)
+        return out
+
+    wire = {}
+    saved = _fixed_keys(os)
+    try:
+        for name, (comp, args, reference, tol) in graphs.items():
+            with host.deterministic_sync_keys(SEED):
+                lowered = compile_computation(
+                    comp, DEFAULT_PASSES, arg_specs_from_arguments(args))
+            local, local_s = clock(lambda: local_session(lowered, args))
+
+            def wire_runs(client):
+                return [clock(lambda: session(client, comp, args))
+                        for _ in range(2)]
+
+            (wire[name], _), (_, wire_s) = cluster(None, wire_runs)
+
+            def fabric_runs(client):
+                runs = [clock(lambda: session(client, comp, args))]
+                before, sends = fabric_counts(), wire_sends()
+                runs.append(clock(lambda: counted(
+                    f"fabric_{name}", lambda: session(client, comp,
+                                                      args))))
+                measured = {k: v - before[k]
+                            for k, v in fabric_counts().items()}
+                return runs, measured, wire_sends() - sends, \
+                    client.last_session_report
+
+            runs, measured, wired, report = cluster(domain, fabric_runs)
+            (_, fabric_cold_s), (out, fabric_s) = runs
+            model = cost_report(lowered, session_id="0" * 32,
+                                transport="fabric", fabric_parties=ids)
+            predicted = {k: int(model["totals"][k]) for k in fabric_names}
+            err = float(np.abs(out["output_0"] - reference).max())
+            if not (same(out, local) and same(out, wire[name])):
+                raise AssertionError(f"fabric {name}: words differ from "
+                                     "the wire sessions'")
+            if wired or not model["resolved"] or measured != predicted:
+                raise AssertionError(
+                    f"fabric {name}: {wired} wire sends, measured "
+                    f"{measured}, cost model {predicted}")
+            if report["transport"] != "fabric" or \
+                    report["trust_model"] != "simulation":
+                raise AssertionError(f"fabric {name}: report {report}")
+            if err > tol:
+                raise AssertionError(f"fabric {name}: error {err}")
+            record[f"fabric_{name}"] = {
+                "local_ms": local_s * 1e3, "grpc_warm_ms": wire_s * 1e3,
+                "fabric_cold_ms": fabric_cold_s * 1e3,
+                "fabric_warm_ms": fabric_s * 1e3, "max_abs_err": err,
+                "counters": measured, "equal_to_cost_model": True,
+                "wire_sends": wired, "words_equal_to_local_and_grpc": True,
+                "transport": report["transport"],
+                "trust_model": report["trust_model"],
+            }
+            say(f"fabric {name}", record[f"fabric_{name}"])
+        comp, args, _, _ = graphs["logistic_regression"]
+
+        # two more warm fabric sessions under torch.profiler: the card's
+        # busy time, and the copies inside the permutes
+        def profiled_runs(client):
+            session(client, comp, args)
+            before = fabric_counts()["fabric_permutes"]
+
+            def run():
+                return clock(lambda: session(client, comp, args))[1]
+
+            s, events = profiled(torch, run) if on_card else (run(), [])
+            permutes = fabric_counts()["fabric_permutes"] - before
+            # and one with every thread's CPU traced: the device work
+            # launched inside the permutes alone, one copy a non-empty
+            # tensor leaf
+            _, copies, leaves, ranges = permute_copies(
+                torch, domain, lambda: session(client, comp, args))
+            return s, events, permutes, copies, leaves, ranges
+
+        prof_s, events, permutes, copies, leaves, ranges = cluster(
+            domain, profiled_runs)
+        busy_ms = sum(e.device_time_total for e in events) / 1e3
+        if ranges != permutes or (on_card and len(copies) != leaves):
+            raise AssertionError(
+                f"fabric permutes: {ranges} ranges of {permutes} "
+                f"permutes, {len(copies)} device copies of {leaves} "
+                "leaves")
+        copy_ms = sum(k.duration for k in copies) / 1e3
+        record["fabric_profiled"] = {
+            "wall_ms": prof_s * 1e3, "permutes": permutes,
+            "permuted_leaves": leaves,
+            "permute_copies": sorted({k.name for k in copies}),
+            "permute_copy_ms": copy_ms,
+            "copy_ms_per_permute": copy_ms / max(permutes, 1),
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / (prof_s * 1e3),
+        }
+        say("a profiled fabric session of config 3",
+            record["fabric_profiled"])
+
+        # (b) a mixed domain: carole outside it keeps the wire
+        mixed = FabricDomain(dict(zip(
+            ids[:2], ([h] for h in devices.virtual_devices(device, 2)))),
+            "simulation")
+
+        def mixed_runs(client):
+            before = value("moose_tpu_fabric_fallbacks_total",
+                           reason="trust_boundary")
+            out = counted("fabric_mixed", lambda: session(client, comp,
+                                                          args))
+            return out, int(value("moose_tpu_fabric_fallbacks_total",
+                                  reason="trust_boundary") - before), \
+                client.last_session_report
+
+        out, crossed, report = cluster(mixed, mixed_runs)
+        with host.deterministic_sync_keys(SEED):
+            lowered = compile_computation(
+                comp, DEFAULT_PASSES, arg_specs_from_arguments(args))
+        model = cost_report(lowered, session_id="0" * 32,
+                            transport="fabric", fabric_parties=ids[:2])
+        fallbacks = sum(model["per_party"][p]["fallback_sends"]
+                        for p in ids[:2])
+        wire3 = wire["logistic_regression"]
+        if not same(out, wire3) or crossed != fallbacks or not crossed \
+                or report["transport"] != "mixed":
+            raise AssertionError(
+                f"mixed fabric: words equal {same(out, wire3)}, "
+                f"{crossed} trust_boundary fallbacks, model {fallbacks}, "
+                f"transport {report['transport']}")
+        record["fabric_mixed"] = {
+            "trust_boundary_fallbacks": crossed,
+            "cost_model_fallback_sends": fallbacks,
+            "transport": report["transport"], "words_equal": True}
+        say("mixed fabric (carole outside)", record["fabric_mixed"])
+
+        # (c) chaos over the fabric: phase 24 (b)'s schedule; the dropped
+        # keys' replays ride the wire
+        spec = f"seed:{SEED},{FAULT_CHAOS}"
+        chaos = ChaosConfig.from_env(spec)
+        forced = value("moose_tpu_fabric_fallbacks_total",
+                       reason="forced_wire")
+
+        def chaos_runs(client):
+            out = counted("fabric_chaos", lambda: session(client, comp,
+                                                          args))
+            return out, client.last_session_report
+
+        (out, report), chaos_s = clock(lambda: cluster(
+            FabricDomain(dict(zip(ids, ([h] for h in
+                                        devices.virtual_devices(device, 3)))),
+                         "simulation"),
+            chaos_runs, chaos=chaos, ping_interval=0.25, ping_misses=3,
+            startup_grace=10.0, receive_timeout=FAULT_RECEIVE_S,
+            stall_grace=1.0))
+        forced = int(value("moose_tpu_fabric_fallbacks_total",
+                           reason="forced_wire") - forced)
+        digest = chaos.schedule_digest(kinds={"drop_send"})
+        drops = sum(f["kind"] == "drop_send" for f in chaos.faults)
+    finally:
+        _restore(os, saved)
+    if not report["ok"] or not same(out, wire["logistic_regression"]):
+        raise AssertionError("chaos over the fabric: outputs differ")
+    if digest != chaos_digest:
+        raise AssertionError("chaos over the fabric: another schedule")
+    if drops and (forced < drops or report["n_attempts"] < 2):
+        raise AssertionError(f"chaos over the fabric: {drops} drops, "
+                             f"{forced} forced_wire fallbacks")
+    record["fabric_chaos"] = {
+        "spec": spec, "drops": drops, "forced_wire_fallbacks": forced,
+        "attempts": report["n_attempts"], "wall_ms": chaos_s * 1e3,
+        "schedule_digest": digest, "equal_to_phase_24": True,
+        "words_equal": True, "transport": report["transport"]}
+    say("chaos over the fabric", record["fabric_chaos"])
+    return record, launches
+
+
 def timed(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5734,6 +6153,13 @@ def main() -> int:
     fault_record, fault_launches = run_faults(
         torch, rk, pm, classifier, logreg, smi)
 
+    # phase 25: the device mesh and the fabric transport (main path, each
+    # part counted on its own)
+    phase[0] = 25
+    fabric_record, fabric_launches = run_fabric(
+        torch, rk, pm, classifier, logreg, requests[0],
+        fault_record["chaos_grpc"]["schedule_digest"], smi)
+
     launches_by_path = {
         "secure_dot": dot_launches,
         "linear_regressor": linreg_launches,
@@ -5756,6 +6182,7 @@ def main() -> int:
         **serving_launches,
         **distributed_launches,
         **fault_launches,
+        **fabric_launches,
     }
     protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
@@ -5836,6 +6263,15 @@ def main() -> int:
                           "prf_threefry"),
         "chaos_grpc": lowered_kernels,
         "chaos_training": lowered_kernels,
+        # phase 25: config 3 on the stacked layout over the card's mesh
+        # (phase 6's kernels), logreg_train_step on it (phase 20 (d)'s),
+        # then lowered graphs on workers over the fabric
+        "mesh_logistic_regression": protocol + ("prf_threefry",),
+        "mesh_logreg_train_step": ("dot_cross_terms", "trunc_pairs",
+                                   "cross_terms_reshare", "ring_mul",
+                                   "prf_threefry"),
+        **{path: lowered_kernels for path in fabric_launches
+           if path.startswith("fabric_")},
     }
     for name in ("trunc_pairs", "trunc_combine"):
         if launches_by_path["secret_uint64"][name]:
@@ -5843,7 +6279,8 @@ def main() -> int:
     # the lowered graph holds the reference's composition: no fused step
     for path in ("lowered_logistic_regression", "lowered_from_bytes",
                  "analyzer_strict_compiled", *distributed_launches,
-                 "chaos_grpc", "chaos_training"):
+                 "chaos_grpc", "chaos_training",
+                 *(p for p in fabric_launches if p.startswith("fabric_"))):
         for name in ("trunc_combine", "trunc_pairs", "cross_terms_mul",
                      "cross_terms_reshare", "bit_decompose", "msb",
                      "horner"):
@@ -5954,6 +6391,9 @@ def main() -> int:
             # phase 24's in-process parts
             "launches_faults": {
                 path: by_path[path] for path in fault_launches},
+            # phase 25's parts
+            "launches_fabric_mesh": {
+                path: by_path[path] for path in fabric_launches},
             "equal": all(r["equal"] for r in rows
                          if r["equal"] is not None),
             "max_abs_err": max(r["max_abs_err"] for r in rows
@@ -6041,9 +6481,15 @@ def main() -> int:
         "serving": serving_record,
         "distributed": distributed_record,
         "faults": fault_record,
+        "fabric_mesh": fabric_record,
         "seconds": time.perf_counter() - started,
     }
     log(f"chip_smoke: {record['seconds']:.1f} s in all [{smi}]")
+    import threading
+
+    log("threads alive at the end: " + json.dumps(sorted(
+        t.name + (" (daemon)" if t.daemon else "")
+        for t in threading.enumerate() if t is not threading.main_thread())))
     log(json.dumps(record))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

@@ -100,15 +100,17 @@ def main(argv=None):
     server = WorkerServer(
         args.identity, args.port, {}, storage=storage, device=args.device,
     ).start()
-    log.info("worker %s on port %d watching %s", args.identity,
-             server.port, args.sessions_dir)
     stopping = threading.Event()
     if threading.current_thread() is threading.main_thread():
         import signal
 
         # SIGTERM stops the worker: the watch loop ends and rudolph
-        # exits 0
+        # exits 0.  Installed before the line that says it is watching,
+        # so a supervisor that signals on that line never meets the
+        # default handler
         signal.signal(signal.SIGTERM, lambda *_: stopping.set())
+    log.info("worker %s on port %d watching %s", args.identity,
+             server.port, args.sessions_dir)
 
     seen: set = set()
     sessions_dir = Path(args.sessions_dir)

@@ -887,7 +887,7 @@ def stacked_draw_trace(
         else:
             shape, np_dtype = raw
             arguments[name] = np.zeros(shape, np_dtype)
-    walk = interpreter.Interpreter("meta", stacked)
+    walk = interpreter.Interpreter("meta", stacked.StackedDialect())
     with drawledger.recording() as ledger:
         walk.replay(comp, arguments)
     return ledger.stacked_trace()

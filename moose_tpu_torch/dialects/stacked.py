@@ -76,11 +76,15 @@ _STACKED_VALUES = (SpmdRep, SpmdFixed, SpmdBits)
 class StackedSession:
     """Pairs an :class:`EagerSession` (host kernels) with an
     :class:`SpmdSession` (party-stacked PRF draws) under one master key,
-    both on ``device``."""
+    both on ``device``.  ``mesh`` (optional, ``spmd.make_mesh``)
+    constrains each fresh sharing to the (parties, data) mesh, its first
+    axis over ``"data"``."""
 
-    def __init__(self, master_key, device, key_domain: int = 0):
+    def __init__(self, master_key, device, key_domain: int = 0,
+                 mesh=None):
         self.host = EagerSession(device)
         self.spmd = SpmdSession(master_key, device, domain=key_domain)
+        self.mesh = mesh
 
     @property
     def session_id(self):
@@ -90,6 +94,17 @@ class StackedSession:
 # ---------------------------------------------------------------------------
 # Conversions
 # ---------------------------------------------------------------------------
+
+
+def _constrain_opt(sess: StackedSession, t: SpmdRep) -> SpmdRep:
+    if sess.mesh is None:
+        return t
+    return spmd.constrain(t, sess.mesh, 0 if t.lo.ndim > 2 else None)
+
+
+def _share_ring(sess: StackedSession, t: HostRingTensor) -> SpmdRep:
+    return _constrain_opt(
+        sess, spmd.share(sess.spmd, t.lo, t.hi, t.width))
 
 
 def to_rep(sess: StackedSession, v, width: Optional[int] = None):
@@ -102,9 +117,8 @@ def to_rep(sess: StackedSession, v, width: Optional[int] = None):
     if isinstance(v, _STACKED_VALUES):
         return v
     if isinstance(v, HostFixedTensor):
-        t = v.tensor
         return SpmdFixed(
-            spmd.share(sess.spmd, t.lo, t.hi, t.width),
+            _share_ring(sess, v.tensor),
             v.integral_precision,
             v.fractional_precision,
         )
@@ -120,13 +134,13 @@ def to_rep(sess: StackedSession, v, width: Optional[int] = None):
             frac,
         )
     if isinstance(v, HostRingTensor):
-        return spmd.share(sess.spmd, v.lo, v.hi, v.width)
+        return _share_ring(sess, v)
     if isinstance(v, HostTensor):
         if v.dtype is not None and v.dtype.is_integer:
             # the integer dialect's lift (reference integer/mod.rs:12-15)
             ring_t = sess.host.ring_fixedpoint_encode(v.plc, v, 0,
                                                       width or 64)
-            return spmd.share(sess.spmd, ring_t.lo, ring_t.hi, ring_t.width)
+            return _share_ring(sess, ring_t)
         raise TypeMismatchError(
             "cannot share a plaintext float tensor; cast to a fixed "
             "dtype first (reference requires FixedpointEncode before "
@@ -650,11 +664,6 @@ def supports(comp: Computation) -> bool:
     return not unsupported_ops(comp)
 
 
-def make_session(master_key, device, key_domain: int = 0) -> StackedSession:
-    """Dialect hook of the interpreter."""
-    return StackedSession(master_key, device, key_domain)
-
-
 def bind_placements(sess, comp: Computation) -> None:
     """Dialect hook of the interpreter: this layout's values carry what
     their conversions need."""
@@ -692,3 +701,23 @@ def execute_op(sess: StackedSession, comp: Computation, op: Operation,
     if isinstance(plc, Mirrored3Placement):
         return logical._execute_mir(sess.host, comp, op, plc, args)
     raise TypeError(f"unsupported placement {plc!r} for op {op.name}")
+
+
+class StackedDialect:
+    """The stacked layout as the interpreter's dialect: its ``mesh``
+    (``spmd.make_mesh``, or None) reaches every session it makes."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
+
+    def make_session(self, master_key, device,
+                     key_domain: int = 0) -> StackedSession:
+        return StackedSession(master_key, device, key_domain,
+                              mesh=self.mesh)
+
+    unsupported_ops = staticmethod(unsupported_ops)
+    roadmap_item = staticmethod(roadmap_item)
+    bind_placements = staticmethod(bind_placements)
+    lift_aes_input = staticmethod(lift_aes_input)
+    to_host = staticmethod(to_host)
+    execute_op = staticmethod(execute_op)

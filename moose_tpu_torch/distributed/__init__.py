@@ -1,8 +1,8 @@
 """Distributed execution of the port: networking backends, role-filtered
 workers, choreography and the client session supervisor (reference
 ``moose/src/networking``, ``moose/src/choreography``,
-``moose/src/execution/grpc.rs``) and the deterministic chaos layer.  The
-fabric transport is ROADMAP queue 1, item 12."""
+``moose/src/execution/grpc.rs``), the fabric transport (parties as
+device slices) and the deterministic chaos layer."""
 
 from typing import Any
 
@@ -22,10 +22,11 @@ _LAZY = {
     "TlsConfig": "tls",
     "ChaosConfig": "chaos",
     "ChaosNetworking": "chaos",
+    "FabricDomain": "fabric",
+    "FabricNetworking": "fabric",
 }
-_NOT_PORTED = ("FabricDomain", "FabricNetworking")
 
-__all__ = sorted(_LAZY) + list(_NOT_PORTED)
+__all__ = sorted(_LAZY)
 
 
 def __getattr__(name: str) -> Any:
@@ -34,9 +35,4 @@ def __getattr__(name: str) -> Any:
 
         module = importlib.import_module(f".{_LAZY[name]}", __name__)
         return getattr(module, name)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} (the fabric transport: a device-local handoff on one "
-            "card, NCCL across cards) is ROADMAP queue 1, item 12"
-        )
     raise AttributeError(name)

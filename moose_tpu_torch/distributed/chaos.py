@@ -342,6 +342,15 @@ class ChaosNetworking:
                 "drop_send", _session=session_id, key=rendezvous_key,
                 party=self._identity,
             )
+            # fabric transports: the dropped key's replay must not
+            # re-enter a permute whose payload was already lost; latch
+            # it onto the wire (stable key, so the latch survives the
+            # supervisor's fresh session id).  The fault record gains no
+            # transport field: a seed's schedule digest is the same with
+            # the fabric on or off
+            force_wire = getattr(self._inner, "force_wire", None)
+            if force_wire is not None:
+                force_wire(rendezvous_key)
             return None  # swallowed: the receiver never hears of it
         result = self._inner.send(
             value, receiver, rendezvous_key, session_id, **kwargs

@@ -7,9 +7,9 @@ runs its role on ``device`` (the card unless the caller asks for the
 CPU); on the card it builds the kernels a worker launches (K1, K4, K7)
 before it accepts a session, so a first-use ``nvcc`` never stalls a
 session its peers are waiting on.  A worker arms the deterministic chaos
-layer (``chaos.py``) when given a ``ChaosConfig`` or ``MOOSE_TPU_CHAOS``;
-the fabric transport (``FabricDomain``) is ROADMAP queue 1, item 12, and
-a worker given one raises.
+layer (``chaos.py``) when given a ``ChaosConfig`` or ``MOOSE_TPU_CHAOS``,
+and lowers its intra-domain edges to device copies when given a
+``FabricDomain`` it belongs to (``fabric.py``).
 
 Reference ``moose/src/choreography/grpc.rs:34-234`` +
 ``protos/choreography.proto``: LaunchComputation / RetrieveResults /
@@ -72,13 +72,17 @@ class _SessionState:
     """Book-keeping for one running session."""
 
     __slots__ = (
-        "cancel", "peers", "abort_reason", "abort_envelope", "progress",
+        "cancel", "finished", "peers", "abort_reason", "abort_envelope",
+        "progress",
     )
 
     def __init__(self, peers):
         from .networking import ProgressClock
 
         self.cancel = threading.Event()
+        # set once the run thread has posted the session's result: the
+        # failure detector ends at once instead of a ping interval later
+        self.finished = threading.Event()
         self.peers = list(peers)
         # set when the cancel came from outside (choreographer or peer
         # fanout) so the run thread records the root cause, not a bare
@@ -153,29 +157,36 @@ class WorkerServer:
         )
         import collections
 
-        if fabric_domain is not None:
-            raise NotImplementedError(
-                "the fabric transport (FabricDomain/FabricNetworking: a "
-                "device-local handoff on one card, NCCL across cards) is "
-                "ROADMAP queue 1, item 12"
-            )
-        self.fabric_domain = None
         # chaos: explicit config, or MOOSE_TPU_CHAOS from the
         # environment (comet daemons pick the same schedule up without
-        # new flags); None disables.  The transport is WRAPPED (wire,
-        # then chaos) so every send/ping of this worker flows through
-        # the fault schedule.
+        # new flags); None disables.  The transport is WRAPPED so every
+        # send/ping of this worker flows through the fault schedule.
         from .chaos import ChaosConfig
 
         self.chaos = chaos if chaos is not None else ChaosConfig.from_env()
         networking = GrpcNetworking(
             identity, self.endpoints, tls=tls, device=self.device
         )
+        # layering: wire -> fabric -> chaos.  The fabric lowers
+        # intra-domain edges to device copies over the wire's cell
+        # store; chaos stays outermost so fault decisions happen per
+        # logical rendezvous key before the lowering (a dropped key
+        # latches onto the wire for its replay)
+        self.fabric_domain = fabric_domain
+        if fabric_domain is not None and fabric_domain.is_member(identity):
+            from .fabric import FabricNetworking
+
+            networking = FabricNetworking(
+                fabric_domain, identity, networking
+            )
         if self.chaos is not None:
             self.chaos.register_kill_hook(identity, self._chaos_kill)
             networking = self.chaos.wrap(networking, identity)
         self.networking = networking
         self._sessions: dict = {}  # session id -> _SessionState (running)
+        # every session's run and failure-detector threads not yet known
+        # to have ended: stop() joins them
+        self._threads: list = []
         # serialized-computation memo: repeat sessions of one computation
         # (serving traffic) must share ONE deserialized object, because
         # the worker's resolved role plans are weak-keyed on it — a
@@ -287,11 +298,7 @@ class WorkerServer:
                         with telemetry.use_context(trace_ctx):
                             self._failure_detector(session_id, state)
 
-                    threading.Thread(
-                        target=detect,
-                        daemon=True,
-                        name=f"moose-fd-{session_id[:8]}",
-                    ).start()
+                    self._spawn(detect, f"moose-fd-{session_id[:8]}")
                 arguments = {
                     name: deserialize_value(blob)
                     for name, blob in (msg.get("arguments") or {}).items()
@@ -362,6 +369,7 @@ class WorkerServer:
             # same lock as _abort's add+put so the two cannot interleave.
             with self._lock:
                 self._sessions.pop(session_id, None)
+                state.finished.set()
                 if session_id not in self._aborted:
                     self._results.put(session_id, payload)
                     if fanout_reason is None:
@@ -388,8 +396,16 @@ class WorkerServer:
                     envelope=fanout_envelope,
                 )
 
-        threading.Thread(target=run_in_ctx, daemon=True).start()
+        self._spawn(run_in_ctx, f"moose-session-{session_id[:8]}")
         return _pack({"ok": True})
+
+    def _spawn(self, target, name: str) -> None:
+        """Start one of a session's threads, for stop() to join."""
+        thread = threading.Thread(target=target, daemon=True, name=name)
+        with self._lock:
+            self._threads = [t for t in self._threads if t.is_alive()]
+            self._threads.append(thread)
+        thread.start()
 
     # bound on memoized deserialized computations (a serving deployment
     # cycles through a handful of models; 32 mirrors runtime._bin_cache)
@@ -662,8 +678,7 @@ class WorkerServer:
         last_ops: dict = {}  # peer -> last reported op count / status
         last_advance = time.monotonic()
         trip_at = 2 * self.ping_misses
-        while True:
-            time.sleep(self.ping_interval)
+        while not state.finished.wait(self.ping_interval):
             with self._lock:
                 if session_id not in self._sessions:
                     return  # session finished or was aborted
@@ -917,13 +932,32 @@ class WorkerServer:
             self.chaos.revive(self.identity)
         return self
 
+    # how long stop() waits for a session's threads once it has aborted
+    # the session (a kernel or an rpc under way finishes first)
+    _STOP_JOIN_S = 30.0
+
     def stop(self, grace: float = 0.5):
+        """Stop serving: in-flight rpcs get ``grace`` seconds, a session
+        still running is aborted, and every session's threads (its run,
+        receive prefetch and failure detector) have ended when this
+        returns."""
+        import time
+
         if self._server is not None:
-            self._server.stop(grace)
+            self._server.stop(grace).wait()
             self._server = None
         if self.metrics_server is not None:
             self.metrics_server.close()
             self.metrics_server = None
+        with self._lock:
+            running = list(self._sessions)
+        for session_id in running:
+            self._abort_local(session_id, reason="worker stopped")
+        with self._lock:
+            threads, self._threads = self._threads, []
+        deadline = time.monotonic() + self._STOP_JOIN_S
+        for thread in threads:
+            thread.join(max(0.0, deadline - time.monotonic()))
 
     def _chaos_kill(self):
         """Chaos ``kill_after_ops`` hook: die like a SIGKILL'd process,

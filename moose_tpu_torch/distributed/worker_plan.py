@@ -749,9 +749,14 @@ class _AsyncSender:
                 raise self._error
 
     def close(self) -> None:
+        """Stop the sender thread.  With nothing queued it has ended when
+        this returns; units queued behind a failure still go out."""
         with self._cv:
             self._closed = True
             self._cv.notify_all()
+            idle = self._pending == 0
+        if idle:
+            self._thread.join()
 
 
 _PREFETCH_COUNTER = None
@@ -873,11 +878,11 @@ class _ReceivePrefetcher:
                 self._session_id,
                 plc=self._identity,
                 timeout=self._timeout,
-                cancel=self._cancel,
+                cancel=self._stop,
                 progress=self._progress,
             )
         except SessionAbortedError:
-            return  # the abort is already the session outcome
+            return  # the abort or the stop is already the outcome
         except BaseException as e:  # noqa: BLE001 — root cause
             self._on_error(e)
             return
@@ -911,7 +916,12 @@ class _ReceivePrefetcher:
         return self._values.pop(name)
 
     def stop(self) -> None:
+        """Give up every receive still posted; the prefetch threads have
+        ended when this returns (a blocked receive notices within one
+        slice of its wait)."""
         self._stop.set()
+        for thread in self._threads:
+            thread.join()
 
 
 # ---------------------------------------------------------------------------

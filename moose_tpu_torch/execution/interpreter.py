@@ -356,7 +356,7 @@ def _autotune_table(comp: Computation, dialect, device) -> dict:
 
     n_ops = (
         autotune._estimate_ops(comp)
-        if dialect is stacked else len(comp.operations)
+        if isinstance(dialect, stacked.StackedDialect) else len(comp.operations)
     )
     decisions = autotune.autotune_plan(
         comp, est_ops=n_ops, device=device).as_dict()
@@ -377,8 +377,8 @@ def _autotune_table(comp: Computation, dialect, device) -> dict:
 
 class Interpreter:
     """Eager interpreter of logical computations on one device, in the
-    layout of ``dialect``: ``dialects.logical`` (per-host) or
-    ``dialects.stacked``."""
+    layout of ``dialect``: ``dialects.logical`` (per-host) or a
+    ``dialects.stacked.StackedDialect``."""
 
     def __init__(self, device, dialect):
         self.device = torch.device(device)

@@ -8,10 +8,11 @@ slot=2)``: x = x0 + x1 + x2, party i holds the pair
 (x_i, x_{i+1}), ``lo[i, 0]`` is x_i and ``lo[i, 1]`` is x_{i+1}.
 Share-local math is one tensor op over the party axis; resharing is a
 roll over it (for a secure multiply, inside the ``cross_terms_reshare``
-kernel).  The port runs on one device, so the JAX package's mesh
-pinning, sharding constraints and mesh helpers (``make_mesh``,
-``rep_sharding``, ``constrain``, ``fabric_party_mesh``) have no
-counterpart here.
+kernel).  The mesh helpers (``make_mesh``, ``fabric_party_mesh``,
+``rep_sharding``, ``constrain``) lay the JAX package's meshes out over
+device handles (``devices.Device``): a mesh whose handles all share one
+torch device runs, word for word as without it; one that spans several
+torch devices is refused (ROADMAP queue 1, item 12.9).
 
 Randomness comes from :class:`SpmdSession` in the JAX package's exact
 nonce schedule, so under the same master key and the threefry PRF both
@@ -26,10 +27,12 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
-from ..devices import DEFAULT_DEVICE, resolve
+from ..devices import DEFAULT_DEVICE, canonical, local_devices, resolve
 from ..dialects import ring
+from ..errors import ConfigurationError
 from ..execution import drawledger as _ledger
 from ..native import ring_kernels as rk
 
@@ -705,6 +708,104 @@ def fx_sigmoid_poly(sess, x: SpmdFixed) -> SpmdFixed:
 
 
 # ---------------------------------------------------------------------------
+# Mesh helpers: the party axis and the batch axis over device handles
+# ---------------------------------------------------------------------------
+
+
+class Mesh:
+    """A device mesh: ``devices`` a numpy object array of device handles
+    (``devices.Device``), one array axis a name of ``axis_names``, as a
+    ``jax.sharding.Mesh``.  ``with mesh:`` is accepted.  A mesh runs
+    where all its handles share one torch device (:attr:`torch_device`);
+    its sharings then live on that device whole."""
+
+    def __init__(self, devices, axis_names):
+        self.devices = np.asarray(devices, dtype=object)
+        self.axis_names = tuple(axis_names)
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(
+                f"a mesh of shape {self.devices.shape} needs "
+                f"{self.devices.ndim} axis names, got {self.axis_names}")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def torch_device(self) -> torch.device:
+        """The one torch device behind every handle of the mesh."""
+        behind = {canonical(d) for d in self.devices.flat}
+        if len(behind) > 1:
+            raise NotImplementedError(
+                "a mesh over several torch devices "
+                f"({sorted(map(str, behind))}): sharding a party or batch "
+                "axis across cards is ROADMAP queue 1, item 12.9")
+        return behind.pop()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape})"
+
+
+def make_mesh(n_devices: Optional[int] = None, devices=None,
+              device=DEFAULT_DEVICE) -> Mesh:
+    """Mesh with axes (parties, data) over the first ``n_devices`` of
+    ``devices`` (default: ``devices.local_devices(device)``).
+
+    With >= 3 devices the party axis is 3 and ``data = n // 3``, any
+    remainder unused (8 devices give a (3, 2) mesh over 6); with fewer
+    the parties are co-located (parties=1) and the devices shard the
+    batch.  One card gives the (1, 1) mesh."""
+    if devices is None:
+        devices = local_devices(device)
+    devices = list(devices)[: n_devices or len(devices)]
+    n = len(devices)
+    p, d = (3, n // 3) if n >= 3 else (1, n)
+    arr = np.array(devices[: p * d], dtype=object).reshape(p, d)
+    return Mesh(arr, ("parties", "data"))
+
+
+def fabric_party_mesh(devices) -> Mesh:
+    """1-D mesh over axis ``"parties"``: one lead device a party, in the
+    fabric domain's declaration order (party index = mesh position =
+    ring position for the cost model's hop count)."""
+    arr = np.array(list(devices), dtype=object)
+    if arr.ndim != 1 or arr.size < 2:
+        raise ValueError(
+            "fabric_party_mesh needs a flat list of >= 2 lead devices, "
+            f"got shape {arr.shape}")
+    return Mesh(arr, ("parties",))
+
+
+def rep_sharding(mesh: Mesh, batch_axis: Optional[int] = 0,
+                 ndim: int = 2) -> tuple:
+    """The partition spec of a stacked share array (3, 2, *shape): the
+    party axis over "parties", one data axis over "data"."""
+    spec = ["parties", None] + [None] * ndim
+    if batch_axis is not None:
+        spec[2 + batch_axis] = "data"
+    return tuple(spec)
+
+
+def constrain(x: SpmdRep, mesh: Mesh, batch_axis=0) -> SpmdRep:
+    """``x`` placed on ``mesh``: its words on the mesh's one torch
+    device, under :func:`rep_sharding`'s spec."""
+    # the spec the JAX package constrains to, and its IndexError for a
+    # batch axis past the sharing's rank
+    rep_sharding(mesh, batch_axis, x.lo.ndim - 2)
+    dev = mesh.torch_device
+    if x.lo.device != dev:
+        raise ConfigurationError(
+            f"a sharing on {x.lo.device} constrained to a mesh on {dev}")
+    return SpmdRep(x.lo, x.hi, x.width)
+
+
+# ---------------------------------------------------------------------------
 # Flagship computation: secure logistic-regression training step (the
 # reference's benchmark workload, benchmarks/logreg.py's run_spmd)
 # ---------------------------------------------------------------------------
@@ -714,13 +815,12 @@ def logreg_train_step(sess: SpmdSession, x: SpmdFixed, y: SpmdFixed,
                       w: SpmdFixed, lr: float, mesh=None) -> SpmdFixed:
     """One secure SGD step on (batch, features) ``x``, (batch, 1) ``y``
     and (features, 1) ``w``: w -= lr * X^T (sigmoid(Xw) - y) / batch, with
-    :func:`fx_sigmoid_poly`.  The JAX package shards ``x`` over a device
-    ``mesh``; the port runs on one card, and a mesh is ROADMAP queue 1,
-    item 12."""
+    :func:`fx_sigmoid_poly`; ``x`` constrained to ``mesh`` when given."""
     if mesh is not None:
-        raise NotImplementedError(
-            "logreg_train_step over a device mesh: the port runs on one "
-            "card; a mesh is ROADMAP queue 1, item 12"
+        x = SpmdFixed(
+            constrain(x.tensor, mesh, 0),
+            x.integral_precision,
+            x.fractional_precision,
         )
     logits = fx_dot(sess, x, w)  # (batch, 1)
     preds = fx_sigmoid_poly(sess, logits)

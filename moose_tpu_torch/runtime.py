@@ -89,12 +89,16 @@ class LocalMooseRuntime:
                 f"unknown layout {layout!r}; expected 'auto', "
                 "'per-host' or 'stacked'"
             )
-        if mesh is not None:
-            raise ConfigurationError(
-                "the port runs on one device; the device mesh (parties "
-                "as mesh slices) is ROADMAP queue 1, item 12"
-            )
         self.device = devices.resolve(device)
+        # the device mesh reaches the stacked layout only, as in the JAX
+        # runtime; its one torch device must be the runtime's (a mesh
+        # over several is refused by mesh.torch_device itself)
+        if mesh is not None and \
+                mesh.torch_device != devices.canonical(self.device):
+            raise ConfigurationError(
+                f"a mesh on {mesh.torch_device} given to a runtime on "
+                f"{self.device}"
+            )
         self.layout = layout
         # the JAX package's validated-jit switch: it chooses the route
         # (a big per-host graph is lowered), and the port runs eagerly on
@@ -123,7 +127,8 @@ class LocalMooseRuntime:
             for identity in identities
         }
         self._interpreter = Interpreter(self.device, logical)
-        self._stacked = Interpreter(self.device, stacked)
+        self._stacked = Interpreter(self.device,
+                                    stacked.StackedDialect(mesh=mesh))
         self._physical = PhysicalInterpreter(self.device)
         # (traced computation, passes, binding) -> lowered Computation,
         # weak-keyed on the computation as the JAX runtime keys it

@@ -12,8 +12,10 @@ so both packages' configs give the same fractions, fault logs and
 a chaos run's outputs (dup, drop) are word-equal to the clean run's and
 to the JAX workers' on the same lowered bytes, and a training run
 resumed after a kill ends with the clean run's committed share words
-and the JAX cluster's weights.  The fabric transport stays refused (its
-case, tests/test_chaos.py:739, needs a device per party)."""
+and the JAX cluster's weights.  Over the fabric transport (three
+virtual CPU device handles, tests/test_chaos.py:739) a dropped send's
+replay rides the wire, with the same fault schedule and outputs as
+without the fabric."""
 
 import threading
 import time
@@ -27,7 +29,8 @@ from moose_tpu.distributed import chaos as jchaos
 from moose_tpu.edsl import tracer as jtracer
 
 import moose_tpu_torch as tm
-from moose_tpu_torch import flight
+from moose_tpu_torch import devices, flight
+from moose_tpu_torch import metrics as tmetrics
 from moose_tpu_torch.compilation import DEFAULT_PASSES as TPASSES
 from moose_tpu_torch.compilation import compile_computation as tcompile
 from moose_tpu_torch.compilation.lowering import (
@@ -41,6 +44,7 @@ from moose_tpu_torch.distributed.choreography import (
     start_local_cluster,
 )
 from moose_tpu_torch.distributed.client import GrpcClientRuntime
+from moose_tpu_torch.distributed.fabric import FabricDomain, FabricNetworking
 from moose_tpu_torch.distributed.networking import LocalNetworking
 from moose_tpu_torch.distributed.worker import execute_role
 from moose_tpu_torch.edsl import tracer as ttracer
@@ -99,10 +103,10 @@ class _NullTransport:
         return {"ok": True}
 
 
-def _run_cluster_once(pkg, chaos=None, max_attempts=3):
+def _run_cluster_once(pkg, chaos=None, max_attempts=3, **server_kw):
     """One GrpcClientRuntime run of the secure dot on three workers of
-    package ``pkg`` ("jax" or "port") under ``chaos``; (outputs,
-    report)."""
+    package ``pkg`` ("jax" or "port") under ``chaos`` (``server_kw``:
+    more WorkerServer arguments); (outputs, report)."""
     if pkg == "jax":
         from moose_tpu.distributed.choreography import start_local_cluster \
             as start
@@ -112,7 +116,8 @@ def _run_cluster_once(pkg, chaos=None, max_attempts=3):
     else:
         start, Client = start_local_cluster, GrpcClientRuntime
         host, pm, tracer, kw = thost, tm, ttracer, {"device": "cpu"}
-    servers, endpoints = start(IDS, chaos=chaos, **WORKER_KW, **kw)
+    servers, endpoints = start(IDS, chaos=chaos, **WORKER_KW, **kw,
+                               **server_kw)
     try:
         runtime = Client(endpoints, max_attempts=max_attempts,
                          backoff_base_s=0.05, backoff_cap_s=0.2)
@@ -177,9 +182,37 @@ def test_worker_server_arms_chaos_from_env(monkeypatch):
     srv = WorkerServer("alice", 0, {}, device="cpu")
     assert srv.chaos is not None and srv.chaos.seed == 5
     assert isinstance(srv.networking, tchaos.ChaosNetworking)
-    # the fabric transport stays refused (ROADMAP queue 1, item 12)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        WorkerServer("alice", 0, {}, device="cpu", fabric_domain=object())
+    # wire -> fabric -> chaos, as the JAX package layers them: chaos
+    # stays outermost, and a drop latches the fabric's wire path
+    from moose_tpu.distributed.choreography import WorkerServer as JWorker
+    from moose_tpu.distributed.fabric import FabricDomain as JDomain
+    from moose_tpu.distributed.fabric import FabricNetworking as JFabric
+    from moose_tpu.distributed.networking import LocalNetworking as JLocal
+
+    dom = FabricDomain({p: (d,) for p, d in zip(
+        IDS, devices.virtual_devices("cpu", 3))}, "simulation")
+    srv = WorkerServer("alice", 0, {}, device="cpu", fabric_domain=dom)
+    jsrv = JWorker("alice", 0, {}, fabric_domain=JDomain.default(
+        IDS, trust_model="simulation"))
+    for server in (srv, jsrv):
+        assert type(server.networking).__name__ == "ChaosNetworking"
+        assert type(server.networking._inner).__name__ == \
+            "FabricNetworking"
+        assert server.fabric_domain.cells_of("alice") is \
+            server.networking._inner.cells
+    outsider = WorkerServer("mallory", 0, {}, device="cpu",
+                            fabric_domain=dom)
+    assert type(outsider.networking._inner).__name__ == "GrpcNetworking"
+    # a dropped fabric send latches its key onto the wire, in both
+    # packages
+    for mod, net in (
+            (tchaos, FabricNetworking(dom, "alice",
+                                      LocalNetworking(device="cpu"))),
+            (jchaos, JFabric(jsrv.fabric_domain, "alice", JLocal()))):
+        chaotic = mod.ChaosConfig(seed=1, drop_send=1.0).wrap(net, "alice")
+        assert chaotic.send(b"v", "bob", "k-drop", "s") is None
+        assert net.domain.is_forced_wire("k-drop")
+        assert net._wire_reason("bob", "k-drop", "s2") == "forced_wire"
 
 
 def _scripted(mod):
@@ -309,6 +342,38 @@ def test_dropped_send_retried_bit_exact_and_schedule_reproducible(
         assert np.array_equal(np.asarray(jax_out[name]), want)
     kinds = {e.get("kind") for e in flight.get_recorder().events()}
     assert "chaos_drop_send" in kinds
+
+
+def test_chaos_drop_over_fabric_replays_on_wire_bit_exact(jax_drop_run):
+    """Chaos composes over the fabric (tests/test_chaos.py:739): fault
+    decisions key on the logical rendezvous key before the permute
+    lowering, a dropped key's replay rides the wire (``forced_wire``),
+    and the seed gives the JAX package's fault schedule and words with
+    the fabric on."""
+    jax_clean, jax_out, jax_cfg = jax_drop_run
+    dom = FabricDomain({p: (d,) for p, d in zip(
+        IDS, devices.virtual_devices("cpu", 3))}, "simulation")
+    forced = tmetrics.REGISTRY.value("moose_tpu_fabric_fallbacks_total",
+                                     reason="forced_wire")
+    permutes = tmetrics.REGISTRY.value("moose_tpu_fabric_permutes_total")
+    cfg = tchaos.ChaosConfig(seed=DROP_SEED, drop_send=0.2)
+    with prf("threefry"), fixed_keys_env():
+        out, report = _run_cluster_once("port", cfg, fabric_domain=dom)
+    assert [f for f in cfg.faults if f["kind"] == "drop_send"]
+    assert report["ok"] is True and report["retried"] is True
+    assert report["transport"] == "fabric"
+    assert report["trust_model"] == "simulation"
+    assert set(report["transports"]) == set(IDS)
+    assert tmetrics.REGISTRY.value("moose_tpu_fabric_fallbacks_total",
+                                   reason="forced_wire") > forced
+    assert tmetrics.REGISTRY.value(
+        "moose_tpu_fabric_permutes_total") > permutes
+    # the same schedule and words as the JAX cluster's without a fabric
+    assert cfg.schedule_digest(kinds={"drop_send"}) == \
+        jax_cfg.schedule_digest(kinds={"drop_send"})
+    for name in jax_out:
+        assert np.array_equal(out[name], np.asarray(jax_out[name]))
+        assert np.array_equal(out[name], np.asarray(jax_clean[name]))
 
 
 def _lowered_blob(args):

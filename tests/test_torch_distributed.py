@@ -318,14 +318,52 @@ def _result(srv, session):
                            raw=False)
 
 
+def test_stop_returns_once_the_server_is_down():
+    """``WorkerServer.stop`` waits for the gRPC shutdown: the server has
+    terminated when it returns, and a second stop does nothing."""
+    srv = WorkerServer("alice", 0, {}, device="cpu").start()
+    server = srv._server
+    srv.stop()
+    assert server.wait_for_termination(timeout=0) is False  # not timed out
+    srv.stop()
+
+
+def test_no_session_thread_outlives_stop(cases):
+    """Every thread a session starts on a worker (its run, receive
+    prefetch, failure detector and sender) has ended when
+    ``WorkerServer.stop`` returns, for a finished session and for one
+    still waiting on a peer that never launched."""
+    before = set(threading.enumerate())
+    case = cases["secure_dot"]
+    blob = serialize_computation(case.tl)
+    servers, endpoints = start_local_cluster(IDS, device="cpu")
+    try:
+        check_grpc(case, endpoints, "secure_dot", "threefry")
+        # alice waits on bob's shares of a session bob never launches
+        with prf("threefry"):
+            servers["alice"]._launch(_launch_msg("hung", blob, case.args))
+        assert servers["alice"]._sessions
+    finally:
+        for srv in servers.values():
+            srv.stop()
+    left = [t.name for t in set(threading.enumerate()) - before
+            if t.name.startswith("moose-")]
+    assert left == []
+    assert "worker stopped" in _result(servers["alice"], "hung")["error"]
+
+
 def test_duplicate_session_is_refused(cases, cluster):
     servers, _ = cluster
-    blob = serialize_computation(cases["secure_dot"].tl)
+    case = cases["secure_dot"]
+    blob = serialize_computation(case.tl)
     srv = servers["alice"]
+    # with its arguments alice's role waits on bob's shares (bob never
+    # launches "dup") until the abort; without them it could fail on its
+    # missing argument before the abort arrives
     with prf("threefry"):
-        srv._launch(_launch_msg("dup", blob, {}))
+        srv._launch(_launch_msg("dup", blob, case.args))
         with pytest.raises(SessionAlreadyExistsError):
-            srv._launch(_launch_msg("dup", blob, {}))
+            srv._launch(_launch_msg("dup", blob, case.args))
         srv._abort(msgpack.packb({"session_id": "dup"}, use_bin_type=True))
     assert "abort" in _result(srv, "dup")["error"]
 
@@ -595,17 +633,27 @@ def test_entry_points_default_to_the_card():
 
 
 def test_not_ported_transports_name_item_12():
-    # only the fabric transport still names item 12; the TCP transport,
-    # the chaos restarter and chaos-armed workers are ported (their
-    # parity: tests/test_torch_tcp.py, tests/test_torch_chaos.py)
+    # every transport of item 12 is ported: the TCP transport, the chaos
+    # restarter, chaos-armed workers and the fabric (their parity:
+    # tests/test_torch_tcp.py, tests/test_torch_chaos.py,
+    # tests/test_torch_fabric.py); the package exports what the JAX
+    # package's does, and nothing names the item any more
+    import moose_tpu.distributed as jdistributed
+
     from moose_tpu_torch import distributed
-    from moose_tpu_torch.distributed import chaos, choreography, networking
+    from moose_tpu_torch.distributed import (
+        chaos,
+        choreography,
+        fabric,
+        networking,
+    )
 
     net = networking.TcpNetworking("alice", {}, device="cpu")
     assert net.device == "cpu" and distributed.TcpNetworking is \
         networking.TcpNetworking
-    with pytest.raises(NotImplementedError, match="item 12"):
-        distributed.FabricDomain
+    assert set(jdistributed.__all__) <= set(distributed.__all__)
+    for name in jdistributed.__all__:
+        assert getattr(distributed, name) is getattr(fabric, name)
     choreography.start_chaos_restarter({}, {}, {}, None, poll_s=0.01)()
     cfg = chaos.ChaosConfig(seed=1)
     srv = WorkerServer("alice", 0, {}, chaos=cfg, device="cpu")

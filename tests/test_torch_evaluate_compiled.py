@@ -24,6 +24,7 @@ from moose_tpu.compilation.lowering import arg_specs_from_arguments
 from moose_tpu.runtime import LocalMooseRuntime as JaxRuntime
 from moose_tpu.serde import serialize_computation as jserialize
 
+from moose_tpu_torch import devices as tdevices
 from moose_tpu_torch import elk_compiler
 from moose_tpu_torch import serde as tserde
 from moose_tpu_torch.computation import (
@@ -36,6 +37,7 @@ from moose_tpu_torch.computation import (
 from moose_tpu_torch.dialects import aes as taes
 from moose_tpu_torch.errors import ConfigurationError
 from moose_tpu_torch.native import ring_kernels as rk
+from moose_tpu_torch.parallel import spmd as tspmd
 from moose_tpu_torch.runtime import LocalMooseRuntime as PortRuntime
 
 from torch_parity import (  # noqa: F401  (threefry: a fixture)
@@ -149,7 +151,8 @@ def test_compiler_passes_lower_and_a_mesh_is_refused(threefry):
     """``compiler_passes`` lower the graph for the physical executor, as
     in the JAX runtime (word-equal under pinned nonces and fixed keys);
     passes without the lowering leave a logical graph the physical
-    executor cannot run, in both packages alike; a mesh names item 12."""
+    executor cannot run, in both packages alike; a mesh on the runtime's
+    device runs the stacked layout's words, any other is refused."""
     from moose_tpu.dialects import host as jhost
     from moose_tpu_torch.dialects import host as thost
 
@@ -172,8 +175,25 @@ def test_compiler_passes_lower_and_a_mesh_is_refused(threefry):
         with pytest.raises(KeyError, match="dtype"):
             runtime.evaluate_computation(ttraced, args,
                                          compiler_passes=passes)
-    with pytest.raises(ConfigurationError, match="item 12"):
-        PortRuntime(IDS, mesh=object(), device="cpu")
+    # a mesh reaches the stacked layout: six handles over the CPU run
+    # the JAX package's stacked words; a mesh on another device than
+    # the runtime's, or over several, is refused
+    mesh = tspmd.make_mesh(devices=tdevices.virtual_devices("cpu", 6))
+    with fixed_keys_env():
+        want = JaxRuntime(IDS, layout="stacked", use_jit=False) \
+            .evaluate_computation(jtraced, args)["output_0"]
+        meshed = PortRuntime(IDS, layout="stacked", mesh=mesh, device="cpu")
+        got = meshed.evaluate_computation(ttraced, args)["output_0"]
+    assert meshed.last_plan["layout"] == "stacked"
+    assert np.array_equal(got, np.asarray(want))
+    meta = tspmd.make_mesh(devices=[tdevices.Device(i, "meta")
+                                    for i in range(3)])
+    with pytest.raises(ConfigurationError, match="mesh on meta"):
+        PortRuntime(IDS, mesh=meta, device="cpu")
+    cards = tspmd.make_mesh(devices=[tdevices.Device(i, f"cuda:{i}")
+                                     for i in range(3)])
+    with pytest.raises(NotImplementedError, match="item 12.9"):
+        PortRuntime(IDS, mesh=cards, device="cpu")
     # the per-host layout runs a blob too: the JAX package's per-host
     # words under fixed keys
     blob = tserde.serialize_computation(ttraced)

@@ -2,7 +2,9 @@
 LinearClassifier exported the sklearn way, LOGISTIC post-transform, the
 exact protocol sigmoid) through the JAX LocalMooseRuntime (stacked
 layout) and the port's, on the CPU, gives bit-identical outputs under
-fixed keys and the threefry PRF, within 5e-3 of the float64 sigmoid.
+fixed keys and the threefry PRF, within 5e-3 of the float64 sigmoid;
+at fixed(24,40) the port's stacked runs on (3, 2) and (3, 4) device
+meshes give the same words.
 The two precisions run in separate files (this one and
 tests/test_torch_classifier.py) so the JAX reference's cost spreads over
 the test workers."""
@@ -20,8 +22,9 @@ from moose_tpu.predictors import sklearn_export as jsk
 from moose_tpu.runtime import LocalMooseRuntime as JaxRuntime
 
 import moose_tpu_torch as tm
-from moose_tpu_torch import interop
+from moose_tpu_torch import devices, interop
 from moose_tpu_torch.native import ring_kernels as rk
+from moose_tpu_torch.parallel import spmd as tspmd
 from moose_tpu_torch.predictors import from_onnx as tfrom_onnx
 from moose_tpu_torch.predictors import sklearn_export as tsk
 from moose_tpu_torch.runtime import LocalMooseRuntime as PortRuntime
@@ -83,6 +86,18 @@ def run_binary_parity(precision, seed):
         ).predictor_factory(tm.fixed(*precision)), {"x": x}
     )["output_0"]
     assert np.array_equal(again, want)
+    # and on the stacked layout over device meshes of virtual CPU
+    # devices, (3, 2) and (3, 4) as make_mesh(6) and make_mesh(12) lay
+    # them out: the JAX package's words all the same
+    for n in (6, 12):
+        mesh = tspmd.make_mesh(devices=devices.virtual_devices("cpu", n))
+        runtime = PortRuntime(IDS, layout="stacked", mesh=mesh,
+                              device="cpu")
+        meshed = runtime.evaluate_computation(
+            tpred.predictor_factory(tm.fixed(*precision)), {"x": x}
+        )["output_0"]
+        assert runtime.last_plan["layout"] == "stacked"
+        assert np.array_equal(meshed, want), n
     return got, sigmoid_pair(x, model.coef_[0], model.intercept_[0])
 
 

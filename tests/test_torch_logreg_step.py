@@ -20,6 +20,7 @@ import torch
 import jax.numpy as jnp
 from moose_tpu.parallel import spmd as jspmd
 
+from moose_tpu_torch import devices
 from moose_tpu_torch.parallel import spmd as tspmd
 
 from torch_parity import assert_words_equal, prf, threefry  # noqa: F401
@@ -55,7 +56,7 @@ def _jax_steps(x, y):
     return out
 
 
-def _port_steps(x, y):
+def _port_steps(x, y, mesh=None):
     mk = np.frombuffer(MASTER, dtype=np.uint32)
     sess = tspmd.SpmdSession(mk, "cpu")
     w = tspmd.fx_encode_share(
@@ -68,7 +69,7 @@ def _port_steps(x, y):
             s, torch.as_tensor(x[i * ROWS:(i + 1) * ROWS]), I, F, W)
         ys = tspmd.fx_encode_share(
             s, torch.as_tensor(y[i * ROWS:(i + 1) * ROWS]), I, F, W)
-        w = tspmd.logreg_train_step(s, xs, ys, w, LR)
+        w = tspmd.logreg_train_step(s, xs, ys, w, LR, mesh=mesh)
         out.append(w)
     return out
 
@@ -118,7 +119,18 @@ def test_fx_sigmoid_poly_words_match_jax(threefry, width, integ, frac):
     assert np.abs(decoded - 1.0 / (1.0 + np.exp(-x))).max() < 0.08
 
 
-def test_a_mesh_names_its_roadmap_item():
+def test_a_mesh_names_its_roadmap_item(trajectories):
+    """On a mesh of handles over one device (the (3, 2) mesh of six, as
+    tests/test_spmd.py:132 runs it) the steps are the JAX package's word
+    for word; a mesh over several torch devices names item 12.9."""
+    x, y, jax_ws, _ = trajectories
+    mesh = tspmd.make_mesh(devices=devices.virtual_devices("cpu", 6))
+    assert mesh.shape == {"parties": 3, "data": 2}
+    with prf("threefry"), mesh:
+        port_ws = _port_steps(x, y, mesh=mesh)
+    for step, (got, want) in enumerate(zip(port_ws, jax_ws)):
+        assert_words_equal((got.tensor.lo, got.tensor.hi),
+                           (want.tensor.lo, want.tensor.hi), f"step {step}")
     mk = np.array([1, 2, 3, 4], np.uint32)
     sess = tspmd.SpmdSession(mk, "cpu")
     w = tspmd.fx_encode_share(
@@ -127,5 +139,7 @@ def test_a_mesh_names_its_roadmap_item():
         sess, torch.zeros((4, 2), dtype=torch.float64), I, F, W)
     y = tspmd.fx_encode_share(
         sess, torch.zeros((4, 1), dtype=torch.float64), I, F, W)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tspmd.logreg_train_step(sess, x, y, w, LR, mesh=object())
+    cards = tspmd.make_mesh(devices=[devices.Device(i, f"cuda:{i}")
+                                     for i in range(6)])
+    with pytest.raises(NotImplementedError, match="item 12.9"):
+        tspmd.logreg_train_step(sess, x, y, w, LR, mesh=cards)

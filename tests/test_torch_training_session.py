@@ -417,7 +417,7 @@ def test_the_checkpoints_stay_off_the_stacked_layout():
     assert logical.unsupported_ops(comp) == []
     with pytest.raises(NotImplementedError,
                        match="LoadShares \\(the per-host layout runs it\\)"):
-        interpreter.Interpreter("cpu", stacked).evaluate(
+        interpreter.Interpreter("cpu", stacked.StackedDialect()).evaluate(
             comp, dict(zip("xy", _data())))
 
 
