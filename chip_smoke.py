@@ -328,14 +328,28 @@ Phases (each raises on failure; the script then exits non-zero):
      fabric: the same drop schedule as phase 24's, the dropped keys
      replayed on the wire (``forced_wire``), the outputs equal to (b)'s.
      Walls printed.
+ 26. the ring Dot at ranks past 2 (``run_ranks``), under the JAX
+     package's rule (x's last axis against y's first, the output
+     ``x.shape[:-1] + y.shape[1:]``) at config 5's MLP first layer,
+     fixed(24,40), ring128: (a) x (8, 128, 100) on alice against W
+     (100, 64) on bob, a replicated Dot revealed to carole, stacked;
+     (b) x (1024, 100) against Y (100, 8, 8), stacked, out (1024, 8, 8);
+     (c) (a) and (b) per-host; (d) (b) and (100,) @ Y as host
+     fixed-point Dots on alice; each one K1 call (one a party per-host)
+     at (1024, 100) @ (100, 64) (K1 product-only for (d)), its words
+     equal to the same request on the CPU under fixed keys, within 1e-6
+     of float64 ``np.tensordot(x, y, 1)``; (e) (2, 3, 4) @ (2, 4, 5)
+     refused on both layouts with no K1 launch.  K1's time at (a)'s
+     fold printed on its own line.
 Every evaluation of phases 4 to 17 and 22 must have run on the stacked
 layout, phase 18's and 19's on the per-host one
 (``last_plan["layout"]``), and phase 20's and 21's on both (the sessions
 per-host, the trained model stacked; the draw oracles one each), and
-phase 24 (a)'s and 25 (a)'s on the stacked one.  Phases 4 to 25 are the
+phase 24 (a)'s and 25 (a)'s on the stacked one.  Phases 4 to 26 are the
 main path:
 the kernels' launch counters are set to 0 just before each (each of
-phase 20's, 21's, 22's, 23's, 24's and 25's parts apart) and read just after;
+phase 20's, 21's, 22's, 23's, 24's, 25's and 26's parts apart) and read
+just after;
 phase 23's comet processes and phase 24's vixen and rudolph processes
 count in their own processes.  K1, K2's trunc_pairs and the
 threefry kernel in the phase's stream layout (threefry in all but 7,
@@ -377,7 +391,9 @@ launch K1, K4 and threefry's K7 and none of K2, K3, K5 and K6, and so
 must phase 24's chaos runs (b) and (c); its secret integers (a) K1, K3's
 cross_terms_reshare and K7, and no K2.  Phase 25's config 3 on the mesh
 must launch every kernel of phase 6, its logreg_train_step those of
-phase 20 (d), and its fabric sessions those of phase 23.
+phase 20 (d), and its fabric sessions those of phase 23.  Phase 26's
+stacked Dots must launch K1, K2's trunc_pairs and K7, its per-host ones
+K1, K2's trunc_combine and K7, its host Dots K1.
 The line before the last is the kernels' JSON record; the last line is
 the device record.
 
@@ -597,6 +613,14 @@ FAULT_CHAOS = "drop_send:0.002,dup_send:0.05,delay_ms:1"  # (b), with a seed
 FAULT_ATTEMPTS = 6
 FAULT_RECEIVE_S = 4.0  # (b): a dropped send fails its attempt this soon
 FAULT_CPU_ROWS = 16  # (b): the CPU's run of the same schedule
+# phase 26: the ring Dot at ranks past 2, at config 5's MLP first layer
+# (MLPC_ROWS x 100 -> 64): a batched x (8, 128, 100) against W (100, 64),
+# x (1024, 100) against a rank-3 Y (100, 8, 8); every one folds to K1's
+# (1024, 100) @ (100, 64)
+RANKS_X = (8, 128, MLPC_FEATURES)
+RANKS_Y = (MLPC_FEATURES, 8, 8)
+RANKS_TOL = 1e-6  # against float64 np.tensordot(x, y, 1)
+RANKS_REFUSED = ((2, 3, 4), (2, 4, 5))
 FAULT_TRAIN_STEPS = 2  # (c): steps of SESSION_BATCH rows an epoch
 FAULT_TRAIN_EPOCHS = 2
 FAULT_KILL_AT = 0.75  # (c): carole dies after this share of her ops
@@ -676,6 +700,8 @@ def profiled(torch, fn):
 
 
 PERMUTE_RANGE = "chip_smoke.fabric_permute"
+# profiled reads of phase 25's permutes before a short count fails
+PERMUTE_READS = 3
 
 
 def permute_copies(torch, domain, fn):
@@ -4828,6 +4854,173 @@ def run_faults(torch, rk, pm, classifier, logreg, card, device="cuda",
     return record, launches
 
 
+def rank_dot_computation(pm, family="rep", precision=(24, 40)):
+    """x on alice and y on bob at ``precision``, their Dot on the
+    replicated placement (``family`` "rep") or as a host fixed-point Dot
+    on alice ("host"), revealed to carole as float64."""
+    alice = pm.host_placement("alice")
+    bob = pm.host_placement("bob")
+    carole = pm.host_placement("carole")
+    rep = pm.replicated_placement("rep", players=[alice, bob, carole])
+    fx = pm.fixed(*precision)
+
+    @pm.computation
+    def rank_dot(x: pm.Argument(alice, dtype=pm.float64),
+                 y: pm.Argument(bob, dtype=pm.float64)):
+        with alice:
+            xf = pm.cast(x, dtype=fx)
+        with bob:
+            yf = pm.cast(y, dtype=fx)
+        with rep if family == "rep" else alice:
+            z = pm.dot(xf, yf)
+        with carole:
+            out = pm.cast(z, dtype=pm.float64)
+        return out
+
+    return rank_dot
+
+
+def run_ranks(torch, rk, pm, card, device="cuda"):
+    """Phase 26: the ring Dot at ranks past 2 on ``device``, (a) to (e)
+    of the module's docstring.  Every Dot must fold to one K1 product
+    (one a party per-host) at (1024, 100) @ (100, 64) and give the words
+    of the same request on the CPU under fixed keys.  Every number
+    logged carries ``card``.  Returns (record, launches by path); raises
+    on any failed check."""
+    import os
+
+    import numpy as np
+
+    from moose_tpu_torch.dialects import ring
+    from moose_tpu_torch.runtime import LocalMooseRuntime
+
+    ids = ("alice", "bob", "carole")
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(SEED + 26)
+    x3 = rng.normal(size=RANKS_X)
+    x2 = x3.reshape(-1, RANKS_X[-1])
+    w = glorot(rng, MLPC_FEATURES, MLPC_HIDDEN[0])
+    y3 = w.reshape(RANKS_Y)
+    m, k, n = x2.shape[0], MLPC_FEATURES, MLPC_HIDDEN[0]
+    record, launches = {"card": card}, {}
+    comps = {family: rank_dot_computation(pm, family)
+             for family in ("rep", "host")}
+    # (path, layout, family, x, y, K1 calls, the K1 shapes each calls)
+    cases = [
+        ("ranks_stacked_batched_x", "stacked", "rep", x3, w, 1,
+         ((3, m, k), (3, k, n), 2)),
+        ("ranks_stacked_rank3_y", "stacked", "rep", x2, y3, 1,
+         ((3, m, k), (3, k, n), 2)),
+        ("ranks_per_host_batched_x", "per-host", "rep", x3, w, 3,
+         ((1, m, k), (1, k, n), 2)),
+        ("ranks_per_host_rank3_y", "per-host", "rep", x2, y3, 3,
+         ((1, m, k), (1, k, n), 2)),
+        ("ranks_host_rank3_y", "auto", "host", x2, y3, 1,
+         ((1, m, k), (1, k, n), 1)),
+        ("ranks_host_vector", "auto", "host", x2[0], y3, 1,
+         ((1, 1, k), (1, k, n), 1)),
+    ]
+    calls = []
+    dot_cross_terms = rk.dot_cross_terms
+
+    def logged(x0, x1, y0, ysum, width):
+        calls.append((tuple(x0[0].shape), tuple(ysum[0].shape),
+                      1 if x1 is None else 2))
+        return dot_cross_terms(x0, x1, y0, ysum, width)
+
+    def runtime(layout, on):
+        return LocalMooseRuntime(ids, layout=layout, use_jit=False,
+                                 device=on)
+
+    saved = _fixed_keys(os)
+    rk.dot_cross_terms = logged
+    try:
+        for path, layout, family, x, y, k1, shape in cases:
+            args = {"x": x, "y": y}
+            card_rt = runtime(layout, device)
+            card_rt.evaluate_computation(comps[family], args)  # warm
+            rk.reset_launches()
+            del calls[:]
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = card_rt.evaluate_computation(comps[family], args)
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[path] = dict(rk.LAUNCHES)
+            seen = list(calls)
+            z = out["output_0"]
+            cpu = runtime(layout, "cpu").evaluate_computation(
+                comps[family], args)["output_0"]
+            want = np.tensordot(x, y, 1)
+            err = float(np.abs(z - want).max()) if z.shape == want.shape \
+                else float("inf")
+            row = {
+                "layout": card_rt.last_plan["layout"],
+                "x": list(np.shape(x)), "y": list(np.shape(y)),
+                "out": list(z.shape), "wall_ms": wall * 1e3,
+                "max_abs_err": err,
+                "equal_to_cpu": bool(np.array_equal(z, cpu)),
+                "k1_calls": [list(c) for c in seen],
+                "k1_launches": launches[path]["dot_cross_terms"],
+            }
+            record[path] = row
+            log(f"ranks {path} [{card}]: {json.dumps(row)}")
+            if z.shape != want.shape or not np.all(np.isfinite(z)):
+                raise AssertionError(f"{path}: output {z.shape}, not "
+                                     f"{want.shape}")
+            if err >= RANKS_TOL:
+                raise AssertionError(f"{path}: error {err} >= {RANKS_TOL}")
+            if not row["equal_to_cpu"]:
+                raise AssertionError(f"{path}: words differ from the CPU's")
+            if on_card and (seen != [shape] * k1
+                            or row["k1_launches"] != k1):
+                raise AssertionError(
+                    f"{path}: K1 ran {seen} ({row['k1_launches']} "
+                    f"launches), not {k1} x {shape}")
+
+        # (e) a pair the JAX package refuses is refused on both layouts,
+        # before any K1 launch
+        xs, ys = (rng.normal(size=s) for s in RANKS_REFUSED)
+        refused = {}
+        for layout in ("stacked", "per-host"):
+            rk.reset_launches()
+            try:
+                runtime(layout, device).evaluate_computation(
+                    comps["rep"], {"x": xs, "y": ys})
+            except ValueError as e:
+                refused[layout] = str(e)
+            else:
+                raise AssertionError(f"{layout}: {RANKS_REFUSED} was not "
+                                     "refused")
+            if "cannot contract" not in refused[layout] \
+                    or rk.LAUNCHES["dot_cross_terms"]:
+                raise AssertionError(f"{layout}: refused as "
+                                     f"{refused[layout]!r}")
+        record["refused"] = refused
+        log(f"ranks refused [{card}]: {json.dumps(refused)}")
+    finally:
+        rk.dot_cross_terms = dot_cross_terms
+        _restore(os, saved)
+
+    if on_card:
+        # K1 at (a)'s folded shape on its own, CUDA events
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + 26)
+        x0, x1 = (random_words(torch, gen, (3, m, k), 128)
+                  for _ in range(2))
+        y0, y1 = (random_words(torch, gen, (3, k, n), 128)
+                  for _ in range(2))
+        ys_ = ring.add(*y0, *y1)
+        k1_ms = cuda_time_ms(torch, lambda: rk.dot_cross_terms(
+            x0, x1, y0, ys_, 128), reps=20)
+        record["k1_ms"] = k1_ms
+        log(f"ranks K1 (3,{m},{k})@(3,{k},{n}) ring128 {k1_ms:.4f} ms "
+            f"[{card}]")
+    return record, launches
+
+
 def run_fabric(torch, rk, pm, classifier, logreg, x6, chaos_digest, card,
                device="cuda", dot_n=DOT_N):
     """Phase 25: (a) to (c) of the module's docstring with the port on
@@ -5072,23 +5265,35 @@ def run_fabric(torch, rk, pm, classifier, logreg, x6, chaos_digest, card,
             permutes = fabric_counts()["fabric_permutes"] - before
             # and one with every thread's CPU traced: the device work
             # launched inside the permutes alone, one copy a non-empty
-            # tensor leaf
-            _, copies, leaves, ranges = permute_copies(
-                torch, domain, lambda: session(client, comp, args))
-            return s, events, permutes, copies, leaves, ranges
+            # tensor leaf.  The profiler ties a device event to its range
+            # through the launching thread, and now and then loses that
+            # tie for a copy made on a thread the worker pool has just
+            # started (a copy_ left with no device event, seen outside
+            # the permutes too): a count short of the leaves is read
+            # again, at most PERMUTE_READS times in all, and every short
+            # read is logged.  A count above the leaves fails at once.
+            short = []
+            for _ in range(PERMUTE_READS):
+                _, copies, leaves, ranges = permute_copies(
+                    torch, domain, lambda: session(client, comp, args))
+                if ranges != permutes or not on_card or \
+                        len(copies) >= leaves:
+                    break
+                short.append([len(copies), leaves])
+            return s, events, permutes, copies, leaves, ranges, short
 
-        prof_s, events, permutes, copies, leaves, ranges = cluster(
+        prof_s, events, permutes, copies, leaves, ranges, short = cluster(
             domain, profiled_runs)
         busy_ms = sum(e.device_time_total for e in events) / 1e3
         if ranges != permutes or (on_card and len(copies) != leaves):
             raise AssertionError(
                 f"fabric permutes: {ranges} ranges of {permutes} "
                 f"permutes, {len(copies)} device copies of {leaves} "
-                "leaves")
+                f"leaves (short reads before: {short})")
         copy_ms = sum(k.duration for k in copies) / 1e3
         record["fabric_profiled"] = {
             "wall_ms": prof_s * 1e3, "permutes": permutes,
-            "permuted_leaves": leaves,
+            "permuted_leaves": leaves, "short_reads": short,
             "permute_copies": sorted({k.name for k in copies}),
             "permute_copy_ms": copy_ms,
             "copy_ms_per_permute": copy_ms / max(permutes, 1),
@@ -5519,6 +5724,17 @@ def main() -> int:
                             128, reps=20, label="per-host host Dot"),
         compare_ring_matmul(torch, rk, gen, DOT_N, DOT_N, DOT_N, 128,
                             reps=5, label="host ring Dot at 1000^3"),
+        # phase 26's folds: the per-host Dot of a batched x at one party,
+        # the host Dots of a matrix and of a vector against a rank-3 y
+        compare_party_dot(torch, rk, ring, gen, MLPC_ROWS, MLPC_FEATURES,
+                          MLPC_HIDDEN[0], 128, reps=20,
+                          label="per-host rank-3 Dot, one party"),
+        compare_ring_matmul(torch, rk, gen, MLPC_ROWS, MLPC_FEATURES,
+                            MLPC_HIDDEN[0], 128, reps=20,
+                            label="host rank-3 Dot"),
+        compare_ring_matmul(torch, rk, gen, 1, MLPC_FEATURES,
+                            MLPC_HIDDEN[0], 128, reps=20,
+                            label="host vector @ rank-3 Dot"),
     ]
     cross_rows.append(compare_cross_mul(torch, rk, gen, (PATH_N, 1), 128,
                                         reps=20))
@@ -6160,6 +6376,11 @@ def main() -> int:
         torch, rk, pm, classifier, logreg, requests[0],
         fault_record["chaos_grpc"]["schedule_digest"], smi)
 
+    # phase 26: the ring Dot at ranks past 2 (main path, each Dot
+    # counted on its own)
+    phase[0] = 26
+    ranks_record, ranks_launches = run_ranks(torch, rk, pm, smi)
+
     launches_by_path = {
         "secure_dot": dot_launches,
         "linear_regressor": linreg_launches,
@@ -6183,6 +6404,7 @@ def main() -> int:
         **distributed_launches,
         **fault_launches,
         **fabric_launches,
+        **ranks_launches,
     }
     protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
@@ -6272,6 +6494,14 @@ def main() -> int:
                                    "prf_threefry"),
         **{path: lowered_kernels for path in fabric_launches
            if path.startswith("fabric_")},
+        # phase 26: each Dot one K1 product (one a party per-host), then
+        # the truncation; a host fixed-point Dot K1 product-only, no draw
+        **{path: ("dot_cross_terms", "trunc_pairs", "prf_threefry")
+           for path in ranks_launches if path.startswith("ranks_stacked")},
+        **{path: ("dot_cross_terms", "trunc_combine", "prf_threefry")
+           for path in ranks_launches if path.startswith("ranks_per_host")},
+        **{path: ("dot_cross_terms",)
+           for path in ranks_launches if path.startswith("ranks_host")},
     }
     for name in ("trunc_pairs", "trunc_combine"):
         if launches_by_path["secret_uint64"][name]:
@@ -6394,6 +6624,9 @@ def main() -> int:
             # phase 25's parts
             "launches_fabric_mesh": {
                 path: by_path[path] for path in fabric_launches},
+            # phase 26's Dots
+            "launches_ranks": {
+                path: by_path[path] for path in ranks_launches},
             "equal": all(r["equal"] for r in rows
                          if r["equal"] is not None),
             "max_abs_err": max(r["max_abs_err"] for r in rows
@@ -6482,6 +6715,7 @@ def main() -> int:
         "distributed": distributed_record,
         "faults": fault_record,
         "fabric_mesh": fabric_record,
+        "ranks": ranks_record,
         "seconds": time.perf_counter() - started,
     }
     log(f"chip_smoke: {record['seconds']:.1f} s in all [{smi}]")

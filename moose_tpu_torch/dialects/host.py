@@ -616,16 +616,18 @@ def neg_(x: HostTensor, plc: str) -> HostTensor:
     return HostTensor(-x.value, plc, x.dtype)
 
 
-def _axis(axis):
+def _axis(x: HostTensor, axis):
+    ring.check_axis(x.value.dim(), axis)
     return tuple(axis) if isinstance(axis, (tuple, list)) else axis
 
 
 def sum_(x: HostTensor, axis, plc: str) -> HostTensor:
-    return HostTensor(torch.sum(x.value, dim=_axis(axis)), plc, x.dtype)
+    return HostTensor(torch.sum(x.value, dim=_axis(x, axis)), plc, x.dtype)
 
 
 def mean(x: HostTensor, axis, plc: str) -> HostTensor:
-    return HostTensor(torch.mean(x.value, dim=_axis(axis)), plc, x.dtype)
+    return HostTensor(torch.mean(x.value, dim=_axis(x, axis)), plc,
+                      x.dtype)
 
 
 def _f1(fn):
@@ -648,7 +650,8 @@ inverse = _f1(torch.linalg.inv)
 
 
 def softmax(x: HostTensor, axis: int, plc: str) -> HostTensor:
-    return HostTensor(torch.softmax(x.value, dim=axis), plc, x.dtype)
+    return HostTensor(torch.softmax(x.value, dim=_axis(x, axis)), plc,
+                      x.dtype)
 
 
 def _ordered(x: HostTensor):
@@ -661,7 +664,8 @@ def _ordered(x: HostTensor):
 
 def argmax(x: HostTensor, axis: int, plc: str) -> HostTensor:
     """Indices as uint64 (their int64 words)."""
-    return HostTensor(torch.argmax(_ordered(x), dim=axis), plc, dt.uint64)
+    return HostTensor(torch.argmax(_ordered(x), dim=_axis(x, axis)), plc,
+                      dt.uint64)
 
 
 def maximum(xs: Sequence[HostTensor], plc: str) -> HostTensor:
@@ -702,7 +706,10 @@ def select(x, axis: int, index: HostBitTensor, plc: str):
                                x.integral_precision, x.fractional_precision)
 
     def fn(a):
-        return a.index_select(axis, keep.to(a.device))
+        # numpy's compress, which the reference runs, takes a 0-d
+        # tensor as one of shape (1,)
+        return a.reshape(a.shape or (1,)).index_select(axis,
+                                                        keep.to(a.device))
 
     return _map(x, fn, plc)
 

@@ -243,11 +243,21 @@ def from_python_ints(values: Sequence[int], width: int, device):
     return lo, hi
 
 
+def check_axis(ndim: int, axis) -> None:
+    """Refuse an axis (or tuple of axes) outside [-ndim, ndim), as numpy
+    and the JAX package do: torch takes 0 and -1 on a 0-d tensor."""
+    for a in axis if isinstance(axis, (tuple, list)) else (axis,):
+        if a is not None and not -ndim <= a < ndim:
+            raise ValueError(
+                f"axis {a} is out of bounds for array of dimension {ndim}")
+
+
 def sum_(lo, hi, axis: int):
     """Sum-reduce over ``axis`` mod 2^w.  For ring128 the low words are
     summed as 32-bit halves (exact in 64 bits), and the carry into the
     high word is recombined with logical shifts and an unsigned compare,
     as ``ring.sum_`` of the JAX package does."""
+    check_axis(lo.dim(), axis)
     if hi is None:
         return torch.sum(lo, dim=axis), None
     s_ll = torch.sum(torch.bitwise_and(lo, MASK32), dim=axis)
@@ -333,58 +343,58 @@ def im2col(x, kh: int, kw: int, strides, padding):
     return torch.cat(cols, dim=-1), out_h, out_w
 
 
-def _promote(lo1, hi1, lo2, hi2):
-    """Vector operands of a matrix product as matrices, as
-    ``ring.matmul`` of the JAX package promotes them."""
-    if lo1.dim() == 1:
-        lo1 = lo1[None, :]
-        hi1 = None if hi1 is None else hi1[None, :]
-    if lo2.dim() == 1:
-        lo2 = lo2[:, None]
-        hi2 = None if hi2 is None else hi2[:, None]
-    return lo1, hi1, lo2, hi2
+def dot_shapes(x_shape, y_shape):
+    """(M, k, N) and the output shape of a ring Dot under the JAX
+    package's rule (``dot_general`` contracting x's last axis with y's
+    first, at any rank): ``x.shape[:-1] + y.shape[1:]``, x folded to
+    (M, k) and y to (k, N).  A vector keeps the promotion and squeeze
+    of a matrix product: (k,) folds to (1, k) or (k, 1) and leaves no
+    axis in the output.  A 0-d operand, or contracted axes of unequal
+    size, is refused as the reference refuses it."""
+    x_shape, y_shape = tuple(x_shape), tuple(y_shape)
+    if not x_shape or not y_shape or x_shape[-1] != y_shape[0]:
+        raise ValueError(
+            f"Dot contracts x's last axis with y's first: cannot "
+            f"contract {x_shape} with {y_shape}")
+    return (math.prod(x_shape[:-1]), x_shape[-1], math.prod(y_shape[1:]),
+            x_shape[:-1] + y_shape[1:])
 
 
-def _squeeze(t, a_vec: bool, b_vec: bool):
-    """The unit axes a promotion added, dropped from a product."""
-    if t is None:
-        return None
-    if a_vec and b_vec:
-        return t[0, 0]
-    if a_vec:
-        return t[0]
-    if b_vec:
-        return t[..., 0]
-    return t
+def _fold(lo, hi, shape):
+    """Ring words as a view of ``shape`` over contiguous words."""
+    return lo.contiguous().view(shape), (
+        None if hi is None else hi.contiguous().view(shape))
+
+
+def _unfold(lo, hi, shape):
+    return lo.view(shape), None if hi is None else hi.view(shape)
 
 
 def matmul(lo1, hi1, lo2, hi2):
-    """Ring matrix product (Dot) mod 2^w; vector operands are promoted to
-    matrices and the unit axes squeezed from the result.  On the card it
-    is K1 (``dot_cross_terms`` as ``x0 @ ysum`` with zero ``x1`` and
-    ``y0``): PyTorch has no int64 matrix product on CUDA."""
+    """Ring Dot mod 2^w at any rank (:func:`dot_shapes`): x folded to
+    (M, k), y to (k, N), one product, the result viewed back.  On the
+    card it is K1 (``dot_cross_terms`` as ``x0 @ ysum`` with zero ``x1``
+    and ``y0``): PyTorch has no int64 matrix product on CUDA."""
     from ..native import ring_kernels as rk
 
-    a_vec, b_vec = lo1.dim() == 1, lo2.dim() == 1
-    lo1, hi1, lo2, hi2 = _promote(lo1, hi1, lo2, hi2)
+    m, k, n, out = dot_shapes(lo1.shape, lo2.shape)
     width = 64 if hi1 is None else 128
-    lo, hi = rk.ring_matmul((lo1, hi1), (lo2, hi2), width)
-    return _squeeze(lo, a_vec, b_vec), _squeeze(hi, a_vec, b_vec)
+    lo, hi = rk.ring_matmul(_fold(lo1, hi1, (m, k)),
+                            _fold(lo2, hi2, (k, n)), width)
+    return _unfold(lo, hi, out)
 
 
 def dot_cross_terms(x0, x1, y0, y1, width: int):
-    """One party's cross terms of a secure matrix product,
-    ``x0 @ (y0 + y1) + x1 @ y0`` mod 2^w, for (lo, hi) pairs: K1 at one
-    party on the card.  Vector operands are promoted, then squeezed."""
+    """One party's cross terms of a secure Dot, ``x0 @ (y0 + y1) + x1 @
+    y0`` mod 2^w, for (lo, hi) pairs at any rank (:func:`dot_shapes`):
+    K1 at one party on the (M, k) and (k, N) folds on the card."""
     from ..native import ring_kernels as rk
 
-    a_vec, b_vec = x0[0].dim() == 1, y0[0].dim() == 1
-    x0l, x0h, y0l, y0h = _promote(*x0, *y0)
-    x1l, x1h, y1l, y1h = _promote(*x1, *y1)
-    lo, hi = rk.party_dot_cross_terms(
-        (x0l, x0h), (x1l, x1h), (y0l, y0h), add(y0l, y0h, y1l, y1h), width
-    )
-    return _squeeze(lo, a_vec, b_vec), _squeeze(hi, a_vec, b_vec)
+    m, k, n, out = dot_shapes(x0[0].shape, y0[0].shape)
+    x0, x1 = (_fold(*t, (m, k)) for t in (x0, x1))
+    y0, y1 = (_fold(*t, (k, n)) for t in (y0, y1))
+    lo, hi = rk.party_dot_cross_terms(x0, x1, y0, add(*y0, *y1), width)
+    return _unfold(lo, hi, out)
 
 
 def conv_columns(x_lo, x_hi, kshape, strides, padding):

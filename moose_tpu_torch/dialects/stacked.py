@@ -49,7 +49,7 @@ from ..values import (
     HostTensor,
     Mir3FixedTensor,
 )
-from . import aes, logical
+from . import aes, host, logical
 
 REP_KINDS = frozenset({
     "Identity", "Constant", "Add", "Sub", "Mul", "Dot", "Div", "AddN",
@@ -187,7 +187,9 @@ def _squeeze_arr(a, axis):
 
 
 def _slice_arr(a, spec):
-    return a[(slice(None), slice(None)) + tuple(spec)]
+    # numpy's basic indexing, negative steps included, past the (party,
+    # slot) axes
+    return host.strided_index(a, (slice(None), slice(None)) + tuple(spec))
 
 
 _squeeze = spmd._structural(_squeeze_arr)

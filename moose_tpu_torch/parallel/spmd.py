@@ -295,34 +295,28 @@ def _mul_terms(x: SpmdRep, y: SpmdRep):
 
 
 def _dot_terms(x: SpmdRep, y: SpmdRep):
-    """Cross terms of the secure matmul x @ y, party-batched in the
-    ``dot_cross_terms`` kernel, which takes ``y0 + y1`` summed
-    beforehand.  A vector operand is promoted to a matrix for the kernel
-    and its unit axis squeezed from the (3, *shape) result, as the JAX
-    package's ``ring.matmul`` does: (m, k) @ (k,) gives (m,), (k,) @
-    (k, n) gives (n,) and (k,) @ (k,) a 0-d result."""
-    if len(x.shape) not in (1, 2) or len(y.shape) not in (1, 2):
-        raise NotImplementedError(
-            f"the port's secure dot takes matrices and vectors, got "
-            f"{x.shape} @ {y.shape}"
-        )
+    """Cross terms of the secure Dot x @ y at any rank, under the JAX
+    package's rule (``ring.dot_shapes``: x's last axis against y's
+    first), party-batched in the ``dot_cross_terms`` kernel, which takes
+    ``y0 + y1`` summed beforehand: each slot's words folded to (3, M, k)
+    and (3, k, N), one K1 product, the (3, M, N) result viewed back to
+    (3, *x.shape[:-1], *y.shape[1:])."""
+    m, k, n, shape = ring.dot_shapes(x.shape, y.shape)
     if x.lo.is_cuda and len(x.shape) == len(y.shape) == 2:
         from ..compilation import autotune
 
         # the plan's per-class dot decision, recorded for last_plan where
         # the reference's dispatch records it (a product of matrices): it
         # routes nothing, K1 runs whatever it says
-        autotune.dot_kernel_wanted(x.width, x.shape + y.shape[1:])
-    shape = x.shape[:-1] + y.shape[1:]
-    if len(x.shape) == 1:
-        x = reshape(x, (1,) + x.shape)
-    if len(y.shape) == 1:
-        y = reshape(y, y.shape + (1,))
-    y0 = slot_words(y, 0)
-    ys = ring.add(*y0, *slot_words(y, 1))
-    v = rk.dot_cross_terms(
-        slot_words(x, 0), slot_words(x, 1), y0, ys, x.width
-    )
+        autotune.dot_kernel_wanted(x.width, (m, k, n))
+
+    def fold(t, slot, rows, cols):
+        return tuple(None if w is None else w.view(3, rows, cols)
+                     for w in slot_words(t, slot))
+
+    y0 = fold(y, 0, k, n)
+    v = rk.dot_cross_terms(fold(x, 0, m, k), fold(x, 1, m, k), y0,
+                           ring.add(*y0, *fold(y, 1, k, n)), x.width)
     return tuple(None if w is None else w.view((3,) + shape) for w in v)
 
 

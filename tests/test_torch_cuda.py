@@ -1440,6 +1440,55 @@ def test_logreg_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
         assert launched[name] >= 1, name
 
 
+# ring Dots past rank 2 (x's last axis against y's first), each one K1
+# launch on its (M, k) @ (k, N) fold; the last pair is refused
+RANK_PAIRS = (((2, 3, 4), (4, 5)), ((3, 4), (4, 5, 6)), ((4,), (4, 5, 6)),
+              ((2, 2, 3), (3, 2, 2)), ((2, 3, 4), (2, 4, 5)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("pair", RANK_PAIRS, ids=str)
+def test_ring_dot_of_any_rank_is_one_k1_launch(cuda, width, pair):
+    """The host ring Dot (K1 product-only), one party's cross terms (K1
+    at one party) and the stacked secure Dot (K1 party-batched) of
+    ``pair`` on the card, word for word the CPU's, one launch each."""
+    from moose_tpu_torch.parallel import spmd
+
+    xs, ys = pair
+    rng = np.random.default_rng(len(xs) * 10 + len(ys) + width)
+    x, x1 = (_words(rng, xs, width, cuda) for _ in range(2))
+    y, y1 = (_words(rng, ys, width, cuda) for _ in range(2))
+
+    def cpu(p):
+        return tuple(None if t is None else t.cpu() for t in p)
+
+    if xs[-1] != ys[0]:
+        for fn in (lambda: ring.matmul(*x, *y),
+                   lambda: ring.dot_cross_terms(x, x1, y, y1, width)):
+            with pytest.raises(ValueError, match="cannot contract"):
+                fn()
+        return
+    before = rk.LAUNCHES["dot_cross_terms"]
+    got = ring.matmul(*x, *y)
+    assert rk.LAUNCHES["dot_cross_terms"] == before + 1
+    _assert_equal(cpu(got), ring.matmul(*cpu(x), *cpu(y)))
+    assert tuple(got[0].shape) == xs[:-1] + ys[1:]
+    got = ring.dot_cross_terms(x, x1, y, y1, width)
+    assert rk.LAUNCHES["dot_cross_terms"] == before + 2
+    _assert_equal(cpu(got), ring.dot_cross_terms(cpu(x), cpu(x1), cpu(y),
+                                                 cpu(y1), width))
+    sess = spmd.SpmdSession(MK, cuda)
+    sx, sy = spmd.share(sess, *x, width), spmd.share(sess, *y, width)
+    got = spmd._dot_terms(sx, sy)
+    assert rk.LAUNCHES["dot_cross_terms"] == before + 3
+    sc = spmd.SpmdRep(sx.lo.cpu(), None if sx.hi is None else sx.hi.cpu(),
+                      width)
+    yc = spmd.SpmdRep(sy.lo.cpu(), None if sy.hi is None else sy.hi.cpu(),
+                      width)
+    _assert_equal(cpu(got), spmd._dot_terms(sc, yc))
+
+
 def _chip_smoke():
     import sys
     from pathlib import Path
