@@ -341,21 +341,38 @@ Phases (each raises on failure; the script then exits non-zero):
      of float64 ``np.tensordot(x, y, 1)``; (e) (2, 3, 4) @ (2, 4, 5)
      refused on both layouts with no K1 launch.  K1's time at (a)'s
      fold printed on its own line.
+ 27. the reference's user journeys as the port's programs
+     (``run_programs``): the seven of PROGRAMS imported and their
+     ``main([..., "--device", "cuda"])`` called at the JAX scripts'
+     defaults (the logistic-regression trainer and its query, the ONNX
+     example, the ResNet at 4 images, AES-GCM input on the stacked
+     layout, the correlation from storage, the ONNX tutorial, the
+     multichip tutorial's step and softmax on a (3, 2) mesh of six
+     handles over the card), each passing its own checks, the trainer
+     within PROGRAM_TRAIN_TOL of float64's 8 steps and its scores within
+     PROGRAM_SCORE_TOL, the ResNet within RESNET_TOL of
+     ``resnet_reference``; no plain version of a kernel may see a card
+     tensor (``plain_on_card``); then the three of PROGRAM_PROCESSES
+     (the CLI tutorial, AES and the correlation over three comets) at
+     once as ``python -m ... --device cuda``, each in a session of its
+     own: exit 0, the line each prints on success, and no process of the
+     session left.  Each program's wall printed beside the card.
 Every evaluation of phases 4 to 17 and 22 must have run on the stacked
 layout, phase 18's and 19's on the per-host one
 (``last_plan["layout"]``), and phase 20's and 21's on both (the sessions
 per-host, the trained model stacked; the draw oracles one each), and
-phase 24 (a)'s and 25 (a)'s on the stacked one.  Phases 4 to 26 are the
+phase 24 (a)'s and 25 (a)'s on the stacked one.  Phases 4 to 27 are the
 main path:
 the kernels' launch counters are set to 0 just before each (each of
-phase 20's, 21's, 22's, 23's, 24's, 25's and 26's parts apart) and read
-just after;
-phase 23's comet processes and phase 24's vixen and rudolph processes
-count in their own processes.  K1, K2's trunc_pairs and the
-threefry kernel in the phase's stream layout (threefry in all but 7,
-threefry-pallas in 7, and never the other) must have launched in each
-but 10 and 13, and every kernel (K1, K2's trunc_pairs, K3's
-cross_terms_reshare, K4, K5 in both modes, K6) in phases 6 to 12 and 14
+phase 20's, 21's, 22's, 23's, 24's, 25's, 26's and 27's parts apart) and
+read just after;
+phase 23's comet processes, phase 24's vixen and rudolph processes and
+phase 27's program processes count in their own processes.  K1, K2's
+trunc_pairs and the threefry kernel in the phase's stream layout
+(threefry in all but 7, threefry-pallas in 7, and never the other) must
+have launched in each but 10 and 13, and every kernel (K1, K2's
+trunc_pairs, K3's cross_terms_reshare, K4, K5 in both modes, K6) in
+phases 6 to 12 and 14
 (K1 but in phases 9 and 10, which hold no matrix product), 15, 16 and
 17; phase 13 must launch K5's msb, K3's cross_terms_reshare and K7;
 phase 16 must launch no K7 and expand its draws on the host
@@ -393,7 +410,9 @@ cross_terms_reshare and K7, and no K2.  Phase 25's config 3 on the mesh
 must launch every kernel of phase 6, its logreg_train_step those of
 phase 20 (d), and its fabric sessions those of phase 23.  Phase 26's
 stacked Dots must launch K1, K2's trunc_pairs and K7, its per-host ones
-K1, K2's trunc_combine and K7, its host Dots K1.
+K1, K2's trunc_combine and K7, its host Dots K1.  Each of phase 27's
+in-process programs must launch every kernel of phase 6 (the
+correlation all but K1, as phase 10).
 The line before the last is the kernels' JSON record; the last line is
 the device record.
 
@@ -621,6 +640,33 @@ RANKS_X = (8, 128, MLPC_FEATURES)
 RANKS_Y = (MLPC_FEATURES, 8, 8)
 RANKS_TOL = 1e-6  # against float64 np.tensordot(x, y, 1)
 RANKS_REFUSED = ((2, 3, 4), (2, 4, 5))
+# phase 27: the reference's user journeys as the port's programs
+# (moose_tpu_torch/examples, moose_tpu_torch/tutorials) at the JAX
+# scripts' defaults: the seven that run in this process, by module under
+# moose_tpu_torch, with the line each prints on success (None: the JAX
+# script prints none and checks nothing, so the results are held here)
+PROGRAMS = {
+    "examples.logistic_regression": None,
+    "examples.onnx_predictor": "OK",
+    "examples.resnet_inference": None,
+    "examples.aes_inference": "OK",
+    "tutorials.scientific_computing_multiple_players":
+        "OK — secure result matches the plaintext statistic",
+    "tutorials.ml_inference_with_onnx":
+        "OK — encrypted inference matches the float64 model",
+    "tutorials.multichip_spmd": "multichip SPMD tutorial OK",
+}
+# the three that start processes (elk and dasher; three comets each),
+# run as a user runs them: flags, and the line printed on success
+PROGRAM_PROCESSES = {
+    "tutorials.interfacing_textual_and_cli": ((), "OK — dasher computed"),
+    "examples.aes_inference": (("--grpc",), "OK"),
+    "tutorials.scientific_computing_multiple_players": (
+        ("--grpc",), "OK — secure result matches the plaintext statistic"),
+}
+PROGRAM_TIMEOUT_S = 600
+PROGRAM_TRAIN_TOL = 1e-3  # the 8 secure SGD steps against float64's
+PROGRAM_SCORE_TOL = 5e-3  # the exact sigmoid (phase 6's limit)
 FAULT_TRAIN_STEPS = 2  # (c): steps of SESSION_BATCH rows an epoch
 FAULT_TRAIN_EPOCHS = 2
 FAULT_KILL_AT = 0.75  # (c): carole dies after this share of her ops
@@ -5379,6 +5425,173 @@ def run_fabric(torch, rk, pm, classifier, logreg, x6, chaos_digest, card,
     return record, launches
 
 
+def plain_on_card(torch, rk):
+    """Wrap every plain version of ``rk`` so that a call reaching it with
+    a CUDA tensor or device (in any argument, through tuples, lists and
+    dicts) is counted; returns (the count by name, a function that
+    restores the originals)."""
+    seen = {}
+    originals = {name: getattr(rk, name) for name in dir(rk)
+                 if name.endswith("_plain") and callable(getattr(rk, name))}
+
+    def on_card(value):
+        if isinstance(value, torch.Tensor):
+            return value.device.type == "cuda"
+        if isinstance(value, torch.device):
+            return value.type == "cuda"
+        if isinstance(value, (tuple, list)):
+            return any(on_card(v) for v in value)
+        if isinstance(value, dict):
+            return any(on_card(v) for v in value.values())
+        return False
+
+    def counted(name, fn):
+        def plain(*args, **kwargs):
+            if on_card(args) or on_card(kwargs):
+                seen[name] = seen.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return plain
+
+    for name, fn in originals.items():
+        setattr(rk, name, counted(name, fn))
+
+    def restore():
+        for name, fn in originals.items():
+            setattr(rk, name, fn)
+
+    return seen, restore
+
+
+def run_programs(torch, rk, card, device="cuda"):
+    """Phase 27: the port's programs of the reference's examples and
+    tutorials.  The seven of ``PROGRAMS`` are imported and their
+    ``main([..., "--device", device])`` called at the JAX scripts'
+    defaults, each counted on its own (wall, launches; no plain version
+    may see a card tensor); the three of ``PROGRAM_PROCESSES`` run at
+    once as ``python -m``, each in a session of its own, which must exit
+    0, print the line, and leave no process of the session behind.
+    Every number logged carries ``card``.  Returns (record, launches by
+    path); raises on any failed check."""
+    import contextlib
+    import importlib
+    import io
+    import os
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    on_card = torch.device(device).type == "cuda"
+    record, launches = {"card": card}, {}
+    seen, restore = plain_on_card(torch, rk)
+    try:
+        for name, ok_line in PROGRAMS.items():
+            module = importlib.import_module(f"moose_tpu_torch.{name}")
+            printed = io.StringIO()
+            rk.reset_launches()
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                result = module.main(["--device", device])
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            path = "program_" + name.split(".")[1]
+            launches[path] = dict(rk.LAUNCHES)
+            lines = printed.getvalue().splitlines()
+            for line in lines:
+                log(f"  {name}: {line}")
+            row = {"wall_s": wall, "launches": launches[path]}
+            if ok_line is not None and ok_line not in lines:
+                raise AssertionError(f"{name} did not print {ok_line!r}")
+            if name == "examples.logistic_regression":
+                # the same 8 SGD steps in float64, exact sigmoid
+                lr = module
+                rng = np.random.default_rng(0)
+                x = rng.normal(size=(lr.BATCH, lr.N_FEATURES))
+                y = (x @ rng.normal(size=(lr.N_FEATURES, 1)) > 0) \
+                    .astype(np.float64)
+                w = np.zeros((lr.N_FEATURES, 1))
+                for _ in range(lr.STEPS):
+                    w = w - lr.LR * x.T @ (1 / (1 + np.exp(-(x @ w))) - y) \
+                        / lr.BATCH
+                row["train_err"] = float(np.abs(result["w"] - w).max())
+                row["score_err"] = float(
+                    np.abs(result["scores"] - result["plain"]).max())
+                if not (row["train_err"] < PROGRAM_TRAIN_TOL
+                        and row["score_err"] < PROGRAM_SCORE_TOL):
+                    raise AssertionError(f"{name}: {row}")
+            elif name == "examples.resnet_inference":
+                want = resnet_reference(result["params"], result["x"])
+                probs = result["probs"]
+                row["max_abs_err"] = float(np.abs(probs - want).max()) \
+                    if probs.shape == want.shape else float("inf")
+                if not row["max_abs_err"] < RESNET_TOL:
+                    raise AssertionError(f"{name}: {row}")
+            record[path] = row
+            log(f"program {name}: wall {wall:.3f} s [{card}] "
+                f"{json.dumps(row)}")
+    finally:
+        restore()
+    if seen:
+        raise AssertionError(f"plain versions ran on card tensors: {seen}")
+
+    # the three process programs at once, each in a session of its own
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as files:
+        for name, (flags, ok_line) in PROGRAM_PROCESSES.items():
+            path = "process_" + name.split(".")[1] + "".join(
+                f"_{f.lstrip('-')}" for f in flags)
+            out, err = (files.enter_context(open(Path(tmp) / f"{path}.{e}",
+                                                 "w+"))
+                        for e in ("out", "err"))
+            proc = subprocess.Popen(
+                [sys.executable, "-m", f"moose_tpu_torch.{name}", *flags,
+                 "--device", device],
+                cwd=root, env=env, stdout=out, stderr=err, text=True,
+                start_new_session=True)
+            runs[path] = (ok_line, proc, out, err, time.perf_counter())
+        walls = {}
+        deadline = time.perf_counter() + PROGRAM_TIMEOUT_S
+        try:
+            while len(walls) < len(runs) and time.perf_counter() < deadline:
+                for path, (_, proc, _, _, t0) in runs.items():
+                    if path not in walls and proc.poll() is not None:
+                        walls[path] = time.perf_counter() - t0
+                time.sleep(0.05)
+        finally:
+            left = {}
+            for path, (_, proc, _, _, _) in runs.items():
+                # a process still in the program's session outlived it
+                # (or the program outlived the deadline)
+                try:
+                    os.killpg(proc.pid, 0)
+                    left[path] = True
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    left[path] = False
+                proc.wait()
+        for path, (ok_line, proc, out, err, _) in runs.items():
+            out.seek(0)
+            err.seek(0)
+            lines = out.read().splitlines()
+            row = {"wall_s": walls.get(path), "exit_code": proc.returncode,
+                   "processes_left": left[path]}
+            record[path] = row
+            for line in lines:
+                log(f"  {path}: {line}")
+            log(f"program {path}: wall {row['wall_s']} s [{card}] "
+                f"{json.dumps(row)}")
+            if proc.returncode != 0 or left[path] or not any(
+                    line.startswith(ok_line) for line in lines):
+                raise AssertionError(f"{path}: {row}\n{err.read()[-3000:]}")
+    return record, launches
+
+
 def timed(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -6381,6 +6594,12 @@ def main() -> int:
     phase[0] = 26
     ranks_record, ranks_launches = run_ranks(torch, rk, pm, smi)
 
+    # phase 27: the reference's examples and tutorials as the port's
+    # programs (main path, each in-process program counted on its own;
+    # the three that start processes count in those processes)
+    phase[0] = 27
+    programs_record, programs_launches = run_programs(torch, rk, smi)
+
     launches_by_path = {
         "secure_dot": dot_launches,
         "linear_regressor": linreg_launches,
@@ -6405,6 +6624,7 @@ def main() -> int:
         **fault_launches,
         **fabric_launches,
         **ranks_launches,
+        **programs_launches,
     }
     protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
@@ -6502,6 +6722,12 @@ def main() -> int:
            for path in ranks_launches if path.startswith("ranks_per_host")},
         **{path: ("dot_cross_terms",)
            for path in ranks_launches if path.startswith("ranks_host")},
+        # phase 27: each program's graph on the stacked layout (the
+        # multichip tutorial's step and softmax on the protocol layer);
+        # the correlation holds no matrix product, as phase 10
+        **{path: protocol + ("prf_threefry",) for path in programs_launches},
+        "program_scientific_computing_multiple_players":
+            protocol[1:] + ("prf_threefry",),
     }
     for name in ("trunc_pairs", "trunc_combine"):
         if launches_by_path["secret_uint64"][name]:
@@ -6627,6 +6853,9 @@ def main() -> int:
             # phase 26's Dots
             "launches_ranks": {
                 path: by_path[path] for path in ranks_launches},
+            # phase 27's programs in this process
+            "launches_programs": {
+                path: by_path[path] for path in programs_launches},
             "equal": all(r["equal"] for r in rows
                          if r["equal"] is not None),
             "max_abs_err": max(r["max_abs_err"] for r in rows
@@ -6716,6 +6945,7 @@ def main() -> int:
         "faults": fault_record,
         "fabric_mesh": fabric_record,
         "ranks": ranks_record,
+        "programs": programs_record,
         "seconds": time.perf_counter() - started,
     }
     log(f"chip_smoke: {record['seconds']:.1f} s in all [{smi}]")

@@ -248,10 +248,11 @@ def test_grpc_workers_equal_the_jax_workers(cases, cluster, graph, stream):
     check_grpc(cases[graph], cluster[1], graph, stream)
 
 
-def check_grpc(case, endpoints, graph, stream):
+def check_grpc(case, endpoints, graph, stream, retrieve_s=RETRIEVE_S):
     """The same lowered bytes launched on the port's gRPC workers (each
     role through its plan): the outputs equal the JAX workers'
-    exactly."""
+    exactly.  Each retrieve waits at most ``retrieve_s`` seconds for its
+    role's outputs."""
     client = {i: ChoreographyClient(endpoints[i]) for i in IDS}
     blob = serialize_computation(case.tl)
     owner = {op.name: case.tl.placement_of(op).name
@@ -261,7 +262,7 @@ def check_grpc(case, endpoints, graph, stream):
         for i in IDS:
             own = {k: v for k, v in case.args.items() if owner.get(k) == i}
             assert client[i].launch(session, blob, own)["ok"]
-        results = {i: client[i].retrieve(session, timeout=RETRIEVE_S)
+        results = {i: client[i].retrieve(session, timeout=retrieve_s)
                    for i in IDS}
     from moose_tpu_torch.serde import deserialize_value
 

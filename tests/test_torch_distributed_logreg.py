@@ -8,7 +8,14 @@ and the outputs of the same lowered bytes on in-process gRPC workers,
 equal the JAX workers' word for word.  A file of its own: the JAX
 workers' first eager run of this graph costs 15-30 s of eager compiles
 on the CPU (their legacy scheduler, as ``test_torch_distributed.py``
-runs it)."""
+runs it).
+
+The gRPC session's retrieve has a limit of its own, ``RETRIEVE_S``: the
+three in-process workers run the 7,335-op graph in 6-10 s on an idle
+CPU, and past ``tests/test_torch_distributed.py``'s 15 s when the CPU is
+shared with other test processes (reproduced with six xdist workers of
+the port's heaviest test files on two cores: "receive timed out after
+15.0s")."""
 
 import pytest
 
@@ -17,6 +24,8 @@ from moose_tpu_torch.distributed.choreography import start_local_cluster
 from test_torch_distributed import IDS, check_grpc, check_local, lowered_case
 
 STREAM = "threefry"
+# a retrieve's deadline for config 3's lowered graph of 7,335 host ops
+RETRIEVE_S = 120.0
 
 
 @pytest.fixture(scope="module")
@@ -40,4 +49,4 @@ def test_local_workers_equal_the_jax_workers_word_for_word(case):
 
 
 def test_grpc_workers_equal_the_jax_workers(case, endpoints):
-    check_grpc(case, endpoints, "logreg", STREAM)
+    check_grpc(case, endpoints, "logreg", STREAM, retrieve_s=RETRIEVE_S)
