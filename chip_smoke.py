@@ -357,11 +357,36 @@ Phases (each raises on failure; the script then exits non-zero):
      once as ``python -m ... --device cuda``, each in a session of its
      own: exit 0, the line each prints on success, and no process of the
      session left.  Each program's wall printed beside the card.
+ 28. the stacked layout's compiled plans (``run_plans``), CUDA graphs
+     replayed against the eager walk: (a) config 1's secure dot
+     (1000x1000, fixed(14,23), ring128), config 3's logistic regression
+     (1024 x 100), config 4's AES input and config 5's MLP and ResNet at
+     phases 4, 6, 15, 11 and 14's widths, each on a fresh runtime: its
+     first evaluations validate and it settles promoted (``last_plan``:
+     plan_state "jit", plan_mode not eager, no pinned op), within its
+     phase's tolerance, a replay counting the eager walk's launches;
+     under two fixed master keys five replays of the secure dot and of
+     the logistic regression each equal the eager walk's words under the
+     same key, and the two keys' words differ; (b) for each, the median
+     wall of ten eager and ten replayed requests in turns, the
+     validating evaluations' walls, the launches a request, one eager
+     and one replayed request's device launches, busy ms and idle share
+     under torch.profiler, and the plan's private pool bytes; (c)
+     ``MOOSE_TPU_SELFCHECK_FORCE=1`` with ``MOOSE_TPU_SELFCHECK_FAULT=
+     Dot`` on the secure dot descends to the per-op rung and pins exactly
+     its Dot, the segment rungs returning the eager walk's words and the
+     per-op plan its reference's; (d) aes-ctr under ``use_jit`` raises
+     the JAX package's ConfigurationError; (e) two threads of eight
+     config-3 requests on one runtime, each equal to the single-thread
+     run under fixed keys and within 5e-3.  Every phase from 4 on that
+     runs the stacked layout with the default ``use_jit`` replays such
+     plans: each counts and times its requests once its plan has
+     validated (``settle``), and phase 16 (aes-ctr) runs eagerly.
 Every evaluation of phases 4 to 17 and 22 must have run on the stacked
 layout, phase 18's and 19's on the per-host one
 (``last_plan["layout"]``), and phase 20's and 21's on both (the sessions
 per-host, the trained model stacked; the draw oracles one each), and
-phase 24 (a)'s and 25 (a)'s on the stacked one.  Phases 4 to 27 are the
+phase 24 (a)'s and 25 (a)'s on the stacked one.  Phases 4 to 28 are the
 main path:
 the kernels' launch counters are set to 0 just before each (each of
 phase 20's, 21's, 22's, 23's, 24's, 25's, 26's and 27's parts apart) and
@@ -667,6 +692,12 @@ PROGRAM_PROCESSES = {
 PROGRAM_TIMEOUT_S = 600
 PROGRAM_TRAIN_TOL = 1e-3  # the 8 secure SGD steps against float64's
 PROGRAM_SCORE_TOL = 5e-3  # the exact sigmoid (phase 6's limit)
+# phase 28: the compiled plans
+PLAN_KEYS = (f"chip-smoke-{SEED}-plan-a", f"chip-smoke-{SEED}-plan-b")
+PLAN_REPLAYS = 5  # (a): replays under each key
+PLAN_WALLS = 10  # (b): eager and replayed requests, in turns
+PLAN_THREADS = 2  # (e)
+PLAN_THREAD_REQUESTS = 8
 FAULT_TRAIN_STEPS = 2  # (c): steps of SESSION_BATCH rows an epoch
 FAULT_TRAIN_EPOCHS = 2
 FAULT_KILL_AT = 0.75  # (c): carole dies after this share of her ops
@@ -751,19 +782,25 @@ PERMUTE_READS = 3
 
 
 def permute_copies(torch, domain, fn):
-    """(result, device events, leaves) of ``fn`` under torch.profiler
-    with the CPU of every thread traced: the device events launched
-    inside ``domain``'s permutes (each call wrapped in a profiler range
-    here, whichever worker thread makes it) and the non-empty tensor
-    leaves those calls were given.  Off the card the events are []."""
+    """(result, device events, leaves, ranges, short calls) of ``fn``
+    under torch.profiler with the CPU of every thread traced: the device
+    events launched inside ``domain``'s permutes (each call wrapped in a
+    profiler range here, whichever worker thread makes it), the
+    non-empty tensor leaves those calls were given, the ranges found,
+    and each call whose range holds fewer device events than it had
+    leaves (its leaves' shapes, dtypes and devices, and the events'
+    names).  Off the card the events are []."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    inner, leaves = domain.permute, [0]
+    inner, leaves, calls = domain.permute, [0], []
 
     def permute(sender, receiver, payload):
-        leaves[0] += sum(isinstance(leaf, torch.Tensor) and leaf.numel() > 0
-                         for leaf in payload)
-        with record_function(PERMUTE_RANGE):
+        mine = [(list(leaf.shape), str(leaf.dtype), str(leaf.device))
+                for leaf in payload
+                if isinstance(leaf, torch.Tensor) and leaf.numel() > 0]
+        leaves[0] += len(mine)
+        calls.append(mine)
+        with record_function(f"{PERMUTE_RANGE}#{len(calls) - 1}"):
             return inner(sender, receiver, payload)
 
     on_card = torch.cuda.is_available()
@@ -790,8 +827,16 @@ def permute_copies(torch, domain, fn):
     # device-side annotation of the same name)
     cpu = torch.autograd.DeviceType.CPU
     ranges = [e for e in prof.events()
-              if e.name == PERMUTE_RANGE and e.device_type == cpu]
-    return out, [k for e in ranges for k in under(e)], leaves[0], len(ranges)
+              if e.name.startswith(PERMUTE_RANGE + "#")
+              and e.device_type == cpu]
+    short = []
+    for e in ranges:
+        got = under(e)
+        want = calls[int(e.name.rsplit("#", 1)[1])]
+        if len(got) < len(want):
+            short.append({"leaves": want, "events": [k.name for k in got]})
+    return (out, [k for e in ranges for k in under(e)], leaves[0],
+            len(ranges), short)
 
 
 def device_events(torch, fn):
@@ -1400,9 +1445,12 @@ def compare_group(torch, rk, ring, draws, layout, reps, label):
         return out
 
     got, want = planes(), planes()
+    # the session's master key on the card, as SpmdSession keeps it and
+    # a captured plan writes it before each replay
+    key = rk.key_tensor(GROUP_MASTER, "cuda")
 
     def kernel():
-        rk.threefry_group(GROUP_MASTER, 0, 1000, layout, got)
+        rk.threefry_group(key, 0, 1000, layout, got)
         return [buf for d in got for buf, _ in d.planes]
 
     def plain():
@@ -1437,9 +1485,10 @@ def time_group(torch, rk, draws, layout, reps, label):
         (torch.empty(n, dtype=torch.uint8 if kind == "bits" else torch.int64,
                      device="cuda"), 0)
         for _ in range(2 if kind == "w128" else 1))) for kind, n in draws]
+    key = rk.key_tensor(GROUP_MASTER, "cuda")
 
     def kernel():
-        rk.threefry_group(GROUP_MASTER, 0, 1000, layout, out)
+        rk.threefry_group(key, 0, 1000, layout, out)
 
     bound_ms, bound_by = group_bound(draws, layout)
     row = dict(
@@ -2137,6 +2186,11 @@ def run_training(torch, rk, runtime, rng):
         "w1": rng.normal(size=(TRAIN_FEATURES, MLP_HIDDEN)) * 0.1,
         "w2": rng.normal(size=(MLP_HIDDEN, 1)) * 0.1,
     }
+    # each trainer's step graph validates its plan first
+    for trainer, state in ((logreg, {"w": np.zeros((TRAIN_FEATURES, 1))}),
+                           (mlp, mlp_state)):
+        settle(runtime, trainer.step_computation(TRAIN_ROWS),
+               dict(state, x=batches[0][0], y=batches[0][1]))
     rk.reset_launches()
     state, errs, seconds = train_steps(
         runtime, logreg, batches, {"w": np.zeros((TRAIN_FEATURES, 1))},
@@ -2191,6 +2245,7 @@ def step_device_launches(torch, runtime, rng):
     comp = trainer.step_computation(TRAIN_ROWS)
     x, y = training_data(rng, TRAIN_ROWS, TRAIN_FEATURES)
     args = {"w": np.zeros((TRAIN_FEATURES, 1)), "x": x, "y": y}
+    settle(runtime, comp, args)
     return device_launches(
         torch, lambda: runtime.evaluate_computation(comp, args))
 
@@ -2229,6 +2284,8 @@ def run_from_bytes(torch, rk, runtime, serde, textual, elk_compiler,
             "phase 6's graph does not serialize to the JAX package's bytes")
     requests = [rng.normal(size=(LOGREG_ROWS, LOGREG_FEATURES))
                 for _ in range(BYTES_REQUESTS)]
+    settle(runtime, compiled, {"x": requests[0]},
+           evaluate=runtime.evaluate_compiled)
     rk.reset_launches()
     outs, walls = [], []
     for xr in requests:
@@ -3330,6 +3387,8 @@ def run_analyzer(torch, rk, pm, runtime_cls, classifier, logreg, rng,
     launched_nothing("the meta replay")
     runtime = runtime_cls(ids, device=device)
     xr = rng.normal(size=(LOGREG_ROWS, LOGREG_FEATURES))
+    # a validating request runs the eager walk beside its candidate
+    settle(runtime, logreg, {"x": xr})
     rk.reset_launches()
     with drawledger.recording() as ledger:
         out, stacked_s = wall(
@@ -5320,16 +5379,22 @@ def run_fabric(torch, rk, pm, classifier, logreg, x6, chaos_digest, card,
             # read is logged.  A count above the leaves fails at once.
             short = []
             for _ in range(PERMUTE_READS):
-                _, copies, leaves, ranges = permute_copies(
+                _, copies, leaves, ranges, calls = permute_copies(
                     torch, domain, lambda: session(client, comp, args))
                 if ranges != permutes or not on_card or \
                         len(copies) >= leaves:
                     break
-                short.append([len(copies), leaves])
+                short.append([len(copies), leaves, calls[:4]])
             return s, events, permutes, copies, leaves, ranges, short
 
+        # a count that stays short through a cluster's reads is read
+        # again on a fresh cluster (new worker and session threads), once
         prof_s, events, permutes, copies, leaves, ranges, short = cluster(
             domain, profiled_runs)
+        if on_card and ranges == permutes and len(copies) < leaves:
+            prof_s, events, permutes, copies, leaves, ranges, again = \
+                cluster(domain, profiled_runs)
+            short = short + ["fresh cluster"] + again
         busy_ms = sum(e.device_time_total for e in events) / 1e3
         if ranges != permutes or (on_card and len(copies) != leaves):
             raise AssertionError(
@@ -5590,6 +5655,300 @@ def run_programs(torch, rk, card, device="cuda"):
                     line.startswith(ok_line) for line in lines):
                 raise AssertionError(f"{path}: {row}\n{err.read()[-3000:]}")
     return record, launches
+
+
+def settle(runtime, comp, args, most=12, evaluate=None):
+    """Evaluate ``comp`` on ``args`` (through ``evaluate``, by default
+    the runtime's ``evaluate_computation``) until its plan leaves
+    validation, as the serving registry warms a bucket: what is counted
+    or timed after this is the steady state later requests get (on the
+    card, replayed CUDA graphs).  Returns the walls of those
+    evaluations."""
+    if not runtime.use_jit:  # an eager runtime never validates
+        return []
+    evaluate = evaluate or runtime.evaluate_computation
+    walls = []
+    for _ in range(most):
+        t0 = time.perf_counter()
+        evaluate(comp, args)
+        walls.append(time.perf_counter() - t0)
+        if runtime.last_plan.get("plan_state") != "validating":
+            return walls
+    raise AssertionError(f"plan still validating after {most} evaluations")
+
+
+def private_pool_bytes(torch):
+    """Device bytes held by private memory pools (the CUDA graphs'),
+    from the caching allocator's snapshot; 0 off the card."""
+    if not torch.cuda.is_available():
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def run_plans(torch, rk, ring, card, configs, device="cuda"):
+    """Phase 28: the stacked layout's compiled plans.  ``configs`` maps a
+    name to (computation, arguments, float64 reference of arguments,
+    tolerance); ``"secure_dot"`` and ``"logistic_regression"`` must be
+    among them, the latter's one argument its rows.  (a) each config's
+    plan validates on its first evaluations and settles promoted
+    (``plan_state`` "jit", not eager, no pinned op), its results within
+    tolerance; under the two fixed keys
+    of PLAN_KEYS, PLAN_REPLAYS replays of the secure dot and the logistic
+    regression each equal the eager walk's words under the same key, and
+    the eager words of the two keys differ; (b) beside each: the median
+    wall of PLAN_WALLS eager and replayed requests, the validating
+    evaluations' walls, the launches a request (host counters), device
+    launches, busy ms and idle share of one request each, and the bytes
+    of the plan's private pools; (c) ``MOOSE_TPU_SELFCHECK_FORCE=1`` with
+    ``MOOSE_TPU_SELFCHECK_FAULT=Dot`` on the secure dot descends to the
+    per-op rung and pins exactly its Dot; each validating evaluation
+    returns the eager reference's words (the whole-graph walk's on the
+    segment rungs), and the promoted mixed plan returns the per-op
+    reference's; (d) aes-ctr under ``use_jit`` raises the JAX package's
+    ConfigurationError; (e) PLAN_THREADS threads of PLAN_THREAD_REQUESTS
+    logistic-regression requests each on one runtime, every result equal
+    to the single-thread run's under fixed keys and within tolerance.
+    Every number logged carries ``card``.  Returns the record."""
+    import contextlib
+    import gc
+    import os
+    import threading
+
+    import numpy as np
+
+    from moose_tpu_torch.errors import ConfigurationError
+    from moose_tpu_torch.runtime import LocalMooseRuntime
+
+    ids = ["alice", "bob", "carole"]
+    on_card = torch.device(device).type == "cuda"
+    record = {"card": card}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    @contextlib.contextmanager
+    def env(**values):
+        saved = {k: os.environ.get(k) for k in values}
+        os.environ.update(values)
+        try:
+            yield
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    def fixed(key):
+        return env(MOOSE_TPU_FIXED_KEYS=key, MOOSE_TPU_ALLOW_WEAK_PRF="1")
+
+    def runtimes():
+        return (LocalMooseRuntime(ids, use_jit=True, device=device),
+                LocalMooseRuntime(ids, use_jit=False, device=device))
+
+    def words(out):
+        return out["output_0"]
+
+    def max_err(got, want):
+        return float(np.abs(got - want).max()) if got.shape == want.shape \
+            else float("inf")
+
+    def wall(rt, comp, args):
+        sync()
+        t0 = time.perf_counter()
+        out = rt.evaluate_computation(comp, args)
+        sync()
+        return out, time.perf_counter() - t0
+
+    def launches_of(rt, comp, args):
+        before = dict(rk.LAUNCHES)
+        rt.evaluate_computation(comp, args)
+        return sum(rk.LAUNCHES[c] - before[c] for c in before)
+
+    # (a) and (b)
+    for name, (comp, args, reference, tol) in configs.items():
+        want = reference(args)
+        plan, eager = runtimes()
+        pools = private_pool_bytes(torch)
+        validating = settle(plan, comp, args)
+        pool_bytes = private_pool_bytes(torch) - pools
+        settled = {k: plan.last_plan.get(k)
+                   for k in ("plan_mode", "pinned_ops", "plan_state")}
+        if settled["plan_state"] != "jit" or \
+                settled["plan_mode"] == "eager" or settled["pinned_ops"]:
+            raise AssertionError(f"{name}: the plan settled on {settled}")
+        if len(validating) < 2:
+            raise AssertionError(f"{name}: the plan promoted unvalidated")
+        walls = {"eager": [], "replayed": []}
+        for _ in range(PLAN_WALLS):
+            for mode, rt in (("eager", eager), ("replayed", plan)):
+                out, s = wall(rt, comp, args)
+                walls[mode].append(s)
+                err = max_err(words(out), want)
+                if not err < tol:
+                    raise AssertionError(f"{name} {mode}: error {err}")
+        graphs = plan.last_plan["cuda_graphs"]
+        if on_card and graphs < 1:
+            raise AssertionError(f"{name}: no CUDA graph replayed")
+        row = {
+            "plan": settled,
+            "cuda_graphs": graphs,
+            "validating_walls_ms": [s * 1e3 for s in validating],
+            "eager_ms": statistics.median(walls["eager"]) * 1e3,
+            "replayed_ms": statistics.median(walls["replayed"]) * 1e3,
+            "launches_eager": launches_of(eager, comp, args),
+            "launches_replayed": launches_of(plan, comp, args),
+            "pool_bytes": pool_bytes,
+            "max_abs_err": err,
+        }
+        if on_card:
+            for mode, rt in (("eager", eager), ("replayed", plan)):
+                n, busy = device_busy(
+                    torch, lambda: rt.evaluate_computation(comp, args))
+                row[f"device_launches_{mode}"] = n
+                row[f"busy_ms_{mode}"] = busy
+                row[f"idle_share_{mode}"] = max(
+                    0.0, 1.0 - busy / row[f"{mode}_ms"])
+        if row["launches_eager"] != row["launches_replayed"]:
+            raise AssertionError(
+                f"{name}: a replay counted {row['launches_replayed']} "
+                f"launches, the eager walk {row['launches_eager']}")
+        if name in ("secure_dot", "logistic_regression"):
+            keyed = {}
+            for key in PLAN_KEYS:
+                with fixed(key):
+                    keyed[key] = words(eager.evaluate_computation(comp, args))
+                    for _ in range(PLAN_REPLAYS):
+                        got = words(plan.evaluate_computation(comp, args))
+                        if plan.last_plan["plan_state"] != "jit" or \
+                                not np.array_equal(got, keyed[key]):
+                            raise AssertionError(
+                                f"{name}: a replay under {key} differs "
+                                "from the eager walk's words")
+            a, b = (keyed[k] for k in PLAN_KEYS)
+            row["keys_differ"] = bool(not np.array_equal(a, b))
+            if not row["keys_differ"]:
+                raise AssertionError(
+                    f"{name}: the eager words of two keys are equal")
+        record[name] = row
+        log(f"plans {name} [{card}]: {json.dumps(row)}")
+        del plan, eager
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # (c) the ladder under the fault knob
+    comp, args, reference, tol = configs["secure_dot"]
+    plan, eager = runtimes()
+    with fixed(PLAN_KEYS[0]):
+        want = words(eager.evaluate_computation(comp, args))
+        with env(MOOSE_TPU_SELFCHECK_FORCE="1",
+                 MOOSE_TPU_SELFCHECK_FAULT="Dot"):
+            # (the rung an evaluation ran on, its plan after the run, its
+            # words): a run reports its plan after a descent
+            steps, rung = [], "start"
+            for _ in range(12):
+                got = words(plan.evaluate_computation(comp, args))
+                state = {k: plan.last_plan[k] for k in
+                         ("plan_mode", "pinned_ops", "plan_state")}
+                steps.append((rung, state, got))
+                rung = state["plan_mode"]
+                if state["plan_state"] != "validating":
+                    break
+            mixed = [words(plan.evaluate_computation(comp, args))
+                     for _ in range(2)]
+    traced = plan._trace_cache[comp]
+    dots = sorted(n for n, op in traced.operations.items()
+                  if op.kind == "Dot")
+    final = steps[-1][1]
+    per_op = [got for rung, _, got in steps if rung == "per-op"]
+    ladder = {
+        "descent": [rung for rung, _, _ in steps] + [final["plan_mode"]],
+        "settled": final,
+        "segment_rungs_eager_words": all(
+            np.array_equal(got, want) for rung, _, got in steps
+            if rung != "per-op"),
+        "per_op_words": all(np.array_equal(got, per_op[0])
+                            for got in per_op + mixed),
+        "max_abs_err": max(max_err(g, reference(args))
+                           for g in per_op + mixed),
+    }
+    record["ladder"] = ladder
+    log(f"plans ladder [{card}]: {json.dumps(ladder)}")
+    if final["plan_state"] != "per-op" or final["pinned_ops"] != dots \
+            or len(dots) != 1:
+        raise AssertionError(f"the fault ladder settled on {final}, the "
+                             f"graph's Dots {dots}")
+    if not (ladder["segment_rungs_eager_words"] and ladder["per_op_words"]
+            and ladder["max_abs_err"] < tol):
+        raise AssertionError(f"the fault ladder's words: {ladder}")
+    del plan, eager
+
+    # (d) aes-ctr refused under use_jit
+    comp, args, reference, tol = configs["logistic_regression"]
+    prev = ring.get_prf_impl()
+    ring.set_prf_impl("aes-ctr")
+    try:
+        LocalMooseRuntime(ids, use_jit=True, device=device) \
+            .evaluate_computation(comp, args)
+    except ConfigurationError as e:
+        refused = str(e)
+    else:
+        refused = None
+    finally:
+        ring.set_prf_impl(prev)
+    record["aes_ctr_refused"] = refused
+    if refused != ring.AES_CTR_UNDER_JIT:
+        raise AssertionError(f"aes-ctr under use_jit: {refused!r}")
+
+    # (e) two threads on one runtime's plan
+    plan, _ = runtimes()
+    rows = next(iter(args.values())).shape
+    rng = np.random.default_rng(SEED)
+    inputs = [[{"x": rng.normal(size=rows)}
+               for _ in range(PLAN_THREAD_REQUESTS)]
+              for _ in range(PLAN_THREADS)]
+    with fixed(PLAN_KEYS[1]):
+        settle(plan, comp, inputs[0][0])
+        single = [[words(plan.evaluate_computation(comp, a)) for a in mine]
+                  for mine in inputs]
+        results = [[None] * PLAN_THREAD_REQUESTS for _ in inputs]
+        failures = []
+
+        def serve(t):
+            try:
+                for i, a in enumerate(inputs[t]):
+                    results[t][i] = words(plan.evaluate_computation(comp, a))
+            except Exception as e:  # noqa: BLE001 - reported below
+                failures.append(repr(e))
+
+        threads = [threading.Thread(target=serve, args=(t,))
+                   for t in range(PLAN_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        threads_s = time.perf_counter() - t0
+    if failures:
+        raise AssertionError(f"a thread failed: {failures}")
+    errs = [max_err(r, reference(a)) for mine, given in zip(results, inputs)
+            for r, a in zip(mine, given)]
+    concurrent = {
+        "threads": PLAN_THREADS, "requests": PLAN_THREADS
+        * PLAN_THREAD_REQUESTS, "wall_ms": threads_s * 1e3,
+        "equal_to_single_thread": all(
+            np.array_equal(r, s) for mine, ones in zip(results, single)
+            for r, s in zip(mine, ones)),
+        "max_abs_err": max(errs),
+    }
+    record["threads"] = concurrent
+    log(f"plans threads [{card}]: {json.dumps(concurrent)}")
+    if not concurrent["equal_to_single_thread"] or not max(errs) < tol:
+        raise AssertionError(f"concurrent plans: {concurrent}")
+    return record
 
 
 def timed(torch, fn):
@@ -5999,12 +6358,16 @@ def main() -> int:
     LocalMooseRuntime.evaluate_computation = recorded
 
     phase[0] = 4
+    log(f"phase 4 at {time.perf_counter() - started:.1f} s")
     # phase 4: the eDSL secure dot through the runtime (main path)
     rng = np.random.default_rng(SEED)
     x = rng.normal(size=(DOT_N, DOT_N))
     y = rng.normal(size=(DOT_N, DOT_N))
     runtime = LocalMooseRuntime(["alice", "bob", "carole"])
     comp = secure_dot_computation(pm)
+    # each main-path phase counts and times its requests once the plan
+    # has validated (phase 28 reports the validating evaluations)
+    settle(runtime, comp, {"x": x, "y": y})
     rk.reset_launches()
     out, dot_s = timed(
         torch, lambda: runtime.evaluate_computation(comp, {"x": x, "y": y})
@@ -6028,6 +6391,7 @@ def main() -> int:
         f"{statistics.median(warm) * 1e3:.3f} ms over {len(warm)} runs")
 
     phase[0] = 5
+    log(f"phase 5 at {time.perf_counter() - started:.1f} s")
     # phase 5: ONNX LinearRegressor, three requests (main path)
     predictor = linear_regressor(rng, LINREG_FEATURES)
     linreg = predictor.predictor_factory()
@@ -6035,6 +6399,7 @@ def main() -> int:
         rng.normal(size=(LINREG_ROWS, LINREG_FEATURES))
         for _ in range(LINREG_REQUESTS)
     ]
+    settle(runtime, linreg, {"x": requests[0]})
     rk.reset_launches()
     latencies, linreg_errs = [], []
     for xr in requests:
@@ -6060,6 +6425,7 @@ def main() -> int:
         )
 
     phase[0] = 6
+    log(f"phase 6 at {time.perf_counter() - started:.1f} s")
     # phase 6: ONNX logistic regression, three requests (main path)
     classifier = logistic_regression(rng, LOGREG_FEATURES)
     logreg = classifier.predictor_factory()
@@ -6067,6 +6433,7 @@ def main() -> int:
         rng.normal(size=(LOGREG_ROWS, LOGREG_FEATURES))
         for _ in range(LOGREG_REQUESTS)
     ]
+    settle(runtime, logreg, {"x": requests[0]})
     rk.reset_launches()
     logreg_latencies, logreg_errs = [], []
     for xr in requests:
@@ -6097,6 +6464,7 @@ def main() -> int:
         )
 
     phase[0] = 7
+    log(f"phase 7 at {time.perf_counter() - started:.1f} s")
     # phase 7: secure training under threefry-pallas (main path)
     ring.set_prf_impl("threefry-pallas")
     try:
@@ -6107,6 +6475,7 @@ def main() -> int:
         ring.set_prf_impl("threefry")
 
     phase[0] = 8
+    log(f"phase 8 at {time.perf_counter() - started:.1f} s")
     # phase 8: ONNX multinomial logistic regression, three requests (main
     # path)
     multi = multinomial_regression(rng, MULTI_FEATURES)
@@ -6115,6 +6484,7 @@ def main() -> int:
         rng.normal(size=(MULTI_ROWS, MULTI_FEATURES))
         for _ in range(MULTI_REQUESTS)
     ]
+    settle(runtime, multi_comp, {"x": requests[0]})
     rk.reset_launches()
     multi_latencies, multi_errs, multi_agree = [], [], []
     for xr in requests:
@@ -6150,6 +6520,7 @@ def main() -> int:
             f"{MULTI_ARGMAX_AGREEMENT}")
 
     phase[0] = 9
+    log(f"phase 9 at {time.perf_counter() - started:.1f} s")
     # phase 9: the protocol library through the eDSL, every kind it
     # brought in one traced computation
     library_args = library_inputs(rng)
@@ -6169,6 +6540,7 @@ def main() -> int:
             f"({library_errs})")
 
     phase[0] = 10
+    log(f"phase 10 at {time.perf_counter() - started:.1f} s")
     # phase 10: BASELINE config 2, the scientific-computing tutorial's
     # correlation: the columns in the departments' storage, the result
     # read back from the data scientist's (main path)
@@ -6203,6 +6575,7 @@ def main() -> int:
     log(f"correlation: launches {corr_launches}")
 
     phase[0] = 11
+    log(f"phase 11 at {time.perf_counter() - started:.1f} s")
     # phase 11: BASELINE config 5's MLP, the binary sklearn MLPClassifier
     # (100 -> 64 -> 32 -> 1, relu), through from_onnx and
     # predictor_factory, three requests (main path)
@@ -6217,6 +6590,7 @@ def main() -> int:
     mlp_comp = mlp.predictor_factory()
     requests = [rng.normal(size=(MLPC_ROWS, MLPC_FEATURES))
                 for _ in range(MLPC_REQUESTS)]
+    settle(runtime, mlp_comp, {"x": requests[0]})
     rk.reset_launches()
     mlp_latencies, mlp_errs = [], []
     for xr in requests:
@@ -6243,6 +6617,7 @@ def main() -> int:
         raise AssertionError(f"MLP error {max(mlp_errs)} >= {MLPC_TOL}")
 
     phase[0] = 12
+    log(f"phase 12 at {time.perf_counter() - started:.1f} s")
     # phase 12: a pytorch-layout NeuralNetwork (100 -> 64 relu -> 32 relu
     # -> 10 softmax), one request (main path)
     net = from_onnx(sklearn_export.pytorch_nn_onnx(
@@ -6273,6 +6648,7 @@ def main() -> int:
             f"{MULTI_ARGMAX_AGREEMENT}")
 
     phase[0] = 13
+    log(f"phase 13 at {time.perf_counter() - started:.1f} s")
     # phase 13: a random forest, one request (main path)
     forest = from_onnx(sklearn_export.random_forest_classifier_onnx(
         forest_model(rng, FOREST_TREES, FOREST_DEPTH, FOREST_FEATURES),
@@ -6299,6 +6675,7 @@ def main() -> int:
         raise AssertionError(f"forest error {forest_err} >= {FOREST_TOL}")
 
     phase[0] = 14
+    log(f"phase 14 at {time.perf_counter() - started:.1f} s")
     # phase 14: BASELINE config 5's small ResNet through from_onnx and
     # predictor_factory, three requests of NCHW images (main path)
     resnet_proto, resnet_params = sklearn_export.resnet_block_onnx(
@@ -6312,6 +6689,7 @@ def main() -> int:
         rng.normal(size=(RESNET_ROWS, RESNET_CH, RESNET_SIZE, RESNET_SIZE))
         * 0.5 for _ in range(RESNET_REQUESTS)
     ]
+    settle(runtime, resnet_comp, {"x": requests[0]})
     rk.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     resnet_latencies, resnet_errs, resnet_agree = [], [], []
@@ -6354,6 +6732,7 @@ def main() -> int:
             f"{MULTI_ARGMAX_AGREEMENT}")
 
     phase[0] = 15
+    log(f"phase 15 at {time.perf_counter() - started:.1f} s")
     # phase 15: BASELINE config 4, encrypted-input inference at config 3's
     # width through AesWrapper(LinearClassifier), three requests (main
     # path)
@@ -6378,6 +6757,7 @@ def main() -> int:
     def aes_args(wire):
         return {"aes_data": wire, "aes_key": aes_key}
 
+    settle(runtime, aes_comp, aes_args(wires[0]))
     rk.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     aes_latencies, aes_errs = [], []
@@ -6437,6 +6817,7 @@ def main() -> int:
     ring.mix_seed = mix_seed
 
     phase[0] = 16
+    log(f"phase 16 at {time.perf_counter() - started:.1f} s")
     # phase 16: BASELINE config 4's share generation under the
     # reference's aes-ctr PRF: one phase-6 request on the card and the
     # same request on the CPU under the same fixed keys (main path)
@@ -6449,13 +6830,16 @@ def main() -> int:
     os.environ.update(dict(zip(knobs, (f"chip-smoke-{SEED}", "1"))))
     try:
         xr = rng.normal(size=(LOGREG_ROWS, LOGREG_FEATURES))
+        # aes-ctr expands on the host: no compiled plan runs it, as the
+        # JAX package refuses it under jit (phase 28 (d))
+        eager = LocalMooseRuntime(["alice", "bob", "carole"], use_jit=False)
         rk.reset_launches()
-        out, ctr_s = timed(torch, lambda: runtime.evaluate_computation(
+        out, ctr_s = timed(torch, lambda: eager.evaluate_computation(
             logreg, {"x": xr}))
         ctr_launches = dict(rk.LAUNCHES)
         ctr_host = dict(rk.AES_CTR_HOST)
         cpu_out = LocalMooseRuntime(
-            ["alice", "bob", "carole"], device="cpu",
+            ["alice", "bob", "carole"], use_jit=False, device="cpu",
         ).evaluate_computation(logreg, {"x": xr})
     finally:
         ring.set_prf_impl(prev_prf)
@@ -6484,6 +6868,7 @@ def main() -> int:
         raise AssertionError("aes-ctr request differs from the CPU's")
 
     phase[0] = 17
+    log(f"phase 17 at {time.perf_counter() - started:.1f} s")
     # phase 17: computations from bytes (main path): phase 6's logistic
     # regression serialized, compiled by elk_compiler and served by
     # evaluate_compiled under threefry and fixed keys, each request held
@@ -6523,11 +6908,13 @@ def main() -> int:
     # phase 18: the per-host layout (main path, its own draw and seed
     # counts: this layout derives each draw's seed on the host)
     phase[0] = 18
+    log(f"phase 18 at {time.perf_counter() - started:.1f} s")
     per_host_record, per_host_launches = run_per_host(
         torch, rk, ring, pm, LocalMooseRuntime, classifier, logreg, rng)
 
     # phase 19: the lowered route and the per-host Decrypt (main path)
     phase[0] = 19
+    log(f"phase 19 at {time.perf_counter() - started:.1f} s")
     lowered_record, lowered_launches = run_lowered(
         torch, rk, ring, pm, LocalMooseRuntime, classifier, logreg,
         aes_model, aes_comp, aes_key, rng)
@@ -6535,12 +6922,14 @@ def main() -> int:
     # phase 20: secure training sessions (main path, each of (a) to (e)
     # counted on its own)
     phase[0] = 20
+    log(f"phase 20 at {time.perf_counter() - started:.1f} s")
     session_record, session_launches = run_training_sessions(
         torch, rk, ring, pm, LocalMooseRuntime)
 
     # phase 21: the static analyzer (main path, each of (a) to (d)
     # counted on its own)
     phase[0] = 21
+    log(f"phase 21 at {time.perf_counter() - started:.1f} s")
     analyzer_record, analyzer_launches = run_analyzer(
         torch, rk, pm, LocalMooseRuntime, classifier, logreg, rng)
 
@@ -6548,6 +6937,7 @@ def main() -> int:
     # each of its paths counted on its own); a bucket-1024 batch must
     # launch what a phase-6 request does
     phase[0] = 22
+    log(f"phase 22 at {time.perf_counter() - started:.1f} s")
     per_request = {k: v // LOGREG_REQUESTS
                    for k, v in logreg_launches.items()}
     serving_record, serving_launches = run_serving(
@@ -6571,6 +6961,7 @@ def main() -> int:
     # in-process paths counted on its own; the comet processes count in
     # their own processes)
     phase[0] = 23
+    log(f"phase 23 at {time.perf_counter() - started:.1f} s")
     distributed_record, distributed_launches = run_distributed(
         torch, rk, ring, pm, classifier, logreg, runtime, rng, smi)
 
@@ -6579,12 +6970,14 @@ def main() -> int:
     # each in-process part counted on its own; the vixen and rudolph
     # processes count in their own processes)
     phase[0] = 24
+    log(f"phase 24 at {time.perf_counter() - started:.1f} s")
     fault_record, fault_launches = run_faults(
         torch, rk, pm, classifier, logreg, smi)
 
     # phase 25: the device mesh and the fabric transport (main path, each
     # part counted on its own)
     phase[0] = 25
+    log(f"phase 25 at {time.perf_counter() - started:.1f} s")
     fabric_record, fabric_launches = run_fabric(
         torch, rk, pm, classifier, logreg, requests[0],
         fault_record["chaos_grpc"]["schedule_digest"], smi)
@@ -6592,13 +6985,46 @@ def main() -> int:
     # phase 26: the ring Dot at ranks past 2 (main path, each Dot
     # counted on its own)
     phase[0] = 26
+    log(f"phase 26 at {time.perf_counter() - started:.1f} s")
     ranks_record, ranks_launches = run_ranks(torch, rk, pm, smi)
 
     # phase 27: the reference's examples and tutorials as the port's
     # programs (main path, each in-process program counted on its own;
     # the three that start processes count in those processes)
     phase[0] = 27
+    log(f"phase 27 at {time.perf_counter() - started:.1f} s")
     programs_record, programs_launches = run_programs(torch, rk, smi)
+
+    phase[0] = 28
+    log(f"phase 28 at {time.perf_counter() - started:.1f} s")
+    # phase 28: the stacked layout's compiled plans, CUDA graphs replayed
+    # against the eager walk (main path)
+    from moose_tpu_torch.dialects import aes
+
+    plan_x = rng.normal(size=(DOT_N, DOT_N))
+    plan_y = rng.normal(size=(DOT_N, DOT_N))
+    plan_rows = rng.normal(size=(LOGREG_ROWS, LOGREG_FEATURES))
+    plan_aes = rng.normal(size=(AES_ROWS, AES_FEATURES))
+    plan_mlp = rng.normal(size=(MLPC_ROWS, MLPC_FEATURES))
+    plan_resnet = rng.normal(size=(RESNET_ROWS, RESNET_CH, RESNET_SIZE,
+                                   RESNET_SIZE)) * 0.5
+
+    plans_record = run_plans(torch, rk, ring, smi, {
+        "secure_dot": (secure_dot_computation(pm),
+                       {"x": plan_x, "y": plan_y},
+                       lambda a: a["x"] @ a["y"], DOT_TOL),
+        "logistic_regression": (
+            logreg, {"x": plan_rows},
+            lambda a: logistic_reference(classifier, a["x"]), LOGREG_TOL),
+        "aes_inference": (aes_comp, aes_args(aes.encrypt_fixed_array(
+            *aes_key_nonce(), plan_aes, AES_PRECISION[1])),
+            lambda a: logistic_reference(aes_model, plan_aes), AES_TOL),
+        "mlp_classifier": (mlp_comp, {"x": plan_mlp},
+                           lambda a: dense_reference(mlp, a["x"]), MLPC_TOL),
+        "resnet": (resnet_comp, {"x": plan_resnet},
+                   lambda a: resnet_reference(resnet_params, a["x"]),
+                   RESNET_TOL),
+    })
 
     launches_by_path = {
         "secure_dot": dot_launches,
@@ -6946,6 +7372,7 @@ def main() -> int:
         "fabric_mesh": fabric_record,
         "ranks": ranks_record,
         "programs": programs_record,
+        "plans": plans_record,
         "seconds": time.perf_counter() - started,
     }
     log(f"chip_smoke: {record['seconds']:.1f} s in all [{smi}]")

@@ -26,8 +26,12 @@
 // and the seed is then keyed in the group's layout.  A draw of ring128
 // words is one (2, n) draw whose stream words [0, n) are its high plane
 // and [n, 2n) its low plane; each plane goes to its own destination.
-// A group may also carry one key given by the host (derive == 0): that
-// is how threefry_words / threefry_bits expand a single key.
+// The session's master key is read from the card (four int64 words, each
+// a u32 value, in a buffer the caller keeps): a captured CUDA graph bakes
+// the buffer's address, and the plan that replays it writes each
+// evaluation's key there first, so every replay draws fresh masks.  A
+// group may instead carry one key given by the host, by value (no device
+// key): that is how threefry_words / threefry_bits expand a single key.
 //
 // What bounds it on the card: its operations and its store about
 // equally.  A word costs 20 rounds of add, rotate and xor plus five key
@@ -79,9 +83,10 @@ constexpr int KIND_TWO_PLANES = 2;
 // The group, by value in the kernel's parameters (about 7.4 KB at
 // MAX_DRAWS; CUDA 12.1+ takes up to 32 KB on sm_70 and later).
 struct Group {
-  uint32_t master[4];  // derive: the session's master key; else the key
+  const long long* key_dev;  // the session's master key on the card, or null
+  uint32_t master[4];  // no device key: the key of every draw
   uint32_t domain;
-  int derive;
+  int derive;  // key_dev != null
   int count;
   unsigned long long first;  // the session's nonce index of draw 0
   long long tiles;
@@ -166,7 +171,8 @@ __device__ __forceinline__ void derive_key(const Group& g, int j,
   uint32_t mixed[4];
 #pragma unroll
   for (int w = 0; w < 4; ++w) {
-    mixed[w] = g.master[w] ^ (nonce[w] * 0x9E3779B9u + 0x85EBCA6Bu);
+    mixed[w] = static_cast<uint32_t>(g.key_dev[w]) ^
+               (nonce[w] * 0x9E3779B9u + 0x85EBCA6Bu);
   }
   uint32_t m0, m1;
   key_from_seed(mixed, m0, m1);
@@ -357,17 +363,19 @@ void launch(const Group& g, int units, cudaStream_t s) {
 // n[j] outputs per plane: kind[j] bit 0 says uint8 0/1 bits (else u64
 // words), bit 1 two planes of words (ring128: stream words [0, n) to
 // dst[2j], [n, 2n) to dst[2j + 1]); one plane goes to dst[2j].  With
-// derive != 0, draw j's key is derived from the session's master key
-// key4, its domain and the nonce index first + j; with derive == 0, key4[0]
-// and key4[1] are the key of every draw.  layout 0 is "threefry", 1
+// key_dev not null, draw j's key is derived from the session's master key
+// read from key_dev (four int64 words on the card, each a u32 value), its
+// domain and the nonce index first + j; with key_dev null, key4[0] and
+// key4[1] are the key of every draw.  layout 0 is "threefry", 1
 // "threefry-pallas"; layout 1 refuses a draw of more than 2^32 words.
 // Launches on `stream` (nothing when there is no output); returns
 // cudaGetLastError() of the launch, or cudaErrorInvalidValue for what it
 // refuses.
 extern "C" int moose_threefry_group(const unsigned int* key4,
+                                    const long long* key_dev,
                                     unsigned int domain,
                                     unsigned long long first, int layout,
-                                    int derive, int count,
+                                    int count,
                                     const long long* n,
                                     const unsigned long long* dst,
                                     const int* kind, void* stream) {
@@ -375,9 +383,12 @@ extern "C" int moose_threefry_group(const unsigned int* key4,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Group g = {};
-  for (int w = 0; w < 4; ++w) g.master[w] = key4[w];
+  g.key_dev = key_dev;
+  if (key_dev == nullptr) {
+    for (int w = 0; w < 4; ++w) g.master[w] = key4[w];
+  }
   g.domain = domain;
-  g.derive = derive;
+  g.derive = key_dev != nullptr;
   g.count = count;
   g.first = first;
   long long draw_units[MAX_DRAWS];

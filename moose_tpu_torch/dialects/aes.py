@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..errors import KernelError, TypeMismatchError
+from ..execution.graphs import upload
 from ..parallel import spmd
 from ..parallel import spmd_math as sm
 from ..parallel.spmd import SpmdFixed
@@ -314,7 +315,7 @@ class RepBitOps:
 
 @functools.lru_cache(maxsize=None)
 def _index(idx: tuple, device: torch.device) -> torch.Tensor:
-    return torch.tensor(idx, dtype=torch.int64, device=device)
+    return upload(np.asarray(idx, dtype=np.int64), device)
 
 
 class StackedBitOps:
@@ -360,7 +361,7 @@ class StackedBitOps:
         """XOR with a public constant into share b_0 (pair slots (0, 0)
         and (2, 1)), as ``spmd_math.bits_not`` flips it."""
         m = mask.reshape(mask.shape + (1,) * (self._ndim(x) - mask.ndim))
-        m = torch.as_tensor(m.astype(np.uint8), device=x.arr.device)
+        m = upload(m.astype(np.uint8), x.arr.device)
         arr = x.arr.clone()
         arr[0, 0] ^= m
         arr[2, 1] ^= m
@@ -655,6 +656,14 @@ def decrypt_stacked(spmd_sess, op, key, ciphertext) -> SpmdFixed:
     return SpmdFixed(ring, integ, frac)
 
 
+def _input_bits(arr, device) -> torch.Tensor:
+    """An AES input's bits as uint8 on ``device``: a user's array, or the
+    uint8 tensor a compiled plan bound ahead of the walk."""
+    if isinstance(arr, torch.Tensor):
+        return arr
+    return torch.as_tensor(np.asarray(arr).astype(np.uint8), device=device)
+
+
 def lift_input(sess, comp, op, arr, plc: str, device):
     """A user's bit array as an AES value: an AesTensor ((224,) + shape:
     96 nonce bits, 128 ciphertext bits) or an AesKey ((128,) + shape).  A
@@ -662,7 +671,7 @@ def lift_input(sess, comp, op, arr, plc: str, device):
     and is shared there in the per-host layout, with ``sess`` (the
     stacked layout shares it itself, ``stacked.lift_aes_input``)."""
     ret = op.signature.return_type
-    bits = torch.as_tensor(np.asarray(arr).astype(np.uint8), device=device)
+    bits = _input_bits(arr, device)
     plc_obj = comp.placements[plc]
     if ret.name == "AesTensor":
         if bits.shape[0] != 224:

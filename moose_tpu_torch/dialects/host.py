@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import dtypes as dt
+from ..execution.graphs import upload
 from ..native import ring_kernels as rk
 from ..values import (
     HostBitTensor,
@@ -75,12 +76,11 @@ def constant(value, plc: str, dtype: Optional[dt.DType], device):
     if dtype is not None and not dtype.is_fixedpoint:
         arr = arr.astype(np.dtype(dtype.numpy_name))
     if arr.dtype == np.bool_:
-        return HostBitTensor(
-            torch.as_tensor(arr.astype(np.uint8), device=device), plc)
+        return HostBitTensor(upload(arr.astype(np.uint8), device), plc)
     dtype = dt.from_numpy(arr.dtype)
     if dtype.name == "uint64":
         arr = arr.view(np.int64)
-    return HostTensor(torch.as_tensor(arr, device=device), plc, dtype)
+    return HostTensor(upload(arr, device), plc, dtype)
 
 
 def fill(shp: HostShape, value, plc: str, ty_name: str, device):

@@ -233,13 +233,17 @@ def fill_like_shape(shape, width: int, value: int, device):
 def from_python_ints(values: Sequence[int], width: int, device):
     """(lo, hi) words of a 1-D sequence of Python ints, which may reach
     past 2^64 (the high word takes bits 64-127)."""
+    import numpy as np
+
+    from ..execution.graphs import upload
+
     ints = [int(v) for v in values]
-    lo = torch.tensor([signed64(v) for v in ints], dtype=I64, device=device)
+    lo = upload(np.array([signed64(v) for v in ints], dtype=np.int64),
+                device)
     if width == 64:
         return lo, None
-    hi = torch.tensor(
-        [signed64(v >> 64) for v in ints], dtype=I64, device=device
-    )
+    hi = upload(np.array([signed64(v >> 64) for v in ints],
+                         dtype=np.int64), device)
     return lo, hi
 
 
@@ -528,6 +532,16 @@ def set_prf_impl(name: str) -> None:
 
 def get_prf_impl() -> str:
     return _PRF_IMPL
+
+
+# the JAX package's refusal of aes-ctr under jit, word for word: a plan
+# that is not eager (a captured CUDA graph, or its uncaptured form on the
+# CPU) cannot run a PRF that is expanded on the host
+AES_CTR_UNDER_JIT = (
+    "the aes-ctr PRF is host-side (numpy blake3 + AES) and cannot run "
+    "under jit; evaluate eagerly (MOOSE_TPU_JIT=0 / use_jit=False) when "
+    "using set_prf_impl('aes-ctr')"
+)
 
 
 def require_strong_prf(context: str) -> None:

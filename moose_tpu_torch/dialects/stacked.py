@@ -661,6 +661,22 @@ def unsupported_ops(comp: Computation) -> list:
     return missing
 
 
+def effective_ops(comp: Computation) -> int:
+    """The expanded program size of ``comp``, the JAX package's estimate:
+    a stacked graph is short at the logical level, but a replicated
+    nonlinear op expands to thousands of kernels, so each replicated op
+    weighs ``logical.EXPANSION_WEIGHTS`` (20 by default) and any other 3.
+    The plan autotuner sizes the stacked layout's segments from it."""
+    total = 0
+    for op in comp.operations.values():
+        plc = comp.placements.get(op.placement_name)
+        if isinstance(plc, ReplicatedPlacement):
+            total += logical.EXPANSION_WEIGHTS.get(op.kind, 20)
+        else:
+            total += 3
+    return total
+
+
 def supports(comp: Computation) -> bool:
     """Whether every op of ``comp`` has a path in the port."""
     return not unsupported_ops(comp)
@@ -681,9 +697,8 @@ def lift_aes_input(sess: StackedSession, comp, op, arr, plc_name: str,
     ret = op.signature.return_type
     if isinstance(plc, ReplicatedPlacement) and ret.name in (
             "AesKey", "ReplicatedAesKey"):
-        bits = torch.as_tensor(np.asarray(arr).astype(np.uint8),
-                               device=device)
-        return aes.StackedAesKey(sm.share_bits(sess.spmd, bits))
+        return aes.StackedAesKey(
+            sm.share_bits(sess.spmd, aes._input_bits(arr, device)))
     return aes.lift_input(sess.host, comp, op, arr, plc_name, device)
 
 

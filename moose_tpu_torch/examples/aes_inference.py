@@ -105,8 +105,9 @@ def main(argv=None):
     else:
         # party-stacked layout: the AES-GCM circuit evaluates as bit
         # banks (dialects/aes.py StackedBitOps), each AND one K7 group
-        # on the card; the port runs it eagerly, the first call building
-        # the kernels
+        # on the card; the first call builds the kernels and, on the
+        # card, captures the plan and validates it against the eager
+        # walk
         runtime = LocalMooseRuntime(
             ["alice", "bob", "carole"], layout="stacked", use_jit=True,
             device=args.device,

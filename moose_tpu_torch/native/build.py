@@ -89,8 +89,9 @@ SIGNATURES = {
     ),
     "threefry": (
         "moose_threefry_group",
-        [ctypes.POINTER(ctypes.c_uint), ctypes.c_uint, ctypes.c_ulonglong]
-        + [ctypes.c_int] * 3
+        [ctypes.POINTER(ctypes.c_uint), ctypes.c_void_p, ctypes.c_uint,
+         ctypes.c_ulonglong]
+        + [ctypes.c_int] * 2
         + [ctypes.POINTER(ctypes.c_longlong),
            ctypes.POINTER(ctypes.c_ulonglong),
            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],

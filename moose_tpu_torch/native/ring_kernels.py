@@ -1508,8 +1508,12 @@ def _check_group(layout: str, draws, device: torch.device) -> None:
                 )
 
 
-def _launch_group(key4, domain: int, first: int, code: int, derive: bool,
+def _launch_group(key4, key_dev, domain: int, first: int, code: int,
                   draws, device: torch.device) -> None:
+    """One K7 launch: under the device key ``key_dev`` (the session's
+    master key, a 4-word int64 tensor on the card: the seeds are derived
+    in the kernel), or, with ``key_dev`` None, under the host key
+    ``key4`` by value."""
     count = len(draws)
     lib = build.library("threefry")
     base = {}
@@ -1527,8 +1531,9 @@ def _launch_group(key4, domain: int, first: int, code: int, derive: bool,
     ])
     with torch.cuda.device(device):
         err = lib.moose_threefry_group(
-            (ctypes.c_uint * 4)(*key4), domain & ring.MASK32, first, code,
-            int(derive), count,
+            (ctypes.c_uint * 4)(*key4),
+            None if key_dev is None else key_dev.data_ptr(),
+            domain & ring.MASK32, first, code, count,
             (ctypes.c_longlong * count)(*[d.n for d in draws]),
             (ctypes.c_ulonglong * (2 * count))(*dsts), kinds,
             _stream(device),
@@ -1536,35 +1541,60 @@ def _launch_group(key4, domain: int, first: int, code: int, derive: bool,
     _raise_on("threefry", err)
 
 
+def key_tensor(master, device) -> torch.Tensor:
+    """A session's master key (four u32 words) as the 4-word int64
+    tensor on ``device`` that :func:`threefry_group` reads."""
+    return torch.tensor(ring._seed_words(master), dtype=torch.int64,
+                        device=device)
+
+
+def _check_key(master, device: torch.device) -> torch.Tensor:
+    if not isinstance(master, torch.Tensor):
+        return key_tensor(master, device)
+    if (master.dtype != torch.int64 or tuple(master.shape) != (4,)
+            or not master.is_contiguous() or master.device != device):
+        raise ValueError(
+            f"threefry_group: the master key must be a contiguous int64 "
+            f"tensor of 4 words on {device}, got {master.dtype} "
+            f"{tuple(master.shape)} on {master.device}"
+        )
+    return master
+
+
 def threefry_group(master, domain: int, first: int, layout: str,
                    draws) -> None:
     """Expand a group of consecutive draws of one protocol session into
     their planes: draw j is the session's draw ``first + j`` under the
-    master key ``master`` (4 u32 words) and ``domain``, in the stream
-    ``layout``.  On the card the seeds are derived in the kernel, one
-    launch per group of up to ``GROUP_MAX_DRAWS`` draws, counted once
-    under the layout's ``LAUNCHES`` name; for buffers on the CPU this
-    runs :func:`threefry_group_plain`.  Every word equals the draws' one
-    by one."""
+    master key ``master`` and ``domain``, in the stream ``layout``.  The
+    key is a 4-word int64 tensor on the draws' device
+    (:func:`key_tensor`; four u32 words are uploaded first).  On the card
+    the kernel reads the key from that tensor and derives the seeds,
+    one launch per group of up to ``GROUP_MAX_DRAWS`` draws, counted
+    once under the layout's ``LAUNCHES`` name: a captured plan writes
+    each evaluation's key into the same tensor before it replays.  For
+    buffers on the CPU this runs :func:`threefry_group_plain` on the
+    tensor's values.  Every word equals the draws' one by one."""
     _check_layout(layout)
     draws = list(draws)
     if not draws:
         return
     device = draws[0].planes[0][0].device
     _check_group(layout, draws, device)
-    master = ring._seed_words(master)
-    if device.type == "cpu":
-        threefry_group_plain(master, domain, first, layout, draws)
-        return
     if device.type == "meta":
         return
-    _require_cuda("threefry_group", device)
+    if device.type != "cpu":
+        _require_cuda("threefry_group", device)
+    key = _check_key(master, device)
+    if device.type == "cpu":
+        threefry_group_plain(tuple(key.tolist()), domain, first, layout,
+                             draws)
+        return
     code, counter = PRF_LAYOUTS[layout]
     for c0 in range(0, len(draws), GROUP_MAX_DRAWS):
         chunk = draws[c0:c0 + GROUP_MAX_DRAWS]
         if any(d.n for d in chunk):
-            _launch_group(master, domain, first + c0, code, True, chunk,
-                          device)
+            _launch_group((0, 0, 0, 0), key, domain, first + c0, code,
+                          chunk, device)
             LAUNCHES[counter] += 1
 
 
@@ -1588,7 +1618,7 @@ def _threefry(k0: int, k1: int, n: int, layout: str, device,
         return out
     code, counter = PRF_LAYOUTS[layout]
     # a group of one draw under the key given by the caller
-    _launch_group((k0, k1, 0, 0), 0, 0, code, False,
+    _launch_group((k0, k1, 0, 0), None, 0, 0, code,
                   [GroupDraw(bits, n, ((out, 0),))], device)
     LAUNCHES[counter] += 1
     return out

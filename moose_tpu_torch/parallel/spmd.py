@@ -90,20 +90,42 @@ class SpmdSession:
     each seed is derived on the host and the draw expanded by the plain
     version.  Under ``aes-ctr`` the seeds are derived and the group
     expanded on the host on either device, as the JAX package does, and
-    copied to the device once (``ring_kernels.aes_ctr_group``)."""
+    copied to the device once (``ring_kernels.aes_ctr_group``).
+
+    The master key lives on the device, as the 4-word int64 tensor
+    ``key`` that K7 reads (``ring_kernels.key_tensor``): ``master_key``
+    is that tensor, or four u32 words that are uploaded once.  The host
+    copy of the words exists only where they were given (the eager walk)
+    or on the CPU: aes-ctr needs it, and a captured plan, which gives
+    the tensor of its static key buffer, never reads it."""
 
     def __init__(self, master_key, device, domain: int = 0):
-        self._master = tuple(int(w) & ring.MASK32 for w in master_key)
+        self.device = torch.device(device)
+        if isinstance(master_key, torch.Tensor):
+            self.key = master_key
+            self._master = (tuple(int(w) for w in master_key.tolist())
+                            if master_key.device.type == "cpu" else None)
+        else:
+            self._master = ring._seed_words(master_key)
+            self.key = (None if self.device.type == "meta"
+                        else rk.key_tensor(self._master, self.device))
         self._counter = 0
         self._domain = int(domain)
-        self.device = torch.device(device)
 
     def _next_seed(self):
         """The next draw's seed derived on the host (``ring.mix_seed``),
         as the CPU path derives it; claims the nonce index."""
         idx = self._counter
         self._counter += 1
-        return ring.draw_seed(self._master, self._domain, idx)
+        return ring.draw_seed(self.host_key(), self._domain, idx)
+
+    def host_key(self):
+        """The master key's four u32 words on the host (aes-ctr's
+        seeds): refused for a session given only the card's key, whose
+        words a captured plan cannot read."""
+        if self._master is None:
+            raise ConfigurationError(ring.AES_CTR_UNDER_JIT)
+        return self._master
 
     def sample_group(self, specs):
         """Draw ``specs`` in order, on consecutive nonce indices, in one
@@ -167,9 +189,10 @@ class SpmdSession:
         first = self._counter
         self._counter += len(draws)
         if layout == "aes-ctr":
-            rk.aes_ctr_group(self._master, self._domain, first, draws)
+            rk.aes_ctr_group(self.host_key(), self._domain, first, draws)
         else:
-            rk.threefry_group(self._master, self._domain, first, layout,
+            rk.threefry_group(self._master if self.key is None
+                              else self.key, self._domain, first, layout,
                               draws)
         outs = []
         for bits, n, planes, shape in plan:

@@ -18,12 +18,18 @@ when it is already lowered, or under ``use_jit`` when its estimated
 lowered size passes the JAX package's segment limit
 (:meth:`LocalMooseRuntime._auto_lower_passes`); else it runs on the
 logical walk (``dialects/logical.py``).  ``use_jit`` resolves as the JAX
-package resolves it (``MOOSE_TPU_JIT``, default on) and only chooses the
-route: the port executes eagerly either way.  The two layouts draw
-different masks, so their results agree to the truncation's noise, not
-word for word; the walk and the lowered graph do too.  Each evaluation
-fills ``last_timings`` from its telemetry spans (``telemetry``), as the
-reference's runtime does.
+package resolves it (``MOOSE_TPU_JIT``, default on).  On the stacked
+layout it runs the graph's compiled plan
+(``execution/interpreter.py``): on the card, CUDA graphs validated
+word for word against the eager walk on their first evaluations
+(``execution/graphs.py``), reported in ``last_plan`` (``plan_mode``,
+``pinned_ops``, ``plan_state``, ``cuda_graphs``); a stacked graph whose
+ladder ran out is rerouted per-host, as the JAX runtime reroutes it.
+Per-host, ``use_jit`` only chooses the route: both per-host routes run
+eagerly.  The two layouts draw different masks, so their results agree
+to the truncation's noise, not word for word; the walk and the lowered
+graph do too.  Each evaluation fills ``last_timings`` from its telemetry
+spans (``telemetry``), as the reference's runtime does.
 """
 
 from __future__ import annotations
@@ -100,9 +106,9 @@ class LocalMooseRuntime:
                 f"{self.device}"
             )
         self.layout = layout
-        # the JAX package's validated-jit switch: it chooses the route
-        # (a big per-host graph is lowered), and the port runs eagerly on
-        # either route
+        # the JAX package's validated-jit switch: a stacked graph runs
+        # its compiled plan (CUDA graphs on the card), a big per-host
+        # graph is lowered, and both per-host routes run eagerly
         if use_jit is None:
             use_jit = os.environ.get("MOOSE_TPU_JIT", "1") != "0"
         self.use_jit = use_jit
@@ -137,8 +143,9 @@ class LocalMooseRuntime:
         # (TypeMismatchError): later evaluations go straight to per-host
         self._stacked_rejected = weakref.WeakSet()
         # the layout that ran the last evaluation, as the JAX package
-        # reports it, and whether the physical executor ran it (the
-        # port's plans are always eager)
+        # reports it, whether the physical executor ran it, and the plan
+        # it settled on (a stacked plan's mode, pins, state and the CUDA
+        # graphs it replayed)
         self.last_plan: Dict = {}
         # the last evaluation's phase timings in micros, by telemetry span
         # name (the reference's per-role elapsed-time map)
@@ -176,21 +183,34 @@ class LocalMooseRuntime:
         lowered = _is_lowered(computation)
         if compiler_passes is None and self.layout_for(computation) == \
                 "stacked":
-            try:
-                result = self._stacked.evaluate(
-                    computation, arguments, self.storage)
-            except TypeMismatchError as e:
-                # stacked.supports admitted the graph but a kernel
-                # rejected a value mid-run; storage is written only after
-                # a walk completes, so the per-host rerun is safe
-                self._stacked_rejected.add(computation)
+            if self._stacked.plan_exhausted(computation, arguments,
+                                            use_jit=self.use_jit):
+                # every rung of the stacked plan's ladder diverged, so it
+                # would run eager for good: the JAX runtime reroutes the
+                # computation to the per-host path instead
                 get_logger().warning(
-                    "stacked layout rejected the computation (%s); "
-                    "falling back to the per-host layout", e)
+                    "stacked plan exhausted its validated-jit ladder; "
+                    "rerouting computation to the per-host path")
             else:
-                self.last_plan = _plan("stacked",
-                                       autotune=self._stacked.last_autotune)
-                return result
+                try:
+                    result = self._stacked.evaluate(
+                        computation, arguments, self.storage,
+                        use_jit=self.use_jit)
+                except TypeMismatchError as e:
+                    # stacked.supports admitted the graph but a kernel
+                    # rejected a value mid-run; storage is written only
+                    # after a plan completes, so the per-host rerun is
+                    # safe
+                    self._stacked_rejected.add(computation)
+                    get_logger().warning(
+                        "stacked layout rejected the computation (%s); "
+                        "falling back to the per-host layout", e)
+                else:
+                    self.last_plan = dict(
+                        _plan("stacked",
+                              autotune=self._stacked.last_autotune),
+                        **self._stacked.last_plan_info)
+                    return result
         if compiler_passes is None and self.use_jit and not lowered:
             # a protocol-heavy graph expands to thousands of host ops in
             # one logical op: the JAX runtime lowers it to bound its jit
@@ -342,8 +362,9 @@ def _plan(layout: str, lowered: bool = False,
           autotune: Optional[dict] = None) -> dict:
     """``last_plan`` of an evaluation: its layout, whether the physical
     executor ran a lowered graph, the JAX package's plan keys for an
-    eager plan and, for a walk, the plan autotuner's table (the JAX
-    interpreter's ``last_plan["autotune"]``)."""
+    eager plan (a stacked evaluation's own replace them) and, for a
+    walk, the plan autotuner's table (the JAX interpreter's
+    ``last_plan["autotune"]``)."""
     plan = {"layout": layout, "lowered": lowered, "plan_mode": "eager",
             "pinned_ops": []}
     if autotune is not None:

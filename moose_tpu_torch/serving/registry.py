@@ -14,12 +14,15 @@ batch-bucket) pair:
   lowers, its compiled-graph cache are filled, and each lowered plan is
   linted before the model is committed.
 
-The port has no validated-jit ladder: its plans are eager on either
-route (``moose_tpu_torch/runtime.py``), and ``last_plan`` carries no
-``"validating"`` state.  So a bucket warms in ONE evaluation, which
-records its ``bucket_latency`` for the bucket autotuner, and the
-bucket's ``warmup_report`` names the port's plan state: the plan mode
-(``"eager"``), the layout that ran it and whether it was lowered.
+Each bucket is warmed as the JAX package warms it: evaluations on
+random rows until the bucket's plan leaves validation (at most
+``max_warmup_evals``), so that a request replays a promoted plan (on
+the card, CUDA graphs validated against the eager walk,
+``moose_tpu_torch/runtime.py``).  The last evaluation records its
+``bucket_latency`` for the bucket autotuner once the plan has settled,
+and the bucket's ``warmup_report`` names its evaluations, the plan's
+state and mode (``runtime.last_plan``), the layout that ran it and
+whether it was lowered.
 Bucket policy: powers of two up to ``max_batch`` (padding a ragged
 batch to the next bucket replays a warm plan).
 """
@@ -136,6 +139,7 @@ class ModelRegistry:
         buckets: Tuple[int, ...] = (),
         fixedpoint_dtype=None,
         input_name: Optional[str] = None,
+        max_warmup_evals: int = 12,
         arg_ranges: Optional[Dict[str, Tuple[float, float]]] = None,
     ) -> RegisteredModel:
         """Trace, lint and warm ``model`` for every batch bucket; returns
@@ -145,7 +149,8 @@ class ModelRegistry:
         ``traced_predictor``), an ``AbstractComputation``, or an
         already-traced ``Computation``.  ``row_shape`` is the per-row
         input shape (e.g. ``(n_features,)``).  Each bucket is warmed by
-        one evaluation.
+        evaluations until its plan has validated (at most
+        ``max_warmup_evals``).
 
         ``arg_ranges`` optionally declares real-space input bounds
         ({input name: (lo, hi)}); when given, the MSA7xx range analysis
@@ -213,7 +218,7 @@ class ModelRegistry:
             warmup_report: Dict[int, dict] = {}
             for bucket in buckets:
                 warmup_report[bucket] = self._warm_bucket(
-                    comp, input_name, bucket, row_shape
+                    comp, input_name, bucket, row_shape, max_warmup_evals
                 )
             # the CHOSEN plan: if warmup routed through the lowering
             # pipeline, the lowered/networked graph now sits in the
@@ -397,39 +402,60 @@ class ModelRegistry:
                 f"{sorted(outputs)}"
             )
 
-    def _warm_bucket(self, comp, input_name, bucket, row_shape) -> dict:
-        """Warm one bucket shape by one evaluation on random rows (as the
-        reference draws them) and record its ``bucket_latency``."""
+    def _warm_bucket(self, comp, input_name, bucket, row_shape,
+                     max_warmup_evals) -> dict:
+        """Drive one bucket's plan through its self-check to a settled
+        state, on random rows (as the reference draws them: validating
+        evaluations compare a captured plan with the eager walk word for
+        word, and all-zero operands would under-exercise the kernels),
+        and record its ``bucket_latency`` once it has settled."""
         import time as _time
 
         rng = np.random.default_rng(bucket)
         x = rng.normal(size=(bucket, *row_shape))
         with telemetry.span("warm_bucket", bucket=bucket) as sp:
-            with self.eval_lock:
-                t0 = _time.perf_counter()
-                self.runtime.evaluate_computation(
-                    comp, arguments={input_name: x}
-                )
-                eval_s = _time.perf_counter() - t0
-                plan_state = _plan_state(self.runtime)
-                plan = dict(getattr(self.runtime, "last_plan", {}))
+            evals = 0
+            for _ in range(max(1, max_warmup_evals)):
+                with self.eval_lock:
+                    t0 = _time.perf_counter()
+                    self.runtime.evaluate_computation(
+                        comp, arguments={input_name: x}
+                    )
+                    eval_s = _time.perf_counter() - t0
+                    plan_state = _plan_state(self.runtime)
+                    plan = dict(getattr(self.runtime, "last_plan", {}))
+                evals += 1
+                if plan_state != "validating":
+                    break
+            sp.attrs["evals"] = evals
             sp.attrs["plan_state"] = str(plan_state)
-        # steady-state latency evidence for the bucket autotuner: later
-        # registrations prune buckets that measure flat against their
-        # next-larger neighbor
-        from ..compilation import autotune as _autotune
+        if plan_state == "validating":
+            from ..logger import get_logger
 
-        _autotune.measurements().record(
-            "bucket_latency", 0, str(bucket), eval_s=eval_s,
-        )
-        report = {"plan_state": plan_state, "eval_s": eval_s}
-        for key in ("layout", "lowered"):
+            get_logger().warning(
+                "bucket %d still validating after %d warmup evaluations;"
+                " serving traffic will finish driving the ladder",
+                bucket, evals)
+        else:
+            # steady-state latency evidence for the bucket autotuner:
+            # later registrations prune buckets that measure flat against
+            # their next-larger neighbor
+            from ..compilation import autotune as _autotune
+
+            _autotune.measurements().record(
+                "bucket_latency", 0, str(bucket), eval_s=eval_s,
+            )
+        report = {"evals": evals, "plan_state": plan_state,
+                  "eval_s": eval_s}
+        for key in ("plan_mode", "layout", "lowered"):
             if key in plan:
                 report[key] = plan[key]
         return report
 
 
 def _plan_state(runtime):
-    """The plan state of the runtime's last evaluation: the port's plan
-    mode (``"eager"``)."""
-    return (getattr(runtime, "last_plan", {}) or {}).get("plan_mode")
+    """The plan state of the runtime's last evaluation (``last_plan``):
+    ``"validating"``, ``"jit"``, ``"per-op"`` or ``"eager"`` for a
+    validated stacked plan, ``"static"`` for one that is not validated;
+    None where the runtime reports none (the per-host layout)."""
+    return (getattr(runtime, "last_plan", {}) or {}).get("plan_state")

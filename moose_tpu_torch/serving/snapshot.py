@@ -19,13 +19,15 @@ What the reference's snapshot holds beyond this has no counterpart in
 the port, and is recorded in the reference's own form:
 
 - the validated-jit plan registry and the per-``(kernel, width)``
-  Pallas verdicts: the port runs eager plans and its kernels have no
-  first-use verdicts (a wrapper launches its kernel or raises), so
+  Pallas verdicts: a CUDA graph cannot be serialized, so a restored
+  server captures and validates its plans anew, and the port's kernels
+  have no first-use verdicts (a wrapper launches its kernel or raises):
   ``plan_states`` and ``kernel_verdicts`` are written empty and restore
   nothing;
 - ``jax.export`` artifacts of the compiled buckets: every bucket is
-  recorded with an ``unsupported:plan-eager-<layout>`` verdict, the form
-  the reference writes for a plan ``jax.export`` cannot serialize;
+  recorded with an ``unsupported:plan-<plan mode>-<layout>`` verdict,
+  the form the reference writes for a plan ``jax.export`` cannot
+  serialize;
 - the jax persistent compilation cache: the port compiles no program at
   serve time (its CUDA kernels are built once per process,
   ``native/build.py``), so there is nothing to cache and no counterpart.
@@ -136,11 +138,11 @@ def _fleet_lock(directory: Path, exclusive: bool):
 
 
 def _aot_records(model) -> Dict[int, dict]:
-    """One AOT record per bucket.  The port serves eager plans that no
-    single exported program represents, so every bucket is
-    ``unsupported:plan-eager-<layout>`` (the reference's verdict form for
-    a plan ``jax.export`` cannot serialize), with the plan key of the
-    executor that runs it."""
+    """One AOT record per bucket.  No plan of the port is a serializable
+    program (an eager plan, or CUDA graphs), so every bucket is
+    ``unsupported:plan-<plan mode>-<layout>`` (the reference's verdict
+    form for a plan ``jax.export`` cannot serialize), with the plan key
+    of the executor that runs it."""
     out = {}
     for bucket in model.buckets:
         warm = model.warmup_report.get(bucket) or {}
@@ -149,7 +151,7 @@ def _aot_records(model) -> Dict[int, dict]:
             plan_key = "physical"
         else:
             plan_key = "stacked" if layout == "stacked" else "logical"
-        mode = warm.get("plan_state") or "eager"
+        mode = warm.get("plan_mode") or "eager"
         out[int(bucket)] = {
             "verdict": f"unsupported:plan-{mode}-{layout}",
             "plan_key": plan_key,
@@ -221,7 +223,8 @@ def save_snapshot(
                     str(b): dict(r)
                     for b, r in model.warmup_report.items()
                 },
-                # the port's eager plans keep no ladder state
+                # a CUDA graph cannot be serialized: a restored server
+                # validates its plans anew
                 "plan_states": {},
                 "stacked_rejected": model.comp in getattr(
                     runtime, "_stacked_rejected", ()

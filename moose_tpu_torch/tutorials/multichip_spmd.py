@@ -19,8 +19,9 @@ What this demonstrates, end to end:
    held to the same step on plaintext floats.
 
 The JAX script's fourth section counts the collectives in the compiled
-HLO.  The port compiles no program, so that check waits for a mesh over
-several cards (ROADMAP queue 1, item 12.9).
+HLO.  The port's plans are CUDA graphs, not XLA programs, and the steps
+here run the protocol layer directly, so that check waits for a mesh
+over several cards (ROADMAP queue 1, item 12.9).
 
     python -m moose_tpu_torch.tutorials.multichip_spmd
 """
@@ -117,9 +118,9 @@ def main(argv=None):
         raise AssertionError("softmax diverged")
 
     # ---- 4. the collective mix ----------------------------------------
-    print("collective mix: not counted; the port compiles no program, "
-          "and this check waits for a mesh over several cards "
-          "(ROADMAP queue 1, item 12.9)")
+    print("collective mix: not counted; the port's plans are CUDA graphs, "
+          "not XLA programs, and this check waits for a mesh over several "
+          "cards (ROADMAP queue 1, item 12.9)")
     print("multichip SPMD tutorial OK")
     return w1, probs
 

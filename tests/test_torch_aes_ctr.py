@@ -209,7 +209,7 @@ def test_secure_dot_equals_the_reference(aes_ctr):
         want = JaxRuntime(IDS, layout="stacked", use_jit=False) \
             .evaluate_computation(chip_smoke.secure_dot_computation(jm),
                                   args)["output_0"]
-        got = PortRuntime(IDS, device="cpu").evaluate_computation(
+        got = PortRuntime(IDS, use_jit=False, device="cpu").evaluate_computation(
             chip_smoke.secure_dot_computation(tm), args)["output_0"]
     assert np.array_equal(got, np.asarray(want))
     assert np.abs(got - args["x"] @ args["y"]).max() < chip_smoke.DOT_TOL
@@ -224,7 +224,7 @@ def test_logistic_regression_request_equals_the_reference(aes_ctr):
             .evaluate_computation(jpred.predictor_factory(
                 jm.fixed(24, 40)), {"x": x})["output_0"]
         rk.reset_launches()
-        got = PortRuntime(IDS, device="cpu").evaluate_computation(
+        got = PortRuntime(IDS, use_jit=False, device="cpu").evaluate_computation(
             tpred.predictor_factory(tm.fixed(24, 40)), {"x": x})["output_0"]
     assert np.array_equal(got, np.asarray(want))
     p = 1.0 / (1.0 + np.exp(-(x @ model.coef_[0] + model.intercept_[0])))

@@ -1078,9 +1078,12 @@ def test_aes_input_request_on_the_card_matches_the_cpu(cuda, monkeypatch):
         "aes_key": aes.bytes_to_bits_be(key)}
 
     def run(device):
+        runtime = LocalMooseRuntime(["alice", "bob", "carole"], device=device)
+        # a request of the settled plan: a validating one also runs the
+        # eager walk beside its captured candidate
+        chip_smoke.settle(runtime, comp, args)
         before = dict(rk.LAUNCHES)
-        out = LocalMooseRuntime(["alice", "bob", "carole"], device=device) \
-            .evaluate_computation(comp, args)["output_0"]
+        out = runtime.evaluate_computation(comp, args)["output_0"]
         return out, {k: v - before[k] for k, v in rk.LAUNCHES.items()}
 
     (got, launched), (want, _) = _on_both(monkeypatch, run)
@@ -1108,7 +1111,9 @@ def test_aes_ctr_request_on_the_card_matches_the_cpu(cuda, monkeypatch):
 
     def run(device):
         before = dict(rk.LAUNCHES)
-        out = LocalMooseRuntime(["alice", "bob", "carole"], device=device) \
+        # aes-ctr expands on the host: eager, as the JAX package runs it
+        out = LocalMooseRuntime(["alice", "bob", "carole"], use_jit=False,
+                                device=device) \
             .evaluate_computation(comp, {"x": x})["output_0"]
         return out, {k: v - before[k] for k, v in rk.LAUNCHES.items()}
 
@@ -1497,3 +1502,79 @@ def _chip_smoke():
     import chip_smoke
 
     return chip_smoke
+
+
+def _plan_setup():
+    """A secure dot (64 x 32 @ 32 x 16, fixed(14,23)) and its runtimes on
+    the card: the compiled plan, settled, and the eager walk."""
+    import moose_tpu_torch as tm
+    from moose_tpu_torch.runtime import LocalMooseRuntime
+
+    chip_smoke = _chip_smoke()
+    rng = np.random.default_rng(23)
+    args = {"x": rng.normal(size=(64, 32)), "y": rng.normal(size=(32, 16))}
+    comp = chip_smoke.secure_dot_computation(tm)
+    ids = ["alice", "bob", "carole"]
+    plan = LocalMooseRuntime(ids, use_jit=True, device="cuda")
+    eager = LocalMooseRuntime(ids, use_jit=False, device="cuda")
+    chip_smoke.settle(plan, comp, args)
+    return comp, args, plan, eager
+
+
+@pytest.mark.gpu
+def test_a_replayed_plan_draws_each_key_s_masks(cuda, monkeypatch):
+    # the captured K7 reads the master key from the plan's buffer: each
+    # replay equals the eager walk under its own key, and two keys differ
+    comp, args, plan, eager = _plan_setup()
+    assert plan.last_plan["plan_state"] == "jit"
+    words = {}
+    for key in ("replay-a", "replay-b"):
+        monkeypatch.setenv("MOOSE_TPU_FIXED_KEYS", key)
+        monkeypatch.setenv("MOOSE_TPU_ALLOW_WEAK_PRF", "1")
+        want = eager.evaluate_computation(comp, args)["output_0"]
+        for _ in range(3):
+            got = plan.evaluate_computation(comp, args)["output_0"]
+            assert plan.last_plan["cuda_graphs"] == 1
+            assert np.array_equal(got, want)
+        words[key] = want
+    assert not np.array_equal(words["replay-a"], words["replay-b"])
+    assert np.abs(words["replay-a"] - args["x"] @ args["y"]).max() < 1e-4
+
+
+@pytest.mark.gpu
+def test_a_replay_counts_the_launches_it_captured(cuda):
+    comp, args, plan, eager = _plan_setup()
+    deltas = []
+    for runtime in (eager, plan):
+        before = dict(rk.LAUNCHES)
+        runtime.evaluate_computation(comp, args)
+        deltas.append({k: v - before[k] for k, v in rk.LAUNCHES.items()})
+    assert deltas[0] == deltas[1]
+    assert deltas[1]["dot_cross_terms"] == 1 and deltas[1]["prf_threefry"] > 0
+
+
+@pytest.mark.gpu
+def test_the_plan_lock_keeps_two_threads_apart(cuda, monkeypatch):
+    import threading
+
+    comp, args, plan, _ = _plan_setup()
+    monkeypatch.setenv("MOOSE_TPU_FIXED_KEYS", "plan-threads")
+    monkeypatch.setenv("MOOSE_TPU_ALLOW_WEAK_PRF", "1")
+    rng = np.random.default_rng(29)
+    inputs = [[{"x": rng.normal(size=(64, 32)), "y": args["y"]}
+               for _ in range(6)] for _ in range(2)]
+    single = [[plan.evaluate_computation(comp, a)["output_0"] for a in mine]
+              for mine in inputs]
+    got = [[None] * 6, [None] * 6]
+
+    def serve(t):
+        for i, a in enumerate(inputs[t]):
+            got[t][i] = plan.evaluate_computation(comp, a)["output_0"]
+
+    threads = [threading.Thread(target=serve, args=(t,)) for t in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert all(np.array_equal(a, b) for mine, ones in zip(got, single)
+               for a, b in zip(mine, ones))

@@ -9,6 +9,7 @@ The two precisions run in separate files (this one and
 tests/test_torch_classifier.py) so the JAX reference's cost spreads over
 the test workers."""
 
+import os
 import sys
 from pathlib import Path
 from types import SimpleNamespace
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 
 import moose_tpu as jm
+from moose_tpu.edsl import tracer as jtracer
 from moose_tpu.predictors import from_onnx as jfrom_onnx
 from moose_tpu.predictors import sklearn_export as jsk
 from moose_tpu.runtime import LocalMooseRuntime as JaxRuntime
@@ -104,6 +106,64 @@ def run_binary_parity(precision, seed):
 def test_binary_logreg_bit_identical_at_fixed_24_40(fixed_keys):
     got, ref = run_binary_parity((24, 40), seed=24)
     assert np.abs(got - ref).max() < chip_smoke.LOGREG_TOL
+
+
+_JAX_PLANS: dict = {}
+
+
+def jax_plan_words(traced, x, segment):
+    """The JAX package's words of config 3 under the current fixed key:
+    its eager walk, or its plan in segments of ``segment`` ops run
+    eagerly, the reference its own self-check holds the jitted segments
+    to word for word (jitting the protocol sigmoid takes about a minute
+    on this CPU).  Memoized by key and segment."""
+    from moose_tpu.dialects import stacked as jstacked
+    from moose_tpu.execution import interpreter as jinterp
+
+    memo = (os.environ["MOOSE_TPU_FIXED_KEYS"], segment)
+    if memo not in _JAX_PLANS:
+        if segment is None:
+            out = JaxRuntime(IDS, layout="stacked", use_jit=False) \
+                .evaluate_computation(traced, {"x": x})["output_0"]
+        else:
+            plan = jinterp.build_plan(
+                traced, {"x": x}, True, segment_limit=segment,
+                jit_segments=False, dialect=jstacked.StackedDialect())
+            outputs, _ = plan.fn(jinterp.master_key_words("logical"),
+                                 {"x": x})
+            out = jinterp._to_user_value(outputs["output_0"])
+        _JAX_PLANS[memo] = np.asarray(out)
+    return _JAX_PLANS[memo]
+
+
+@pytest.mark.parametrize("key", ("torch-parity", "torch-parity-b"))
+@pytest.mark.parametrize("segment", (None, 5), ids=("whole", "segmented"))
+def test_binary_logreg_plans_are_the_jax_package_s(threefry, monkeypatch,
+                                                   segment, key):
+    """Config 3 at 8 x 5, fixed(24,40), through the port's compiled plan
+    (uncaptured on the CPU), whole and segmented
+    (``MOOSE_TPU_JIT_SEGMENT=5``: each segment draws from its own key
+    domain), under two master keys: the JAX package's words, after the
+    JAX runs of the test above in this process."""
+    monkeypatch.setenv("MOOSE_TPU_FIXED_KEYS", key)
+    monkeypatch.setenv("MOOSE_TPU_ALLOW_WEAK_PRF", "1")
+    if segment is not None:
+        monkeypatch.setenv("MOOSE_TPU_JIT_SEGMENT", str(segment))
+    model, x = binary_model(24)
+    jpred = jfrom_onnx(jsk.logistic_regression_onnx(model, FEATURES))
+    traced = jtracer.trace(jpred.predictor_factory(jm.fixed(24, 40)))
+    want = jax_plan_words(traced, x, segment)
+    runtime = PortRuntime(IDS, layout="stacked", use_jit=True, device="cpu")
+    got = runtime.evaluate_computation(
+        tfrom_onnx(tsk.logistic_regression_onnx(model, FEATURES))
+        .predictor_factory(tm.fixed(24, 40)), {"x": x})["output_0"]
+    assert runtime.last_plan["plan_mode"] == (
+        "whole-graph" if segment is None else "segmented")
+    assert len(traced.operations) > 2 * (segment or 0)
+    assert np.array_equal(got, want)
+    assert np.abs(got - sigmoid_pair(x, model.coef_[0],
+                                     model.intercept_[0])).max() < \
+        chip_smoke.LOGREG_TOL
 
 
 def test_chip_smoke_logistic_regression_matches_float64():

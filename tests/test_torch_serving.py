@@ -321,8 +321,9 @@ def test_overload_raises_typed_error_not_hang():
 
 def test_no_retrace_after_warmup():
     """Warm-registry acceptance: post-registration traffic never
-    re-traces; each bucket warmed in one evaluation, and its report
-    names the port's plan state."""
+    re-traces; each bucket warmed until its plan settled (one evaluation
+    for a plan that does not validate), and its report names the plan's
+    state and mode as ``runtime.last_plan`` gives them."""
     model = _model("logreg")
     with _server(model, buckets=(4,)) as server:
         x = RNG.normal(size=(4, FEATURES))
@@ -333,12 +334,15 @@ def test_no_retrace_after_warmup():
     snap = server.metrics_snapshot()
     assert snap["batches"] >= 1
     assert snap["retraces_after_warm"] == 0
-    # the port's plans never validate: no validating_after_warm counter
+    # the batcher keeps no validating_after_warm counter
     assert "validating_after_warm" not in snap
     assert snap["deadline_misses"] == 0
     warm = snap["models"]["m"]["warmup"]["4"]
-    assert set(warm) == {"plan_state", "eval_s", "layout", "lowered"}
-    assert warm["plan_state"] == "eager"
+    assert set(warm) == {"evals", "plan_state", "plan_mode", "eval_s",
+                         "layout", "lowered"}
+    # the tests' MOOSE_TPU_JIT=0: the eager plan, which never validates
+    assert warm["evals"] == 1
+    assert warm["plan_state"] == "static" and warm["plan_mode"] == "eager"
     assert warm["layout"] == "stacked" and warm["lowered"] is False
     assert warm["eval_s"] > 0
 

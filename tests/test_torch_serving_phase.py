@@ -46,7 +46,8 @@ def test_phase22_runs_small_on_the_cpu(monkeypatch):
         autotune.measurements().load(saved)
     assert record["warmup"]["buckets"] == [1, 2, 4, 8]
     assert record["warmup"]["source"] == "default"
-    assert record["warmup"]["plan_state"] == ["eager"]
+    # the eager plan of the tests' MOOSE_TPU_JIT=0, which never validates
+    assert record["warmup"]["plan_state"] == ["static"]
     assert record["burst"]["rows"] == 9
     assert record["burst"]["max_abs_err"] < chip_smoke.LOGREG_TOL
     assert record["fixed_batch"]["equal_to_direct"] == {"cpu": True}
