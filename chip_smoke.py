@@ -353,8 +353,9 @@ Phases (each raises on failure; the script then exits non-zero):
      PROGRAM_SCORE_TOL, the ResNet within RESNET_TOL of
      ``resnet_reference``; no plain version of a kernel may see a card
      tensor (``plain_on_card``); then the three of PROGRAM_PROCESSES
-     (the CLI tutorial, AES and the correlation over three comets) at
-     once as ``python -m ... --device cuda``, each in a session of its
+     (the CLI tutorial, AES and the correlation over three comets),
+     PROGRAM_AT_ONCE at a time, as ``python -m ... --device cuda``, each
+     in a session of its
      own: exit 0, the line each prints on success, and no process of the
      session left.  Each program's wall printed beside the card.
  28. the stacked layout's compiled plans (``run_plans``), CUDA graphs
@@ -382,15 +383,38 @@ Phases (each raises on failure; the script then exits non-zero):
      runs the stacked layout with the default ``use_jit`` replays such
      plans: each counts and times its requests once its plan has
      validated (``settle``), and phase 16 (aes-ctr) runs eagerly.
+ 29. the physical executor's compiled plans (``run_lowered_plans``), the
+     lowered route's CUDA graphs: (a) config 3 (1024 x 100, fixed(24,40),
+     threefry) lowered by DEFAULT_PASSES (inside
+     ``host.deterministic_sync_keys(SEED)``) on a fresh per-host runtime
+     settles promoted (``last_plan``: plan_state "jit", no pinned op, a
+     CUDA graph replayed) within 5e-3; under the two fixed keys of
+     PLAN_KEYS, PLAN_REPLAYS replays each equal the eager run's words
+     (``use_jit=False``: host keys, seeds derived on the host) and the
+     CPU's, and the two keys' words differ; (b) the same lowered graph
+     serialized and served by ``evaluate_compiled`` settles promoted and
+     gives (a)'s words; (c) a lowered secure dot (1000x1000) under
+     ``MOOSE_TPU_SELFCHECK_FORCE=1`` and ``MOOSE_TPU_SELFCHECK_FAULT=Dot``
+     descends to the per-op rung and pins exactly its Dot ops, every
+     evaluation returning the eager run's words; (d) phase 20 (c)'s
+     lowered epochs ran under their plan; (e) the median wall of
+     PLAN_WALLS eager and replayed config-3 requests in turns, the
+     validating evaluations' walls, a request's launches (K1, K4 and K7
+     only, the replay counting the eager run's), its host seed
+     derivations (none replayed; ``ring.mix_seed`` counted), one eager
+     and one replayed request's device launches, busy ms and idle share
+     under torch.profiler, and the plan's private pool bytes.  Phases
+     19, 20 (c) and 21 (d) run the same route: their first evaluations
+     of a lowered graph validate it.
 Every evaluation of phases 4 to 17 and 22 must have run on the stacked
 layout, phase 18's and 19's on the per-host one
 (``last_plan["layout"]``), and phase 20's and 21's on both (the sessions
 per-host, the trained model stacked; the draw oracles one each), and
-phase 24 (a)'s and 25 (a)'s on the stacked one.  Phases 4 to 28 are the
+phase 24 (a)'s and 25 (a)'s on the stacked one.  Phases 4 to 29 are the
 main path:
 the kernels' launch counters are set to 0 just before each (each of
-phase 20's, 21's, 22's, 23's, 24's, 25's, 26's and 27's parts apart) and
-read just after;
+phase 20's, 21's, 22's, 23's, 24's, 25's, 26's, 27's and 29's parts
+apart) and read just after;
 phase 23's comet processes, phase 24's vixen and rudolph processes and
 phase 27's program processes count in their own processes.  K1, K2's
 trunc_pairs and the threefry kernel in the phase's stream layout
@@ -646,7 +670,7 @@ SERVE_QUEUE = 64
 SERVE_PROBE_ROWS = 7  # (c)'s and (f)'s request
 # phase 23: distributed secure execution (config 1's secure dot and config
 # 3's logistic regression on three workers)
-DIST_REQUESTS = 2  # warm requests after one cold
+DIST_REQUESTS = 1  # warm requests after one cold
 DIST_OVERHEAD_RUNS = 10  # paired runs of the profiler's cost
 DIST_MICRO_ITERS = 5
 # phase 24: secret integers, the chaos layer, TCP and filesystem workers,
@@ -690,6 +714,10 @@ PROGRAM_PROCESSES = {
         ("--grpc",), "OK — secure result matches the plaintext statistic"),
 }
 PROGRAM_TIMEOUT_S = 600
+# the process programs running at once (three at once oversubscribe an
+# eight-core H100 host: AES over comets took 133 s there, 82-103 s beside
+# fewer)
+PROGRAM_AT_ONCE = 2
 PROGRAM_TRAIN_TOL = 1e-3  # the 8 secure SGD steps against float64's
 PROGRAM_SCORE_TOL = 5e-3  # the exact sigmoid (phase 6's limit)
 # phase 28: the compiled plans
@@ -698,7 +726,7 @@ PLAN_REPLAYS = 5  # (a): replays under each key
 PLAN_WALLS = 10  # (b): eager and replayed requests, in turns
 PLAN_THREADS = 2  # (e)
 PLAN_THREAD_REQUESTS = 8
-FAULT_TRAIN_STEPS = 2  # (c): steps of SESSION_BATCH rows an epoch
+FAULT_TRAIN_STEPS = 1  # (c): steps of SESSION_BATCH rows an epoch
 FAULT_TRAIN_EPOCHS = 2
 FAULT_KILL_AT = 0.75  # (c): carole dies after this share of her ops
 
@@ -709,6 +737,8 @@ def per_host_ceiling(count):
 
 # the session key of the K7 group rows
 GROUP_MASTER = (0x01234567, 0x89ABCDEF, 0xDEADBEEF, 0x0BADF00D)
+# a lowered DeriveSeed's sync key words (K7's mode (b) rows)
+LOWERED_NONCE = (0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344)
 
 
 def log(*args):
@@ -1511,6 +1541,26 @@ def compare_threefry(torch, rk, n, layout, bits, reps, label):
         torch, kernel, plain, (k0, k1, n, layout, "cuda"),
         threefry_bound(n, layout, bits), reps,
         shape=f"{n} {'bits' if bits else 'words'} ({label})", mode=layout,
+    )
+
+
+def compare_seeded(torch, rk, n, layout, bits, nonce, reps, label,
+                   untagged=False):
+    """K7 under a draw's own key on the card (a lowered plan's key table
+    row), its seed made in the kernel: ``mix_seed(key, nonce)`` (mode
+    (b), a lowered DeriveSeed's) or the key itself (``nonce`` None, mode
+    (c), an unseeded Sample's), against the plain version, which derives
+    the seed on the host."""
+    key = torch.tensor(GROUP_MASTER, dtype=torch.int64, device="cuda")
+    mode = "b" if nonce is not None else "c"
+    return compare_kernel(
+        torch,
+        lambda: rk.threefry_seeded(key, nonce, n, layout, bits, untagged),
+        lambda: rk.threefry_seeded_plain(GROUP_MASTER, nonce, n, layout,
+                                         bits, "cuda", untagged),
+        (), threefry_bound(n, layout, bits), reps,
+        shape=f"{n} {'bits' if bits else 'words'} ({label}; mode ({mode})"
+              f"{', untagged' if untagged else ''})", mode=layout,
     )
 
 
@@ -2912,6 +2962,7 @@ class TimedCluster:
         self.rk = rk
         self.fail_at = fail_at
         self.sessions = []  # (computation, seconds, launches, lowered)
+        self.plans = []  # (computation, the session's last_plan)
         self.commit_s = []
 
     def run(self, comp, arguments, timeout):
@@ -2928,6 +2979,7 @@ class TimedCluster:
             {k: v - before.get(k, 0) for k, v in self.rk.LAUNCHES.items()},
             self.cluster.runtime.last_plan.get("lowered"),
         ))
+        self.plans.append((comp, dict(self.cluster.runtime.last_plan)))
         if len(self.sessions) == self.fail_at:
             raise PeerUnreachableError(
                 "injected: a peer lost after the session, before its commit")
@@ -3186,6 +3238,8 @@ def run_training_sessions(torch, rk, ring, pm, runtime_cls, device="cuda"):
             _restore(os, saved)
         rep, words, cluster, card_s, launches["training_lowered"] = out[device]
         cpu_rep, cpu_words, _, cpu_s, _ = out["cpu"]
+        # the last lowered epoch's plan
+        low_plan = [plan for c, plan in cluster.plans if c is low_epoch][-1]
         lowered_routes = [lw for c, _, _, lw in cluster.sessions
                           if c is low_epoch]
         low_launches = cluster.launches(low_epoch)
@@ -3202,6 +3256,9 @@ def run_training_sessions(torch, rk, ring, pm, runtime_cls, device="cuda"):
             "max_abs_err": float(np.abs(rep["weights"]["w"] - reference(
                 TrainingSession(low, None), low, xl, yl)).max()),
             "epoch_launches": low_launches[0],
+            # the route's compiled plan (phase 29 (d))
+            "plan": {k: low_plan.get(k) for k in (
+                "plan_mode", "pinned_ops", "plan_state", "cuda_graphs")},
         }
         log(f"training lowered: {json.dumps(record['lowered'])} launches "
             f"{launches['training_lowered']}")
@@ -5532,8 +5589,9 @@ def run_programs(torch, rk, card, device="cuda"):
     tutorials.  The seven of ``PROGRAMS`` are imported and their
     ``main([..., "--device", device])`` called at the JAX scripts'
     defaults, each counted on its own (wall, launches; no plain version
-    may see a card tensor); the three of ``PROGRAM_PROCESSES`` run at
-    once as ``python -m``, each in a session of its own, which must exit
+    may see a card tensor); the three of ``PROGRAM_PROCESSES`` run
+    ``PROGRAM_AT_ONCE`` at a time as ``python -m``, each in a session of
+    its own, which must exit
     0, print the line, and leave no process of the session behind.
     Every number logged carries ``card``.  Returns (record, launches by
     path); raises on any failed check."""
@@ -5603,12 +5661,16 @@ def run_programs(torch, rk, card, device="cuda"):
     if seen:
         raise AssertionError(f"plain versions ran on card tensors: {seen}")
 
-    # the three process programs at once, each in a session of its own
+    # the three process programs, PROGRAM_AT_ONCE at a time (the next
+    # starts when one ends), each in a session of its own
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root))
     runs = {}
     with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as files:
-        for name, (flags, ok_line) in PROGRAM_PROCESSES.items():
+        pending = list(PROGRAM_PROCESSES.items())
+
+        def start():
+            name, (flags, ok_line) = pending.pop(0)
             path = "process_" + name.split(".")[1] + "".join(
                 f"_{f.lstrip('-')}" for f in flags)
             out, err = (files.enter_context(open(Path(tmp) / f"{path}.{e}",
@@ -5620,10 +5682,14 @@ def run_programs(torch, rk, card, device="cuda"):
                 cwd=root, env=env, stdout=out, stderr=err, text=True,
                 start_new_session=True)
             runs[path] = (ok_line, proc, out, err, time.perf_counter())
+
         walls = {}
         deadline = time.perf_counter() + PROGRAM_TIMEOUT_S
         try:
-            while len(walls) < len(runs) and time.perf_counter() < deadline:
+            while (pending or len(walls) < len(runs)) and \
+                    time.perf_counter() < deadline:
+                while pending and len(runs) - len(walls) < PROGRAM_AT_ONCE:
+                    start()
                 for path, (_, proc, _, _, t0) in runs.items():
                     if path not in walls and proc.poll() is not None:
                         walls[path] = time.perf_counter() - t0
@@ -5640,6 +5706,10 @@ def run_programs(torch, rk, card, device="cuda"):
                 except ProcessLookupError:
                     left[path] = False
                 proc.wait()
+        if pending:
+            raise AssertionError(
+                f"programs never started within {PROGRAM_TIMEOUT_S} s: "
+                f"{[name for name, _ in pending]}")
         for path, (ok_line, proc, out, err, _) in runs.items():
             out.seek(0)
             err.seek(0)
@@ -5949,6 +6019,268 @@ def run_plans(torch, rk, ring, card, configs, device="cuda"):
     if not concurrent["equal_to_single_thread"] or not max(errs) < tol:
         raise AssertionError(f"concurrent plans: {concurrent}")
     return record
+
+
+def run_lowered_plans(torch, rk, ring, pm, classifier, logreg, rng, card,
+                      training_lowered, device="cuda", rows=LOGREG_ROWS,
+                      dot_n=DOT_N):
+    """Phase 29: the physical executor's compiled plans, (a) to (e) of
+    the module's docstring.  ``training_lowered`` is phase 20 (c)'s
+    record of its lowered epochs.  Every number logged carries ``card``.
+    Returns (record, launches by path); raises on any failed check.  On
+    the CPU (``device="cpu"``, small ``rows`` and ``dot_n``) the plans
+    run uncaptured, validated under ``MOOSE_TPU_SELFCHECK_FORCE=1``."""
+    import contextlib
+    import os
+
+    import numpy as np
+
+    from moose_tpu_torch import serde
+    from moose_tpu_torch.compilation import (
+        DEFAULT_PASSES,
+        compile_computation,
+    )
+    from moose_tpu_torch.compilation.lowering import (
+        arg_specs_from_arguments,
+    )
+    from moose_tpu_torch.dialects import host
+    from moose_tpu_torch.edsl import tracer
+    from moose_tpu_torch.runtime import LocalMooseRuntime
+
+    import gc
+
+    ids = ["alice", "bob", "carole"]
+    on_card = torch.device(device).type == "cuda"
+    record, launches = {"card": card}, {}
+    seeds = [0]
+    mix_seed = ring.mix_seed
+
+    def counted_mix_seed(*args, **kwargs):
+        seeds[0] += 1
+        return mix_seed(*args, **kwargs)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    @contextlib.contextmanager
+    def env(**values):
+        saved = {k: os.environ.get(k) for k in values}
+        os.environ.update(values)
+        try:
+            yield
+        finally:
+            _restore(os, saved)
+
+    def fixed(key):
+        return env(MOOSE_TPU_FIXED_KEYS=key, MOOSE_TPU_ALLOW_WEAK_PRF="1")
+
+    def lowered_of(comp, args):
+        # one lowering, inside the pinned nonce stream, for every runtime
+        with host.deterministic_sync_keys(SEED):
+            return compile_computation(tracer.trace(comp), DEFAULT_PASSES,
+                                       arg_specs_from_arguments(args))
+
+    def wall(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def counted(fn):
+        """``fn()``, the launches and host seeds it made."""
+        before = dict(rk.LAUNCHES)
+        seeds[0] = 0
+        out = fn()
+        sync()
+        return out, {c: rk.LAUNCHES[c] - before[c] for c in before}, \
+            seeds[0]
+
+    def state(rt):
+        return {k: rt.last_plan.get(k) for k in (
+            "lowered", "plan_mode", "pinned_ops", "plan_state",
+            "cuda_graphs")}
+
+    ring.mix_seed = counted_mix_seed
+    try:
+        # (a) config 3 lowered: settle and hold
+        x = rng.normal(size=(rows, LOGREG_FEATURES))
+        args = {"x": x}
+        want = logistic_reference(classifier, x)
+        lowered = lowered_of(logreg, args)
+        plan = LocalMooseRuntime(ids, layout="per-host", use_jit=True,
+                                 device=device)
+        eager = LocalMooseRuntime(ids, layout="per-host", use_jit=False,
+                                  device=device)
+        cpu = LocalMooseRuntime(ids, layout="per-host", use_jit=True,
+                                device="cpu")
+        # earlier phases' plans freed first, so the pools' growth is this
+        # plan's
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        pools = private_pool_bytes(torch)
+        rk.reset_launches()
+        validating = settle(plan, lowered, args)
+        launches["lowered_plan_validating"] = dict(rk.LAUNCHES)
+        pool_bytes = private_pool_bytes(torch) - pools
+        settled = state(plan)
+        if not (settled["lowered"] and settled["plan_state"] == "jit"
+                and settled["plan_mode"] != "eager"
+                and not settled["pinned_ops"]
+                and (settled["cuda_graphs"] >= 1 or not on_card)):
+            raise AssertionError(f"config 3's lowered plan settled on "
+                                 f"{settled}")
+        if len(validating) < 2:
+            raise AssertionError("the lowered plan promoted unvalidated")
+        keyed, replays_equal, cpu_equal = {}, True, True
+        for key in PLAN_KEYS:
+            with fixed(key):
+                keyed[key] = eager.evaluate_computation(lowered, args)[
+                    "output_0"]
+                on_cpu = cpu.evaluate_computation(lowered, args)["output_0"]
+                cpu_equal &= bool(np.array_equal(on_cpu, keyed[key]))
+                for _ in range(PLAN_REPLAYS):
+                    got = plan.evaluate_computation(lowered, args)[
+                        "output_0"]
+                    replays_equal &= bool(
+                        plan.last_plan["plan_state"] == "jit"
+                        and np.array_equal(got, keyed[key]))
+        keys_differ = bool(not np.array_equal(*keyed.values()))
+        err = float(np.abs(got - want).max())
+        record["settle"] = {
+            "rows": rows, "features": LOGREG_FEATURES,
+            "ops": len(lowered.operations), "plan": settled,
+            "validating_walls_ms": [s * 1e3 for s in validating],
+            "pool_bytes": pool_bytes, "replays_equal_to_eager":
+            replays_equal, "eager_equal_to_cpu": cpu_equal,
+            "keys_differ": keys_differ, "max_abs_err": err,
+        }
+        log(f"lowered plans settle [{card}]: "
+            f"{json.dumps(record['settle'])}")
+        if not (replays_equal and cpu_equal and keys_differ):
+            raise AssertionError(f"lowered plan words: {record['settle']}")
+        if not err < LOGREG_TOL:
+            raise AssertionError(f"lowered plan error {err}")
+
+        # (b) the same plan through evaluate_compiled of the blob
+        blob = serde.serialize_computation(lowered)
+        from_bytes = LocalMooseRuntime(ids, layout="per-host", use_jit=True,
+                                       device=device)
+        bytes_walls = settle(from_bytes, blob, args,
+                             evaluate=from_bytes.evaluate_compiled)
+        with fixed(PLAN_KEYS[0]):
+            got = from_bytes.evaluate_compiled(blob, args)["output_0"]
+        record["from_bytes"] = {
+            "blob_bytes": len(blob), "plan": state(from_bytes),
+            "validating_walls_ms": [s * 1e3 for s in bytes_walls],
+            "equal_to_eager": bool(np.array_equal(got, keyed[PLAN_KEYS[0]])),
+        }
+        log(f"lowered plans from bytes [{card}]: "
+            f"{json.dumps(record['from_bytes'])}")
+        if record["from_bytes"]["plan"]["plan_state"] != "jit" or \
+                not record["from_bytes"]["equal_to_eager"]:
+            raise AssertionError(f"evaluate_compiled's plan: "
+                                 f"{record['from_bytes']}")
+
+        # (e) eager and replayed requests in turns, launches, host seeds,
+        # the profiler's view
+        walls = {"eager": [], "replayed": []}
+        for _ in range(PLAN_WALLS):
+            for mode, rt in (("eager", eager), ("replayed", plan)):
+                out, s = wall(lambda: rt.evaluate_computation(lowered, args))
+                walls[mode].append(s)
+                if not np.abs(out["output_0"] - want).max() < LOGREG_TOL:
+                    raise AssertionError(f"lowered {mode} request error")
+        _, eager_counts, eager_seeds = counted(
+            lambda: eager.evaluate_computation(lowered, args))
+        _, counts, replay_seeds = counted(
+            lambda: plan.evaluate_computation(lowered, args))
+        launches["lowered_plan_replayed"] = counts
+        row = {
+            "eager_ms": statistics.median(walls["eager"]) * 1e3,
+            "replayed_ms": statistics.median(walls["replayed"]) * 1e3,
+            "launches_eager": eager_counts, "launches_replayed": counts,
+            "host_seeds_eager": eager_seeds,
+            "host_seeds_replayed": replay_seeds,
+            "cuda_graphs": plan.last_plan["cuda_graphs"],
+        }
+        if on_card:
+            for mode, rt in (("eager", eager), ("replayed", plan)):
+                n, busy = device_busy(
+                    torch, lambda: rt.evaluate_computation(lowered, args))
+                row[f"device_launches_{mode}"] = n
+                row[f"busy_ms_{mode}"] = busy
+                row[f"idle_share_{mode}"] = max(
+                    0.0, 1.0 - busy / row[f"{mode}_ms"])
+        record["requests"] = row
+        log(f"lowered plans requests [{card}]: {json.dumps(row)}")
+        if counts != eager_counts:
+            raise AssertionError(f"a replay counted {counts}, the eager run "
+                                 f"{eager_counts}")
+        lowered_only = ("dot_cross_terms", "ring_mul", "prf_threefry")
+        if on_card and (any(counts[c] < 1 for c in lowered_only) or any(
+                n for c, n in counts.items() if c not in lowered_only)):
+            raise AssertionError(f"a lowered request launched {counts}")
+        # (the CPU's plain K7 derives each seed on the host)
+        if on_card and replay_seeds:
+            raise AssertionError(
+                f"a replayed request derived {replay_seeds} host seeds")
+    finally:
+        ring.mix_seed = mix_seed
+
+    # (c) a lowered secure dot down the ladder to the per-op rung
+    xd = rng.normal(size=(dot_n, dot_n))
+    yd = rng.normal(size=(dot_n, dot_n))
+    dargs = {"x": xd, "y": yd}
+    dot = lowered_of(secure_dot_computation(pm), dargs)
+    dots = sorted(n for n, op in dot.operations.items() if op.kind == "Dot")
+    ladder_rt = LocalMooseRuntime(ids, layout="per-host", use_jit=True,
+                                  device=device)
+    with fixed(PLAN_KEYS[0]):
+        dot_want = LocalMooseRuntime(
+            ids, layout="per-host", use_jit=False,
+            device=device).evaluate_computation(dot, dargs)["output_0"]
+        with env(MOOSE_TPU_SELFCHECK_FORCE="1",
+                 MOOSE_TPU_SELFCHECK_FAULT="Dot"):
+            steps = []
+            for _ in range(12):
+                got = ladder_rt.evaluate_computation(dot, dargs)["output_0"]
+                steps.append((state(ladder_rt),
+                              bool(np.array_equal(got, dot_want))))
+                if steps[-1][0]["plan_state"] != "validating":
+                    break
+            mixed = ladder_rt.evaluate_computation(dot, dargs)["output_0"]
+    final = steps[-1][0]
+    ladder = {
+        "descent": [st["plan_mode"] for st, _ in steps],
+        "settled": final, "dots": dots,
+        "words_equal_to_eager": all(eq for _, eq in steps)
+        and bool(np.array_equal(mixed, dot_want)),
+        "max_abs_err": float(np.abs(mixed - xd @ yd).max()),
+    }
+    record["ladder"] = ladder
+    log(f"lowered plans ladder [{card}]: {json.dumps(ladder)}")
+    if final["plan_state"] != "per-op" or final["pinned_ops"] != dots \
+            or not dots:
+        raise AssertionError(f"the lowered fault ladder settled on {final}, "
+                             f"the graph's Dots {dots}")
+    if not (ladder["words_equal_to_eager"] and ladder["max_abs_err"] < DOT_TOL):
+        raise AssertionError(f"the lowered fault ladder's words: {ladder}")
+
+    # (d) phase 20 (c)'s lowered epochs ran under plans
+    record["training"] = {k: training_lowered[k] for k in (
+        "plan", "words_equal_to_cpu", "weights_equal_to_cpu")}
+    log(f"lowered plans training [{card}]: "
+        f"{json.dumps(record['training'])}")
+    if training_lowered["plan"]["plan_state"] not in (
+            "validating", "jit") or not (
+            training_lowered["words_equal_to_cpu"]
+            and training_lowered["weights_equal_to_cpu"]):
+        raise AssertionError(f"phase 20 (c)'s lowered epochs: "
+                             f"{record['training']}")
+    return record, launches
 
 
 def timed(torch, fn):
@@ -6319,6 +6651,23 @@ def main() -> int:
         for layout in ("threefry", "threefry-pallas")
     ] + [compare_threefry(torch, rk, 128 * PATH_N, "threefry", True, 20,
                           "per-host zero-share bits at (128,1024,1)")]
+    # phase 29's draws: a lowered request's SampleSeeded under a key of
+    # its plan's table, its seed made in the kernel (mode (b): the
+    # DeriveSeed's sync key mixed in; mode (c): an unseeded Sample)
+    threefry_rows += [
+        compare_seeded(torch, rk, 2 * PATH_N, layout, False,
+                       LOWERED_NONCE, 20, "lowered draw at (1024,1) ring128")
+        for layout in ("threefry", "threefry-pallas")
+    ] + [
+        compare_seeded(torch, rk, 128 * PATH_N, "threefry", True,
+                       LOWERED_NONCE, 20,
+                       "lowered zero-share bits at (128,1024,1)",
+                       untagged=True),
+        compare_seeded(torch, rk, 128 * PATH_N, "threefry-pallas", True,
+                       LOWERED_NONCE, 20, "lowered bits at (128,1024,1)"),
+        compare_seeded(torch, rk, 2 * PATH_N, "threefry", False, None, 20,
+                       "unseeded Sample at (1024,1) ring128"),
+    ]
     rows_by_kernel = {
         "dot_cross_terms": dot_rows, "trunc_combine": trunc_rows,
         "cross_terms_mul": cross_rows, "ring_mul": mul_rows,
@@ -7026,6 +7375,14 @@ def main() -> int:
                    RESNET_TOL),
     })
 
+    phase[0] = 29
+    log(f"phase 29 at {time.perf_counter() - started:.1f} s")
+    # phase 29: the physical executor's compiled plans, the lowered
+    # route's CUDA graphs replayed against its eager run (main path)
+    lowered_plans_record, lowered_plans_launches = run_lowered_plans(
+        torch, rk, ring, pm, classifier, logreg, rng, smi,
+        session_record["lowered"])
+
     launches_by_path = {
         "secure_dot": dot_launches,
         "linear_regressor": linreg_launches,
@@ -7051,6 +7408,7 @@ def main() -> int:
         **fabric_launches,
         **ranks_launches,
         **programs_launches,
+        **lowered_plans_launches,
     }
     protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
@@ -7154,13 +7512,16 @@ def main() -> int:
         **{path: protocol + ("prf_threefry",) for path in programs_launches},
         "program_scientific_computing_multiple_players":
             protocol[1:] + ("prf_threefry",),
+        # phase 29: the lowered route's plans, validating and replayed
+        **{path: lowered_kernels for path in lowered_plans_launches},
     }
     for name in ("trunc_pairs", "trunc_combine"):
         if launches_by_path["secret_uint64"][name]:
             raise AssertionError(f"secret integers launched {name}")
     # the lowered graph holds the reference's composition: no fused step
     for path in ("lowered_logistic_regression", "lowered_from_bytes",
-                 "analyzer_strict_compiled", *distributed_launches,
+                 "analyzer_strict_compiled", *lowered_plans_launches,
+                 *distributed_launches,
                  "chaos_grpc", "chaos_training",
                  *(p for p in fabric_launches if p.startswith("fabric_"))):
         for name in ("trunc_combine", "trunc_pairs", "cross_terms_mul",
@@ -7282,6 +7643,9 @@ def main() -> int:
             # phase 27's programs in this process
             "launches_programs": {
                 path: by_path[path] for path in programs_launches},
+            # phase 29's lowered plans
+            "launches_lowered_plans": {
+                path: by_path[path] for path in lowered_plans_launches},
             "equal": all(r["equal"] for r in rows
                          if r["equal"] is not None),
             "max_abs_err": max(r["max_abs_err"] for r in rows
@@ -7373,6 +7737,7 @@ def main() -> int:
         "ranks": ranks_record,
         "programs": programs_record,
         "plans": plans_record,
+        "lowered_plans": lowered_plans_record,
         "seconds": time.perf_counter() - started,
     }
     log(f"chip_smoke: {record['seconds']:.1f} s in all [{smi}]")

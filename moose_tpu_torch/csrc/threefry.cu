@@ -33,6 +33,16 @@
 // group may instead carry one key given by the host, by value (no device
 // key): that is how threefry_words / threefry_bits expand a single key.
 //
+// A draw may also bring its own key, read from the card through a
+// pointer of its own (a row of a lowered plan's key table), and say how
+// its seed is made from it: mixed with a nonce whose four u32 words come
+// by value (a lowered DeriveSeed's sync key, which the graph fixes), the
+// same ring.mix_seed as above; or the key itself as the seed (an
+// unseeded Sample).  Such a seed is tagged for a bit draw as above,
+// unless the draw asks for the untagged seed (the per-host layout's bit
+// tensors).  A captured graph bakes the pointer and the nonce, and the
+// plan rewrites the key table before each replay.
+//
 // What bounds it on the card: its operations and its store about
 // equally.  A word costs 20 rounds of add, rotate and xor plus five key
 // injections, some 73 32-bit integer instructions; at the card's issue
@@ -79,8 +89,15 @@ constexpr uint64_t GOLDEN64 = 0x9E3779B97F4A7C15ull;
 // a draw's kind: uint8 0/1 bits (else u64 words); two planes (ring128)
 constexpr int KIND_BITS = 1;
 constexpr int KIND_TWO_PLANES = 2;
+// a draw's own key: its seed mix_seed(key, nonce), or the key itself
+constexpr int KIND_MIX = 4;
+constexpr int KIND_KEY = 8;
+// a bit draw from the untagged seed
+constexpr int KIND_UNTAGGED = 16;
+constexpr int KIND_ALL =
+    KIND_BITS | KIND_TWO_PLANES | KIND_MIX | KIND_KEY | KIND_UNTAGGED;
 
-// The group, by value in the kernel's parameters (about 7.4 KB at
+// The group, by value in the kernel's parameters (about 12.8 KB at
 // MAX_DRAWS; CUDA 12.1+ takes up to 32 KB on sm_70 and later).
 struct Group {
   const long long* key_dev;  // the session's master key on the card, or null
@@ -93,6 +110,8 @@ struct Group {
   long long tile0[MAX_DRAWS + 1];  // first tile of draw j; [count] = tiles
   long long n[MAX_DRAWS];          // outputs per plane
   unsigned long long dst[MAX_DRAWS][2];
+  const long long* key[MAX_DRAWS];  // KIND_MIX, KIND_KEY: the draw's key
+  uint32_t nonce[MAX_DRAWS][4];     // KIND_MIX: the nonce mixed into it
   unsigned char kind[MAX_DRAWS];
 };
 
@@ -158,31 +177,52 @@ __device__ __forceinline__ void block(long long i, uint32_t k0, uint32_t k1,
   threefry2x32_20(y0, y1, k0, k1);
 }
 
-// Warp 0 of the block: the stream key of draw j, into key[0..1].  Every
-// lane derives the mixed key; lanes 0-3 encrypt one seed block each, and
-// the four seed words are gathered by shuffles.
+// Warp 0 of the block: the stream key of draw j, into key[0..1].  Its
+// seed is the draw's own key (KIND_KEY), or the mix of a key and a nonce:
+// the draw's own key and nonce (KIND_MIX), else the session's master key
+// and draw j's nonce of the session schedule.  Every lane derives the
+// mixed key; lanes 0-3 encrypt one seed block each, and the four seed
+// words are gathered by shuffles.  (The kind is the block's, so the
+// warp takes one branch.)
 template <int LAYOUT>
 __device__ __forceinline__ void derive_key(const Group& g, int j,
                                            uint32_t* key) {
   const int lane = threadIdx.x & 31;
-  const uint32_t idx = static_cast<uint32_t>(g.first + j);
-  const uint32_t nonce[4] = {idx, 0x5B3D9E21u ^ (g.domain * 0x85EBCA6Bu),
-                             idx ^ 0xA5A5A5A5u, 7u};
-  uint32_t mixed[4];
-#pragma unroll
-  for (int w = 0; w < 4; ++w) {
-    mixed[w] = static_cast<uint32_t>(g.key_dev[w]) ^
-               (nonce[w] * 0x9E3779B9u + 0x85EBCA6Bu);
-  }
-  uint32_t m0, m1;
-  key_from_seed(mixed, m0, m1);
-  uint32_t y0 = 0u, y1 = static_cast<uint32_t>(lane & 3);
-  threefry2x32_20(y0, y1, m0, m1);
-  const uint32_t mine = y0 ^ y1;
+  const int kind = g.kind[j];
   uint32_t seed[4];
+  if (kind & KIND_KEY) {
 #pragma unroll
-  for (int w = 0; w < 4; ++w) seed[w] = __shfl_sync(0xffffffffu, mine, w);
-  if (g.kind[j] & KIND_BITS) seed[3] ^= 0x80000000u;  // the bit tag
+    for (int w = 0; w < 4; ++w) seed[w] = static_cast<uint32_t>(g.key[j][w]);
+  } else {
+    uint32_t mixed[4];
+    if (kind & KIND_MIX) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        mixed[w] = static_cast<uint32_t>(g.key[j][w]) ^
+                   (g.nonce[j][w] * 0x9E3779B9u + 0x85EBCA6Bu);
+      }
+    } else {
+      const uint32_t idx = static_cast<uint32_t>(g.first + j);
+      const uint32_t nonce[4] = {idx,
+                                 0x5B3D9E21u ^ (g.domain * 0x85EBCA6Bu),
+                                 idx ^ 0xA5A5A5A5u, 7u};
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        mixed[w] = static_cast<uint32_t>(g.key_dev[w]) ^
+                   (nonce[w] * 0x9E3779B9u + 0x85EBCA6Bu);
+      }
+    }
+    uint32_t m0, m1;
+    key_from_seed(mixed, m0, m1);
+    uint32_t y0 = 0u, y1 = static_cast<uint32_t>(lane & 3);
+    threefry2x32_20(y0, y1, m0, m1);
+    const uint32_t mine = y0 ^ y1;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) seed[w] = __shfl_sync(0xffffffffu, mine, w);
+  }
+  if ((kind & KIND_BITS) && !(kind & KIND_UNTAGGED)) {
+    seed[3] ^= 0x80000000u;  // the bit tag
+  }
   if (lane == 0) {
     if (LAYOUT == 0) {
       key_from_seed(seed, key[0], key[1]);
@@ -281,7 +321,7 @@ threefry_group_kernel(const __grid_constant__ Group g) {
   const Draw d = load_draw<LAYOUT, TILE>(g, j);
   uint32_t k0 = g.master[0];
   uint32_t k1 = g.master[1];
-  if (g.derive) {
+  if (g.derive || (g.kind[j] & (KIND_MIX | KIND_KEY))) {
     if (threadIdx.x < 32) derive_key<LAYOUT>(g, j, key);
     __syncthreads();
     k0 = key[0];
@@ -362,15 +402,20 @@ void launch(const Group& g, int units, cudaStream_t s) {
 // Expands `count` draws (at most 224) in one launch.  Draw j writes
 // n[j] outputs per plane: kind[j] bit 0 says uint8 0/1 bits (else u64
 // words), bit 1 two planes of words (ring128: stream words [0, n) to
-// dst[2j], [n, 2n) to dst[2j + 1]); one plane goes to dst[2j].  With
-// key_dev not null, draw j's key is derived from the session's master key
-// read from key_dev (four int64 words on the card, each a u32 value), its
-// domain and the nonce index first + j; with key_dev null, key4[0] and
-// key4[1] are the key of every draw.  layout 0 is "threefry", 1
-// "threefry-pallas"; layout 1 refuses a draw of more than 2^32 words.
-// Launches on `stream` (nothing when there is no output); returns
-// cudaGetLastError() of the launch, or cudaErrorInvalidValue for what it
-// refuses.
+// dst[2j], [n, 2n) to dst[2j + 1]); one plane goes to dst[2j].  Bit 2
+// (KIND_MIX) or bit 3 (KIND_KEY) gives draw j a key of its own, read from
+// the card at draw_key[j] (four int64 words, each a u32 value): its seed
+// is mix_seed(key, nonce) with the four u32 words draw_nonce[4j..4j+3],
+// or the key itself.  Else, with key_dev not null, draw j's key is
+// derived from the session's master key read from key_dev (four int64
+// words on the card, each a u32 value), its domain and the nonce index
+// first + j; with key_dev null, key4[0] and key4[1] are the key of every
+// such draw.  A derived seed is tagged for a bit draw unless bit 4
+// (KIND_UNTAGGED) is set.  layout 0 is "threefry", 1 "threefry-pallas";
+// layout 1 refuses a draw of more than 2^32 words.  draw_key and
+// draw_nonce may be null when no draw needs them.  Launches on `stream`
+// (nothing when there is no output); returns cudaGetLastError() of the
+// launch, or cudaErrorInvalidValue for what it refuses.
 extern "C" int moose_threefry_group(const unsigned int* key4,
                                     const long long* key_dev,
                                     unsigned int domain,
@@ -378,13 +423,16 @@ extern "C" int moose_threefry_group(const unsigned int* key4,
                                     int count,
                                     const long long* n,
                                     const unsigned long long* dst,
-                                    const int* kind, void* stream) {
+                                    const int* kind,
+                                    const unsigned long long* draw_key,
+                                    const unsigned int* draw_nonce,
+                                    void* stream) {
   if (count < 0 || count > MAX_DRAWS || (layout != 0 && layout != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Group g = {};
   g.key_dev = key_dev;
-  if (key_dev == nullptr) {
+  if (key_dev == nullptr && key4 != nullptr) {
     for (int w = 0; w < 4; ++w) g.master[w] = key4[w];
   }
   g.domain = domain;
@@ -395,8 +443,20 @@ extern "C" int moose_threefry_group(const unsigned int* key4,
   int planes[MAX_DRAWS];
   long long total = 0;
   for (int j = 0; j < count; ++j) {
-    if (n[j] < 0 || (kind[j] & ~(KIND_BITS | KIND_TWO_PLANES)) != 0) {
+    if (n[j] < 0 || (kind[j] & ~KIND_ALL) != 0) {
       return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int own = kind[j] & (KIND_MIX | KIND_KEY);
+    if (own == (KIND_MIX | KIND_KEY) ||
+        (own && (draw_key == nullptr || draw_key[j] == 0)) ||
+        ((kind[j] & KIND_MIX) && draw_nonce == nullptr) ||
+        (!own && key_dev == nullptr && key4 == nullptr)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    g.key[j] = own ? reinterpret_cast<const long long*>(draw_key[j])
+                   : nullptr;
+    for (int w = 0; w < 4; ++w) {
+      g.nonce[j][w] = (kind[j] & KIND_MIX) ? draw_nonce[4 * j + w] : 0u;
     }
     const bool bits = kind[j] & KIND_BITS;
     const long long words =

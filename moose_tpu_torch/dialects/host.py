@@ -31,6 +31,7 @@ from .. import dtypes as dt
 from ..execution.graphs import upload
 from ..native import ring_kernels as rk
 from ..values import (
+    DeviceSeed,
     HostBitTensor,
     HostFixedTensor,
     HostPrfKey,
@@ -175,16 +176,29 @@ def derive_seed(key: HostPrfKey, sync_key: bytes, plc: str,
     ``ring.mix_seed`` of the key and the nonce's four u32 words, or under
     ``aes-ctr`` the reference's construction (blake3 derive_key of the
     key, then a keyed hash of ``session_id || sync_key``,
-    host/prim.rs:123-147)."""
+    host/prim.rs:123-147).  A key on the device (a lowered plan's) gives
+    a :class:`~moose_tpu_torch.values.DeviceSeed` of the key and the
+    nonce's words: K7 mixes them where it draws, and nothing is derived
+    here."""
+    words = tuple(int(w) for w in np.frombuffer(
+        sync_key[:16].ljust(16, b"\0"), dtype=np.uint32))
+    on_device = isinstance(key.value, torch.Tensor)
     if ring.get_prf_impl() == "aes-ctr":
         from ..crypto.aes_prng import derive_seed as reference_derive
 
-        seed = reference_derive(ring.seed_bytes(key.value), session_id,
-                                sync_key)
-        return HostSeed(
-            tuple(int(w) for w in np.frombuffer(seed, dtype=np.uint32)), plc)
-    words = np.frombuffer(sync_key[:16].ljust(16, b"\0"), dtype=np.uint32)
-    return HostSeed(ring.mix_seed(key.value, [int(w) for w in words]), plc)
+        seed = tuple(int(w) for w in np.frombuffer(reference_derive(
+            ring.seed_bytes(ring._concrete_seed(DeviceSeed(key.value))
+                            if on_device else key.value),
+            session_id, sync_key), dtype=np.uint32))
+        if on_device:
+            # the seed stays in the key's form, as the JAX package's
+            # stays an array: a plan's jitted draw from it is refused
+            return HostSeed(DeviceSeed(rk.key_tensor(seed, key.value.device)),
+                            plc)
+        return HostSeed(seed, plc)
+    if on_device:
+        return HostSeed(DeviceSeed(key.value, words), plc)
+    return HostSeed(ring.mix_seed(key.value, words), plc)
 
 
 def sample_uniform_seeded(shp: HostShape, seed: HostSeed, width: int,

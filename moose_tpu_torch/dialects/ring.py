@@ -690,6 +690,42 @@ def aes_ctr_bits(seed, n: int):
     return AesCtrRng(seed_bytes(_bit_domain_seed(seed))).bits(n)
 
 
+def _device_layout() -> str:
+    """The K7 stream layout of the selected threefry PRF."""
+    return "threefry-pallas" if _PRF_IMPL == "threefry-pallas" \
+        else "threefry"
+
+
+def _concrete_seed(seed):
+    """The four words of ``seed`` on the host, for the ``aes-ctr`` stream
+    (which expands on the host).  A seed on the card (a lowered plan's
+    :class:`~moose_tpu_torch.values.DeviceSeed`) is made here with
+    ``ring.mix_seed`` when the plan runs eagerly, and refused inside a
+    plan's jitted candidate with the JAX package's ``ConfigurationError``
+    (``ring._concrete_seed_bytes`` refuses a tracer there)."""
+    from ..values import DeviceSeed
+
+    if not isinstance(seed, DeviceSeed):
+        return _seed_words(seed)
+    from ..execution import graphs
+    from ..native import ring_kernels as rk
+
+    if graphs.jitted():
+        raise ConfigurationError(AES_CTR_UNDER_JIT)
+    return rk.seeded_words(tuple(seed.key.tolist()), seed.nonce)
+
+
+def _seeded_draw(seed, n: int, bits: bool, layout: str,
+                 untagged: bool = False):
+    """``n`` words or bits of a :class:`~moose_tpu_torch.values.
+    DeviceSeed`'s stream in ``layout``: one K7 draw that makes the seed
+    on the card (``ring_kernels.threefry_seeded``)."""
+    from ..native import ring_kernels as rk
+
+    return rk.threefry_seeded(seed.key, seed.nonce, n, layout, bits,
+                              untagged)
+
+
 def _words_tensor(words, shape, device):
     return torch.from_numpy(words.view("<i8").reshape(shape)).to(device)
 
@@ -699,11 +735,22 @@ def sample_uniform_seeded(shape, seed, width: int, device):
     ring128 under threefry one ``(2,)+shape`` draw with ``lo = both[1]``,
     ``hi = both[0]``, under aes-ctr each element's high word first, as
     the JAX package draws them."""
+    from ..values import DeviceSeed
+
     shape = tuple(int(s) for s in shape)
     if _PRF_IMPL == "aes-ctr":
-        lo, hi = aes_ctr_words(seed, math.prod(shape), width)
+        lo, hi = aes_ctr_words(_concrete_seed(seed), math.prod(shape),
+                               width)
         return (_words_tensor(lo, shape, device),
                 None if hi is None else _words_tensor(hi, shape, device))
+    if isinstance(seed, DeviceSeed):
+        planes = 1 if width == 64 else 2
+        words = _seeded_draw(seed, planes * math.prod(shape), False,
+                             _device_layout())
+        if width == 64:
+            return words.reshape(shape), None
+        both = words.reshape((2,) + shape)
+        return both[1], both[0]
     if width == 64:
         return _random_bits_u64(seed, shape, device), None
     both = _random_bits_u64(seed, (2,) + shape, device)
@@ -725,11 +772,16 @@ def sample_bits_seeded(shape, seed, device):
     ``"threefry-pallas"``: ``ceil(n/64)`` words of K7's stream, element
     ``64w + j`` being bit ``j`` of word ``w``.  Under ``"aes-ctr"``: one
     keystream byte's low bit each."""
-    tagged = _bit_domain_seed(seed)
+    from ..values import DeviceSeed
+
     shape = tuple(int(s) for s in shape)
     if _PRF_IMPL == "aes-ctr":
-        bits = aes_ctr_bits(seed, math.prod(shape))
+        bits = aes_ctr_bits(_concrete_seed(seed), math.prod(shape))
         return torch.from_numpy(bits.reshape(shape)).to(device)
+    if isinstance(seed, DeviceSeed):
+        return _seeded_draw(seed, math.prod(shape), True,
+                            _device_layout()).reshape(shape)
+    tagged = _bit_domain_seed(seed)
     if _PRF_IMPL == "threefry-pallas":
         from . import pallas_prf
 
@@ -750,13 +802,18 @@ def sample_bit_tensor_seeded(shape, seed, device):
     one AES-CTR keystream byte's low bit each under ``"aes-ctr"``.  The
     per-host layout's zero shares of bits and its shared bit inputs draw
     here."""
+    from ..values import DeviceSeed
+
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
     if _PRF_IMPL == "aes-ctr":
         from ..crypto.aes_prng import AesCtrRng
 
-        bits = AesCtrRng(seed_bytes(seed)).bits(n)
+        bits = AesCtrRng(seed_bytes(_concrete_seed(seed))).bits(n)
         return torch.from_numpy(bits.reshape(shape)).to(device)
+    if isinstance(seed, DeviceSeed):
+        return _seeded_draw(seed, n, True, "threefry",
+                            untagged=True).reshape(shape)
     from ..native import ring_kernels as rk
 
     k0, k1 = stream_key(seed, "threefry", bits=False)

@@ -13,6 +13,9 @@ module meets it:
   ``copy_(..., non_blocking=True)`` from pinned host memory), and so is
   each evaluation's master key: K7 reads the key from that buffer
   (``ring_kernels.threefry_group``), so a replay draws fresh masks.  A
+  lowered plan's PRF keys go the same way, all of an evaluation's in one
+  ``(n_keys, 4)`` table (:func:`host_key_table`), each draw reading its
+  key's row (``ring_kernels.threefry_seeded``).  A
   value that crosses into a segment from outside it is copied into the
   tensor the segment was captured with, unless it is that tensor (a
   segment reads an earlier segment's outputs in place).
@@ -36,9 +39,11 @@ module meets it:
   raises :class:`GraphCaptureError`, naming the segment and the op being
   captured; nothing falls back to eager dispatch.
 
-On the CPU there are no graphs: :func:`graphed` returns the segment
+On the CPU there are no graphs: :func:`graphed` runs the segment
 function itself, so the CPU runs a plan's segments uncaptured through the
-same code.
+same code.  On either device a segment runs as the plan's jitted form
+(:func:`jitted`), where what only an eager walk may do is refused, as
+under ``jax.jit``: the host-side ``aes-ctr`` PRF.
 """
 
 from __future__ import annotations
@@ -94,6 +99,26 @@ def tensor_leaves(value) -> list:
 
     map_tensors(value, keep)
     return out
+
+
+# -- the jitted form ----------------------------------------------------------
+
+
+def jitted() -> bool:
+    """Whether this thread is running a segment as a plan's jitted form
+    (captured, replayed, or its uncaptured stand-in on the CPU), where
+    the JAX package would be tracing under ``jax.jit``."""
+    return getattr(_local, "jitted", False)
+
+
+@contextlib.contextmanager
+def _jitted():
+    prev = jitted()
+    _local.jitted = True
+    try:
+        yield
+    finally:
+        _local.jitted = prev
 
 
 # -- host constants ----------------------------------------------------------
@@ -182,6 +207,15 @@ def host_words(words) -> torch.Tensor:
                         dtype=torch.int64)
 
 
+def host_key_table(keys) -> torch.Tensor:
+    """A lowered plan's PRF keys, each four u32 words, as one
+    ``(len(keys), 4)`` int64 CPU tensor: the table that
+    :meth:`StaticInputs.put` copies onto the card in one copy."""
+    return torch.tensor([[int(w) & 0xFFFFFFFF for w in words]
+                         for words in keys],
+                        dtype=torch.int64).reshape(len(keys), 4)
+
+
 # -- captured segments -------------------------------------------------------
 
 
@@ -221,15 +255,16 @@ class Graphed:
         self._draws: list = []
 
     def __call__(self, *args):
-        if self._graph is None:
-            self._capture(args)
-        else:
-            self._bind(args)
-        try:
-            self._replay()
-        except Exception as e:
-            raise GraphCaptureError(f"replaying {self.name} failed: {e}") \
-                from e
+        with _jitted():
+            if self._graph is None:
+                self._capture(args)
+            else:
+                self._bind(args)
+            try:
+                self._replay()
+            except Exception as e:
+                raise GraphCaptureError(
+                    f"replaying {self.name} failed: {e}") from e
         return self._static_out
 
     def _bind(self, args) -> None:
@@ -313,8 +348,13 @@ class Graphed:
 
 def graphed(fn: Callable, name: str, pool: Optional[GraphPool]):
     """``fn`` captured as a :class:`Graphed` segment on the card (``pool``
-    given), or ``fn`` itself on the CPU (``pool`` None): the plan's
-    segments then run uncaptured."""
-    if pool is None:
-        return fn
-    return Graphed(fn, name, pool)
+    given), or ``fn`` itself run as the jitted form on the CPU (``pool``
+    None): the plan's segments then run uncaptured."""
+    if pool is not None:
+        return Graphed(fn, name, pool)
+
+    def run(*args):
+        with _jitted():
+            return fn(*args)
+
+    return run

@@ -12,7 +12,9 @@ plans past ``MOOSE_TPU_JIT_SEGMENT`` ops, each segment a session with its
 own key domain (``build_segmented_runner``), and the validated-jit
 ladder (``_SelfCheckRunner``: whole graph, 200-op and 50-op segments,
 per-op candidates with only the diverging ops pinned eager, whole-plan
-eager), whose verdicts the plan registry keeps per computation.  On the
+eager), whose verdicts the plan registry keeps per computation; the
+physical executor's plans run the same ladder through its hooks
+(``execution/physical.py``).  On the
 card every plan that is not eager validates: its first
 ``MOOSE_TPU_JIT_SELFCHECK`` evaluations (default 2) run the replayed
 candidate against the eager walk under the same key, word for word.  On
@@ -686,6 +688,8 @@ def build_segmented_runner(order, static_env, dynamic_names,
             seg_exec(si, names, rand, dyn, env, outputs, saves)
             return {n: env[n] for n in outs}, outputs, saves
 
+        if not jit_segments:
+            return seg
         return graphs.graphed(seg, f"segment {si}", pool)
 
     seg_fns = [make_seg(si, names) for si, names in enumerate(chunks)]
@@ -1242,13 +1246,23 @@ def _registry():
 
 class _SelfCheckRunner(_SelfCheckBase):
     """The validated runner of one (computation, binding), the JAX
-    package's ``_SelfCheckRunner`` over the stacked layout's plans: the
-    eager reference of a rung is its plan run uncaptured, the candidate
-    the same plan captured (with the fault knob's corruption), both under
-    the evaluation's master key and a shared nonce stream."""
+    package's ``_SelfCheckRunner``, shared by the stacked layout's plans
+    and the physical executor's.  ``builder(comp, arguments, use_jit,
+    segment_limit, jit_segments, fault_kinds=..., device=...) ->
+    (plan, executable)`` builds a rung's plan (by default the stacked
+    layout's: the eager reference its plan run uncaptured, the candidate
+    the same plan captured with the fault knob's corruption);
+    ``per_op_builder(comp, arguments, eager_plan, fault_kinds,
+    nonce_seed, pinned=..., device=...)`` the per-op rung's
+    :class:`_PerOpPlan`, or None where the rung is off.  With
+    ``pin_nonces`` (the stacked layout's plans) the reference and the
+    candidate run under one shared nonce stream; the physical executor's
+    plans take every PRF key as an input and bake their sync keys as
+    graph attributes, so they pin nothing."""
 
     def __init__(self, comp, arguments, checks: int, dialect=None,
-                 plan_key: Optional[str] = None,
+                 builder=None, pin_nonces: bool = True,
+                 per_op_builder=None, plan_key: Optional[str] = None,
                  segment_limit: Optional[int] = None, device="cpu"):
         import weakref
 
@@ -1256,15 +1270,21 @@ class _SelfCheckRunner(_SelfCheckBase):
         self._tuned_limit = segment_limit
         self._comp_ref = weakref.ref(comp)
         self._arguments = arguments
-        self._dialect = dialect
         self._device = torch.device(device)
+        self._builder = (builder if builder is not None
+                         else _stacked_plan_builder(dialect))
+        self._per_op_builder = (
+            per_op_builder
+            if per_op_builder is not None or builder is not None
+            else _stacked_per_op_builder(dialect))
+        self._pin_nonces = pin_nonces
         self._plan_key = plan_key or type(dialect).__name__
         # the whole-graph eager plan: the binding and the last resort
-        self.eager_plan = build_plan(comp, arguments, False,
-                                     dialect=dialect, device=device)
-        self._eager_exec = _as_segment(self.eager_plan.core,
-                                       len(self.eager_plan.order))
-        self._order = self.eager_plan.order
+        self.eager_plan, self._eager_exec = self._builder(
+            comp, arguments, False, None, True, device=self._device)
+        self._order = (self.eager_plan.order
+                       if hasattr(self.eager_plan, "order")
+                       else self.eager_plan[0])
         self._nonce_seed = secrets.randbits(63)
         saved = _registry().get(comp, {}).get(self._plan_key)
         self._restored_pins = (
@@ -1274,18 +1294,6 @@ class _SelfCheckRunner(_SelfCheckBase):
             level=saved["level"] if saved else 0,
             mode=saved["mode"] if saved else None,
         )
-
-    def _plan_fn(self, limit, captured, fault_kinds=frozenset()):
-        comp = self._comp_ref()
-        plan = build_plan(comp, self._arguments, True,
-                          segment_limit=limit, jit_segments=captured,
-                          dialect=self._dialect, fault_kinds=fault_kinds,
-                          device=self._device)
-        if plan.fn is not None:  # segmented: assembled already
-            return plan.fn
-        core = _jit(plan.core, "whole graph", self._device) if captured \
-            else plan.core
-        return _as_segment(core, len(plan.order))
 
     def _build_candidate(self):
         comp = self._comp_ref()
@@ -1297,45 +1305,23 @@ class _SelfCheckRunner(_SelfCheckBase):
         if limit is _PER_OP:
             self._jit_fn = None
             self._ref_fn = None
-            self._per_op = self._build_per_op(comp)
+            self._per_op = None
+            if self._per_op_builder is not None:
+                self._per_op = self._per_op_builder(
+                    comp, self._arguments, self.eager_plan, _fault_kinds(),
+                    self._nonce_seed, pinned=self._restored_pins,
+                    device=self._device)
             return
         self._per_op = None
-        self._jit_fn = self._plan_fn(limit, True, _fault_kinds())
-        self._ref_fn = (None if getattr(self, "_skip_ref_build", False)
-                        else self._plan_fn(limit, False))
-
-    def _build_per_op(self, comp):
-        """The per-op rung's plan: one session for each op (key domain op
-        index + 1, as segmented plans), its nonces pinned per op; None
-        above ``MOOSE_TPU_PEROP_MAX`` ops, where the rung is skipped."""
-        order = self.eager_plan.order
-        if len(order) > _per_op_limit():
-            return None
-        dialect, device = self._dialect, self._device
-        static_env = self.eager_plan.static_env
-        nonce_seed = self._nonce_seed
-        comp_ref = self._comp_ref
-
-        def seg_exec(si, names, master_key, dyn, env, outputs, saves,
-                     fault=frozenset()):
-            comp = comp_ref()
-            if comp is None:  # pragma: no cover - defensive
-                raise RuntimeError("computation was garbage-collected")
-            sess = dialect.make_session(master_key, device,
-                                        key_domain=si + 1)
-            dialect.bind_placements(sess, comp)
-            with host.deterministic_sync_keys(nonce_seed + si + 1):
-                _run_ops(sess, comp, names, env, outputs, saves,
-                         _plan_binder(dialect, comp, dyn, device), dialect,
-                         False, fault, device)
-
-        always = {n for n in order
-                  if comp.operations[n].kind in _BOUNDARY_KINDS}
-        return _PerOpPlan(
-            order, static_env, self.eager_plan.dynamic_names,
-            lambda n: comp.operations[n].inputs, seg_exec, _fault_kinds(),
-            lambda mk, si: mk, always_eager=always,
-            pinned=self._restored_pins, device=device)
+        _, self._jit_fn = self._builder(
+            comp, self._arguments, True, limit, True,
+            fault_kinds=_fault_kinds(), device=self._device)
+        if getattr(self, "_skip_ref_build", False):
+            self._ref_fn = None  # a restored promotion never validates
+        else:
+            _, self._ref_fn = self._builder(
+                comp, self._arguments, True, limit, False,
+                device=self._device)
 
     def _eager_fn(self, *args):
         return self._invoke(self._eager_exec, *args)
@@ -1346,6 +1332,8 @@ class _SelfCheckRunner(_SelfCheckBase):
         self._arguments = None
 
     def _invoke(self, fn, *args):
+        if not self._pin_nonces:
+            return fn(*args)
         with host.deterministic_sync_keys(self._nonce_seed):
             return fn(*args)
 
@@ -1383,6 +1371,66 @@ class _SelfCheckRunner(_SelfCheckBase):
             limit = self._tuned_limit
         seg = limit if limit is not None else _segment_limit()
         return "segmented" if len(self._order) > seg else "whole-graph"
+
+
+def _stacked_plan_builder(dialect):
+    """The ``builder`` hook of :class:`_SelfCheckRunner` over the stacked
+    layout's plans: a segmented plan assembled already, else the
+    whole-graph core, captured when both ``use_jit`` and
+    ``jit_segments``."""
+
+    def build(comp, arguments, use_jit, segment_limit, jit_segments,
+              fault_kinds=frozenset(), device="cpu"):
+        plan = build_plan(comp, arguments, use_jit,
+                          segment_limit=segment_limit,
+                          jit_segments=jit_segments, dialect=dialect,
+                          fault_kinds=fault_kinds, device=device)
+        if plan.fn is not None:  # segmented: assembled already
+            return plan, plan.fn
+        core = (_jit(plan.core, "whole graph", device)
+                if use_jit and jit_segments else plan.core)
+        return plan, _as_segment(core, len(plan.order))
+
+    return build
+
+
+def _stacked_per_op_builder(dialect):
+    """The ``per_op_builder`` hook over the stacked layout's plans: one
+    session for each op (key domain op index + 1, as segmented plans),
+    its nonces pinned per op; None above ``MOOSE_TPU_PEROP_MAX`` ops,
+    where the rung is skipped."""
+
+    def build(comp, arguments, eager_plan, fault_kinds, nonce_seed,
+              pinned=(), device="cpu"):
+        import weakref
+
+        order = eager_plan.order
+        if len(order) > _per_op_limit():
+            return None
+        comp_ref = weakref.ref(comp)
+
+        def seg_exec(si, names, master_key, dyn, env, outputs, saves,
+                     fault=frozenset()):
+            comp = comp_ref()
+            if comp is None:  # pragma: no cover - defensive
+                raise RuntimeError("computation was garbage-collected")
+            sess = dialect.make_session(master_key, device,
+                                        key_domain=si + 1)
+            dialect.bind_placements(sess, comp)
+            with host.deterministic_sync_keys(nonce_seed + si + 1):
+                _run_ops(sess, comp, names, env, outputs, saves,
+                         _plan_binder(dialect, comp, dyn, device), dialect,
+                         False, fault, device)
+
+        always = {n for n in order
+                  if comp.operations[n].kind in _BOUNDARY_KINDS}
+        return _PerOpPlan(
+            order, eager_plan.static_env, eager_plan.dynamic_names,
+            lambda n: comp.operations[n].inputs, seg_exec, fault_kinds,
+            lambda mk, si: mk, always_eager=always, pinned=pinned,
+            device=device)
+
+    return build
 
 
 @dataclasses.dataclass

@@ -94,7 +94,9 @@ SIGNATURES = {
         + [ctypes.c_int] * 2
         + [ctypes.POINTER(ctypes.c_longlong),
            ctypes.POINTER(ctypes.c_ulonglong),
-           ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
+           ctypes.POINTER(ctypes.c_int),
+           ctypes.POINTER(ctypes.c_ulonglong),
+           ctypes.POINTER(ctypes.c_uint), ctypes.c_void_p],
     ),
 }
 

@@ -1376,6 +1376,7 @@ PALLAS_MAX_WORDS = 1 << 32
 # several launches), and the kind bits of a draw
 GROUP_MAX_DRAWS = 224
 _KIND_BITS, _KIND_TWO_PLANES = 1, 2
+_KIND_MIX, _KIND_KEY, _KIND_UNTAGGED = 4, 8, 16
 
 
 class GroupDraw(NamedTuple):
@@ -1384,11 +1385,19 @@ class GroupDraw(NamedTuple):
     pairs, each n outputs at element ``offset`` of a contiguous
     ``buffer``, in stream order.  A ring64 draw or a bit draw has one
     plane; a ring128 draw is one (2, n) draw, its stream words [0, n) the
-    high plane and [n, 2n) the low plane, so its planes are (hi, lo)."""
+    high plane and [n, 2n) the low plane, so its planes are (hi, lo).
+
+    ``key``, a 4-word int64 tensor on the card, gives the draw a key of
+    its own: its seed is ``ring.mix_seed(key, nonce)`` (``nonce`` four
+    u32 words), or the key itself with ``nonce`` None.  ``untagged``
+    draws bits from that seed without the bit tag."""
 
     bits: bool
     n: int
     planes: Tuple[Tuple[torch.Tensor, int], ...]
+    key: Optional[torch.Tensor] = None
+    nonce: Optional[Tuple[int, ...]] = None
+    untagged: bool = False
 
 
 def refuse_beyond_counter(layout: str, bits: bool, n: int,
@@ -1508,12 +1517,21 @@ def _check_group(layout: str, draws, device: torch.device) -> None:
                 )
 
 
+def _draw_kind(draw: GroupDraw) -> int:
+    kind = (_KIND_BITS if draw.bits else 0) | (
+        _KIND_TWO_PLANES if len(draw.planes) == 2 else 0)
+    if draw.key is not None:
+        kind |= _KIND_KEY if draw.nonce is None else _KIND_MIX
+    return kind | (_KIND_UNTAGGED if draw.untagged else 0)
+
+
 def _launch_group(key4, key_dev, domain: int, first: int, code: int,
                   draws, device: torch.device) -> None:
-    """One K7 launch: under the device key ``key_dev`` (the session's
-    master key, a 4-word int64 tensor on the card: the seeds are derived
-    in the kernel), or, with ``key_dev`` None, under the host key
-    ``key4`` by value."""
+    """One K7 launch: each draw under its own key on the card (its
+    ``key``), else under the device key ``key_dev`` (the session's master
+    key, a 4-word int64 tensor on the card: the seeds are derived in the
+    kernel), or, with ``key_dev`` None, under the host key ``key4`` by
+    value."""
     count = len(draws)
     lib = build.library("threefry")
     base = {}
@@ -1524,18 +1542,21 @@ def _launch_group(key4, key_dev, domain: int, first: int, code: int,
             if at is None:
                 at = base[id(buf)] = (buf.data_ptr(), buf.element_size())
             dsts.append(at[0] + offset * at[1])
-    kinds = (ctypes.c_int * count)(*[
-        (_KIND_BITS if d.bits else 0)
-        | (_KIND_TWO_PLANES if len(d.planes) == 2 else 0)
-        for d in draws
-    ])
+    kinds = (ctypes.c_int * count)(*[_draw_kind(d) for d in draws])
+    own = any(d.key is not None for d in draws)
     with torch.cuda.device(device):
         err = lib.moose_threefry_group(
-            (ctypes.c_uint * 4)(*key4),
+            None if key4 is None else (ctypes.c_uint * 4)(*key4),
             None if key_dev is None else key_dev.data_ptr(),
             domain & ring.MASK32, first, code, count,
             (ctypes.c_longlong * count)(*[d.n for d in draws]),
             (ctypes.c_ulonglong * (2 * count))(*dsts), kinds,
+            (ctypes.c_ulonglong * count)(*[
+                0 if d.key is None else d.key.data_ptr() for d in draws])
+            if own else None,
+            (ctypes.c_uint * (4 * count))(*[
+                w for d in draws for w in (d.nonce or (0, 0, 0, 0))])
+            if own else None,
             _stream(device),
         )
     _raise_on("threefry", err)
@@ -1620,6 +1641,75 @@ def _threefry(k0: int, k1: int, n: int, layout: str, device,
     # a group of one draw under the key given by the caller
     _launch_group((k0, k1, 0, 0), None, 0, 0, code,
                   [GroupDraw(bits, n, ((out, 0),))], device)
+    LAUNCHES[counter] += 1
+    return out
+
+
+def seeded_words(key, nonce):
+    """The seed a draw under its own ``key`` expands, derived on the
+    host: ``ring.mix_seed(key, nonce)``, or the key itself with ``nonce``
+    None."""
+    if nonce is None:
+        return ring._seed_words(key)
+    return ring.mix_seed(key, nonce)
+
+
+def threefry_seeded_plain(key, nonce, n: int, layout: str, bits: bool,
+                          device, untagged: bool = False) -> torch.Tensor:
+    """:func:`threefry_seeded` on the host: the seed derived with
+    ``ring.mix_seed`` (:func:`seeded_words`), tagged for bits unless
+    ``untagged``, keyed in the stream ``layout`` and expanded by
+    :func:`threefry_words_plain` or :func:`threefry_bits_plain`."""
+    seed = seeded_words(key, nonce)
+    if bits and not untagged:
+        seed = ring._bit_domain_seed(seed)
+    k0, k1 = ring.stream_key(seed, layout, bits=False)
+    plain = threefry_bits_plain if bits else threefry_words_plain
+    return plain(k0, k1, int(n), layout, device)
+
+
+def threefry_seeded(key: torch.Tensor, nonce, n: int, layout: str,
+                    bits: bool, untagged: bool = False) -> torch.Tensor:
+    """The first ``n`` u64 words (as int64), or ``n`` bits as uint8 0/1,
+    of the stream of a seed made from ``key``, a 4-word int64 tensor of
+    u32 values, on ``key``'s device: ``ring.mix_seed(key, nonce)`` with
+    the four u32 words ``nonce`` (a lowered DeriveSeed's sync key), or
+    the key itself with ``nonce`` None (an unseeded Sample).  A bit draw
+    takes the seed's bit tag unless ``untagged``; ``layout`` is as in
+    :func:`threefry_words`.  The key is read where it lies, so a captured
+    graph replays with whatever key the plan wrote there.  On the card,
+    one K7 launch (a group of one draw), counted under the layout's
+    ``LAUNCHES`` name; on the CPU :func:`threefry_seeded_plain` of the
+    key's values; on ``meta`` an empty output of the shape."""
+    _check_layout(layout)
+    n = int(n)
+    if n < 0:
+        raise ValueError(f"threefry: negative count {n}")
+    if nonce is not None:
+        nonce = tuple(int(w) & ring.MASK32 for w in nonce)
+        if len(nonce) != 4:
+            raise ValueError(f"threefry: a nonce is 4 u32 words, got "
+                             f"{len(nonce)}")
+    refuse_beyond_counter(layout, bits, n)
+    if (not isinstance(key, torch.Tensor) or key.dtype != torch.int64
+            or tuple(key.shape) != (4,) or not key.is_contiguous()):
+        raise ValueError("threefry: a draw's key must be a contiguous "
+                         "int64 tensor of 4 words")
+    device = key.device
+    dtype = torch.uint8 if bits else torch.int64
+    if device.type == "cpu":
+        return threefry_seeded_plain(tuple(key.tolist()), nonce, n, layout,
+                                     bits, device, untagged)
+    if device.type == "meta":
+        return torch.empty(n, dtype=dtype, device=device)
+    _require_cuda("threefry", device)
+    out = torch.empty(n, dtype=dtype, device=device)
+    if n == 0:
+        return out
+    code, counter = PRF_LAYOUTS[layout]
+    _launch_group(None, None, 0, 0, code,
+                  [GroupDraw(bits, n, ((out, 0),), key, nonce, untagged)],
+                  device)
     LAUNCHES[counter] += 1
     return out
 

@@ -18,15 +18,17 @@ when it is already lowered, or under ``use_jit`` when its estimated
 lowered size passes the JAX package's segment limit
 (:meth:`LocalMooseRuntime._auto_lower_passes`); else it runs on the
 logical walk (``dialects/logical.py``).  ``use_jit`` resolves as the JAX
-package resolves it (``MOOSE_TPU_JIT``, default on).  On the stacked
-layout it runs the graph's compiled plan
-(``execution/interpreter.py``): on the card, CUDA graphs validated
-word for word against the eager walk on their first evaluations
-(``execution/graphs.py``), reported in ``last_plan`` (``plan_mode``,
-``pinned_ops``, ``plan_state``, ``cuda_graphs``); a stacked graph whose
-ladder ran out is rerouted per-host, as the JAX runtime reroutes it.
-Per-host, ``use_jit`` only chooses the route: both per-host routes run
-eagerly.  The two layouts draw different masks, so their results agree
+package resolves it (``MOOSE_TPU_JIT``, default on).  It runs the
+graph's compiled plan on the stacked layout (``execution/interpreter.py``)
+and on the lowered route (``execution/physical.py``: the auto-lowered
+route, ``compiler_passes=`` and ``evaluate_compiled`` of a lowered
+blob): on the card, CUDA graphs validated word for word against the
+eager run on their first evaluations (``execution/graphs.py``),
+reported in ``last_plan`` (``plan_mode``, ``pinned_ops``,
+``plan_state``, ``cuda_graphs``); a stacked graph whose ladder ran out
+is rerouted per-host, as the JAX runtime reroutes it.  The per-host
+walk (``dialects/logical.py``) runs eagerly at any ``use_jit``.  The
+two layouts draw different masks, so their results agree
 to the truncation's noise, not word for word; the walk and the lowered
 graph do too.  Each evaluation fills ``last_timings`` from its telemetry
 spans (``telemetry``), as the reference's runtime does.
@@ -106,9 +108,10 @@ class LocalMooseRuntime:
                 f"{self.device}"
             )
         self.layout = layout
-        # the JAX package's validated-jit switch: a stacked graph runs
-        # its compiled plan (CUDA graphs on the card), a big per-host
-        # graph is lowered, and both per-host routes run eagerly
+        # the JAX package's validated-jit switch: a stacked graph and a
+        # lowered one run their compiled plans (CUDA graphs on the card),
+        # a big per-host graph is lowered, and the per-host walk runs
+        # eagerly
         if use_jit is None:
             use_jit = os.environ.get("MOOSE_TPU_JIT", "1") != "0"
         self.use_jit = use_jit
@@ -144,8 +147,8 @@ class LocalMooseRuntime:
         self._stacked_rejected = weakref.WeakSet()
         # the layout that ran the last evaluation, as the JAX package
         # reports it, whether the physical executor ran it, and the plan
-        # it settled on (a stacked plan's mode, pins, state and the CUDA
-        # graphs it replayed)
+        # it settled on (a stacked or lowered plan's mode, pins, state
+        # and the CUDA graphs it replayed)
         self.last_plan: Dict = {}
         # the last evaluation's phase timings in micros, by telemetry span
         # name (the reference's per-role elapsed-time map)
@@ -223,7 +226,7 @@ class LocalMooseRuntime:
         if lowered:
             result = self._physical.evaluate(
                 computation, self.storage, arguments, use_jit=self.use_jit)
-            self.last_plan = _plan("per-host", lowered)
+            self.last_plan = self._lowered_plan()
         else:
             result = self._interpreter.evaluate(
                 computation, arguments, self.storage)
@@ -329,9 +332,18 @@ class LocalMooseRuntime:
                     comp, self.storage, dict(arguments or {}),
                     use_jit=self.use_jit)
             self.last_timings = telemetry.phase_timings(root)
-            self.last_plan = _plan("per-host", True)
+            self.last_plan = self._lowered_plan()
             return result
         return self.evaluate_computation(comp, arguments)
+
+    def _lowered_plan(self) -> dict:
+        """``last_plan`` of a lowered evaluation: at ``use_jit`` the
+        physical executor's plan (its mode, pins, state and the CUDA
+        graphs it replayed), as the stacked layout reports its own."""
+        plan = _plan("per-host", True)
+        if self.use_jit:
+            plan.update(self._physical.last_plan_info)
+        return plan
 
     def read_value_from_storage(self, identity: str, key: str):
         return self.storage[identity][key]

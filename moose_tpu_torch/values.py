@@ -63,10 +63,24 @@ class HostShape:
 
 
 @dataclasses.dataclass
+class DeviceSeed:
+    """A 128-bit seed that stays on the device as what it is made of: a
+    PRF key ``key`` (a 4-word int64 tensor of u32 values) mixed with the
+    four u32 words ``nonce`` by ``ring.mix_seed``, or the key itself with
+    ``nonce`` None.  K7 makes the seed where it expands a draw from it
+    (``ring_kernels.threefry_seeded``), so nothing is derived on the
+    host, and a captured plan replays with the key its table holds."""
+
+    key: torch.Tensor
+    nonce: Optional[tuple] = None
+
+
+@dataclasses.dataclass
 class HostSeed:
-    """128-bit seed (reference HostSeed): four u32 words.  ``origin`` is
-    the ``(key origin, sync key)`` pair the seed was derived from, kept
-    for the draw ledger; it never influences execution."""
+    """128-bit seed (reference HostSeed): four u32 words, or a
+    :class:`DeviceSeed` (a lowered plan's seeds).  ``origin`` is the
+    ``(key origin, sync key)`` pair the seed was derived from, kept for
+    the draw ledger; it never influences execution."""
 
     value: tuple
     plc: str
@@ -78,8 +92,10 @@ class HostSeed:
 
 @dataclasses.dataclass
 class HostPrfKey:
-    """PRF key words (four u32).  ``origin`` is the session key index
-    that minted the key; it never influences execution."""
+    """PRF key words (four u32), or a lowered plan's key: a 4-word int64
+    tensor on the device, a row of the plan's key table.  ``origin`` is
+    the session key index (or the key op) that minted the key; it never
+    influences execution."""
 
     value: tuple
     plc: str

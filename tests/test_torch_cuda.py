@@ -1289,13 +1289,20 @@ def test_physical_executor_launches_k1_k4_and_k7(cuda, monkeypatch):
     """A lowered config-3 request on the card: every host ring Dot on K1
     in its product-only mode, every host ring Mul on K4, every
     SampleSeeded one K7 draw, and no fused protocol step; the CPU's
-    words."""
+    words.  Counted once the graph's plan has settled: its validating
+    evaluations run the eager plan beside the captured one."""
+    from moose_tpu_torch.execution import physical
     from moose_tpu_torch.execution.physical import execute_physical
 
     chip_smoke, model, lowered, args = _lowered_logreg()
     kinds = [op.kind for op in lowered.operations.values()]
 
     def run(device):
+        for _ in range(4):
+            execute_physical(lowered, {}, args, device=device)
+            if physical.default_interpreter(device).last_plan_info[
+                    "plan_state"] != "validating":
+                break
         before = dict(rk.LAUNCHES)
         out = execute_physical(lowered, {}, args,
                                device=device)["output_0"]
@@ -1578,3 +1585,101 @@ def test_the_plan_lock_keeps_two_threads_apart(cuda, monkeypatch):
         t.join()
     assert all(np.array_equal(a, b) for mine, ones in zip(got, single)
                for a, b in zip(mine, ones))
+
+
+def _lowered_plan_setup():
+    """The secure dot of :func:`_plan_setup`, lowered (DEFAULT_PASSES,
+    its nonces pinned), and per-host runtimes on the card: the physical
+    executor's plan, settled, and its eager run."""
+    import moose_tpu_torch as tm
+    from moose_tpu_torch.compilation import (
+        DEFAULT_PASSES,
+        compile_computation,
+    )
+    from moose_tpu_torch.compilation.lowering import arg_specs_from_arguments
+    from moose_tpu_torch.dialects import host
+    from moose_tpu_torch.edsl import tracer
+    from moose_tpu_torch.runtime import LocalMooseRuntime
+
+    chip_smoke = _chip_smoke()
+    rng = np.random.default_rng(24)
+    args = {"x": rng.normal(size=(64, 32)), "y": rng.normal(size=(32, 16))}
+    with host.deterministic_sync_keys(24):
+        lowered = compile_computation(
+            tracer.trace(chip_smoke.secure_dot_computation(tm)),
+            DEFAULT_PASSES, arg_specs_from_arguments(args))
+    ids = ["alice", "bob", "carole"]
+    plan = LocalMooseRuntime(ids, layout="per-host", use_jit=True,
+                             device="cuda")
+    eager = LocalMooseRuntime(ids, layout="per-host", use_jit=False,
+                              device="cuda")
+    chip_smoke.settle(plan, lowered, args)
+    return lowered, args, plan, eager
+
+
+@pytest.mark.gpu
+def test_a_replayed_lowered_plan_gives_the_eager_run_s_words(cuda,
+                                                           monkeypatch):
+    # the plan's key table is rewritten before each replay, and each
+    # captured K7 draw makes its seed from its key's row: every replay
+    # equals the eager run (host keys, seeds derived on the host) under
+    # the same fixed keys, and derives no seed on the host
+    lowered, args, plan, eager = _lowered_plan_setup()
+    assert plan.last_plan["plan_state"] == "jit"
+    assert plan.last_plan["lowered"] and plan.last_plan["cuda_graphs"] >= 1
+    monkeypatch.setenv("MOOSE_TPU_ALLOW_WEAK_PRF", "1")
+    mix_seed = ring.mix_seed
+    seeds = []
+    monkeypatch.setattr(ring, "mix_seed",
+                        lambda *a: seeds.append(1) or mix_seed(*a))
+    words = {}
+    for key in ("lowered-a", "lowered-b"):
+        monkeypatch.setenv("MOOSE_TPU_FIXED_KEYS", key)
+        want = eager.evaluate_computation(lowered, args)["output_0"]
+        seeds.clear()
+        for _ in range(3):
+            got = plan.evaluate_computation(lowered, args)["output_0"]
+            assert plan.last_plan["plan_state"] == "jit"
+            assert np.array_equal(got, want)
+        assert not seeds
+        words[key] = want
+    assert np.abs(words["lowered-a"] - args["x"] @ args["y"]).max() < 1e-4
+
+
+@pytest.mark.gpu
+def test_two_keys_give_a_lowered_plan_different_words(cuda, monkeypatch):
+    lowered, args, plan, _ = _lowered_plan_setup()
+    monkeypatch.setenv("MOOSE_TPU_ALLOW_WEAK_PRF", "1")
+    words = []
+    for key in ("lowered-c", "lowered-d"):
+        monkeypatch.setenv("MOOSE_TPU_FIXED_KEYS", key)
+        words.append(plan.evaluate_computation(lowered, args)["output_0"])
+    assert not np.array_equal(*words)
+    # and fresh keys differ from evaluation to evaluation
+    monkeypatch.delenv("MOOSE_TPU_FIXED_KEYS")
+    a, b = (plan.evaluate_computation(lowered, args)["output_0"]
+            for _ in range(2))
+    assert not np.array_equal(a, b)
+    assert np.abs(a - args["x"] @ args["y"]).max() < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ("threefry", "threefry-pallas"))
+@pytest.mark.parametrize("bits,untagged", ((False, False), (True, False),
+                                           (True, True)))
+@pytest.mark.parametrize("nonce", ((0x243F6A88, 0x85A308D3, 0x13198A2E,
+                                    0x03707344), None))
+@pytest.mark.parametrize("n", (1, 2048, 131_073))
+def test_k7_under_a_draw_s_own_key_equals_its_plain_version(
+        cuda, layout, bits, untagged, nonce, n):
+    # modes (b) and (c): the key read from the card, the seed made in the
+    # kernel; a row of a key table, as a lowered plan hands it over
+    words = (0x01234567, 0x89ABCDEF, 0xDEADBEEF, 0x0BADF00D)
+    table = torch.tensor([[0, 0, 0, 0], list(words)], dtype=torch.int64,
+                         device=cuda)
+    before = rk.LAUNCHES[rk.PRF_LAYOUTS[layout][1]]
+    got = rk.threefry_seeded(table[1], nonce, n, layout, bits, untagged)
+    assert rk.LAUNCHES[rk.PRF_LAYOUTS[layout][1]] == before + 1
+    want = rk.threefry_seeded_plain(words, nonce, n, layout, bits, "cpu",
+                                    untagged)
+    assert torch.equal(got.cpu(), want)

@@ -72,8 +72,11 @@ def test_use_jit_routes_config_3_to_the_physical_executor(runs):
     with prf("threefry"), fixed_keys_env():
         with thost.deterministic_sync_keys(SEED):
             got = runtime.evaluate_computation(tt, args)
+        # the lowered route runs the physical executor's plan, uncaptured
+        # and unvalidated on the CPU
         assert runtime.last_plan == {"layout": "per-host", "lowered": True,
-                                     "plan_mode": "eager", "pinned_ops": []}
+                                     "plan_mode": "segmented", "pinned_ops": [],
+                                     "plan_state": "static", "cuda_graphs": 0}
         again = runtime.evaluate_computation(tt, args)
     assert np.array_equal(got["output_0"], np.asarray(want["output_0"]))
     assert np.array_equal(again["output_0"], got["output_0"])

@@ -164,8 +164,11 @@ def test_the_runtime_s_lowered_route_commits_the_same_words(
     with thost.deterministic_sync_keys(SEED):
         runtime.evaluate_computation(trainer.epoch_computation(ROWS),
                                      {"x": x, "y": y})
+    # the lowered route runs the physical executor's plan, uncaptured
+    # and unvalidated on the CPU
     assert runtime.last_plan == {"layout": "per-host", "lowered": True,
-                                 "plan_mode": "eager", "pinned_ops": []}
+                                 "plan_mode": "segmented", "pinned_ops": [],
+                                 "plan_state": "static", "cuda_graphs": 0}
     for p, store in stores.items():
         assert store.query()["staged"] == trainer.expected_staged()
         store.commit(1)
