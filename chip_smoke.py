@@ -406,15 +406,45 @@ Phases (each raises on failure; the script then exits non-zero):
      under torch.profiler, and the plan's private pool bytes.  Phases
      19, 20 (c) and 21 (d) run the same route: their first evaluations
      of a lowered graph validate it.
+ 30. the distributed workers' fast path (``run_worker_plans``), each
+     role's segments captured as CUDA graphs under the JAX package's
+     per-segment validated ladder: (a) config 3 (1024 x 100,
+     fixed(24,40), threefry) lowered by DEFAULT_PASSES on three workers
+     over ``LocalNetworking`` on the card validates for its first
+     ``MOOSE_TPU_JIT_SELFCHECK`` sessions, then every role is
+     "segmented" or "full-jit" with no pinned segment and
+     ``validating_evaluations`` one a role a validating session, as on
+     the CPU, within 5e-3; under each of the two fixed keys of PLAN_KEYS
+     WORKER_KEYED settled sessions equal the legacy scheduler's outputs
+     and wire payloads (phase 23 (a) holds a settled session of config
+     3 equal to the CPU's), each role's launch tally and draw events
+     equal its legacy ones (three roles in one process), derive no seed
+     on the host, and the two keys' words differ; (b) the same graph over
+     a fabric of three handles over the card, replaying (a)'s plans
+     (words equal to (a)'s legacy run, counters equal to
+     ``cost_report``'s), and on three in-process gRPC
+     ``WorkerServer``s under ``GrpcMooseRuntime`` (``last_plan_modes``
+     settled, wire counters equal to ``cost_report``'s); (c) under
+     ``MOOSE_TPU_SELFCHECK_FAULT=Dot`` exactly the validatable segments
+     that hold a Dot are pinned, every session within 5e-3; (d) config
+     1's secure dot on three workers settles within 2e-4; (e) the median
+     wall of WORKER_WALLS legacy and settled sessions in turns, over
+     ``LocalNetworking`` and over the fabric, each role's segments,
+     captured graphs, replays a session and pool bytes, the validating
+     sessions' walls, K1, K4 and K7 launches a session, and one legacy
+     and one settled session's device launches, busy ms and idle share
+     under torch.profiler.  Phases 23 to 25 and 27 run their workers on
+     the same fast path (the default): their first sessions of a graph
+     validate it.
 Every evaluation of phases 4 to 17 and 22 must have run on the stacked
 layout, phase 18's and 19's on the per-host one
 (``last_plan["layout"]``), and phase 20's and 21's on both (the sessions
 per-host, the trained model stacked; the draw oracles one each), and
-phase 24 (a)'s and 25 (a)'s on the stacked one.  Phases 4 to 29 are the
+phase 24 (a)'s and 25 (a)'s on the stacked one.  Phases 4 to 30 are the
 main path:
 the kernels' launch counters are set to 0 just before each (each of
-phase 20's, 21's, 22's, 23's, 24's, 25's, 26's, 27's and 29's parts
-apart) and read just after;
+phase 20's, 21's, 22's, 23's, 24's, 25's, 26's, 27's, 29's and 30's
+parts apart) and read just after;
 phase 23's comet processes, phase 24's vixen and rudolph processes and
 phase 27's program processes count in their own processes.  K1, K2's
 trunc_pairs and the threefry kernel in the phase's stream layout
@@ -454,7 +484,8 @@ bucket-1024 batches (the fixed-keys batch and the 1,000-row request)
 exactly phase 6's counts a request; the burst one K1 a batch.  Each of
 phase 23's in-process paths (its warm requests, counted apart) must
 launch K1, K4 and threefry's K7 and none of K2, K3, K5 and K6, and so
-must phase 24's chaos runs (b) and (c); its secret integers (a) K1, K3's
+must phase 24's chaos runs (b) and (c) and phase 30's validating,
+settled and fabric sessions; phase 24's secret integers (a) K1, K3's
 cross_terms_reshare and K7, and no K2.  Phase 25's config 3 on the mesh
 must launch every kernel of phase 6, its logreg_train_step those of
 phase 20 (d), and its fabric sessions those of phase 23.  Phase 26's
@@ -726,6 +757,10 @@ PLAN_REPLAYS = 5  # (a): replays under each key
 PLAN_WALLS = 10  # (b): eager and replayed requests, in turns
 PLAN_THREADS = 2  # (e)
 PLAN_THREAD_REQUESTS = 8
+# phase 30's depth, cut to its 90 s: (e) legacy and settled sessions in
+# turns on each transport, (a) settled sessions under each fixed key
+WORKER_WALLS = 3
+WORKER_KEYED = 2
 FAULT_TRAIN_STEPS = 1  # (c): steps of SESSION_BATCH rows an epoch
 FAULT_TRAIN_EPOCHS = 2
 FAULT_KILL_AT = 0.75  # (c): carole dies after this share of her ops
@@ -1553,15 +1588,21 @@ def compare_seeded(torch, rk, n, layout, bits, nonce, reps, label,
     the seed on the host."""
     key = torch.tensor(GROUP_MASTER, dtype=torch.int64, device="cuda")
     mode = "b" if nonce is not None else "c"
-    return compare_kernel(
-        torch,
-        lambda: rk.threefry_seeded(key, nonce, n, layout, bits, untagged),
+
+    def kernel():
+        return rk.threefry_seeded(key, nonce, n, layout, bits, untagged)
+
+    row = compare_kernel(
+        torch, kernel,
         lambda: rk.threefry_seeded_plain(GROUP_MASTER, nonce, n, layout,
                                          bits, "cuda", untagged),
         (), threefry_bound(n, layout, bits), reps,
         shape=f"{n} {'bits' if bits else 'words'} ({label}; mode ({mode})"
               f"{', untagged' if untagged else ''})", mode=layout,
     )
+    # the kernel's own time on the card, without the host's launch
+    row["device_ms"] = device_time_ms(torch, kernel)
+    return row
 
 
 def secret_uint64_computation(pm):
@@ -4229,14 +4270,16 @@ def run_distributed(torch, rk, ring, pm, classifier, logreg, runtime, rng,
     # payload on the wire, for config 3 over LocalNetworking
     saved = _fixed_keys(os)
     try:
-        words = {}
+        words, fixed_modes = {}, {}
         for dev in (device, "cpu"):
             net = LocalNetworking(device=dev)
             wire = capture(net)
-            _, out = local_run(lowered["logistic_regression"],
-                               graphs["logistic_regression"][1](0), net,
-                               "fixed-keys", dev=dev)
+            results, out = local_run(lowered["logistic_regression"],
+                                     graphs["logistic_regression"][1](0),
+                                     net, "fixed-keys", dev=dev)
             words[dev] = (out, wire)
+            fixed_modes[str(dev)] = sorted(
+                {r["plan_mode"] for r in results.values()})
     finally:
         _restore(os, saved)
     (card_out, card_wire), (cpu_out, cpu_wire) = words[device], words["cpu"]
@@ -4246,9 +4289,14 @@ def run_distributed(torch, rk, ring, pm, classifier, logreg, runtime, rng,
     if card_wire != cpu_wire:
         diff = sorted(k for k in cpu_wire if card_wire.get(k) != cpu_wire[k])
         raise AssertionError(f"fixed-keys payloads differ: {diff[:4]}")
+    # the card's session replays its settled role plans (its cold and
+    # warm sessions validated them): phase 30 (a) leans on this
+    if not set(fixed_modes[str(device)]) <= {"segmented", "full-jit"}:
+        raise AssertionError(f"fixed-keys session ran {fixed_modes}")
     record["fixed_keys_equal_to_cpu"] = {
         "outputs": len(cpu_out), "payloads": len(cpu_wire),
-        "payload_bytes": sum(len(v) for v in cpu_wire.values())}
+        "payload_bytes": sum(len(v) for v in cpu_wire.values()),
+        "plan_modes": fixed_modes}
     say("fixed keys, card against CPU", record["fixed_keys_equal_to_cpu"])
 
     # (a) three in-process gRPC WorkerServers and GrpcMooseRuntime
@@ -6283,6 +6331,475 @@ def run_lowered_plans(torch, rk, ring, pm, classifier, logreg, rng, card,
     return record, launches
 
 
+def pool_bytes(torch, handle):
+    """Device bytes held by one private memory pool (a role plan's CUDA
+    graphs), from the caching allocator's snapshot; 0 off the card."""
+    if handle is None or not torch.cuda.is_available():
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) == tuple(handle))
+
+
+def run_worker_plans(torch, rk, ring, pm, classifier, logreg, rng, card,
+                     device="cuda", rows=LOGREG_ROWS, dot_n=DOT_N,
+                     walls=WORKER_WALLS, keyed=WORKER_KEYED):
+    """Phase 30: the distributed workers' fast path, (a) to (e) of the
+    module's docstring: config 3 lowered on three in-process workers whose
+    roles run validated segments, CUDA graphs once settled.  Every number
+    logged carries ``card``.  Returns (record, launches by path); raises
+    on any failed check.  On the CPU (``device="cpu"``, small ``rows``
+    and ``dot_n``) the segments run uncaptured through the same code."""
+    import contextlib
+    import copy
+    import gc
+    import os
+    import threading
+
+    import numpy as np
+
+    from moose_tpu_torch import devices, metrics
+    from moose_tpu_torch.compilation import (
+        DEFAULT_PASSES,
+        compile_computation,
+    )
+    from moose_tpu_torch.compilation.analysis import cost_report
+    from moose_tpu_torch.compilation.lowering import arg_specs_from_arguments
+    from moose_tpu_torch.dialects import host
+    from moose_tpu_torch.distributed import worker_plan
+    from moose_tpu_torch.distributed.choreography import start_local_cluster
+    from moose_tpu_torch.distributed.fabric import (
+        FabricDomain,
+        FabricNetworking,
+    )
+    from moose_tpu_torch.distributed.networking import LocalNetworking
+    from moose_tpu_torch.distributed.worker import (
+        execute_role,
+        execute_role_legacy,
+    )
+    from moose_tpu_torch.edsl import tracer
+    from moose_tpu_torch.execution import drawledger, graphs
+    from moose_tpu_torch.execution.interpreter import _selfcheck_runs
+    from moose_tpu_torch.runtime import GrpcMooseRuntime
+
+    ids = ("alice", "bob", "carole")
+    on_card = torch.device(device).type == "cuda"
+    record, launches = {"card": card}, {}
+    checks = _selfcheck_runs()
+    settled_modes = ("segmented", "full-jit")
+    seeds = [0]
+    mix_seed = ring.mix_seed
+
+    def counted_mix_seed(*args, **kwargs):
+        seeds[0] += 1
+        return mix_seed(*args, **kwargs)
+
+    def say(what, payload):
+        log(f"worker plans {what} [{card}]: {json.dumps(payload)}")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    @contextlib.contextmanager
+    def env(**values):
+        saved = {k: os.environ.get(k) for k in values}
+        os.environ.update(values)
+        try:
+            yield
+        finally:
+            _restore(os, saved)
+
+    def fixed(key):
+        return env(MOOSE_TPU_FIXED_KEYS=key, MOOSE_TPU_ALLOW_WEAK_PRF="1")
+
+    def lowered_of(comp, args):
+        with host.deterministic_sync_keys(SEED):
+            return compile_computation(tracer.trace(comp), DEFAULT_PASSES,
+                                       arg_specs_from_arguments(args))
+
+    def session(comp, args, run_role=execute_role, fabric=None,
+                dev=device):
+        """One session of ``comp`` on three in-process workers (over the
+        fabric ``fabric`` when given): each role's result, launch tally,
+        graph replays and draw events, the outputs, the wire payloads
+        and the wall."""
+        inner = LocalNetworking(device=dev)
+        wire = {}
+        put = inner._store.put
+
+        def keep(key, value):
+            wire[key] = value
+            put(key, value)
+
+        inner._store.put = keep
+        nets = ({i: FabricNetworking(fabric, i, inner) for i in ids}
+                if fabric is not None else dict.fromkeys(ids, inner))
+        results, tallies, replays, errors = {}, {}, {}, {}
+
+        def work(identity):
+            try:
+                with rk.launch_tally() as tally:
+                    r0 = graphs.replays()
+                    results[identity] = run_role(
+                        comp, identity, {}, args, nets[identity], "w30",
+                        timeout=300.0, device=dev)
+                    replays[identity] = graphs.replays() - r0
+                tallies[identity] = dict(tally)
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors[identity] = e
+
+        threads = [threading.Thread(target=work, args=(i,), daemon=True)
+                   for i in ids]
+        with drawledger.recording() as ledger:
+            sync()
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            sync()
+            s = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"phase 30 workers failed: {errors}")
+        draws = {i: sum(e.placement == i for e in ledger.events)
+                 for i in ids}
+        outputs = {k: v for r in results.values()
+                   for k, v in r["outputs"].items()}
+        return SimpleNamespace(
+            results=results, tallies=tallies, replays=replays, draws=draws,
+            outputs=outputs, wire=wire, s=s,
+            modes={i: r["plan_mode"] for i, r in results.items()},
+            pinned={i: list(r["pinned_segments"])
+                    for i, r in results.items()})
+
+    def same(a, b):
+        return set(a) == set(b) and all(
+            np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+
+    def settle(comp, args, reference, tol, fabric=None):
+        """Sessions until no role validates: their walls and errors, the
+        plan statistics' delta, the last session."""
+        before = worker_plan.plan_stats()
+        runs = []
+        for _ in range(checks + 2):
+            run = session(comp, args, fabric=fabric)
+            err = float(np.abs(run.outputs["output_0"] - reference).max())
+            if not err < tol:
+                raise AssertionError(f"phase 30 session error {err} > {tol}")
+            runs.append((run.s, err))
+            if "validating" not in run.modes.values():
+                break
+        stats = {k: v - before[k] for k, v in worker_plan.plan_stats().items()}
+        return runs, stats, run
+
+    def role_plans(comp):
+        return {i: worker_plan.get_plan(comp, i, device=device) for i in ids}
+
+    def pins_of_dots(comp):
+        return {i: [s.index for s in plan.segments if s.validatable and any(
+                    comp.operations[n].kind == "Dot" for n in s.names)]
+                for i, plan in role_plans(comp).items()}
+
+    started = time.perf_counter()
+    parts = record["seconds"] = {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - started - sum(parts.values())
+
+    ring.mix_seed = counted_mix_seed
+    saved_jit = os.environ.get("MOOSE_TPU_WORKER_JIT")
+    os.environ["MOOSE_TPU_WORKER_JIT"] = "1"
+    try:
+        # (a) config 3 lowered: settle, then hold under two fixed keys
+        x = rng.normal(size=(rows, LOGREG_FEATURES))
+        args = {"x": x}
+        want = logistic_reference(classifier, x)
+        lowered = lowered_of(logreg, args)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        rk.reset_launches()
+        runs, stats, last = settle(lowered, args, want, LOGREG_TOL)
+        launches["worker_plan_validating"] = dict(rk.LAUNCHES)
+        if not (set(last.modes.values()) <= set(settled_modes)
+                and not any(last.pinned.values())
+                and len(runs) == checks
+                and stats["validating_evaluations"] == len(ids) * checks
+                and stats["segments_pinned"] == 0):
+            raise AssertionError(f"config 3's role plans settled on "
+                                 f"{last.modes}, pins {last.pinned}, "
+                                 f"{len(runs)} sessions, {stats}")
+        part("a_settle")
+        # the CPU's words: phase 23 (a) holds a settled card session of
+        # this graph equal to the CPU's under fixed keys (a CPU session of
+        # this size takes half a minute on the card's host)
+        words, rows_a = {}, []
+        for key in PLAN_KEYS:
+            with fixed(key):
+                legacy = session(lowered, args, run_role=execute_role_legacy)
+                seeds[0] = 0
+                held = []
+                for _ in range(keyed):
+                    rk.reset_launches()
+                    run = session(lowered, args)
+                    held.append(run)
+                launches["worker_plan_settled"] = dict(rk.LAUNCHES)
+                settled_seeds = seeds[0]
+            words[key] = legacy.outputs["output_0"]
+            rows_a.append({
+                "key": key,
+                "settled_equal_to_legacy": all(
+                    same(r.outputs, legacy.outputs) and r.wire == legacy.wire
+                    for r in held),
+                "roles_count_their_own_launches": all(
+                    r.tallies == legacy.tallies for r in held),
+                "roles_count_their_own_draws": all(
+                    r.draws == legacy.draws for r in held),
+                "launches_sum_to_the_counters": all(
+                    sum(t[c] for t in held[-1].tallies.values()) == n
+                    for c, n in launches["worker_plan_settled"].items()),
+                "host_seeds_settled": settled_seeds,
+                "settled_modes": held[-1].modes,
+            })
+        part("a_keys")
+        keys_differ = not np.array_equal(*words.values())
+        record["settle"] = {
+            "rows": rows, "features": LOGREG_FEATURES,
+            "ops": len(lowered.operations),
+            "validating_walls_ms": [s * 1e3 for s, _ in runs],
+            "max_abs_err": max(e for _, e in runs),
+            "plan_stats": stats, "modes": last.modes,
+            "keys": rows_a, "keys_differ": keys_differ,
+            "legacy_launches_by_role": legacy.tallies,
+            "legacy_draws_by_role": legacy.draws,
+        }
+        say("settle", record["settle"])
+        for row in rows_a:
+            if not (row["settled_equal_to_legacy"]
+                    and row["roles_count_their_own_launches"]
+                    and row["roles_count_their_own_draws"]
+                    and row["launches_sum_to_the_counters"]
+                    and set(row["settled_modes"].values())
+                    <= set(settled_modes)):
+                raise AssertionError(f"phase 30 (a) under {row['key']}: "
+                                     f"{row}")
+            if on_card and row["host_seeds_settled"]:
+                raise AssertionError(
+                    f"settled sessions derived {row['host_seeds_settled']} "
+                    "seeds on the host")
+        if not keys_differ:
+            raise AssertionError("two fixed keys gave the same words")
+
+        # (b) the fabric of three handles over the card, and three
+        # in-process gRPC WorkerServers under GrpcMooseRuntime
+        domain = FabricDomain(dict(zip(
+            ids, ([h] for h in devices.virtual_devices(device, 3)))),
+            "simulation")
+        fabric_names = {
+            "sends": ("moose_tpu_net_sends_total", {"transport": "fabric"}),
+            "fabric_permutes": ("moose_tpu_fabric_permutes_total", {}),
+            "fabric_batched_permutes":
+                ("moose_tpu_fabric_batched_permutes_total", {}),
+            "fabric_permute_payloads":
+                ("moose_tpu_fabric_permute_payloads_total", {}),
+            "fabric_tx_bytes": ("moose_tpu_fabric_tx_bytes_total", {}),
+        }
+
+        def fabric_counts():
+            return {k: int(metrics.REGISTRY.value(n, **lb))
+                    for k, (n, lb) in fabric_names.items()}
+
+        # a role plan is the transport's to choose nothing in: the fabric
+        # sessions replay (a)'s settled plans
+        before = fabric_counts()
+        with fixed(PLAN_KEYS[0]):
+            rk.reset_launches()
+            fab = session(lowered, args, fabric=domain)
+            launches["worker_plan_fabric"] = dict(rk.LAUNCHES)
+        measured = {k: v - before[k] for k, v in fabric_counts().items()}
+        model = cost_report(lowered, session_id="w30", transport="fabric",
+                            fabric_parties=ids, coalesce=True)
+        predicted = {k: int(model["totals"][k]) for k in fabric_names}
+        record["fabric"] = {
+            "wall_ms": fab.s * 1e3, "modes": fab.modes,
+            "equal_to_legacy": same(fab.outputs, {"output_0":
+                                                  words[PLAN_KEYS[0]]}),
+            "counters": measured, "equal_to_cost_model":
+                model["resolved"] and measured == predicted,
+        }
+        part("b_fabric")
+        say("fabric", record["fabric"])
+        if not (record["fabric"]["equal_to_legacy"]
+                and record["fabric"]["equal_to_cost_model"]
+                and set(fab.modes.values()) <= set(settled_modes)):
+            raise AssertionError(f"phase 30 (b) fabric: {record['fabric']}")
+
+        net_names = {
+            "tx_bytes": "moose_tpu_net_tx_bytes_total",
+            "rx_bytes": "moose_tpu_net_rx_bytes_total",
+            "sends": "moose_tpu_net_sends_total",
+            "send_many_envelopes": "moose_tpu_net_send_many_total",
+            "send_many_payloads": "moose_tpu_net_send_many_payloads_total",
+            "receives": "moose_tpu_net_receives_total",
+        }
+
+        def wire_counts():
+            return {k: metrics.REGISTRY.value(v, transport="grpc")
+                    for k, v in net_names.items()}
+
+        traced = tracer.trace(logreg)
+        servers, endpoints = start_local_cluster(ids, device=device)
+        try:
+            client = GrpcMooseRuntime(endpoints, device=device)
+            grpc_walls = []
+            for _ in range(checks + 2):
+                before = wire_counts()
+                (out, _), s = timed(torch, lambda: client.evaluate_computation(
+                    traced, args, timeout=600)) if on_card else (
+                    client.evaluate_computation(traced, args, timeout=600),
+                    0.0)
+                grpc_walls.append(s)
+                grpc_modes = dict(client.last_plan_modes)
+                if all(m["plan_mode"] in settled_modes
+                       for m in grpc_modes.values()):
+                    break
+            measured = {key: int(v - before[key])
+                        for key, v in wire_counts().items()}
+            grpc_err = float(np.abs(out["output_0"] - want).max())
+            (compiled, _), = client._client._compile_cache[traced].values()
+            model = cost_report(compiled, session_id="0" * 32,
+                                transport="grpc")
+            predicted = {k: int(model["totals"][k]) for k in net_names}
+        finally:
+            for srv in servers.values():
+                srv.stop()
+        record["grpc"] = {
+            "walls_ms": [s * 1e3 for s in grpc_walls],
+            "last_plan_modes": grpc_modes, "max_abs_err": grpc_err,
+            "wire": measured,
+            "equal_to_cost_model": model["resolved"] and measured == predicted,
+        }
+        part("b_grpc")
+        say("grpc", record["grpc"])
+        if not (record["grpc"]["equal_to_cost_model"]
+                and grpc_err < LOGREG_TOL and len(grpc_modes) == len(ids)
+                and all(m["plan_mode"] in settled_modes
+                        and not m["pinned_segments"]
+                        for m in grpc_modes.values())):
+            raise AssertionError(f"phase 30 (b) gRPC: {record['grpc']}")
+
+        # (c) MOOSE_TPU_SELFCHECK_FAULT=Dot pins exactly the segments
+        # that hold a Dot, and every session goes on from the eager run
+        faulty = copy.deepcopy(lowered)
+        with env(MOOSE_TPU_SELFCHECK_FAULT="Dot"):
+            fault_runs, fault_stats, fault_last = settle(
+                faulty, args, want, LOGREG_TOL)
+        part("c_fault")
+        dot_segments = pins_of_dots(faulty)
+        record["fault"] = {
+            "pinned": fault_last.pinned, "dot_segments": dot_segments,
+            "modes": fault_last.modes, "plan_stats": fault_stats,
+            "max_abs_err": max(e for _, e in fault_runs),
+        }
+        say("fault", record["fault"])
+        if fault_last.pinned != dot_segments or not any(
+                dot_segments.values()) or not set(
+                fault_last.modes.values()) <= set(settled_modes):
+            raise AssertionError(f"phase 30 (c): {record['fault']}")
+
+        # (d) config 1's secure dot settles within its limit
+        xd = rng.normal(size=(dot_n, dot_n))
+        yd = rng.normal(size=(dot_n, dot_n))
+        dargs = {"x": xd, "y": yd}
+        dot = lowered_of(secure_dot_computation(pm), dargs)
+        dot_runs, dot_stats, _ = settle(dot, dargs, xd @ yd, DOT_TOL)
+        dot_run = session(dot, dargs)
+        dot_err = float(np.abs(dot_run.outputs["output_0"] - xd @ yd).max())
+        part("d_secure_dot")
+        record["secure_dot"] = {
+            "n": dot_n, "validating_walls_ms": [s * 1e3 for s, _ in dot_runs],
+            "settled_ms": dot_run.s * 1e3, "modes": dot_run.modes,
+            "max_abs_err": dot_err, "plan_stats": dot_stats,
+        }
+        say("secure dot", record["secure_dot"])
+        if not (dot_err < DOT_TOL and set(dot_run.modes.values())
+                <= set(settled_modes)):
+            raise AssertionError(f"phase 30 (d): {record['secure_dot']}")
+
+        # (e) legacy and settled sessions in turns, over LocalNetworking
+        # and over the fabric; each role's plan; one profiled session
+        # each way
+        timing = {}
+        for name, fabric in (("local", None), ("fabric", domain)):
+            turns = {"legacy": [], "settled": []}
+            for _ in range(walls):
+                for way, run_role in (("legacy", execute_role_legacy),
+                                      ("settled", execute_role)):
+                    run = session(lowered, args, run_role=run_role,
+                                  fabric=fabric)
+                    turns[way].append(run.s)
+                    if not np.abs(run.outputs["output_0"]
+                                  - want).max() < LOGREG_TOL:
+                        raise AssertionError(f"phase 30 (e) {name} {way}")
+            timing[name] = {
+                "legacy_ms": statistics.median(turns["legacy"]) * 1e3,
+                "settled_ms": statistics.median(turns["settled"]) * 1e3,
+                "legacy_walls_ms": [s * 1e3 for s in turns["legacy"]],
+                "settled_walls_ms": [s * 1e3 for s in turns["settled"]],
+            }
+            if name == "local":
+                last_local = run
+        part("e_walls")
+        plans = role_plans(lowered)
+        run = last_local  # a settled session over LocalNetworking
+        roles = {
+            i: {"segments": len(p.segments),
+                "validatable": sum(s.validatable for s in p.segments),
+                "captured_graphs": p.captured_graphs,
+                "replays_a_session": run.replays[i],
+                "pool_bytes": pool_bytes(torch, p.pool.handle
+                                         if p.pool is not None else None),
+                "receives": len(p.recv_names),
+                "launches_a_session": run.tallies[i]}
+            for i, p in plans.items()
+        }
+        per_session = {c: sum(t[c] for t in run.tallies.values())
+                       for c in ("dot_cross_terms", "ring_mul",
+                                 "prf_threefry")}
+        profile = {}
+        if on_card:
+            for way, run_role in (("legacy", execute_role_legacy),
+                                  ("settled", execute_role)):
+                got, events = profiled(torch, lambda: session(
+                    lowered, args, run_role=run_role))
+                busy = sum(e.device_time_total for e in events) / 1e3
+                profile[way] = {
+                    "device_launches": len(events), "busy_ms": busy,
+                    "wall_ms": got.s * 1e3,
+                    "idle_share": max(0.0, 1.0 - busy / (got.s * 1e3))}
+        part("e_roles_profile")
+        record["walls"] = timing
+        record["roles"] = roles
+        record["kernel_launches_a_session"] = per_session
+        record["profile"] = profile
+        say("walls", timing)
+        say("roles", roles)
+        say("launches a session", per_session)
+        say("profiled sessions", profile)
+        say("seconds", parts)
+        if on_card and (per_session["dot_cross_terms"] < 1
+                        or per_session["ring_mul"] < 1
+                        or per_session["prf_threefry"] < 1):
+            raise AssertionError(f"a settled session launched {per_session}")
+        if on_card and any(r["captured_graphs"] != r["validatable"]
+                           for r in roles.values()):
+            raise AssertionError(f"role plans hold {roles}")
+    finally:
+        ring.mix_seed = mix_seed
+        _restore(os, {"MOOSE_TPU_WORKER_JIT": saved_jit})
+    return record, launches
+
+
 def timed(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -7383,6 +7900,13 @@ def main() -> int:
         torch, rk, ring, pm, classifier, logreg, rng, smi,
         session_record["lowered"])
 
+    phase[0] = 30
+    log(f"phase 30 at {time.perf_counter() - started:.1f} s")
+    # phase 30: the distributed workers' fast path, each role's segments
+    # CUDA graphs replayed against its eager run (main path)
+    worker_plans_record, worker_plans_launches = run_worker_plans(
+        torch, rk, ring, pm, classifier, logreg, rng, smi)
+
     launches_by_path = {
         "secure_dot": dot_launches,
         "linear_regressor": linreg_launches,
@@ -7409,6 +7933,7 @@ def main() -> int:
         **ranks_launches,
         **programs_launches,
         **lowered_plans_launches,
+        **worker_plans_launches,
     }
     protocol = ("dot_cross_terms", "trunc_pairs", "cross_terms_reshare",
                 "ring_mul", "bit_decompose", "msb", "horner")
@@ -7514,6 +8039,8 @@ def main() -> int:
             protocol[1:] + ("prf_threefry",),
         # phase 29: the lowered route's plans, validating and replayed
         **{path: lowered_kernels for path in lowered_plans_launches},
+        # phase 30: the workers' segments, validating and replayed
+        **{path: lowered_kernels for path in worker_plans_launches},
     }
     for name in ("trunc_pairs", "trunc_combine"):
         if launches_by_path["secret_uint64"][name]:
@@ -7521,7 +8048,7 @@ def main() -> int:
     # the lowered graph holds the reference's composition: no fused step
     for path in ("lowered_logistic_regression", "lowered_from_bytes",
                  "analyzer_strict_compiled", *lowered_plans_launches,
-                 *distributed_launches,
+                 *worker_plans_launches, *distributed_launches,
                  "chaos_grpc", "chaos_training",
                  *(p for p in fabric_launches if p.startswith("fabric_"))):
         for name in ("trunc_combine", "trunc_pairs", "cross_terms_mul",
@@ -7646,6 +8173,9 @@ def main() -> int:
             # phase 29's lowered plans
             "launches_lowered_plans": {
                 path: by_path[path] for path in lowered_plans_launches},
+            # phase 30's workers
+            "launches_worker_plans": {
+                path: by_path[path] for path in worker_plans_launches},
             "equal": all(r["equal"] for r in rows
                          if r["equal"] is not None),
             "max_abs_err": max(r["max_abs_err"] for r in rows
@@ -7738,6 +8268,7 @@ def main() -> int:
         "programs": programs_record,
         "plans": plans_record,
         "lowered_plans": lowered_plans_record,
+        "worker_plans": worker_plans_record,
         "seconds": time.perf_counter() - started,
     }
     log(f"chip_smoke: {record['seconds']:.1f} s in all [{smi}]")

@@ -39,8 +39,19 @@ def main(argv=None):
     from moose_tpu_torch.compilation.lowering import arg_specs_from_arguments
     from moose_tpu_torch.computation import HostPlacement
     from moose_tpu_torch.distributed.networking import LocalNetworking
-    from moose_tpu_torch.distributed.worker import execute_role
+    from moose_tpu_torch.distributed.worker import (
+        execute_role,
+        execute_role_legacy,
+    )
+    from moose_tpu_torch.distributed.worker_plan import worker_jit_enabled
     from moose_tpu_torch.serde import load_computation
+
+    # one-shot simulation, the JAX dasher's rule: the worker fast path's
+    # validation pays off from a computation's later sessions, and a
+    # dasher run is one session, so the legacy scheduler runs unless
+    # MOOSE_TPU_WORKER_JIT=1 opts in (the environment is left as it is)
+    run_role = (execute_role if worker_jit_enabled(default=False)
+                else execute_role_legacy)
 
     comp = load_computation(args.computation)
 
@@ -75,7 +86,7 @@ def main(argv=None):
 
     def work(identity):
         try:
-            results[identity] = execute_role(
+            results[identity] = run_role(
                 comp, identity, {}, arguments, net, session_id="dasher",
                 timeout=args.timeout,
             )

@@ -11,10 +11,12 @@ derives its PRF keys as the JAX package's worker does (blake2b of
 
 The distributed counterpart of the local physical executor: each worker
 takes the same global host-level graph and keeps only the operations
-pinned to its own identity.  It runs them through its role plan
-(:mod:`worker_plan`); where the analyzers reject the plan, it runs them
-with the dependency-counted parallelism of :func:`execute_role_legacy`
-— the re-design of the reference's one-async-task-per-op executor
+pinned to its own identity.  With the fast path on (the default, as in
+the JAX package) it runs them through its compiled role plan
+(:mod:`worker_plan`: validated segments, CUDA graphs on the card);
+without it, or where the analyzers reject the plan, it runs them with
+the dependency-counted parallelism of :func:`execute_role_legacy` — the
+re-design of the reference's one-async-task-per-op executor
 (execution/asynchronous.rs:453-531) for Python threads:
 
 - compute/send ops run on a bounded thread pool (torch/numpy release
@@ -265,15 +267,21 @@ def execute_role(
 ) -> dict:
     """Execute ``identity``'s share of a lowered computation; returns
     {"outputs": {...}, "elapsed_time_micros": int, "plan_mode": str,
-    "pinned_segments": [...]}, the reference's result keys (the port's
-    ``plan_mode`` is always ``"eager"``, and no segment is pinned: it
-    compiles nothing).
+    "pinned_segments": [...]}, the reference's result keys.
 
-    The role runs through its plan (:mod:`worker_plan`): the role
-    subgraph splits at Send/Receive boundaries into compute segments,
-    sends go async and coalesce, receives prefetch.  A plan the schedule
-    or keystream analyzer rejects (``PlanRejectedError``) runs on the
-    dependency-counted scheduler of :func:`execute_role_legacy` instead.
+    With ``worker_plan.use_fast_path()`` (the JAX package's verdict from
+    ``MOOSE_TPU_WORKER_JIT``, ``MOOSE_TPU_JIT``, the self-check and the
+    PRF) the role runs through its compiled plan (:mod:`worker_plan`):
+    the role subgraph splits at Send/Receive boundaries into compute
+    segments, each validated against its eager run on the plan's first
+    sessions and then replayed as a CUDA graph on the card (run
+    uncaptured on the CPU), sends go async and coalesce, receives
+    prefetch; ``plan_mode`` is ``"validating"``, then ``"segmented"``
+    or ``"full-jit"`` (``"eager"`` where nothing is jittable), and
+    ``pinned_segments`` lists the segments that diverged.  Without it,
+    or where the schedule or keystream analyzer rejects the plan
+    (``PlanRejectedError``), the role runs on the dependency-counted
+    scheduler of :func:`execute_role_legacy` (``plan_mode`` "eager").
 
     ``cancel``: optional ``threading.Event`` — a set event (choreographer
     abort or peer-failure fanout) stops pending ops and interrupts
@@ -298,27 +306,30 @@ def execute_role(
     arguments = arguments or {}
     device, progress = _begin_role(comp, networking, session_id, device,
                                    progress)
-    try:
-        plan = worker_plan.get_plan(comp, identity, session_id=session_id)
-    except PlanRejectedError as e:
-        from ..logger import get_logger
+    if worker_plan.use_fast_path():
+        try:
+            plan = worker_plan.get_plan(comp, identity,
+                                        session_id=session_id, device=device)
+        except PlanRejectedError as e:
+            from ..logger import get_logger
 
-        # the analyzer proved the sequential plan would hang (or its
-        # keys mis-wired); the dependency-driven scheduler is not
-        # subject to the plan's step ordering, so demote instead of
-        # failing the session
-        get_logger().warning(
-            "worker plan for %s rejected by the schedule analyzer; "
-            "falling back to the legacy eager scheduler: %s",
-            identity, e,
-        )
-        return _run_legacy(comp, identity, storage, arguments, networking,
-                           session_id, timeout, cancel, max_workers,
-                           progress, device, t0)
-    return worker_plan.execute_role_planned(
-        comp, identity, storage, arguments, networking,
-        session_id, timeout, cancel, progress, plan, device,
-    )
+            # the analyzer proved the sequential plan would hang (or its
+            # keys mis-wired); the dependency-driven scheduler is not
+            # subject to the plan's step ordering, so demote instead of
+            # failing the session
+            get_logger().warning(
+                "worker plan for %s rejected by the schedule analyzer; "
+                "falling back to the legacy eager scheduler: %s",
+                identity, e,
+            )
+        else:
+            return worker_plan.execute_role_planned(
+                comp, identity, storage, arguments, networking,
+                session_id, timeout, cancel, progress, plan, device,
+            )
+    return _run_legacy(comp, identity, storage, arguments, networking,
+                       session_id, timeout, cancel, max_workers,
+                       progress, device, t0)
 
 
 def execute_role_legacy(
@@ -335,9 +346,9 @@ def execute_role_legacy(
     device=None,
 ) -> dict:
     """:func:`execute_role` on the legacy dependency-counted scheduler
-    alone, whatever the plan: the route of a rejected plan, and the
-    scheduler the parity tests hold against the planned one.  Same
-    arguments and result."""
+    alone, whatever the knobs and the plan: the route without the fast
+    path or with a rejected plan, and the scheduler the parity tests
+    hold against the planned one.  Same arguments and result."""
     t0 = time.perf_counter()
     device, progress = _begin_role(comp, networking, session_id, device,
                                    progress)
@@ -436,9 +447,16 @@ def _run_legacy(comp: Computation, identity: str, storage: dict,
         done.set()
 
     n_compute = max_workers or _pool_size()
+    from ..native import ring_kernels
+
+    # the pool's threads count their launches into the launch tallies
+    # open on the caller's thread (one role's launches, where several
+    # roles run in one process)
     pool = ThreadPoolExecutor(
         max_workers=n_compute,
         thread_name_prefix=f"moose-{identity}",
+        initializer=ring_kernels.adopt_tallies,
+        initargs=(ring_kernels.thread_tallies(),),
     )
 
     def finish(name: str, ready_sink: Callable[[object], None]) -> None:

@@ -1,5 +1,5 @@
-"""The distributed worker's planned scheduler: per-role segments with
-communication overlap.
+"""The distributed worker's compiled fast path: per-role validated
+segments with communication overlap.
 
 The port's own copy of ``moose_tpu/distributed/worker_plan.py``.  The
 worker's **role subgraph** (its own ops, in global topological order) is
@@ -10,7 +10,21 @@ analyzer checks (with the autotuned eager floor,
 plan is what this worker runs, and the cost model's wire prediction is
 the wire this worker emits:
 
-- Sends enqueue on a background sender thread at segment boundaries;
+- each validatable segment (at least ``MOOSE_TPU_WORKER_MIN_SEG`` ops,
+  no dynamic-shape kind) runs as the plan's jitted form: on the card
+  captured as a CUDA graph (``execution.graphs``, one private pool a
+  role plan) and replayed, on the CPU the same segment function run
+  uncaptured.  It is **validated** before it is trusted: for the plan's
+  first ``MOOSE_TPU_JIT_SELFCHECK`` sessions the candidate runs against
+  the segment's eager run on the same inputs and must agree word for
+  word; a segment that diverges is pinned eager, and the session goes
+  on from the eager result;
+- a PRF key that enters a segment (the role's own hoisted PrfKeyGen, or
+  a received one) is bound as a row of the segment's ``(n_keys, 4)`` key
+  table on the device, so each DeriveSeed -> SampleSeeded in it is one
+  K7 launch that makes its seed on the card, and a replay draws the
+  session's masks, not the capture's;
+- sends enqueue on a background sender thread at segment boundaries;
   each segment's deferred flush group buckets per receiver and every
   >=2-payload bucket coalesces into one ``send_many`` envelope,
   deterministically (plan-driven);
@@ -21,13 +35,11 @@ the wire this worker emits:
   (MSA5xx) and on key-lineage errors (MSA8xx); the worker then runs the
   legacy scheduler of :mod:`worker`.
 
-A segment runs its ops eagerly on the worker's device
-(``execution.physical.execute_kernel``): PyTorch compiles nothing, so
-the reference's validated-jit self-check ladder, and the knobs that
-choose its scheduler (``MOOSE_TPU_WORKER_JIT``, ``MOOSE_TPU_JIT``,
-``MOOSE_TPU_JIT_SELFCHECK``, the aes-ctr PRF), have no counterpart:
-every role runs through its plan unless the plan is rejected.  Under
-``MOOSE_TPU_FIXED_KEYS`` both schedulers give the same words.
+:func:`use_fast_path` chooses the scheduler as the JAX package does:
+``MOOSE_TPU_WORKER_JIT`` wins, else ``MOOSE_TPU_JIT`` (default on)
+decides, and the ``aes-ctr`` PRF or ``MOOSE_TPU_JIT_SELFCHECK=0`` keeps
+the legacy scheduler.  Under ``MOOSE_TPU_FIXED_KEYS`` both schedulers
+give the same words.
 """
 
 from __future__ import annotations
@@ -39,14 +51,52 @@ import weakref
 from collections import deque
 from typing import Any, Optional
 
+import torch
+
 from ..compilation.analysis.schedule import build_role_schedule
-from ..errors import NetworkingError, PlanRejectedError, SessionAbortedError
+from ..errors import (
+    NetworkingError,
+    PlanRejectedError,
+    SessionAbortedError,
+)
 
 # The segmentation rules (host-step / hoistable / deferrable kind sets,
 # the deferred-send cap, the sliver threshold) live in
 # compilation.analysis.schedule: the worker builds its plan from the same
 # ``build_role_schedule`` the static analyzer checks, so what prancer
 # proves about a plan is what this worker runs.
+
+
+def worker_jit_enabled(default: Optional[bool] = None) -> bool:
+    """Whether the compiled worker fast path is on, the JAX package's
+    rule: an explicit ``MOOSE_TPU_WORKER_JIT`` wins; otherwise
+    ``default`` where given (a one-session program such as ``dasher``
+    passes False), else the runtime-wide ``MOOSE_TPU_JIT`` (default on)
+    decides, so a test suite's eager default keeps workers on the legacy
+    scheduler while deployments get the fast path."""
+    raw = os.environ.get("MOOSE_TPU_WORKER_JIT")
+    if raw is not None:
+        return raw not in ("0", "")
+    if default is not None:
+        return default
+    return os.environ.get("MOOSE_TPU_JIT", "1") != "0"
+
+
+def use_fast_path() -> bool:
+    """The fast path unless it is off, or the PRF is the host-side
+    ``aes-ctr`` stream (a segment's jitted form refuses it, as
+    ``jax.jit`` does), or the self-check is off (``MOOSE_TPU_JIT_SELFCHECK
+    =0``: an unvalidated segment is never run).  Purely environmental:
+    the same verdict for every computation and role."""
+    if not worker_jit_enabled():
+        return False
+    from ..dialects import ring
+
+    if ring.get_prf_impl() == "aes-ctr":
+        return False
+    from ..execution.interpreter import _selfcheck_runs
+
+    return _selfcheck_runs() > 0
 
 
 # ---------------------------------------------------------------------------
@@ -56,6 +106,8 @@ from ..errors import NetworkingError, PlanRejectedError, SessionAbortedError
 PLAN_STATS = {
     "plans_built": 0,
     "cache_hits": 0,
+    "validating_evaluations": 0,
+    "segments_pinned": 0,
     "plans_rejected": 0,
 }
 _STATS_LOCK = threading.Lock()
@@ -65,12 +117,17 @@ _STATS_LOCK = threading.Lock()
 _STAT_METRIC_NAMES = {
     "plans_built": "moose_tpu_worker_plans_built_total",
     "cache_hits": "moose_tpu_worker_plan_cache_hits_total",
+    "validating_evaluations": "moose_tpu_worker_plan_validating_total",
+    "segments_pinned": "moose_tpu_worker_segments_pinned_total",
     "plans_rejected": "moose_tpu_worker_plans_rejected_total",
 }
 _STAT_HELP = {
     "plans_built": "role plans built (compile + boundary analysis)",
     "cache_hits": "role plans served warm from the (computation, role) "
                   "cache",
+    "validating_evaluations": "sessions that ran at least one "
+                              "jit-vs-eager segment comparison",
+    "segments_pinned": "segments pinned eager after divergence",
     "plans_rejected": "plans rejected at build time by the MSA5xx "
                       "schedule analyzer (legacy-scheduler fallback)",
 }
@@ -320,32 +377,187 @@ def check_cost_drift(comp, identity: str, session_id: str, networking,
 
 class _Segment:
     """One compute segment of a role plan: a run of consecutive
-    non-boundary ops, executed eagerly on the worker's device."""
+    non-boundary ops.  A validatable segment runs as its jitted form (a
+    CUDA graph on the card, the segment function uncaptured on the CPU)
+    once it has agreed word for word with its eager run on its first
+    sessions; any other segment runs eagerly.  Its PRF keys are rows of
+    its own key table on the device."""
 
     def __init__(self, index: int, names: list, in_names: list,
-                 out_names: list, comp_ref, identity: str):
+                 out_names: list, comp_ref, identity: str,
+                 validatable: bool, checks: int, device, pool):
         self.index = index
         self.names = names
         self.in_names = in_names
         self.out_names = out_names
         self._comp_ref = comp_ref
         self._identity = identity
+        self.validatable = validatable
+        # "validating" -> "jit" (promoted) | "eager" (pinned/unjittable)
+        self.mode = "validating" if validatable else "eager"
+        self.pinned = False
+        self.checks_left = checks
+        self._device = device
+        # the role plan's graph pool on the card, None on the CPU
+        self._pool = pool
+        self._jit = None
+        self._static = None
+        # held from binding the key table to copying a replay's outputs
+        # out: the next replay overwrites both
+        self._lock = threading.Lock()
 
-    def run(self, env_in: dict, sess) -> dict:
-        """Execute the segment's ops in the role's session ``sess`` (its
-        device, and its session id, which an ``aes-ctr`` seed derivation
-        reads); returns the values later steps read."""
-        from ..execution.physical import execute_kernel
+    @property
+    def captured(self) -> bool:
+        """Whether a CUDA graph of this segment is held."""
+        return bool(getattr(self._jit, "captured", False))
 
-        comp = self._comp_ref()
-        if comp is None:  # pragma: no cover - defensive
-            raise RuntimeError("computation was garbage-collected")
+    def _make_fn(self, fault_kinds=frozenset()):
+        names = self.names
+        outs = self.out_names
+        comp_ref = self._comp_ref
+        identity = self._identity
+        device = self._device
+
+        def seg(env_in: dict):
+            from ..execution import graphs
+            from ..execution.interpreter import _fault_perturb
+            from ..execution.physical import execute_kernel
+            from ..execution.session import EagerSession
+
+            comp = comp_ref()
+            if comp is None:  # pragma: no cover - defensive
+                raise RuntimeError("computation was garbage-collected")
+            sess = EagerSession(device, session_id=f"seg-{identity}")
+            env = dict(env_in)
+            for n in names:
+                op = comp.operations[n]
+                # named in a failed capture's error
+                graphs.current_op(n)
+                env[n] = execute_kernel(
+                    sess, op, identity, [env[i] for i in op.inputs])
+                if fault_kinds and op.kind in fault_kinds:
+                    env[n] = _fault_perturb(env[n])
+            return {n: env[n] for n in outs}
+
+        return seg
+
+    def _jit_fn(self):
+        if self._jit is None:
+            from ..execution import graphs
+            from ..execution.interpreter import _fault_kinds
+
+            # fault injection applies to the CANDIDATE only (the test
+            # hook forcing divergence where no real one occurs, see
+            # interpreter._fault_kinds)
+            self._jit = graphs.graphed(
+                self._make_fn(_fault_kinds()),
+                f"{self._identity} segment {self.index}", self._pool)
+        return self._jit
+
+    def _bind_keys(self, env_in: dict, static: bool) -> dict:
+        """``env_in`` with each PRF key (host words: a key enters a
+        segment from a PrfKeyGen or a Receive step, and no segment passes
+        one on) made a row of this segment's ``(n_keys, 4)`` key table on
+        the device (on the card in its static buffer, which a capture
+        reads, when ``static``), so its draws' seeds are made by K7 on
+        the device."""
+        from ..execution import graphs
+        from ..values import HostPrfKey
+
+        keys = [n for n in self.in_names
+                if isinstance(env_in[n], HostPrfKey)]
+        if not keys:
+            return env_in
+        table = graphs.host_key_table([env_in[n].value for n in keys])
+        if static and self._pool is not None:
+            if self._static is None:
+                self._static = graphs.StaticInputs(self._device)
+            table = self._static.put("keys", table)
+        else:
+            table = table.to(self._device)
         env = dict(env_in)
-        for n in self.names:
-            op = comp.operations[n]
-            env[n] = execute_kernel(
-                sess, op, self._identity, [env[i] for i in op.inputs])
-        return {n: env[n] for n in self.out_names}
+        for i, n in enumerate(keys):
+            key = env_in[n]
+            env[n] = HostPrfKey(table[i], key.plc, origin=key.origin)
+        return env
+
+    @staticmethod
+    def _copy_out(out: dict) -> dict:
+        """A run's outputs copied out of the graph's pool and the key
+        table (a seed a segment passes on holds its key's row), which the
+        next session overwrites."""
+        from ..execution import graphs
+
+        return graphs.map_tensors(out, torch.clone)
+
+    def run(self, env_in: dict,
+            session_id: Optional[str] = None) -> tuple:
+        """Execute the segment; returns ``(out_env, validated)`` where
+        ``validated`` reports whether this call ran a candidate-against-
+        eager comparison (the plan-level "validating evaluation"
+        counter).  ``session_id`` stamps a pin's flight event so the
+        decision reaches that session's postmortem.  A capture or replay
+        that fails raises ``GraphCaptureError`` naming the segment and
+        op, and fails the session."""
+        if self.mode == "eager":
+            return self._make_fn()(self._bind_keys(env_in, False)), False
+        with self._lock:
+            return self._run_locked(env_in, session_id)
+
+    def _run_locked(self, env_in: dict, session_id) -> tuple:
+        from .. import profiling
+        from ..execution.interpreter import _results_equal
+        from ..logger import get_logger
+
+        mode = self.mode
+        env = self._bind_keys(env_in, mode != "eager")
+        if mode == "eager":  # pinned while this call waited
+            return self._make_fn()(env), False
+        captured = self._pool is not None
+        if mode == "jit":
+            out = self._jit_fn()(env)
+            return (self._copy_out(out) if captured else out), False
+        # validating: the eager result is the reference AND the value
+        # the session continues from — a divergent candidate never
+        # contaminates the protocol
+        with profiling.phase(
+            "ladder_validate", segment=self.index, party=self._identity,
+        ):
+            ref = self._make_fn()(env)
+            if captured:
+                ref = self._copy_out(ref)
+        # a candidate that fails to capture, replay or launch fails the
+        # session (the fast path never runs under aes-ctr, the one
+        # refusal jax.jit shares)
+        with profiling.phase(
+            "ladder_validate", segment=self.index, party=self._identity,
+        ):
+            got = self._jit_fn()(env)
+        ok = _results_equal(ref, got)
+        if not ok:
+            # the candidate's graph is kept, never replayed: dropping the
+            # only graph of the role's pool would release the pool under
+            # its later captures
+            self.mode = "eager"
+            self.pinned = True
+            _stat("segments_pinned")
+            from .. import flight
+
+            flight.record(
+                "segment_pinned", party=self._identity,
+                session=session_id, segment=self.index,
+                ops=len(self.names),
+            )
+            get_logger().warning(
+                "worker segment %d (%d ops, %s..%s) diverged from "
+                "its eager reference; pinned eager", self.index,
+                len(self.names), self.names[0], self.names[-1],
+            )
+        else:
+            self.checks_left -= 1
+            if self.checks_left <= 0:
+                self.mode = "jit"
+        return ref, True
 
 
 # ---------------------------------------------------------------------------
@@ -354,17 +566,29 @@ class _Segment:
 
 
 class RolePlan:
-    """Static execution plan for one (computation, role) pair: the
+    """Static execution plan for one (computation, role, device): the
     ordered step list (host-boundary ops interleaved with compute
-    segments).  Cached weak-keyed
+    segments) plus per-segment validated state, and on the card the
+    private graph pool its segments' captures share.  Cached weak-keyed
     on the computation, so it must not hold it strongly."""
 
     # MSA704 summary attached by get_plan (advisory; {} until set)
     ranges_advisory: dict = {}
 
-    def __init__(self, comp, identity: str):
+    def __init__(self, comp, identity: str, device="cpu"):
+        from ..execution import graphs
+        from ..execution.interpreter import _selfcheck_runs
+
         self.identity = identity
         self._comp_ref = weakref.ref(comp)
+        self.device = torch.device(device)
+        checks = _selfcheck_runs()
+        # one pool a role plan: its segments replay in capture order,
+        # each under its own lock, on the device's current stream; its
+        # hundreds of small captures skip torch.cuda.graph's synchronize
+        # and cache release (done once here)
+        self.pool = (graphs.GraphPool(self.device, free_cache=False)
+                     if self.device.type == "cuda" else None)
 
         # the statically-checkable schedule skeleton — segmentation,
         # hoisting, deferral, flush grouping — comes from the SAME
@@ -389,6 +613,8 @@ class RolePlan:
             _Segment(
                 seg.index, list(seg.names), list(seg.in_names),
                 list(seg.out_names), self._comp_ref, identity,
+                validatable=seg.validatable, checks=checks,
+                device=self.device, pool=self.pool,
             )
             for seg in schedule.segments
         ]
@@ -397,6 +623,33 @@ class RolePlan:
             for kind, payload in schedule.steps
         ]
         self.recv_names = list(schedule.recv_names)
+
+    @property
+    def pinned_segments(self) -> list:
+        return [s.index for s in self.segments if s.pinned]
+
+    @property
+    def plan_mode(self) -> str:
+        """Resolved (or currently-validating) plan shape: ``full-jit``
+        (the role's whole compute is one jitted program), ``segmented``
+        (several jitted segments, possibly with pins), ``validating``,
+        or ``eager`` (no jittable compute / everything pinned)."""
+        segs = [s for s in self.segments if s.validatable]
+        if not segs:
+            return "eager"
+        if any(s.mode == "validating" for s in segs):
+            return "validating"
+        jitted = [s for s in segs if s.mode == "jit"]
+        if not jitted:
+            return "eager"
+        if len(self.segments) == 1 and not self.pinned_segments:
+            return "full-jit"
+        return "segmented"
+
+    @property
+    def captured_graphs(self) -> int:
+        """Segments whose CUDA graph the plan holds (0 on the CPU)."""
+        return sum(s.captured for s in self.segments)
 
 
 # Resolved-plan cache, weak-keyed on the computation (the worker server
@@ -480,19 +733,26 @@ def _schedule_errors(comp) -> list:
     return errors
 
 
-def get_plan(comp, identity: str,
-             session_id: Optional[str] = None) -> RolePlan:
-    """Build (or serve warm) the role plan — AFTER the static schedule
-    analyzer approved the computation.  A would-hang plan (MSA5xx
-    error: wait cycle, oversubscribed rendezvous, use-before-arrival)
-    raises :class:`~moose_tpu.errors.PlanRejectedError` at build time;
+def get_plan(comp, identity: str, session_id: Optional[str] = None,
+             device="cpu") -> RolePlan:
+    """Build (or serve warm) the role plan on ``device`` — AFTER the
+    static schedule analyzer approved the computation.  A would-hang
+    plan (MSA5xx error: wait cycle, oversubscribed rendezvous,
+    use-before-arrival) raises
+    :class:`~moose_tpu_torch.errors.PlanRejectedError` at build time;
     the worker then falls back to the legacy eager scheduler, so the
-    failure mode is a typed diagnostic instead of a runtime hang."""
+    failure mode is a typed diagnostic instead of a runtime hang.  A
+    plan holds its device's captures, so one is kept for each (role,
+    device); ``execute_role`` passes the worker's device (a plan built
+    for the CPU, the default here, captures nothing)."""
+    from .. import devices
+
+    slot = (identity, devices.canonical(device))
     with _cache_lock:
         per_comp = _plan_cache.get(comp)
         if per_comp is None:
             per_comp = _plan_cache[comp] = {}
-        plan = per_comp.get(identity)
+        plan = per_comp.get(slot)
     if plan is not None:
         _stat("cache_hits")
         return plan
@@ -532,13 +792,13 @@ def get_plan(comp, identity: str,
             + format_diagnostics(key_errors),
             diagnostics=key_errors,
         )
-    plan = RolePlan(comp, identity)
+    plan = RolePlan(comp, identity, slot[1])
     plan.ranges_advisory = _ranges_advisory(comp)
     with _cache_lock:
-        existing = _plan_cache[comp].get(identity)
+        existing = _plan_cache[comp].get(slot)
         if existing is not None:
             return existing
-        _plan_cache[comp][identity] = plan
+        _plan_cache[comp][slot] = plan
     _stat("plans_built")
     from .. import flight
 
@@ -546,7 +806,7 @@ def get_plan(comp, identity: str,
     # postmortem (last_session_report["flight"])
     flight.record(
         "plan_built", party=identity, session=session_id,
-        segments=len(plan.segments),
+        mode=plan.plan_mode, segments=len(plan.segments),
         steps=len(plan.steps), receives=len(plan.recv_names),
         min_ring_width=plan.ranges_advisory.get("min_ring_width"),
         peak_raw_bits=plan.ranges_advisory.get("peak_raw_bits"),
@@ -942,11 +1202,14 @@ def execute_role_planned(
     plan: RolePlan,
     device,
 ) -> dict:
-    """Run one role through its plan on ``device``: host steps and
-    segments execute in the global topological order (a linearization every
-    worker shares, so the cluster stays deadlock-free: any blocked
-    receive's matching send precedes it globally and sends never block),
-    with sends async behind and receives prefetched ahead."""
+    """Run one role through its compiled plan on ``device``: host steps
+    and segments execute in the global topological order (a
+    linearization every worker shares, so the cluster stays
+    deadlock-free: any blocked receive's matching send precedes it
+    globally and sends never block), with sends async behind and
+    receives prefetched ahead.  Segments run validated (:class:`_Segment`);
+    host steps, an unseeded Sample included, run eagerly in the role's
+    session."""
     from .. import telemetry
     from .worker import _AnyEvent, _exec_host_op
 
@@ -978,11 +1241,11 @@ def execute_role_planned(
         comp, plan.recv_names, networking, session_id, identity,
         timeout, abort_any, progress, fail,
     )
+    validated = False
     receives_measured = 0
     with telemetry.span(
         "execute_role", party=identity, steps=len(plan.steps),
-        plan_mode="eager",
-    ):
+    ) as root:
         try:
             for kind, payload in plan.steps:
                 if abort_any.is_set():
@@ -996,15 +1259,18 @@ def execute_role_planned(
                     with telemetry.span(
                         "worker_segment", party=identity,
                         segment=seg.index, ops=len(seg.names),
+                        mode=seg.mode,
                     ):
-                        out = seg.run(
-                            {n: env[n] for n in seg.in_names}, host_sess,
+                        out, did_validate = seg.run(
+                            {n: env[n] for n in seg.in_names},
+                            session_id=session_id,
                         )
                         # device-fenced only while a profiler is active:
                         # the worker_segment phase then owns its device
                         # time instead of the next blocking call
                         profiling.fence(out)
                     env.update(out)
+                    validated |= did_validate
                     progress.bump()
                     continue
                 if kind == "sends":
@@ -1061,7 +1327,11 @@ def execute_role_planned(
         finally:
             prefetcher.stop()
             sender.close()
+        root.attrs["plan_mode"] = plan.plan_mode
+        root.attrs["pinned_segments"] = len(plan.pinned_segments)
 
+    if validated:
+        _stat("validating_evaluations")
     if failure:
         exc = failure[0]
         if cancel is not None and cancel.is_set() and not isinstance(
@@ -1085,6 +1355,6 @@ def execute_role_planned(
     return {
         "outputs": outputs,
         "elapsed_time_micros": elapsed,
-        "plan_mode": "eager",
-        "pinned_segments": [],
+        "plan_mode": plan.plan_mode,
+        "pinned_segments": plan.pinned_segments,
     }

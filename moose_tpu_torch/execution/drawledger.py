@@ -21,7 +21,9 @@ Instrumented choke points:
   card).
 
 Recording is opt-in and nestable; with no active ledger the hooks are a
-single ``if not _LEDGERS`` test, so hot paths pay nothing.  Events carry
+single test, so hot paths pay nothing.  A thread capturing a CUDA graph
+records its draws into the capture's own ledger (:func:`capturing`)
+and nowhere else, and no other thread's draws reach that ledger.  Events carry
 Python-level metadata only (placement, key origin, element count) — no
 array values — so recording works unchanged on ``meta`` tensors, where
 nothing is computed: the static side of the stacked model IS such a
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from contextlib import contextmanager
 from typing import Any, Iterator, Optional
 
@@ -126,10 +129,17 @@ def _key_label(key: Any) -> str:
 # ---------------------------------------------------------------------------
 
 _LEDGERS: list[DrawLedger] = []
+# per thread: the ledger of the CUDA graph it captures, if any
+_local = threading.local()
 
 
 def active() -> Optional[DrawLedger]:
-    """The innermost active ledger, or None (the fast-path probe)."""
+    """The ledger a draw on this thread records into: its capture's, or
+    the innermost active one; None when nothing records (the fast-path
+    probe)."""
+    capture = getattr(_local, "capture", None)
+    if capture is not None:
+        return capture
     return _LEDGERS[-1] if _LEDGERS else None
 
 
@@ -141,6 +151,32 @@ def recording() -> Iterator[DrawLedger]:
         yield ledger
     finally:
         _LEDGERS.remove(ledger)
+
+
+@contextmanager
+def capturing() -> Iterator[DrawLedger]:
+    """While this thread captures a CUDA graph: a ledger of the draws
+    the capture made on this thread, recorded nowhere else (its replays
+    record them).  Draws on other threads (another role's, where several
+    run in one process) do not reach it."""
+    prev = getattr(_local, "capture", None)
+    ledger = _local.capture = DrawLedger()
+    try:
+        yield ledger
+    finally:
+        _local.capture = prev
+
+
+def record(event: DrawEvent) -> None:
+    """Record ``event`` into this thread's capture ledger while it
+    captures, else into every active ledger (a replay's draws come
+    back through here)."""
+    capture = getattr(_local, "capture", None)
+    if capture is not None:
+        capture.record(event)
+        return
+    for ledger in list(_LEDGERS):
+        ledger.record(event)
 
 
 # ---------------------------------------------------------------------------
@@ -157,7 +193,7 @@ def _elems(shape: Any) -> int:
 
 def record_host_draw(placement: str, seed: Any, kind: str, shape: Any,
                      width: Optional[int]) -> None:
-    if not _LEDGERS:
+    if active() is None:
         return
     origin = getattr(seed, "origin", None)
     key, sync = (origin if isinstance(origin, tuple) and len(origin) == 2
@@ -168,23 +204,22 @@ def record_host_draw(placement: str, seed: Any, kind: str, shape: Any,
         sync=sync.hex() if isinstance(sync, bytes) else sync,
         elems=_elems(shape), width=width,
     )
-    for ledger in _LEDGERS:
-        ledger.record(event)
+    record(event)
 
 
 def record_stacked_draw(kind: str, shape: Any, width: Optional[int]) -> None:
-    if not _LEDGERS:
+    if active() is None:
         return
     event = DrawEvent(
         layout="stacked", kind=kind, placement=None,
         key="master", sync=None, elems=_elems(shape), width=width,
     )
-    for ledger in _LEDGERS:
-        ledger.record(event)
+    record(event)
 
 
 def tag_op(name: Optional[str]) -> None:
     """Label subsequent draws with the graph op under execution (set by
     the interpreter op walks when a ledger is active)."""
-    for ledger in _LEDGERS:
+    capture = getattr(_local, "capture", None)
+    for ledger in ([capture] if capture is not None else _LEDGERS):
         ledger.current_op = name

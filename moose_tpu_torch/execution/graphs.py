@@ -25,11 +25,13 @@ module meets it:
   lifts (:func:`upload`) is made in the warm-up and kept by the segment;
   the capture gets the same device tensor back, since a capture cannot
   copy from pageable host memory.
-- Host bookkeeping runs only at capture.  The launch counters' delta of
-  the capture (``ring_kernels.LAUNCHES``) is taken back and added on each
-  replay, and the stacked draws the capture recorded are recorded again
-  into an active draw ledger on each replay, so both count what the card
-  ran.
+- Host bookkeeping runs only at capture.  The launches the capturing
+  thread counted (``ring_kernels.captured_launches``) are added to
+  ``ring_kernels.LAUNCHES`` on each replay, and the draws it recorded
+  (``drawledger.capturing``) are recorded again into the active draw
+  ledgers, so both count what the card ran.  Both belong to the
+  capturing thread: where several roles run in one process, another
+  thread's launches and draws during a capture stay that thread's.
 - A replay's outputs live in the plan's private memory pool and the next
   replay overwrites them: the plan holds its lock from binding the
   inputs until the outputs are copied out (``interpreter.Interpreter``).
@@ -151,7 +153,8 @@ def upload(value, device, dtype=None) -> torch.Tensor:
     device = torch.device(device)
     if memo is None or device.type != "cuda":
         return torch.as_tensor(value, dtype=dtype, device=device)
-    arr = np.ascontiguousarray(value)
+    # (np.ascontiguousarray would make a 0-d constant 1-d)
+    arr = np.asarray(value, order="C")
     key = (str(device), str(arr.dtype), str(dtype), arr.shape,
            arr.tobytes())
     got = memo.get(key)
@@ -173,7 +176,8 @@ class StaticInputs:
     tensor leaves are copied from pinned host memory into device tensors
     that keep their addresses from one evaluation to the next (the
     capture bakes them).  Call under the plan's lock: the pinned staging
-    of the previous evaluation is reused."""
+    of the previous evaluation is reused, once the copy out of it has
+    run on the card."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -187,14 +191,20 @@ class StaticInputs:
         def stage(t):
             slot = (name, next(leaves))
             t = t.contiguous()
-            pinned, dev = self._bufs.get(slot, (None, None))
+            pinned, dev, copied = self._bufs.get(slot, (None, None, None))
             if dev is None or dev.shape != t.shape or dev.dtype != t.dtype:
                 pinned = torch.empty(t.shape, dtype=t.dtype).pin_memory()
                 dev = torch.empty(t.shape, dtype=t.dtype,
                                   device=self.device)
-                self._bufs[slot] = (pinned, dev)
+                copied = torch.cuda.Event()
+                self._bufs[slot] = (pinned, dev, copied)
+            else:
+                # the last copy out of this staging may still be queued
+                # (nothing need have synchronized the host since)
+                copied.synchronize()
             pinned.copy_(t)
             dev.copy_(pinned, non_blocking=True)
+            copied.record()
             return dev
 
         return map_tensors(value, stage)
@@ -228,14 +238,42 @@ def replays() -> int:
 class GraphPool:
     """The private memory pool of one plan, shared by its segments'
     graphs (they replay in capture order, under the plan's lock).
-    Dropping the plan drops its graphs and frees the pool."""
+    Dropping the plan drops its graphs and frees the pool.
 
-    def __init__(self, device):
+    With ``free_cache`` each capture is prepared as ``torch.cuda.graph``
+    prepares it: the device synchronized and the caching allocator's
+    unused blocks returned, so a large plan finds room for its pool.  A
+    worker's role plan captures hundreds of small segments while other
+    roles run; it frees the cache once, when it is built, and captures
+    without either."""
+
+    def __init__(self, device, free_cache: bool = True):
         self.device = torch.device(device)
         self.handle = torch.cuda.graph_pool_handle()
         # one capture stream for the pool's graphs, so that a capture can
         # reuse the blocks an earlier one freed
         self.stream = torch.cuda.Stream(self.device)
+        self.free_cache = free_cache
+        if not free_cache:
+            torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _capturing(graph, pool: GraphPool):
+    """Capture into ``graph`` on ``pool``'s stream, this thread's work
+    only (other threads may run CUDA work meanwhile)."""
+    if pool.free_cache:
+        with torch.cuda.graph(graph, pool=pool.handle, stream=pool.stream,
+                              capture_error_mode="thread_local"):
+            yield
+        return
+    with torch.cuda.stream(pool.stream):
+        graph.capture_begin(pool=pool.handle,
+                            capture_error_mode="thread_local")
+        try:
+            yield
+        finally:
+            graph.capture_end()
 
 
 class Graphed:
@@ -253,6 +291,10 @@ class Graphed:
         self._constants: dict = {}
         self._launches: dict = {}
         self._draws: list = []
+
+    @property
+    def captured(self) -> bool:
+        return self._graph is not None
 
     def __call__(self, *args):
         with _jitted():
@@ -294,11 +336,9 @@ class Graphed:
         self._graph.replay()
         _local.replays = replays() + 1
         for counter, n in self._launches.items():
-            rk.LAUNCHES[counter] += n
-        ledger = drawledger.active()
-        if ledger is not None:
-            for event in self._draws:
-                ledger.record(event)
+            rk.count_launch(counter, n)
+        for event in self._draws:
+            drawledger.record(event)
 
     def _capture(self, args) -> None:
         from ..native import ring_kernels as rk
@@ -309,20 +349,21 @@ class Graphed:
             side = self.pool.stream
             side.wait_stream(torch.cuda.current_stream(device))
             # the warm-up: builds, workspaces and the host constants the
-            # capture will read, on the capture stream; its draws are
-            # not the evaluation's
-            with torch.cuda.stream(side), drawledger.recording(), \
+            # capture will read, on the capture stream; its draws are not
+            # the evaluation's (a ledger of this thread's, discarded)
+            with torch.cuda.stream(side), drawledger.capturing(), \
                     _constants(self._constants, False):
                 self.fn(*args)
             torch.cuda.current_stream(device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            before = dict(rk.LAUNCHES)
+            # the capture launches nothing: what this thread's capture
+            # counted and drew comes back on each replay, and what other
+            # threads launch and draw meanwhile stays theirs
             try:
-                with drawledger.recording() as ledger, \
+                with rk.captured_launches() as launches, \
+                        drawledger.capturing() as ledger, \
                         _constants(self._constants, True), \
-                        torch.cuda.graph(graph, pool=self.pool.handle,
-                                         stream=side,
-                                         capture_error_mode="thread_local"):
+                        _capturing(graph, self.pool):
                     out = self.fn(*args)
             except Exception as e:
                 cause = e.__context__
@@ -331,16 +372,8 @@ class Graphed:
                     f"{current_op()!r}: {e}"
                     + (f" (after: {cause})" if cause is not None else "")
                 ) from e
-            finally:
-                # the capture launched nothing: its counts come back on
-                # each replay
-                self._launches = {}
-                for counter, n in list(rk.LAUNCHES.items()):
-                    delta = n - before.get(counter, 0)
-                    if delta:
-                        self._launches[counter] = delta
-                        rk.LAUNCHES[counter] = n - delta
         self._graph = graph
+        self._launches = dict(launches)
         self._draws = list(ledger.events)
         self._static_in = tensor_leaves(args)
         self._static_out = out

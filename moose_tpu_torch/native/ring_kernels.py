@@ -42,7 +42,8 @@ and launches nothing; any other device raises.  The draws under a
 given key (:func:`threefry_words`, :func:`threefry_bits`: the per-host
 layout's single draws, which no stacked walk reaches) take the CPU or
 CUDA only.  There is no fallback: no CUDA tensor takes another branch.  Each launch adds one to
-``LAUNCHES[name]`` (and nothing else does), so a run can show that it
+``LAUNCHES[name]`` through :func:`count_launch` (and nothing else does;
+a thread's :func:`launch_tally` sees its own), so a run can show that it
 went through the kernels; K2 and K3 count their two entry points apart,
 K5 its two modes, and K7 its two layouts (``prf_threefry``,
 ``prf_threefry_pallas``), one launch a group.
@@ -62,8 +63,10 @@ computation is bit-identical on either path.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import threading
 import time
 from typing import NamedTuple, Optional, Tuple
 
@@ -87,10 +90,70 @@ LAUNCHES = {
 AES_CTR_HOST = {"bytes": 0, "ms": 0.0}
 
 
+_LAUNCHES_LOCK = threading.Lock()
+# per thread: the tallies open on it (launch_tally) and, while it
+# captures a CUDA graph, the capture's own count (captured_launches)
+_tls = threading.local()
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
     AES_CTR_HOST.update(bytes=0, ms=0.0)
+
+
+def count_launch(name: str, n: int = 1) -> None:
+    """Count ``n`` launches of ``name``: in ``LAUNCHES`` and in every
+    tally open on this thread, or, while this thread captures a graph,
+    in the capture's count alone (a capture launches nothing; its
+    replays count)."""
+    capture = getattr(_tls, "capture", None)
+    if capture is not None:
+        capture[name] = capture.get(name, 0) + n
+        return
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += n
+        for tally in getattr(_tls, "tallies", ()):
+            tally[name] += n
+
+
+def thread_tallies() -> tuple:
+    """The tallies open on this thread, for :func:`adopt_tallies` on a
+    thread that works for it."""
+    return tuple(getattr(_tls, "tallies", ()))
+
+
+def adopt_tallies(tallies: tuple) -> None:
+    """Make this thread count into ``tallies`` too (a pool thread's
+    ``initializer``: a legacy worker's ops run on its pool)."""
+    _tls.tallies = thread_tallies() + tuple(tallies)
+
+
+@contextlib.contextmanager
+def launch_tally():
+    """A dict of the launches counted on this thread (and the threads
+    that adopt its tallies) while the block runs: one role's launches
+    where three roles run in one process."""
+    tally = dict.fromkeys(LAUNCHES, 0)
+    prev = thread_tallies()
+    _tls.tallies = prev + (tally,)
+    try:
+        yield tally
+    finally:
+        _tls.tallies = prev
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """While this thread captures a CUDA graph: a dict of the launches
+    the capture recorded, counted nowhere else."""
+    prev = getattr(_tls, "capture", None)
+    _tls.capture = {}
+    try:
+        yield _tls.capture
+    finally:
+        _tls.capture = prev
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -486,7 +549,7 @@ def dot_cross_terms(x0: Pair, x1: Optional[Pair], y0: Optional[Pair],
                            width, x0[0].device)
     out = _dot_launch(x0, x1, y0, ysum, width)
     if out[0].numel() > 0:
-        LAUNCHES["dot_cross_terms"] += 1
+        count_launch("dot_cross_terms")
     return out
 
 
@@ -676,7 +739,7 @@ def trunc_combine(a0: Pair, a1: Pair, draws, width: int, amount: int):
         return out_lo, out_hi
     _trunc_launch("trunc_combine", _TRUNC_ADDITIVE, (a0, a1), 0, [],
                   tuple(draws), (out_lo, out_hi), n, width, amount, device)
-    LAUNCHES["trunc_combine"] += 1
+    count_launch("trunc_combine")
     return out_lo, out_hi
 
 
@@ -761,7 +824,7 @@ def trunc_pairs(x: Pair, draws: Pair, width: int, amount: int,
     rows = tuple((draws[0][j], _at(draws[1], j)) for j in range(5))
     _trunc_launch("trunc_pairs", mode, (x,), xp, dims, rows,
                   (out_lo, out_hi), n, width, amount, device)
-    LAUNCHES["trunc_pairs"] += 1
+    count_launch("trunc_pairs")
     return out_lo, out_hi
 
 
@@ -807,7 +870,7 @@ def cross_terms_mul(x0: Pair, x1: Pair, y0: Pair, y1: Pair,
             *ptrs, _ptr(out_lo), _ptr(out_hi), n, int(wide), _stream(device)
         )
     _raise_on("cross_terms_mul", err)
-    LAUNCHES["cross_terms_mul"] += 1
+    count_launch("cross_terms_mul")
     return out_lo, out_hi
 
 
@@ -896,7 +959,7 @@ def cross_terms_reshare(x: Pair, y: Pair, bank: Pair, width: int) -> Pair:
             ys, x[0].stride(0), y[0].stride(0), _stream(device),
         )
     _raise_on("cross_terms_reshare", err)
-    LAUNCHES["cross_terms_reshare"] += 1
+    count_launch("cross_terms_reshare")
     return out_lo, out_hi
 
 
@@ -1015,7 +1078,7 @@ def ring_mul(lo1, hi1, lo2, hi2, width: int) -> Pair:
             _stream(device),
         )
     _raise_on("ring_mul", err)
-    LAUNCHES["ring_mul"] += 1
+    count_launch("ring_mul")
     return out_lo, out_hi
 
 
@@ -1185,7 +1248,7 @@ def _bits_adder(lo, hi, width: int, banks, msb_only: bool) -> torch.Tensor:
             _ptr(out), n, int(wide), int(msb_only), _stream(device),
         )
     _raise_on(name, err)
-    LAUNCHES[name] += 1
+    count_launch(name)
     return out
 
 
@@ -1304,7 +1367,7 @@ def _horner_launch(x0: Pair, x1: Pair, width: int, raws, f: int,
             horner_lanes(n), int(wide), _stream(device),
         )
     _raise_on("horner", err)
-    LAUNCHES["horner"] += 1
+    count_launch("horner")
     return out_lo, out_hi
 
 
@@ -1616,7 +1679,7 @@ def threefry_group(master, domain: int, first: int, layout: str,
         if any(d.n for d in chunk):
             _launch_group((0, 0, 0, 0), key, domain, first + c0, code,
                           chunk, device)
-            LAUNCHES[counter] += 1
+            count_launch(counter)
 
 
 def _threefry(k0: int, k1: int, n: int, layout: str, device,
@@ -1641,7 +1704,7 @@ def _threefry(k0: int, k1: int, n: int, layout: str, device,
     # a group of one draw under the key given by the caller
     _launch_group((k0, k1, 0, 0), None, 0, 0, code,
                   [GroupDraw(bits, n, ((out, 0),))], device)
-    LAUNCHES[counter] += 1
+    count_launch(counter)
     return out
 
 
@@ -1710,7 +1773,7 @@ def threefry_seeded(key: torch.Tensor, nonce, n: int, layout: str,
     _launch_group(None, None, 0, 0, code,
                   [GroupDraw(bits, n, ((out, 0),), key, nonce, untagged)],
                   device)
-    LAUNCHES[counter] += 1
+    count_launch(counter)
     return out
 
 
@@ -1789,5 +1852,5 @@ def aes_ctr_group(master, domain: int, first: int, draws) -> None:
         src = staged[start:start + n * (1 if bits else 8)]
         buf.view(-1)[offset:offset + n].copy_(
             src if bits else src.view(torch.int64))
-    LAUNCHES["prf_aes_ctr_host"] += 1
+    count_launch("prf_aes_ctr_host")
     AES_CTR_HOST["bytes"] += drawn

@@ -69,6 +69,22 @@ WORKER_KW = dict(ping_interval=0.25, ping_misses=3, startup_grace=5.0,
                  receive_timeout=2.5, stall_grace=0.5)
 
 
+def _fast_path():
+    """The port's workers on their compiled fast path, one validating
+    session a plan, as the JAX package's worker-jit chaos tests set it
+    (the tests' ``MOOSE_TPU_JIT=0`` would keep the legacy scheduler)."""
+    return _env(MOOSE_TPU_WORKER_JIT="1", MOOSE_TPU_JIT_SELFCHECK="1")
+
+
+def _assert_settled(modes):
+    """Every role ran its plan and settled, nothing pinned on a clean
+    graph (``modes``: role -> {"plan_mode", "pinned_segments"})."""
+    assert set(modes) == set(IDS), modes
+    for party, mode in modes.items():
+        assert mode["plan_mode"] in ("segmented", "full-jit"), (party, mode)
+        assert mode["pinned_segments"] == [], (party, mode)
+
+
 def _secure_dot(pm):
     """tests/test_chaos.py's graph, in eDSL module ``pm``."""
     alice, bob, carole = (pm.host_placement(n) for n in IDS)
@@ -279,6 +295,7 @@ def test_duplicate_sends_leave_outputs_bit_exact_over_local_transport(
     with thost.deterministic_sync_keys(SYNC_SEED):
         compiled = tcompile(ttracer.trace(_secure_dot(tm)), TPASSES,
                             tspecs(args))
+    modes = {}
 
     def run(chaos):
         net = LocalNetworking(device="cpu")
@@ -300,14 +317,16 @@ def test_duplicate_sends_leave_outputs_bit_exact_over_local_transport(
         for t in threads:
             t.join(timeout=60)
         assert not errors, errors
+        modes.update(results)
         return {k: v for r in results.values()
                 for k, v in r["outputs"].items()}
 
-    with prf("threefry"), fixed_keys_env():
+    with prf("threefry"), fixed_keys_env(), _fast_path():
         baseline = run(None)
         chaos = tchaos.ChaosConfig(seed=3, dup_send=1.0)
         chaotic = run(chaos)
     assert [f for f in chaos.faults if f["kind"] == "dup_send"]
+    _assert_settled(modes)
     jax_clean = jax_drop_run[0]
     assert set(baseline) == set(chaotic) == set(jax_clean)
     for name in baseline:
@@ -318,11 +337,13 @@ def test_duplicate_sends_leave_outputs_bit_exact_over_local_transport(
 def test_dropped_send_retried_bit_exact_and_schedule_reproducible(
         jax_drop_run):
     jax_clean, jax_out, jax_cfg = jax_drop_run
-    with prf("threefry"), fixed_keys_env():
+    with prf("threefry"), fixed_keys_env(), _fast_path():
         baseline, base_report = _run_cluster_once("port")
         cfg = tchaos.ChaosConfig(seed=DROP_SEED, drop_send=0.2)
         out, report = _run_cluster_once("port", cfg)
     assert base_report["ok"] and base_report["n_attempts"] == 1
+    _assert_settled(base_report["plan_modes"])
+    _assert_settled(report["plan_modes"])
     drops = [f for f in cfg.faults if f["kind"] == "drop_send"]
     assert drops
     assert report["ok"] and report["retried"]
@@ -357,8 +378,9 @@ def test_chaos_drop_over_fabric_replays_on_wire_bit_exact(jax_drop_run):
                                      reason="forced_wire")
     permutes = tmetrics.REGISTRY.value("moose_tpu_fabric_permutes_total")
     cfg = tchaos.ChaosConfig(seed=DROP_SEED, drop_send=0.2)
-    with prf("threefry"), fixed_keys_env():
+    with prf("threefry"), fixed_keys_env(), _fast_path():
         out, report = _run_cluster_once("port", cfg, fabric_domain=dom)
+    _assert_settled(report["plan_modes"])
     assert [f for f in cfg.faults if f["kind"] == "drop_send"]
     assert report["ok"] is True and report["retried"] is True
     assert report["transport"] == "fabric"
@@ -399,7 +421,7 @@ def test_killed_worker_trips_detector_within_budget():
         wire_args = {k: serialize_value(np.asarray(v))
                      for k, v in args.items()}
         t0 = time.monotonic()
-        with prf("threefry"):
+        with prf("threefry"), _fast_path():
             for srv in servers.values():
                 srv._launch_inner(msgpack.packb(
                     {"session_id": "chaos-kill-1", "computation": blob,

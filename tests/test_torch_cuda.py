@@ -1561,6 +1561,35 @@ def test_a_replay_counts_the_launches_it_captured(cuda):
 
 
 @pytest.mark.gpu
+def test_a_captured_constant_keeps_its_shape(cuda):
+    # the warm-up's constants are the capture's: a 0-d one stays 0-d
+    from moose_tpu_torch.execution import graphs
+
+    memo = {}
+    with graphs._constants(memo, False):
+        made = graphs.upload(np.asarray(0.00078125), cuda)
+    with graphs._constants(memo, True):
+        again = graphs.upload(np.asarray(0.00078125), cuda)
+    assert made.shape == () and again is made
+    assert made.item() == 0.00078125
+
+
+@pytest.mark.gpu
+def test_a_replay_records_the_draws_it_captured(cuda):
+    # the capture's draws are its own thread's, recorded again by each
+    # replay into the active ledger, as the eager walk records them
+    from moose_tpu_torch.execution import drawledger
+
+    comp, args, plan, eager = _plan_setup()
+    traces = []
+    for runtime in (eager, plan):
+        with drawledger.recording() as ledger:
+            runtime.evaluate_computation(comp, args)
+        traces.append(ledger.stacked_trace())
+    assert traces[0] and traces[0] == traces[1]
+
+
+@pytest.mark.gpu
 def test_the_plan_lock_keeps_two_threads_apart(cuda, monkeypatch):
     import threading
 
@@ -1683,3 +1712,144 @@ def test_k7_under_a_draw_s_own_key_equals_its_plain_version(
     want = rk.threefry_seeded_plain(words, nonce, n, layout, bits, "cpu",
                                     untagged)
     assert torch.equal(got.cpu(), want)
+
+
+def _worker_graph():
+    """The secure dot of :func:`_plan_setup` lowered (DEFAULT_PASSES, its
+    nonces pinned) for three workers."""
+    import moose_tpu_torch as tm
+    from moose_tpu_torch.compilation import (
+        DEFAULT_PASSES,
+        compile_computation,
+    )
+    from moose_tpu_torch.compilation.lowering import arg_specs_from_arguments
+    from moose_tpu_torch.dialects import host
+    from moose_tpu_torch.edsl import tracer
+
+    rng = np.random.default_rng(25)
+    args = {"x": rng.normal(size=(64, 32)), "y": rng.normal(size=(32, 16))}
+    with host.deterministic_sync_keys(25):
+        lowered = compile_computation(
+            tracer.trace(_chip_smoke().secure_dot_computation(tm)),
+            DEFAULT_PASSES, arg_specs_from_arguments(args))
+    return lowered, args
+
+
+def _workers(comp, args, legacy=False):
+    """One session of ``comp`` on three workers on threads over
+    ``LocalNetworking(device="cuda")``: the outputs, the wire payloads,
+    and each role's result, launch tally and draw events."""
+    import threading
+
+    from moose_tpu_torch.distributed.networking import LocalNetworking
+    from moose_tpu_torch.distributed.worker import (
+        execute_role,
+        execute_role_legacy,
+    )
+    from moose_tpu_torch.execution import drawledger
+
+    ids = ("alice", "bob", "carole")
+    net = LocalNetworking(device="cuda")
+    wire = {}
+    put = net._store.put
+    net._store.put = lambda k, v: (wire.__setitem__(k, v), put(k, v))
+    run_role = execute_role_legacy if legacy else execute_role
+    results, tallies, errors = {}, {}, {}
+
+    def work(identity):
+        try:
+            with rk.launch_tally() as tally:
+                results[identity] = run_role(comp, identity, {}, args, net,
+                                             "w", timeout=60.0,
+                                             device="cuda")
+            tallies[identity] = dict(tally)
+        except Exception as e:  # noqa: BLE001 - asserted below
+            errors[identity] = e
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in ids]
+    with drawledger.recording() as ledger:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    draws = {i: sum(e.placement == i for e in ledger.events) for i in ids}
+    outputs = {k: v for r in results.values() for k, v in r["outputs"].items()}
+    return outputs, wire, results, tallies, draws
+
+
+def _settle_workers(comp, args):
+    for _ in range(4):
+        _, _, results, _, _ = _workers(comp, args)
+        if all(r["plan_mode"] != "validating" for r in results.values()):
+            return results
+    raise AssertionError("the role plans never settled")
+
+
+@pytest.mark.gpu
+def test_workers_fast_path_settles_on_the_card(cuda, monkeypatch):
+    from moose_tpu_torch.distributed import worker_plan
+
+    monkeypatch.setenv("MOOSE_TPU_WORKER_JIT", "1")
+    comp, args = _worker_graph()
+    results = _settle_workers(comp, args)
+    for identity, result in results.items():
+        assert result["plan_mode"] in ("segmented", "full-jit"), result
+        assert result["pinned_segments"] == []
+        plan = worker_plan.get_plan(comp, identity, device=cuda)
+        assert plan.captured_graphs == sum(
+            s.validatable for s in plan.segments) > 0
+    outputs, _, _, _, _ = _workers(comp, args)
+    assert np.abs(outputs["output_0"] - args["x"] @ args["y"]).max() < 1e-4
+
+
+@pytest.mark.gpu
+def test_settled_workers_replay_the_legacy_words_under_each_key(
+        cuda, monkeypatch):
+    # each segment's keys are rows of its key table, copied in before a
+    # replay: under two fixed keys every replayed session equals the
+    # legacy scheduler's outputs and wire payloads, derives no seed on
+    # the host, and the two keys' words differ
+    monkeypatch.setenv("MOOSE_TPU_WORKER_JIT", "1")
+    monkeypatch.setenv("MOOSE_TPU_ALLOW_WEAK_PRF", "1")
+    comp, args = _worker_graph()
+    _settle_workers(comp, args)
+    mix_seed = ring.mix_seed
+    seeds = []
+    monkeypatch.setattr(ring, "mix_seed",
+                        lambda *a: seeds.append(1) or mix_seed(*a))
+    words = {}
+    for key in ("workers-a", "workers-b"):
+        monkeypatch.setenv("MOOSE_TPU_FIXED_KEYS", key)
+        want, want_wire, _, _, _ = _workers(comp, args, legacy=True)
+        seeds.clear()
+        for _ in range(3):
+            got, wire, results, _, _ = _workers(comp, args)
+            assert {r["plan_mode"] for r in results.values()} <= {
+                "segmented", "full-jit"}
+            assert np.array_equal(got["output_0"], want["output_0"])
+            assert wire == want_wire
+        assert not seeds
+        words[key] = want["output_0"]
+    assert not np.array_equal(words["workers-a"], words["workers-b"])
+
+
+@pytest.mark.gpu
+def test_each_role_counts_its_own_launches_and_draws(cuda, monkeypatch):
+    # three roles capture their segments at once in one process: each
+    # capture keeps only its own thread's launches and draws, so once
+    # settled every role's launch tally and draw events equal its legacy
+    # scheduler's, and the tallies add up to the counters
+    monkeypatch.setenv("MOOSE_TPU_WORKER_JIT", "1")
+    monkeypatch.setenv("MOOSE_TPU_FIXED_KEYS", "workers-c")
+    monkeypatch.setenv("MOOSE_TPU_ALLOW_WEAK_PRF", "1")
+    comp, args = _worker_graph()
+    _settle_workers(comp, args)
+    _, _, _, legacy, legacy_draws = _workers(comp, args, legacy=True)
+    before = dict(rk.LAUNCHES)
+    _, _, _, settled, settled_draws = _workers(comp, args)
+    moved = {k: v - before[k] for k, v in rk.LAUNCHES.items()}
+    assert settled == legacy
+    assert settled_draws == legacy_draws
+    assert {k: sum(t[k] for t in settled.values()) for k in moved} == moved
+    assert moved["dot_cross_terms"] > 0 and moved["prf_threefry"] > 0

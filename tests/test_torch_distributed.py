@@ -8,7 +8,7 @@ and over in-process gRPC (one module cluster); under
 every payload a party puts on the wire (the shares it sends, word for
 word), equal the JAX package's workers' on the same lowered graph, with
 both of the port's schedulers (``execute_role``, which runs a role
-through its plan, and ``execute_role_legacy``).  Config 3's logistic regression (6 x 4)
+through its plan when the fast path is on, and ``execute_role_legacy``).  Config 3's logistic regression (6 x 4)
 is ``tests/test_torch_distributed_logreg.py``'s, on this file's helpers:
 its eager JAX run (7,335 host ops) costs 15-30 s, which would take this
 file past its time budget.  The JAX
@@ -216,14 +216,19 @@ def test_local_workers_equal_the_jax_workers_word_for_word(
 def check_local(case, graph, stream, scheduler):
     """The port's workers over LocalNetworking under ``scheduler``
     (``execute_role``'s plan, or ``execute_role_legacy``): the JAX
-    workers' outputs and wire payloads, word for word."""
+    workers' outputs and wire payloads, word for word.  The plan is the
+    compiled fast path with one validating session a plan (a later
+    session of ``case.tl`` replays its settled segments)."""
     want_out, want_wire = case.want[stream]
     net = LocalNetworking(device="cpu")
     wire = _capture(net)
     run_role = execute_role if scheduler == "planned" else \
         execute_role_legacy
     before = worker_plan.plan_stats()
-    with prf(stream), fixed_keys_env():
+    # the planned scheduler is the compiled fast path, which the tests'
+    # MOOSE_TPU_JIT=0 turns off unless asked for, as the JAX tests ask
+    with prf(stream), fixed_keys_env(), _env(MOOSE_TPU_WORKER_JIT="1",
+                                             MOOSE_TPU_JIT_SELFCHECK="1"):
         results, got = _run(run_role, case.tl, case.args, net,
                             "s-" + graph)
     after = worker_plan.plan_stats()
@@ -236,7 +241,12 @@ def check_local(case, graph, stream, scheduler):
     assert set(wire) == set(want_wire)
     for key, payload in want_wire.items():
         assert wire[key] == payload, key
-    assert {r["plan_mode"] for r in results.values()} == {"eager"}
+    modes = {r["plan_mode"] for r in results.values()}
+    if scheduler == "planned":
+        assert modes <= {"segmented", "full-jit"}, modes
+        assert all(r["pinned_segments"] == [] for r in results.values())
+    else:
+        assert modes == {"eager"}
     x = case.args["x"]
     if graph == "secure_dot":
         np.testing.assert_allclose(got["output_0"], x @ case.args["y"],
@@ -250,15 +260,18 @@ def test_grpc_workers_equal_the_jax_workers(cases, cluster, graph, stream):
 
 def check_grpc(case, endpoints, graph, stream, retrieve_s=RETRIEVE_S):
     """The same lowered bytes launched on the port's gRPC workers (each
-    role through its plan): the outputs equal the JAX workers'
-    exactly.  Each retrieve waits at most ``retrieve_s`` seconds for its
-    role's outputs."""
+    role through its plan: the fast path on, with one validating session
+    a plan, as the JAX package's fast-path tests set it): the outputs
+    equal the JAX workers' exactly, and every role has settled with no
+    segment pinned.  Each retrieve waits at most ``retrieve_s`` seconds
+    for its role's outputs."""
     client = {i: ChoreographyClient(endpoints[i]) for i in IDS}
     blob = serialize_computation(case.tl)
     owner = {op.name: case.tl.placement_of(op).name
              for op in case.tl.operations.values() if op.kind == "Input"}
     session = f"grpc-{graph}-{stream}"
-    with prf(stream), fixed_keys_env():
+    with prf(stream), fixed_keys_env(), _env(MOOSE_TPU_WORKER_JIT="1",
+                                             MOOSE_TPU_JIT_SELFCHECK="1"):
         for i in IDS:
             own = {k: v for k, v in case.args.items() if owner.get(k) == i}
             assert client[i].launch(session, blob, own)["ok"]
@@ -269,6 +282,8 @@ def check_grpc(case, endpoints, graph, stream, retrieve_s=RETRIEVE_S):
     outputs = {}
     for result in results.values():
         assert "error" not in result, result
+        assert result["plan_mode"] in ("segmented", "full-jit"), result
+        assert result["pinned_segments"] == []
         for name, blob in (result.get("outputs") or {}).items():
             outputs[name] = deserialize_value(blob)
     want_out, _ = case.want[stream]
@@ -277,15 +292,18 @@ def check_grpc(case, endpoints, graph, stream, retrieve_s=RETRIEVE_S):
         assert np.array_equal(outputs[name], value), name
 
 
-def test_grpc_runtime_runs_the_secure_dot_and_reports(cluster):
-    """``GrpcMooseRuntime`` on the cluster: the client compiles and
-    supervises; timings, plan modes and the session report come back."""
+def test_grpc_runtime_runs_the_secure_dot_and_reports(cluster, monkeypatch):
+    """``GrpcMooseRuntime`` on the cluster, the workers' fast path on:
+    the client compiles and supervises; timings, the settled plan modes
+    and the session report come back."""
     from moose_tpu_torch.dialects import ring
 
     _, endpoints = cluster
     cs = load_chip_smoke()
     rng = np.random.default_rng(4)
     args = {"x": rng.normal(size=(4, 3)), "y": rng.normal(size=(3, 2))}
+    monkeypatch.setenv("MOOSE_TPU_WORKER_JIT", "1")
+    monkeypatch.setenv("MOOSE_TPU_JIT_SELFCHECK", "1")
     prev = ring.get_prf_impl()
     ring.set_prf_impl("threefry")
     try:
@@ -300,8 +318,10 @@ def test_grpc_runtime_runs_the_secure_dot_and_reports(cluster):
     report = runtime.last_session_report
     assert report["ok"] and report["n_attempts"] == 1
     assert report["transport"] == "grpc"
-    assert runtime.last_plan_modes == {
-        i: {"plan_mode": "eager", "pinned_segments": []} for i in IDS}
+    assert set(runtime.last_plan_modes) == set(IDS)
+    for mode in runtime.last_plan_modes.values():
+        assert mode["plan_mode"] in ("segmented", "full-jit"), mode
+        assert mode["pinned_segments"] == []
 
 
 # -- the failure discipline ----------------------------------------------------
@@ -329,11 +349,14 @@ def test_stop_returns_once_the_server_is_down():
     srv.stop()
 
 
-def test_no_session_thread_outlives_stop(cases):
+def test_no_session_thread_outlives_stop(cases, monkeypatch):
     """Every thread a session starts on a worker (its run, receive
     prefetch, failure detector and sender) has ended when
     ``WorkerServer.stop`` returns, for a finished session and for one
-    still waiting on a peer that never launched."""
+    still waiting on a peer that never launched (both on the fast path,
+    whose threads these are)."""
+    monkeypatch.setenv("MOOSE_TPU_WORKER_JIT", "1")
+    monkeypatch.setenv("MOOSE_TPU_JIT_SELFCHECK", "1")
     before = set(threading.enumerate())
     case = cases["secure_dot"]
     blob = serialize_computation(case.tl)
@@ -437,10 +460,13 @@ def test_dead_peer_trips_the_failure_detector(cases, cluster):
 # -- the cost model and the plan statistics ------------------------------------
 
 
-def test_cost_model_matches_measured_counters_exactly(cases):
+def test_cost_model_matches_measured_counters_exactly(cases, monkeypatch):
     """The planned scheduler's wire counters on the local transport equal
     the static cost model's prediction: bytes, singles, coalesced
-    envelopes and payloads, receives."""
+    envelopes and payloads, receives (the fast path on, as the JAX
+    test sets it)."""
+    monkeypatch.setenv("MOOSE_TPU_WORKER_JIT", "1")
+    monkeypatch.setenv("MOOSE_TPU_JIT_SELFCHECK", "1")
     from moose_tpu_torch.compilation.analysis import cost_report
 
     case = cases["secure_dot"]
@@ -468,7 +494,13 @@ def test_cost_model_matches_measured_counters_exactly(cases):
     assert measured["send_many_envelopes"] > 0
 
 
-def test_plan_stats_build_once_and_hit_warm(cases):
+def test_plan_stats_build_once_and_hit_warm(cases, monkeypatch):
+    """Two sessions of one graph on the fast path: each role's plan is
+    built at most once and served warm after; a plan validates on at
+    most its first MOOSE_TPU_JIT_SELFCHECK (here 1) sessions, so the
+    second settles."""
+    monkeypatch.setenv("MOOSE_TPU_WORKER_JIT", "1")
+    monkeypatch.setenv("MOOSE_TPU_JIT_SELFCHECK", "1")
     case = cases["secure_dot"]
     before = worker_plan.plan_stats()
     with prf("threefry"):
@@ -480,10 +512,14 @@ def test_plan_stats_build_once_and_hit_warm(cases):
     hits = after["cache_hits"] - before["cache_hits"]
     assert built <= len(IDS) and built + hits == 2 * len(IDS)
     assert hits >= len(IDS)
-    assert set(after) == {"plans_built", "cache_hits", "plans_rejected"}
-    assert all(r["plan_mode"] == "eager" and r["pinned_segments"] == []
-               for r in results.values())
-    plan = worker_plan.get_plan(case.tl, "alice")
+    assert set(after) == {"plans_built", "cache_hits",
+                          "validating_evaluations", "segments_pinned",
+                          "plans_rejected"}
+    assert after["validating_evaluations"] - before[
+        "validating_evaluations"] <= len(IDS)
+    assert all(r["plan_mode"] in ("segmented", "full-jit")
+               and r["pinned_segments"] == [] for r in results.values())
+    plan = worker_plan.get_plan(case.tl, "alice", device="cpu")
     assert plan.autotune_min_seg.knob == "worker_min_seg"
 
 
@@ -495,10 +531,10 @@ def test_plan_stats_build_once_and_hit_warm(cases):
 def test_scheduler_choice_is_the_reference_s(cases, env, want,
                                              monkeypatch):
     """The knobs that choose the JAX worker's scheduler (its jit, its
-    self-check, and aes-ctr, which its jit cannot trace) choose only the
-    reference's (``want``): the port compiles nothing, so every role of
-    its runs through the plan, and the words are the legacy
-    scheduler's."""
+    self-check, and aes-ctr, which its jit cannot trace) choose the
+    port's the same way (``want``): with the fast path a role runs
+    through its plan, without it on the legacy scheduler, and the words
+    are the legacy scheduler's either way."""
     from moose_tpu.distributed import worker_plan as jworker_plan
 
     for key, value in env.items():
@@ -506,16 +542,19 @@ def test_scheduler_choice_is_the_reference_s(cases, env, want,
     case = cases["secure_dot"]
     for stream in ("threefry", "aes-ctr"):
         with prf(stream), fixed_keys_env():
-            assert jworker_plan.use_fast_path() is (
-                want and stream != "aes-ctr")
+            fast = want and stream != "aes-ctr"
+            assert jworker_plan.use_fast_path() is fast
+            assert worker_plan.use_fast_path() is fast
             before = worker_plan.plan_stats()
-            _, planned = _run(execute_role, case.tl, case.args,
-                              LocalNetworking(device="cpu"), "choice")
+            results, planned = _run(execute_role, case.tl, case.args,
+                                    LocalNetworking(device="cpu"), "choice")
             after = worker_plan.plan_stats()
             _, legacy = _run(execute_role_legacy, case.tl, case.args,
                              LocalNetworking(device="cpu"), "choice")
         assert sum(after[k] - before[k] for k in (
-            "plans_built", "cache_hits")) == len(IDS)
+            "plans_built", "cache_hits")) == (len(IDS) if fast else 0)
+        if not fast:
+            assert {r["plan_mode"] for r in results.values()} == {"eager"}
         assert set(planned) == set(legacy)
         for key, value in legacy.items():
             assert np.array_equal(planned[key], value), (stream, key)

@@ -336,7 +336,11 @@ def test_fabric_passthrough_value_restamps_placement():
 # -- end to end: word-equal to the JAX package, zero wire, exact cost ----------
 
 
-def test_fabric_secure_dot_bit_identical_zero_wire_exact_cost(case):
+def test_fabric_secure_dot_bit_identical_zero_wire_exact_cost(case,
+                                                            monkeypatch):
+    # the fast path on, as the JAX package's fabric tests run it: the
+    # cost model predicts the plan's coalesced envelopes
+    monkeypatch.setenv("MOOSE_TPU_WORKER_JIT", "1")
     tl, args, want = case.tl, case.args, case.want
     dom = FabricDomain.default(IDS, trust_model="simulation", device="cpu")
     inner = LocalNetworking(device="cpu")
@@ -351,8 +355,8 @@ def test_fabric_secure_dot_bit_identical_zero_wire_exact_cost(case):
     _assert_jax_words(got, want)
     np.testing.assert_allclose(got["output_0"], args["x"] @ args["w"],
                                atol=1e-4)
-    # measured == predicted exactly, counter for counter (the port's
-    # workers always run their plan, which coalesces)
+    # measured == predicted exactly, counter for counter (the plan
+    # coalesces its sends)
     measured = {k: v - before[k] for k, v in _counts().items()}
     report = cost_report(tl, session_id=SESSION, transport="fabric",
                          fabric_parties=IDS, coalesce=True)
